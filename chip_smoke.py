@@ -4,12 +4,13 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in nine phases, one or more lines each:
+numpy.fft, in thirteen phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
   2. build: compiles the row, column and fused 2D kernels from this
-     checkout's sources, one nvcc each, all at once;
+     checkout's sources, one nvcc each, all at once (the row and column
+     sources hold both precisions);
   3. row kernel: against its plain torch version and numpy.fft for every
      n from 8 to 8192, 1 and 130 rows, forward and inverse with a
      postscale, planar, stride-2 and in-place operands;
@@ -42,11 +43,29 @@ numpy.fft, in nine phases, one or more lines each:
      z pass, and config 4's fused 2D pass beside the row and column
      passes it replaces: each with its plain version, its bounds and the
      one PyTorch call that computes the same function where there is one;
-     each config's Plan.execute beside torch.fft on the same data.
+     each config's Plan.execute beside torch.fft on the same data;
+ 10. complex128 row kernel K11 (native FP64): against its plain torch
+     version and numpy.fft for every n from 8 to 4096, 1 and 130 rows,
+     forward and inverse with postscale 0.3, planar, stride-2 and in-place
+     operands;
+ 11. complex128 column kernel K12: as phase 6, for every n from 8 to 4096;
+ 12. the complex128 paths through Plan (complex and planar forms, inverse
+     round trip) and the functional API, with an exact launch count per
+     kernel: config 5 (2^22 x 64, four-step: 2 K12; against numpy on rows
+     0, 21, 42 and 63, since each row is an independent transform and
+     numpy on all 4 GiB would take the host minutes), config 3's shape in
+     complex128 (1024^2 x 16: K11 + K12) and the six-step at 2^25 (3 K12,
+     512 MiB); then every kernel pass of each path against its plain
+     version at the plan's shapes, chained;
+ 13. complex128 timings: config 5's two passes with their plain versions,
+     bounds (FP64 peak) and torch.fft.fft(dim=-2) for pass 2, the 2D
+     path's K11 row pass beside torch.fft.fft and its K12 column pass, and
+     each path's Plan.execute beside torch.fft.
 
-Any failure raises and the script exits non-zero.  The line before the
-last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.
+The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
+max error over the reference's peak magnitude.  Any failure raises and the
+script exits non-zero.  The line before the last is a JSON record of the
+kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,20 +77,27 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 TOL = 2e-6          # complex64 gate, max error over peak magnitude
+TOL64 = 1e-11       # complex128 gate
 N, BATCH = 4096, 4096
 
 # Bounds from the published peaks of one H100 SXM (NVIDIA's data sheet, at
 # its 700 W limit): device memory 3.35 TB/s, FP32 outside the tensor cores
-# 67 TFLOP/s.  The measured copy bandwidth gives a second, tighter bound.
+# 67 TFLOP/s, FP64 outside the tensor cores 34 TFLOP/s.  The measured copy
+# bandwidth gives a second, tighter bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_FP64_S = 34e12
 
-KERNELS = ("local_rows", "local_cols", "fused2d")
+SOURCES = ("local_rows", "local_cols", "fused2d")
+# the kernels, by the name of the count their wrapper keeps
+KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
+           "local_cols_f64")
 
 
 def rel_err(got, ref) -> float:
@@ -106,6 +132,8 @@ def reset_counts():
     from pyfft_tpu_torch.ops import fused2d, local
     local.LAUNCHES = 0
     local.COL_LAUNCHES = 0
+    local.LAUNCHES_F64 = 0
+    local.COL_LAUNCHES_F64 = 0
     fused2d.LAUNCHES = 0
 
 
@@ -113,12 +141,16 @@ def read_counts() -> dict:
     from pyfft_tpu_torch.ops import fused2d, local
     torch.cuda.synchronize()
     return {"local_rows": local.LAUNCHES, "local_cols": local.COL_LAUNCHES,
-            "fused2d": fused2d.LAUNCHES}
+            "fused2d": fused2d.LAUNCHES,
+            "local_rows_f64": local.LAUNCHES_F64,
+            "local_cols_f64": local.COL_LAUNCHES_F64}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+def bound(nbytes: float, flops: float,
+          peak_flops: float = PEAK_FP32_S) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    with the operations at ``peak_flops`` (PEAK_FP64_S for complex128)."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -157,28 +189,50 @@ def phase_build():
         except Exception as e:          # reraised below, in this thread
             errors[name] = e
 
-    threads = [threading.Thread(target=one, args=(k,)) for k in KERNELS]
+    threads = [threading.Thread(target=one, args=(k,)) for k in SOURCES]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     for name, e in errors.items():
         raise RuntimeError(f"building {name}.cu failed") from e
-    for name in KERNELS:
+    for name in SOURCES:
         print(f"phase 2 build: {name}.cu built and loaded in "
               f"{took[name]:.2f} s -> {build.library_path(name)}")
 
 
-def phase_kernel():
+# The two precisions' kernel checks: the complex dtype, the gate, the
+# largest log2 n the kernels take, and the phase numbers of the row and
+# column kernel checks.
+PRECISIONS = {
+    "complex64": dict(dtype=np.complex64, tol=TOL, max_log=13,
+                      phases=(3, 6)),
+    "complex128": dict(dtype=np.complex128, tol=TOL64, max_log=12,
+                       phases=(10, 11)),
+}
+
+
+def posts(prec: str, n: int):
+    """(sign, postscale) cases: complex64 forward by 0.5 and inverse by
+    1/n; complex128 both directions by 0.3, a scale no float32 rounding
+    keeps."""
+    if prec == "complex128":
+        return ((-1, 0.3), (+1, 0.3))
+    return ((-1, 0.5), (+1, 1.0 / n))
+
+
+def phase_kernel(prec: str = "complex64"):
     from pyfft_tpu_torch.ops import local
+    spec = PRECISIONS[prec]
+    tol, phase = spec["tol"], spec["phases"][0]
     rng = np.random.RandomState(1)
-    for n in (1 << p for p in range(3, 14)):        # every kernel size
+    for n in (1 << p for p in range(3, spec["max_log"] + 1)):
         worst_plain = worst_np = 0.0
         cases = 0
         for rows in (1, 130):
             x = (rng.standard_normal((rows, n))
-                 + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
-            for sign, post in ((-1, 0.5), (+1, 1.0 / n)):
+                 + 1j * rng.standard_normal((rows, n))).astype(spec["dtype"])
+            for sign, post in posts(prec, n):
                 ref = (np.fft.fft(x.astype(np.complex128)) if sign < 0
                        else np.fft.ifft(x.astype(np.complex128)) * n) * post
                 xc = torch.from_numpy(x).cuda()
@@ -199,14 +253,15 @@ def phase_kernel():
                         raise AssertionError("in-place launch wrote elsewhere")
                     got = to_np(rr, ii)
                     e_plain, e_np = rel_err(got, plain), rel_err(got, ref)
-                    tag = f"n={n} rows={rows} sign={sign} {mode}"
-                    check(f"kernel vs plain {tag}", e_plain)
-                    check(f"kernel vs numpy {tag}", e_np)
+                    tag = f"{prec} n={n} rows={rows} sign={sign} {mode}"
+                    check(f"kernel vs plain {tag}", e_plain, tol)
+                    check(f"kernel vs numpy {tag}", e_np, tol)
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        print(f"phase 3 kernel n={n}: {cases} cases, max rel err vs plain "
-              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+        print(f"phase {phase} {prec} row kernel n={n}: {cases} cases, max "
+              f"rel err vs plain {worst_plain:.3e}, vs numpy "
+              f"{worst_np:.3e} (gate {tol:.0e})")
 
 
 def phase_main_path():
@@ -239,7 +294,7 @@ def phase_main_path():
             "ifft(fft)": rel_err(to_np(yb), x)}
     for k, e in errs.items():
         check(f"config 2 {k}", e)
-    if counts != {"local_rows": 5, "local_cols": 0, "fused2d": 0}:
+    if counts != {k: 5 if k == "local_rows" else 0 for k in KERNELS}:
         raise AssertionError(f"config 2 made launches {counts}, expected "
                              f"5 row and no other")
     print(f"phase 4 main path: {plan!r}, launches {counts}, "
@@ -347,19 +402,21 @@ def col_kwargs(mode, tw_n):
     return {}
 
 
-def phase_cols_kernel():
+def phase_cols_kernel(prec: str = "complex64"):
     from pyfft_tpu_torch.ops import local
+    spec = PRECISIONS[prec]
+    tol, phase = spec["tol"], spec["phases"][1]
     rng = np.random.RandomState(6)
-    for n in (1 << p for p in range(3, 14)):
+    for n in (1 << p for p in range(3, spec["max_log"] + 1)):
         worst_plain = worst_np = 0.0
         cases = 0
         for L in (1, 3):
             for T in (128, 384):
                 x = (rng.standard_normal((L, n, T))
                      + 1j * rng.standard_normal((L, n, T))
-                     ).astype(np.complex64)
+                     ).astype(spec["dtype"])
                 xc = torch.from_numpy(x).cuda()
-                for sign, post in ((-1, 0.5), (+1, 1.0 / n)):
+                for sign, post in posts(prec, n):
                     X = np.fft.fft(x.astype(np.complex128), axis=1)
                     if sign > 0:
                         X = np.fft.ifft(x.astype(np.complex128), axis=1) * n
@@ -388,15 +445,17 @@ def phase_cols_kernel():
                         got = cplx(rr, ii)
                         e_plain = rel_err(got, cplx(pr, pi))
                         e_np = rel_err(got, torch.from_numpy(ref).cuda())
-                        tag = f"n={n} L={L} T={T} sign={sign} {mode}"
-                        check(f"column kernel vs plain {tag}", e_plain)
-                        check(f"column kernel vs numpy {tag}", e_np)
+                        tag = (f"{prec} n={n} L={L} T={T} sign={sign} "
+                               f"{mode}")
+                        check(f"column kernel vs plain {tag}", e_plain, tol)
+                        check(f"column kernel vs numpy {tag}", e_np, tol)
                         worst_plain = max(worst_plain, e_plain)
                         worst_np = max(worst_np, e_np)
                         cases += 1
-        print(f"phase 6 column kernel n={n} (C={local.col_width(n)} columns "
+        width = local.col_width(n, xc.real.dtype)
+        print(f"phase {phase} {prec} column kernel n={n} (C={width} columns "
               f"a block): {cases} cases, max rel err vs plain "
-              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {tol:.0e})")
 
 
 # ------------------------------------------------- the fused 2D kernel
@@ -454,21 +513,45 @@ def phase_fused_kernel():
 
 # ----------------------------------------------- multi-pass main paths
 
-# name: (transform shape, batch, executors, launches per execute of
-# local_rows, local_cols, fused2d)
+
+class PathSpec(NamedTuple):
+    shape: tuple            # transform shape
+    batch: int
+    kinds: list             # executors of the plan
+    per: tuple              # launches per execute, in the order of KERNELS
+    dtype: torch.dtype = torch.complex64
+    rows: tuple | None = None   # batch rows held against numpy (None: all)
+
+
 PATHS = {
-    "config 6+": ((1 << 22,), 8, ["fourstep"], (0, 2, 0)),
-    "config 3": ((1024, 1024), 16, ["local", "local"], (1, 1, 0)),
-    "config 4": ((256, 256, 256), 1, ["fused2d", "local"], (0, 1, 1)),
-    "mid": ((16384, 1024), 2, ["local", "fourstep"], (1, 2, 0)),
-    "huge": ((1 << 27,), 1, ["huge"], (0, 3, 0)),
+    "config 6+": PathSpec((1 << 22,), 8, ["fourstep"], (0, 2, 0, 0, 0)),
+    "config 3": PathSpec((1024, 1024), 16, ["local", "local"],
+                         (1, 1, 0, 0, 0)),
+    "config 4": PathSpec((256, 256, 256), 1, ["fused2d", "local"],
+                         (0, 1, 1, 0, 0)),
+    "mid": PathSpec((16384, 1024), 2, ["local", "fourstep"], (1, 2, 0, 0, 0)),
+    "huge": PathSpec((1 << 27,), 1, ["huge"], (0, 3, 0, 0, 0)),
+    # complex128: config 5 at full size, config 3's shape, and the six-step
+    # at 2^25 (512 MiB: the route's three modes, at a size that keeps the
+    # run short)
+    "config 5": PathSpec((1 << 22,), 64, ["fourstep"], (0, 0, 0, 0, 2),
+                         torch.complex128, (0, 21, 42, 63)),
+    "c128 2D": PathSpec((1024, 1024), 16, ["local", "local"],
+                        (0, 0, 0, 1, 1), torch.complex128),
+    "c128 huge": PathSpec((1 << 25,), 1, ["huge"], (0, 0, 0, 0, 3),
+                          torch.complex128),
 }
+C64_PATHS = ("config 6+", "config 3", "config 4", "mid", "huge")
+C128_PATHS = ("config 5", "c128 2D", "c128 huge")
 
 
-def make_data(shape, seed):
+def make_data(shape, seed, dtype=torch.complex64):
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.complex(torch.randn(shape, generator=g, device="cuda"),
-                      torch.randn(shape, generator=g, device="cuda"))
+    x = torch.complex(torch.randn(shape, generator=g, device="cuda",
+                                  dtype=real),
+                      torch.randn(shape, generator=g, device="cuda",
+                                  dtype=real))
     torch.cuda.synchronize()
     return x
 
@@ -480,18 +563,22 @@ def numpy_ref(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return torch.from_numpy(np.fft.fftn(a, axes=axes)).cuda()
 
 
-def run_path(name: str, seed: int) -> dict:
+def run_path(name: str, seed: int, phase: int) -> dict:
+    """One path's five executes (Plan complex, inverse, planar; fft and
+    ifft) with the counts set to 0 just before and read just after."""
     import pyfft_tpu_torch
-    shape, batch, kinds, per = PATHS[name]
-    full = ((batch,) if batch > 1 else ()) + shape
-    x = make_data(full, seed)
-    ref = numpy_ref(x, len(shape))
-    plan = pyfft_tpu_torch.Plan(shape, device="cuda")
+    spec = PATHS[name]
+    tol = TOL64 if spec.dtype == torch.complex128 else TOL
+    full = ((spec.batch,) if spec.batch > 1 else ()) + spec.shape
+    x = make_data(full, seed, spec.dtype)
+    rows = slice(None) if spec.rows is None else list(spec.rows)
+    ref = numpy_ref(x[rows], len(spec.shape))
+    plan = pyfft_tpu_torch.Plan(spec.shape, spec.dtype, device="cuda")
     got_kinds = [p.executor for p in plan._exec_plan.passes]
-    if got_kinds != kinds:
-        raise AssertionError(f"{name}: plan {plan!r}, expected {kinds}")
+    if got_kinds != spec.kinds:
+        raise AssertionError(f"{name}: plan {plan!r}, expected {spec.kinds}")
     fn, ifn = {1: ("fft", "ifft"), 2: ("fft2", "ifft2"),
-               3: ("fftn", "ifftn")}[len(shape)]
+               3: ("fftn", "ifftn")}[len(spec.shape)]
     re, im = x.real.contiguous(), x.imag.contiguous()
     reset_counts()
     t0 = time.perf_counter()
@@ -502,21 +589,25 @@ def run_path(name: str, seed: int) -> dict:
     yb = getattr(pyfft_tpu_torch, ifn)(yf)
     counts = read_counts()
     wall = time.perf_counter() - t0
-    errs = {"complex": rel_err(y, ref), "roundtrip": rel_err(back, x),
-            "planar": rel_err(cplx(rr, ii), ref),
-            fn: rel_err(yf, ref), f"{ifn}({fn})": rel_err(yb, x)}
+    errs = {"complex": rel_err(y[rows], ref), "roundtrip": rel_err(back, x),
+            "planar": rel_err(cplx(rr[rows], ii[rows]), ref),
+            fn: rel_err(yf[rows], ref), f"{ifn}({fn})": rel_err(yb, x)}
     for k, e in errs.items():
-        check(f"{name} {k}", e)         # a NaN fails the comparison too
+        check(f"{name} {k}", e, tol)    # a NaN fails the comparison too
     for k, v in (("complex", y), ("roundtrip", back), (fn, yf)):
-        if tuple(v.shape) != full or v.dtype != torch.complex64:
+        if tuple(v.shape) != full or v.dtype != spec.dtype:
             raise AssertionError(f"{name} {k}: {v.dtype} {tuple(v.shape)}")
-    want = {k: 5 * c for k, c in zip(KERNELS, per)}
+    if rr.dtype != re.dtype:
+        raise AssertionError(f"{name} planar: {rr.dtype}")
+    want = {k: 5 * c for k, c in zip(KERNELS, spec.per)}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
-    print(f"phase 8 {name} {full}: {plan!r}, launches {counts} over 5 "
-          f"executes, " + ", ".join(f"{k} err {e:.3e}"
-                                    for k, e in errs.items())
-          + f" (gate {TOL:.0e}; {wall:.2f} s host wall)")
+    against = ("numpy" if spec.rows is None
+               else f"numpy on rows {list(spec.rows)}")
+    print(f"phase {phase} {name} {full}: {plan!r}, launches "
+          f"{ {k: v for k, v in counts.items() if v} } over 5 executes, "
+          + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+          + f" (against {against}; gate {tol:.0e}; {wall:.2f} s host wall)")
     return {"x": x, "plan": plan, "counts": counts, "errs": errs}
 
 
@@ -525,13 +616,16 @@ def path_passes(name: str, plan) -> list:
     gives them, as [(label, kernel name, kernel fn, plain fn)]; each fn
     takes and returns a pair of planes, the first pass the data's."""
     from pyfft_tpu_torch.ops import fused2d, local
+    f64 = PATHS[name].dtype == torch.complex128
+    suffix = "_f64" if f64 else ""
 
     def rows():
-        return ("local_rows", lambda r, i: local.fft_axis(r, i, -1),
+        return ("local_rows" + suffix,
+                lambda r, i: local.fft_axis(r, i, -1),
                 lambda r, i: local.fft_rows_plain(r, i, -1))
 
     def cols(shape3, **kw):
-        return ("local_cols",
+        return ("local_cols" + suffix,
                 lambda r, i: local.fft_axis(r.reshape(shape3),
                                             i.reshape(shape3), -1, axis=1,
                                             **kw),
@@ -540,12 +634,13 @@ def path_passes(name: str, plan) -> list:
                                                   **kw))
 
     split = [p.split for p in plan._exec_plan.passes if p.split]
-    if name == "config 6+":
+    batch = PATHS[name].batch
+    if name in ("config 6+", "config 5"):
         n1, n2 = split[0]
         return [("pass 1, full twiddle + swap_store",
-                 *cols((8, n1, n2), tw_n=n1 * n2, swap_store=True)),
-                ("pass 2, plain store", *cols((8, n2, n1)))]
-    if name == "config 3":
+                 *cols((batch, n1, n2), tw_n=n1 * n2, swap_store=True)),
+                ("pass 2, plain store", *cols((batch, n2, n1)))]
+    if name in ("config 3", "c128 2D"):
         return [("row pass", *rows()),
                 ("column pass", *cols((16, 1024, 1024)))]
     if name == "config 4":
@@ -561,7 +656,7 @@ def path_passes(name: str, plan) -> list:
                  *cols((2, n1, n2 * T), tw_n=n1 * n2, tw_mode="strided",
                        tw_period=T, swap_mid=T)),
                 ("pass 2, plain store", *cols((2, n2, n1 * T)))]
-    n1, m1, m2 = split[0]                           # huge
+    n1, m1, m2 = split[0]                           # huge, c128 huge
     return [("pass 1, factored twiddle + swap_store",
              *cols((1, n1, m1 * m2), tw_n=n1 * m1 * m2, tw_mode="factored",
                    swap_store=True)),
@@ -571,10 +666,11 @@ def path_passes(name: str, plan) -> list:
             ("pass 3, plain store", *cols((1, m2, m1 * n1)))]
 
 
-def pass_checks(name: str, x: torch.Tensor, plan) -> list:
+def pass_checks(name: str, x: torch.Tensor, plan, phase: int) -> list:
     """Hold each kernel pass of a path against its plain version on the
     pass's input, the previous kernel pass's output; returns
     [(pass, kernel, max abs err, max rel err)]."""
+    tol = TOL64 if PATHS[name].dtype == torch.complex128 else TOL
     out = []
     r, i = x.real.contiguous(), x.imag.contiguous()
     for label, kernel, run, plain in path_passes(name, plan):
@@ -583,46 +679,49 @@ def pass_checks(name: str, x: torch.Tensor, plan) -> list:
         max_abs = float(torch.maximum((kr - pr).abs().max(),
                                       (ki - pi).abs().max()))
         e = rel_err(cplx(kr, ki), cplx(pr, pi))
-        check(f"{name} {label} kernel vs plain", e)
+        check(f"{name} {label} kernel vs plain", e, tol)
         out.append((label, kernel, max_abs, e))
         del pr, pi
         r, i = kr, ki
-    print(f"phase 8 {name} kernel passes vs plain: "
+    print(f"phase {phase} {name} kernel passes vs plain: "
           + ", ".join(f"{lab} ({k}) max abs {a:.3e} rel {e:.3e}"
-                      for lab, k, a, e in out))
+                      for lab, k, a, e in out) + f" (gate {tol:.0e})")
     return out
 
 
-def phase_paths():
+def phase_paths(names, phase: int, keep: tuple = ()):
+    """Each path's run and pass checks; the data of the paths in ``keep``
+    stays for the timings, the others' is let go."""
     results = {}
-    for i, name in enumerate(PATHS):
-        r = run_path(name, seed=10 + i)
-        r["pass_checks"] = pass_checks(name, r["x"], r["plan"])
-        if name == "huge":
-            r.pop("x")           # 1 GiB: not needed again
+    for name in names:
+        r = run_path(name, seed=10 + list(PATHS).index(name), phase=phase)
+        r["pass_checks"] = pass_checks(name, r["x"], r["plan"], phase)
+        if name not in keep:
+            r.pop("x")
         results[name] = r
         torch.cuda.empty_cache()
     return results
 
 
 def time_pass(path, label, re, im, kernel, plain, library, nbytes, flops,
-              copy_gbs, extra_bytes=0):
+              copy_gbs, extra_bytes=0, phase=9, peak_flops=PEAK_FP32_S):
     """One timed pass: kernel, plain version and library call by CUDA
     events, with its bounds; returns the record and prints its line."""
     from pyfft_tpu_torch.utils.profiling import time_ms
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     lib_ms = None if library is None else time_ms(library)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak_flops)
     copy_ms = nbytes / (copy_gbs * 1e9) * 1e3
     row = {"path": path, "pass": label, "shape": list(re.shape), "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
            "bound_by": b_by, "copy_bound_ms": copy_ms, "bytes": nbytes,
            "table_bytes": extra_bytes}
-    print(f"phase 9 {path} {label} {tuple(re.shape)}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-          f"published peaks, data only), {copy_ms:.4f} ms at the measured "
-          f"{copy_gbs:.1f} GB/s copy, kernel at {copy_ms / ms:.3f} of it"
+    print(f"phase {phase} {path} {label} {tuple(re.shape)}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}, published peaks, data only), {copy_ms:.4f} ms at the "
+          f"measured {copy_gbs:.1f} GB/s copy, kernel at {copy_ms / ms:.3f} "
+          "of it"
           + (f"; the design also reads a {extra_bytes / 2**20:.0f} MiB "
              f"twiddle table" if extra_bytes else "")
           + "; library " + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
@@ -630,36 +729,62 @@ def time_pass(path, label, re, im, kernel, plain, library, nbytes, flops,
     return row
 
 
-def phase_pass_timings(results, copy_gbs):
-    from pyfft_tpu_torch.ops import fused2d, local
+def time_complex_form(row, xs, oshape, run):
+    """Time a kernel pass again on the two stride-2 planes of the complex
+    tensor ``xs`` (the complex form Plan.execute runs), into a complex
+    output of ``oshape``; ``run(re, im, out)`` launches it."""
     from pyfft_tpu_torch.utils.profiling import time_ms
+    xv = torch.view_as_real(xs)
+    yv = torch.view_as_real(torch.empty(oshape, dtype=xs.dtype,
+                                        device="cuda"))
+    row["complex_ms"] = time_ms(lambda: run(xv[..., 0], xv[..., 1],
+                                            (yv[..., 0], yv[..., 1])))
+    print(f"    the same kernel pass on the complex form's stride-2 planes: "
+          f"{row['complex_ms']:.4f} ms (planar {row['ms']:.4f} ms)")
+
+
+def time_col_passes(results, copy_gbs, cases, phase, f64=False):
+    """Time column passes [(path, (L, n, T), label, modes, table bytes)]
+    on their path's data, planar and in the complex form; a plain column
+    pass's library call is torch.fft.fft over dim -2."""
+    from pyfft_tpu_torch.ops import local
     rows = []
-    cases = [
-        ("config 6+", (8, 2048, 2048), "pass 1 (full + swap_store)",
-         dict(tw_n=1 << 22, swap_store=True), 2048 * 2048 * 8),
-        ("config 6+", (8, 2048, 2048), "pass 2 (plain store)", {}, 0),
-        ("config 3", (16, 1024, 1024), "column pass", {}, 0),
-        ("config 4", (1, 256, 65536), "z pass", {}, 0),
-    ]
+    point = 16 if f64 else 8                    # bytes of a complex point
     for path, shape3, label, kw, table_bytes in cases:
         xs = results[path]["x"].reshape(shape3)
         re, im = xs.real.contiguous(), xs.imag.contiguous()
         L, n, T = shape3
         oshape = (L, T, n) if kw.get("swap_store") else shape3
-        out = (torch.empty(oshape, device="cuda"),
-               torch.empty(oshape, device="cuda"))
+        out = (torch.empty(oshape, device="cuda", dtype=re.dtype),
+               torch.empty(oshape, device="cuda", dtype=re.dtype))
         library = None
-        if not kw:     # a plain column pass is torch.fft.fft over dim -2
+        if not kw:
             library = lambda xs=xs: torch.fft.fft(xs, dim=-2)  # noqa: E731
         rows.append(time_pass(
             path, label, re, im,
             lambda: local.fft_axis(re, im, -1, axis=-2, out=out, **kw),
             lambda: local.fft_cols_plain(re, im, -1, **kw), library,
-            2 * L * n * T * 8,
+            2 * L * n * T * point,
             fft_flops(n, L * T) + (6 * L * n * T if kw else 0), copy_gbs,
-            table_bytes))
-        rows[-1]["kernel"] = "local_cols"
-        del out
+            table_bytes, phase, PEAK_FP64_S if f64 else PEAK_FP32_S))
+        rows[-1]["kernel"] = "local_cols_f64" if f64 else "local_cols"
+        del out, re, im
+        time_complex_form(rows[-1], xs, oshape,
+                          lambda r, i, o, kw=kw: local.fft_axis(
+                              r, i, -1, axis=-2, out=o, **kw))
+    return rows
+
+
+def phase_pass_timings(results, copy_gbs):
+    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    rows = time_col_passes(results, copy_gbs, [
+        ("config 6+", (8, 2048, 2048), "pass 1 (full + swap_store)",
+         dict(tw_n=1 << 22, swap_store=True), 2048 * 2048 * 8),
+        ("config 6+", (8, 2048, 2048), "pass 2 (plain store)", {}, 0),
+        ("config 3", (16, 1024, 1024), "column pass", {}, 0),
+        ("config 4", (1, 256, 65536), "z pass", {}, 0),
+    ], phase=9)
     # config 4's fused 2D pass, and the row and column passes it replaces
     x = results["config 4"]["x"]
     re, im = x.real.contiguous(), x.imag.contiguous()
@@ -687,30 +812,61 @@ def phase_pass_timings(results, copy_gbs):
     return rows
 
 
-def phase_end_to_end(results):
+def phase_f64_timings(results, copy_gbs):
+    """Config 5's two K12 passes, the complex128 2D path's K11 row pass
+    (beside torch.fft.fft along the last axis) and K12 column pass."""
+    from pyfft_tpu_torch.ops import local
+    rows = time_col_passes(results, copy_gbs, [
+        ("config 5", (64, 2048, 2048), "pass 1 (full + swap_store)",
+         dict(tw_n=1 << 22, swap_store=True), 2048 * 2048 * 16),
+        ("config 5", (64, 2048, 2048), "pass 2 (plain store)", {}, 0),
+        ("c128 2D", (16, 1024, 1024), "column pass", {}, 0),
+    ], phase=13, f64=True)
+    x = results["c128 2D"]["x"]
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    out = (torch.empty_like(re), torch.empty_like(im))
+    n = re.shape[-1]
+    count = re.numel() // n
+    rows.append(time_pass(
+        "c128 2D", "row pass", re, im,
+        lambda: local.fft_axis(re, im, -1, out=out),
+        lambda: local.fft_rows_plain(re, im, -1),
+        lambda: torch.fft.fft(x, dim=-1), 2 * re.numel() * 16,
+        fft_flops(n, count), copy_gbs, phase=13, peak_flops=PEAK_FP64_S))
+    rows[-1]["kernel"] = "local_rows_f64"
+    del out, re, im
+    time_complex_form(rows[-1], x, tuple(x.shape),
+                      lambda r, i, o: local.fft_axis(r, i, -1, out=o))
+    return rows
+
+
+LIB_FN = {"config 6+": torch.fft.fft, "config 3": torch.fft.fft2,
+          "config 4": torch.fft.fftn, "mid": torch.fft.fft2,
+          "huge": torch.fft.fft, "config 5": torch.fft.fft,
+          "c128 2D": torch.fft.fft2, "c128 huge": torch.fft.fft}
+
+
+def phase_end_to_end(results, phase: int = 9):
     from pyfft_tpu_torch.utils.profiling import time_ms
     e2e = {}
-    lib_fn = {"config 6+": lambda x: torch.fft.fft(x),
-              "config 3": lambda x: torch.fft.fft2(x),
-              "config 4": lambda x: torch.fft.fftn(x),
-              "mid": lambda x: torch.fft.fft2(x),
-              "huge": lambda x: torch.fft.fft(x)}
     for name, r in results.items():
+        spec = PATHS[name]
         x = r.get("x")
-        if x is None:            # the huge path's data was let go
-            x = make_data(PATHS[name][0], seed=99)
+        if x is None:            # this path's data was let go
+            full = ((spec.batch,) if spec.batch > 1 else ()) + spec.shape
+            x = make_data(full, seed=99, dtype=spec.dtype)
         plan = r["plan"]
         ms = time_ms(lambda: plan.execute(x, wait_for_finish=False),
                      iters=10)
-        lib = time_ms(lambda: lib_fn[name](x), iters=10)
-        shape, batch = PATHS[name][0], PATHS[name][1]
-        gf = sum(fft_flops(s, batch * math.prod(shape) // s)
-                 for s in shape) / (ms * 1e-3) / 1e9
+        lib = time_ms(lambda: LIB_FN[name](x), iters=10)
+        gf = sum(fft_flops(s, spec.batch * math.prod(spec.shape) // s)
+                 for s in spec.shape) / (ms * 1e-3) / 1e9
         e2e[name] = {"ms": ms, "library_ms": lib, "gflops": gf}
-        print(f"phase 9 {name} Plan.execute end to end {ms:.4f} ms "
+        print(f"phase {phase} {name} Plan.execute end to end {ms:.4f} ms "
               f"({gf:.1f} GFLOP/s by 5 N log2 N), torch.fft "
               f"{lib:.4f} ms (library, context only)")
         del x
+        r.pop("x", None)
         torch.cuda.empty_cache()
     return e2e
 
@@ -742,15 +898,23 @@ def main() -> int:
     del xt, re, im
     phase_cols_kernel()
     phase_fused_kernel()
-    results = phase_paths()
+    results = phase_paths(C64_PATHS, 8,
+                          keep=("config 6+", "config 3", "config 4", "mid"))
     timed = phase_pass_timings(results, t["copy_gbs"])
     e2e = phase_end_to_end(results)
 
+    phase_kernel("complex128")
+    phase_cols_kernel("complex128")
+    results64 = phase_paths(C128_PATHS, 12, keep=("config 5", "c128 2D"))
+    timed64 = phase_f64_timings(results64, t["copy_gbs"])
+    e2e.update(phase_end_to_end(results64, 13))
+
     launches = dict(counts2)
-    for r in results.values():
+    for r in (*results.values(), *results64.values()):
         for k, v in r["counts"].items():
             launches[k] += v
-    checks = [c for r in results.values() for c in r["pass_checks"]]
+    checks = [c for r in (*results.values(), *results64.values())
+              for c in r["pass_checks"]]
     rows_entry = {
         "name": "local_rows", "route": "cuda",
         "source": "pyfft_tpu_torch/ops/csrc/local_rows.cu",
@@ -778,8 +942,23 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_local.py:1409", fused, checks, launches,
         "config 4, 256^3: the last two axes")
     fused_entry["library_ms"] = fused[0]["library_ms"]
-    print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry],
-                      "passes": timed, "end_to_end": e2e}))
+    # complex128: K11 on the 2D path's row pass; K12's two config-5 passes
+    # together compute one torch.fft.fft of config 5
+    r64 = [c for c in timed64 if c["kernel"] == "local_rows_f64"]
+    rows64_entry = kernel_entry(
+        "local_rows_f64", "pyfft_tpu_torch/ops/csrc/local_rows.cu",
+        "pyfft_tpu/ops/pallas_df64.py:656", r64, checks, launches,
+        "complex128 1024^2 x 16: the row pass")
+    rows64_entry["library_ms"] = r64[0]["library_ms"]
+    five = [c for c in timed64 if c["path"] == "config 5"]
+    cols64_entry = kernel_entry(
+        "local_cols_f64", "pyfft_tpu_torch/ops/csrc/local_cols.cu",
+        "pyfft_tpu/ops/pallas_df64.py:761", five, checks, launches,
+        "config 5, 2^22 x 64 complex128: both four-step passes")
+    cols64_entry["library_ms"] = e2e["config 5"]["library_ms"]
+    print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
+                                  rows64_entry, cols64_entry],
+                      "passes": timed + timed64, "end_to_end": e2e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

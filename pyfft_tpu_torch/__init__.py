@@ -8,9 +8,12 @@ of up to 2^18 points (both multiples of 128) run through the fused 2D
 kernel ``ops/csrc/fused2d.cu``; an axis of up to 8192 points through the
 row kernel ``ops/csrc/local_rows.cu`` (the last axis) or the column
 kernel ``ops/csrc/local_cols.cu`` (another axis), and a longer axis
-through two or three column-kernel passes (``ops/fourstep.py``); the
-other passes (complex128, short axes) run a plain torch matmul chain until
-their kernels are ported (see ROADMAP.md).
+through two or three column-kernel passes (``ops/fourstep.py``).
+Complex128 takes the same row and column kernels in native FP64, on axes
+of up to 4096 points and their four-step and six-step products
+(``ops/fp64.py``).  The other passes (short axes or trails, a long axis
+other than the last in complex128) run a plain torch matmul chain (see
+ROADMAP.md).
 """
 
 VERSION = (0, 1, 0)

@@ -1,16 +1,22 @@
-// Batched length-n complex64 DFT along the middle axis of (L, n, T) planes:
-// the "local" column kernel of pyfft_tpu_torch.
+// Batched length-n complex DFT along the middle axis of (L, n, T) planes:
+// the "local" column kernels of pyfft_tpu_torch, complex64 (K5) and
+// complex128 (K12).
 //
-// Replaces the JAX package's Pallas column kernel (pyfft_tpu/ops/
-// pallas_local.py: `_col_kernel`, launched by `_fft_cols_inner` through
-// `pl.pallas_call`).  That kernel takes (1, n, 128) blocks, whose transform
+// Replaces the JAX package's Pallas column kernels: for complex64
+// pyfft_tpu/ops/pallas_local.py `_col_kernel`, launched by
+// `_fft_cols_inner` through `pl.pallas_call`; for complex128
+// pyfft_tpu/ops/pallas_df64.py `_col_kernel_df64`, launched by
+// `_fft_cols_df64`.  The first takes (1, n, 128) blocks, whose transform
 // axis already sits on the TPU's sublanes, through DFT-matrix stages on the
-// matrix unit; none of that layout carries over.  This one computes the
-// same function with a design of its own:
+// matrix unit; the second emulates double precision with (hi, lo) float32
+// pairs.  None of that carries over.  This kernel computes the same
+// function with a design of its own, one template for both precisions
+// (Real = float or double; native FP64 for complex128):
 //
 //   y[l, k, t] = postscale * tw(k, t) * sum_j x[l, j, t] * w_n^(sign*j*k)
 //
-// for n = 2^log2n, 8 <= n <= 8192, where tw is one of
+// for n = 2^log2n, 8 <= n <= 8192 (float) or 4096 (double), where tw is
+// one of
 //
 //   none        1
 //   full        ta[k, t]                  = w_{tw_n}^(k*t)
@@ -34,20 +40,24 @@
 // only in storing the native (L, n, rows, x) layout instead of the folded
 // (L, n, rows*x) one, two tilings of the TPU's memory.  On row-major memory
 // the two layouts are the same bytes, so this kernel's plain store is that
-// kernel's output.  Every table is built on the host in float64 and rounded
-// once (no device sinf/cosf), and passed with its own strides, so the
-// wrapper lays each one out along the axis this kernel reads fastest.
+// kernel's output.  Every table is built on the host in float64 (and
+// rounded once to float for complex64; no device sin/cos), and passed with
+// its own strides, so the wrapper lays each one out along the axis this
+// kernel reads fastest.  In double the factored mode's product of its two
+// tables is taken in FP64.
 //
 // What bounds it on an H100: bytes.  Each point is read once and written
-// once (16 B) and, in the twiddled modes, one table entry read (8 B, or
-// two small entries that stay in L2), against under 4 flop per byte by
+// once (16 B a complex64 point, 32 B a complex128 one) and, in the
+// twiddled modes, one table entry read (one point's size, or two small
+// entries that stay in L2), against under 4 flop per byte (2 in double) by
 // 5*n*log2(n).  So the design moves every point through device memory once
 // each way:
 //
 //   * one thread block per (l, run of C consecutive t), C a power of two
-//     that divides 128 (the table ColShape below: C*n*8 bytes of shared
-//     memory, at most 128 KB, and C >= 8 wherever that fits, so that each
-//     plane's loads cover whole 32-byte sectors);
+//     that divides 128 (the table ColShape below: C*n complex values of
+//     shared memory, at most 128 KB, and C at least one 32-byte sector of
+//     each plane, 8 floats or 4 doubles, wherever that fits; so 128 KB
+//     plus the swapped store's padding at n = 2048 in double, C = 4);
 //   * blocks are numbered with l fastest, so neighbouring blocks read the
 //     same rows of a `full` twiddle table and share them in the L2;
 //   * the first stage reads the tile straight from global memory, threads
@@ -68,13 +78,14 @@
 // tiles: so a plain store may alias the input (in place).  A swapped store
 // writes elsewhere than it reads and may not.
 //
-// Each operand is a pair of float planes with strides in floats: planar
-// data has unit t stride, the two planes of torch.view_as_real(complex64)
-// stride 2.  Offsets are 64-bit.  T and the block count must fit int32
-// (the wrapper checks).
+// Each operand is a pair of real planes with strides in elements: planar
+// data has unit t stride, the two planes of torch.view_as_real of a
+// complex tensor stride 2.  Offsets are 64-bit.  T and the block count
+// must fit int32 (the wrapper checks).
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry point `pyfft_local_cols` at the bottom.
+// library with the plain C entry points `pyfft_local_cols` (float) and
+// `pyfft_local_cols_f64` (double), and their widths, at the bottom.
 
 #include <cuda_runtime.h>
 
@@ -86,35 +97,43 @@ using namespace pyfft;
 
 enum TwMode { TW_NONE = 0, TW_TABLE = 1, TW_FACTORED = 2 };
 
+template <typename Real>
 struct Cols {
-  const float* in_re;
-  const float* in_im;
-  float* out_re;
-  float* out_im;
-  const float2* ta;   // twiddle table, ta[k*ak + q*aq]
-  const float2* tb;   // factored mode's second table, tb[k*bk + (t%128)*bq]
+  using V = typename Complex<Real>::V;
+  const Real* in_re;
+  const Real* in_im;
+  Real* out_re;
+  Real* out_im;
+  const V* ta;   // twiddle table, ta[k*ak + q*aq]
+  const V* tb;   // factored mode's second table, tb[k*bk + (t%128)*bq]
   long long L, T;
   long long in_ls, in_ns, in_ts;
   long long out_ls, out_ns, out_as, out_bs, P;
   long long ak, aq, adiv;   // q = t when adiv == 1, else t / adiv
   long long bk, bq;
   int tw_mode;
-  float post;
+  Real post;
 };
 
-// The columns a block takes at length n: C = max(min(128, WIDE / n),
-// min(8, DEEP / n)), so WIDE points a block while that allows 128 columns
-// or more than 8, and else at least 8 columns within DEEP points.
-constexpr int WIDE = 8192;
-constexpr int DEEP = 16384;
+// The columns a block takes at length n, in bytes of its complex type:
+// C = max(min(128, WIDE / (n * size)), min(SECTOR / real size,
+// DEEP / (n * size))), so WIDE bytes a block while that allows 128 columns
+// or more than one 32-byte sector of each plane, and else at least a
+// sector's columns (8 floats, 4 doubles) within DEEP bytes.  For complex64
+// that is the rule of 8192 and 16384 points.
+constexpr int WIDE = 64 * 1024;
+constexpr int DEEP = 128 * 1024;
+constexpr int SECTOR = 32;
 
-template <int LOGN>
+template <int LOGN, typename Real>
 struct ColShape {
   static constexpr int N = 1 << LOGN;
-  static constexpr int W = WIDE >> LOGN;
-  static constexpr int D = DEEP >> LOGN;
+  static constexpr int BYTES = N * 2 * (int)sizeof(Real);   // one column
+  static constexpr int W = WIDE / BYTES;
+  static constexpr int D = DEEP / BYTES;
+  static constexpr int S = SECTOR / (int)sizeof(Real);
   static constexpr int C_WIDE = W < 128 ? W : 128;
-  static constexpr int C_DEEP = D < 8 ? D : 8;
+  static constexpr int C_DEEP = D < S ? D : S;
   static constexpr int C = C_WIDE > C_DEEP ? C_WIDE : C_DEEP;  // columns
   static constexpr int P = N * C;                         // points per block
   static constexpr int NT = P / 8 < 512 ? P / 8 : 512;   // threads per block
@@ -126,15 +145,18 @@ struct ColShape {
 // One radix-R Stockham stage over the block's C columns.  NS is the product
 // of the radices of the stages before it.  FIRST reads global memory; every
 // stage writes shared memory, LAST in the store pass's layout.
-template <int N, int C, int NT, int R, int NS, bool FIRST, bool LAST,
-          bool SWAP>
-__device__ __forceinline__ void stage(const Cols& io, float2* sm,
-                                      const float2* __restrict__ tw,
-                                      long long l, long long t0, float s) {
+template <typename Real, int N, int C, int NT, int R, int NS, bool FIRST,
+          bool LAST, bool SWAP>
+__device__ __forceinline__ void stage(const Cols<Real>& io,
+                                      typename Complex<Real>::V* sm,
+                                      const typename Complex<Real>::V*
+                                          __restrict__ tw,
+                                      long long l, long long t0, Real s) {
+  using V = typename Complex<Real>::V;
   constexpr int NR = N / R;          // butterflies per column
   constexpr int B = NR * C / NT;     // butterflies per thread
   static_assert(B * R * NT == N * C, "threads must tile the block exactly");
-  float2 v[B][R];
+  V v[B][R];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int q = threadIdx.x + b * NT;
@@ -146,9 +168,9 @@ __device__ __forceinline__ void stage(const Cols& io, float2* sm,
         const long long t = t0 + c;
         if (t < io.T) {
           const long long o = l * io.in_ls + k * io.in_ns + t * io.in_ts;
-          v[b][r] = make_float2(io.in_re[o], io.in_im[o]);
+          v[b][r] = Complex<Real>::make(io.in_re[o], io.in_im[o]);
         } else {
-          v[b][r] = make_float2(0.f, 0.f);
+          v[b][r] = Complex<Real>::make(0, 0);
         }
       } else {
         v[b][r] = sm[k * C + c];
@@ -178,25 +200,29 @@ __device__ __forceinline__ void stage(const Cols& io, float2* sm,
   __syncthreads();
 }
 
-template <int LOGN, bool SWAP, int STAGE, int NS>
-__device__ __forceinline__ void stages(const Cols& io, float2* sm,
-                                       const float2* __restrict__ tw,
-                                       long long l, long long t0, float s) {
-  using S = ColShape<LOGN>;
+template <typename Real, int LOGN, bool SWAP, int STAGE, int NS>
+__device__ __forceinline__ void stages(const Cols<Real>& io,
+                                       typename Complex<Real>::V* sm,
+                                       const typename Complex<Real>::V*
+                                           __restrict__ tw,
+                                       long long l, long long t0, Real s) {
+  using S = ColShape<LOGN, Real>;
   constexpr int R = (STAGE == 0 && S::REM) ? (1 << S::REM) : 8;
-  stage<S::N, S::C, S::NT, R, NS, STAGE == 0, STAGE == S::NSTAGES - 1, SWAP>(
-      io, sm, tw, l, t0, s);
+  stage<Real, S::N, S::C, S::NT, R, NS, STAGE == 0, STAGE == S::NSTAGES - 1,
+        SWAP>(io, sm, tw, l, t0, s);
   if constexpr (STAGE + 1 < S::NSTAGES)
-    stages<LOGN, SWAP, STAGE + 1, NS * R>(io, sm, tw, l, t0, s);
+    stages<Real, LOGN, SWAP, STAGE + 1, NS * R>(io, sm, tw, l, t0, s);
 }
 
 // The store pass: twiddle, postscale and the mode's store.  C divides 128,
 // and P, the strided period and 128 are multiples of 128, so t / P,
 // t / adiv and t / 128 are the same for the whole block.
-template <int LOGN, bool SWAP>
-__device__ __forceinline__ void store(const Cols& io, const float2* sm,
+template <typename Real, int LOGN, bool SWAP>
+__device__ __forceinline__ void store(const Cols<Real>& io,
+                                      const typename Complex<Real>::V* sm,
                                       long long l, long long t0) {
-  using S = ColShape<LOGN>;
+  using S = ColShape<LOGN, Real>;
+  using V = typename Complex<Real>::V;
   constexpr int N = S::N, C = S::C;
   const long long a0 = t0 / io.P, b0 = t0 - a0 * io.P;
   const long long q0 = io.adiv > 1 ? t0 / io.adiv : 0;
@@ -208,10 +234,10 @@ __device__ __forceinline__ void store(const Cols& io, const float2* sm,
     const int c = SWAP ? e / N : e % C;
     const long long t = t0 + c;
     if (t >= io.T) continue;
-    float2 v = sm[SWAP ? c * (N + 1) + k : k * C + c];
+    V v = sm[SWAP ? c * (N + 1) + k : k * C + c];
     if (io.tw_mode != TW_NONE) {
       const long long q = io.adiv > 1 ? q0 : t;
-      float2 w = __ldg(&io.ta[k * io.ak + q * io.aq]);
+      V w = __ldg(&io.ta[k * io.ak + q * io.aq]);
       if (io.tw_mode == TW_FACTORED)
         w = cmul(w, __ldg(&io.tb[k * io.bk + (r0 + c) * io.bq]));
       v = cmul(v, w);
@@ -223,96 +249,101 @@ __device__ __forceinline__ void store(const Cols& io, const float2* sm,
   }
 }
 
-template <int LOGN, bool SWAP>
-__global__ void __launch_bounds__(ColShape<LOGN>::NT)
-    local_cols_kernel(Cols io, const float2* __restrict__ tw, float s) {
-  extern __shared__ float2 sm[];
+// (NT is a template parameter so that no comma reaches the
+// __launch_bounds__ macro)
+template <typename Real, int LOGN, bool SWAP,
+          int NT = ColShape<LOGN, Real>::NT>
+__global__ void __launch_bounds__(NT)
+    local_cols_kernel(Cols<Real> io,
+                      const typename Complex<Real>::V* __restrict__ tw,
+                      Real s) {
+  using V = typename Complex<Real>::V;
+  // one raw buffer for both precisions: extern __shared__ arrays of
+  // different types in one translation unit must not share a name
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* sm = reinterpret_cast<V*>(smem_raw);
   // l fastest: neighbouring blocks work on the same t-run
   const long long l = blockIdx.x % io.L;
-  const long long t0 = (blockIdx.x / io.L) * ColShape<LOGN>::C;
-  stages<LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
-  store<LOGN, SWAP>(io, sm, l, t0);
+  const long long t0 = (blockIdx.x / io.L) * ColShape<LOGN, Real>::C;
+  stages<Real, LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
+  store<Real, LOGN, SWAP>(io, sm, l, t0);
 }
 
-template <int LOGN, bool SWAP>
-cudaError_t launch(const Cols& io, const float2* tw, float s,
-                   cudaStream_t stream) {
-  using S = ColShape<LOGN>;
-  const int smem =
-      (SWAP ? (S::N + 1) * S::C : S::N * S::C) * (int)sizeof(float2);
+template <typename Real, int LOGN, bool SWAP>
+cudaError_t launch(const Cols<Real>& io, const typename Complex<Real>::V* tw,
+                   Real s, cudaStream_t stream) {
+  using S = ColShape<LOGN, Real>;
+  const int smem = (SWAP ? (S::N + 1) * S::C : S::N * S::C) *
+                   (int)sizeof(typename Complex<Real>::V);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_cols_kernel<LOGN, SWAP>,
+        local_cols_kernel<Real, LOGN, SWAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (io.T + S::C - 1) / S::C * io.L;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  local_cols_kernel<LOGN, SWAP>
+  local_cols_kernel<Real, LOGN, SWAP>
       <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s);
   return cudaGetLastError();
 }
 
-template <bool SWAP>
-cudaError_t dispatch(int log2n, const Cols& io, const float2* tw, float s,
+// log2n -> launch<Real, log2n, SWAP>, for log2n in [3, MAXLOG].
+template <typename Real, int MAXLOG, bool SWAP>
+cudaError_t dispatch(int log2n, const Cols<Real>& io,
+                     const typename Complex<Real>::V* tw, Real s,
                      cudaStream_t st) {
+  if (log2n > MAXLOG) return cudaErrorInvalidValue;
   switch (log2n) {
-    case 3: return launch<3, SWAP>(io, tw, s, st);
-    case 4: return launch<4, SWAP>(io, tw, s, st);
-    case 5: return launch<5, SWAP>(io, tw, s, st);
-    case 6: return launch<6, SWAP>(io, tw, s, st);
-    case 7: return launch<7, SWAP>(io, tw, s, st);
-    case 8: return launch<8, SWAP>(io, tw, s, st);
-    case 9: return launch<9, SWAP>(io, tw, s, st);
-    case 10: return launch<10, SWAP>(io, tw, s, st);
-    case 11: return launch<11, SWAP>(io, tw, s, st);
-    case 12: return launch<12, SWAP>(io, tw, s, st);
-    case 13: return launch<13, SWAP>(io, tw, s, st);
+    case 3: return launch<Real, 3, SWAP>(io, tw, s, st);
+    case 4: return launch<Real, 4, SWAP>(io, tw, s, st);
+    case 5: return launch<Real, 5, SWAP>(io, tw, s, st);
+    case 6: return launch<Real, 6, SWAP>(io, tw, s, st);
+    case 7: return launch<Real, 7, SWAP>(io, tw, s, st);
+    case 8: return launch<Real, 8, SWAP>(io, tw, s, st);
+    case 9: return launch<Real, 9, SWAP>(io, tw, s, st);
+    case 10: return launch<Real, 10, SWAP>(io, tw, s, st);
+    case 11: return launch<Real, 11, SWAP>(io, tw, s, st);
+    case 12: return launch<Real, 12, SWAP>(io, tw, s, st);
+    case 13:
+      if constexpr (MAXLOG >= 13) return launch<Real, 13, SWAP>(io, tw, s, st);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// The columns per block the kernel uses at log2n (0 outside 3..13), for the
-// wrapper's limit checks and the records.
-extern "C" int pyfft_local_cols_width(int log2n) {
+template <typename Real, int MAXLOG>
+int width(int log2n) {
+  if (log2n > MAXLOG) return 0;
   switch (log2n) {
-    case 3: return ColShape<3>::C;
-    case 4: return ColShape<4>::C;
-    case 5: return ColShape<5>::C;
-    case 6: return ColShape<6>::C;
-    case 7: return ColShape<7>::C;
-    case 8: return ColShape<8>::C;
-    case 9: return ColShape<9>::C;
-    case 10: return ColShape<10>::C;
-    case 11: return ColShape<11>::C;
-    case 12: return ColShape<12>::C;
-    case 13: return ColShape<13>::C;
+    case 3: return ColShape<3, Real>::C;
+    case 4: return ColShape<4, Real>::C;
+    case 5: return ColShape<5, Real>::C;
+    case 6: return ColShape<6, Real>::C;
+    case 7: return ColShape<7, Real>::C;
+    case 8: return ColShape<8, Real>::C;
+    case 9: return ColShape<9, Real>::C;
+    case 10: return ColShape<10, Real>::C;
+    case 11: return ColShape<11, Real>::C;
+    case 12: return ColShape<12, Real>::C;
+    case 13: return ColShape<13, Real>::C;
     default: return 0;
   }
 }
 
-// Launches the column DFT on `stream` without synchronising.  `tw` holds n
-// (cos, sin) float pairs of sign*2*pi*k/n; `ta` and `tb` are the twiddle
-// tables (null when unused).  `dims` holds 16 int64 values: L, T, the input
-// strides (l, n, t), the output strides (l, k, t / P, t % P), P, the table
-// strides ak, aq, adiv, bk, bq, and the twiddle mode (0 none, 1 table,
-// 2 factored).  Strides are in floats (table strides in pairs).  Returns the
-// launch's cudaError_t (0 on success).
-extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
-                                void* out_re, void* out_im, const void* tw,
-                                const void* ta, const void* tb,
-                                const long long* dims, int log2n, int sign,
-                                float postscale, int swap_store,
-                                void* stream) {
-  Cols io;
-  io.in_re = static_cast<const float*>(in_re);
-  io.in_im = static_cast<const float*>(in_im);
-  io.out_re = static_cast<float*>(out_re);
-  io.out_im = static_cast<float*>(out_im);
-  io.ta = static_cast<const float2*>(ta);
-  io.tb = static_cast<const float2*>(tb);
+template <typename Real, int MAXLOG>
+int launch_cols(const void* in_re, const void* in_im, void* out_re,
+                void* out_im, const void* tw, const void* ta, const void* tb,
+                const long long* dims, int log2n, int sign, Real postscale,
+                int swap_store, void* stream) {
+  using V = typename Complex<Real>::V;
+  Cols<Real> io;
+  io.in_re = static_cast<const Real*>(in_re);
+  io.in_im = static_cast<const Real*>(in_im);
+  io.out_re = static_cast<Real*>(out_re);
+  io.out_im = static_cast<Real*>(out_im);
+  io.ta = static_cast<const V*>(ta);
+  io.tb = static_cast<const V*>(tb);
   io.L = dims[0];
   io.T = dims[1];
   io.in_ls = dims[2];
@@ -332,9 +363,53 @@ extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
   io.post = postscale;
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
     return (int)cudaErrorInvalidValue;
-  const float2* t = static_cast<const float2*>(tw);
-  const float s = sign < 0 ? -1.f : 1.f;
+  const V* t = static_cast<const V*>(tw);
+  const Real s = sign < 0 ? Real(-1) : Real(1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return swap_store ? (int)dispatch<true>(log2n, io, t, s, st)
-                    : (int)dispatch<false>(log2n, io, t, s, st);
+  return swap_store ? (int)dispatch<Real, MAXLOG, true>(log2n, io, t, s, st)
+                    : (int)dispatch<Real, MAXLOG, false>(log2n, io, t, s, st);
+}
+
+}  // namespace
+
+// The columns per block the complex64 kernel uses at log2n (0 outside
+// 3..13), for the wrapper's limit checks and the records.
+extern "C" int pyfft_local_cols_width(int log2n) {
+  return width<float, 13>(log2n);
+}
+
+// The same for the complex128 kernel (0 outside 3..12).
+extern "C" int pyfft_local_cols_width_f64(int log2n) {
+  return width<double, 12>(log2n);
+}
+
+// Launch the column DFT on `stream` without synchronising.  `tw` holds n
+// (cos, sin) pairs of sign*2*pi*k/n in the planes' type; `ta` and `tb` are
+// the twiddle tables, pairs of that type (null when unused).  `dims` holds
+// 16 int64 values: L, T, the input strides (l, n, t), the output strides
+// (l, k, t / P, t % P), P, the table strides ak, aq, adiv, bk, bq, and the
+// twiddle mode (0 none, 1 table, 2 factored).  Strides are in elements
+// (table strides in pairs).  Return the launch's cudaError_t (0 on
+// success).  complex64: float planes, 8 <= n <= 8192.
+extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
+                                void* out_re, void* out_im, const void* tw,
+                                const void* ta, const void* tb,
+                                const long long* dims, int log2n, int sign,
+                                float postscale, int swap_store,
+                                void* stream) {
+  return launch_cols<float, 13>(in_re, in_im, out_re, out_im, tw, ta, tb,
+                                dims, log2n, sign, postscale, swap_store,
+                                stream);
+}
+
+// complex128: double planes, 8 <= n <= 4096, computed in native FP64.
+extern "C" int pyfft_local_cols_f64(const void* in_re, const void* in_im,
+                                    void* out_re, void* out_im,
+                                    const void* tw, const void* ta,
+                                    const void* tb, const long long* dims,
+                                    int log2n, int sign, double postscale,
+                                    int swap_store, void* stream) {
+  return launch_cols<double, 12>(in_re, in_im, out_re, out_im, tw, ta, tb,
+                                 dims, log2n, sign, postscale, swap_store,
+                                 stream);
 }

@@ -1,22 +1,28 @@
-// Batched length-n complex64 DFT along contiguous rows: the "local" row
-// kernel of pyfft_tpu_torch.
+// Batched length-n complex DFT along contiguous rows: the "local" row
+// kernels of pyfft_tpu_torch, complex64 (K1) and complex128 (K11).
 //
-// Replaces the JAX package's Pallas row kernel (pyfft_tpu/ops/pallas_local.py:
-// `_kernel`, launched by `_row_call_inner` through `pl.pallas_call`).  That
-// kernel transposes (128, n) blocks to (n, 128) and runs DFT-matrix stages on
-// the TPU's matrix unit; none of that layout carries over.  This one computes
-// the same function with a design of its own:
+// Replaces the JAX package's Pallas row kernels: for complex64
+// pyfft_tpu/ops/pallas_local.py `_kernel`, launched by `_row_call_inner`
+// through `pl.pallas_call`; for complex128 pyfft_tpu/ops/pallas_df64.py
+// `_row_kernel_df64`, launched by `_fft_rows_df64`.  The first transposes
+// (128, n) blocks to (n, 128) and runs DFT-matrix stages on the TPU's
+// matrix unit; the second emulates double precision with (hi, lo) float32
+// pairs, since the TPU has no FP64 unit.  None of that carries over.  This
+// kernel computes the same function with a design of its own, one template
+// for both precisions (Real = float or double):
 //
 //   out[r, k] = postscale * sum_j x[r, j] * exp(sign * 2*pi*i * j*k / n)
 //
-// for n = 2^log2n, 8 <= n <= 8192, in natural output order.
+// for n = 2^log2n, 8 <= n <= 8192 (float) or 4096 (double), in natural
+// output order.
 //
 // What bounds it on an H100: bytes.  A row is read once and written once
-// (8 B in and 8 B out per point), so a 4096 x 4096 batch is one 256 MiB
-// device-memory round trip.  By the 5*n*log2(n) count that is under 4 flop
-// per byte, far below the ~20 FP32 flop per byte at which the card's
-// arithmetic, not its memory, would be the limit.  So the design keeps the
-// data in device memory exactly once each way:
+// (8 B in and 8 B out per complex64 point, 16 B each way per complex128
+// point), so a 4096 x 4096 complex64 batch is one 256 MiB device-memory
+// round trip.  By the 5*n*log2(n) count that is under 4 flop per byte in
+// float and under 2 in double, far below the ~20 FP32 (~10 FP64) flop per
+// byte at which the card's arithmetic, not its memory, would be the limit.
+// So the design keeps the data in device memory exactly once each way:
 //
 //   * one thread block per row (several rows per block for n < 512, so each
 //     block has 512 points of work); the row is read straight from global
@@ -27,26 +33,29 @@
 //     writes its outputs at (j/Ns)*Ns*R + j%Ns + r*Ns, which leaves the
 //     result in natural order with no bit-reversal pass;
 //   * every stage between the first and the last goes through one buffer of
-//     shared memory (8n bytes per row).  A thread holds all its butterflies'
-//     values in registers across a barrier before it writes, so one buffer
-//     is enough; n = 8192 needs 64 KB, above the 48 KB default, hence the
-//     cudaFuncSetAttribute opt-in;
-//   * FP32 FMA arithmetic, with the in-register DFTs of stockham.cuh
-//     (shared with the column kernel); twiddles come from one table
-//     exp(sign*2*pi*i*k/n), k < n, built on the host in float64 and
-//     rounded once (no device sinf);
+//     shared memory (n complex values per row: 8n bytes in float, 16n in
+//     double).  A thread holds all its butterflies' values in registers
+//     across a barrier before it writes, so one buffer is enough; float at
+//     n = 8192 and double at n = 4096 need 64 KB, above the 48 KB default,
+//     hence the cudaFuncSetAttribute opt-in;
+//   * FMA arithmetic in the row's own precision (native FP64 for
+//     complex128), with the in-register DFTs of stockham.cuh (shared with
+//     the column kernel); twiddles come from one table exp(sign*2*pi*i*k/n),
+//     k < n, built on the host in float64 (rounded once to float for
+//     complex64; no device sin/cos);
 //   * the postscale (1/N and the user scale) is folded into the last store.
 //
 // Every global read of a block happens in the first stage and every global
 // write in the last, with a barrier between them, and blocks own disjoint
 // rows: so the output may alias the input (in place).
 //
-// Each operand is a pair of float planes with an element stride and a row
-// stride, both in floats: planar data has (1, n); the two planes of
-// torch.view_as_real(complex64) have (2, 2n), with im = re + 1.
+// Each operand is a pair of real planes with an element stride and a row
+// stride, both in elements: planar data has (1, n); the two planes of
+// torch.view_as_real of a complex tensor have (2, 2n), with im = re + 1.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry point `pyfft_local_rows` at the bottom.
+// library with the plain C entry points `pyfft_local_rows` (float) and
+// `pyfft_local_rows_f64` (double) at the bottom.
 
 #include <cuda_runtime.h>
 
@@ -56,14 +65,15 @@ namespace {
 
 using namespace pyfft;
 
+template <typename Real>
 struct Io {
-  const float* in_re;
-  const float* in_im;
-  float* out_re;
-  float* out_im;
+  const Real* in_re;
+  const Real* in_im;
+  Real* out_re;
+  Real* out_im;
   int rows;
   int in_es, in_rs, out_es, out_rs;
-  float post;
+  Real post;
 };
 
 template <int LOGN>
@@ -79,14 +89,18 @@ struct Shape {
 // One radix-R Stockham stage over the block's RPB rows.  NS is the product
 // of the radices of the stages before it.  FIRST reads global memory, LAST
 // writes it; the stages between read and write shared memory.
-template <int N, int T, int RPB, int R, int NS, bool FIRST, bool LAST>
-__device__ __forceinline__ void stage(const Io& io, float2* sm,
-                                      const float2* __restrict__ tw, int row0,
-                                      float s) {
+template <typename Real, int N, int T, int RPB, int R, int NS, bool FIRST,
+          bool LAST>
+__device__ __forceinline__ void stage(const Io<Real>& io,
+                                      typename Complex<Real>::V* sm,
+                                      const typename Complex<Real>::V*
+                                          __restrict__ tw,
+                                      int row0, Real s) {
+  using V = typename Complex<Real>::V;
   constexpr int NR = N / R;          // butterflies per row
   constexpr int B = RPB * NR / T;    // butterflies per thread
   static_assert(B * R * T == RPB * N, "threads must tile the block exactly");
-  float2 v[B][R];
+  V v[B][R];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int q = threadIdx.x + b * T;
@@ -99,9 +113,9 @@ __device__ __forceinline__ void stage(const Io& io, float2* sm,
         if (row < io.rows) {
           const long long o =
               (long long)row * io.in_rs + (long long)k * io.in_es;
-          v[b][r] = make_float2(io.in_re[o], io.in_im[o]);
+          v[b][r] = Complex<Real>::make(io.in_re[o], io.in_im[o]);
         } else {
-          v[b][r] = make_float2(0.f, 0.f);
+          v[b][r] = Complex<Real>::make(0, 0);
         }
       } else {
         v[b][r] = sm[rr * N + k];
@@ -141,70 +155,107 @@ __device__ __forceinline__ void stage(const Io& io, float2* sm,
   if (!LAST) __syncthreads();
 }
 
-template <int LOGN, int STAGE, int NS>
-__device__ __forceinline__ void stages(const Io& io, float2* sm,
-                                       const float2* __restrict__ tw,
-                                       int row0, float s) {
+template <typename Real, int LOGN, int STAGE, int NS>
+__device__ __forceinline__ void stages(const Io<Real>& io,
+                                       typename Complex<Real>::V* sm,
+                                       const typename Complex<Real>::V*
+                                           __restrict__ tw,
+                                       int row0, Real s) {
   using S = Shape<LOGN>;
   constexpr int R = (STAGE == 0 && S::REM) ? (1 << S::REM) : 8;
-  stage<S::N, S::T, S::RPB, R, NS, STAGE == 0, STAGE == S::NSTAGES - 1>(
-      io, sm, tw, row0, s);
+  stage<Real, S::N, S::T, S::RPB, R, NS, STAGE == 0,
+        STAGE == S::NSTAGES - 1>(io, sm, tw, row0, s);
   if constexpr (STAGE + 1 < S::NSTAGES)
-    stages<LOGN, STAGE + 1, NS * R>(io, sm, tw, row0, s);
+    stages<Real, LOGN, STAGE + 1, NS * R>(io, sm, tw, row0, s);
 }
 
-template <int LOGN>
+template <typename Real, int LOGN>
 __global__ void __launch_bounds__(Shape<LOGN>::T)
-    local_rows_kernel(Io io, const float2* __restrict__ tw, float s) {
-  extern __shared__ float2 sm[];
-  stages<LOGN, 0, 1>(io, sm, tw, blockIdx.x * Shape<LOGN>::RPB, s);
+    local_rows_kernel(Io<Real> io,
+                      const typename Complex<Real>::V* __restrict__ tw,
+                      Real s) {
+  using V = typename Complex<Real>::V;
+  // one raw buffer for both precisions: extern __shared__ arrays of
+  // different types in one translation unit must not share a name
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  stages<Real, LOGN, 0, 1>(io, reinterpret_cast<V*>(smem_raw), tw,
+                           blockIdx.x * Shape<LOGN>::RPB, s);
 }
 
-template <int LOGN>
-cudaError_t launch(const Io& io, const float2* tw, float s,
-                   cudaStream_t stream) {
+template <typename Real, int LOGN>
+cudaError_t launch(const Io<Real>& io, const typename Complex<Real>::V* tw,
+                   Real s, cudaStream_t stream) {
   using S = Shape<LOGN>;
-  const int smem = S::NSTAGES > 1 ? S::P * (int)sizeof(float2) : 0;
+  using V = typename Complex<Real>::V;
+  const int smem = S::NSTAGES > 1 ? S::P * (int)sizeof(V) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_rows_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        local_rows_kernel<Real, LOGN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (io.rows + S::RPB - 1) / S::RPB;
-  local_rows_kernel<LOGN><<<blocks, S::T, smem, stream>>>(io, tw, s);
+  local_rows_kernel<Real, LOGN><<<blocks, S::T, smem, stream>>>(io, tw, s);
   return cudaGetLastError();
+}
+
+// log2n -> launch<Real, log2n>, for log2n in [3, MAXLOG].
+template <typename Real, int MAXLOG>
+cudaError_t dispatch(int log2n, const void* in_re, const void* in_im,
+                     void* out_re, void* out_im, const void* tw, int rows,
+                     int in_es, int in_rs, int out_es, int out_rs, int sign,
+                     Real postscale, void* stream) {
+  using V = typename Complex<Real>::V;
+  const Io<Real> io{static_cast<const Real*>(in_re),
+                    static_cast<const Real*>(in_im),
+                    static_cast<Real*>(out_re), static_cast<Real*>(out_im),
+                    rows, in_es, in_rs, out_es, out_rs, postscale};
+  const V* t = static_cast<const V*>(tw);
+  const Real s = sign < 0 ? Real(-1) : Real(1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || log2n > MAXLOG) return cudaErrorInvalidValue;
+  switch (log2n) {
+    case 3: return launch<Real, 3>(io, t, s, st);
+    case 4: return launch<Real, 4>(io, t, s, st);
+    case 5: return launch<Real, 5>(io, t, s, st);
+    case 6: return launch<Real, 6>(io, t, s, st);
+    case 7: return launch<Real, 7>(io, t, s, st);
+    case 8: return launch<Real, 8>(io, t, s, st);
+    case 9: return launch<Real, 9>(io, t, s, st);
+    case 10: return launch<Real, 10>(io, t, s, st);
+    case 11: return launch<Real, 11>(io, t, s, st);
+    case 12: return launch<Real, 12>(io, t, s, st);
+    case 13:
+      if constexpr (MAXLOG >= 13) return launch<Real, 13>(io, t, s, st);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Launches the row DFT on `stream` without synchronising.  Strides are in
-// floats; `tw` holds n (cos, sin) float pairs of sign*2*pi*k/n.  Returns the
-// launch's cudaError_t (0 on success).
+// Launch the row DFT on `stream` without synchronising.  Strides are in
+// elements of the planes' type; `tw` holds n (cos, sin) pairs of
+// sign*2*pi*k/n in that type.  Return the launch's cudaError_t (0 on
+// success).  complex64: float planes, 8 <= n <= 8192.
 extern "C" int pyfft_local_rows(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,
                                 int rows, int log2n, int in_es, int in_rs,
                                 int out_es, int out_rs, int sign,
                                 float postscale, void* stream) {
-  const Io io{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
-              static_cast<float*>(out_re), static_cast<float*>(out_im),
-              rows, in_es, in_rs, out_es, out_rs, postscale};
-  const float2* t = static_cast<const float2*>(tw);
-  const float s = sign < 0 ? -1.f : 1.f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
-  switch (log2n) {
-    case 3: return (int)launch<3>(io, t, s, st);
-    case 4: return (int)launch<4>(io, t, s, st);
-    case 5: return (int)launch<5>(io, t, s, st);
-    case 6: return (int)launch<6>(io, t, s, st);
-    case 7: return (int)launch<7>(io, t, s, st);
-    case 8: return (int)launch<8>(io, t, s, st);
-    case 9: return (int)launch<9>(io, t, s, st);
-    case 10: return (int)launch<10>(io, t, s, st);
-    case 11: return (int)launch<11>(io, t, s, st);
-    case 12: return (int)launch<12>(io, t, s, st);
-    case 13: return (int)launch<13>(io, t, s, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch<float, 13>(log2n, in_re, in_im, out_re, out_im, tw,
+                                  rows, in_es, in_rs, out_es, out_rs, sign,
+                                  postscale, stream);
+}
+
+// complex128: double planes, 8 <= n <= 4096, computed in native FP64.
+extern "C" int pyfft_local_rows_f64(const void* in_re, const void* in_im,
+                                    void* out_re, void* out_im,
+                                    const void* tw, int rows, int log2n,
+                                    int in_es, int in_rs, int out_es,
+                                    int out_rs, int sign, double postscale,
+                                    void* stream) {
+  return (int)dispatch<double, 12>(log2n, in_re, in_im, out_re, out_im, tw,
+                                   rows, in_es, in_rs, out_es, out_rs, sign,
+                                   postscale, stream);
 }

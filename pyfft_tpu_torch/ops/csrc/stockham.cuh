@@ -1,14 +1,41 @@
 // In-register complex arithmetic and R-point DFTs (R = 2, 4, 8) shared by
-// the row kernel (local_rows.cu) and the column kernel (local_cols.cu).
+// the row kernel (local_rows.cu) and the column kernel (local_cols.cu), in
+// single and double precision.
 //
-// A float2 holds one complex64 value (x = real, y = imaginary).  The sign
-// argument s is -1 for the forward transform and +1 for the inverse.
+// Real is float or double; Complex<Real>::V is its complex type, a float2
+// (one complex64 value) or a double2 (one complex128 value), with x the
+// real and y the imaginary part.  The double instantiations compute in
+// native FP64 throughout: every constant, product and fused multiply-add is
+// taken in double, so a complex128 transform keeps double's ~1e-16 unit
+// roundoff.  The sign argument s is -1 for the forward transform and +1 for
+// the inverse.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace pyfft {
+
+template <typename Real>
+struct Complex;
+
+template <>
+struct Complex<float> {
+  using V = float2;
+  static constexpr float SQRT1_2 = 0.70710678118654752440f;
+  __device__ static __forceinline__ float2 make(float x, float y) {
+    return make_float2(x, y);
+  }
+};
+
+template <>
+struct Complex<double> {
+  using V = double2;
+  static constexpr double SQRT1_2 = 0.70710678118654752440;
+  __device__ static __forceinline__ double2 make(double x, double y) {
+    return make_double2(x, y);
+  }
+};
 
 __device__ __forceinline__ float2 operator+(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -18,57 +45,67 @@ __device__ __forceinline__ float2 operator-(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
 
+__device__ __forceinline__ double2 operator+(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ double2 operator-(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
 
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+
 // a * (s*i), s = +-1
-__device__ __forceinline__ float2 mul_si(float2 a, float s) {
-  return make_float2(-s * a.y, s * a.x);
+template <typename Real>
+__device__ __forceinline__ typename Complex<Real>::V mul_si(
+    typename Complex<Real>::V a, Real s) {
+  return Complex<Real>::make(-s * a.y, s * a.x);
 }
 
 // In-register R-point DFT, y[k] = sum_r v[r] * exp(s*2*pi*i*r*k/R).
-template <int R>
-__device__ __forceinline__ void dft(float2* v, float s);
-
-template <>
-__device__ __forceinline__ void dft<2>(float2* v, float s) {
-  const float2 a = v[0], b = v[1];
-  v[0] = a + b;
-  v[1] = a - b;
-}
-
-template <>
-__device__ __forceinline__ void dft<4>(float2* v, float s) {
-  const float2 a = v[0] + v[2], b = v[0] - v[2];
-  const float2 c = v[1] + v[3], d = mul_si(v[1] - v[3], s);
-  v[0] = a + c;
-  v[1] = b + d;
-  v[2] = a - c;
-  v[3] = b - d;
-}
-
-// 8 = 2 x 4: a radix-2 step over the high input digit, the w8^j twiddles
-// as constants (w8 = c(1 + s*i), c = sqrt(1/2)), then two 4-point DFTs
-// whose outputs interleave as k = 2*k2 + k1.
-template <>
-__device__ __forceinline__ void dft<8>(float2* v, float s) {
-  const float c = 0.70710678118654752440f;
-  float2 e[4], o[4];
+template <int R, typename Real>
+__device__ __forceinline__ void dft(typename Complex<Real>::V* v, Real s) {
+  using C = Complex<Real>;
+  using V = typename C::V;
+  if constexpr (R == 2) {
+    const V a = v[0], b = v[1];
+    v[0] = a + b;
+    v[1] = a - b;
+  } else if constexpr (R == 4) {
+    const V a = v[0] + v[2], b = v[0] - v[2];
+    const V c = v[1] + v[3], d = mul_si<Real>(v[1] - v[3], s);
+    v[0] = a + c;
+    v[1] = b + d;
+    v[2] = a - c;
+    v[3] = b - d;
+  } else {
+    // 8 = 2 x 4: a radix-2 step over the high input digit, the w8^j
+    // twiddles as constants (w8 = c(1 + s*i), c = sqrt(1/2)), then two
+    // 4-point DFTs whose outputs interleave as k = 2*k2 + k1.
+    static_assert(R == 8, "radix 2, 4 or 8");
+    const Real c = C::SQRT1_2;
+    V e[4], o[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    e[j] = v[j] + v[j + 4];
-    o[j] = v[j] - v[j + 4];
-  }
-  o[1] = make_float2(c * (o[1].x - s * o[1].y), c * (o[1].y + s * o[1].x));
-  o[2] = mul_si(o[2], s);
-  o[3] = make_float2(-c * (o[3].x + s * o[3].y), c * (s * o[3].x - o[3].y));
-  dft<4>(e, s);
-  dft<4>(o, s);
+    for (int j = 0; j < 4; ++j) {
+      e[j] = v[j] + v[j + 4];
+      o[j] = v[j] - v[j + 4];
+    }
+    o[1] = C::make(c * (o[1].x - s * o[1].y), c * (o[1].y + s * o[1].x));
+    o[2] = mul_si<Real>(o[2], s);
+    o[3] = C::make(-c * (o[3].x + s * o[3].y), c * (s * o[3].x - o[3].y));
+    dft<4, Real>(e, s);
+    dft<4, Real>(o, s);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[2 * k] = e[k];
-    v[2 * k + 1] = o[k];
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = e[k];
+      v[2 * k + 1] = o[k];
+    }
   }
 }
 

@@ -15,9 +15,13 @@ into its store:
 * ``fft_axis_huge`` (last axis, N > MAX_LOCAL_N**2): N = n1*m1*m2 with
   the ``factored`` twiddle, then a ``strided`` one: three passes.
 
-On a CUDA tensor every pass launches the column kernel; on a CPU tensor
-its plain torch version.  Only the last pass writes ``out``; the earlier
-ones write temporaries, since a swapped store cannot run in place.
+The executors take float32 planes (complex64: the column kernel K5) or
+float64 planes (complex128: its FP64 instantiation K12, whose axes stop at
+MAX_LOCAL_N_DF64; ``ops/fp64.py`` holds the complex128 entry points and
+split).  The mid axis stays complex64-only, as in the JAX package.  On a
+CUDA tensor every pass launches the column kernel; on a CPU tensor its
+plain torch version.  Only the last pass writes ``out``; the earlier ones
+write temporaries, since a swapped store cannot run in place.
 
 Not carried over from the JAX package: the TPU v5e cost model of the
 splits (``_COL_UNIT_COST``) and its autotune record.  ``choose_split``
@@ -33,7 +37,7 @@ import math
 import torch
 
 from pyfft_tpu_torch.ops import local
-from pyfft_tpu_torch.planner import MAX_LOCAL_N, MIN_TRAIL
+from pyfft_tpu_torch.planner import MAX_LOCAL_N, MIN_TRAIL, max_local_n
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["fft_axis_large", "fft_axis_huge", "fft_axis_mid",
@@ -96,15 +100,17 @@ def choose_split3(n: int, max_local: int | None = None
 
 
 def _last_axis_ok(re: torch.Tensor, axis: int) -> bool:
-    return re.dtype == torch.float32 and axis % re.ndim == re.ndim - 1
+    return (re.dtype in (torch.float32, torch.float64)
+            and axis % re.ndim == re.ndim - 1)
 
 
 def supported(re: torch.Tensor, axis: int,
               max_local: int | None = None) -> bool:
-    """Whether ``fft_axis_large`` covers this tensor/axis."""
+    """Whether ``fft_axis_large`` covers this tensor/axis (``max_local``
+    by default the local kernels' ceiling for the planes' dtype)."""
     if not _last_axis_ok(re, axis):
         return False
-    max_local = max_local or MAX_LOCAL_N
+    max_local = max_local or max_local_n(re.dtype)
     n = re.shape[-1]
     if not (is_power_of_two(n) and max_local < n <= max_local * max_local):
         return False
@@ -117,10 +123,11 @@ def supported(re: torch.Tensor, axis: int,
 
 def supported_huge(re: torch.Tensor, axis: int,
                    max_local: int | None = None) -> bool:
-    """Whether ``fft_axis_huge`` covers this tensor/axis."""
+    """Whether ``fft_axis_huge`` covers this tensor/axis (``max_local`` as
+    in ``supported``)."""
     if not _last_axis_ok(re, axis):
         return False
-    max_local = max_local or MAX_LOCAL_N
+    max_local = max_local or max_local_n(re.dtype)
     n = re.shape[-1]
     if not (is_power_of_two(n) and n > max_local * max_local):
         return False
@@ -151,7 +158,8 @@ def mid_split(n: int, trail: int,
 
 def supported_mid(re: torch.Tensor, axis: int,
                   max_local: int | None = None) -> bool:
-    """Whether ``fft_axis_mid`` covers this tensor/axis (``mid_split``)."""
+    """Whether ``fft_axis_mid`` covers this tensor/axis (``mid_split``;
+    float32 only, as in the JAX package)."""
     if re.dtype != torch.float32:
         return False
     axis = axis % re.ndim
@@ -185,7 +193,8 @@ def _finish(r, i, shape, out):
 def fft_axis_large(re, im, sign, *, axis, postscale: float = 1.0,
                    max_local: int | None = None, fast_math: bool = True,
                    split: tuple[int, int] | None = None, out=None):
-    """Four-step DFT along the last axis of planar float32 tensors.
+    """Four-step DFT along the last axis of planar float32 or float64
+    tensors.
 
     With the axis viewed as (n1, n2):
 
@@ -202,7 +211,7 @@ def fft_axis_large(re, im, sign, *, axis, postscale: float = 1.0,
         raise ValueError("fft_axis_large covers the last axis")
     shape = tuple(re.shape)
     n = shape[-1]
-    n1, n2 = split or choose_split(n, max_local)
+    n1, n2 = split or choose_split(n, max_local or max_local_n(re.dtype))
     if n1 * n2 != n:
         raise ValueError(f"split {n1}x{n2} does not factor n={n}")
     lead = shape[:-1]
@@ -274,7 +283,8 @@ def fft_axis_huge(re, im, sign, *, axis, postscale: float = 1.0,
         raise ValueError("fft_axis_huge covers the last axis")
     shape = tuple(re.shape)
     n = shape[-1]
-    n1, m1, m2 = split3 or choose_split3(n, max_local)
+    n1, m1, m2 = split3 or choose_split3(n, max_local
+                                         or max_local_n(re.dtype))
     if n1 * m1 * m2 != n:
         raise ValueError(f"split3 {n1}x{m1}x{m2} does not factor n={n}")
     n2 = m1 * m2

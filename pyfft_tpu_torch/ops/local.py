@@ -10,13 +10,18 @@ function live here:
 * the Hopper kernels ``csrc/local_rows.cu`` and ``csrc/local_cols.cu``
   (Stockham radix-8 chains in shared memory, one device-memory round trip
   each), launched by ``_launch_rows`` and ``_launch_cols`` for every CUDA
-  tensor;
+  tensor: on float32 planes K1 and K5, on float64 planes (complex128) their
+  native-FP64 instantiations K11 and K12, the counterparts of
+  ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see ``ops/fp64.py``);
 * their plain torch versions, ``fft_rows_plain`` and ``fft_cols_plain``,
-  built on ``tile_fft`` with ``needed_tables`` and ``_butterfly``: a
-  line-for-line mirror of the JAX package's tile math (the same factor
-  chains, radix-8 constants, stacked DFT matrices and folded last twiddle),
-  taken for every CPU tensor.  The tests hold it against JAX's
-  ``tile_fft`` on the very same tables.
+  taken for every CPU tensor.  On float32 planes they are built on
+  ``tile_fft`` with ``needed_tables`` and ``_butterfly``: a line-for-line
+  mirror of the JAX package's tile math (the same factor chains, radix-8
+  constants, stacked DFT matrices and folded last twiddle), which the tests
+  hold against JAX's ``tile_fft`` on the very same tables.  On float64
+  planes the DFT step is ``reference.fft_planar`` in float64 (the JAX
+  package's double-float chains are TPU workarounds), followed by the same
+  twiddle, postscale and stores.
 
 ``fft_axis`` decides by the tensor's device alone.  For a CUDA tensor it
 launches a kernel or raises; nothing falls back to the plain version.
@@ -33,20 +38,30 @@ import torch
 
 from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
                                          twiddle_table_strided)
-from pyfft_tpu_torch.planner import MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL
+from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
+                                     max_local_n)
+from pyfft_tpu_torch.reference import fft_planar
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "tile_fft", "needed_tables", "tables_from_numpy",
            "default_factors", "row_factors", "col_factors",
            "butterfly_factors", "precise_factors", "MAX_LOCAL_N",
-           "LAUNCHES", "COL_LAUNCHES"]
+           "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64", "COL_LAUNCHES_F64"]
 
-# Kernel launches made by _launch_rows since the last reset (a caller sets
-# it to 0): the proof that a run went through the CUDA kernel.
+# Kernel launches made by _launch_rows on float32 planes (K1) since the
+# last reset (a caller sets it to 0): the proof that a run went through the
+# CUDA kernel.
 LAUNCHES = 0
-# The same for _launch_cols.
+# The same for _launch_cols on float32 planes (K5).
 COL_LAUNCHES = 0
+# The same for the float64 (complex128) kernels: rows K11, columns K12.
+LAUNCHES_F64 = 0
+COL_LAUNCHES_F64 = 0
+
+# The plane types the kernels take, with the numpy type of their tables.
+_NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+_REALS = tuple(_NP_REAL)
 
 # Row-chain overrides of the JAX package (pallas_local.ROW_FACTORS), kept so
 # that the plain version runs the JAX chains exactly.  The CUDA kernel has
@@ -301,14 +316,15 @@ def tile_fft(re, im, tables: dict, n: int, factors=None, stacked: bool = True,
 
 def supported(re: torch.Tensor, axis: int) -> bool:
     """Whether a local kernel covers this tensor/axis (pallas_local.
-    supported): float32, a power of two in [MIN_LOCAL_N, MAX_LOCAL_N], and
-    for an axis other than the last a trail (the product of the later
-    axes) of at least MIN_TRAIL."""
-    if re.dtype != torch.float32 or re.ndim == 0:
+    supported, and pallas_df64.supported's local range): a power of two in
+    [MIN_LOCAL_N, MAX_LOCAL_N] for float32, [MIN_LOCAL_N, MAX_LOCAL_N_DF64]
+    for float64, and for an axis other than the last a trail (the product
+    of the later axes) of at least MIN_TRAIL."""
+    if re.dtype not in _REALS or re.ndim == 0:
         return False
     axis = axis % re.ndim
     n = re.shape[axis]
-    if not (is_power_of_two(n) and MIN_LOCAL_N <= n <= MAX_LOCAL_N):
+    if not (is_power_of_two(n) and MIN_LOCAL_N <= n <= max_local_n(re.dtype)):
         return False
     return (axis == re.ndim - 1
             or math.prod(re.shape[axis + 1:]) >= MIN_TRAIL)
@@ -316,8 +332,14 @@ def supported(re: torch.Tensor, axis: int) -> bool:
 
 def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None):
     """The plain torch version of the row kernel, on any device: the DFT
-    along the last axis of (..., n) float32 planes through ``tile_fft``
-    (default chain ``row_factors(n)``), times ``postscale``."""
+    along the last axis of (..., n) planes, times ``postscale``.  Float32
+    planes go through ``tile_fft`` (default chain ``row_factors(n)``),
+    float64 planes through ``fft_planar`` in float64 (``factors`` unused)."""
+    if re.dtype == torch.float64:
+        xr, xi = fft_planar(re, im, sign, axis=-1)
+        if postscale != 1.0:
+            xr, xi = xr * postscale, xi * postscale
+        return xr, xi
     n = re.shape[-1]
     factors = tuple(factors or row_factors(n))
     tables = _device_tables(n, sign, factors, re.device)
@@ -329,11 +351,12 @@ def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_twiddles(n: int, sign: int, device: torch.device) -> torch.Tensor:
-    """(n, 2) float32 table of exp(sign*2*pi*i*k/n): float64 on the host,
-    rounded once."""
+def _kernel_twiddles(n: int, sign: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n, 2) table of exp(sign*2*pi*i*k/n) in ``dtype``: float64 on the
+    host, rounded once to float32 for the float32 kernels."""
     tr, ti = twiddle_table(2, n, n, sign, np.float64)     # row 1: a = 1
-    return _pairs(tr[1], ti[1], device)
+    return _pairs(tr[1], ti[1], device, dtype)
 
 
 def _rows_view(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
@@ -345,28 +368,44 @@ def _rows_view(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
                          f"stride (strides {t.stride()})") from e
 
 
+def _c_real(dtype: torch.dtype):
+    """The C type of a postscale for planes of ``dtype``."""
+    return ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+
+
 @functools.lru_cache(maxsize=None)
-def _rows_fn():
-    """The C entry point of csrc/local_rows.cu, built at first use."""
+def _rows_fn(dtype: torch.dtype):
+    """The C entry point of csrc/local_rows.cu for planes of ``dtype``
+    (``pyfft_local_rows`` for float32, ``pyfft_local_rows_f64`` for
+    float64), built at first use."""
     from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows
+    name = ("pyfft_local_rows_f64" if dtype == torch.float64
+            else "pyfft_local_rows")
+    fn = getattr(load("local_rows"), name)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [_c_real(dtype), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_planes(kind: str, re, planes) -> None:
+    """All planes float32, or all float64, on re's CUDA device."""
+    for t in planes:
+        if (not t.is_cuda or t.device != re.device or t.dtype not in _REALS
+                or t.dtype != re.dtype):
+            raise ValueError(f"{kind} kernel takes float32 or float64 planes "
+                             f"of one type on one CUDA device, got {t.dtype} "
+                             f"on {t.device}")
 
 
 def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
     """Launch csrc/local_rows.cu over (..., n) planes; no synchronise.
     The range of n is ``supported``'s check, made by ``fft_axis``."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     n = re.shape[-1]
     planes = (re, im, out_re, out_im)
+    _check_planes("row", re, planes)
     for t in planes:
-        if (not t.is_cuda or t.device != re.device
-                or t.dtype != torch.float32):
-            raise ValueError("row kernel takes float32 planes on one CUDA "
-                             f"device, got {t.dtype} on {t.device}")
         if t.shape != re.shape:
             raise ValueError("row kernel planes differ in shape")
         if t.stride(-1) not in (1, 2):
@@ -381,8 +420,8 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
         raise ValueError("row kernel needs equal strides for re and im")
     if max(rows, *r2.stride(), *or2.stride()) >= 2 ** 31:
         raise ValueError("row kernel strides and row count must fit int32")
-    fn = _rows_fn()
-    tw = _kernel_twiddles(n, sign, re.device)
+    fn = _rows_fn(re.dtype)
+    tw = _kernel_twiddles(n, sign, re.device, re.dtype)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = fn(r2.data_ptr(), i2.data_ptr(), or2.data_ptr(), oi2.data_ptr(),
@@ -391,7 +430,10 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
                  stream)
     if err != 0:
         raise RuntimeError(f"local_rows launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if re.dtype == torch.float64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return out_re, out_im
 
 
@@ -434,20 +476,24 @@ def _col_out_shape(shape: tuple, axis: int, swap_store: bool,
 
 @functools.lru_cache(maxsize=64)
 def _plain_twiddle(n: int, T: int, tw_n: int, tw_mode: str, tw_period: int,
-                   sign: int, device: torch.device):
-    """The (n, T) float32 twiddle planes of a column pass, computed as the
-    JAX kernel computes them: from the same float32 tables, the factored
-    product taken in float32."""
+                   sign: int, device: torch.device,
+                   dtype: torch.dtype = torch.float32):
+    """The (n, T) twiddle planes of a column pass in ``dtype``, computed as
+    the JAX kernel computes them: from the same tables, the factored
+    product taken in float32 (float64 for the complex128 pass, whose JAX
+    kernel takes it in double-float)."""
+    np_dtype = _NP_REAL[dtype]
     if tw_mode == "full":
-        tr, ti = twiddle_table(n, T, tw_n, sign)
+        tr, ti = twiddle_table(n, T, tw_n, sign, np_dtype)
     elif tw_mode == "strided":
-        ar, ai = twiddle_table_strided(n, T // tw_period, tw_n, sign, 1)
+        ar, ai = twiddle_table_strided(n, T // tw_period, tw_n, sign, 1,
+                                       np_dtype)
         q = np.arange(T) // tw_period
         tr, ti = ar[:, q], ai[:, q]
     else:
         ar, ai = twiddle_table_strided(n, T // MIN_TRAIL, tw_n, sign,
-                                       MIN_TRAIL)
-        br, bi = twiddle_table(n, MIN_TRAIL, tw_n, sign)
+                                       MIN_TRAIL, np_dtype)
+        br, bi = twiddle_table(n, MIN_TRAIL, tw_n, sign, np_dtype)
         q = np.arange(T) // MIN_TRAIL
         r = np.arange(T) % MIN_TRAIL
         ar, ai, br, bi = ar[:, q], ai[:, q], br[:, r], bi[:, r]
@@ -461,24 +507,30 @@ def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
                    swap_store: bool = False, swap_mid: int = 0):
     """The plain torch version of the column kernel, on any device.
 
-    The DFT over axis 1 of (L, n, T) float32 planes: ``tile_fft`` over axis
-    0 of the (n, L*T) view (default chain ``col_factors(n)``), then the
-    mode's twiddle, ``postscale`` and store, as pallas_local._col_kernel
-    applies them.  Returns (L, n, T) planes, (L, T, n) with
-    ``swap_store``, or (L, T // P, n, P) with ``swap_mid=P``.
+    The DFT over axis 1 of (L, n, T) planes, then the mode's twiddle,
+    ``postscale`` and store, as pallas_local._col_kernel (float32) and
+    pallas_df64._col_kernel_df64 (float64) apply them.  The DFT step is
+    ``tile_fft`` over axis 0 of the (n, L*T) view for float32 planes
+    (default chain ``col_factors(n)``), ``fft_planar`` along axis 1 in
+    float64 for float64 planes (``factors`` unused).  Returns (L, n, T)
+    planes, (L, T, n) with ``swap_store``, or (L, T // P, n, P) with
+    ``swap_mid=P``.
     """
     L, n, T = re.shape
     _check_col_modes(T, tw_n, tw_mode, tw_period, swap_store, swap_mid)
-    factors = tuple(factors or col_factors(n))
-    tables = _device_tables(n, sign, factors, re.device)
-    xr, xi = tile_fft(re.transpose(0, 1).reshape(n, L * T),
-                      im.transpose(0, 1).reshape(n, L * T), tables, n,
-                      factors, sign=sign)
-    xr = xr.reshape(n, L, T).transpose(0, 1)
-    xi = xi.reshape(n, L, T).transpose(0, 1)
+    if re.dtype == torch.float64:
+        xr, xi = fft_planar(re, im, sign, axis=1)
+    else:
+        factors = tuple(factors or col_factors(n))
+        tables = _device_tables(n, sign, factors, re.device)
+        xr, xi = tile_fft(re.transpose(0, 1).reshape(n, L * T),
+                          im.transpose(0, 1).reshape(n, L * T), tables, n,
+                          factors, sign=sign)
+        xr = xr.reshape(n, L, T).transpose(0, 1)
+        xi = xi.reshape(n, L, T).transpose(0, 1)
     if tw_n:
         twr, twi = _plain_twiddle(n, T, tw_n, tw_mode, tw_period, sign,
-                                  re.device)
+                                  re.device, re.dtype)
         xr, xi = xr * twr - xi * twi, xr * twi + xi * twr
     if postscale != 1.0:
         xr, xi = xr * postscale, xi * postscale
@@ -490,68 +542,77 @@ def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
     return xr.contiguous(), xi.contiguous()
 
 
-def _pairs(tr: np.ndarray, ti: np.ndarray, device) -> torch.Tensor:
-    """float64 (re, im) planes -> one contiguous float32 (..., 2) tensor,
-    rounded once: the kernel reads each entry as a float2 at a flat
-    offset.  (Stacking transposed planes keeps their memory order, which
-    ``from_numpy`` and ``to`` would carry over, hence the explicit
-    C-order copy.)"""
+def _pairs(tr: np.ndarray, ti: np.ndarray, device,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """float64 (re, im) planes -> one contiguous (..., 2) tensor of
+    ``dtype``, rounded once for float32: the kernel reads each entry as a
+    float2 (double2) at a flat offset.  (Stacking transposed planes keeps
+    their memory order, which ``from_numpy`` and ``to`` would carry over,
+    hence the explicit C-order copy.)"""
     pairs = np.ascontiguousarray(np.stack([tr, ti], axis=-1),
-                                 dtype=np.float32)
+                                 dtype=_NP_REAL[dtype])
     return torch.from_numpy(pairs).to(device)
 
 
 @functools.lru_cache(maxsize=16)
 def _kernel_col_tables(n: int, T: int, tw_n: int, tw_mode: str,
                        tw_period: int, sign: int, k_fast: bool,
-                       device: torch.device):
-    """The column kernel's twiddle tables and their strides in float2
-    pairs: (ta, tb, ak, aq, adiv, bk, bq).  Each is laid out along the
-    axis the store pass reads fastest (k with ``k_fast``, else t); the
+                       device: torch.device,
+                       dtype: torch.dtype = torch.float32):
+    """The column kernel's twiddle tables in ``dtype`` and their strides in
+    (re, im) pairs: (ta, tb, ak, aq, adiv, bk, bq).  Each is laid out along
+    the axis the store pass reads fastest (k with ``k_fast``, else t); the
     strided and factored column streams are read once per block, so they
     are always k-major."""
     f64 = np.float64
+
+    def pairs(tr, ti):
+        return _pairs(tr, ti, device, dtype)
+
     if tw_mode == "full":
         if k_fast:      # (T, n): the same values, w^(t*k)
-            ta = _pairs(*twiddle_table(T, n, tw_n, sign, f64), device)
+            ta = pairs(*twiddle_table(T, n, tw_n, sign, f64))
             return ta, None, 1, n, 1, 0, 0
-        ta = _pairs(*twiddle_table(n, T, tw_n, sign, f64), device)
+        ta = pairs(*twiddle_table(n, T, tw_n, sign, f64))
         return ta, None, T, 1, 1, 0, 0
     if tw_mode == "strided":
         q = T // tw_period
-        ta = _pairs(*twiddle_table(q, n, tw_n, sign, f64), device)
+        ta = pairs(*twiddle_table(q, n, tw_n, sign, f64))
         return ta, None, 1, n, tw_period, 0, 0
     ar, ai = twiddle_table_strided(n, T // MIN_TRAIL, tw_n, sign, MIN_TRAIL,
                                    f64)
-    ta = _pairs(ar.T, ai.T, device)                 # (T / 128, n)
+    ta = pairs(ar.T, ai.T)                          # (T / 128, n)
     if k_fast:
-        tb = _pairs(*twiddle_table(MIN_TRAIL, n, tw_n, sign, f64), device)
+        tb = pairs(*twiddle_table(MIN_TRAIL, n, tw_n, sign, f64))
         return ta, tb, 1, n, MIN_TRAIL, 1, n
-    tb = _pairs(*twiddle_table(n, MIN_TRAIL, tw_n, sign, f64), device)
+    tb = pairs(*twiddle_table(n, MIN_TRAIL, tw_n, sign, f64))
     return ta, tb, 1, n, MIN_TRAIL, MIN_TRAIL, 1
 
 
 @functools.lru_cache(maxsize=None)
-def _cols_lib():
-    """(launch, width): the typed C entry points of csrc/local_cols.cu,
-    built at first use."""
+def _cols_lib(dtype: torch.dtype):
+    """(launch, width): the typed C entry points of csrc/local_cols.cu for
+    planes of ``dtype`` (``pyfft_local_cols[_width]`` for float32, the
+    ``_f64`` ones for float64), built at first use."""
     from pyfft_tpu_torch.ops.build import load
     lib = load("local_cols")
-    fn = lib.pyfft_local_cols
+    suffix = "_f64" if dtype == torch.float64 else ""
+    fn = getattr(lib, "pyfft_local_cols" + suffix)
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [_c_real(dtype), ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    width = lib.pyfft_local_cols_width
+    width = getattr(lib, "pyfft_local_cols_width" + suffix)
     width.argtypes = [ctypes.c_int]
     width.restype = ctypes.c_int
     return fn, width
 
 
-def col_width(n: int) -> int:
-    """The columns (consecutive t) one block of the column kernel takes at
-    length n; builds the kernel on first use."""
-    return _cols_lib()[1](ilog2(n))
+def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
+    """The columns (consecutive t) one block of the column kernel for
+    planes of ``dtype`` takes at length n; builds the kernel on first
+    use."""
+    return _cols_lib(dtype)[1](ilog2(n))
 
 
 def _view(t: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
@@ -573,18 +634,15 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
     """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
     no synchronise.  The caller (``fft_axis``) has checked ``supported``
     and the modes."""
-    global COL_LAUNCHES
+    global COL_LAUNCHES, COL_LAUNCHES_F64
     shape = tuple(re.shape)
     n = shape[axis]
     L = math.prod(shape[:axis])
     T = math.prod(shape[axis + 1:])
     oshape = _col_out_shape(shape, axis, swap_store, swap_mid)
+    _check_planes("column", re, (re, im, out_re, out_im))
     for t, want in ((re, shape), (im, shape), (out_re, oshape),
                     (out_im, oshape)):
-        if (not t.is_cuda or t.device != re.device
-                or t.dtype != torch.float32):
-            raise ValueError("column kernel takes float32 planes on one "
-                             f"CUDA device, got {t.dtype} on {t.device}")
         if tuple(t.shape) != want:
             raise ValueError(f"column kernel plane of shape "
                              f"{tuple(t.shape)}, expected {want}")
@@ -619,7 +677,7 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                     or d3.stride() != r3.stride()):
                 raise ValueError("column kernel output overlaps its input; "
                                  "only a plain store may run in place")
-    fn, width = _cols_lib()
+    fn, width = _cols_lib(re.dtype)
     blocks = -(-T // width(ilog2(n))) * L
     if max(T, blocks) >= 2 ** 31:
         raise ValueError("column kernel trail and block count must fit int32")
@@ -629,13 +687,13 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
     if tw_n:
         ta, tb, ak, aq, adiv, bk, bq = _kernel_col_tables(
             n, T, tw_n, tw_mode, tw_period, sign, bool(swap_store),
-            re.device)
+            re.device, re.dtype)
         mode = 2 if tw_mode == "factored" else 1
         assert all(t is None or t.is_contiguous() for t in (ta, tb))
     dims = (ctypes.c_longlong * 16)(
         L, T, *r3.stride(), *ostr[0], period, ak, aq, max(adiv, 1), bk, bq,
         mode)
-    tw = _kernel_twiddles(n, sign, re.device)
+    tw = _kernel_twiddles(n, sign, re.device, re.dtype)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = fn(r3.data_ptr(), i3.data_ptr(), o[0].data_ptr(),
@@ -645,14 +703,17 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                  int(sign), float(postscale), int(bool(swap_store)), stream)
     if err != 0:
         raise RuntimeError(f"local_cols launch failed: cudaError {err}")
-    COL_LAUNCHES += 1
+    if re.dtype == torch.float64:
+        COL_LAUNCHES_F64 += 1
+    else:
+        COL_LAUNCHES += 1
     return out_re, out_im
 
 
 def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
              tw_n: int = 0, tw_mode: str = "full", tw_period: int = 0,
              swap_store: bool = False, swap_mid: int = 0, out=None):
-    """DFT along ``axis`` of planar float32 tensors.
+    """DFT along ``axis`` of planar float32 or float64 tensors.
 
     The last axis goes to the row kernel, any other axis to the column
     kernel on the (lead, n, trail) view (pallas_local.fft_axis).  Column
@@ -711,11 +772,13 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
 
 def _empty_like_planes(re, im, shape):
     """Output planes of ``shape`` in the input's layout: interleaved pairs
-    when the inputs are the two planes of one complex tensor, planar
-    otherwise."""
+    (complex64 for float32 planes, complex128 for float64) when the inputs
+    are the two planes of one complex tensor, planar otherwise."""
     if (re.stride(-1) == 2 and im.stride() == re.stride()
-            and im.data_ptr() == re.data_ptr() + 4):
-        v = torch.view_as_real(torch.empty(shape, dtype=torch.complex64,
+            and im.data_ptr() == re.data_ptr() + re.element_size()):
+        cplx = (torch.complex128 if re.dtype == torch.float64
+                else torch.complex64)
+        v = torch.view_as_real(torch.empty(shape, dtype=cplx,
                                            device=re.device))
         return v[..., 0], v[..., 1]
     return (torch.empty(shape, dtype=re.dtype, device=re.device),

@@ -12,12 +12,16 @@ A CUDA tensor's ``fused2d`` pass runs the Hopper fused 2D kernel over the
 last two axes (``ops/fused2d.py``), its ``local`` pass the row kernel
 (last axis) or column kernel (another axis), and its ``fourstep`` and
 ``huge`` passes two or three column-kernel passes (``ops/fourstep.py``); a
-CPU tensor's run the kernels' plain torch versions.  The JAX package's
-fold-store column kernel has no route of its own: on row-major memory its
-native-layout store is the column kernel's plain store.  Not in this
-slice, and listed in ROADMAP.md: its host-view path (``_view_kernel_ok``),
-``run_df64``, its compile cache and its HBM chunk sweep.  The kernel path allocates its output and, in
-a four-step pass, one or two temporaries of the data's size.
+CPU tensor's run the kernels' plain torch versions.  A complex128 plan
+runs the same executors on float64 planes, where the row and column
+kernels compute in native FP64 (``ops/fp64.py``): that replaces the JAX
+package's ``run_df64`` and its double-float quads, whose only reason was
+a TPU without FP64.  The JAX package's fold-store column kernel has no
+route of its own: on row-major memory its native-layout store is the
+column kernel's plain store.  Not in the port yet, and listed in
+ROADMAP.md: its host-view path (``_view_kernel_ok``), its compile cache
+and its HBM chunk sweep.  The kernel path allocates its output and, in a
+four-step pass, one or two temporaries of the data's size.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Pass scheduler: shape/dtype -> executable pass IR.
 
 Counterpart of ``pyfft_tpu/planner.py`` (``AxisPass``, ``ExecPlan``,
-``build_plan``, with the same validation errors) for complex64:
+``build_plan``, with the same validation errors).  For complex64:
 
 * ``fused2d``: the last two axes together, when both are multiples of
   MIN_TRAIL and a plane holds at most MAX_FUSED2D_ELEMS points
@@ -15,8 +15,16 @@ Counterpart of ``pyfft_tpu/planner.py`` (``AxisPass``, ``ExecPlan``,
 * ``huge``: a last axis above MAX_LOCAL_N**2, as three column passes
   (``fft_axis_huge``);
 * ``plain``: everything else, through the plain torch matmul chain
-  (``reference.py``): complex128, n < MIN_LOCAL_N, a column pass with a
-  short trail, a mid axis the four-step gates refuse.
+  (``reference.py``): n < MIN_LOCAL_N, a column pass with a short trail, a
+  mid axis the four-step gates refuse.
+
+For complex128 the routes of the JAX package's double-float kernels
+(``ops/fp64.py``; the kernels compute in native FP64): ``local`` up to
+MAX_LOCAL_N_DF64 under the same trail rule, ``fourstep`` on the last axis
+up to MAX_LOCAL_N_DF64**2 with ``choose_split_df64``'s split (``plain``
+where a factor falls below MIN_TRAIL), ``huge`` beyond it with
+``choose_split3(n, HUGE_MAX_F_DF64)``, ``plain`` on any other axis; no
+``fused2d`` and no mid-axis four-step, as in the JAX package.
 
 The JAX planner writes ``local`` for a short axis or trail and lets its
 Plan take XLA at run time; this one decides when it plans, so
@@ -40,7 +48,8 @@ import numpy as np
 from pyfft_tpu_torch.utils.radix import is_power_of_two
 
 __all__ = ["AxisPass", "ExecPlan", "build_plan", "SMEM_BYTES_PER_BLOCK",
-           "MAX_LOCAL_N", "MIN_LOCAL_N", "MIN_TRAIL", "MAX_FUSED2D_ELEMS"]
+           "MAX_LOCAL_N", "MIN_LOCAL_N", "MIN_TRAIL", "MAX_FUSED2D_ELEMS",
+           "MAX_LOCAL_N_DF64", "HUGE_MAX_F_DF64", "max_local_n"]
 
 # Shared memory one thread block can use on Hopper (227 KB of the SM's
 # 256 KB; above 48 KB only as opt-in dynamic shared memory).  It replaces
@@ -57,6 +66,18 @@ assert 8 * MAX_LOCAL_N <= SMEM_BYTES_PER_BLOCK
 
 MIN_LOCAL_N = 8
 
+# The complex128 kernels' ceilings: the JAX package's MAX_LOCAL_N_DF64
+# (largest axis of its double-float row and column kernels) and
+# HUGE_MAX_F_DF64 (largest factor of its double-float six-step), both
+# Mosaic compile ceilings measured on a TPU v5e.  Kept so that both
+# planners build the same complex128 plans (ROADMAP lists them as constants
+# to re-derive): a complex128 row of 4096 points is 64 KB of shared memory,
+# and 8192 points (128 KB) would also fit.  ``ops/fp64.py`` re-exports
+# them beside the JAX names.
+MAX_LOCAL_N_DF64 = 4096
+HUGE_MAX_F_DF64 = 2048
+assert 16 * MAX_LOCAL_N_DF64 <= SMEM_BYTES_PER_BLOCK
+
 # Smallest trail (product of the later axes) a column pass takes, and the
 # granule of the four-step splits, swap periods and twiddle periods: the
 # JAX package's 128-lane tile.  The column kernel takes any trail; the
@@ -70,6 +91,15 @@ MIN_TRAIL = 128
 # and has no size limit of its own (ROADMAP lists it as a constant to
 # re-derive).
 MAX_FUSED2D_ELEMS = 1 << 18
+
+
+def max_local_n(dtype) -> int:
+    """The largest axis the local kernels take for a plane or complex
+    dtype (numpy or torch): MAX_LOCAL_N for 32-bit parts, MAX_LOCAL_N_DF64
+    for 64-bit ones."""
+    name = str(dtype).rsplit(".", 1)[-1]
+    return MAX_LOCAL_N_DF64 if name in ("float64", "complex128") else MAX_LOCAL_N
+
 
 # "plain" is the JAX package's "xla" executor: the einsum chain of
 # reference.py.
@@ -124,9 +154,10 @@ def build_plan(shape: tuple[int, ...], dtype, *,
 
     passes = []
     ndim = len(shape)
-    kernels_ok = kernels and dtype == np.dtype(np.complex64)
+    double = dtype == np.dtype(np.complex128)
+    max_local = max_local_n(dtype)
     axes = list(reversed(range(ndim)))
-    if kernels_ok and ndim >= 2:
+    if kernels and not double and ndim >= 2:
         ny, nx = shape[-2], shape[-1]
         if (ny % MIN_TRAIL == 0 and nx % MIN_TRAIL == 0
                 and ny * nx <= MAX_FUSED2D_ELEMS):
@@ -138,11 +169,13 @@ def build_plan(shape: tuple[int, ...], dtype, *,
         last = axis == ndim - 1
         trail = math.prod(shape[axis + 1:])
         executor, split = "plain", None
-        if not kernels_ok:
-            pass                       # complex128: ROADMAP Slice E
-        elif n <= MAX_LOCAL_N:
+        if not kernels:
+            pass
+        elif n <= max_local:
             if n >= MIN_LOCAL_N and (last or trail >= MIN_TRAIL):
                 executor = "local"
+        elif double:
+            executor, split = _large_axis_df64(n, last)
         else:
             executor, split = _large_axis(n, last, trail)
         passes.append(AxisPass(axis=axis, n=n, executor=executor,
@@ -166,3 +199,23 @@ def _large_axis(n: int, last: bool, trail: int):
         return "fourstep", fourstep.choose_split(n)
     except ValueError:
         return "plain", None
+
+
+def _large_axis_df64(n: int, last: bool):
+    """(executor, split) of a complex128 axis above MAX_LOCAL_N_DF64, under
+    the JAX planner's double-float gates: ``huge`` beyond
+    MAX_LOCAL_N_DF64**2, else ``fourstep`` with ``choose_split_df64``'s
+    split where both factors are at least MIN_TRAIL; ``plain`` otherwise
+    and on every axis but the last."""
+    from pyfft_tpu_torch.ops import fourstep, fp64
+    if not last:
+        return "plain", None
+    if n > MAX_LOCAL_N_DF64 * MAX_LOCAL_N_DF64:
+        try:
+            return "huge", fourstep.choose_split3(n, HUGE_MAX_F_DF64)
+        except ValueError:
+            return "plain", None
+    split = fp64.choose_split_df64(n, MAX_LOCAL_N_DF64)
+    if min(split) < MIN_TRAIL:
+        return "plain", None
+    return "fourstep", split

@@ -175,7 +175,9 @@ def test_supported_column_rule():
     assert not local.supported(torch.zeros(4, 128), 0)        # n < 8
     assert not local.supported(torch.zeros(24, 128), 0)       # not 2^k
     assert not local.supported(torch.zeros(16384, 128), 0)    # n > 8192
-    assert not local.supported(torch.zeros(64, 128, dtype=torch.float64), 0)
+    assert local.supported(torch.zeros(64, 128, dtype=torch.float64), 0)
+    assert not local.supported(                                # > 4096 f64
+        torch.zeros(8192, 128, dtype=torch.float64), 0)
 
 
 @pytest.mark.parametrize("kw", [

@@ -238,14 +238,18 @@ def test_choose_split3_errors_match_jax(n, max_local):
     ("supported_huge", (1, 1 << 16), -1, 128),     # one four-step level
 ])
 def test_supported_gates_match_jax(fn, shape, axis, max_local):
-    """The gates read only shape and dtype: zero-memory stand-ins."""
+    """The gates read only shape and dtype: zero-memory stand-ins.  Float64
+    planes (complex128) take the last-axis executors with the same answer
+    at these shapes (a default ceiling of 4096 instead of 8192 changes
+    none of them) and never the mid axis, as in the JAX package."""
     want = getattr(jax_fourstep, fn)(jax.ShapeDtypeStruct(shape, np.float32),
                                      axis, max_local=max_local)
     got = getattr(fourstep, fn)(torch.zeros(1).expand(shape), axis,
                                 max_local=max_local)
     assert got == want
     f64 = torch.zeros(1, dtype=torch.float64).expand(shape)
-    assert not getattr(fourstep, fn)(f64, axis, max_local=max_local)
+    want64 = want and fn != "supported_mid"
+    assert getattr(fourstep, fn)(f64, axis, max_local=max_local) == want64
 
 
 @pytest.mark.parametrize("fn,kw", [

@@ -165,7 +165,10 @@ def test_supported():
     assert not local.supported(a, 0)
     assert not local.supported(torch.zeros(4, 24), 1)
     assert not local.supported(torch.zeros(4, 4), 1)
-    assert not local.supported(torch.zeros(4, 1024, dtype=torch.float64), 1)
+    # float64 (complex128) up to MAX_LOCAL_N_DF64 = 4096
+    assert local.supported(torch.zeros(4, 1024, dtype=torch.float64), 1)
+    assert local.supported(torch.zeros(4, 4096, dtype=torch.float64), 1)
+    assert not local.supported(torch.zeros(4, 8192, dtype=torch.float64), 1)
     assert not local.supported(torch.zeros(4, 2 * local.MAX_LOCAL_N), 1)
 
 
@@ -174,7 +177,7 @@ def test_supported():
     ((4, 24), -1, torch.float32),               # not a power of two
     ((4, 4), -1, torch.float32),                # below 8
     ((2, 16384), -1, torch.float32),            # above MAX_LOCAL_N
-    ((4, 64), -1, torch.float64),
+    ((4, 8192), -1, torch.float64),             # above MAX_LOCAL_N_DF64
 ])
 def test_fft_axis_raises_outside_kernel(shape, axis, dtype):
     z = torch.zeros(shape, dtype=dtype)

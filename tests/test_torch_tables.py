@@ -1,6 +1,7 @@
 """The torch port's tables against the JAX package's: radix math, twiddle
 and DFT tables, the row path's factor chains and ``needed_tables`` must be
-bit-identical, since both packages' tile math runs on them."""
+bit-identical, since both packages' tile math runs on them; the complex128
+kernels' float64 tables hold the JAX df64 kernels' phases to one ulp."""
 
 import math
 
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from pyfft_tpu.ops import pallas_df64 as jax_df64
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu.ops import twiddle as jax_twiddle
 from pyfft_tpu.utils import radix as jax_radix
@@ -213,3 +215,88 @@ def test_col_kernel_tables_identical(n, T, tw_n, period, k_fast):
             assert np.array_equal(bi[at], b[1][:, t % 128][:, 0])
         assert np.array_equal(ar[k * ak + qa * aq], ref[0]), mode
         assert np.array_equal(ai[k * ak + qa * aq], ref[1]), mode
+
+
+def assert_within_ulp(got, ref, tw_n=None):
+    """Float64 cos or sin values within one ulp of the phase of the
+    reference's: the port takes the angle as (2*pi/tw_n)*k, JAX's _phases
+    as 2*pi*k/tw_n, which agree bit for bit when tw_n is a power of two and
+    within one ulp of the angle (at most spacing(2*pi)) otherwise."""
+    assert got.dtype == np.float64
+    if tw_n is None or tw_n & (tw_n - 1) == 0:
+        assert np.array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= np.spacing(2 * np.pi)
+
+
+@pytest.mark.parametrize("n", [8, 64, 4096])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_kernel_twiddles_f64(n, sign):
+    """K11's and K12's stage table in float64: exp(sign*2*pi*i*k/n) as
+    the JAX package's df64 kernels take it (pallas_df64._phases), to one
+    ulp."""
+    tw = local._kernel_twiddles(n, sign, torch.device("cpu"),
+                                torch.float64).numpy()
+    assert tw.shape == (n, 2)
+    # row 1 of the phase table: exp(sign*2*pi*i*k/n)
+    cos, sin = jax_df64._phases(2, n, n, sign)
+    assert_within_ulp(tw[:, 0], cos[1])
+    assert_within_ulp(tw[:, 1], sin[1])
+
+
+@pytest.mark.parametrize("n,T,tw_n,period", COL_TW_CASES)
+@pytest.mark.parametrize("k_fast", [True, False])
+def test_col_kernel_tables_f64_match_jax_phases(n, T, tw_n, period, k_fast):
+    """K12's float64 tables, read at the kernel's flat offsets
+    (ta[k*ak + q*aq], tb[k*bk + (t % 128)*bq]), hold the phases JAX's df64
+    column kernel takes (pallas_df64._phases: the full (n, T) table, the
+    strided (n, T / period) one, the factored A (n, T / 128, stride 128)
+    and B (n, 128)) to one ulp, in either layout."""
+    cpu = torch.device("cpu")
+    k = np.arange(n)[:, None]
+    t = np.arange(T)[None, :]
+    for mode in ("full", "strided", "factored"):
+        per = period if mode == "strided" else 0
+        ta, tb, ak, aq, adiv, bk, bq = local._kernel_col_tables(
+            n, T, tw_n, mode, per, -1, k_fast, cpu, torch.float64)
+        qa = t if adiv == 1 else t // adiv
+        ar, ai = flat_pairs(ta)
+        if mode == "full":
+            ref = jax_df64._phases(n, T, tw_n, -1)
+        elif mode == "strided":
+            rr, ri = jax_df64._phases(n, T // period, tw_n, -1)
+            ref = (rr[:, t // period][:, 0], ri[:, t // period][:, 0])
+        else:
+            rr, ri = jax_df64._phases(n, T // 128, tw_n, -1, 128)
+            ref = (rr[:, t // 128][:, 0], ri[:, t // 128][:, 0])
+            br, bi = flat_pairs(tb)
+            b = jax_df64._phases(n, 128, tw_n, -1)
+            at = k * bk + (t % 128) * bq
+            assert_within_ulp(br[at], b[0][:, t % 128][:, 0], tw_n)
+            assert_within_ulp(bi[at], b[1][:, t % 128][:, 0], tw_n)
+        assert_within_ulp(ar[k * ak + qa * aq], ref[0], tw_n)
+        assert_within_ulp(ai[k * ak + qa * aq], ref[1], tw_n)
+
+
+@pytest.mark.parametrize("n,T,tw_n,period", COL_TW_CASES)
+def test_col_plain_twiddles_f64(n, T, tw_n, period):
+    """K12's plain version takes the same float64 phases; its factored
+    product, taken in float64, lies within 8 ulps of 1 of the phase's
+    cos and sin (JAX's df64 product: about 2^-48, 16 times coarser)."""
+    cpu = torch.device("cpu")
+    for mode in ("full", "strided", "factored"):
+        per = period if mode == "strided" else 0
+        tr, ti = local._plain_twiddle(n, T, tw_n, mode, per, -1, cpu,
+                                      torch.float64)
+        assert tr.dtype == torch.float64 and tuple(tr.shape) == (n, T)
+        t = np.arange(T)
+        cos, sin = jax_df64._phases(n, T, tw_n, -1, col_stride=1)
+        if mode == "strided":
+            cos, sin = jax_df64._phases(n, T // period, tw_n, -1)
+            cos, sin = cos[:, t // period], sin[:, t // period]
+        if mode == "factored":
+            assert np.abs(tr.numpy() - cos).max() <= 8 * 2 ** -52
+            assert np.abs(ti.numpy() - sin).max() <= 8 * 2 ** -52
+        else:
+            assert_within_ulp(tr.numpy(), cos, tw_n)
+            assert_within_ulp(ti.numpy(), sin, tw_n)
