@@ -4,19 +4,21 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in thirteen phases, one or more lines each:
+numpy.fft, in sixteen phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
-  2. build: compiles the row, column and fused 2D kernels from this
-     checkout's sources, one nvcc each, all at once (the row and column
-     sources hold both precisions);
+  2. build: compiles the row, column, fused 2D and de/interleave kernels
+     from this checkout's sources, one nvcc each, all at once (the row and
+     column sources hold both precisions, the row source the interleaved
+     kernel too);
   3. row kernel: against its plain torch version and numpy.fft for every
      n from 8 to 8192, 1 and 130 rows, forward and inverse with a
      postscale, planar, stride-2 and in-place operands;
   4. config 2 (batched 1D, 4096 x 4096 complex64) through Plan.execute
      (complex and planar forms, inverse round trip) and fft/ifft, against
-     numpy.fft, with each kernel's launch count read around the run;
+     numpy.fft, with each kernel's launch count read around the run (the
+     complex form takes the route plan.py gives a single-pass plan);
   5. config 2 timings by CUDA events (median of 20 after warm-up): the row
      kernel, its plain version, the card's copy bandwidth, the bounds and
      cuFFT for context; before timing, the kernel is held against its
@@ -60,7 +62,31 @@ numpy.fft, in thirteen phases, one or more lines each:
  13. complex128 timings: config 5's two passes with their plain versions,
      bounds (FP64 peak) and torch.fft.fft(dim=-2) for pass 2, the 2D
      path's K11 row pass beside torch.fft.fft and its K12 column pass, and
-     each path's Plan.execute beside torch.fft.
+     each path's Plan.execute beside torch.fft;
+ 14. interleaved kernels: the row kernel K2 against its plain version and
+     numpy.fft for every n from 8 to 8192, 1 and 130 rows, forward and
+     inverse with postscale 0.3, out of place, in place and packed; the
+     de/interleave kernels K13 and K14 against their plain versions,
+     bit-exact (torch.equal), dense, odd-n and strided, and a round trip;
+ 15. config 2i (4096 x 4096 complex64, interleaved) through Plan.execute
+     (inverse round trip) and fft/ifft under each route, "fused" (K2),
+     "stream" (K13, K1, K14) and "planes" (K1), against numpy with an exact
+     launch count per kernel; timings of K2, K13 and K14 alone with their
+     plain versions, bounds and library calls; the three routes at every n
+     from 8 to 8192 (2^24 points each; 64 rows spread over the batch
+     against numpy) and "stream" against "planes" at configs 3, 4 and 6+
+     (each against numpy); every K2, K13 and K14 call of those runs held
+     against its plain version (K13, K14 bit-exact); each route timed in
+     three rounds, per-call events beside device time with the host ahead
+     and the host's time per call, a winner resolved only where its worst
+     round beats every other route's best; the winners printed beside
+     plan.py's routes;
+ 16. the real transforms at full size: rfft/irfft of (4096, 8192) float32
+     (whose inner transform is config 2i), rfft2/irfft2 of (16, 1024,
+     1024), rfftn/irfftn of 256^3, against numpy.fft.rfft* in float64 with
+     exact launch counts and a round trip, and every K2 call of them
+     against its plain version; each timed beside torch.fft.rfft* and its
+     untangle alone.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -70,6 +96,7 @@ kernels; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -94,10 +121,19 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
 
-SOURCES = ("local_rows", "local_cols", "fused2d")
+SOURCES = ("local_rows", "local_cols", "fused2d", "interleave")
 # the kernels, by the name of the count their wrapper keeps
 KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
-           "local_cols_f64")
+           "local_cols_f64", "local_rows_il", "deinterleave", "interleave")
+
+# Launches of one complex-form execute of a 1D plan of one local pass, by
+# its interleaved route; the stream route adds K13 and K14 around any plan.
+ROUTE_COUNTS = {"fused": {"local_rows_il": 1},
+                "stream": {"deinterleave": 1, "local_rows": 1,
+                           "interleave": 1},
+                "planes": {"local_rows": 1}}
+STREAM_EXTRA = {"deinterleave": 1, "interleave": 1}
+ROUTES = ("fused", "stream", "planes")
 
 
 def rel_err(got, ref) -> float:
@@ -129,21 +165,47 @@ def cplx(re, im):
 
 
 def reset_counts():
-    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.ops import fused2d, interleave, local
     local.LAUNCHES = 0
     local.COL_LAUNCHES = 0
     local.LAUNCHES_F64 = 0
     local.COL_LAUNCHES_F64 = 0
+    local.IL_LAUNCHES = 0
     fused2d.LAUNCHES = 0
+    interleave.DEINT_LAUNCHES = 0
+    interleave.INT_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.ops import fused2d, interleave, local
     torch.cuda.synchronize()
     return {"local_rows": local.LAUNCHES, "local_cols": local.COL_LAUNCHES,
             "fused2d": fused2d.LAUNCHES,
             "local_rows_f64": local.LAUNCHES_F64,
-            "local_cols_f64": local.COL_LAUNCHES_F64}
+            "local_cols_f64": local.COL_LAUNCHES_F64,
+            "local_rows_il": local.IL_LAUNCHES,
+            "deinterleave": interleave.DEINT_LAUNCHES,
+            "interleave": interleave.INT_LAUNCHES}
+
+
+def expect(*parts) -> dict:
+    """The launch counts of a run: the sum of its {kernel: count} parts,
+    every other kernel 0."""
+    want = dict.fromkeys(KERNELS, 0)
+    for part in parts:
+        for k, v in part.items():
+            want[k] += v
+    return want
+
+
+def route_counts(plan) -> dict:
+    """Launches of one complex-form execute of ``plan`` beyond its planar
+    passes' (the 1D local plans: all of them)."""
+    route = plan.il_route()
+    passes = plan._exec_plan.passes
+    if len(passes) == 1 and passes[0].executor == "local":
+        return ROUTE_COUNTS[route]
+    return STREAM_EXTRA if route == "stream" else {}
 
 
 def bound(nbytes: float, flops: float,
@@ -294,10 +356,13 @@ def phase_main_path():
             "ifft(fft)": rel_err(to_np(yb), x)}
     for k, e in errs.items():
         check(f"config 2 {k}", e)
-    if counts != {k: 5 if k == "local_rows" else 0 for k in KERNELS}:
+    want = expect({"local_rows": 1}, *[route_counts(plan)] * 4)
+    if counts != want:
         raise AssertionError(f"config 2 made launches {counts}, expected "
-                             f"5 row and no other")
-    print(f"phase 4 main path: {plan!r}, launches {counts}, "
+                             f"{want} (complex form: {plan.il_route()})")
+    print(f"phase 4 main path: {plan!r}, complex form by the "
+          f"{plan.il_route()!r} route, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, "
           + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
           + f" (gate {TOL:.0e})")
     return xt, re, im, counts
@@ -599,7 +664,8 @@ def run_path(name: str, seed: int, phase: int) -> dict:
             raise AssertionError(f"{name} {k}: {v.dtype} {tuple(v.shape)}")
     if rr.dtype != re.dtype:
         raise AssertionError(f"{name} planar: {rr.dtype}")
-    want = {k: 5 * c for k, c in zip(KERNELS, spec.per)}
+    want = expect({k: 5 * c for k, c in zip(KERNELS, spec.per)},
+                  *[route_counts(plan)] * 4)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     against = ("numpy" if spec.rows is None
@@ -871,6 +937,499 @@ def phase_end_to_end(results, phase: int = 9):
     return e2e
 
 
+# ------------------------------------------- interleaved storage (K2, K13, K14)
+
+IL_NS = tuple(1 << p for p in range(3, 14))
+
+
+@contextlib.contextmanager
+def routes(one=None, multi=None):
+    """Set plan.py's routes for a ``with`` block, then restore them:
+    ``one`` sets IL1D_ROUTE, ``multi`` IL_MULTI_ROUTE."""
+    from pyfft_tpu_torch import plan as plan_mod
+    saved = plan_mod.IL1D_ROUTE, plan_mod.IL_MULTI_ROUTE
+    if one is not None:
+        plan_mod.IL1D_ROUTE = one
+    if multi is not None:
+        plan_mod.IL_MULTI_ROUTE = multi
+    try:
+        yield
+    finally:
+        plan_mod.IL1D_ROUTE, plan_mod.IL_MULTI_ROUTE = saved
+
+
+@contextlib.contextmanager
+def held_against_plain(log: list):
+    """For a ``with`` block, hold every call of K2, K13 and K14 on the
+    card against its plain version on the same input: K2 at TOL, K13 and
+    K14 bit-exact (torch.equal).  Each call appends (kernel, shape of its
+    interleaved side, max abs err, max rel err) to ``log``.  The plain
+    version runs first, so an in-place call is held against its input.
+    The launches count as any other, so a counted run stays outside."""
+    from pyfft_tpu_torch.ops import interleave, local
+    k2, k13, k14 = (local.fft_rows_interleaved, interleave.deinterleave,
+                    interleave.interleave)
+
+    def rows_il(v, sign, *, postscale=1.0, factors=None, packed=None,
+                out=None):
+        want = local.fft_rows_interleaved_plain(v, sign, postscale, factors,
+                                                bool(packed))
+        got = k2(v, sign, postscale=postscale, factors=factors,
+                 packed=packed, out=out)
+        e = rel_err(as_c64(got), as_c64(want))
+        check(f"K2 {tuple(v.shape)} vs plain", e)
+        log.append(("local_rows_il", tuple(v.shape),
+                    float((got - want).abs().max()), e))
+        return got
+
+    def deinterleave(v, *, out=None):
+        want = [t.clone() for t in interleave.deinterleave_plain(v)]
+        got = k13(v, out=out)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K13 {tuple(v.shape)} not bit-exact")
+        log.append(("deinterleave", tuple(v.shape), 0.0, 0.0))
+        return got
+
+    def interleave_(re, im, *, out=None):
+        want = interleave.interleave_plain(re, im)
+        got = k14(re, im, out=out)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K14 {tuple(got.shape)} not bit-exact")
+        log.append(("interleave", tuple(got.shape), 0.0, 0.0))
+        return got
+
+    local.fft_rows_interleaved = rows_il
+    interleave.deinterleave, interleave.interleave = deinterleave, interleave_
+    try:
+        yield log
+    finally:
+        local.fft_rows_interleaved = k2
+        interleave.deinterleave, interleave.interleave = k13, k14
+
+
+def held_summary(log: list) -> str:
+    """One line of a held_against_plain log: each kernel's calls, shapes
+    and worst errors."""
+    parts = []
+    for kernel in ("local_rows_il", "deinterleave", "interleave"):
+        mine = [c for c in log if c[0] == kernel]
+        if mine:
+            shapes = sorted({c[1] for c in mine})
+            parts.append(f"{kernel} {len(mine)} calls at {shapes}, max abs "
+                         f"{max(c[2] for c in mine):.3e} rel "
+                         f"{max(c[3] for c in mine):.3e}")
+    return "; ".join(parts)
+
+
+def as_c64(v: torch.Tensor) -> torch.Tensor:
+    """A (..., 2n) float32 interleaved view as complex64 (..., n)."""
+    return v.contiguous().view(torch.complex64)
+
+
+def phase_il_kernels():
+    """K2 at every n against its plain version (packed or not) and numpy;
+    K13 and K14 bit-exact against theirs."""
+    from pyfft_tpu_torch.ops import interleave, local
+    rng = np.random.RandomState(14)
+    for n in IL_NS:
+        worst_plain = worst_np = 0.0
+        before = local.IL_LAUNCHES
+        cases = 0
+        for rows in (1, 130):
+            x = (rng.standard_normal((rows, n))
+                 + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+            xc = torch.from_numpy(x).cuda()
+            for sign in (-1, +1):
+                post = 0.3
+                ref = torch.from_numpy(
+                    (np.fft.fft(x.astype(np.complex128)) if sign < 0
+                     else np.fft.ifft(x.astype(np.complex128)) * n)
+                    * post).cuda()
+                xf = xc.view(torch.float32)
+                plain = {packed: as_c64(local.fft_rows_interleaved_plain(
+                    xf, sign, post, packed=packed))
+                    for packed in (False, True)}
+                for mode in ("out", "inplace", "packed"):
+                    v = xc.clone().view(torch.float32)
+                    out = v if mode == "inplace" else None
+                    y = local.fft_rows_interleaved(
+                        v, sign, postscale=post, out=out,
+                        packed=mode == "packed")
+                    torch.cuda.synchronize()
+                    if mode == "inplace" and y.data_ptr() != v.data_ptr():
+                        raise AssertionError("in-place K2 wrote elsewhere")
+                    got = as_c64(y)
+                    e_plain = rel_err(got, plain[mode == "packed"])
+                    e_np = rel_err(got, ref)
+                    tag = f"n={n} rows={rows} sign={sign} {mode}"
+                    check(f"K2 vs plain {tag}", e_plain)
+                    check(f"K2 vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        if local.IL_LAUNCHES - before != cases:
+            raise AssertionError(f"K2 n={n}: {local.IL_LAUNCHES - before} "
+                                 f"launches for {cases} calls")
+        print(f"phase 14 K2 n={n}: {cases} cases (out of place, in place, "
+              f"packed), max rel err vs plain {worst_plain:.3e}, vs numpy "
+              f"{worst_np:.3e} (gate {TOL:.0e})")
+
+    def strided(t, pad, lead=0):
+        """t's values in a wider buffer: a view with row stride
+        width + pad starting ``lead`` floats in."""
+        rows, width = t.shape
+        buf = torch.zeros((rows, width + pad), device="cuda")
+        view = buf[:, lead:lead + width]
+        view.copy_(t)
+        return view
+
+    # (rows, n, layout, (pad, lead) of the interleaved rows and of the
+    # planes' rows): dense takes the vector path with no row arithmetic;
+    # rows padded to 16 and 8 bytes the vector path by rows; rows starting
+    # off those alignments the scalar path
+    cases = []
+    for rows, n, layout, geo in (
+            (130, 4096, "dense", None), (4096, 4096, "dense", None),
+            (33, 1001, "dense, odd n", None),
+            (64, 1000, "rows 16-byte aligned", ((4, 0), (2, 0))),
+            (64, 1001, "unaligned rows", ((6, 2), (3, 1)))):
+        v = torch.randn((rows, 2 * n), device="cuda")
+        re_in, im_in = torch.randn((2, rows, n), device="cuda").unbind(0)
+        out = None
+        if geo:
+            (vpad, vlead), (ppad, plead) = geo
+            v = strided(v, vpad, vlead)
+            re_in, im_in = (strided(t, ppad, plead) for t in (re_in, im_in))
+            out = tuple(strided(torch.empty((rows, n), device="cuda"), ppad,
+                                plead) for _ in range(2))
+        pr, pi = interleave.deinterleave_plain(v)
+        re, im = interleave.deinterleave(v, out=out)
+        vi = interleave.interleave(re_in, im_in)
+        back = interleave.interleave(re, im)
+        torch.cuda.synchronize()
+        ok = (torch.equal(re, pr) and torch.equal(im, pi)
+              and torch.equal(vi, interleave.interleave_plain(re_in, im_in))
+              and torch.equal(back, v))
+        if not ok:
+            raise AssertionError(f"K13/K14 not bit-exact at ({rows}, 2*{n}) "
+                                 f"{layout}")
+        cases.append(f"({rows}, 2*{n}) {layout}")
+    print(f"phase 14 K13/K14 bit-exact against their plain versions and "
+          f"in a round trip: {', '.join(cases)}")
+
+
+def route_run(plan, x, ref, label: str, phase: int = 15) -> dict:
+    """Plan.execute and its inverse, fft and ifft on ``x`` under the route
+    plan.py's routes give now, with exact launch counts; returns the
+    counts."""
+    import pyfft_tpu_torch
+    route = plan.il_route()
+    reset_counts()
+    y = plan.execute(x)
+    back = plan.execute(y, inverse=True)
+    yf = pyfft_tpu_torch.fft(x)
+    yb = pyfft_tpu_torch.ifft(yf)
+    counts = read_counts()
+    errs = {"complex": rel_err(y, ref), "roundtrip": rel_err(back, x),
+            "fft": rel_err(yf, ref), "ifft(fft)": rel_err(yb, x)}
+    for k, e in errs.items():
+        check(f"{label} {route} {k}", e)
+    want = expect(*[route_counts(plan)] * 4)
+    if counts != want:
+        raise AssertionError(f"{label} {route}: launches {counts}, expected "
+                             f"{want}")
+    print(f"phase {phase} {label} route {route!r}: launches "
+          f"{ {k: v for k, v in counts.items() if v} } over 4 executes, "
+          + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+          + f" (gate {TOL:.0e})")
+    return counts
+
+
+def time_routes(run, names=ROUTES, table: str = "one",
+                rounds: int = 3) -> dict:
+    """``run`` under each route of ``names`` (set through ``routes`` as
+    ``table``), in ``rounds`` turns with the order reversed each turn, so
+    that a drift of the card favours no route.  Per route, the lists of
+    its rounds: "event", the median of per-call events (``time_ms``: where
+    the host takes longer than the device, the host's time); "device"
+    and "host", ms per call with the host ahead (``time_queued_ms``)."""
+    from pyfft_tpu_torch.utils.profiling import time_ms, time_queued_ms
+    out = {r: {"event": [], "device": [], "host": []} for r in names}
+    for i in range(rounds):
+        for route in (names if i % 2 == 0 else names[::-1]):
+            with routes(**{table: route}):
+                out[route]["event"].append(time_ms(run))
+                dev, host = time_queued_ms(run)
+                out[route]["device"].append(dev)
+                out[route]["host"].append(host)
+    return out
+
+
+def verdict(t: dict) -> tuple[str, bool]:
+    """(the route of least device time, best of its rounds; whether that
+    is resolved: its worst round below every other route's best)."""
+    best = {r: min(v["device"]) for r, v in t.items()}
+    win = min(best, key=best.get)
+    return win, all(max(t[win]["device"]) < best[r] for r in t if r != win)
+
+
+def routes_line(t: dict) -> str:
+    """Each route's device, event and host ms over its rounds."""
+    def span(v):
+        return f"{min(v):.4f}-{max(v):.4f}"
+    return ", ".join(f"{r} device {span(v['device'])} event "
+                     f"{span(v['event'])} host {span(v['host'])} ms"
+                     for r, v in t.items())
+
+
+def phase_config2i(copy_gbs):
+    """Config 2i under each route; K2, K13 and K14 timed at its shape and
+    held against their plain versions at every shape the routes give
+    them; each route timed at every n and on the multi-pass plans, and
+    the winners printed beside plan.py's routes."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch import plan as plan_mod
+    from pyfft_tpu_torch.ops import interleave, local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    held = []
+    x = make_data((BATCH, N), seed=15)
+    ref = numpy_ref(x, 1)
+    plan = pyfft_tpu_torch.Plan((N,), device="cuda")
+    launches = dict.fromkeys(KERNELS, 0)
+    for route in ROUTES:
+        with routes(one=route):
+            if plan.il_route() != route:
+                raise AssertionError(f"route not read: {route}")
+            for k, v in route_run(plan, x, ref, "config 2i").items():
+                launches[k] += v
+            with held_against_plain(held):
+                plan.execute(plan.execute(x), inverse=True)
+    del ref
+    t2i = time_routes(lambda: plan.execute(x, wait_for_finish=False))
+    win, resolved = verdict(t2i)
+    lib_ms = time_ms(lambda: torch.fft.fft(x))
+    print(f"phase 15 config 2i Plan.execute by route, 3 rounds: "
+          + routes_line(t2i) + f" -> {win} "
+          f"({'resolved' if resolved else 'unresolved'}); torch.fft.fft "
+          f"{lib_ms:.4f} ms (library, context only)")
+
+    # the three kernels alone at config 2i's shape
+    xf = x.view(torch.float32)
+    y = torch.empty_like(x)
+    yf = y.view(torch.float32)
+    re, im = interleave.deinterleave(xf)
+    local.fft_rows_interleaved(xf, -1, out=yf)
+    plain = local.fft_rows_interleaved_plain(xf, -1)
+    pr, pi = interleave.deinterleave_plain(xf)
+    vi = interleave.interleave(re, im)
+    torch.cuda.synchronize()
+    k2_abs = float((yf - plain).abs().max())
+    k2_rel = rel_err(y, as_c64(plain))
+    check("config 2i K2 vs plain", k2_rel)
+    del plain
+    k13_abs = float(max((re - pr).abs().max(), (im - pi).abs().max()))
+    k14_abs = float((vi - xf).abs().max())
+    if k13_abs or k14_abs:
+        raise AssertionError(f"config 2i K13/K14 not bit-exact: "
+                             f"{k13_abs}, {k14_abs}")
+    del pr, pi, vi
+    moved = 2 * BATCH * N * 8
+    timed = {}
+    for name, kernel, plain_fn, library, flops in (
+            ("local_rows_il",
+             lambda: local.fft_rows_interleaved(xf, -1, out=yf),
+             lambda: local.fft_rows_interleaved_plain(xf, -1),
+             lambda: torch.fft.fft(x), fft_flops(N, BATCH)),
+            ("deinterleave",
+             lambda: interleave.deinterleave(xf, out=(re, im)),
+             lambda: interleave.deinterleave_plain(xf),
+             lambda: xf.view(BATCH, N, 2).permute(2, 0, 1).contiguous(), 0),
+            ("interleave",
+             lambda: interleave.interleave(re, im, out=yf),
+             lambda: interleave.interleave_plain(re, im),
+             lambda: torch.stack([re, im], dim=-1), 0)):
+        ms, plain_ms, lib = (time_ms(kernel), time_ms(plain_fn),
+                             time_ms(library))
+        b_ms, b_by = bound(moved, flops)
+        copy_ms = moved / (copy_gbs * 1e9) * 1e3
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "copy_bound_ms": copy_ms,
+                       "max_abs_err": {"local_rows_il": k2_abs,
+                                       "deinterleave": k13_abs,
+                                       "interleave": k14_abs}[name],
+                       "max_rel_err": k2_rel if name == "local_rows_il"
+                       else 0.0}
+        print(f"phase 15 config 2i {name} ({BATCH}, 2*{N}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, published peaks), {copy_ms:.4f} ms at the measured "
+              f"{copy_gbs:.1f} GB/s copy, kernel at {copy_ms / ms:.3f} of "
+              f"it; library {lib:.4f} ms (context only)")
+    del x, y, xf, yf, re, im
+    torch.cuda.empty_cache()
+
+    # single pass: the three routes at every n, 2^24 points each; 64 rows
+    # spread over the batch against numpy, every row of each K2, K13 and
+    # K14 call against its plain version
+    winners, sweep = {}, {}
+    for n in IL_NS:
+        rows = (1 << 24) // n
+        xs = make_data((rows, n), seed=150 + n.bit_length())
+        pick = torch.linspace(0, rows - 1, 64, device="cuda").long()
+        ref = numpy_ref(xs[pick], 1)
+        p = pyfft_tpu_torch.Plan((n,), device="cuda")
+        for route in ROUTES:
+            with routes(one=route), held_against_plain(held):
+                check(f"n={n} {route}", rel_err(p.execute(xs)[pick], ref))
+        sweep[n] = time_routes(lambda: p.execute(xs, wait_for_finish=False))
+        winners[n] = verdict(sweep[n])
+        print(f"phase 15 single pass n={n} ({rows} rows): "
+              + routes_line(sweep[n]) + f" -> {winners[n][0]} "
+              f"({'resolved' if winners[n][1] else 'unresolved'})")
+        del xs, ref
+    torch.cuda.empty_cache()
+
+    # multi-pass plans: stream against planes, each against numpy, the
+    # stream route's K13 and K14 against their plain versions
+    multi = {}
+    for name in ("config 3", "config 4", "config 6+"):
+        spec = PATHS[name]
+        xs = make_data((spec.batch,) + spec.shape, seed=160)
+        ref = numpy_ref(xs, len(spec.shape))
+        p = pyfft_tpu_torch.Plan(spec.shape, device="cuda")
+        errs = {}
+        for route in ("stream", "planes"):
+            with routes(multi=route):
+                reset_counts()
+                out = p.execute(xs)
+                counts = read_counts()
+                want = expect({k: c for k, c in zip(KERNELS, spec.per)},
+                              route_counts(p))
+                if counts != want:
+                    raise AssertionError(f"{name} {route}: launches "
+                                         f"{counts}, expected {want}")
+                errs[route] = rel_err(out, ref)
+                check(f"{name} {route} vs numpy", errs[route])
+                del out
+                if route == "stream":
+                    with held_against_plain(held):
+                        p.execute(xs)
+        del ref
+        multi[name] = time_routes(
+            lambda: p.execute(xs, wait_for_finish=False),
+            ("stream", "planes"), "multi")
+        mwin, mres = verdict(multi[name])
+        print(f"phase 15 {name} complex form, 3 rounds: "
+              + routes_line(multi[name]) + f" -> {mwin} "
+              f"({'resolved' if mres else 'unresolved'}); err vs numpy "
+              f"stream {errs['stream']:.3e}, planes {errs['planes']:.3e}")
+        del xs
+        torch.cuda.empty_cache()
+    print(f"phase 15 K2, K13 and K14 against their plain versions on every "
+          f"route's shapes: {held_summary(held)} (K2 gate {TOL:.0e}, K13 and "
+          f"K14 bit-exact)")
+    one = {n: w for n, (w, res) in winners.items() if res}
+    mwins = {name: verdict(t) for name, t in multi.items()}
+    same = (all(w == plan_mod.IL1D_ROUTE for w in one.values())
+            and all(w == plan_mod.IL_MULTI_ROUTE
+                    for w, res in mwins.values() if res))
+    print(f"phase 15 routes measured: single pass, resolved {one}, "
+          f"unresolved at n = {[n for n in winners if n not in one]}; "
+          f"multi-pass {mwins}; plan.py holds IL1D_ROUTE = "
+          f"{plan_mod.IL1D_ROUTE!r}, IL_MULTI_ROUTE = "
+          f"{plan_mod.IL_MULTI_ROUTE!r}, "
+          f"{'as every resolved winner' if same else 'against a resolved winner'}")
+    return {"counts": launches, "timed": timed, "held": held,
+            "config_2i_routes": t2i, "library_ms": lib_ms,
+            "winners": {n: {"route": w, "resolved": res}
+                        for n, (w, res) in winners.items()},
+            "single_pass": sweep, "multi_pass": multi}
+
+
+# ------------------------------------------------------- real transforms
+
+REAL_CASES = {
+    "rfft": ((4096, 8192), 1),
+    "rfft2": ((16, 1024, 1024), 2),
+    "rfftn": ((256, 256, 256), 3),
+}
+
+
+def phase_real():
+    """rfft, rfft2 and rfftn at full size with their inverses, against
+    numpy in float64, with exact launch counts and timings; then each
+    K2 call of those runs (the last axis's and the leading axes' views)
+    against its plain version."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch import real
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    launches = dict.fromkeys(KERNELS, 0)
+    rows, held = {}, []
+    for name, (shape, nd) in REAL_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(16 + nd)
+        x = torch.randn(shape, generator=g, device="cuda")
+        inv_name = "i" + name
+        fwd = getattr(pyfft_tpu_torch, name)
+        inv = getattr(pyfft_tpu_torch, inv_name)
+        lib_fwd = getattr(torch.fft, name)
+        lib_inv = getattr(torch.fft, inv_name)
+        axes = tuple(range(-nd, 0))
+        dims = axes[0] if nd == 1 else axes
+        sizes = shape[-1] if nd == 1 else shape[len(shape) - nd:]
+        # each inner complex execute: the last axis's n/2, then the others
+        inner = [shape[-1] // 2] + list(shape[len(shape) - nd:-1])
+        want = expect(*[route_counts(pyfft_tpu_torch.Plan((m,),
+                                                          device="cuda"))
+                        for m in inner * 2])
+        reset_counts()
+        X = fwd(x)
+        back = inv(X)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{want}")
+        for k, v in counts.items():
+            launches[k] += v
+        with held_against_plain(held):
+            inv(fwd(x))
+        xn = x.cpu().numpy().astype(np.float64)
+        ref = np.fft.rfftn(xn, axes=axes)
+        err = rel_err(X.cpu().numpy(), ref)
+        del ref
+        err_back = rel_err(back, x)
+        check(f"{name} vs numpy", err)
+        check(f"{inv_name}({name}) round trip", err_back)
+        if tuple(X.shape) != (*shape[:-1], shape[-1] // 2 + 1) or (
+                X.dtype != torch.complex64 or back.dtype != torch.float32):
+            raise AssertionError(f"{name}: {X.dtype} {tuple(X.shape)}, "
+                                 f"{back.dtype}")
+        n = shape[-1]
+        Z = pyfft_tpu_torch.get_plan((n // 2,), device="cuda").execute(
+            torch.view_as_complex(x.view(*shape[:-1], n // 2, 2)))
+        t = {"ms": time_ms(lambda: fwd(x)),
+             "library_ms": time_ms(lambda: lib_fwd(x, None, dims)),
+             "inverse_ms": time_ms(lambda: inv(X)),
+             "library_inverse_ms": time_ms(lambda: lib_inv(X, sizes, dims)),
+             "untangle_ms": time_ms(lambda: real._untangle(Z, n)),
+             "tangle_ms": time_ms(lambda: real._tangle(X, n)),
+             "err": err, "roundtrip_err": err_back}
+        rows[name] = t
+        print(f"phase 16 {name} {shape} float32: launches "
+              f"{ {k: v for k, v in counts.items() if v} } (forward and "
+              f"inverse), err vs numpy {err:.3e}, round trip "
+              f"{err_back:.3e} (gate {TOL:.0e}); {name} {t['ms']:.4f} ms "
+              f"(torch.fft.{name} {t['library_ms']:.4f} ms), {inv_name} "
+              f"{t['inverse_ms']:.4f} ms (torch.fft.{inv_name} "
+              f"{t['library_inverse_ms']:.4f} ms); untangle alone "
+              f"{t['untangle_ms']:.4f} ms, inverse's "
+              f"{t['tangle_ms']:.4f} ms")
+        del x, X, back, Z
+        torch.cuda.empty_cache()
+    print(f"phase 16 K2 against its plain version on every view the real "
+          f"family gave it: {held_summary(held)} (gate {TOL:.0e})")
+    return {"counts": launches, "timings": rows, "held": held}
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -909,8 +1468,12 @@ def main() -> int:
     timed64 = phase_f64_timings(results64, t["copy_gbs"])
     e2e.update(phase_end_to_end(results64, 13))
 
+    phase_il_kernels()
+    il = phase_config2i(t["copy_gbs"])
+    rl = phase_real()
+
     launches = dict(counts2)
-    for r in (*results.values(), *results64.values()):
+    for r in (*results.values(), *results64.values(), il, rl):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -956,9 +1519,33 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_df64.py:761", five, checks, launches,
         "config 5, 2^22 x 64 complex128: both four-step passes")
     cols64_entry["library_ms"] = e2e["config 5"]["library_ms"]
+    # K2, K13 and K14 timed at config 2i's shape (4096 x 4096 complex64),
+    # their errors over config 2i and every call held against the plain
+    # version in phases 15 and 16
+    held = il["held"] + rl["held"]
+    il_entries = [
+        {"name": name, "route": "cuda",
+         "source": f"pyfft_tpu_torch/ops/csrc/{src}.cu",
+         "replaces": replaces, "launches": launches[name],
+         **{k: il["timed"][name][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "max_abs_err": max([il["timed"][name]["max_abs_err"]]
+                            + [c[2] for c in held if c[0] == name]),
+         "max_rel_err": max([il["timed"][name]["max_rel_err"]]
+                            + [c[3] for c in held if c[0] == name]),
+         "shape": "config 2i, 4096 x 4096 complex64"}
+        for name, src, replaces in (
+            ("local_rows_il", "local_rows",
+             "pyfft_tpu/ops/pallas_local.py:743"),
+            ("deinterleave", "interleave", "pyfft_tpu/ops/interleave.py:92"),
+            ("interleave", "interleave", "pyfft_tpu/ops/interleave.py:111"))]
     print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
-                                  rows64_entry, cols64_entry],
-                      "passes": timed + timed64, "end_to_end": e2e}))
+                                  rows64_entry, cols64_entry, *il_entries],
+                      "passes": timed + timed64, "end_to_end": e2e,
+                      "routes": {k: il[k] for k in
+                                 ("config_2i_routes", "library_ms",
+                                  "winners", "single_pass", "multi_pass")},
+                      "real": rl["timings"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

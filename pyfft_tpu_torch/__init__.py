@@ -13,7 +13,9 @@ Complex128 takes the same row and column kernels in native FP64, on axes
 of up to 4096 points and their four-step and six-step products
 (``ops/fp64.py``).  The other passes (short axes or trails, a long axis
 other than the last in complex128) run a plain torch matmul chain (see
-ROADMAP.md).
+ROADMAP.md).  Interleaved complex64 storage takes the interleaved row
+kernel or the de/interleave kernels where ``plan.py``'s routes say so, and the real transforms (``real.py``: ``rfft`` and its family) run
+their inner complex FFT on the real input's interleaved view.
 """
 
 VERSION = (0, 1, 0)
@@ -23,7 +25,12 @@ from pyfft_tpu_torch.plan import Plan  # noqa: E402
 from pyfft_tpu_torch.api import (fft, ifft, fft2, ifft2, fftn,  # noqa: E402
                                  ifftn, fftshift, ifftshift, fftfreq,
                                  rfftfreq, get_plan)
+from pyfft_tpu_torch.real import (rfft, irfft, rfft2,  # noqa: E402
+                                  irfft2, rfftn, irfftn, rfft_planar,
+                                  irfft_planar, rfftn_planar, irfftn_planar)
 
 __all__ = ["Plan", "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
+           "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
+           "rfft_planar", "irfft_planar", "rfftn_planar", "irfftn_planar",
            "fftshift", "ifftshift", "fftfreq", "rfftfreq", "get_plan",
            "VERSION", "__version__"]

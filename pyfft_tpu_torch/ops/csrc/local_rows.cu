@@ -1,5 +1,6 @@
 // Batched length-n complex DFT along contiguous rows: the "local" row
-// kernels of pyfft_tpu_torch, complex64 (K1) and complex128 (K11).
+// kernels of pyfft_tpu_torch, complex64 (K1) and complex128 (K11), and the
+// interleaved complex64 row kernel (K2).
 //
 // Replaces the JAX package's Pallas row kernels: for complex64
 // pyfft_tpu/ops/pallas_local.py `_kernel`, launched by `_row_call_inner`
@@ -53,9 +54,27 @@
 // stride, both in elements: planar data has (1, n); the two planes of
 // torch.view_as_real of a complex tensor have (2, 2n), with im = re + 1.
 //
+// K2, the interleaved I/O policy (IL = true).  It replaces the interleaved
+// branch of the same JAX kernel (`_kernel` with interleaved=True, launched
+// by `_fft_rows_interleaved`; its packed form `tile_fft_packed`, K3,
+// computes the same function on the same memory).  On the TPU that branch
+// transposes a (128, 2n) block and splits the pairs with sublane
+// relayouts; here the operand is one array of float2 (re, im) pairs with a
+// row stride in complex elements, and only the first and the last stage
+// differ from K1: the first loads each point with one 8-byte __ldg, the
+// last stores it, scaled, with one 8-byte store.  Threads with consecutive
+// j touch consecutive k in both (k = j + r*N/R in the first stage and
+// j + r*NS with NS = N/R in the last), so a warp moves 256 contiguous bytes
+// an access, where two stride-2 planes move two half-used 256-byte spans.
+// The block shape, the shared-memory buffer, the twiddle table and the
+// in-place rule are K1's; the read-only path of __ldg holds in place too,
+// since every address is read once, by the block that owns its row, before
+// that block writes it.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry points `pyfft_local_rows` (float) and
-// `pyfft_local_rows_f64` (double) at the bottom.
+// library with the plain C entry points `pyfft_local_rows` (float),
+// `pyfft_local_rows_f64` (double) and `pyfft_local_rows_il` (interleaved
+// float2) at the bottom.
 
 #include <cuda_runtime.h>
 
@@ -65,12 +84,18 @@ namespace {
 
 using namespace pyfft;
 
+// The operands: two planes each (in_re, in_im, out_re, out_im, strides in
+// reals) or, for the interleaved policy, one array of pairs each (in_c,
+// out_c, row strides in pairs, element strides unused).
 template <typename Real>
 struct Io {
+  using V = typename Complex<Real>::V;
   const Real* in_re;
   const Real* in_im;
   Real* out_re;
   Real* out_im;
+  const V* in_c;
+  V* out_c;
   int rows;
   int in_es, in_rs, out_es, out_rs;
   Real post;
@@ -88,9 +113,10 @@ struct Shape {
 
 // One radix-R Stockham stage over the block's RPB rows.  NS is the product
 // of the radices of the stages before it.  FIRST reads global memory, LAST
-// writes it; the stages between read and write shared memory.
-template <typename Real, int N, int T, int RPB, int R, int NS, bool FIRST,
-          bool LAST>
+// writes it; the stages between read and write shared memory.  IL selects
+// the interleaved I/O policy of the global reads and writes.
+template <typename Real, bool IL, int N, int T, int RPB, int R, int NS,
+          bool FIRST, bool LAST>
 __device__ __forceinline__ void stage(const Io<Real>& io,
                                       typename Complex<Real>::V* sm,
                                       const typename Complex<Real>::V*
@@ -110,12 +136,14 @@ __device__ __forceinline__ void stage(const Io<Real>& io,
     for (int r = 0; r < R; ++r) {
       const int k = j + r * NR;
       if (FIRST) {
-        if (row < io.rows) {
+        if (row >= io.rows) {
+          v[b][r] = Complex<Real>::make(0, 0);
+        } else if constexpr (IL) {
+          v[b][r] = __ldg(&io.in_c[(long long)row * io.in_rs + k]);
+        } else {
           const long long o =
               (long long)row * io.in_rs + (long long)k * io.in_es;
           v[b][r] = Complex<Real>::make(io.in_re[o], io.in_im[o]);
-        } else {
-          v[b][r] = Complex<Real>::make(0, 0);
         }
       } else {
         v[b][r] = sm[rr * N + k];
@@ -142,10 +170,15 @@ __device__ __forceinline__ void stage(const Io<Real>& io,
       const int k = base + r * NS;
       if (LAST) {
         if (row < io.rows) {
-          const long long o =
-              (long long)row * io.out_rs + (long long)k * io.out_es;
-          io.out_re[o] = v[b][r].x * io.post;
-          io.out_im[o] = v[b][r].y * io.post;
+          if constexpr (IL) {
+            io.out_c[(long long)row * io.out_rs + k] = Complex<Real>::make(
+                v[b][r].x * io.post, v[b][r].y * io.post);
+          } else {
+            const long long o =
+                (long long)row * io.out_rs + (long long)k * io.out_es;
+            io.out_re[o] = v[b][r].x * io.post;
+            io.out_im[o] = v[b][r].y * io.post;
+          }
         }
       } else {
         sm[rr * N + k] = v[b][r];
@@ -155,7 +188,7 @@ __device__ __forceinline__ void stage(const Io<Real>& io,
   if (!LAST) __syncthreads();
 }
 
-template <typename Real, int LOGN, int STAGE, int NS>
+template <typename Real, bool IL, int LOGN, int STAGE, int NS>
 __device__ __forceinline__ void stages(const Io<Real>& io,
                                        typename Complex<Real>::V* sm,
                                        const typename Complex<Real>::V*
@@ -163,13 +196,13 @@ __device__ __forceinline__ void stages(const Io<Real>& io,
                                        int row0, Real s) {
   using S = Shape<LOGN>;
   constexpr int R = (STAGE == 0 && S::REM) ? (1 << S::REM) : 8;
-  stage<Real, S::N, S::T, S::RPB, R, NS, STAGE == 0,
+  stage<Real, IL, S::N, S::T, S::RPB, R, NS, STAGE == 0,
         STAGE == S::NSTAGES - 1>(io, sm, tw, row0, s);
   if constexpr (STAGE + 1 < S::NSTAGES)
-    stages<Real, LOGN, STAGE + 1, NS * R>(io, sm, tw, row0, s);
+    stages<Real, IL, LOGN, STAGE + 1, NS * R>(io, sm, tw, row0, s);
 }
 
-template <typename Real, int LOGN>
+template <typename Real, bool IL, int LOGN>
 __global__ void __launch_bounds__(Shape<LOGN>::T)
     local_rows_kernel(Io<Real> io,
                       const typename Complex<Real>::V* __restrict__ tw,
@@ -178,11 +211,11 @@ __global__ void __launch_bounds__(Shape<LOGN>::T)
   // one raw buffer for both precisions: extern __shared__ arrays of
   // different types in one translation unit must not share a name
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  stages<Real, LOGN, 0, 1>(io, reinterpret_cast<V*>(smem_raw), tw,
-                           blockIdx.x * Shape<LOGN>::RPB, s);
+  stages<Real, IL, LOGN, 0, 1>(io, reinterpret_cast<V*>(smem_raw), tw,
+                               blockIdx.x * Shape<LOGN>::RPB, s);
 }
 
-template <typename Real, int LOGN>
+template <typename Real, bool IL, int LOGN>
 cudaError_t launch(const Io<Real>& io, const typename Complex<Real>::V* tw,
                    Real s, cudaStream_t stream) {
   using S = Shape<LOGN>;
@@ -190,46 +223,54 @@ cudaError_t launch(const Io<Real>& io, const typename Complex<Real>::V* tw,
   const int smem = S::NSTAGES > 1 ? S::P * (int)sizeof(V) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_rows_kernel<Real, LOGN>,
+        local_rows_kernel<Real, IL, LOGN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (io.rows + S::RPB - 1) / S::RPB;
-  local_rows_kernel<Real, LOGN><<<blocks, S::T, smem, stream>>>(io, tw, s);
+  local_rows_kernel<Real, IL, LOGN><<<blocks, S::T, smem, stream>>>(io, tw,
+                                                                     s);
   return cudaGetLastError();
 }
 
-// log2n -> launch<Real, log2n>, for log2n in [3, MAXLOG].
-template <typename Real, int MAXLOG>
-cudaError_t dispatch(int log2n, const void* in_re, const void* in_im,
-                     void* out_re, void* out_im, const void* tw, int rows,
-                     int in_es, int in_rs, int out_es, int out_rs, int sign,
-                     Real postscale, void* stream) {
+// log2n -> launch<Real, IL, log2n>, for log2n in [3, MAXLOG].
+template <typename Real, bool IL, int MAXLOG>
+cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
+                     void* stream) {
   using V = typename Complex<Real>::V;
-  const Io<Real> io{static_cast<const Real*>(in_re),
-                    static_cast<const Real*>(in_im),
-                    static_cast<Real*>(out_re), static_cast<Real*>(out_im),
-                    rows, in_es, in_rs, out_es, out_rs, postscale};
   const V* t = static_cast<const V*>(tw);
   const Real s = sign < 0 ? Real(-1) : Real(1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || log2n > MAXLOG) return cudaErrorInvalidValue;
+  if (io.rows <= 0 || log2n > MAXLOG) return cudaErrorInvalidValue;
   switch (log2n) {
-    case 3: return launch<Real, 3>(io, t, s, st);
-    case 4: return launch<Real, 4>(io, t, s, st);
-    case 5: return launch<Real, 5>(io, t, s, st);
-    case 6: return launch<Real, 6>(io, t, s, st);
-    case 7: return launch<Real, 7>(io, t, s, st);
-    case 8: return launch<Real, 8>(io, t, s, st);
-    case 9: return launch<Real, 9>(io, t, s, st);
-    case 10: return launch<Real, 10>(io, t, s, st);
-    case 11: return launch<Real, 11>(io, t, s, st);
-    case 12: return launch<Real, 12>(io, t, s, st);
+    case 3: return launch<Real, IL, 3>(io, t, s, st);
+    case 4: return launch<Real, IL, 4>(io, t, s, st);
+    case 5: return launch<Real, IL, 5>(io, t, s, st);
+    case 6: return launch<Real, IL, 6>(io, t, s, st);
+    case 7: return launch<Real, IL, 7>(io, t, s, st);
+    case 8: return launch<Real, IL, 8>(io, t, s, st);
+    case 9: return launch<Real, IL, 9>(io, t, s, st);
+    case 10: return launch<Real, IL, 10>(io, t, s, st);
+    case 11: return launch<Real, IL, 11>(io, t, s, st);
+    case 12: return launch<Real, IL, 12>(io, t, s, st);
     case 13:
-      if constexpr (MAXLOG >= 13) return launch<Real, 13>(io, t, s, st);
+      if constexpr (MAXLOG >= 13) return launch<Real, IL, 13>(io, t, s, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The planar policy's operands.
+template <typename Real>
+Io<Real> planes(const void* in_re, const void* in_im, void* out_re,
+                void* out_im, int rows, int in_es, int in_rs, int out_es,
+                int out_rs, Real postscale) {
+  return Io<Real>{static_cast<const Real*>(in_re),
+                  static_cast<const Real*>(in_im),
+                  static_cast<Real*>(out_re),
+                  static_cast<Real*>(out_im),
+                  nullptr, nullptr, rows, in_es, in_rs, out_es, out_rs,
+                  postscale};
 }
 
 }  // namespace
@@ -243,9 +284,11 @@ extern "C" int pyfft_local_rows(const void* in_re, const void* in_im,
                                 int rows, int log2n, int in_es, int in_rs,
                                 int out_es, int out_rs, int sign,
                                 float postscale, void* stream) {
-  return (int)dispatch<float, 13>(log2n, in_re, in_im, out_re, out_im, tw,
-                                  rows, in_es, in_rs, out_es, out_rs, sign,
-                                  postscale, stream);
+  return (int)dispatch<float, false, 13>(
+      log2n,
+      planes<float>(in_re, in_im, out_re, out_im, rows, in_es, in_rs, out_es,
+                    out_rs, postscale),
+      tw, sign, stream);
 }
 
 // complex128: double planes, 8 <= n <= 4096, computed in native FP64.
@@ -255,7 +298,22 @@ extern "C" int pyfft_local_rows_f64(const void* in_re, const void* in_im,
                                     int in_es, int in_rs, int out_es,
                                     int out_rs, int sign, double postscale,
                                     void* stream) {
-  return (int)dispatch<double, 12>(log2n, in_re, in_im, out_re, out_im, tw,
-                                   rows, in_es, in_rs, out_es, out_rs, sign,
-                                   postscale, stream);
+  return (int)dispatch<double, false, 12>(
+      log2n,
+      planes<double>(in_re, in_im, out_re, out_im, rows, in_es, in_rs,
+                     out_es, out_rs, postscale),
+      tw, sign, stream);
+}
+
+// K2, complex64 interleaved: `in` and `out` are (rows, n) arrays of float2
+// (re, im) pairs, each 8-byte aligned, with row strides in pairs; 8 <= n
+// <= 8192.  `out` may be `in` (in place).
+extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
+                                   int rows, int log2n, int in_rs,
+                                   int out_rs, int sign, float postscale,
+                                   void* stream) {
+  const Io<float> io{nullptr, nullptr, nullptr, nullptr,
+                     static_cast<const float2*>(in), static_cast<float2*>(out),
+                     rows, 1, in_rs, 1, out_rs, postscale};
+  return (int)dispatch<float, true, 13>(log2n, io, tw, sign, stream);
 }

@@ -4,17 +4,21 @@ Counterpart of ``pyfft_tpu/ops/pallas_local.py``'s ``fft_axis``: the row
 path (``axis=-1`` -> ``_fft_rows`` -> ``_row_call_inner`` -> the Pallas
 kernel ``_kernel``) and the column path (``axis != -1`` -> ``_fft_cols``
 -> ``_fft_cols_inner`` -> the Pallas kernel ``_col_kernel``, with its
-fused four-step twiddles and swapped stores).  Two implementations of each
-function live here:
+fused four-step twiddles and swapped stores); and of its
+``fft_rows_interleaved``, the row DFT of interleaved complex64 storage
+(the same ``_kernel`` with ``interleaved=True``, packed or not).  Two
+implementations of each function live here:
 
 * the Hopper kernels ``csrc/local_rows.cu`` and ``csrc/local_cols.cu``
   (Stockham radix-8 chains in shared memory, one device-memory round trip
-  each), launched by ``_launch_rows`` and ``_launch_cols`` for every CUDA
-  tensor: on float32 planes K1 and K5, on float64 planes (complex128) their
-  native-FP64 instantiations K11 and K12, the counterparts of
-  ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see ``ops/fp64.py``);
-* their plain torch versions, ``fft_rows_plain`` and ``fft_cols_plain``,
-  taken for every CPU tensor.  On float32 planes they are built on
+  each), launched by ``_launch_rows``, ``_launch_rows_il`` and
+  ``_launch_cols`` for every CUDA tensor: on float32 planes K1 and K5, on
+  float64 planes (complex128) their native-FP64 instantiations K11 and
+  K12, the counterparts of ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see
+  ``ops/fp64.py``), and on interleaved complex64 K1's interleaved I/O
+  policy, K2, which serves the packed form K3 too;
+* their plain torch versions, ``fft_rows_plain``, ``fft_cols_plain`` and
+  ``fft_rows_interleaved_plain``, taken for every CPU tensor.  On float32 planes they are built on
   ``tile_fft`` with ``needed_tables`` and ``_butterfly``: a line-for-line
   mirror of the JAX package's tile math (the same factor chains, radix-8
   constants, stacked DFT matrices and folded last twiddle), which the tests
@@ -44,10 +48,13 @@ from pyfft_tpu_torch.reference import fft_planar
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
-           "tile_fft", "needed_tables", "tables_from_numpy",
+           "fft_rows_interleaved", "fft_rows_interleaved_plain",
+           "tile_fft", "tile_fft_packed", "needed_tables",
+           "needed_tables_packed", "tables_from_numpy",
            "default_factors", "row_factors", "col_factors",
            "butterfly_factors", "precise_factors", "MAX_LOCAL_N",
-           "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64", "COL_LAUNCHES_F64"]
+           "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
+           "COL_LAUNCHES_F64", "IL_LAUNCHES"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -58,6 +65,13 @@ COL_LAUNCHES = 0
 # The same for the float64 (complex128) kernels: rows K11, columns K12.
 LAUNCHES_F64 = 0
 COL_LAUNCHES_F64 = 0
+# The same for _launch_rows_il (K2, interleaved complex64 rows).
+IL_LAUNCHES = 0
+
+# fft_rows_interleaved's default form, as in the JAX package: its packed
+# form was a TPU compile hazard there.  Both forms run K2 on the card, and
+# the flag picks only the plain version's chain.
+PACKED_INTERLEAVED = False
 
 # The plane types the kernels take, with the numpy type of their tables.
 _NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
@@ -314,6 +328,109 @@ def tile_fft(re, im, tables: dict, n: int, factors=None, stacked: bool = True,
     return xr.reshape(n, *trail), xi.reshape(n, *trail)
 
 
+def _pair_swap(x):
+    """(re, im) -> (im, re) over the pair axis at -2."""
+    return x.flip(-2)
+
+
+def _pair_i(x, sign):
+    """(sign * i) * z on a packed tensor (pair axis at -2):
+    i*z = (-im, re), -i*z = (im, -re)."""
+    lo, hi = (-1.0, 1.0) if sign >= 0 else (1.0, -1.0)
+    m = torch.tensor([[lo], [hi]], dtype=x.dtype, device=x.device)
+    return _pair_swap(x) * m
+
+
+def _fft4_packed(xs, sign):
+    """4-point DFT of 4 packed slices; mirrors _fft4_lists."""
+    a, b = xs[0] + xs[2], xs[0] - xs[2]
+    c, d = xs[1] + xs[3], xs[1] - xs[3]
+    idd = _pair_i(d, sign)
+    return [a + c, b + idd, a - c, b - idd]
+
+
+def _butterfly_packed(f, x, axis, sign):
+    """pallas_local._butterfly_packed: the packed-complex analog of
+    _butterfly (f in 2, 4, 8); the output digit is prepended at axis 0."""
+    xs = [x.select(axis, j) for j in range(f)]
+    if f == 2:
+        ys = [xs[0] + xs[1], xs[0] - xs[1]]
+    elif f == 4:
+        ys = _fft4_packed(xs, sign)
+    elif f == 8:
+        ev = [xs[j] + xs[4 + j] for j in range(4)]
+        od = [xs[j] - xs[4 + j] for j in range(4)]
+        c = _SQRT1_2
+        if sign < 0:   # w8^1 = c(1-i), w8^2 = -i, w8^3 = -c(1+i)
+            od[1] = c * (od[1] - _pair_i(od[1], 1))
+            od[2] = _pair_i(od[2], -1)
+            od[3] = -c * (od[3] + _pair_i(od[3], 1))
+        else:          # w8^-1 = c(1+i), w8^-2 = i, w8^-3 = c(-1+i)
+            od[1] = c * (od[1] + _pair_i(od[1], 1))
+            od[2] = _pair_i(od[2], 1)
+            od[3] = -c * (od[3] - _pair_i(od[3], 1))
+        a = _fft4_packed(ev, sign)
+        b = _fft4_packed(od, sign)
+        ys = [q for pair in zip(a, b) for q in pair]
+    else:
+        raise ValueError(f"unsupported butterfly radix {f}")
+    return torch.stack(ys, dim=0)
+
+
+def needed_tables_packed(n: int, sign: int, factors=None,
+                         dtype=np.float32) -> dict:
+    """pallas_local.needed_tables_packed: ("dftp", f) = one (f, 2f)
+    [Wr | Wi] matrix, contracted against [x ; i*x], and ("twp", i, chain)
+    twiddles broadcast over the pair axis, the sine table carrying the pair
+    signs (-ti at re, +ti at im)."""
+    factors = tuple(factors or default_factors(n))
+    assert math.prod(factors) == n
+    tables: dict = {}
+    for i, f in enumerate(factors):
+        if f not in VPU_RADICES:
+            wr, wi = dft_matrix(f, sign, np.float64)
+            tables.setdefault(("dftp", f),
+                              (np.concatenate([wr, wi], 1).astype(dtype),))
+        if i < len(factors) - 1:
+            rest = factors[i + 1:]
+            r = math.prod(rest)
+            tr, ti = twiddle_table(f, r, f * r, sign, dtype)
+            shape = (f,) + (1,) * i + rest + (1, 1)
+            tip = (ti.reshape(shape)
+                   * np.asarray([-1.0, 1.0], dtype).reshape(2, 1))
+            tables[("twp", i, factors)] = (tr.reshape(shape), tip)
+    return tables
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables_packed(n: int, sign: int, factors: tuple,
+                          device: torch.device) -> dict:
+    return tables_from_numpy(needed_tables_packed(n, sign, factors=factors),
+                             device)
+
+
+def tile_fft_packed(x, tables: dict, n: int, factors=None, sign: int = -1):
+    """Length-n DFT over the packed rows of a (2n, lanes) tile whose rows
+    alternate (re, im): pallas_local.tile_fft_packed in torch, the same
+    digit-prepend chain as ``tile_fft`` with the pair axis kept in place."""
+    lanes = x.shape[-1]
+    assert tuple(x.shape) == (2 * n, lanes), (tuple(x.shape), n)
+    factors = tuple(factors or default_factors(n))
+    m = len(factors)
+    x = x.reshape(*factors, 2, lanes)
+    for i, f in enumerate(factors):
+        if f in VPU_RADICES:
+            x = _butterfly_packed(f, x, i, sign)
+        else:
+            (wcat,) = tables[("dftp", f)]
+            xcat = torch.cat([x, _pair_i(x, 1)], dim=i)
+            x = _dg(wcat, xcat, i)
+        if i < m - 1:
+            tr, tip = tables[("twp", i, factors)]
+            x = tr * x + tip * _pair_swap(x)
+    return x.reshape(2 * n, lanes)
+
+
 def supported(re: torch.Tensor, axis: int) -> bool:
     """Whether a local kernel covers this tensor/axis (pallas_local.
     supported, and pallas_df64.supported's local range): a power of two in
@@ -435,6 +552,141 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
     else:
         LAUNCHES += 1
     return out_re, out_im
+
+
+# ------------------------------------------------- interleaved row path
+
+
+def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
+                               factors=None, packed: bool = False):
+    """The plain torch version of K2 on any device: the DFT of the complex
+    rows of a (..., 2n) float32 interleaved view, times ``postscale``.
+
+    Not packed: the two stride-2 planes through ``fft_rows_plain``, then
+    stacked back into pairs.  Packed: ``tile_fft_packed`` on the (2n, rows)
+    transposed view, as the JAX kernel's packed branch.  The chain defaults
+    to ``default_factors(n)``, as JAX's ``fft_rows_interleaved`` does.
+    """
+    n = v.shape[-1] // 2
+    factors = tuple(factors or default_factors(n))
+    v2 = v.reshape(-1, 2 * n)
+    if packed:
+        tables = _device_tables_packed(n, sign, factors, v.device)
+        x = tile_fft_packed(v2.T, tables, n, factors, sign)
+        if postscale != 1.0:
+            x = x * postscale
+        return x.T.contiguous().reshape(v.shape)
+    xr, xi = fft_rows_plain(v2[:, 0::2], v2[:, 1::2], sign, postscale,
+                            factors)
+    return torch.stack([xr, xi], dim=-1).reshape(v.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_il_fn():
+    """The C entry point ``pyfft_local_rows_il`` of csrc/local_rows.cu,
+    built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_rows").pyfft_local_rows_il
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _il_rows(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """A (..., 2n) float32 view -> its (rows, 2n) view, checked for K2:
+    unit element stride, even row stride and an 8-byte aligned start, so
+    that every point is one aligned float2."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what}: K2 takes float32 interleaved views of "
+                         f"complex64, got {t.dtype}")
+    if tuple(t.shape[-1:]) != (2 * n,):
+        raise ValueError(f"{what}: last axis {tuple(t.shape)}, expected "
+                         f"{2 * n}")
+    t2 = _rows_view(t, 2 * n, what)
+    if t2.stride(1) != 1 or (t2.shape[0] > 1 and t2.stride(0) % 2):
+        raise ValueError(f"{what}: K2 needs contiguous pairs and an even row "
+                         f"stride, got strides {t2.stride()}")
+    if t2.data_ptr() % 8:
+        raise ValueError(f"{what}: K2 needs an 8-byte aligned view (a float "
+                         f"view at an odd offset is not), got address "
+                         f"{t2.data_ptr():#x}")
+    return t2
+
+
+def _il_n(v) -> int:
+    """The complex points a row of the (..., 2n) view ``v``, or raise where
+    K2 does not take them."""
+    n = v.shape[-1] // 2
+    if not (v.shape[-1] % 2 == 0 and is_power_of_two(n)
+            and MIN_LOCAL_N <= n <= MAX_LOCAL_N):
+        raise ValueError(f"K2 takes n = 2^k in [{MIN_LOCAL_N}, "
+                         f"{MAX_LOCAL_N}] complex points a row, got a last "
+                         f"axis of {v.shape[-1]}")
+    return n
+
+
+def _launch_rows_il(v, out, sign: int, postscale: float):
+    """Launch K2 (``pyfft_local_rows_il``) from the (..., 2n) view ``v``
+    into ``out``; no synchronise.  Every check raises before the launch."""
+    global IL_LAUNCHES
+    n = _il_n(v)
+    if tuple(out.shape) != tuple(v.shape):
+        raise ValueError(f"K2 output of shape {tuple(out.shape)}, expected "
+                         f"{tuple(v.shape)}")
+    v2, o2 = _il_rows(v, n, "input"), _il_rows(out, n, "out")
+    rows = v2.shape[0]
+    if max(rows, v2.stride(0) // 2, o2.stride(0) // 2) >= 2 ** 31:
+        raise ValueError("K2 row count and row strides must fit int32")
+    if _shares_memory(v, out) and (o2.data_ptr() != v2.data_ptr()
+                                   or o2.stride() != v2.stride()):
+        raise ValueError("K2 output overlaps its input; only the very same "
+                         "view may be written in place")
+    if not v.is_cuda or out.device != v.device:
+        raise ValueError(f"K2 takes views on one CUDA device, got {v.device} "
+                         f"and {out.device}")
+    if rows == 0:
+        return out
+    tw = _kernel_twiddles(n, sign, v.device)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = _rows_il_fn()(v2.data_ptr(), o2.data_ptr(), tw.data_ptr(),
+                            rows, ilog2(n), v2.stride(0) // 2,
+                            o2.stride(0) // 2, int(sign), float(postscale),
+                            stream)
+    if err != 0:
+        raise RuntimeError(f"local_rows_il launch failed: cudaError {err}")
+    IL_LAUNCHES += 1
+    return out
+
+
+def fft_rows_interleaved(v, sign, *, postscale: float = 1.0, factors=None,
+                         packed: bool | None = None, out=None):
+    """DFT of the complex rows of ``v``, a (..., 2n) float32 view of
+    interleaved complex64 (pallas_local.fft_rows_interleaved).
+
+    A CUDA tensor runs K2, one device-memory round trip with ``postscale``
+    folded into the store; ``packed`` and ``factors`` change nothing
+    there (K3 is the same function on the same memory).  A CPU tensor runs
+    the plain version with ``factors`` (default ``default_factors(n)``) and
+    ``packed`` (default ``PACKED_INTERLEAVED``).  ``out`` names the
+    (..., 2n) tensor to write; ``out=v`` runs in place (JAX's
+    ``alias_io``).  Raises where K2 does not apply; nothing falls back.
+    """
+    if packed is None:
+        packed = PACKED_INTERLEAVED
+    if v.is_cuda:
+        if out is None:
+            out = torch.empty_like(v, memory_format=torch.contiguous_format)
+        return _launch_rows_il(v, out, sign, postscale)
+    if v.device.type != "cpu":
+        raise ValueError(f"no interleaved FFT for device {v.device}")
+    _il_n(v)
+    y = fft_rows_interleaved_plain(v, sign, postscale, factors, packed)
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
 
 
 # ------------------------------------------------------------- column path

@@ -19,9 +19,31 @@ package's ``run_df64`` and its double-float quads, whose only reason was
 a TPU without FP64.  The JAX package's fold-store column kernel has no
 route of its own: on row-major memory its native-layout store is the
 column kernel's plain store.  Not in the port yet, and listed in
-ROADMAP.md: its host-view path (``_view_kernel_ok``), its compile cache
-and its HBM chunk sweep.  The kernel path allocates its output and, in a
-four-step pass, one or two temporaries of the data's size.
+ROADMAP.md: its compile cache and its HBM chunk sweep.  The kernel path
+allocates its output and, in a four-step pass, one or two temporaries of
+the data's size.
+
+The complex form of a complex64 plan takes one of three routes, the
+counterpart of the JAX package's interleaved ("view") routes and of its
+``_il1d_route``:
+
+* ``"fused"`` (a 1D plan of one ``local`` pass only): the interleaved row
+  kernel K2 on the (..., 2n) float32 view of ``x``, written into ``y``'s;
+* ``"stream"``: K13 splits ``x`` into two planes, the planar passes run
+  on them in place, K14 interleaves them into ``y``; taken only where
+  ``ops/interleave.supported`` holds, as in JAX;
+* ``"planes"``: every pass on the two stride-2 planes of
+  ``torch.view_as_real`` (the JAX package's "complex" split).
+
+The route comes from two constants, ``IL1D_ROUTE`` (the single-pass
+case) and ``IL_MULTI_ROUTE`` (every other complex64 plan), which stand
+where JAX reads its measured ``il1d:{n}`` record; they hold the winners
+``chip_smoke.py`` measured on an H100 (PERF.md) and are read at call
+time.  No measured n disagreed with the others, so the single-pass route
+is one value, not a table by n.  Complex128 and ``force_xla`` plans take
+``"planes"``.  The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
+no counterpart: it exists for a TPU without complex dtypes, and the port
+keeps complex tensors on the card.
 """
 
 from __future__ import annotations
@@ -32,11 +54,22 @@ from typing import Any
 import numpy as np
 import torch
 
-from pyfft_tpu_torch.ops import fourstep, fused2d, local
+from pyfft_tpu_torch.ops import fourstep, fused2d, interleave, local
 from pyfft_tpu_torch.planner import AxisPass, ExecPlan, build_plan
 from pyfft_tpu_torch.reference import fft_planar
 
-__all__ = ["Plan"]
+__all__ = ["Plan", "IL1D_ROUTE", "IL_MULTI_ROUTE"]
+
+_ROUTES = ("fused", "stream", "planes")
+# The complex form's route of a complex64 1D plan of one local pass, and of
+# every other complex64 plan ("stream" or "planes").  The winners of
+# chip_smoke.py phase 15 on an H100 80GB HBM3 at 700 W (PERF.md section
+# 5): "fused", since K2 makes one round trip where "stream" makes three,
+# and reads whole float2 pairs where "planes" reads two stride-2 planes;
+# "planes" at configs 3, 4 and 6+, whose column kernels take the stride-2
+# planes at full speed.
+IL1D_ROUTE = "fused"
+IL_MULTI_ROUTE = "planes"
 
 _TORCH_DTYPE = {np.dtype(np.complex64): torch.complex64,
                 np.dtype(np.complex128): torch.complex128,
@@ -150,17 +183,20 @@ class Plan:
         rr, ii = fft_planar(re, im, sign, axis=axis)
         return rr, ii, False
 
+    def _norm(self, inverse: bool) -> float:
+        """The output scale: 1/N on a normalized inverse, times ``scale``."""
+        norm = 1.0
+        if inverse and self.normalize:
+            norm /= self._exec_plan.total_n
+        return norm * self.scale
+
     def _run(self, re, im, inverse: bool, out):
         """All passes over planar (batch..., *shape) planes.  With ``out``
         the result lands in those planes (the kernel writes there
         directly); without, in new ones."""
         ndim = len(self.shape)
         sign = +1 if inverse else -1
-        norm = 1.0
-        if inverse and self.normalize:
-            norm /= self._exec_plan.total_n
-        norm *= self.scale
-        scale_left = norm
+        scale_left = self._norm(inverse)
         passes = self._exec_plan.passes
         for idx, p in enumerate(passes):
             is_final = idx == len(passes) - 1
@@ -213,15 +249,52 @@ class Plan:
             x = x.reshape((b,) + self.shape if b > 1 else self.shape)
         return x.contiguous(), orig_shape
 
+    def il_route(self) -> str:
+        """The complex form's route: "fused", "stream" or "planes" (see the
+        module docstring), from ``IL1D_ROUTE`` and ``IL_MULTI_ROUTE`` as they
+        stand now."""
+        if self._complex != torch.complex64 or self._force_xla:
+            return "planes"
+        passes = self._exec_plan.passes
+        single = len(passes) == 1 and passes[0].executor == "local"
+        route = IL1D_ROUTE if single else IL_MULTI_ROUTE
+        if route not in (_ROUTES if single else _ROUTES[1:]):
+            raise ValueError(f"no interleaved route {route!r} for {self!r}")
+        if route == "stream" and not interleave.supported(
+                (2 * self.shape[-1],), torch.float32):
+            return "planes"
+        return route
+
+    def _run_complex(self, x, y, inverse: bool) -> None:
+        """The complex form: the transform of contiguous complex ``x``
+        written into ``y`` (which may be ``x``) by the plan's route."""
+        route = self.il_route()
+        if route == "planes":
+            xv, yv = torch.view_as_real(x), torch.view_as_real(y)
+            self._run(xv[..., 0], xv[..., 1], inverse,
+                      (yv[..., 0], yv[..., 1]))
+            return
+        xf, yf = x.view(self._real), y.view(self._real)   # (..., 2n) views
+        if route == "fused":
+            # the chain only picks the CPU plain version's stages
+            factors = (None if self.fast_math or x.is_cuda
+                       else local.precise_factors(self.shape[-1]))
+            local.fft_rows_interleaved(xf, +1 if inverse else -1,
+                                       postscale=self._norm(inverse),
+                                       factors=factors, out=yf)
+            return
+        re, im = interleave.deinterleave(xf)
+        re, im = self._run(re, im, inverse, (re, im))
+        interleave.interleave(re, im, out=yf)
+
     # -------------------------------------------------------------- execute
 
     def execute(self, data, data_imag=None, *, inverse: bool = False,
                 batch: int | None = None, wait_for_finish: bool | None = None):
         """Run the transform.
 
-        Complex form: ``execute(x)`` with complex ``x`` -> complex tensor;
-        the kernel reads and writes the two strided planes of
-        ``torch.view_as_real``, with no de-interleave copies.
+        Complex form: ``execute(x)`` with complex ``x`` -> complex tensor,
+        by the route ``il_route()`` names.
         Split form: ``execute(re, im)`` -> ``(re, im)`` (dispatch by arity).
         ``batch=k`` accepts a flat buffer holding k contiguous transforms.
         """
@@ -236,9 +309,7 @@ class Plan:
         else:
             x, x_shape = self._canonicalize(data, batch, planar=False)
             y = x if self.donate else torch.empty_like(x)
-            xv, yv = torch.view_as_real(x), torch.view_as_real(y)
-            self._run(xv[..., 0], xv[..., 1], inverse,
-                      (yv[..., 0], yv[..., 1]))
+            self._run_complex(x, y, inverse)
             out = y.reshape(x_shape)
         wait = (self.wait_for_finish if wait_for_finish is None
                 else wait_for_finish)

@@ -10,10 +10,12 @@ from __future__ import annotations
 
 import math
 import statistics
+import time
 
 import torch
 
-__all__ = ["time_ms", "copy_bandwidth_gbs", "effective_gflops"]
+__all__ = ["time_ms", "time_queued_ms", "copy_bandwidth_gbs",
+           "effective_gflops"]
 
 
 def _require_cuda() -> None:
@@ -40,6 +42,42 @@ def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def time_queued_ms(fn, *, calls: int = 20, warmup: int = 3,
+                   hold_ms: float = 20.0) -> tuple[float, float]:
+    """(device ms, host ms) per ``fn()`` call, with the host ahead.
+
+    A spin kernel (``torch.cuda._sleep``) first holds the device for about
+    ``hold_ms`` while the host enqueues ``calls`` calls between two CUDA
+    events, so the events time the device's work with no gap for the host
+    to fill; the host clock times the enqueueing.  Where the start event
+    has already passed when the last call is enqueued, the host was not
+    ahead: the hold doubles and the run repeats, three times at most, then
+    raises.  ``time_ms`` reads the host's time wherever it exceeds the
+    device's; this reads the device's alone.
+    """
+    _require_cuda()
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(hold_ms * 2e6))     # cycles at <= 2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / calls
+        ahead = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / calls, host
+        hold_ms *= 2
+    raise RuntimeError(f"the host did not get ahead of the device in "
+                       f"{hold_ms / 2:.0f} ms")
 
 
 def copy_bandwidth_gbs(mib: int = 256, iters: int = 20) -> float:

@@ -56,3 +56,19 @@ def test_load_without_nvcc_raises(csrc, monkeypatch):
         build.load("a")
     assert not build.library_path("a").exists()
     assert "a" not in build._LOADED
+
+
+def test_every_source_is_named_by_its_hash():
+    """The repository's own sources, interleave.cu among them: each builds
+    to a library of its own, named by the hash of its source and the
+    headers, and chip_smoke.py builds every one of them."""
+    import chip_smoke
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert "interleave" in names and "local_rows" in names
+    paths = {build.library_path(n) for n in names}
+    assert len(paths) == len(names)
+    for n in names:
+        path = build.library_path(n)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{n}_") and path.suffix == ".so"
+    assert sorted(chip_smoke.SOURCES) == names

@@ -19,6 +19,8 @@ PACKAGE = ROOT / "pyfft_tpu_torch"
     "pyfft_tpu_torch.ops.fourstep",
     "pyfft_tpu_torch.ops.fused2d",
     "pyfft_tpu_torch.ops.fp64",
+    "pyfft_tpu_torch.ops.interleave",
+    "pyfft_tpu_torch.real",
     "pyfft_tpu_torch.ops.build",
     "pyfft_tpu_torch.utils.profiling",
 ])

@@ -386,3 +386,102 @@ def test_fused2d_plan_donate_and_forms(form):
         rr, ii = plan.execute(re, im)
         assert rr.data_ptr() == re.data_ptr()
         assert rel_err(re.numpy() + 1j * im.numpy(), ref) < C64
+
+
+@pytest.fixture
+def route_tables(monkeypatch):
+    """Set plan.py's interleaved routes for one test."""
+    from pyfft_tpu_torch import plan as plan_mod
+
+    def set_routes(one=None, multi=None):
+        if one is not None:
+            monkeypatch.setattr(plan_mod, "IL1D_ROUTE", one)
+        if multi is not None:
+            monkeypatch.setattr(plan_mod, "IL_MULTI_ROUTE", multi)
+    return set_routes
+
+
+@pytest.mark.parametrize("route", ["fused", "stream", "planes"])
+@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_complex_form_routes_match_jax(route, n, inverse, route_tables):
+    """Config 2i's single-pass plan on each interleaved route (the plain
+    versions of K2; K13, K1, K14; K1 on stride-2 planes) against the JAX
+    Plan on the same data."""
+    route_tables(one=route)
+    x = rand_complex((BATCH, n), seed=n + inverse)
+    plan = Plan((n,), device="cpu")
+    assert plan.il_route() == route
+    got = torch_np(plan.execute(torch.from_numpy(x), inverse=inverse))
+    jgot = jax_np(pyfft_tpu.Plan((n,)).execute(x, inverse=inverse))
+    x128 = x.astype(np.complex128)
+    ref = np.fft.ifft(x128) if inverse else np.fft.fft(x128)
+    assert rel_err(got, ref) < C64
+    assert rel_err(got, jgot) < C64
+
+
+@pytest.mark.parametrize("route", ["stream", "planes"])
+@pytest.mark.parametrize("shape,batch", [((64, 512), 2), ((16384,), 2),
+                                         ((128, 256), 1)])
+def test_multi_pass_routes_match_jax(route, shape, batch, route_tables):
+    """A 2D plan, a four-step plan and a fused2d plan on the stream and
+    planes routes against the JAX Plan."""
+    route_tables(multi=route)
+    x = rand_complex((batch,) + shape, seed=sum(shape))
+    plan = Plan(shape, device="cpu")
+    assert plan.il_route() == route
+    got = torch_np(plan.execute(torch.from_numpy(x)))
+    jgot = jax_np(pyfft_tpu.Plan(shape).execute(x))
+    ref = np.fft.fftn(x.astype(np.complex128),
+                      axes=tuple(range(-len(shape), 0)))
+    assert rel_err(got, ref) < C64
+    assert rel_err(got, jgot) < C64
+
+
+@pytest.mark.parametrize("route", ["fused", "stream"])
+def test_routes_donate_and_scale(route, route_tables):
+    """In place and with a user scale and no normalization, on the two
+    routes that do not run the stride-2 planes."""
+    route_tables(one=route)
+    x = rand_complex((3, 512), seed=31)
+    xt = torch.from_numpy(x.copy())
+    plan = Plan((512,), device="cpu", donate=True, scale=0.5,
+                normalize=False)
+    out = plan.execute(xt, inverse=True)
+    assert out.data_ptr() == xt.data_ptr()
+    ref = np.fft.ifft(x.astype(np.complex128)) * 512 * 0.5
+    assert rel_err(xt.numpy(), ref) < C64
+
+
+@pytest.mark.parametrize("shape,dtype,kw,one,multi,want", [
+    ((4096,), np.complex64, {}, "fused", "planes", "fused"),
+    ((4096,), np.complex64, {}, "stream", "planes", "stream"),
+    ((64,), np.complex64, {}, "stream", "planes", "planes"),  # 128 lanes
+    ((4096,), np.complex128, {}, "fused", "stream", "planes"),
+    ((4096,), np.complex64, {"force_xla": True}, "fused", "stream",
+     "planes"),
+    ((1024, 1024), np.complex64, {}, "fused", "stream", "stream"),
+    ((16384,), np.complex64, {}, "fused", "planes", "planes"),
+])
+def test_il_route_rules(shape, dtype, kw, one, multi, want, route_tables):
+    route_tables(one=one, multi=multi)
+    assert Plan(shape, dtype, device="cpu", **kw).il_route() == want
+
+
+def test_il_route_rejects_bad_tables(route_tables):
+    route_tables(one="bogus", multi="fused")
+    with pytest.raises(ValueError):
+        Plan((256,), device="cpu").il_route()
+    with pytest.raises(ValueError):
+        Plan((256, 256), device="cpu").il_route()
+
+
+def test_route_tables_hold_the_measured_winners():
+    """plan.py's routes: a known route for single-pass plans and no fused
+    route for multi-pass plans, so no plan raises on its default route."""
+    from pyfft_tpu_torch import plan as plan_mod
+    assert plan_mod.IL1D_ROUTE in ("fused", "stream", "planes")
+    assert plan_mod.IL_MULTI_ROUTE in ("stream", "planes")
+    for shape in ((8,), (4096,), (8192,), (64, 512), (16384,)):
+        assert Plan(shape, device="cpu").il_route() in ("fused", "stream",
+                                                         "planes")
