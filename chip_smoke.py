@@ -4,14 +4,14 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in sixteen phases, one or more lines each:
+numpy.fft, in eighteen phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
-  2. build: compiles the row, column, fused 2D and de/interleave kernels
-     from this checkout's sources, one nvcc each, all at once (the row and
-     column sources hold both precisions, the row source the interleaved
-     kernel too);
+  2. build: compiles the row, column, fused 2D, tiled fused 2D and
+     de/interleave kernels from this checkout's sources, one nvcc each, all
+     at once (the row and column sources hold both precisions, the row
+     source the interleaved kernel too, the column source K4 and K6);
   3. row kernel: against its plain torch version and numpy.fft for every
      n from 8 to 8192, 1 and 130 rows, forward and inverse with a
      postscale, planar, stride-2 and in-place operands;
@@ -86,7 +86,23 @@ numpy.fft, in sixteen phases, one or more lines each:
      1024), rfftn/irfftn of 256^3, against numpy.fft.rfft* in float64 with
      exact launch counts and a round trip, and every K2 call of them
      against its plain version; each timed beside torch.fft.rfft* and its
-     untangle alone.
+     untangle alone;
+ 17. the kernels no Plan route takes, each against its plain torch
+     version and numpy: K4 (the digit-swapped row pass, fft_rows_swap) for
+     every n from 8 to 8192, n1 in {128, 384}, 1 and 3 planes, forward and
+     inverse with postscale 0.3, planar and stride-2 operands; K6 (the
+     column pass over c 128-column tiles, fft_axis(ctile=c)) for every n
+     from 8 to 8192 with c in {1, 2, 8}, plain and full-twiddle, in place
+     too; K9 (the one-launch 2D DFT up to 2^20 points, fft2_fused_tiled)
+     at each of its 28 plane shapes, 1 and 3 planes, both directions,
+     planar, stride-2 and in place;
+ 18. their paths at full size, with exact launch counts and every kernel
+     call held against its plain version: the four-step variant B at
+     config 6+ (a column pass with the full twiddle, K5 or K6, then K4),
+     against numpy on all eight rows, and its inverse; K6 as config 4's z
+     pass after K8, against numpy; K9 on config 3's planes, against numpy
+     and Plan's result; each timed beside its plain version, its bound, the
+     routed kernels that compute the same and the library call.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -121,10 +137,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
 
-SOURCES = ("local_rows", "local_cols", "fused2d", "interleave")
+SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled",
+           "interleave")
 # the kernels, by the name of the count their wrapper keeps
 KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
-           "local_cols_f64", "local_rows_il", "deinterleave", "interleave")
+           "local_cols_f64", "local_rows_il", "deinterleave", "interleave",
+           "local_rows_swap", "local_cols_ctile", "fused2d_tiled")
 
 # Launches of one complex-form execute of a 1D plan of one local pass, by
 # its interleaved route; the stream route adds K13 and K14 around any plan.
@@ -171,7 +189,10 @@ def reset_counts():
     local.LAUNCHES_F64 = 0
     local.COL_LAUNCHES_F64 = 0
     local.IL_LAUNCHES = 0
+    local.SWAP_LAUNCHES = 0
+    local.CTILE_LAUNCHES = 0
     fused2d.LAUNCHES = 0
+    fused2d.TILED_LAUNCHES = 0
     interleave.DEINT_LAUNCHES = 0
     interleave.INT_LAUNCHES = 0
 
@@ -185,7 +206,10 @@ def read_counts() -> dict:
             "local_cols_f64": local.COL_LAUNCHES_F64,
             "local_rows_il": local.IL_LAUNCHES,
             "deinterleave": interleave.DEINT_LAUNCHES,
-            "interleave": interleave.INT_LAUNCHES}
+            "interleave": interleave.INT_LAUNCHES,
+            "local_rows_swap": local.SWAP_LAUNCHES,
+            "local_cols_ctile": local.CTILE_LAUNCHES,
+            "fused2d_tiled": fused2d.TILED_LAUNCHES}
 
 
 def expect(*parts) -> dict:
@@ -1430,6 +1454,403 @@ def phase_real():
     return {"counts": launches, "timings": rows, "held": held}
 
 
+# ------------------------------------- the kernels no route takes (K4, K6, K9)
+
+TILED_SHAPES = [(1 << a, 1 << b) for a in range(7, 14) for b in range(7, 14)
+                if a + b <= 20]
+
+
+def operands(xc, mode):
+    """(re, im, out) of the complex tensor ``xc`` for a kernel check:
+    planar copies, or the stride-2 planes of a copy (``out`` those planes
+    again in place)."""
+    if mode == "planar":
+        return xc.real.contiguous(), xc.imag.contiguous(), None
+    v = torch.view_as_real(xc.clone())
+    re, im = v[..., 0], v[..., 1]
+    return re, im, ((re, im) if mode == "inplace" else None)
+
+
+def held(name, got, want, tag, tol=TOL):
+    """The error of a kernel's planes ``got`` against ``want`` (a pair of
+    planes or a complex tensor), checked at ``tol``."""
+    g = cplx(*got)
+    w = want if isinstance(want, torch.Tensor) and want.is_complex() \
+        else cplx(*want)
+    if tuple(g.shape) != tuple(w.shape):
+        raise AssertionError(f"{name} {tag}: shape {tuple(g.shape)}, "
+                             f"expected {tuple(w.shape)}")
+    e = rel_err(g, w)
+    check(f"{name} {tag}", e, tol)
+    return e
+
+
+def phase_swap_kernel():
+    """K4 at every n against fft_rows_swap_plain and numpy."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(17)
+    for n in IL_NS:
+        worst_plain = worst_np = 0.0
+        before, cases = local.SWAP_LAUNCHES, 0
+        for L in (1, 3):
+            for n1 in (128, 384):
+                x = (rng.standard_normal((L, n1, n))
+                     + 1j * rng.standard_normal((L, n1, n))
+                     ).astype(np.complex64)
+                xc = torch.from_numpy(x).cuda()
+                for sign in (-1, +1):
+                    post = 0.3
+                    X = (np.fft.fft(x.astype(np.complex128)) if sign < 0
+                         else np.fft.ifft(x.astype(np.complex128)) * n)
+                    ref = torch.from_numpy(
+                        np.ascontiguousarray((X * post).transpose(0, 2, 1))
+                    ).cuda()
+                    plain = local.fft_rows_swap_plain(
+                        xc.real.contiguous(), xc.imag.contiguous(), sign,
+                        post)
+                    for mode in ("planar", "stride2"):
+                        re, im, _ = operands(xc, mode)
+                        got = local.fft_rows_swap(re, im, sign,
+                                                  postscale=post)
+                        torch.cuda.synchronize()
+                        tag = f"n={n} n1={n1} L={L} sign={sign} {mode}"
+                        worst_plain = max(worst_plain, held(
+                            "K4 vs plain", got, plain, tag))
+                        worst_np = max(worst_np, held("K4 vs numpy", got,
+                                                      ref, tag))
+                        cases += 1
+        if local.SWAP_LAUNCHES - before != cases:
+            raise AssertionError(f"K4 n={n}: {local.SWAP_LAUNCHES - before} "
+                                 f"launches for {cases} calls")
+        print(f"phase 17 K4 n={n} (C={local.col_width(n)} rows a block): "
+              f"{cases} cases, max rel err vs plain {worst_plain:.3e}, vs "
+              f"numpy {worst_np:.3e} (gate {TOL:.0e})")
+
+
+def phase_ctile_kernel():
+    """K6 at every n, c in {1, 2, 8}, against fft_cols_plain and numpy."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(18)
+    T = 1024                             # 8 tiles: c = 8 is not clamped
+    for n in IL_NS:
+        L = 2 if n <= 1024 else 1
+        worst_plain = worst_np = 0.0
+        before, cases = local.CTILE_LAUNCHES, 0
+        x = (rng.standard_normal((L, n, T))
+             + 1j * rng.standard_normal((L, n, T))).astype(np.complex64)
+        xc = torch.from_numpy(x).cuda()
+        for sign in (-1, +1):
+            post = 0.3
+            X = np.fft.fft(x.astype(np.complex128), axis=1)
+            if sign > 0:
+                X = np.fft.ifft(x.astype(np.complex128), axis=1) * n
+            for mode in ("plain planar", "plain inplace", "full planar"):
+                ref, tw_n = col_reference(X, n, T, mode, sign, post)
+                ref = torch.from_numpy(ref).cuda()
+                kw = dict(tw_n=tw_n) if tw_n else {}
+                plain = local.fft_cols_plain(xc.real.contiguous(),
+                                             xc.imag.contiguous(), sign,
+                                             postscale=post, **kw)
+                for c in (1, 2, 8):
+                    re, im, out = operands(xc, mode.split()[1])
+                    got = local.fft_axis(re, im, sign, axis=1,
+                                         postscale=post, ctile=c, out=out,
+                                         **kw)
+                    torch.cuda.synchronize()
+                    if out is not None and got[0].data_ptr() != re.data_ptr():
+                        raise AssertionError("in-place K6 wrote elsewhere")
+                    tag = f"n={n} L={L} c={c} sign={sign} {mode}"
+                    worst_plain = max(worst_plain, held("K6 vs plain", got,
+                                                        plain, tag))
+                    worst_np = max(worst_np, held("K6 vs numpy", got, ref,
+                                                  tag))
+                    cases += 1
+        if local.CTILE_LAUNCHES - before != cases:
+            raise AssertionError(f"K6 n={n}: {local.CTILE_LAUNCHES - before} "
+                                 f"launches for {cases} calls")
+        print(f"phase 17 K6 n={n} ({L} x {n} x {T}, c in 1, 2, 8): {cases} "
+              f"cases, max rel err vs plain {worst_plain:.3e}, vs numpy "
+              f"{worst_np:.3e} (gate {TOL:.0e})")
+
+
+def phase_tiled_kernel():
+    """K9 at each of its plane shapes against fft2_tiled_plain and
+    numpy."""
+    from pyfft_tpu_torch.ops import fused2d
+    rng = np.random.RandomState(19)
+    for ny, nx in TILED_SHAPES:
+        worst_plain = worst_np = 0.0
+        before, cases = fused2d.TILED_LAUNCHES, 0
+        for L in (1, 3):
+            x = (rng.standard_normal((L, ny, nx))
+                 + 1j * rng.standard_normal((L, ny, nx))).astype(np.complex64)
+            xc = torch.from_numpy(x).cuda()
+            x128 = x.astype(np.complex128)
+            for sign, post in ((-1, 0.5), (+1, 1.0 / (ny * nx))):
+                X = (np.fft.fft2(x128) if sign < 0
+                     else np.fft.ifft2(x128) * (ny * nx))
+                ref = torch.from_numpy(X * post).cuda()
+                plain = fused2d.fft2_tiled_plain(
+                    xc.real.contiguous(), xc.imag.contiguous(), sign, post)
+                for mode in ("planar", "stride2", "inplace"):
+                    re, im, out = operands(xc, mode)
+                    got = fused2d.fft2_fused_tiled(re, im, sign,
+                                                   postscale=post, out=out)
+                    torch.cuda.synchronize()
+                    if out is not None and got[0].data_ptr() != re.data_ptr():
+                        raise AssertionError("in-place K9 wrote elsewhere")
+                    tag = f"{ny}x{nx} L={L} sign={sign} {mode}"
+                    worst_plain = max(worst_plain, held("K9 vs plain", got,
+                                                        plain, tag))
+                    worst_np = max(worst_np, held("K9 vs numpy", got, ref,
+                                                  tag))
+                    cases += 1
+        if fused2d.TILED_LAUNCHES - before != cases:
+            raise AssertionError(f"K9 {ny}x{nx}: "
+                                 f"{fused2d.TILED_LAUNCHES - before} launches "
+                                 f"for {cases} calls")
+        print(f"phase 17 K9 {ny}x{nx} (a cluster of "
+              f"{fused2d.tiled_cluster_size(ny, nx)} blocks a plane): "
+              f"{cases} cases, max rel err vs plain {worst_plain:.3e}, vs "
+              f"numpy {worst_np:.3e} (gate {TOL:.0e})")
+
+
+def variant_b(re, im, sign, post, ctile=0):
+    """The four-step variant B of (B, n1*n2) planes through the public
+    entry points: a column pass with the full twiddle and a plain store
+    (K5, or K6 with ``ctile``), then K4."""
+    from pyfft_tpu_torch.ops import local
+    B, N = re.shape
+    n1 = n2 = int(math.isqrt(N))
+    r, i = local.fft_axis(re.view(B, n1, n2), im.view(B, n1, n2), sign,
+                          axis=-2, tw_n=N, ctile=ctile)
+    r, i = local.fft_rows_swap(r, i, sign, postscale=post)
+    return r.view(B, N), i.view(B, N)
+
+
+def counted(want: dict, label: str, run):
+    """``run()`` with the launch counts set to 0 just before and read just
+    after; raise unless they are ``want`` (every other kernel 0)."""
+    reset_counts()
+    out = run()
+    counts = read_counts()
+    if counts != expect(want):
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{expect(want)}")
+    return out, counts
+
+
+def phase_offroute_paths(copy_gbs):
+    """Phase 18: variant B at config 6+, K6 as config 4's z pass and K9 on
+    config 3's planes at full size, with exact counts, every kernel call
+    against its plain version, and timings."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    launches = dict.fromkeys(KERNELS, 0)
+    checks = []          # (kernel, label, max abs err, max rel err)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def against_plain(kernel, label, got, want):
+        a = float(torch.maximum((got[0] - want[0]).abs().max(),
+                                (got[1] - want[1]).abs().max()))
+        e = held(kernel, got, want, f"{label} vs plain")
+        checks.append((kernel, label, a, e))
+
+    # variant B at config 6+: K5 + K4, then K6 + K4, forward and inverse
+    B, N = 8, 1 << 22
+    x = make_data((B, N), seed=180)
+    ref = numpy_ref(x, 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    errs = {}
+    for c, first in ((0, "local_cols"), (8, "local_cols_ctile")):
+        def round_trip(c=c):
+            y = variant_b(re, im, -1, 1.0, c)
+            return y, variant_b(*y, +1, 1.0 / N, c)
+
+        (y, back), counts = counted({first: 2, "local_rows_swap": 2},
+                                    f"variant B ctile={c}", round_trip)
+        add(counts)
+        tag = f"variant B ({'K6 c=8' if c else 'K5'} + K4)"
+        errs[tag] = (rel_err(cplx(*y), ref), rel_err(cplx(*back), x))
+        check(f"{tag} vs numpy", errs[tag][0])
+        check(f"{tag} round trip", errs[tag][1])
+        del y, back
+    # each pass of variant B against its plain version, chained
+    kw = dict(tw_n=N)
+    r3, i3 = re.view(B, 2048, 2048), im.view(B, 2048, 2048)
+    plain1 = local.fft_cols_plain(r3, i3, -1, **kw)
+    p1 = local.fft_axis(r3, i3, -1, axis=-2, **kw)
+    against_plain("local_cols", "variant B pass 1 (K5 full twiddle)", p1,
+                  plain1)
+    against_plain("local_cols_ctile", "variant B pass 1 (K6 c=8 full "
+                  "twiddle)", local.fft_axis(r3, i3, -1, axis=-2, ctile=8,
+                                             **kw), plain1)
+    del plain1
+    p2 = local.fft_rows_swap(*p1, -1)
+    against_plain("local_rows_swap", "variant B pass 2 (K4)", p2,
+                  local.fft_rows_swap_plain(*p1, -1))
+    del p2
+    print(f"phase 18 config 6+ variant B {tuple(x.shape)}: launches "
+          f"{ {k: v for k, v in launches.items() if v} } over 2 forward and "
+          f"2 inverse runs, "
+          + ", ".join(f"{k} err {a:.3e}, round trip {b:.3e}"
+                      for k, (a, b) in errs.items())
+          + f" (against numpy on all {B} rows; gate {TOL:.0e})")
+
+    # timings at config 6+: K4 alone beside K5's swapped store (the routed
+    # pass 1, which K4 takes the transpose from); variant B beside the
+    # routed plan.  K4's library call: torch.fft.fft over the transposed
+    # complex form, out[l, k, r] = sum_j x[l, r, j] w^(jk), K4's function
+    rows = []
+    out = (torch.empty_like(p1[0]), torch.empty_like(p1[1]))
+    moved = 2 * B * N * 8
+    p1c = cplx(*p1)
+    rows.append(time_pass(
+        "config 6+", "variant B pass 2 (K4)", *p1,
+        lambda: local.fft_rows_swap(*p1, -1, out=out),
+        lambda: local.fft_rows_swap_plain(*p1, -1),
+        lambda: torch.fft.fft(p1c.mT, dim=-2), moved,
+        fft_flops(2048, B * 2048), copy_gbs, phase=18))
+    del p1c
+    rows[-1]["kernel"] = "local_rows_swap"
+    rows[-1]["routed_ms"] = time_ms(lambda: local.fft_axis(
+        r3, i3, -1, axis=-2, tw_n=N, swap_store=True, out=out))
+    rows[-1]["pass1_ms"] = time_ms(lambda: local.fft_axis(
+        r3, i3, -1, axis=-2, tw_n=N, out=out))
+    print(f"    K5's swapped store (routed pass 1, full twiddle) on the same "
+          f"data: {rows[-1]['routed_ms']:.4f} ms; K5's plain store (variant "
+          f"B pass 1, full twiddle): {rows[-1]['pass1_ms']:.4f} ms")
+    del p1, out
+    plan = pyfft_tpu_torch.Plan((N,), device="cuda")
+    vb = {"path": "config 6+", "pass": "variant B total",
+          "k5_k4_ms": time_ms(lambda: variant_b(re, im, -1, 1.0)),
+          "k6_k4_ms": time_ms(lambda: variant_b(re, im, -1, 1.0, 8)),
+          "routed_ms": time_ms(lambda: plan.execute(re, im)),
+          "library_ms": time_ms(lambda: torch.fft.fft(x)),
+          "bound_ms": 2 * bound(moved, 0)[0],
+          "copy_bound_ms": 2 * moved / (copy_gbs * 1e9) * 1e3}
+    print(f"phase 18 config 6+ variant B total, planar: K5 + K4 "
+          f"{vb['k5_k4_ms']:.4f} ms, K6 (c=8) + K4 {vb['k6_k4_ms']:.4f} ms; "
+          f"the routed plan (2 K5, planar) {vb['routed_ms']:.4f} ms; two "
+          f"passes' bound {vb['bound_ms']:.4f} ms at the published peaks, "
+          f"{vb['copy_bound_ms']:.4f} ms at the measured copy; torch.fft.fft "
+          f"{vb['library_ms']:.4f} ms (library, context only)")
+    del x, ref, re, im, r3, i3
+    torch.cuda.empty_cache()
+
+    # K6 as config 4's z pass, after K8 over the last two axes
+    x = make_data((256, 256, 256), seed=181)
+    ref = numpy_ref(x, 3)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+
+    def z_path(sign, post2, post1):
+        r, i = fused2d.fft2_fused(re if sign < 0 else y[0],
+                                  im if sign < 0 else y[1], sign,
+                                  postscale=post2)
+        return local.fft_axis(r, i, sign, axis=0, ctile=8, postscale=post1)
+
+    y, counts = counted({"fused2d": 1, "local_cols_ctile": 1},
+                        "config 4 K8 + K6", lambda: z_path(-1, 1.0, 1.0))
+    add(counts)
+    back, counts = counted({"fused2d": 1, "local_cols_ctile": 1},
+                           "config 4 inverse", lambda: z_path(
+                               +1, 1.0 / 65536, 1.0 / 256))
+    add(counts)
+    e4 = (rel_err(cplx(*y), ref), rel_err(cplx(*back), x))
+    check("config 4 K8 + K6 vs numpy", e4[0])
+    check("config 4 K8 + K6 round trip", e4[1])
+    del y, back, ref
+    f2 = fused2d.fft2_fused(re, im, -1)
+    z3 = tuple(t.view(1, 256, 65536) for t in f2)
+    zk = local.fft_axis(*z3, -1, axis=1, ctile=8)
+    against_plain("local_cols_ctile", "config 4 z pass (K6 c=8)", zk,
+                  local.fft_cols_plain(*z3, -1))
+    del zk
+    print(f"phase 18 config 4 (256^3) as K8 then K6 (c=8) over the z axis: "
+          f"launches 2 fused2d, 2 local_cols_ctile over a forward and an "
+          f"inverse run, err vs numpy {e4[0]:.3e}, round trip {e4[1]:.3e} "
+          f"(gate {TOL:.0e})")
+    out = (torch.empty_like(z3[0]), torch.empty_like(z3[1]))
+    xs = cplx(*z3)
+    rows.append(time_pass(
+        "config 4", "z pass (K6 c=8)", *z3,
+        lambda: local.fft_axis(*z3, -1, axis=1, ctile=8, out=out),
+        lambda: local.fft_cols_plain(*z3, -1),
+        lambda: torch.fft.fft(xs, dim=-2), 2 * 256 ** 3 * 8,
+        fft_flops(256, 65536), copy_gbs, phase=18))
+    rows[-1]["kernel"] = "local_cols_ctile"
+    rows[-1]["routed_ms"] = time_ms(lambda: local.fft_axis(
+        *z3, -1, axis=1, out=out))
+    rows[-1]["ctile_ms"] = {c: time_ms(lambda c=c: local.fft_axis(
+        *z3, -1, axis=1, ctile=c, out=out)) for c in (1, 2, 8)}
+    print(f"    K5 (the routed z pass) on the same data: "
+          f"{rows[-1]['routed_ms']:.4f} ms; K6 by c: "
+          + ", ".join(f"c={c} {ms:.4f} ms"
+                      for c, ms in rows[-1]["ctile_ms"].items())
+          + f" ({65536 // 128 // 8} blocks at c = 8)")
+    del x, re, im, f2, z3, out, xs
+    torch.cuda.empty_cache()
+
+    # K9 on config 3's planes, against numpy and Plan
+    x = make_data((16, 1024, 1024), seed=182)
+    ref = numpy_ref(x, 2)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    plan = pyfft_tpu_torch.Plan((1024, 1024), device="cuda")
+    routed = plan.execute(x)
+
+    def tiled_run():
+        y = fused2d.fft2_fused_tiled(re, im, -1)
+        return y, fused2d.fft2_fused_tiled(*y, +1,
+                                           postscale=1.0 / (1 << 20))
+
+    (y, back), counts = counted({"fused2d_tiled": 2}, "config 3 K9",
+                                tiled_run)
+    add(counts)
+    e3 = (rel_err(cplx(*y), ref), rel_err(cplx(*y), routed),
+          rel_err(cplx(*back), x))
+    check("config 3 K9 vs numpy", e3[0])
+    check("config 3 K9 vs Plan", e3[1])
+    check("config 3 K9 round trip", e3[2])
+    against_plain("fused2d_tiled", "config 3 (K9)", y,
+                  fused2d.fft2_tiled_plain(re, im, -1))
+    del y, back, ref, routed
+    print(f"phase 18 config 3 (16 x 1024^2) through K9 (a cluster of "
+          f"{fused2d.tiled_cluster_size(1024, 1024)} blocks a plane): "
+          f"launches 2 fused2d_tiled over a forward and an inverse run, err "
+          f"vs numpy {e3[0]:.3e}, vs Plan {e3[1]:.3e}, round trip "
+          f"{e3[2]:.3e} (gate {TOL:.0e})")
+    out = (torch.empty_like(re), torch.empty_like(im))
+    tmp = (torch.empty_like(re), torch.empty_like(im))
+
+    def two_pass():
+        local.fft_axis(re, im, -1, out=tmp)
+        local.fft_axis(*tmp, -1, axis=-2, out=out)
+
+    rows.append(time_pass(
+        "config 3", "2D pass (K9)", re, im,
+        lambda: fused2d.fft2_fused_tiled(re, im, -1, out=out),
+        lambda: fused2d.fft2_tiled_plain(re, im, -1),
+        lambda: torch.fft.fft2(x), 2 * re.numel() * 8,
+        2 * fft_flops(1024, 16 * 1024), copy_gbs, phase=18))
+    rows[-1]["kernel"] = "fused2d_tiled"
+    rows[-1]["routed_ms"] = time_ms(two_pass)
+    rows[-1]["plan_ms"] = time_ms(lambda: plan.execute(x))
+    print(f"    the routed K1 + K5 on the same planes: "
+          f"{rows[-1]['routed_ms']:.4f} ms; Plan.execute (complex form) "
+          f"{rows[-1]['plan_ms']:.4f} ms")
+    del x, re, im, out, tmp
+    torch.cuda.empty_cache()
+    print("phase 18 kernel calls vs plain: "
+          + ", ".join(f"{lab} max abs {a:.3e} rel {e:.3e}"
+                      for _, lab, a, e in checks) + f" (gate {TOL:.0e})")
+    return {"counts": launches, "checks": checks, "timed": rows,
+            "variant_b": vb}
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -1472,8 +1893,13 @@ def main() -> int:
     il = phase_config2i(t["copy_gbs"])
     rl = phase_real()
 
+    phase_swap_kernel()
+    phase_ctile_kernel()
+    phase_tiled_kernel()
+    off = phase_offroute_paths(t["copy_gbs"])
+
     launches = dict(counts2)
-    for r in (*results.values(), *results64.values(), il, rl):
+    for r in (*results.values(), *results64.values(), il, rl, off):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -1539,9 +1965,35 @@ def main() -> int:
              "pyfft_tpu/ops/pallas_local.py:743"),
             ("deinterleave", "interleave", "pyfft_tpu/ops/interleave.py:92"),
             ("interleave", "interleave", "pyfft_tpu/ops/interleave.py:111"))]
+    # K4, K6 and K9 timed at their phase-18 shapes, their errors over every
+    # kernel call of phase 18 held against the plain version
+    off_entries = []
+    for name, src, replaces, shape in (
+            ("local_rows_swap", "local_cols",
+             "pyfft_tpu/ops/pallas_local.py:875",
+             "config 6+ variant B pass 2, (8, 2048, 2048)"),
+            ("local_cols_ctile", "local_cols",
+             "pyfft_tpu/ops/pallas_local.py:1073",
+             "config 4 z pass, (1, 256, 65536), c = 8"),
+            ("fused2d_tiled", "fused2d_tiled",
+             "pyfft_tpu/ops/pallas_local.py:1502",
+             "config 3, 16 x 1024 x 1024")):
+        row = next(r for r in off["timed"] if r["kernel"] == name)
+        mine = [c for c in off["checks"] if c[0] == name]
+        off_entries.append({
+            "name": name, "route": "cuda",
+            "source": f"pyfft_tpu_torch/ops/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(c[2] for c in mine),
+            "max_rel_err": max(c[3] for c in mine),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "shape": shape})
     print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
-                                  rows64_entry, cols64_entry, *il_entries],
-                      "passes": timed + timed64, "end_to_end": e2e,
+                                  rows64_entry, cols64_entry, *il_entries,
+                                  *off_entries],
+                      "passes": timed + timed64 + off["timed"],
+                      "variant_b": off["variant_b"], "end_to_end": e2e,
                       "routes": {k: il[k] for k in
                                  ("config_2i_routes", "library_ms",
                                   "winners", "single_pass", "multi_pass")},

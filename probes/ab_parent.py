@@ -1,0 +1,125 @@
+"""Time the kernels of changed sources against another checkout's build of
+the same sources, in one process on one CUDA card.
+
+    python3 probes/ab_parent.py OTHER_CHECKOUT
+
+OTHER_CHECKOUT is an unpacked copy of another commit (``git archive`` of
+the parent, say).  Its ``local_cols.cu`` and ``fused2d.cu`` are built
+beside this checkout's, and the same wrappers run each build in turn: the
+column kernel K5 at config 6+'s two passes and config 4's z pass, its
+complex128 instantiation K12 at config 5's two passes, and the fused 2D
+kernel K8 at config 4.  Each is timed by CUDA events (``time_ms``) in four
+turns, other, this, this, other, so that a drift of the card favours
+neither; prints a line per kernel and, as its last line, a JSON record
+with the ratio this / other of the turns' means.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
+from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
+
+
+def load_other(csrc: Path, name: str):
+    """Build and load ``csrc/<name>.cu`` of the other checkout (its library
+    is named by its own sources, so it sits beside this checkout's)."""
+    saved = build.CSRC
+    build.CSRC = csrc
+    try:
+        build._LOADED.pop(name, None)
+        return build.load(name)
+    finally:
+        build.CSRC = saved
+        build._LOADED.pop(name, None)
+
+
+def bind(lib, binder, *args):
+    """The typed entry points ``binder`` makes, taken from ``lib``."""
+    saved = build.load
+    build.load = lambda name: lib
+    try:
+        return binder(*args)
+    finally:
+        build.load = saved
+
+
+def main(other: Path) -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    csrc = other / "pyfft_tpu_torch" / "ops" / "csrc"
+    dtypes = (torch.float32, torch.float64)
+    cols = {"this": {d: local._cols_lib(d) for d in dtypes},
+            "other": {d: bind(load_other(csrc, "local_cols"),
+                              local._cols_lib.__wrapped__, d)
+                      for d in dtypes}}
+    f2d = {"this": fused2d._lib(),
+           "other": bind(load_other(csrc, "fused2d"),
+                         fused2d._lib.__wrapped__)}
+    saved = local._cols_lib, fused2d._lib
+
+    def use(which):
+        local._cols_lib = lambda d: cols[which][d]
+        fused2d._lib = lambda: f2d[which]
+
+    def planes(shape, real):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        return (torch.randn(shape, generator=g, device="cuda", dtype=real),
+                torch.randn(shape, generator=g, device="cuda", dtype=real))
+
+    cases = []
+    for name, shape, real, kw in (
+            ("K5 config 6+ pass 1 (full + swap_store)", (8, 2048, 2048),
+             torch.float32, dict(tw_n=1 << 22, swap_store=True)),
+            ("K5 config 6+ pass 2 (plain store)", (8, 2048, 2048),
+             torch.float32, {}),
+            ("K5 config 4 z pass", (1, 256, 65536), torch.float32, {}),
+            ("K12 config 5 pass 1 (full + swap_store)", (64, 2048, 2048),
+             torch.float64, dict(tw_n=1 << 22, swap_store=True)),
+            ("K12 config 5 pass 2 (plain store)", (64, 2048, 2048),
+             torch.float64, {})):
+        re, im = planes(shape, real)
+        L, n, T = shape
+        oshape = (L, T, n) if kw.get("swap_store") else shape
+        out = (torch.empty(oshape, device="cuda", dtype=real),
+               torch.empty(oshape, device="cuda", dtype=real))
+        cases.append((name, lambda re=re, im=im, out=out, kw=kw:
+                      local.fft_axis(re, im, -1, axis=1, out=out, **kw),
+                      (re, im, out)))
+    re, im = planes((256, 256, 256), torch.float32)
+    out = (torch.empty_like(re), torch.empty_like(im))
+    cases.append(("K8 config 4 (256^3)", lambda: fused2d.fft2_fused(
+        re, im, -1, out=out), (re, im, out)))
+
+    rows = {}
+    try:
+        for name, run, _ in cases:
+            turns = []
+            for which in ("other", "this", "this", "other"):
+                use(which)
+                turns.append((which, time_ms(run)))
+            mean = {w: sum(t for x, t in turns if x == w) / 2
+                    for w in ("this", "other")}
+            ratio = mean["this"] / mean["other"]
+            rows[name] = {"turns": turns, "ratio": ratio}
+            print(f"{name}: " + " / ".join(f"{w} {t:.4f}" for w, t in turns)
+                  + f" ms; this / other {ratio:.4f} "
+                  + ("(within 3 %)" if abs(ratio - 1) <= 0.03
+                     else "(NOT within 3 %)"))
+    finally:
+        local._cols_lib, fused2d._lib = saved
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "ab": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(Path(sys.argv[1]).resolve()))

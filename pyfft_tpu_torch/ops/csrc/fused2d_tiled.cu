@@ -1,0 +1,249 @@
+// Batched (ny, nx) complex64 2D DFT over the last two axes in one launch,
+// for planes of up to 2^20 points: the "fused2d_tiled" kernel (K9) of
+// pyfft_tpu_torch.
+//
+// Replaces the JAX package's tiled fused 2D kernel (pyfft_tpu/ops/
+// pallas_local.py: `_fused2d_tiled_kernel`, launched by `_fft2_fused_tiled`
+// through `pl.pallas_call`), which walks 128-lane slices of a plane
+// through a VMEM scratch plane: the y stages slice by slice into the
+// scratch, then the x stages slice by slice out of it.  It computes
+//
+//   out[l, ky, kx] = postscale * sum_{y,x} x[l, y, x]
+//                                 * exp(sign*2*pi*i*(y*ky/ny + x*kx/nx))
+//
+// for ny, nx powers of two and multiples of 128 with ny*nx <= 2^20
+// (MAX_FUSED2D_TILED_ELEMS), the range past the fused 2D kernel's 2^18.
+//
+// What bounds it on an H100: bytes, 16 a point at the least.  The fused 2D
+// kernel (fused2d.cu, K8) keeps a plane in a cluster's shared memory
+// between its two axes, but a 2^20-point plane (8 MiB) is more than even a
+// 16-block cluster holds (16 x 227 KB).  So this kernel keeps K8's frame
+// and moves the exchange to device memory, the output planes serving as
+// the scratch plane:
+//
+//   * one thread-block cluster of G blocks per plane, G = ny*nx / 8192
+//     capped at 16 (clusters above 8 blocks are Hopper's non-portable
+//     sizes), launched with cudaLaunchKernelEx;
+//   * phase 1: block b takes rows [b*ny/G, (b+1)*ny/G) in chunks of at
+//     most CHUNK points (64 KB of shared memory, so that blocks of
+//     several clusters share an SM), each chunk a Stockham
+//     radix-8 chain along x whose first stage reads the rows from the
+//     input and whose last stage writes them to the output, both with
+//     threads running along x;
+//   * a __threadfence() and a cluster barrier: every row of the plane is
+//     in the output before any block reads a column;
+//   * phase 2: block b takes columns [b*nx/G, (b+1)*nx/G) in chunks, each
+//     a chain along y that reads the columns from the output and writes
+//     them back in place, postscale folded, threads running along x.
+//     Those loads read what other blocks wrote during this launch, so
+//     they take __ldcg (the L2, where every SM's stores meet) and never
+//     the read-only path (__ldg, or a const __restrict__ pointer's
+//     ld.global.nc), which may hold stale lines.
+//
+// So each point crosses device memory four times (in, out, out, out) where
+// a row pass and a column pass cross it four times too: the gain over K1 +
+// K5 can come only from the L2 holding a plane between the phases, which
+// at 8 MiB a plane and 16 planes in flight (128 MiB) the 50 MB L2 cannot.
+//
+// Twiddles come from two tables exp(sign*2*pi*i*k/n), k < n, for ny and nx,
+// built on the host in float64 and rounded once (no device sinf/cosf); the
+// stage code is chain.cuh's, shared with K8, and each chunk reads its
+// twiddles afresh (stockham.cuh's `fresh`) rather than holding every
+// stage's in registers across the chunk loop.
+//
+// In place: phase 1 reads only the block's own rows and writes them after
+// reading them, and phase 2 touches only the block's own columns, so the
+// output may alias the input exactly.  Each operand is a pair of float
+// planes with three strides in floats (l, y, x): planar data has
+// (ny*nx, nx, 1), the two planes of torch.view_as_real(complex64) twice
+// those.  Offsets are 64-bit.
+//
+// Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
+// library with the plain C entry point `pyfft_fused2d_tiled` at the bottom.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "chain.cuh"
+
+namespace {
+
+using namespace pyfft;
+namespace cg = cooperative_groups;
+
+struct Tiled {
+  const float* in_re;
+  const float* in_im;
+  float* out_re;
+  float* out_im;
+  long long L;
+  long long in_ls, in_ys, in_xs;
+  long long out_ls, out_ys, out_xs;
+  float post;
+};
+
+constexpr int NT = 512;          // threads a block
+constexpr int CHUNK = 8192;      // points a chunk, at most (64 KB)
+
+template <int LY, int LX>
+struct ShapeT {
+  static constexpr int NY = 1 << LY, NX = 1 << LX;
+  static constexpr int G0 = NY * NX / 8192;
+  static constexpr int G = G0 < 16 ? G0 : 16;   // blocks a cluster
+  static constexpr int RB = NY / G;             // rows a block
+  static constexpr int CB = NX / G;             // columns a block
+  static constexpr int RC0 = CHUNK / NX, CC0 = CHUNK / NY;
+  static constexpr int RC = RB < RC0 ? RB : RC0;  // rows a chunk
+  static constexpr int CC = CB < CC0 ? CB : CC0;  // columns a chunk
+  static constexpr int PC = RC * NX > CC * NY ? RC * NX : CC * NY;
+  static_assert(G >= 2 && RB >= 1 && CB >= 1 && RC >= 1 && CC >= 1,
+                "plane out of range");
+  static_assert(RB % RC == 0 && CB % CC == 0, "chunks tile a block's share");
+  static_assert(PC <= CHUNK && RC * NX >= 8 * NT && CC * NY >= 8 * NT,
+                "a chunk fits the buffer and gives every thread a butterfly");
+};
+
+template <int LY, int LX>
+__global__ void __launch_bounds__(NT)
+    fused2d_tiled_kernel(Tiled io, const float2* __restrict__ twy,
+                         const float2* __restrict__ twx, float s) {
+  using S = ShapeT<LY, LX>;
+  extern __shared__ float2 sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long l = blockIdx.x / S::G;
+
+  const float* in_re = io.in_re + l * io.in_ls;
+  const float* in_im = io.in_im + l * io.in_ls;
+  float* out_re = io.out_re + l * io.out_ls;
+  float* out_im = io.out_im + l * io.out_ls;
+
+  // phase 1: the block's rows, chunk by chunk, transformed along x
+  for (int r0 = rank * S::RB; r0 < (rank + 1) * S::RB; r0 += S::RC) {
+    const auto load_row = [&](int c, int k) {        // row r0 + c, x = k
+      const long long o = (r0 + c) * io.in_ys + k * io.in_xs;
+      return make_float2(in_re[o], in_im[o]);
+    };
+    const auto store_row = [&](int c, int k, float2 v) {
+      const long long o = (r0 + c) * io.out_ys + k * io.out_xs;
+      out_re[o] = v.x;
+      out_im[o] = v.y;
+    };
+    chain<NT, LX, S::RC, true, 0, 1, true, true>(sm, fresh(twx), s,
+                                                 load_row, store_row);
+  }
+
+  // every row of the plane written before any block reads a column
+  __threadfence();
+  cluster.sync();
+
+  // phase 2: the block's columns, chunk by chunk, read back from the
+  // output through the L2, transformed along y and written in place
+  for (int c0 = rank * S::CB; c0 < (rank + 1) * S::CB; c0 += S::CC) {
+    const auto load_col = [&](int c, int k) {        // column c0 + c, y = k
+      const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
+      return make_float2(__ldcg(out_re + o), __ldcg(out_im + o));
+    };
+    const auto store_col = [&](int c, int k, float2 v) {
+      const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
+      out_re[o] = v.x * io.post;
+      out_im[o] = v.y * io.post;
+    };
+    chain<NT, LY, S::CC, false, 0, 1, true, true>(sm, fresh(twy), s,
+                                                  load_col, store_col);
+  }
+}
+
+template <int LY, int LX>
+cudaError_t launch(const Tiled& io, const float2* twy, const float2* twx,
+                   float s, cudaStream_t stream) {
+  using S = ShapeT<LY, LX>;
+  constexpr int smem = S::PC * (int)sizeof(float2);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused2d_tiled_kernel<LY, LX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (S::G > 8) {
+    e = cudaFuncSetAttribute(fused2d_tiled_kernel<LY, LX>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = io.L * S::G;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S::G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fused2d_tiled_kernel<LY, LX>, io, twy, twx,
+                         s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// (log2 ny, log2 nx) -> launch<LY, LX>, for 7 <= each <= 13 and a sum of
+// at most 20: the 28 plane shapes.
+#define PYFFT_TILED_CASES(X)                                               \
+  X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(7, 11) X(7, 12) X(7, 13) X(8, 7)      \
+  X(8, 8) X(8, 9) X(8, 10) X(8, 11) X(8, 12) X(9, 7) X(9, 8) X(9, 9)       \
+  X(9, 10) X(9, 11) X(10, 7) X(10, 8) X(10, 9) X(10, 10) X(11, 7) X(11, 8) \
+  X(11, 9) X(12, 7) X(12, 8) X(13, 7)
+
+cudaError_t dispatch(int ly, int lx, const Tiled& io, const float2* twy,
+                     const float2* twx, float s, cudaStream_t st) {
+#define PYFFT_CASE(a, b) \
+  if (ly == a && lx == b) return launch<a, b>(io, twy, twx, s, st);
+  PYFFT_TILED_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The cluster size (blocks a plane) at (log2 ny, log2 nx), 0 outside the
+// kernel's range: for the wrapper's checks and the records.
+extern "C" int pyfft_fused2d_tiled_cluster(int log2ny, int log2nx) {
+#define PYFFT_CASE(a, b) \
+  if (log2ny == a && log2nx == b) return ShapeT<a, b>::G;
+  PYFFT_TILED_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return 0;
+}
+
+// Launches the 2D DFT on `stream` without synchronising.  `twy` and `twx`
+// hold ny and nx (cos, sin) float pairs of sign*2*pi*k/n.  `dims` holds 7
+// int64 values: L, the input strides (l, y, x) and the output strides
+// (l, y, x), in floats.  Returns the launch's cudaError_t (0 on success).
+extern "C" int pyfft_fused2d_tiled(const void* in_re, const void* in_im,
+                                   void* out_re, void* out_im,
+                                   const void* twy, const void* twx,
+                                   const long long* dims, int log2ny,
+                                   int log2nx, int sign, float postscale,
+                                   void* stream) {
+  Tiled io;
+  io.in_re = static_cast<const float*>(in_re);
+  io.in_im = static_cast<const float*>(in_im);
+  io.out_re = static_cast<float*>(out_re);
+  io.out_im = static_cast<float*>(out_im);
+  io.L = dims[0];
+  io.in_ls = dims[1];
+  io.in_ys = dims[2];
+  io.in_xs = dims[3];
+  io.out_ls = dims[4];
+  io.out_ys = dims[5];
+  io.out_xs = dims[6];
+  io.post = postscale;
+  if (io.L <= 0) return (int)cudaErrorInvalidValue;
+  const float s = sign < 0 ? -1.f : 1.f;
+  return (int)dispatch(log2ny, log2nx, io, static_cast<const float2*>(twy),
+                       static_cast<const float2*>(twx), s,
+                       static_cast<cudaStream_t>(stream));
+}

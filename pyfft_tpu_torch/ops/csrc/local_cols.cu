@@ -83,9 +83,40 @@
 // complex tensor stride 2.  Offsets are 64-bit.  T and the block count
 // must fit int32 (the wrapper checks).
 //
+// Two more complex64 kernels are policies of this one, template parameters
+// that default to the column kernel's behaviour (so K5's and K12's code is
+// what it was without them):
+//
+// K4, the digit-swapped row pass (policy ROWS).  It replaces
+// pyfft_tpu/ops/pallas_local.py `_row_swap_kernel`, launched by
+// `_fft_rows_swap` through `pl.pallas_call`: the DFT along the rows of
+// (L, n1, n) planes, stored as (L, n, n1),
+//
+//   out[l, k, r] = postscale * sum_j x[l, r, j] * w_n^(sign*j*k),
+//
+// the second pass of the four-step "variant B".  With t = r that is the
+// plain store above over the input read as x[l, j, t] (element stride
+// in_ns, row stride in_ts), so a block takes C consecutive rows.  Only the
+// load differs: a row is contiguous along j, so a first pass copies the
+// block's C rows into the [k][c] buffer with threads running along j, in
+// runs of KW points of one row (load_rows below: a 32-byte sector of each
+// plane a run from n = 1024 up, at most four-way bank conflicts on the
+// buffer), and the chain starts from shared memory.  The plain store writes C*4-byte runs per k
+// (32 bytes at n = 2048, C = 8).  Out of place only: rows and columns
+// cross.
+//
+// K6, the multi-tile column pass (policy WALK).  It replaces
+// pyfft_tpu/ops/pallas_local.py `_fft_cols_ctile`'s `pl.pallas_call` (the
+// body is `_col_kernel` over (1, n, c, 128) blocks): the column kernel's
+// function, plain or `full` twiddle and plain store only, with one block
+// taking c 128-column tiles, c*128 consecutive t, which it walks in
+// c*128/C runs of the column kernel, one after another through the same
+// buffer.  The grid is L x T/(128*c).  In place as the column kernel.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry points `pyfft_local_cols` (float) and
-// `pyfft_local_cols_f64` (double), and their widths, at the bottom.
+// library with the plain C entry points `pyfft_local_cols` (float),
+// `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4) and
+// `pyfft_local_cols_ctile` (K6), and the column widths, at the bottom.
 
 #include <cuda_runtime.h>
 
@@ -96,6 +127,10 @@ namespace {
 using namespace pyfft;
 
 enum TwMode { TW_NONE = 0, TW_TABLE = 1, TW_FACTORED = 2 };
+
+// How a block finds its data: the column kernel's (K5, K12), K4's row load,
+// K6's walk over c tiles.
+enum Policy { COLS = 0, ROWS = 1, WALK = 2 };
 
 template <typename Real>
 struct Cols {
@@ -113,6 +148,7 @@ struct Cols {
   long long bk, bq;
   int tw_mode;
   Real post;
+  int ctile;     // WALK: 128-column tiles a block
 };
 
 // The columns a block takes at length n, in bytes of its complex type:
@@ -200,7 +236,10 @@ __device__ __forceinline__ void stage(const Cols<Real>& io,
   __syncthreads();
 }
 
-template <typename Real, int LOGN, bool SWAP, int STAGE, int NS>
+// The chain from stage STAGE on.  LOADED: the block's data is already in
+// the [k][c] buffer (K4), so stage 0 reads shared memory too.
+template <typename Real, int LOGN, bool SWAP, int STAGE, int NS,
+          bool LOADED = false>
 __device__ __forceinline__ void stages(const Cols<Real>& io,
                                        typename Complex<Real>::V* sm,
                                        const typename Complex<Real>::V*
@@ -208,10 +247,48 @@ __device__ __forceinline__ void stages(const Cols<Real>& io,
                                        long long l, long long t0, Real s) {
   using S = ColShape<LOGN, Real>;
   constexpr int R = (STAGE == 0 && S::REM) ? (1 << S::REM) : 8;
-  stage<Real, S::N, S::C, S::NT, R, NS, STAGE == 0, STAGE == S::NSTAGES - 1,
-        SWAP>(io, sm, tw, l, t0, s);
+  stage<Real, S::N, S::C, S::NT, R, NS, STAGE == 0 && !LOADED,
+        STAGE == S::NSTAGES - 1, SWAP>(io, sm, tw, l, t0, s);
   if constexpr (STAGE + 1 < S::NSTAGES)
-    stages<Real, LOGN, SWAP, STAGE + 1, NS * R>(io, sm, tw, l, t0, s);
+    stages<Real, LOGN, SWAP, STAGE + 1, NS * R, LOADED>(io, sm, tw, l, t0, s);
+}
+
+// K4's load: the block's C rows x[l, j, t0 + c] (j along a row, in_ns
+// apart; rows in_ts apart) into the [k][c] buffer, element e of a thread
+// at j = (e / (KW*C))*KW + e % KW of row c = (e / KW) % C.  A warp reads
+// KW consecutive points of each of up to 32/KW rows: KW = 8 (a 32-byte
+// sector of each plane) where C <= 8, else 4, so the buffer's stores (a
+// half-warp's 8-byte stores k*C + c apart) meet at most four-way bank
+// conflicts.  A thread issues all its loads before its first store, so
+// they are all in flight at once (one block an SM at n >= 1024).  Rows
+// past T read as 0.
+template <typename Real, int LOGN>
+__device__ __forceinline__ void load_rows(const Cols<Real>& io,
+                                          typename Complex<Real>::V* sm,
+                                          long long l, long long t0) {
+  using S = ColShape<LOGN, Real>;
+  using V = typename Complex<Real>::V;
+  constexpr int C = S::C, E = S::P / S::NT;
+  constexpr int KW = C <= 8 ? 8 : 4;
+  static_assert(KW <= S::N && E * S::NT == S::P, "load runs tile the block");
+  V v[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = threadIdx.x + i * S::NT;
+    const int c = (e / KW) % C;
+    const int k = (e / (KW * C)) * KW + e % KW;
+    const long long t = t0 + c;
+    v[i] = Complex<Real>::make(0, 0);
+    if (t < io.T) {
+      const long long o = l * io.in_ls + k * io.in_ns + t * io.in_ts;
+      v[i] = Complex<Real>::make(io.in_re[o], io.in_im[o]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = threadIdx.x + i * S::NT;
+    sm[((e / (KW * C)) * KW + e % KW) * C + (e / KW) % C] = v[i];
+  }
 }
 
 // The store pass: twiddle, postscale and the mode's store.  C divides 128,
@@ -251,25 +328,44 @@ __device__ __forceinline__ void store(const Cols<Real>& io,
 
 // (NT is a template parameter so that no comma reaches the
 // __launch_bounds__ macro)
-template <typename Real, int LOGN, bool SWAP,
+template <typename Real, int LOGN, bool SWAP, int POLICY = COLS,
           int NT = ColShape<LOGN, Real>::NT>
 __global__ void __launch_bounds__(NT)
     local_cols_kernel(Cols<Real> io,
                       const typename Complex<Real>::V* __restrict__ tw,
                       Real s) {
   using V = typename Complex<Real>::V;
+  constexpr int C = ColShape<LOGN, Real>::C;
   // one raw buffer for both precisions: extern __shared__ arrays of
   // different types in one translation unit must not share a name
   extern __shared__ __align__(16) unsigned char smem_raw[];
   V* sm = reinterpret_cast<V*>(smem_raw);
   // l fastest: neighbouring blocks work on the same t-run
   const long long l = blockIdx.x % io.L;
-  const long long t0 = (blockIdx.x / io.L) * ColShape<LOGN, Real>::C;
-  stages<Real, LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
-  store<Real, LOGN, SWAP>(io, sm, l, t0);
+  if constexpr (POLICY == WALK) {
+    // c tiles of 128 columns, in runs of C, one after another
+    const int runs = io.ctile * (128 / C);
+    const long long base = (blockIdx.x / io.L) * (long long)runs * C;
+    for (int run = 0; run < runs; ++run) {
+      if (run) __syncthreads();       // the last store pass read the buffer
+      stages<Real, LOGN, SWAP, 0, 1>(io, sm, fresh(tw), l, base + run * C,
+                                     s);
+      store<Real, LOGN, SWAP>(io, sm, l, base + run * C);
+    }
+  } else {
+    const long long t0 = (blockIdx.x / io.L) * C;
+    if constexpr (POLICY == ROWS) {
+      load_rows<Real, LOGN>(io, sm, l, t0);
+      __syncthreads();
+      stages<Real, LOGN, SWAP, 0, 1, true>(io, sm, tw, l, t0, s);
+    } else {
+      stages<Real, LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
+    }
+    store<Real, LOGN, SWAP>(io, sm, l, t0);
+  }
 }
 
-template <typename Real, int LOGN, bool SWAP>
+template <typename Real, int LOGN, bool SWAP, int POLICY>
 cudaError_t launch(const Cols<Real>& io, const typename Complex<Real>::V* tw,
                    Real s, cudaStream_t stream) {
   using S = ColShape<LOGN, Real>;
@@ -277,36 +373,42 @@ cudaError_t launch(const Cols<Real>& io, const typename Complex<Real>::V* tw,
                    (int)sizeof(typename Complex<Real>::V);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_cols_kernel<Real, LOGN, SWAP>,
+        local_cols_kernel<Real, LOGN, SWAP, POLICY>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const long long blocks = (io.T + S::C - 1) / S::C * io.L;
+  long long blocks = (io.T + S::C - 1) / S::C * io.L;
+  if (POLICY == WALK) {
+    const long long span = 128LL * io.ctile;     // columns a block
+    if (io.ctile <= 0 || io.T % span) return cudaErrorInvalidValue;
+    blocks = io.T / span * io.L;
+  }
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  local_cols_kernel<Real, LOGN, SWAP>
+  local_cols_kernel<Real, LOGN, SWAP, POLICY>
       <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s);
   return cudaGetLastError();
 }
 
-// log2n -> launch<Real, log2n, SWAP>, for log2n in [3, MAXLOG].
-template <typename Real, int MAXLOG, bool SWAP>
+// log2n -> launch<Real, log2n, SWAP, POLICY>, for log2n in [3, MAXLOG].
+template <typename Real, int MAXLOG, bool SWAP, int POLICY = COLS>
 cudaError_t dispatch(int log2n, const Cols<Real>& io,
                      const typename Complex<Real>::V* tw, Real s,
                      cudaStream_t st) {
   if (log2n > MAXLOG) return cudaErrorInvalidValue;
   switch (log2n) {
-    case 3: return launch<Real, 3, SWAP>(io, tw, s, st);
-    case 4: return launch<Real, 4, SWAP>(io, tw, s, st);
-    case 5: return launch<Real, 5, SWAP>(io, tw, s, st);
-    case 6: return launch<Real, 6, SWAP>(io, tw, s, st);
-    case 7: return launch<Real, 7, SWAP>(io, tw, s, st);
-    case 8: return launch<Real, 8, SWAP>(io, tw, s, st);
-    case 9: return launch<Real, 9, SWAP>(io, tw, s, st);
-    case 10: return launch<Real, 10, SWAP>(io, tw, s, st);
-    case 11: return launch<Real, 11, SWAP>(io, tw, s, st);
-    case 12: return launch<Real, 12, SWAP>(io, tw, s, st);
+    case 3: return launch<Real, 3, SWAP, POLICY>(io, tw, s, st);
+    case 4: return launch<Real, 4, SWAP, POLICY>(io, tw, s, st);
+    case 5: return launch<Real, 5, SWAP, POLICY>(io, tw, s, st);
+    case 6: return launch<Real, 6, SWAP, POLICY>(io, tw, s, st);
+    case 7: return launch<Real, 7, SWAP, POLICY>(io, tw, s, st);
+    case 8: return launch<Real, 8, SWAP, POLICY>(io, tw, s, st);
+    case 9: return launch<Real, 9, SWAP, POLICY>(io, tw, s, st);
+    case 10: return launch<Real, 10, SWAP, POLICY>(io, tw, s, st);
+    case 11: return launch<Real, 11, SWAP, POLICY>(io, tw, s, st);
+    case 12: return launch<Real, 12, SWAP, POLICY>(io, tw, s, st);
     case 13:
-      if constexpr (MAXLOG >= 13) return launch<Real, 13, SWAP>(io, tw, s, st);
+      if constexpr (MAXLOG >= 13)
+        return launch<Real, 13, SWAP, POLICY>(io, tw, s, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -331,11 +433,15 @@ int width(int log2n) {
   }
 }
 
+// The launch of the entry points below.  `policy` COLS runs the column
+// kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
+// the plain store, complex64 only.
 template <typename Real, int MAXLOG>
 int launch_cols(const void* in_re, const void* in_im, void* out_re,
                 void* out_im, const void* tw, const void* ta, const void* tb,
                 const long long* dims, int log2n, int sign, Real postscale,
-                int swap_store, void* stream) {
+                int swap_store, void* stream, int policy = COLS,
+                int ctile = 1) {
   using V = typename Complex<Real>::V;
   Cols<Real> io;
   io.in_re = static_cast<const Real*>(in_re);
@@ -361,11 +467,25 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
   io.bq = dims[14];
   io.tw_mode = static_cast<int>(dims[15]);
   io.post = postscale;
+  io.ctile = ctile;
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
     return (int)cudaErrorInvalidValue;
   const V* t = static_cast<const V*>(tw);
   const Real s = sign < 0 ? Real(-1) : Real(1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (policy != COLS) {
+    if constexpr (sizeof(Real) == sizeof(float)) {
+      if (swap_store) return (int)cudaErrorInvalidValue;
+      if (policy == ROWS) {
+        if (io.tw_mode != TW_NONE) return (int)cudaErrorInvalidValue;
+        return (int)dispatch<Real, MAXLOG, false, ROWS>(log2n, io, t, s, st);
+      }
+      if (io.tw_mode == TW_FACTORED || io.adiv != 1)
+        return (int)cudaErrorInvalidValue;
+      return (int)dispatch<Real, MAXLOG, false, WALK>(log2n, io, t, s, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   return swap_store ? (int)dispatch<Real, MAXLOG, true>(log2n, io, t, s, st)
                     : (int)dispatch<Real, MAXLOG, false>(log2n, io, t, s, st);
 }
@@ -412,4 +532,32 @@ extern "C" int pyfft_local_cols_f64(const void* in_re, const void* in_im,
   return launch_cols<double, 12>(in_re, in_im, out_re, out_im, tw, ta, tb,
                                  dims, log2n, sign, postscale, swap_store,
                                  stream);
+}
+
+// K4: the DFT along the rows of (L, T, n) float planes into (L, n, T),
+// postscale folded.  `dims` as above with the input strides given as (l,
+// j, row) and the output's as (l, k, 0, row); no twiddle (mode 0), no
+// table.  The output must not overlap the input.
+extern "C" int pyfft_local_rows_swap(const void* in_re, const void* in_im,
+                                     void* out_re, void* out_im,
+                                     const void* tw, const long long* dims,
+                                     int log2n, int sign, float postscale,
+                                     void* stream) {
+  return launch_cols<float, 13>(in_re, in_im, out_re, out_im, tw, nullptr,
+                                nullptr, dims, log2n, sign, postscale, 0,
+                                stream, ROWS);
+}
+
+// K6: the complex64 column DFT with a plain store and no twiddle or the
+// `full` one (mode 0 or 1), a block taking `ctile` 128-column tiles; T must
+// be a multiple of 128*ctile.  Arguments as pyfft_local_cols's.
+extern "C" int pyfft_local_cols_ctile(const void* in_re, const void* in_im,
+                                      void* out_re, void* out_im,
+                                      const void* tw, const void* ta,
+                                      const void* tb, const long long* dims,
+                                      int log2n, int sign, float postscale,
+                                      int ctile, void* stream) {
+  return launch_cols<float, 13>(in_re, in_im, out_re, out_im, tw, ta, tb,
+                                dims, log2n, sign, postscale, 0, stream, WALK,
+                                ctile);
 }

@@ -68,6 +68,17 @@ __device__ __forceinline__ typename Complex<Real>::V mul_si(
   return Complex<Real>::make(-s * a.y, s * a.x);
 }
 
+// The pointer p, hidden from the optimiser: called inside a loop, it keeps
+// the loads through p in the loop.  A chain run once per iteration of a
+// loop would otherwise have its twiddle loads, the same every iteration,
+// hoisted out of it and held in registers across the whole loop, which
+// spills.
+template <typename T>
+__device__ __forceinline__ const T* fresh(const T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
 // In-register R-point DFT, y[k] = sum_r v[r] * exp(s*2*pi*i*r*k/R).
 template <int R, typename Real>
 __device__ __forceinline__ void dft(typename Complex<Real>::V* v, Real s) {

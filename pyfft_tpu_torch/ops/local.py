@@ -4,10 +4,13 @@ Counterpart of ``pyfft_tpu/ops/pallas_local.py``'s ``fft_axis``: the row
 path (``axis=-1`` -> ``_fft_rows`` -> ``_row_call_inner`` -> the Pallas
 kernel ``_kernel``) and the column path (``axis != -1`` -> ``_fft_cols``
 -> ``_fft_cols_inner`` -> the Pallas kernel ``_col_kernel``, with its
-fused four-step twiddles and swapped stores); and of its
+fused four-step twiddles and swapped stores); of its
 ``fft_rows_interleaved``, the row DFT of interleaved complex64 storage
-(the same ``_kernel`` with ``interleaved=True``, packed or not).  Two
-implementations of each function live here:
+(the same ``_kernel`` with ``interleaved=True``, packed or not); and of the
+two kernels no ``Plan`` route reaches: ``fft_rows_swap`` (``_fft_rows_swap``
+-> ``_row_swap_kernel``, the four-step "variant B" second pass) and
+``fft_axis(..., ctile=c)`` (``_fft_cols_ctile``, c lane tiles a block).
+Two implementations of each function live here:
 
 * the Hopper kernels ``csrc/local_rows.cu`` and ``csrc/local_cols.cu``
   (Stockham radix-8 chains in shared memory, one device-memory round trip
@@ -16,9 +19,11 @@ implementations of each function live here:
   float64 planes (complex128) their native-FP64 instantiations K11 and
   K12, the counterparts of ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see
   ``ops/fp64.py``), and on interleaved complex64 K1's interleaved I/O
-  policy, K2, which serves the packed form K3 too;
-* their plain torch versions, ``fft_rows_plain``, ``fft_cols_plain`` and
-  ``fft_rows_interleaved_plain``, taken for every CPU tensor.  On float32 planes they are built on
+  policy, K2, which serves the packed form K3 too; K4 (``_launch_rows_swap``)
+  and K6 (``_launch_cols`` with ``ctile``) are two policies of K5's source;
+* their plain torch versions, ``fft_rows_plain``, ``fft_cols_plain``,
+  ``fft_rows_interleaved_plain`` and ``fft_rows_swap_plain`` (K6's is
+  ``fft_cols_plain``), taken for every CPU tensor.  On float32 planes they are built on
   ``tile_fft`` with ``needed_tables`` and ``_butterfly``: a line-for-line
   mirror of the JAX package's tile math (the same factor chains, radix-8
   constants, stacked DFT matrices and folded last twiddle), which the tests
@@ -49,12 +54,14 @@ from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "fft_rows_interleaved", "fft_rows_interleaved_plain",
+           "fft_rows_swap", "fft_rows_swap_plain", "clamp_ctile",
            "tile_fft", "tile_fft_packed", "needed_tables",
            "needed_tables_packed", "tables_from_numpy",
            "default_factors", "row_factors", "col_factors",
            "butterfly_factors", "precise_factors", "MAX_LOCAL_N",
            "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
-           "COL_LAUNCHES_F64", "IL_LAUNCHES"]
+           "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
+           "CTILE_LAUNCHES"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -67,6 +74,9 @@ LAUNCHES_F64 = 0
 COL_LAUNCHES_F64 = 0
 # The same for _launch_rows_il (K2, interleaved complex64 rows).
 IL_LAUNCHES = 0
+# The same for _launch_rows_swap (K4) and for _launch_cols with ctile (K6).
+SWAP_LAUNCHES = 0
+CTILE_LAUNCHES = 0
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -689,6 +699,140 @@ def fft_rows_interleaved(v, sign, *, postscale: float = 1.0, factors=None,
     return out
 
 
+# ------------------------------------------------- digit-swapped row pass
+
+
+def _swap_n(re, lanes: int) -> tuple[int, int]:
+    """(n1, n) of the (..., n1, n) float32 planes K4 takes, or raise: n a
+    power of two in [MIN_LOCAL_N, MAX_LOCAL_N], n1 a multiple of
+    ``lanes`` (pallas_local._fft_rows_swap's assertion)."""
+    if re.dtype != torch.float32 or re.ndim < 2:
+        raise ValueError(f"fft_rows_swap takes float32 planes of at least "
+                         f"two axes, got {re.dtype} of shape "
+                         f"{tuple(re.shape)}")
+    n1, n = re.shape[-2:]
+    if not (is_power_of_two(n) and MIN_LOCAL_N <= n <= MAX_LOCAL_N):
+        raise ValueError(f"fft_rows_swap takes rows of n = 2^k in "
+                         f"[{MIN_LOCAL_N}, {MAX_LOCAL_N}] points, got {n}")
+    if lanes < 1 or n1 % lanes:
+        raise ValueError(f"fft_rows_swap needs a row count that is a "
+                         f"multiple of lanes={lanes}, got {n1}")
+    return n1, n
+
+
+def fft_rows_swap_plain(re, im, sign, postscale: float = 1.0, factors=None):
+    """The plain torch version of K4, on any device: the DFT along the
+    last axis of (..., n1, n) float32 planes, times ``postscale``, stored
+    with the last two axes exchanged, (..., n, n1).  As
+    pallas_local._fft_rows_swap: ``tile_fft`` with ``default_factors(n)``
+    (not ``row_factors``), then the postscale, then the swap."""
+    n = re.shape[-1]
+    factors = tuple(factors or default_factors(n))
+    xr, xi = fft_rows_plain(re, im, sign, postscale, factors)
+    return (xr.transpose(-1, -2).contiguous(),
+            xi.transpose(-1, -2).contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_swap_fn():
+    """The C entry point ``pyfft_local_rows_swap`` of csrc/local_cols.cu
+    (K4 is a load policy of the column kernel), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_rows_swap
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float):
+    """Launch K4 from the (L, n1, n) view of the planes into the
+    (L, n, n1) view of the outputs; no synchronise.  The caller
+    (``fft_rows_swap``) has checked n and n1."""
+    global SWAP_LAUNCHES
+    shape = tuple(re.shape)
+    n1, n = shape[-2:]
+    L = math.prod(shape[:-2])
+    oshape = shape[:-2] + (n, n1)
+    for t, want in ((re, shape), (im, shape), (out_re, oshape),
+                    (out_im, oshape)):
+        if (not t.is_cuda or t.device != re.device
+                or t.dtype != torch.float32):
+            raise ValueError(f"K4 takes float32 planes on one CUDA device, "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"K4 plane of shape {tuple(t.shape)}, expected "
+                             f"{want}")
+    for src in (re, im):
+        for dst in (out_re, out_im):
+            if _shares_memory(src, dst):
+                raise ValueError("K4 runs out of place only: its output "
+                                 "shares memory with its input")
+    if L * n1 == 0:
+        return out_re, out_im
+    r3, i3 = _view(re, (L, n1, n), "re"), _view(im, (L, n1, n), "im")
+    o3 = [_view(t, (L, n, n1), w) for t, w in ((out_re, "out_re"),
+                                               (out_im, "out_im"))]
+    if r3.stride() != i3.stride() or o3[0].stride() != o3[1].stride():
+        raise ValueError("K4 needs equal strides for re and im")
+    blocks = -(-n1 // col_width(n)) * L
+    if max(n1, blocks) >= 2 ** 31:
+        raise ValueError("K4 row count and block count must fit int32")
+    ls, rs, js = r3.stride()
+    ols, oks, ors = o3[0].stride()
+    # the column kernel's dims with t = the row: input strides (l, j, row),
+    # output strides (l, k, 0, row), no mid swap, no twiddle
+    dims = (ctypes.c_longlong * 16)(L, n1, ls, js, rs, ols, oks, 0, ors,
+                                    1 << 62, 0, 0, 1, 0, 0, 0)
+    tw = _kernel_twiddles(n, sign, re.device)
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = _rows_swap_fn()(r3.data_ptr(), i3.data_ptr(), o3[0].data_ptr(),
+                              o3[1].data_ptr(), tw.data_ptr(), dims, ilog2(n),
+                              int(sign), float(postscale), stream)
+    if err != 0:
+        raise RuntimeError(f"local_rows_swap launch failed: cudaError {err}")
+    SWAP_LAUNCHES += 1
+    return out_re, out_im
+
+
+def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
+                  lanes: int = MIN_TRAIL, out=None):
+    """Row DFT with a digit-swapped store (pallas_local.fft_rows_swap):
+    (..., n1, n) float32 planes -> (..., n, n1), ``out[..., k, r] =
+    postscale * sum_j x[..., r, j] * w_n^(sign*j*k)``, the second pass of
+    the four-step "variant B" (a column pass with the ``full`` twiddle and
+    a plain store, then this).
+
+    A CUDA tensor runs K4 (``csrc/local_cols.cu``'s row-load policy), which
+    ignores ``factors``; a CPU tensor runs ``fft_rows_swap_plain`` with
+    ``factors`` (default ``default_factors(n)``).  ``n1`` must be a
+    multiple of ``lanes`` (JAX's row block; on the card it is only this
+    check).  ``out=(re, im)`` names the (..., n, n1) planes to write, which
+    may not overlap the input: K4 runs out of place only, as in JAX.
+    Without it, new planes are allocated with the input's layout.  Raises
+    where K4 does not apply; nothing falls back.
+    """
+    n1, n = _swap_n(re, lanes)
+    oshape = tuple(re.shape[:-2]) + (n, n1)
+    if out is not None and any(_shares_memory(a, b) for a in (re, im)
+                               for b in out):
+        raise ValueError("fft_rows_swap runs out of place only: out shares "
+                         "memory with the input")
+    if re.is_cuda:
+        if out is None:
+            out = _empty_like_planes(re, im, oshape)
+        return _launch_rows_swap(re, im, out[0], out[1], sign, postscale)
+    if re.device.type != "cpu":
+        raise ValueError(f"no fft_rows_swap for device {re.device}")
+    rr, ii = fft_rows_swap_plain(re, im, sign, postscale, factors)
+    if out is None:
+        return rr, ii
+    out[0].copy_(rr)
+    out[1].copy_(ii)
+    return out
+
+
 # ------------------------------------------------------------- column path
 
 def _check_col_modes(T: int, tw_n: int, tw_mode: str, tw_period: int,
@@ -712,6 +856,29 @@ def _check_col_modes(T: int, tw_n: int, tw_mode: str, tw_period: int,
                              f"multiple of {MIN_TRAIL}, got {T}")
     elif tw_mode != "full":
         raise ValueError(f"unknown tw_mode {tw_mode!r}")
+
+
+def clamp_ctile(T: int, ctile: int, *, tw_n: int = 0, tw_mode: str = "full",
+                swap_store: bool = False, swap_mid: int = 0) -> int:
+    """The tiles a K6 block takes over a trail of T, or raise: ``ctile``
+    halved until it divides T // MIN_TRAIL (pallas_local._fft_cols_ctile),
+    with JAX's assertions as ValueErrors: a plain store only, no twiddle or
+    the ``full`` one, T a multiple of MIN_TRAIL."""
+    if ctile < 1:
+        raise ValueError(f"ctile must be a positive tile count, got {ctile}")
+    if swap_store or swap_mid:
+        raise ValueError("ctile runs the plain store only, not swap_store "
+                         "or swap_mid")
+    if tw_n and tw_mode != "full":
+        raise ValueError(f"ctile takes no twiddle or the full one, not "
+                         f"{tw_mode!r}")
+    if T % MIN_TRAIL:
+        raise ValueError(f"ctile needs a trail that is a multiple of "
+                         f"{MIN_TRAIL}, got {T}")
+    tiles = T // MIN_TRAIL
+    while ctile > 1 and tiles % ctile:
+        ctile //= 2
+    return ctile
 
 
 def _col_out_shape(shape: tuple, axis: int, swap_store: bool,
@@ -842,6 +1009,19 @@ def _kernel_col_tables(n: int, T: int, tw_n: int, tw_mode: str,
 
 
 @functools.lru_cache(maxsize=None)
+def _ctile_fn():
+    """The C entry point ``pyfft_local_cols_ctile`` of csrc/local_cols.cu
+    (K6, the column kernel's walk over c tiles), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_cols_ctile
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _cols_lib(dtype: torch.dtype):
     """(launch, width): the typed C entry points of csrc/local_cols.cu for
     planes of ``dtype`` (``pyfft_local_cols[_width]`` for float32, the
@@ -882,11 +1062,12 @@ def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                  postscale: float, tw_n: int, tw_mode: str, tw_period: int,
-                 swap_store: bool, swap_mid: int):
+                 swap_store: bool, swap_mid: int, ctile: int = 0):
     """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
-    no synchronise.  The caller (``fft_axis``) has checked ``supported``
-    and the modes."""
-    global COL_LAUNCHES, COL_LAUNCHES_F64
+    no synchronise: the column kernel, or K6 with ``ctile`` tiles a block
+    (already clamped).  The caller (``fft_axis``) has checked
+    ``supported`` and the modes."""
+    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES
     shape = tuple(re.shape)
     n = shape[axis]
     L = math.prod(shape[:axis])
@@ -931,6 +1112,13 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                                  "only a plain store may run in place")
     fn, width = _cols_lib(re.dtype)
     blocks = -(-T // width(ilog2(n))) * L
+    if ctile:
+        if re.dtype != torch.float32:
+            raise ValueError("K6 (ctile) takes float32 planes")
+        if T % (MIN_TRAIL * ctile):
+            raise ValueError(f"K6 needs a trail that is a multiple of "
+                             f"{MIN_TRAIL * ctile}, got {T}")
+        blocks = T // (MIN_TRAIL * ctile) * L
     if max(T, blocks) >= 2 ** 31:
         raise ValueError("column kernel trail and block count must fit int32")
     ta = tb = None
@@ -946,16 +1134,22 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         L, T, *r3.stride(), *ostr[0], period, ak, aq, max(adiv, 1), bk, bq,
         mode)
     tw = _kernel_twiddles(n, sign, re.device, re.dtype)
+    ptrs = (r3.data_ptr(), i3.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
+            tw.data_ptr(), None if ta is None else ta.data_ptr(),
+            None if tb is None else tb.data_ptr(), dims, ilog2(n), int(sign),
+            float(postscale))
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = fn(r3.data_ptr(), i3.data_ptr(), o[0].data_ptr(),
-                 o[1].data_ptr(), tw.data_ptr(),
-                 None if ta is None else ta.data_ptr(),
-                 None if tb is None else tb.data_ptr(), dims, ilog2(n),
-                 int(sign), float(postscale), int(bool(swap_store)), stream)
+        if ctile:
+            err = _ctile_fn()(*ptrs, int(ctile), stream)
+        else:
+            err = fn(*ptrs, int(bool(swap_store)), stream)
     if err != 0:
-        raise RuntimeError(f"local_cols launch failed: cudaError {err}")
-    if re.dtype == torch.float64:
+        name = "local_cols_ctile" if ctile else "local_cols"
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if ctile:
+        CTILE_LAUNCHES += 1
+    elif re.dtype == torch.float64:
         COL_LAUNCHES_F64 += 1
     else:
         COL_LAUNCHES += 1
@@ -964,7 +1158,8 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
 
 def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
              tw_n: int = 0, tw_mode: str = "full", tw_period: int = 0,
-             swap_store: bool = False, swap_mid: int = 0, out=None):
+             swap_store: bool = False, swap_mid: int = 0, ctile: int = 0,
+             out=None):
     """DFT along ``axis`` of planar float32 or float64 tensors.
 
     The last axis goes to the row kernel, any other axis to the column
@@ -972,7 +1167,13 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     passes only: ``tw_n`` fuses a four-step twiddle (``tw_mode`` "full",
     "strided" with ``tw_period``, or "factored"), ``swap_store`` returns
     shape ``(*shape[:axis], *shape[axis+1:], n)`` and ``swap_mid=P``
-    returns ``(*shape[:axis], trail // P, n, P)``.
+    returns ``(*shape[:axis], trail // P, n, P)``.  ``ctile=c`` (float32
+    column passes with a plain store and no twiddle or the ``full`` one, a
+    trail of whole 128-column tiles) runs K6, one block taking c tiles, c
+    clamped to a divisor of the tile count (``clamp_ctile``); its function
+    is the column kernel's, so a CPU tensor takes ``fft_cols_plain``.  (JAX
+    also lets ``ctile`` turn off its 256-lane tile for small n; the port
+    has no such tile.)
 
     A CUDA tensor goes to a kernel, which runs its own radix-8 chain and
     ignores ``factors``; a CPU tensor goes to the plain torch version,
@@ -991,9 +1192,9 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     axis = axis % re.ndim
     shape = tuple(re.shape)
     if axis == re.ndim - 1:
-        if tw_n or swap_store or swap_mid:
-            raise ValueError("twiddles and swapped stores are column-pass "
-                             "features")
+        if tw_n or swap_store or swap_mid or ctile:
+            raise ValueError("twiddles, swapped stores and ctile are "
+                             "column-pass features")
         if re.is_cuda:
             if out is None:
                 out = _empty_like_planes(re, im, shape)
@@ -1006,11 +1207,16 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
         oshape = _col_out_shape(shape, axis, swap_store, swap_mid)
         modes = dict(tw_n=tw_n, tw_mode=tw_mode, tw_period=tw_period,
                      swap_store=swap_store, swap_mid=swap_mid)
+        if ctile:
+            if re.dtype != torch.float32:
+                raise ValueError("ctile is a float32 column-pass feature")
+            ctile = clamp_ctile(T, ctile, tw_n=tw_n, tw_mode=tw_mode,
+                                swap_store=swap_store, swap_mid=swap_mid)
         if re.is_cuda:
             if out is None:
                 out = _empty_like_planes(re, im, oshape)
             return _launch_cols(re, im, out[0], out[1], sign, axis=axis,
-                                postscale=postscale, **modes)
+                                postscale=postscale, ctile=ctile, **modes)
         rr, ii = fft_cols_plain(re.reshape(L, n, T), im.reshape(L, n, T),
                                 sign, postscale=postscale, factors=factors,
                                 **modes)

@@ -72,3 +72,22 @@ def test_every_source_is_named_by_its_hash():
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(f"lib{n}_") and path.suffix == ".so"
     assert sorted(chip_smoke.SOURCES) == names
+    assert "fused2d_tiled" in names
+
+
+@pytest.mark.parametrize("header", ["chain.cuh", "stockham.cuh"])
+def test_every_source_follows_each_shared_header(tmp_path, monkeypatch,
+                                                 header):
+    """An edit to a shared header renames every library, fused2d_tiled.cu's
+    included: a copy of the repository's csrc/ with one header edited
+    names each source anew."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    monkeypatch.setattr(build, "CSRC", src)
+    names = sorted(p.stem for p in src.glob("*.cu"))
+    before = {n: build.library_path(n) for n in names}
+    (src / header).write_text((src / header).read_text() + "// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names)
+    assert "fused2d_tiled" in names

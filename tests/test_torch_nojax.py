@@ -34,6 +34,26 @@ def test_import_leaves_jax_out(module):
     assert res.returncode == 0, res.stderr
 
 
+def test_offroute_entry_points_leave_jax_out():
+    """The entry points of the kernels no Plan route takes (K4, K6, K9)
+    run on CPU tensors in a fresh interpreter without loading jax."""
+    code = ("import sys, torch\n"
+            "from pyfft_tpu_torch.ops import fused2d, local\n"
+            "z = torch.zeros(2, 128, 256)\n"
+            "assert local.fft_rows_swap(z, z, -1)[0].shape == (2, 256, 128)\n"
+            "local.fft_axis(z, z, -1, axis=1, ctile=2, tw_n=128 * 256)\n"
+            "fused2d.fft2_fused_tiled(z, z, -1, postscale=0.5)\n"
+            "local.fft_rows_swap_plain(z, z, +1)\n"
+            "fused2d.fft2_tiled_plain(z, z, +1)\n"
+            "assert fused2d.supported_2d_tiled(z)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'pyfft_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_no_jax_import_in_sources():
     """No module of the package names jax or the JAX package in an import
     statement, lazily or not."""
