@@ -4,7 +4,7 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in eighteen phases, one or more lines each:
+numpy.fft, in nineteen phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
@@ -102,7 +102,20 @@ numpy.fft, in eighteen phases, one or more lines each:
      against numpy on all eight rows, and its inverse; K6 as config 4's z
      pass after K8, against numpy; K9 on config 3's planes, against numpy
      and Plan's result; each timed beside its plain version, its bound, the
-     routed kernels that compute the same and the library call.
+     routed kernels that compute the same and the library call;
+ 19. K10, the int8-split stage (precision="int8"), inside K1 and K5: K1+K10
+     at every n from 8 to 8192 (1, 130 and 384 rows, the 384 spread 2^20
+     apart from one 128-row tile to the next; planar, stride-2, in place;
+     both directions) and K5+K10 at every n (L = 3 with l and tiles spread
+     2^20 apart; T in {128, 384} with a plain store planar and in place and
+     the full twiddle, a swapped store at T = 128, a ragged T = 200), each
+     against its plain version and numpy per alignment tile, with exact
+     launch counts (n = 8 has no matrix stage and runs K1 or K5); config 2
+     through K1+K10 and config 3 through K1+K10 then K5+K10, forward and
+     inverse, with exact counts, against numpy and, call by call, the plain
+     versions; K4, K8 and K9 refuse "int8"; K1+K10 at config 2 and at n =
+     8192 (f = 128) and K5+K10 at config 3's column pass timed beside the
+     float kernels, the plain versions, the bounds and the library call.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -131,18 +144,21 @@ N, BATCH = 4096, 4096
 
 # Bounds from the published peaks of one H100 SXM (NVIDIA's data sheet, at
 # its 700 W limit): device memory 3.35 TB/s, FP32 outside the tensor cores
-# 67 TFLOP/s, FP64 outside the tensor cores 34 TFLOP/s.  The measured copy
-# bandwidth gives a second, tighter bound.
+# 67 TFLOP/s, FP64 outside the tensor cores 34 TFLOP/s, int8 on the tensor
+# cores 1979 TOP/s dense.  The measured copy bandwidth gives a second,
+# tighter bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
+PEAK_INT8_S = 1979e12
 
 SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled",
            "interleave")
 # the kernels, by the name of the count their wrapper keeps
 KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
            "local_cols_f64", "local_rows_il", "deinterleave", "interleave",
-           "local_rows_swap", "local_cols_ctile", "fused2d_tiled")
+           "local_rows_swap", "local_cols_ctile", "fused2d_tiled",
+           "local_rows_i8", "local_cols_i8")
 
 # Launches of one complex-form execute of a 1D plan of one local pass, by
 # its interleaved route; the stream route adds K13 and K14 around any plan.
@@ -191,6 +207,8 @@ def reset_counts():
     local.IL_LAUNCHES = 0
     local.SWAP_LAUNCHES = 0
     local.CTILE_LAUNCHES = 0
+    local.I8_LAUNCHES = 0
+    local.COL_I8_LAUNCHES = 0
     fused2d.LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
     interleave.DEINT_LAUNCHES = 0
@@ -209,7 +227,9 @@ def read_counts() -> dict:
             "interleave": interleave.INT_LAUNCHES,
             "local_rows_swap": local.SWAP_LAUNCHES,
             "local_cols_ctile": local.CTILE_LAUNCHES,
-            "fused2d_tiled": fused2d.TILED_LAUNCHES}
+            "fused2d_tiled": fused2d.TILED_LAUNCHES,
+            "local_rows_i8": local.I8_LAUNCHES,
+            "local_cols_i8": local.COL_I8_LAUNCHES}
 
 
 def expect(*parts) -> dict:
@@ -232,11 +252,13 @@ def route_counts(plan) -> dict:
     return STREAM_EXTRA if route == "stream" else {}
 
 
-def bound(nbytes: float, flops: float,
-          peak_flops: float = PEAK_FP32_S) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_S,
+          int8_ops: float = 0.0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take,
-    with the operations at ``peak_flops`` (PEAK_FP64_S for complex128)."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flops * 1e3
+    with the operations at ``peak_flops`` (PEAK_FP64_S for complex128) and
+    any int8 operations at PEAK_INT8_S, the larger of those two times."""
+    tb = nbytes / PEAK_BYTES_S * 1e3
+    tf = max(flops / peak_flops, int8_ops / PEAK_INT8_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -794,14 +816,15 @@ def phase_paths(names, phase: int, keep: tuple = ()):
 
 
 def time_pass(path, label, re, im, kernel, plain, library, nbytes, flops,
-              copy_gbs, extra_bytes=0, phase=9, peak_flops=PEAK_FP32_S):
+              copy_gbs, extra_bytes=0, phase=9, peak_flops=PEAK_FP32_S,
+              int8_ops=0.0):
     """One timed pass: kernel, plain version and library call by CUDA
     events, with its bounds; returns the record and prints its line."""
     from pyfft_tpu_torch.utils.profiling import time_ms
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     lib_ms = None if library is None else time_ms(library)
-    b_ms, b_by = bound(nbytes, flops, peak_flops)
+    b_ms, b_by = bound(nbytes, flops, peak_flops, int8_ops)
     copy_ms = nbytes / (copy_gbs * 1e9) * 1e3
     row = {"path": path, "pass": label, "shape": list(re.shape), "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -1851,6 +1874,309 @@ def phase_offroute_paths(copy_gbs):
             "variant_b": vb}
 
 
+# ------------------------------------------------- K10, the int8 stage
+
+
+def tiles_err(got, ref, splits) -> float:
+    """The worst error of any tile of ``got`` against its own peak in
+    ``ref``: ``splits`` is [(dim, size)], the tiles that share one alignment
+    exponent in the plain version (a kernel's group is a subset of one)."""
+    parts = [(got, ref)]
+    for dim, size in splits:
+        parts = [(a, b) for g, r in parts
+                 for a, b in zip(g.split(size, dim), r.split(size, dim))]
+    return max(rel_err(a, b) for a, b in parts)
+
+
+def i8_ops(n: int, f: int, points: int) -> tuple[float, float]:
+    """(FP32 flops, int8 operations) of an int8 transform of length n over
+    ``points`` complex points: the radix stages by 5 n log2(n/f) a
+    transform, the f-point stage by 72 f a point (9 channel pairs of a
+    2f x 2f matrix)."""
+    if not f:
+        return fft_flops(n, points // n), 0.0
+    return 5.0 * points * math.log2(n // f), 72.0 * f * points
+
+
+def spread_rows(x: np.ndarray) -> np.ndarray:
+    """Magnitudes 2^20 apart from one 128-row tile to the next."""
+    x = x.copy()
+    x[128:256] *= 2.0 ** -20
+    x[256:] *= 2.0 ** 10
+    return x
+
+
+def numpy_refs(x: torch.Tensor, ndim: int):
+    """numpy's forward and inverse (normalised) transforms of the last
+    ``ndim`` axes of ``x``, on the card; the inverse as conj(fft(conj x))
+    / size."""
+    size = math.prod(x.shape[-ndim:])
+    return numpy_ref(x, ndim), numpy_ref(x.conj().resolve_conj(), ndim).conj() / size
+
+
+def phase_int8_rows():
+    """K10 in K1 at every n against fft_rows_plain(precision="int8") and
+    numpy, per 128-row tile (the plain version's alignment group)."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(19)
+    for n in IL_NS:
+        f = local.matrix_factor(local.row_factors(n))
+        worst_plain = worst_np = 0.0
+        before = (local.I8_LAUNCHES, local.LAUNCHES)
+        cases = 0
+        for rows in (1, 130, 384):
+            x = (rng.standard_normal((rows, n))
+                 + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+            if rows == 384:
+                x = spread_rows(x)
+            xc = torch.from_numpy(x).cuda()
+            for sign, post in posts("complex64", n):
+                X = (np.fft.fft(x.astype(np.complex128)) if sign < 0
+                     else np.fft.ifft(x.astype(np.complex128)) * n)
+                ref = torch.from_numpy(X * post).cuda()
+                plain = cplx(*local.fft_rows_plain(
+                    xc.real.contiguous(), xc.imag.contiguous(), sign, post,
+                    precision="int8"))
+                for mode in ("planar", "stride2", "inplace"):
+                    re, im, out = operands(xc, mode)
+                    got = local.fft_axis(re, im, sign, postscale=post,
+                                         precision="int8", out=out)
+                    torch.cuda.synchronize()
+                    if out is not None and got[0].data_ptr() != re.data_ptr():
+                        raise AssertionError("in-place int8 rows wrote "
+                                             "elsewhere")
+                    g = cplx(*got)
+                    tag = f"n={n} rows={rows} sign={sign} {mode}"
+                    e_plain = tiles_err(g, plain, [(0, 128)])
+                    e_np = tiles_err(g, ref, [(0, 128)])
+                    check(f"K1+K10 vs plain {tag}", e_plain)
+                    check(f"K1+K10 vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        made = (local.I8_LAUNCHES - before[0], local.LAUNCHES - before[1])
+        if made != ((cases, 0) if f else (0, cases)):
+            raise AssertionError(f"int8 rows n={n}: launches (int8, float) "
+                                 f"{made} for {cases} calls")
+        print(f"phase 19 K1+K10 n={n} (f={f or 'none: K1 unchanged'}): "
+              f"{cases} cases incl. a 2^20 spread over 128-row tiles, max "
+              f"rel err per tile vs plain {worst_plain:.3e}, vs numpy "
+              f"{worst_np:.3e} (gate {TOL:.0e})")
+
+
+I8_COL_MODES = ("plain planar", "plain inplace", "full planar",
+                "full swap_store")
+
+
+def phase_int8_cols():
+    """K10 in K5 at every n, T in {128, 384} and a ragged 200, against
+    fft_cols_plain(precision="int8") and numpy, per (l, 128-column tile)."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(20)
+    for n in IL_NS:
+        f = local.matrix_factor(local.col_factors(n))
+        worst_plain = worst_np = 0.0
+        before = (local.COL_I8_LAUNCHES, local.COL_LAUNCHES)
+        cases = 0
+        for T in (128, 384, 200):
+            L = 3
+            x = (rng.standard_normal((L, n, T))
+                 + 1j * rng.standard_normal((L, n, T))).astype(np.complex64)
+            x[1] *= 2.0 ** -20
+            x[2, :, 128:256] *= 2.0 ** 10
+            xc = torch.from_numpy(x).cuda()
+            for sign, post in posts("complex64", n):
+                X = np.fft.fft(x.astype(np.complex128), axis=1)
+                if sign > 0:
+                    X = np.fft.ifft(x.astype(np.complex128), axis=1) * n
+                for mode in I8_COL_MODES:
+                    if T % 128 and mode != "plain planar":
+                        continue
+                    if mode == "full swap_store" and T != 128:
+                        continue
+                    ref, tw_n = col_reference(X, n, T, mode, sign, post)
+                    kw = col_kwargs(mode, tw_n)
+                    if mode == "full planar":
+                        kw = dict(tw_n=tw_n)
+                    plain = cplx(*local.fft_cols_plain(
+                        xc.real.contiguous(), xc.imag.contiguous(), sign,
+                        postscale=post, precision="int8", **kw))
+                    re, im, out = operands(xc, mode.split()[1])
+                    got = local.fft_axis(re, im, sign, axis=1, postscale=post,
+                                         precision="int8", out=out, **kw)
+                    torch.cuda.synchronize()
+                    if out is not None and got[0].data_ptr() != re.data_ptr():
+                        raise AssertionError("in-place int8 columns wrote "
+                                             "elsewhere")
+                    g = cplx(*got)
+                    tiles = [(0, 1), (1 if "swap" in mode else 2, 128)]
+                    tag = f"n={n} L={L} T={T} sign={sign} {mode}"
+                    e_plain = tiles_err(g, plain, tiles)
+                    e_np = tiles_err(g, torch.from_numpy(ref).cuda(), tiles)
+                    check(f"K5+K10 vs plain {tag}", e_plain)
+                    check(f"K5+K10 vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        made = (local.COL_I8_LAUNCHES - before[0],
+                local.COL_LAUNCHES - before[1])
+        if made != ((cases, 0) if f else (0, cases)):
+            raise AssertionError(f"int8 columns n={n}: launches (int8, "
+                                 f"float) {made} for {cases} calls")
+        width = local.col_width_i8(n) if f else local.col_width(n)
+        print(f"phase 19 K5+K10 n={n} (f={f or 'none: K5 unchanged'}, "
+              f"C={width} columns a block): {cases} cases, L=3 with a 2^20 "
+              f"spread over l and tiles, max rel err per tile vs plain "
+              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+
+
+def phase_int8_paths(copy_gbs):
+    """Phase 19's paths: config 2 through K1+K10 and config 3 through
+    K1+K10 then K5+K10, forward and inverse, with exact counts, against
+    numpy, every kernel call held against its plain version; the other
+    hosts refuse int8; timings beside the float kernels and the library."""
+    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    launches = dict.fromkeys(KERNELS, 0)
+    checks = []          # (kernel, label, max abs err, max rel err)
+    rows = []
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def against_plain(kernel, label, got, want):
+        a = float(torch.maximum((got[0] - want[0]).abs().max(),
+                                (got[1] - want[1]).abs().max()))
+        e = held(kernel, got, want, f"{label} vs plain")
+        checks.append((kernel, label, a, e))
+
+    def fft2_i8(re, im, sign, post):
+        r, i = local.fft_axis(re, im, sign, precision="int8")
+        return local.fft_axis(r, i, sign, axis=-2, postscale=post,
+                              precision="int8")
+
+    # config 2: rows, forward and inverse of the same data (each one
+    # transform's error; a round trip would add two)
+    x = make_data((BATCH, N), seed=190)
+    ref, ref_inv = numpy_refs(x, 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+
+    def both_rows():
+        return (local.fft_axis(re, im, -1, precision="int8"),
+                local.fft_axis(re, im, +1, postscale=1.0 / N,
+                               precision="int8"))
+
+    (y, yi), counts = counted({"local_rows_i8": 2}, "config 2 int8",
+                              both_rows)
+    add(counts)
+    e2 = (rel_err(cplx(*y), ref), rel_err(cplx(*yi), ref_inv))
+    check("config 2 int8 forward vs numpy", e2[0])
+    check("config 2 int8 inverse vs numpy", e2[1])
+    against_plain("local_rows_i8", "config 2 (K1+K10)", y,
+                  local.fft_rows_plain(re, im, -1, precision="int8"))
+    del y, yi, ref, ref_inv
+    print(f"phase 19 config 2 {tuple(x.shape)} through K1+K10 (f=64): "
+          f"launches {counts['local_rows_i8']} local_rows_i8 over a forward "
+          f"and an inverse run, err vs numpy {e2[0]:.3e} forward, "
+          f"{e2[1]:.3e} inverse (gate {TOL:.0e})")
+    out = (torch.empty_like(re), torch.empty_like(im))
+    fl, ops = i8_ops(N, 64, BATCH * N)
+    rows.append(time_pass(
+        "config 2", "rows (K1+K10)", re, im,
+        lambda: local.fft_axis(re, im, -1, precision="int8", out=out),
+        lambda: local.fft_rows_plain(re, im, -1, precision="int8"),
+        lambda: torch.fft.fft(x), 2 * BATCH * N * 8, fl, copy_gbs, phase=19,
+        int8_ops=ops))
+    rows[-1]["kernel"] = "local_rows_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: local.fft_axis(re, im, -1,
+                                                          out=out))
+    print(f"    K1 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    # the largest W: K1+K10 at n = 8192 (f = 128), 2^24 points
+    xs = x.view(BATCH * N // 8192, 8192)
+    r8, i8 = xs.real.contiguous(), xs.imag.contiguous()
+    fl, ops = i8_ops(8192, 128, BATCH * N)
+    rows.append(time_pass(
+        "n = 8192", "rows (K1+K10, f=128)", r8, i8,
+        lambda: local.fft_axis(r8, i8, -1, precision="int8",
+                               out=(out[0].view(r8.shape),
+                                    out[1].view(r8.shape))),
+        lambda: local.fft_rows_plain(r8, i8, -1, precision="int8"),
+        lambda: torch.fft.fft(xs), 2 * BATCH * N * 8, fl, copy_gbs, phase=19,
+        int8_ops=ops))
+    rows[-1]["kernel"] = "local_rows_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: local.fft_axis(
+        r8, i8, -1, out=(out[0].view(r8.shape), out[1].view(r8.shape))))
+    print(f"    K1 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    del x, re, im, out, xs, r8, i8
+    torch.cuda.empty_cache()
+
+    # config 3: K1+K10 then K5+K10, forward and inverse
+    x = make_data((16, 1024, 1024), seed=191)
+    ref, ref_inv = numpy_refs(x, 2)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+
+    def both_2d():
+        return (fft2_i8(re, im, -1, 1.0),
+                fft2_i8(re, im, +1, 1.0 / (re.shape[-1] * re.shape[-2])))
+
+    (y, yi), counts = counted({"local_rows_i8": 2, "local_cols_i8": 2},
+                              "config 3 int8", both_2d)
+    add(counts)
+    e3 = (rel_err(cplx(*y), ref), rel_err(cplx(*yi), ref_inv))
+    check("config 3 int8 forward vs numpy", e3[0])
+    check("config 3 int8 inverse vs numpy", e3[1])
+    del y, yi, ref, ref_inv
+    p1 = local.fft_axis(re, im, -1, precision="int8")
+    against_plain("local_rows_i8", "config 3 row pass (K1+K10)", p1,
+                  local.fft_rows_plain(re, im, -1, precision="int8"))
+    p2 = local.fft_axis(*p1, -1, axis=-2, precision="int8")
+    against_plain("local_cols_i8", "config 3 column pass (K5+K10)", p2,
+                  local.fft_cols_plain(*p1, -1, precision="int8"))
+    del p2
+    print(f"phase 19 config 3 {tuple(x.shape)} through K1+K10 then K5+K10 "
+          f"(f=64 both): launches {counts['local_rows_i8']} local_rows_i8, "
+          f"{counts['local_cols_i8']} local_cols_i8 over a forward and an "
+          f"inverse run, err vs numpy {e3[0]:.3e} forward, {e3[1]:.3e} "
+          f"inverse (gate {TOL:.0e})")
+    pr, pi = p1
+    out = (torch.empty_like(pr), torch.empty_like(pi))
+    pc = cplx(pr, pi)
+    fl, ops = i8_ops(1024, 64, pr.numel())
+    rows.append(time_pass(
+        "config 3", "column pass (K5+K10)", pr, pi,
+        lambda: local.fft_axis(pr, pi, -1, axis=-2, precision="int8",
+                               out=out),
+        lambda: local.fft_cols_plain(pr, pi, -1, precision="int8"),
+        lambda: torch.fft.fft(pc, dim=-2), 2 * pr.numel() * 8, fl, copy_gbs,
+        phase=19, int8_ops=ops))
+    rows[-1]["kernel"] = "local_cols_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: local.fft_axis(pr, pi, -1,
+                                                          axis=-2, out=out))
+    print(f"    K5 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    del x, re, im, p1, pr, pi, pc, out
+    torch.cuda.empty_cache()
+
+    # the hosts without the stage refuse it on the card, launching nothing
+    z = torch.zeros(2, 128, 128, device="cuda")
+    reset_counts()
+    for name, fn in (("K4", local.fft_rows_swap), ("K8", fused2d.fft2_fused),
+                     ("K9", fused2d.fft2_fused_tiled)):
+        try:
+            fn(z, z, -1, precision="int8")
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} took precision='int8'")
+    if read_counts() != expect({}):
+        raise AssertionError(f"a refusal launched: {read_counts()}")
+    print("phase 19 K4, K8 and K9 refuse precision='int8' on the card "
+          "(NotImplementedError, no launch); kernel calls vs plain: "
+          + ", ".join(f"{lab} max abs {a:.3e} rel {e:.3e}"
+                      for _, lab, a, e in checks) + f" (gate {TOL:.0e})")
+    return {"counts": launches, "checks": checks, "timed": rows,
+            "errs": {"config 2": e2, "config 3": e3}}
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -1898,8 +2224,12 @@ def main() -> int:
     phase_tiled_kernel()
     off = phase_offroute_paths(t["copy_gbs"])
 
+    phase_int8_rows()
+    phase_int8_cols()
+    i8 = phase_int8_paths(t["copy_gbs"])
+
     launches = dict(counts2)
-    for r in (*results.values(), *results64.values(), il, rl, off):
+    for r in (*results.values(), *results64.values(), il, rl, off, i8):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -1989,10 +2319,29 @@ def main() -> int:
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
             "shape": shape})
+    # K10 inside K1 (timed at config 2) and K5 (config 3's column pass), its
+    # errors over every kernel call of phase 19's paths held against the
+    # plain version
+    for name, src, label in (
+            ("local_rows_i8", "local_rows", "config 2, 4096 x 4096, f = 64"),
+            ("local_cols_i8", "local_cols",
+             "config 3 column pass, (16, 1024, 1024), f = 64")):
+        row = next(r for r in i8["timed"] if r["kernel"] == name)
+        mine = [c for c in i8["checks"] if c[0] == name]
+        off_entries.append({
+            "name": name, "route": "cuda",
+            "source": f"pyfft_tpu_torch/ops/csrc/{src}.cu",
+            "replaces": "pyfft_tpu/ops/pallas_local.py:526",
+            "launches": launches[name],
+            "max_abs_err": max(c[2] for c in mine),
+            "max_rel_err": max(c[3] for c in mine),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "float_ms")},
+            "shape": label})
     print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
                                   rows64_entry, cols64_entry, *il_entries,
                                   *off_entries],
-                      "passes": timed + timed64 + off["timed"],
+                      "passes": timed + timed64 + off["timed"] + i8["timed"],
                       "variant_b": off["variant_b"], "end_to_end": e2e,
                       "routes": {k: il[k] for k in
                                  ("config_2i_routes", "library_ms",

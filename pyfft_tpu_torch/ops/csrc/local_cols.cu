@@ -113,13 +113,31 @@
 // c*128/C runs of the column kernel, one after another through the same
 // buffer.  The grid is L x T/(128*c).  In place as the column kernel.
 //
+// K5 + K10, the int8 policy (precision="int8", complex64 planes).  The
+// chain's last stage is the f-point int8-split stage of int8_stage.cuh (f
+// the last factor of the JAX column chain) in place of the last radix-8
+// stages: the leading radix-2/4/8 stages cover log2(n/f) bits in the
+// [k][c] buffer (at n = f a plain load fills it), then the stage takes its
+// alignment exponent over the block's C columns of one l and writes its
+// output into a second buffer, in the store pass's layout, and K5's store
+// pass (twiddle, postscale, plain or swapped store) follows unchanged.
+// Two buffers do not fit K5's widths at n >= 2048, so the int8 kernel
+// takes half K5's bytes a block (ColShape's I8: C = 128 up to n = 32, 64,
+// 32, 16, then 8 at n = 512 and 1024, 4, 2 and 1 at n = 8192).  For the
+// swapped store the stage writes the padded [c][k] layout itself.  A
+// kernel of its own (local_cols_i8_kernel), so K5's, K12's, K4's and
+// K6's code is what it was.  In place for the plain store, as K5.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_cols` (float),
-// `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4) and
-// `pyfft_local_cols_ctile` (K6), and the column widths, at the bottom.
+// `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
+// `pyfft_local_cols_ctile` (K6) and `pyfft_local_cols_i8` (float, int8
+// stage), and the column widths, at the bottom.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "int8_stage.cuh"
 #include "stockham.cuh"
 
 namespace {
@@ -161,12 +179,14 @@ constexpr int WIDE = 64 * 1024;
 constexpr int DEEP = 128 * 1024;
 constexpr int SECTOR = 32;
 
-template <int LOGN, typename Real>
+// I8: the int8 kernel's shape, half the bytes (its stage writes a second
+// buffer).
+template <int LOGN, typename Real, bool I8 = false>
 struct ColShape {
   static constexpr int N = 1 << LOGN;
   static constexpr int BYTES = N * 2 * (int)sizeof(Real);   // one column
-  static constexpr int W = WIDE / BYTES;
-  static constexpr int D = DEEP / BYTES;
+  static constexpr int W = WIDE / (I8 ? 2 : 1) / BYTES;
+  static constexpr int D = DEEP / (I8 ? 2 : 1) / BYTES;
   static constexpr int S = SECTOR / (int)sizeof(Real);
   static constexpr int C_WIDE = W < 128 ? W : 128;
   static constexpr int C_DEEP = D < S ? D : S;
@@ -294,11 +314,11 @@ __device__ __forceinline__ void load_rows(const Cols<Real>& io,
 // The store pass: twiddle, postscale and the mode's store.  C divides 128,
 // and P, the strided period and 128 are multiples of 128, so t / P,
 // t / adiv and t / 128 are the same for the whole block.
-template <typename Real, int LOGN, bool SWAP>
+template <typename Real, int LOGN, bool SWAP, bool I8 = false>
 __device__ __forceinline__ void store(const Cols<Real>& io,
                                       const typename Complex<Real>::V* sm,
                                       long long l, long long t0) {
-  using S = ColShape<LOGN, Real>;
+  using S = ColShape<LOGN, Real, I8>;
   using V = typename Complex<Real>::V;
   constexpr int N = S::N, C = S::C;
   const long long a0 = t0 / io.P, b0 = t0 - a0 * io.P;
@@ -414,34 +434,30 @@ cudaError_t dispatch(int log2n, const Cols<Real>& io,
   }
 }
 
-template <typename Real, int MAXLOG>
+template <typename Real, int MAXLOG, bool I8 = false>
 int width(int log2n) {
   if (log2n > MAXLOG) return 0;
   switch (log2n) {
-    case 3: return ColShape<3, Real>::C;
-    case 4: return ColShape<4, Real>::C;
-    case 5: return ColShape<5, Real>::C;
-    case 6: return ColShape<6, Real>::C;
-    case 7: return ColShape<7, Real>::C;
-    case 8: return ColShape<8, Real>::C;
-    case 9: return ColShape<9, Real>::C;
-    case 10: return ColShape<10, Real>::C;
-    case 11: return ColShape<11, Real>::C;
-    case 12: return ColShape<12, Real>::C;
-    case 13: return ColShape<13, Real>::C;
+    case 3: return ColShape<3, Real, I8>::C;
+    case 4: return ColShape<4, Real, I8>::C;
+    case 5: return ColShape<5, Real, I8>::C;
+    case 6: return ColShape<6, Real, I8>::C;
+    case 7: return ColShape<7, Real, I8>::C;
+    case 8: return ColShape<8, Real, I8>::C;
+    case 9: return ColShape<9, Real, I8>::C;
+    case 10: return ColShape<10, Real, I8>::C;
+    case 11: return ColShape<11, Real, I8>::C;
+    case 12: return ColShape<12, Real, I8>::C;
+    case 13: return ColShape<13, Real, I8>::C;
     default: return 0;
   }
 }
 
-// The launch of the entry points below.  `policy` COLS runs the column
-// kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
-// the plain store, complex64 only.
-template <typename Real, int MAXLOG>
-int launch_cols(const void* in_re, const void* in_im, void* out_re,
-                void* out_im, const void* tw, const void* ta, const void* tb,
-                const long long* dims, int log2n, int sign, Real postscale,
-                int swap_store, void* stream, int policy = COLS,
-                int ctile = 1) {
+// The operands and `dims` (see pyfft_local_cols) as a Cols.
+template <typename Real>
+Cols<Real> cols_io(const void* in_re, const void* in_im, void* out_re,
+                   void* out_im, const void* ta, const void* tb,
+                   const long long* dims, Real postscale, int ctile) {
   using V = typename Complex<Real>::V;
   Cols<Real> io;
   io.in_re = static_cast<const Real*>(in_re);
@@ -468,6 +484,118 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
   io.tw_mode = static_cast<int>(dims[15]);
   io.post = postscale;
   io.ctile = ctile;
+  return io;
+}
+
+// ------------------------------------------------ K5 + K10 (int8 policy)
+
+// The radix-2/4/8 stages in front of the int8 stage: log2(n/f) bits, the
+// odd ones first, each writing the [k][c] buffer.
+template <int LOGN, int LOGF, int STAGE, int NS>
+__device__ __forceinline__ void lead_stages(const Cols<float>& io, float2* sm,
+                                            const float2* __restrict__ tw,
+                                            long long l, long long t0,
+                                            float s) {
+  using S = ColShape<LOGN, float, true>;
+  constexpr int LB = LOGN - LOGF, REM = LB % 3;
+  constexpr int NL = LB / 3 + (REM ? 1 : 0);
+  constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
+  stage<float, S::N, S::C, S::NT, R, NS, STAGE == 0, false, false>(
+      io, sm, tw, l, t0, s);
+  if constexpr (STAGE + 1 < NL)
+    lead_stages<LOGN, LOGF, STAGE + 1, NS * R>(io, sm, tw, l, t0, s);
+}
+
+// At n = f: the block's columns into the [k][c] buffer, t past T as 0.
+template <int LOGN>
+__device__ __forceinline__ void load_block(const Cols<float>& io, float2* sm,
+                                           long long l, long long t0) {
+  using S = ColShape<LOGN, float, true>;
+  for (int e = threadIdx.x; e < S::P; e += S::NT) {
+    const int c = e % S::C, k = e / S::C;
+    const long long t = t0 + c;
+    float2 v = make_float2(0.f, 0.f);
+    if (t < io.T) {
+      const long long o = l * io.in_ls + k * io.in_ns + t * io.in_ts;
+      v = make_float2(io.in_re[o], io.in_im[o]);
+    }
+    sm[e] = v;
+  }
+  __syncthreads();
+}
+
+// The int8 stage's view of the block: column q = (run j, column c) with
+// c = q % C, element r at (j + r*NS)*C + c; outputs into the second buffer
+// in the store pass's layout ([c][k] padded for the swapped store).
+template <int LOGN, int LOGF, bool SWAP>
+struct ColMap {
+  using S = ColShape<LOGN, float, true>;
+  static constexpr int N = S::N, C = S::C, NS = N >> LOGF, Q = C * NS;
+  float* out;
+  __device__ int index(int q, int r) const {
+    return (q / C + r * NS) * C + q % C;
+  }
+  __device__ int jof(int q) const { return q / C; }
+  __device__ void put(int q, int k, int part, float v) const {
+    const int kk = q / C + k * NS, c = q % C;
+    out[2 * (SWAP ? c * (N + 1) + kk : kk * C + c) + part] = v;
+  }
+};
+
+template <int LOGN, int LOGF, bool SWAP,
+          int NT = ColShape<LOGN, float, true>::NT>
+__global__ void __launch_bounds__(NT)
+    local_cols_i8_kernel(Cols<float> io, const float2* __restrict__ tw,
+                         float s, const int8_t* __restrict__ wch) {
+  using S = ColShape<LOGN, float, true>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[NT / 32];
+  float2* sm = reinterpret_cast<float2*>(smem_raw);
+  float2* y = sm + S::P;
+  const long long l = blockIdx.x % io.L;
+  const long long t0 = (blockIdx.x / io.L) * S::C;
+  if constexpr (LOGN == LOGF) {
+    load_block<LOGN>(io, sm, l, t0);
+  } else {
+    lead_stages<LOGN, LOGF, 0, 1>(io, sm, tw, l, t0, s);
+  }
+  const ColMap<LOGN, LOGF, SWAP> map{reinterpret_cast<float*>(y)};
+  int8_stage<(1 << LOGF), NT>(map, sm, tw, wch, red);
+  __syncthreads();
+  store<float, LOGN, SWAP, true>(io, y, l, t0);
+}
+
+template <int LOGN, int LOGF, bool SWAP>
+cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
+                      const int8_t* wch, cudaStream_t stream) {
+  using S = ColShape<LOGN, float, true>;
+  const int smem =
+      (S::P + (SWAP ? (S::N + 1) * S::C : S::P)) * (int)sizeof(float2);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        local_cols_i8_kernel<LOGN, LOGF, SWAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = (io.T + S::C - 1) / S::C * io.L;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  local_cols_i8_kernel<LOGN, LOGF, SWAP>
+      <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s, wch);
+  return cudaGetLastError();
+}
+
+// The launch of the entry points below.  `policy` COLS runs the column
+// kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
+// the plain store, complex64 only.
+template <typename Real, int MAXLOG>
+int launch_cols(const void* in_re, const void* in_im, void* out_re,
+                void* out_im, const void* tw, const void* ta, const void* tb,
+                const long long* dims, int log2n, int sign, Real postscale,
+                int swap_store, void* stream, int policy = COLS,
+                int ctile = 1) {
+  using V = typename Complex<Real>::V;
+  const Cols<Real> io = cols_io<Real>(in_re, in_im, out_re, out_im, ta, tb,
+                                      dims, postscale, ctile);
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
     return (int)cudaErrorInvalidValue;
   const V* t = static_cast<const V*>(tw);
@@ -560,4 +688,38 @@ extern "C" int pyfft_local_cols_ctile(const void* in_re, const void* in_im,
   return launch_cols<float, 13>(in_re, in_im, out_re, out_im, tw, ta, tb,
                                 dims, log2n, sign, postscale, 0, stream, WALK,
                                 ctile);
+}
+
+// The columns per block the int8 column kernel uses at log2n (0 outside
+// 3..13).
+extern "C" int pyfft_local_cols_width_i8(int log2n) {
+  return width<float, 13, true>(log2n);
+}
+
+// K5 + K10: the complex64 column DFT with the f-point int8 stage last (f =
+// 2^log2f, see PYFFT_I8_CHAINS); `wch` holds the stage's 3 channels, (3,
+// 2f, 2f) int8 C-contiguous.  Other arguments as pyfft_local_cols's; a
+// plain store may write in place.
+extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
+                                   void* out_re, void* out_im, const void* tw,
+                                   const void* ta, const void* tb,
+                                   const void* wch, const long long* dims,
+                                   int log2n, int log2f, int sign,
+                                   float postscale, int swap_store,
+                                   void* stream) {
+  const Cols<float> io = cols_io<float>(in_re, in_im, out_re, out_im, ta, tb,
+                                        dims, postscale, 1);
+  if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float2* t = static_cast<const float2*>(tw);
+  const int8_t* w = static_cast<const int8_t*>(wch);
+  const float s = sign < 0 ? -1.f : 1.f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PYFFT_I8_COLS(LN, LF)                                      \
+  if (log2n == LN && log2f == LF)                                  \
+    return swap_store ? (int)launch_i8<LN, LF, true>(io, t, s, w, st) \
+                      : (int)launch_i8<LN, LF, false>(io, t, s, w, st);
+  PYFFT_I8_CHAINS(PYFFT_I8_COLS)
+#undef PYFFT_I8_COLS
+  return (int)cudaErrorInvalidValue;
 }

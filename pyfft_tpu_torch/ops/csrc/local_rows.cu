@@ -71,13 +71,25 @@
 // since every address is read once, by the block that owns its row, before
 // that block writes it.
 //
+// K1 + K10, the int8 policy (precision="int8", complex64 planes).  The
+// chain's last stage is the f-point int8-split stage of int8_stage.cuh (f
+// the last factor of the JAX row chain, 16 to 128) in place of the last
+// radix-8 stages: the leading radix-2/4/8 stages cover log2(n/f) bits and
+// write shared memory (at n = f a plain load fills it), then the stage
+// reads the block's RPB rows there, takes its alignment exponent over
+// them, and writes the output straight to device memory, postscale
+// folded.  It is a kernel of its own (local_rows_i8_kernel), so K1's and
+// K2's code is what it was.  In place as K1.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_rows` (float),
-// `pyfft_local_rows_f64` (double) and `pyfft_local_rows_il` (interleaved
-// float2) at the bottom.
+// `pyfft_local_rows_f64` (double), `pyfft_local_rows_il` (interleaved
+// float2) and `pyfft_local_rows_i8` (float, int8 stage) at the bottom.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "int8_stage.cuh"
 #include "stockham.cuh"
 
 namespace {
@@ -260,6 +272,100 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
   }
 }
 
+// ------------------------------------------------ K1 + K10 (int8 policy)
+
+// The radix-2/4/8 stages in front of the int8 stage: log2(n/f) bits, the
+// odd ones first, each writing shared memory.
+template <int LOGN, int LOGF, int STAGE, int NS>
+__device__ __forceinline__ void lead_stages(const Io<float>& io, float2* sm,
+                                            const float2* __restrict__ tw,
+                                            int row0, float s) {
+  using S = Shape<LOGN>;
+  constexpr int LB = LOGN - LOGF, REM = LB % 3;
+  constexpr int NL = LB / 3 + (REM ? 1 : 0);
+  constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
+  stage<float, false, S::N, S::T, S::RPB, R, NS, STAGE == 0, false>(
+      io, sm, tw, row0, s);
+  if constexpr (STAGE + 1 < NL)
+    lead_stages<LOGN, LOGF, STAGE + 1, NS * R>(io, sm, tw, row0, s);
+}
+
+// At n = f: the block's rows into shared memory, rows past the end as 0.
+template <int LOGN>
+__device__ __forceinline__ void load_block(const Io<float>& io, float2* sm,
+                                           int row0) {
+  using S = Shape<LOGN>;
+  for (int e = threadIdx.x; e < S::P; e += S::T) {
+    const int row = row0 + e / S::N, k = e % S::N;
+    float2 v = make_float2(0.f, 0.f);
+    if (row < io.rows) {
+      const long long o = (long long)row * io.in_rs + (long long)k * io.in_es;
+      v = make_float2(io.in_re[o], io.in_im[o]);
+    }
+    sm[e] = v;
+  }
+  __syncthreads();
+}
+
+// The int8 stage's view of the block: column q = (row rr, run j) with
+// rr = q / NS, element r at rr*N + j + r*NS; outputs to device memory.
+template <int LOGN, int LOGF>
+struct RowMap {
+  static constexpr int N = 1 << LOGN, NS = N >> LOGF;
+  static constexpr int Q = Shape<LOGN>::RPB * NS;
+  float* out_re;
+  float* out_im;
+  int rows, out_es, out_rs, row0;
+  float post;
+  __device__ int index(int q, int r) const {
+    return (q / NS) * N + q % NS + r * NS;
+  }
+  __device__ int jof(int q) const { return q % NS; }
+  __device__ void put(int q, int k, int part, float v) const {
+    const int row = row0 + q / NS;
+    if (row >= rows) return;
+    const long long o = (long long)row * out_rs +
+                        (long long)(q % NS + k * NS) * out_es;
+    (part ? out_im : out_re)[o] = v * post;
+  }
+};
+
+template <int LOGN, int LOGF>
+__global__ void __launch_bounds__(Shape<LOGN>::T)
+    local_rows_i8_kernel(Io<float> io, const float2* __restrict__ tw,
+                         float s, const int8_t* __restrict__ wch) {
+  using S = Shape<LOGN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[S::T / 32];
+  float2* sm = reinterpret_cast<float2*>(smem_raw);
+  const int row0 = blockIdx.x * S::RPB;
+  if constexpr (LOGN == LOGF) {
+    load_block<LOGN>(io, sm, row0);
+  } else {
+    lead_stages<LOGN, LOGF, 0, 1>(io, sm, tw, row0, s);
+  }
+  const RowMap<LOGN, LOGF> map{io.out_re, io.out_im, io.rows, io.out_es,
+                               io.out_rs, row0, io.post};
+  int8_stage<(1 << LOGF), S::T>(map, sm, tw, wch, red);
+}
+
+template <int LOGN, int LOGF>
+cudaError_t launch_i8(const Io<float>& io, const float2* tw, float s,
+                      const int8_t* wch, cudaStream_t stream) {
+  using S = Shape<LOGN>;
+  const int smem = S::P * (int)sizeof(float2);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        local_rows_i8_kernel<LOGN, LOGF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (io.rows + S::RPB - 1) / S::RPB;
+  local_rows_i8_kernel<LOGN, LOGF><<<blocks, S::T, smem, stream>>>(io, tw, s,
+                                                                   wch);
+  return cudaGetLastError();
+}
+
 // The planar policy's operands.
 template <typename Real>
 Io<Real> planes(const void* in_re, const void* in_im, void* out_re,
@@ -316,4 +422,29 @@ extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
                      static_cast<const float2*>(in), static_cast<float2*>(out),
                      rows, 1, in_rs, 1, out_rs, postscale};
   return (int)dispatch<float, true, 13>(log2n, io, tw, sign, stream);
+}
+
+// K1 + K10: the complex64 row DFT with the f-point int8 stage last (f =
+// 2^log2f, the last factor of the JAX row or column chain at this n, see
+// PYFFT_I8_CHAINS); `wch` holds the stage's 3 channels, (3, 2f, 2f) int8
+// C-contiguous.  Other arguments as pyfft_local_rows's; `out` may be the
+// input (in place).
+extern "C" int pyfft_local_rows_i8(const void* in_re, const void* in_im,
+                                   void* out_re, void* out_im, const void* tw,
+                                   const void* wch, int rows, int log2n,
+                                   int log2f, int in_es, int in_rs,
+                                   int out_es, int out_rs, int sign,
+                                   float postscale, void* stream) {
+  const Io<float> io = planes<float>(in_re, in_im, out_re, out_im, rows,
+                                     in_es, in_rs, out_es, out_rs, postscale);
+  const float2* t = static_cast<const float2*>(tw);
+  const int8_t* w = static_cast<const int8_t*>(wch);
+  const float s = sign < 0 ? -1.f : 1.f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+#define PYFFT_I8_ROWS(LN, LF) \
+  if (log2n == LN && log2f == LF) return (int)launch_i8<LN, LF>(io, t, s, w, st);
+  PYFFT_I8_CHAINS(PYFFT_I8_ROWS)
+#undef PYFFT_I8_ROWS
+  return (int)cudaErrorInvalidValue;
 }

@@ -234,7 +234,7 @@ def _launch_tiled(re, im, out_re, out_im, sign: int, postscale: float):
 
 
 def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
-               factors_x=None, out=None):
+               factors_x=None, precision: str = "highest", out=None):
     """2D DFT over the last two axes of planar float32 tensors.
 
     A CUDA tensor goes to the kernel, which runs its own radix-8 chains and
@@ -242,8 +242,11 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
     them.  ``out=(re, im)`` names the planes to write, of the input's
     shape; they may be the inputs themselves (in place).  Without it, new
     planes are allocated with the input's layout.  Raises where the kernel
-    does not apply; nothing falls back.
+    does not apply; nothing falls back.  ``precision="int8"`` raises
+    NotImplementedError on every device: the int8 stage inside K8 is not
+    ported yet.
     """
+    local.refuse_int8(precision, "K8 (fft2_fused)")
     if not supported_2d(re):
         raise ValueError(f"fused 2D FFT does not cover a {re.dtype} tensor "
                          f"of shape {tuple(re.shape)}")
@@ -262,7 +265,8 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
 
 
 def fft2_fused_tiled(re, im, sign, *, postscale: float = 1.0,
-                     factors_y=None, factors_x=None, out=None):
+                     factors_y=None, factors_x=None,
+                     precision: str = "highest", out=None):
     """2D DFT over the last two axes of planar float32 tensors in one
     launch, for planes of up to MAX_FUSED2D_TILED_ELEMS points
     (pallas_local.fft2_fused_tiled, which no route takes).
@@ -273,7 +277,10 @@ def fft2_fused_tiled(re, im, sign, *, postscale: float = 1.0,
     of the input's shape; they may be the inputs themselves (JAX's
     ``alias_io``).  Without it, new planes are allocated with the input's
     layout.  Raises where K9 does not apply; nothing falls back.
+    ``precision="int8"`` raises NotImplementedError on every device: the
+    int8 stage inside K9 is not ported yet.
     """
+    local.refuse_int8(precision, "K9 (fft2_fused_tiled)")
     if not supported_2d_tiled(re):
         raise ValueError(f"tiled fused 2D FFT does not cover a {re.dtype} "
                          f"tensor of shape {tuple(re.shape)}")

@@ -45,6 +45,8 @@ import math
 import numpy as np
 import torch
 
+from pyfft_tpu_torch.ops.int8 import (PRECISIONS, int8_stage,
+                                      stacked_channels, w_channels)
 from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
                                          twiddle_table_strided)
 from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
@@ -61,7 +63,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "butterfly_factors", "precise_factors", "MAX_LOCAL_N",
            "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
            "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
-           "CTILE_LAUNCHES"]
+           "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
+           "matrix_factor", "col_width_i8", "refuse_int8"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -77,6 +80,10 @@ IL_LAUNCHES = 0
 # The same for _launch_rows_swap (K4) and for _launch_cols with ctile (K6).
 SWAP_LAUNCHES = 0
 CTILE_LAUNCHES = 0
+# The same for the int8 instantiations (the stage K10): rows in K1, columns
+# in K5.
+I8_LAUNCHES = 0
+COL_I8_LAUNCHES = 0
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -150,27 +157,32 @@ def precise_factors(n: int) -> tuple[int, ...] | None:
     return None
 
 
-def _fold_applies(factors, stacked: bool) -> bool:
+def _fold_applies(factors, stacked: bool,
+                  precision: str = "highest") -> bool:
     """Whether the last inter-stage twiddle folds into the final matrix
-    stage: the final factor is a stacked contraction, at least one stage
-    precedes it, and the per-digit table count is small."""
-    return (FOLD_LAST_TW and stacked and len(factors) >= 2
-            and factors[-1] not in VPU_RADICES and factors[-2] <= 8)
+    stage: the final factor is a stacked float contraction (not the int8
+    stage), at least one stage precedes it, and the per-digit table count
+    is small."""
+    return (FOLD_LAST_TW and stacked and precision != "int8"
+            and len(factors) >= 2 and factors[-1] not in VPU_RADICES
+            and factors[-2] <= 8)
 
 
 def needed_tables(n: int, sign: int, dtype=np.float32, factors=None,
-                  stacked: bool = True) -> dict:
+                  stacked: bool = True, precision: str = "highest",
+                  trail_ndim: int = 1) -> dict:
     """Ordered {key: (ndarray, ...)} tables for a length-n tile FFT.
 
-    pallas_local.needed_tables without the int8 precision mode: stacked
-    [[Wr, -Wi], [Wi, Wr]] DFT matrices (or (Wr, Wi) pairs), inter-stage
-    twiddles shaped for an (n, lanes) tile, and, where the fold applies,
-    the last twiddle pre-multiplied in float64 into per-digit matrices.
+    pallas_local.needed_tables: stacked [[Wr, -Wi], [Wi, Wr]] DFT matrices
+    (or (Wr, Wi) pairs), or under ``precision="int8"`` their 3 int8
+    channels ("wi8", f); inter-stage twiddles shaped for a tile with
+    ``trail_ndim`` trailing axes; and, where the fold applies, the last
+    twiddle pre-multiplied in float64 into per-digit matrices.
     """
     factors = tuple(factors or default_factors(n))
     assert math.prod(factors) == n
     m = len(factors)
-    fold = _fold_applies(factors, stacked)
+    fold = _fold_applies(factors, stacked, precision)
     tables: dict = {}
     for i, f in enumerate(factors):
         if fold and i == m - 1:
@@ -188,7 +200,9 @@ def needed_tables(n: int, sign: int, dtype=np.float32, factors=None,
             continue
         if f not in VPU_RADICES:
             wr, wi = dft_matrix(f, sign, np.float64)
-            if stacked:
+            if precision == "int8":
+                tables.setdefault(("wi8", f), stacked_channels(f, sign))
+            elif stacked:
                 ws = np.block([[wr, -wi], [wi, wr]]).astype(dtype)
                 tables.setdefault(("dfts", f), (ws,))
             else:
@@ -198,7 +212,7 @@ def needed_tables(n: int, sign: int, dtype=np.float32, factors=None,
             rest = factors[i + 1:]
             r = math.prod(rest)
             tr, ti = twiddle_table(f, r, f * r, sign, dtype)
-            shape = (f,) + (1,) * i + rest + (1,)
+            shape = (f,) + (1,) * i + rest + (1,) * trail_ndim
             tables[("tw", i, factors)] = (tr.reshape(shape), ti.reshape(shape))
     return tables
 
@@ -214,9 +228,11 @@ def tables_from_numpy(tables: dict, device) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(n: int, sign: int, factors: tuple,
-                   device: torch.device) -> dict:
-    return tables_from_numpy(needed_tables(n, sign, factors=factors), device)
+def _device_tables(n: int, sign: int, factors: tuple, device: torch.device,
+                   precision: str = "highest", trail_ndim: int = 1) -> dict:
+    return tables_from_numpy(needed_tables(n, sign, factors=factors,
+                                           precision=precision,
+                                           trail_ndim=trail_ndim), device)
 
 
 def _fft4_lists(rs, ms, sign):
@@ -291,14 +307,18 @@ def _cdot(wr, wi, xr, xi, axis):
 
 
 def tile_fft(re, im, tables: dict, n: int, factors=None, stacked: bool = True,
-             sign: int = -1):
+             sign: int = -1, precision: str = "highest",
+             group_axis: int | None = None):
     """Length-n DFT over axis 0 of an (n, lanes) planar tile.
 
     pallas_local.tile_fft in torch: with x viewed as (f_1, ..., f_m, lanes),
     stage i applies a small-radix butterfly or contracts axis i against the
     f_i-point DFT matrix; both prepend the new spectral digit, so the rows
     flatten to natural DFT order.  Matrix stages carry the direction in
-    their tables; ``sign`` matters only for butterflies.
+    their tables; ``sign`` matters only for butterflies.  Under
+    ``precision="int8"`` a matrix stage is the int8-split stage
+    (``int8.int8_stage``), whose alignment group is the whole tile or, with
+    ``group_axis`` (a negative axis of the trail), each index along it.
     """
     trail = tuple(re.shape[1:])
     assert re.shape[0] == n, (tuple(re.shape), n)
@@ -324,6 +344,8 @@ def tile_fft(re, im, tables: dict, n: int, factors=None, stacked: bool = True,
             break
         if f in VPU_RADICES:
             xr, xi = _butterfly(f, xr, xi, i, sign)
+        elif precision == "int8":
+            xr, xi = int8_stage(xr, xi, f, i, tables[("wi8", f)], group_axis)
         elif stacked:
             xs = torch.cat([xr, xi], dim=i)
             (ws,) = tables[("dfts", f)]
@@ -457,11 +479,25 @@ def supported(re: torch.Tensor, axis: int) -> bool:
             or math.prod(re.shape[axis + 1:]) >= MIN_TRAIL)
 
 
-def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None):
+def _tiles_int8(xr, xi, n: int, sign: int, factors: tuple):
+    """``tile_fft`` under int8 over (n, G, lanes) planes: G tiles, each its
+    own alignment group, as G blocks of the JAX kernel."""
+    tables = _device_tables(n, sign, factors, xr.device, "int8", 2)
+    return tile_fft(xr, xi, tables, n, factors, sign=sign, precision="int8",
+                    group_axis=-2)
+
+
+def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None,
+                   precision: str = "highest"):
     """The plain torch version of the row kernel, on any device: the DFT
     along the last axis of (..., n) planes, times ``postscale``.  Float32
     planes go through ``tile_fft`` (default chain ``row_factors(n)``),
-    float64 planes through ``fft_planar`` in float64 (``factors`` unused)."""
+    float64 planes through ``fft_planar`` in float64 (``factors`` unused).
+
+    Under ``precision="int8"`` (float32 only) the rows are zero-padded to
+    whole 128-row tiles and each tile is one alignment group of the int8
+    stage, as the JAX kernel's blocks (pallas_local.fft_axis pads so)."""
+    _check_precision(precision, re.dtype)
     if re.dtype == torch.float64:
         xr, xi = fft_planar(re, im, sign, axis=-1)
         if postscale != 1.0:
@@ -469,9 +505,18 @@ def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None):
         return xr, xi
     n = re.shape[-1]
     factors = tuple(factors or row_factors(n))
-    tables = _device_tables(n, sign, factors, re.device)
-    xr, xi = tile_fft(re.reshape(-1, n).T, im.reshape(-1, n).T, tables, n,
-                      factors, sign=sign)
+    r2, i2 = re.reshape(-1, n), im.reshape(-1, n)
+    if precision == "int8":
+        rows = r2.shape[0]
+        pad = (-rows) % MIN_TRAIL
+        g = (rows + pad) // MIN_TRAIL
+        tiles = [torch.nn.functional.pad(t, (0, 0, 0, pad))
+                 .reshape(g, MIN_TRAIL, n).permute(2, 0, 1) for t in (r2, i2)]
+        xr, xi = (t.permute(1, 2, 0).reshape(g * MIN_TRAIL, n)[:rows].T
+                  for t in _tiles_int8(*tiles, n, sign, factors))
+    else:
+        tables = _device_tables(n, sign, factors, re.device)
+        xr, xi = tile_fft(r2.T, i2.T, tables, n, factors, sign=sign)
     if postscale != 1.0:
         xr, xi = xr * postscale, xi * postscale
     return xr.T.reshape(re.shape), xi.T.reshape(re.shape)
@@ -525,10 +570,34 @@ def _check_planes(kind: str, re, planes) -> None:
                              f"on {t.device}")
 
 
-def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
-    """Launch csrc/local_rows.cu over (..., n) planes; no synchronise.
-    The range of n is ``supported``'s check, made by ``fft_axis``."""
-    global LAUNCHES, LAUNCHES_F64
+@functools.lru_cache(maxsize=None)
+def _rows_i8_fn():
+    """The C entry point ``pyfft_local_rows_i8`` of csrc/local_rows.cu (K1
+    with the int8 stage K10), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_rows").pyfft_local_rows_i8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def matrix_factor(factors) -> int:
+    """The f of a chain's matrix stage, the one the int8 stage replaces:
+    its last factor where that is not a radix 2, 4 or 8, else 0 (no
+    matrix stage, as at n = 8).  The row and column chains hold at most
+    one matrix factor, last."""
+    assert all(f in VPU_RADICES for f in factors[:-1]), factors
+    return 0 if factors[-1] in VPU_RADICES else factors[-1]
+
+
+def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
+                 i8_f: int = 0):
+    """Launch csrc/local_rows.cu over (..., n) planes; no synchronise:
+    K1 (K11 on float64 planes), or with ``i8_f`` K1 whose last stage is the
+    f-point int8 stage K10.  The range of n is ``supported``'s check, made
+    by ``fft_axis``."""
+    global LAUNCHES, LAUNCHES_F64, I8_LAUNCHES
     n = re.shape[-1]
     planes = (re, im, out_re, out_im)
     _check_planes("row", re, planes)
@@ -547,17 +616,27 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float):
         raise ValueError("row kernel needs equal strides for re and im")
     if max(rows, *r2.stride(), *or2.stride()) >= 2 ** 31:
         raise ValueError("row kernel strides and row count must fit int32")
-    fn = _rows_fn(re.dtype)
+    if i8_f and re.dtype != torch.float32:
+        raise ValueError("the int8 stage takes float32 planes")
     tw = _kernel_twiddles(n, sign, re.device, re.dtype)
+    ptrs = (r2.data_ptr(), i2.data_ptr(), or2.data_ptr(), oi2.data_ptr(),
+            tw.data_ptr())
+    args = (rows, ilog2(n), r2.stride(1), r2.stride(0), or2.stride(1),
+            or2.stride(0), int(sign), float(postscale))
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = fn(r2.data_ptr(), i2.data_ptr(), or2.data_ptr(), oi2.data_ptr(),
-                 tw.data_ptr(), rows, ilog2(n), r2.stride(1), r2.stride(0),
-                 or2.stride(1), or2.stride(0), int(sign), float(postscale),
-                 stream)
+        if i8_f:
+            w = w_channels(i8_f, sign, re.device)
+            err = _rows_i8_fn()(*ptrs, w.data_ptr(), *args[:2], ilog2(i8_f),
+                                *args[2:], stream)
+        else:
+            err = _rows_fn(re.dtype)(*ptrs, *args, stream)
     if err != 0:
-        raise RuntimeError(f"local_rows launch failed: cudaError {err}")
-    if re.dtype == torch.float64:
+        name = "local_rows_i8" if i8_f else "local_rows"
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if i8_f:
+        I8_LAUNCHES += 1
+    elif re.dtype == torch.float64:
         LAUNCHES_F64 += 1
     else:
         LAUNCHES += 1
@@ -797,7 +876,8 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float):
 
 
 def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
-                  lanes: int = MIN_TRAIL, out=None):
+                  lanes: int = MIN_TRAIL, precision: str = "highest",
+                  out=None):
     """Row DFT with a digit-swapped store (pallas_local.fft_rows_swap):
     (..., n1, n) float32 planes -> (..., n, n1), ``out[..., k, r] =
     postscale * sum_j x[..., r, j] * w_n^(sign*j*k)``, the second pass of
@@ -811,8 +891,11 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
     check).  ``out=(re, im)`` names the (..., n, n1) planes to write, which
     may not overlap the input: K4 runs out of place only, as in JAX.
     Without it, new planes are allocated with the input's layout.  Raises
-    where K4 does not apply; nothing falls back.
+    where K4 does not apply; nothing falls back.  ``precision="int8"``
+    raises NotImplementedError on every device: the int8 stage inside K4
+    is not ported yet.
     """
+    refuse_int8(precision, "K4 (fft_rows_swap)")
     n1, n = _swap_n(re, lanes)
     oshape = tuple(re.shape[:-2]) + (n, n1)
     if out is not None and any(_shares_memory(a, b) for a in (re, im)
@@ -923,7 +1006,8 @@ def _plain_twiddle(n: int, T: int, tw_n: int, tw_mode: str, tw_period: int,
 
 def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
                    tw_n: int = 0, tw_mode: str = "full", tw_period: int = 0,
-                   swap_store: bool = False, swap_mid: int = 0):
+                   swap_store: bool = False, swap_mid: int = 0,
+                   precision: str = "highest"):
     """The plain torch version of the column kernel, on any device.
 
     The DFT over axis 1 of (L, n, T) planes, then the mode's twiddle,
@@ -934,11 +1018,31 @@ def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
     float64 for float64 planes (``factors`` unused).  Returns (L, n, T)
     planes, (L, T, n) with ``swap_store``, or (L, T // P, n, P) with
     ``swap_mid=P``.
+
+    Under ``precision="int8"`` (float32 only) each l's trail is cut into
+    the JAX kernel's blocks, each one alignment group of the int8 stage:
+    256-column tiles where n <= 512, T % 256 == 0 and there is no twiddle
+    or swapped store (pallas_local.fft_axis widens its lane tile so), else
+    128-column tiles, the trail zero-padded to whole tiles.
     """
     L, n, T = re.shape
     _check_col_modes(T, tw_n, tw_mode, tw_period, swap_store, swap_mid)
+    _check_precision(precision, re.dtype)
     if re.dtype == torch.float64:
         xr, xi = fft_planar(re, im, sign, axis=1)
+    elif precision == "int8":
+        factors = tuple(factors or col_factors(n))
+        lanes = MIN_TRAIL
+        if (n <= 512 and T % 256 == 0 and not tw_n and not swap_store
+                and not swap_mid):
+            lanes = 256
+        pad = (-T) % lanes
+        g = (T + pad) // lanes
+        tiles = [torch.nn.functional.pad(t, (0, pad))
+                 .reshape(L, n, g, lanes).transpose(0, 1)
+                 .reshape(n, L * g, lanes) for t in (re, im)]
+        xr, xi = (t.reshape(n, L, g * lanes)[..., :T].transpose(0, 1)
+                  for t in _tiles_int8(*tiles, n, sign, factors))
     else:
         factors = tuple(factors or col_factors(n))
         tables = _device_tables(n, sign, factors, re.device)
@@ -1047,6 +1151,30 @@ def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
     return _cols_lib(dtype)[1](ilog2(n))
 
 
+@functools.lru_cache(maxsize=None)
+def _cols_i8_lib():
+    """(launch, width): the C entry points ``pyfft_local_cols_i8`` and
+    ``pyfft_local_cols_width_i8`` of csrc/local_cols.cu (K5 with the int8
+    stage K10), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    lib = load("local_cols")
+    fn = lib.pyfft_local_cols_i8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    width = lib.pyfft_local_cols_width_i8
+    width.argtypes = [ctypes.c_int]
+    width.restype = ctypes.c_int
+    return fn, width
+
+
+def col_width_i8(n: int) -> int:
+    """The columns one block of the int8 column kernel takes at length n
+    (half K5's bytes a block: the stage writes a second buffer)."""
+    return _cols_i8_lib()[1](ilog2(n))
+
+
 def _view(t: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
     try:
         return t.view(shape)
@@ -1062,12 +1190,14 @@ def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                  postscale: float, tw_n: int, tw_mode: str, tw_period: int,
-                 swap_store: bool, swap_mid: int, ctile: int = 0):
+                 swap_store: bool, swap_mid: int, ctile: int = 0,
+                 i8_f: int = 0):
     """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
-    no synchronise: the column kernel, or K6 with ``ctile`` tiles a block
-    (already clamped).  The caller (``fft_axis``) has checked
+    no synchronise: the column kernel, K6 with ``ctile`` tiles a block
+    (already clamped), or with ``i8_f`` the column kernel whose last stage
+    is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
     ``supported`` and the modes."""
-    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES
+    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES, COL_I8_LAUNCHES
     shape = tuple(re.shape)
     n = shape[axis]
     L = math.prod(shape[:axis])
@@ -1110,7 +1240,9 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                     or d3.stride() != r3.stride()):
                 raise ValueError("column kernel output overlaps its input; "
                                  "only a plain store may run in place")
-    fn, width = _cols_lib(re.dtype)
+    if i8_f and (re.dtype != torch.float32 or ctile):
+        raise ValueError("the int8 stage takes float32 planes and no ctile")
+    fn, width = _cols_i8_lib() if i8_f else _cols_lib(re.dtype)
     blocks = -(-T // width(ilog2(n))) * L
     if ctile:
         if re.dtype != torch.float32:
@@ -1142,13 +1274,20 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if ctile:
             err = _ctile_fn()(*ptrs, int(ctile), stream)
+        elif i8_f:
+            w = w_channels(i8_f, sign, re.device)
+            err = fn(*ptrs[:7], w.data_ptr(), *ptrs[7:9], ilog2(i8_f),
+                     *ptrs[9:], int(bool(swap_store)), stream)
         else:
             err = fn(*ptrs, int(bool(swap_store)), stream)
     if err != 0:
-        name = "local_cols_ctile" if ctile else "local_cols"
+        name = ("local_cols_ctile" if ctile else
+                "local_cols_i8" if i8_f else "local_cols")
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     if ctile:
         CTILE_LAUNCHES += 1
+    elif i8_f:
+        COL_I8_LAUNCHES += 1
     elif re.dtype == torch.float64:
         COL_LAUNCHES_F64 += 1
     else:
@@ -1159,7 +1298,7 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
 def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
              tw_n: int = 0, tw_mode: str = "full", tw_period: int = 0,
              swap_store: bool = False, swap_mid: int = 0, ctile: int = 0,
-             out=None):
+             precision: str = "highest", out=None):
     """DFT along ``axis`` of planar float32 or float64 tensors.
 
     The last axis goes to the row kernel, any other axis to the column
@@ -1175,6 +1314,17 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     also lets ``ctile`` turn off its 256-lane tile for small n; the port
     has no such tile.)
 
+    ``precision="int8"`` (float32 planes, no ``ctile``) runs the chain's
+    matrix stage as the int8-split stage K10 (``ops/int8.py``), with JAX's
+    alignment groups on the CPU (``fft_rows_plain``, ``fft_cols_plain``)
+    and the kernel's thread block as the group on the card: K1 or K5 with
+    the stage in place of their last radix-8 stages, f the last factor of
+    ``row_factors(n)`` or ``col_factors(n)``.  At n = 8 the chain has no
+    matrix stage and int8 changes nothing.  A swapped store with int8
+    needs a trail of whole 128-column tiles, as in JAX.  JAX's
+    ``"default"`` (one bf16 pass of the TPU's matrix unit) does not carry
+    over.
+
     A CUDA tensor goes to a kernel, which runs its own radix-8 chain and
     ignores ``factors``; a CPU tensor goes to the plain torch version,
     which runs ``factors`` (default: ``row_factors(n)`` or
@@ -1189,6 +1339,7 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
                          f"{re.dtype} tensor of shape {tuple(re.shape)}")
     if re.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no local FFT for device {re.device}")
+    int8 = _check_precision(precision, re.dtype, ctile)
     axis = axis % re.ndim
     shape = tuple(re.shape)
     if axis == re.ndim - 1:
@@ -1198,12 +1349,17 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
         if re.is_cuda:
             if out is None:
                 out = _empty_like_planes(re, im, shape)
-            return _launch_rows(re, im, out[0], out[1], sign, postscale)
-        rr, ii = fft_rows_plain(re, im, sign, postscale, factors)
+            i8_f = matrix_factor(row_factors(shape[-1])) if int8 else 0
+            return _launch_rows(re, im, out[0], out[1], sign, postscale,
+                                i8_f)
+        rr, ii = fft_rows_plain(re, im, sign, postscale, factors, precision)
     else:
         n = shape[axis]
         L, T = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
         _check_col_modes(T, tw_n, tw_mode, tw_period, swap_store, swap_mid)
+        if int8 and (swap_store or swap_mid) and T % MIN_TRAIL:
+            raise ValueError("int8 precision with swap stores needs a trail "
+                             f"of whole {MIN_TRAIL}-column tiles, got {T}")
         oshape = _col_out_shape(shape, axis, swap_store, swap_mid)
         modes = dict(tw_n=tw_n, tw_mode=tw_mode, tw_period=tw_period,
                      swap_store=swap_store, swap_mid=swap_mid)
@@ -1215,17 +1371,46 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
         if re.is_cuda:
             if out is None:
                 out = _empty_like_planes(re, im, oshape)
+            i8_f = matrix_factor(col_factors(n)) if int8 else 0
             return _launch_cols(re, im, out[0], out[1], sign, axis=axis,
-                                postscale=postscale, ctile=ctile, **modes)
+                                postscale=postscale, ctile=ctile, i8_f=i8_f,
+                                **modes)
         rr, ii = fft_cols_plain(re.reshape(L, n, T), im.reshape(L, n, T),
                                 sign, postscale=postscale, factors=factors,
-                                **modes)
+                                precision=precision, **modes)
         rr, ii = rr.reshape(oshape), ii.reshape(oshape)
     if out is None:
         return rr, ii
     out[0].copy_(rr)
     out[1].copy_(ii)
     return out
+
+
+def _check_precision(precision: str, dtype: torch.dtype,
+                     ctile: int = 0) -> bool:
+    """Whether ``precision`` asks for the int8 stage; raise where a local
+    FFT does not take it."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'highest' or 'int8', got "
+                         f"{precision!r}")
+    if precision != "int8":
+        return False
+    if dtype != torch.float32:
+        raise ValueError(f"precision='int8' takes float32 planes "
+                         f"(complex64), got {dtype}")
+    if ctile:
+        raise ValueError("precision='int8' does not run with ctile (K6), as "
+                         "in the JAX package")
+    return True
+
+
+def refuse_int8(precision: str, kernel: str) -> None:
+    """The precision check of a kernel that does not hold the int8 stage
+    yet: ``"int8"`` raises NotImplementedError on every device."""
+    if precision == "int8":
+        raise NotImplementedError(f"precision='int8': the int8 stage (K10) "
+                                  f"inside {kernel} is not ported yet")
+    _check_precision(precision, torch.float32)
 
 
 def _empty_like_planes(re, im, shape):

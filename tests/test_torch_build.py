@@ -75,7 +75,8 @@ def test_every_source_is_named_by_its_hash():
     assert "fused2d_tiled" in names
 
 
-@pytest.mark.parametrize("header", ["chain.cuh", "stockham.cuh"])
+@pytest.mark.parametrize("header", ["chain.cuh", "stockham.cuh",
+                                    "int8_stage.cuh"])
 def test_every_source_follows_each_shared_header(tmp_path, monkeypatch,
                                                  header):
     """An edit to a shared header renames every library, fused2d_tiled.cu's

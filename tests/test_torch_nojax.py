@@ -20,6 +20,7 @@ PACKAGE = ROOT / "pyfft_tpu_torch"
     "pyfft_tpu_torch.ops.fused2d",
     "pyfft_tpu_torch.ops.fp64",
     "pyfft_tpu_torch.ops.interleave",
+    "pyfft_tpu_torch.ops.int8",
     "pyfft_tpu_torch.real",
     "pyfft_tpu_torch.ops.build",
     "pyfft_tpu_torch.utils.profiling",
@@ -46,6 +47,30 @@ def test_offroute_entry_points_leave_jax_out():
             "local.fft_rows_swap_plain(z, z, +1)\n"
             "fused2d.fft2_tiled_plain(z, z, +1)\n"
             "assert fused2d.supported_2d_tiled(z)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'pyfft_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_int8_entry_points_leave_jax_out():
+    """precision="int8" runs on CPU tensors, rows and columns, in a fresh
+    interpreter without loading jax; the hosts without the stage refuse."""
+    code = ("import sys, torch\n"
+            "from pyfft_tpu_torch.ops import fused2d, int8, local\n"
+            "z = torch.ones(2, 256, 128)\n"
+            "local.fft_axis(z, z, -1, precision='int8')\n"
+            "local.fft_axis(z, z, +1, axis=1, precision='int8', tw_n=256*128)\n"
+            "local.fft_rows_plain(z, z, -1, precision='int8')\n"
+            "local.fft_cols_plain(z, z, -1, precision='int8')\n"
+            "assert int8.w_channels(64, -1, z.device).dtype == torch.int8\n"
+            "try:\n"
+            "    fused2d.fft2_fused(z, z, -1, precision='int8')\n"
+            "    raise SystemExit('K8 took int8')\n"
+            "except NotImplementedError:\n"
+            "    pass\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             "             in ('jax', 'jaxlib', 'pyfft_tpu'))\n"
             "assert not bad, bad\n")
