@@ -4,14 +4,17 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in nineteen phases, one or more lines each:
+numpy.fft, in twenty phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
   2. build: compiles the row, column, fused 2D, tiled fused 2D and
      de/interleave kernels from this checkout's sources, one nvcc each, all
      at once (the row and column sources hold both precisions, the row
-     source the interleaved kernel too, the column source K4 and K6);
+     source the interleaved kernel too, the column source K4 and K6, each
+     source its kernels' int8 instantiations), while phases 3 and 4, which
+     need the row kernel alone and time nothing, run; its lines follow
+     phase 4's, and phase 5 starts when every build has ended;
   3. row kernel: against its plain torch version and numpy.fft for every
      n from 8 to 8192, 1 and 130 rows, forward and inverse with a
      postscale, planar, stride-2 and in-place operands;
@@ -24,7 +27,8 @@ numpy.fft, in nineteen phases, one or more lines each:
      cuFFT for context; before timing, the kernel is held against its
      plain version at this shape, planar and complex form;
   6. column kernel: against its plain torch version and numpy for every n
-     from 8 to 8192, (L, T) in {1, 3} x {128, 384}, forward and inverse
+     from 8 to 8192, L = 3 (and L = 1 at n = 8192), T in {128, 384},
+     forward and inverse
      with a postscale, in each mode a route uses: plain store (planar,
      stride-2, in place), full twiddle + swap_store, strided twiddle +
      swap_mid, factored twiddle + swap_store;
@@ -89,7 +93,8 @@ numpy.fft, in nineteen phases, one or more lines each:
      untangle alone;
  17. the kernels no Plan route takes, each against its plain torch
      version and numpy: K4 (the digit-swapped row pass, fft_rows_swap) for
-     every n from 8 to 8192, n1 in {128, 384}, 1 and 3 planes, forward and
+     every n from 8 to 8192, n1 in {128, 384}, 3 planes (and 1 at n =
+     8192), forward and
      inverse with postscale 0.3, planar and stride-2 operands; K6 (the
      column pass over c 128-column tiles, fft_axis(ctile=c)) for every n
      from 8 to 8192 with c in {1, 2, 8}, plain and full-twiddle, in place
@@ -113,9 +118,25 @@ numpy.fft, in nineteen phases, one or more lines each:
      launch counts (n = 8 has no matrix stage and runs K1 or K5); config 2
      through K1+K10 and config 3 through K1+K10 then K5+K10, forward and
      inverse, with exact counts, against numpy and, call by call, the plain
-     versions; K4, K8 and K9 refuse "int8"; K1+K10 at config 2 and at n =
-     8192 (f = 128) and K5+K10 at config 3's column pass timed beside the
-     float kernels, the plain versions, the bounds and the library call.
+     versions; K1+K10 at config 2 and at n = 8192 (f = 128) and K5+K10 at
+     config 3's column pass timed beside the float kernels, the plain
+     versions, the bounds and the library call;
+ 20. K10 inside its other hosts: K4+K10 (fft_rows_swap, f the last factor
+     of default_factors: 128 at n = 2048) at every n from 8 to 8192, n1 in
+     {128, 384} (the 384 rows spread 2^20 apart by 128-row group), planar
+     and stride-2; K8+K10 (fft2_fused) at its 15 plane shapes and K9+K10
+     (fft2_fused_tiled) at its 28, 1 and 3 planes 2^20 apart, planar,
+     stride-2 and in place; fft_axis_fold (K5+K10 over the native layout)
+     at (2, n, 8, x_ext) for every pair fft_axis_fold takes of n in {8,
+     256, 1024} and x_ext in {128, 256, 384}, 128-column slices 2^20 apart;
+     each in both directions with postscale 0.3, against its plain version
+     (precision="int8", JAX's alignment groups) and numpy per group, with
+     exact launch counts (n = 8 runs the float kernel); then config 4
+     through K8+K10 with the z pass by K5+K10 and again by the fold, config
+     3 through K9+K10 and config 6+ variant B through K5+K10 then K4+K10,
+     forward and inverse with exact counts, against numpy and, call by
+     call, the plain versions; K4+K10, K8+K10 and K9+K10 timed beside their
+     float kernels, plain versions, bounds and library calls.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -158,7 +179,8 @@ SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled",
 KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
            "local_cols_f64", "local_rows_il", "deinterleave", "interleave",
            "local_rows_swap", "local_cols_ctile", "fused2d_tiled",
-           "local_rows_i8", "local_cols_i8")
+           "local_rows_i8", "local_cols_i8", "local_rows_swap_i8",
+           "fused2d_i8", "fused2d_tiled_i8")
 
 # Launches of one complex-form execute of a 1D plan of one local pass, by
 # its interleaved route; the stream route adds K13 and K14 around any plan.
@@ -209,8 +231,11 @@ def reset_counts():
     local.CTILE_LAUNCHES = 0
     local.I8_LAUNCHES = 0
     local.COL_I8_LAUNCHES = 0
+    local.SWAP_I8_LAUNCHES = 0
     fused2d.LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
+    fused2d.I8_LAUNCHES = 0
+    fused2d.TILED_I8_LAUNCHES = 0
     interleave.DEINT_LAUNCHES = 0
     interleave.INT_LAUNCHES = 0
 
@@ -229,7 +254,10 @@ def read_counts() -> dict:
             "local_cols_ctile": local.CTILE_LAUNCHES,
             "fused2d_tiled": fused2d.TILED_LAUNCHES,
             "local_rows_i8": local.I8_LAUNCHES,
-            "local_cols_i8": local.COL_I8_LAUNCHES}
+            "local_cols_i8": local.COL_I8_LAUNCHES,
+            "local_rows_swap_i8": local.SWAP_I8_LAUNCHES,
+            "fused2d_i8": fused2d.I8_LAUNCHES,
+            "fused2d_tiled_i8": fused2d.TILED_I8_LAUNCHES}
 
 
 def expect(*parts) -> dict:
@@ -280,6 +308,11 @@ def phase_device():
 
 
 def phase_build():
+    """Start one nvcc for each source, all at once, and return a function
+    that waits for them all, raises if any failed and prints phase 2's
+    lines.  Meanwhile the first phases run on the row kernel, whose
+    source builds first: a phase that needs a library still building
+    waits for it in ``build.load``."""
     import pyfft_tpu_torch
     from pyfft_tpu_torch.ops import build
     here = Path(__file__).resolve().parent
@@ -300,13 +333,17 @@ def phase_build():
     threads = [threading.Thread(target=one, args=(k,)) for k in SOURCES]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
-    for name, e in errors.items():
-        raise RuntimeError(f"building {name}.cu failed") from e
-    for name in SOURCES:
-        print(f"phase 2 build: {name}.cu built and loaded in "
-              f"{took[name]:.2f} s -> {build.library_path(name)}")
+
+    def finish():
+        for t in threads:
+            t.join()
+        for name, e in errors.items():
+            raise RuntimeError(f"building {name}.cu failed") from e
+        for name in SOURCES:
+            print(f"phase 2 build: {name}.cu built and loaded in "
+                  f"{took[name]:.2f} s -> {build.library_path(name)}")
+
+    return finish
 
 
 # The two precisions' kernel checks: the complex dtype, the gate, the
@@ -521,7 +558,8 @@ def phase_cols_kernel(prec: str = "complex64"):
     for n in (1 << p for p in range(3, spec["max_log"] + 1)):
         worst_plain = worst_np = 0.0
         cases = 0
-        for L in (1, 3):
+        # one plane only at the largest n; elsewhere l = 0 of three
+        for L in ((1, 3) if n == 1 << spec["max_log"] else (3,)):
             for T in (128, 384):
                 x = (rng.standard_normal((L, n, T))
                      + 1j * rng.standard_normal((L, n, T))
@@ -1515,7 +1553,8 @@ def phase_swap_kernel():
     for n in IL_NS:
         worst_plain = worst_np = 0.0
         before, cases = local.SWAP_LAUNCHES, 0
-        for L in (1, 3):
+        # one plane only at the largest n; elsewhere l = 0 of three
+        for L in ((1, 3) if n == IL_NS[-1] else (3,)):
             for n1 in (128, 384):
                 x = (rng.standard_normal((L, n1, n))
                      + 1j * rng.standard_normal((L, n1, n))
@@ -2033,9 +2072,9 @@ def phase_int8_cols():
 def phase_int8_paths(copy_gbs):
     """Phase 19's paths: config 2 through K1+K10 and config 3 through
     K1+K10 then K5+K10, forward and inverse, with exact counts, against
-    numpy, every kernel call held against its plain version; the other
-    hosts refuse int8; timings beside the float kernels and the library."""
-    from pyfft_tpu_torch.ops import fused2d, local
+    numpy, every kernel call held against its plain version; timings
+    beside the float kernels and the library."""
+    from pyfft_tpu_torch.ops import local
     from pyfft_tpu_torch.utils.profiling import time_ms
     launches = dict.fromkeys(KERNELS, 0)
     checks = []          # (kernel, label, max abs err, max rel err)
@@ -2157,24 +2196,374 @@ def phase_int8_paths(copy_gbs):
     del x, re, im, p1, pr, pi, pc, out
     torch.cuda.empty_cache()
 
-    # the hosts without the stage refuse it on the card, launching nothing
-    z = torch.zeros(2, 128, 128, device="cuda")
-    reset_counts()
-    for name, fn in (("K4", local.fft_rows_swap), ("K8", fused2d.fft2_fused),
-                     ("K9", fused2d.fft2_fused_tiled)):
-        try:
-            fn(z, z, -1, precision="int8")
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{name} took precision='int8'")
-    if read_counts() != expect({}):
-        raise AssertionError(f"a refusal launched: {read_counts()}")
-    print("phase 19 K4, K8 and K9 refuse precision='int8' on the card "
-          "(NotImplementedError, no launch); kernel calls vs plain: "
+    print("phase 19 kernel calls vs plain: "
           + ", ".join(f"{lab} max abs {a:.3e} rel {e:.3e}"
                       for _, lab, a, e in checks) + f" (gate {TOL:.0e})")
     return {"counts": launches, "checks": checks, "timed": rows,
             "errs": {"config 2": e2, "config 3": e3}}
+
+
+# --------------------------------- K10 in K4, K8, K9 and the fold (phase 20)
+
+
+def spread_planes(x: np.ndarray) -> np.ndarray:
+    """Three leading slices (planes, or l) 2^20 apart: the second 2^-20,
+    the third 2^10 times the first; fewer are left as they are."""
+    x = x.copy()
+    if x.shape[0] == 3:
+        x[1] *= 2.0 ** -20
+        x[2] *= 2.0 ** 10
+    return x
+
+
+def rand_c64(rng, shape) -> np.ndarray:
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def phase_int8_swap():
+    """K4+K10 at every n, n1 in {128, 384}, against
+    fft_rows_swap_plain(precision="int8") and numpy per 128-row group."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(21)
+    for n in IL_NS:
+        f = local.matrix_factor(local.default_factors(n))
+        worst_plain = worst_np = 0.0
+        before = (local.SWAP_I8_LAUNCHES, local.SWAP_LAUNCHES)
+        cases = 0
+        for n1 in (128, 384):
+            x = rand_c64(rng, (1, n1, n))
+            if n1 == 384:
+                x[0] = spread_rows(x[0])
+            xc = torch.from_numpy(x).cuda()
+            x128 = x.astype(np.complex128)
+            for sign in (-1, +1):
+                post = 0.3
+                X = np.fft.fft(x128) if sign < 0 else np.fft.ifft(x128) * n
+                ref = torch.from_numpy(np.ascontiguousarray(
+                    (X * post).transpose(0, 2, 1))).cuda()
+                plain = cplx(*local.fft_rows_swap_plain(
+                    xc.real.contiguous(), xc.imag.contiguous(), sign, post,
+                    precision="int8"))
+                for mode in ("planar", "stride2"):
+                    re, im, _ = operands(xc, mode)
+                    got = local.fft_rows_swap(re, im, sign, postscale=post,
+                                              precision="int8")
+                    torch.cuda.synchronize()
+                    g = cplx(*got)
+                    tiles = [(0, 1), (2, 128)]
+                    tag = f"n={n} n1={n1} sign={sign} {mode}"
+                    e_plain = tiles_err(g, plain, tiles)
+                    e_np = tiles_err(g, ref, tiles)
+                    check(f"K4+K10 vs plain {tag}", e_plain)
+                    check(f"K4+K10 vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        made = (local.SWAP_I8_LAUNCHES - before[0],
+                local.SWAP_LAUNCHES - before[1])
+        if made != ((cases, 0) if f else (0, cases)):
+            raise AssertionError(f"int8 K4 n={n}: launches (int8, float) "
+                                 f"{made} for {cases} calls")
+        width = local.col_width_i8(n) if f else local.col_width(n)
+        print(f"phase 20 K4+K10 n={n} (f={f or 'none: K4 unchanged'}, "
+              f"C={width} rows a block): {cases} cases incl. a 2^20 spread "
+              f"over 128-row groups, max rel err per group vs plain "
+              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+
+
+def phase_int8_2d(tiled: bool):
+    """K8+K10 (or K9+K10) at each of its plane shapes, 1 and 3 planes
+    2^20 apart, against the plain version (precision="int8") and numpy per
+    plane."""
+    from pyfft_tpu_torch.ops import fused2d
+    if tiled:
+        name, shapes, fn, plain_fn = ("K9+K10", TILED_SHAPES,
+                                      fused2d.fft2_fused_tiled,
+                                      fused2d.fft2_tiled_plain)
+        count, cluster = (lambda: fused2d.TILED_I8_LAUNCHES,
+                          fused2d.tiled_cluster_size)
+    else:
+        name, shapes, fn, plain_fn = ("K8+K10", FUSED_SHAPES,
+                                      fused2d.fft2_fused, fused2d.fft2_plain)
+        count, cluster = lambda: fused2d.I8_LAUNCHES, fused2d.cluster_size
+    rng = np.random.RandomState(23 if tiled else 22)
+    for ny, nx in shapes:
+        worst_plain = worst_np = 0.0
+        before, cases = count(), 0
+        for L in (1, 3):
+            x = spread_planes(rand_c64(rng, (L, ny, nx)))
+            xc = torch.from_numpy(x).cuda()
+            x128 = x.astype(np.complex128)
+            for sign in (-1, +1):
+                post = 0.3
+                X = (np.fft.fft2(x128) if sign < 0
+                     else np.fft.ifft2(x128) * (ny * nx))
+                ref = torch.from_numpy(X * post).cuda()
+                plain = cplx(*plain_fn(xc.real.contiguous(),
+                                       xc.imag.contiguous(), sign, post,
+                                       precision="int8"))
+                for mode in ("planar", "stride2", "inplace"):
+                    re, im, out = operands(xc, mode)
+                    got = fn(re, im, sign, postscale=post, precision="int8",
+                             out=out)
+                    torch.cuda.synchronize()
+                    if out is not None and got[0].data_ptr() != re.data_ptr():
+                        raise AssertionError(f"in-place {name} wrote "
+                                             "elsewhere")
+                    g = cplx(*got)
+                    tag = f"{ny}x{nx} L={L} sign={sign} {mode}"
+                    e_plain = tiles_err(g, plain, [(0, 1)])
+                    e_np = tiles_err(g, ref, [(0, 1)])
+                    check(f"{name} vs plain {tag}", e_plain)
+                    check(f"{name} vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        if count() - before != cases:
+            raise AssertionError(f"{name} {ny}x{nx}: {count() - before} "
+                                 f"launches for {cases} calls")
+        print(f"phase 20 {name} {ny}x{nx} (a cluster of {cluster(ny, nx)} "
+              f"blocks a plane): {cases} cases incl. 3 planes 2^20 apart, "
+              f"max rel err per plane vs plain {worst_plain:.3e}, vs numpy "
+              f"{worst_np:.3e} (gate {TOL:.0e})")
+
+
+FOLD_SHAPES = [(2, n, 8, x) for n in (8, 256, 1024) for x in (128, 256, 384)
+               if n * x <= 1 << 17]
+
+
+def phase_int8_fold():
+    """fft_axis_fold(precision="int8") (K5+K10 over the native layout) at
+    (2, n, 8, x_ext), every other 128-column slice 2^20 above the rest,
+    against fft_cols_plain with the fold's groups and numpy per group."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(24)
+    for shape in FOLD_SHAPES:
+        L, n, rows, x_ext = shape
+        T = rows * x_ext
+        if not local.supported_fold(torch.empty(shape), 1):
+            raise AssertionError(f"fold does not take {shape}")
+        f = local.matrix_factor(local.col_factors(n))
+        lanes = local.fold_lanes(n, x_ext)
+        x = rand_c64(rng, shape)
+        x.reshape(L, n, -1, 128)[:, :, 1::2] *= 2.0 ** 20
+        xc = torch.from_numpy(x).cuda()
+        x128 = x.astype(np.complex128)
+        worst_plain = worst_np = 0.0
+        before = (local.COL_I8_LAUNCHES, local.COL_LAUNCHES)
+        cases = 0
+        for sign in (-1, +1):
+            post = 0.3
+            X = (np.fft.fft(x128, axis=1) if sign < 0
+                 else np.fft.ifft(x128, axis=1) * n)
+            ref = torch.from_numpy(X * post).cuda().view(L, n, T)
+            plain = cplx(*local.fft_cols_plain(
+                xc.real.contiguous().view(L, n, T),
+                xc.imag.contiguous().view(L, n, T), sign, postscale=post,
+                precision="int8", lanes=lanes))
+            for mode in ("planar", "inplace"):
+                re, im, out = operands(xc, mode)
+                got = local.fft_axis_fold(re, im, sign, axis=1,
+                                          postscale=post, precision="int8",
+                                          out=out)
+                torch.cuda.synchronize()
+                if out is not None and got[0].data_ptr() != re.data_ptr():
+                    raise AssertionError("in-place fold wrote elsewhere")
+                g = cplx(*got).reshape(L, n, T)
+                tiles = [(0, 1), (2, lanes)]
+                tag = f"{shape} sign={sign} {mode}"
+                e_plain = tiles_err(g, plain, tiles)
+                e_np = tiles_err(g, ref, tiles)
+                check(f"fold+K10 vs plain {tag}", e_plain)
+                check(f"fold+K10 vs numpy {tag}", e_np)
+                worst_plain = max(worst_plain, e_plain)
+                worst_np = max(worst_np, e_np)
+                cases += 1
+        made = (local.COL_I8_LAUNCHES - before[0],
+                local.COL_LAUNCHES - before[1])
+        if made != ((cases, 0) if f else (0, cases)):
+            raise AssertionError(f"int8 fold {shape}: launches (int8, "
+                                 f"float) {made} for {cases} calls")
+        print(f"phase 20 fold {shape} (f={f or 'none: K5 unchanged'}, JAX "
+              f"slices of {lanes} columns): {cases} cases, 128-column "
+              f"slices 2^20 apart, max rel err per slice vs plain "
+              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+
+
+def phase_int8_host_paths(copy_gbs):
+    """Phase 20's paths at full size, forward and inverse with exact
+    counts, against numpy and, call by call, the plain versions: config 4
+    through K8+K10, then its z pass by K5+K10 and again by the fold; config
+    3 through K9+K10; config 6+ variant B through K5+K10 (full twiddle)
+    then K4+K10 (n = 2048, f = 128).  Timings of K4+K10, K8+K10 and K9+K10
+    beside their float kernels, plain versions, bounds and library calls."""
+    from pyfft_tpu_torch.ops import fused2d, local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    launches = dict.fromkeys(KERNELS, 0)
+    checks = []          # (kernel, label, max abs err, max rel err)
+    rows = []
+    errs = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def against_plain(kernel, label, got, want):
+        a = float(torch.maximum((got[0] - want[0]).abs().max(),
+                                (got[1] - want[1]).abs().max()))
+        e = held(kernel, got, want, f"{label} vs plain")
+        checks.append((kernel, label, a, e))
+
+    def both(label, want, run, ref, ref_inv, size):
+        """run(sign, post) forward and inverse (post 1 / size) with exact
+        counts, each against numpy."""
+        (y, yi), counts = counted(want, label, lambda: (
+            run(-1, 1.0), run(+1, 1.0 / size)))
+        add(counts)
+        e = (rel_err(cplx(*y), ref), rel_err(cplx(*yi), ref_inv))
+        check(f"{label} forward vs numpy", e[0])
+        check(f"{label} inverse vs numpy", e[1])
+        errs[label] = e
+        return counts
+
+    # config 4: K8+K10 over the last two axes, then the z pass
+    x = make_data((256, 256, 256), seed=200)
+    ref, ref_inv = numpy_refs(x, 3)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    size = x.numel()
+
+    def k8(sign, post):
+        return fused2d.fft2_fused(re, im, sign, postscale=post,
+                                  precision="int8")
+
+    for z in ("K5+K10", "fold"):
+        zfn = local.fft_axis_fold if z == "fold" else local.fft_axis
+
+        def run(sign, post, zfn=zfn):
+            return zfn(*k8(sign, post), sign, axis=0, precision="int8")
+
+        both(f"config 4 K8+K10, {z}", {"fused2d_i8": 2, "local_cols_i8": 2},
+             run, ref, ref_inv, size)
+    del ref, ref_inv
+    p1 = k8(-1, 1.0)
+    against_plain("fused2d_i8", "config 4 (K8+K10)", p1, fused2d.fft2_plain(
+        re, im, -1, precision="int8"))
+    z3 = tuple(t.view(1, 256, 65536) for t in p1)
+    against_plain("local_cols_i8", "config 4 z pass (K5+K10)",
+                  local.fft_axis(*z3, -1, axis=1, precision="int8"),
+                  local.fft_cols_plain(*z3, -1, precision="int8"))
+    fold = local.fft_axis_fold(*p1, -1, axis=0, precision="int8")
+    against_plain("local_cols_i8", "config 4 z pass (fold+K10, f=32)",
+                  tuple(t.view(1, 256, 65536) for t in fold),
+                  local.fft_cols_plain(*z3, -1, precision="int8",
+                                       lanes=local.fold_lanes(256, 256)))
+    del p1, z3, fold
+    print(f"phase 20 config 4 (256^3) through K8+K10 (f=64 both axes), then "
+          f"the z pass by K5+K10 and again by fft_axis_fold (f=32): "
+          f"launches 2 fused2d_i8 and 2 local_cols_i8 each way, err vs "
+          f"numpy "
+          + ", ".join(f"{k.split(', ')[1]} {a:.3e} forward, {b:.3e} inverse"
+                      for k, (a, b) in errs.items() if "config 4" in k)
+          + f" (gate {TOL:.0e})")
+    out = (torch.empty_like(re), torch.empty_like(im))
+    fl, ops = i8_ops(256, 64, size)
+    rows.append(time_pass(
+        "config 4", "2D pass (K8+K10)", re, im,
+        lambda: fused2d.fft2_fused(re, im, -1, precision="int8", out=out),
+        lambda: fused2d.fft2_plain(re, im, -1, precision="int8"),
+        lambda: torch.fft.fft2(x), 2 * size * 8, 2 * fl, copy_gbs,
+        phase=20, int8_ops=2 * ops))
+    rows[-1]["kernel"] = "fused2d_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: fused2d.fft2_fused(re, im, -1,
+                                                              out=out))
+    print(f"    K8 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    del x, re, im, out
+    torch.cuda.empty_cache()
+
+    # config 3: K9+K10
+    x = make_data((16, 1024, 1024), seed=201)
+    ref, ref_inv = numpy_refs(x, 2)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    both("config 3 K9+K10", {"fused2d_tiled_i8": 2},
+         lambda sign, post: fused2d.fft2_fused_tiled(
+             re, im, sign, postscale=post, precision="int8"), ref, ref_inv,
+         1 << 20)
+    del ref, ref_inv
+    against_plain("fused2d_tiled_i8", "config 3 (K9+K10)",
+                  fused2d.fft2_fused_tiled(re, im, -1, precision="int8"),
+                  fused2d.fft2_tiled_plain(re, im, -1, precision="int8"))
+    e = errs["config 3 K9+K10"]
+    print(f"phase 20 config 3 {tuple(x.shape)} through K9+K10 (f=64 both "
+          f"axes, a cluster of {fused2d.tiled_cluster_size(1024, 1024)} "
+          f"blocks a plane): launches 2 fused2d_tiled_i8, err vs numpy "
+          f"{e[0]:.3e} forward, {e[1]:.3e} inverse (gate {TOL:.0e})")
+    out = (torch.empty_like(re), torch.empty_like(im))
+    fl, ops = i8_ops(1024, 64, re.numel())
+    rows.append(time_pass(
+        "config 3", "2D pass (K9+K10)", re, im,
+        lambda: fused2d.fft2_fused_tiled(re, im, -1, precision="int8",
+                                         out=out),
+        lambda: fused2d.fft2_tiled_plain(re, im, -1, precision="int8"),
+        lambda: torch.fft.fft2(x), 2 * re.numel() * 8, 2 * fl, copy_gbs,
+        phase=20, int8_ops=2 * ops))
+    rows[-1]["kernel"] = "fused2d_tiled_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: fused2d.fft2_fused_tiled(
+        re, im, -1, out=out))
+    print(f"    K9 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    del x, re, im, out
+    torch.cuda.empty_cache()
+
+    # config 6+ variant B: K5+K10 with the full twiddle, then K4+K10
+    B, N6 = 8, 1 << 22
+    x = make_data((B, N6), seed=202)
+    ref, ref_inv = numpy_refs(x, 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+
+    def vb(sign, post):
+        p, q = local.fft_axis(re.view(B, 2048, 2048), im.view(B, 2048, 2048),
+                              sign, axis=-2, tw_n=N6, precision="int8")
+        p, q = local.fft_rows_swap(p, q, sign, postscale=post,
+                                   precision="int8")
+        return p.view(B, N6), q.view(B, N6)
+
+    both("config 6+ variant B int8", {"local_cols_i8": 2,
+                                      "local_rows_swap_i8": 2}, vb, ref,
+         ref_inv, N6)
+    del ref, ref_inv
+    r3, i3 = re.view(B, 2048, 2048), im.view(B, 2048, 2048)
+    p1 = local.fft_axis(r3, i3, -1, axis=-2, tw_n=N6, precision="int8")
+    against_plain("local_cols_i8", "variant B pass 1 (K5+K10, full "
+                  "twiddle)", p1, local.fft_cols_plain(
+                      r3, i3, -1, tw_n=N6, precision="int8"))
+    against_plain("local_rows_swap_i8", "variant B pass 2 (K4+K10, f=128)",
+                  local.fft_rows_swap(*p1, -1, precision="int8"),
+                  local.fft_rows_swap_plain(*p1, -1, precision="int8"))
+    e = errs["config 6+ variant B int8"]
+    print(f"phase 20 config 6+ variant B {tuple(x.shape)} through K5+K10 "
+          f"(f=64, full twiddle) then K4+K10 (n=2048, f=128): launches 2 "
+          f"local_cols_i8, 2 local_rows_swap_i8, err vs numpy {e[0]:.3e} "
+          f"forward, {e[1]:.3e} inverse, on all {B} rows (gate {TOL:.0e})")
+    out = (torch.empty_like(p1[0]), torch.empty_like(p1[1]))
+    p1c = cplx(*p1)
+    fl, ops = i8_ops(2048, 128, B * N6)
+    rows.append(time_pass(
+        "config 6+", "variant B pass 2 (K4+K10)", *p1,
+        lambda: local.fft_rows_swap(*p1, -1, precision="int8", out=out),
+        lambda: local.fft_rows_swap_plain(*p1, -1, precision="int8"),
+        lambda: torch.fft.fft(p1c.mT, dim=-2), 2 * B * N6 * 8, fl, copy_gbs,
+        phase=20, int8_ops=ops))
+    rows[-1]["kernel"] = "local_rows_swap_i8"
+    rows[-1]["float_ms"] = time_ms(lambda: local.fft_rows_swap(*p1, -1,
+                                                               out=out))
+    print(f"    K4 (float) on the same data: {rows[-1]['float_ms']:.4f} ms")
+    del x, re, im, r3, i3, p1, p1c, out
+    torch.cuda.empty_cache()
+    print("phase 20 kernel calls vs plain: "
+          + ", ".join(f"{lab} max abs {a:.3e} rel {e:.3e}"
+                      for _, lab, a, e in checks) + f" (gate {TOL:.0e})")
+    return {"counts": launches, "checks": checks, "timed": rows,
+            "errs": errs}
 
 
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
@@ -2197,9 +2586,10 @@ def kernel_entry(name, source, replaces, timed, checks, launches, shape):
 
 def main() -> int:
     phase_device()
-    phase_build()
+    built = phase_build()
     phase_kernel()
     xt, re, im, counts2 = phase_main_path()
+    built()             # nothing is timed while nvcc runs
     t = phase_timings(xt, re, im)
     del xt, re, im
     phase_cols_kernel()
@@ -2228,8 +2618,14 @@ def main() -> int:
     phase_int8_cols()
     i8 = phase_int8_paths(t["copy_gbs"])
 
+    phase_int8_swap()
+    phase_int8_2d(tiled=False)
+    phase_int8_2d(tiled=True)
+    phase_int8_fold()
+    i8h = phase_int8_host_paths(t["copy_gbs"])
+
     launches = dict(counts2)
-    for r in (*results.values(), *results64.values(), il, rl, off, i8):
+    for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -2321,18 +2717,30 @@ def main() -> int:
             "shape": shape})
     # K10 inside K1 (timed at config 2) and K5 (config 3's column pass), its
     # errors over every kernel call of phase 19's paths held against the
-    # plain version
-    for name, src, label in (
-            ("local_rows_i8", "local_rows", "config 2, 4096 x 4096, f = 64"),
+    # plain version; inside K4 (variant B's pass 2), K8 (config 4) and K9
+    # (config 3), over phase 20's paths.  K5+K10's checks take in phase
+    # 20's calls too (the fold and variant B's pass 1 run it)
+    for name, src, label, host, res in (
+            ("local_rows_i8", "local_rows", "config 2, 4096 x 4096, f = 64",
+             "pallas_local.py:743", (i8,)),
             ("local_cols_i8", "local_cols",
-             "config 3 column pass, (16, 1024, 1024), f = 64")):
-        row = next(r for r in i8["timed"] if r["kernel"] == name)
-        mine = [c for c in i8["checks"] if c[0] == name]
+             "config 3 column pass, (16, 1024, 1024), f = 64",
+             "pallas_local.py:1173, :1265", (i8, i8h)),
+            ("local_rows_swap_i8", "local_cols",
+             "config 6+ variant B pass 2, (8, 2048, 2048), f = 128",
+             "pallas_local.py:875", (i8h,)),
+            ("fused2d_i8", "fused2d", "config 4, 256^3, f = 64 both axes",
+             "pallas_local.py:1409", (i8h,)),
+            ("fused2d_tiled_i8", "fused2d_tiled",
+             "config 3, 16 x 1024 x 1024, f = 64 both axes",
+             "pallas_local.py:1502", (i8h,))):
+        row = next(r for r in res[0]["timed"] if r["kernel"] == name)
+        mine = [c for r in res for c in r["checks"] if c[0] == name]
         off_entries.append({
             "name": name, "route": "cuda",
             "source": f"pyfft_tpu_torch/ops/csrc/{src}.cu",
             "replaces": "pyfft_tpu/ops/pallas_local.py:526",
-            "launches": launches[name],
+            "host": host, "launches": launches[name],
             "max_abs_err": max(c[2] for c in mine),
             "max_rel_err": max(c[3] for c in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -2341,7 +2749,8 @@ def main() -> int:
     print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
                                   rows64_entry, cols64_entry, *il_entries,
                                   *off_entries],
-                      "passes": timed + timed64 + off["timed"] + i8["timed"],
+                      "passes": (timed + timed64 + off["timed"] + i8["timed"]
+                                 + i8h["timed"]),
                       "variant_b": off["variant_b"], "end_to_end": e2e,
                       "routes": {k: il[k] for k in
                                  ("config_2i_routes", "library_ms",

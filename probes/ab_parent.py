@@ -4,11 +4,13 @@ the same sources, in one process on one CUDA card.
     python3 probes/ab_parent.py OTHER_CHECKOUT
 
 OTHER_CHECKOUT is an unpacked copy of another commit (``git archive`` of
-the parent, say).  Its ``local_cols.cu`` and ``fused2d.cu`` are built
-beside this checkout's, and the same wrappers run each build in turn: the
-column kernel K5 at config 6+'s two passes and config 4's z pass, its
-complex128 instantiation K12 at config 5's two passes, and the fused 2D
-kernel K8 at config 4.  Each is timed by CUDA events (``time_ms``) in four
+the parent, say).  Its ``local_rows.cu``, ``local_cols.cu``, ``fused2d.cu``
+and ``fused2d_tiled.cu`` are built beside this checkout's, and the same
+wrappers run each build in turn: the row kernel K1 at config 2, the column
+kernel K5 at config 6+'s two passes and config 4's z pass, its complex128
+instantiation K12 at config 5's two passes, the digit-swapped row pass K4
+at variant B's pass 2, the fused 2D kernel K8 at config 4 and the tiled
+one K9 at config 3.  Each is timed by CUDA events (``time_ms``) in four
 turns, other, this, this, other, so that a drift of the card favours
 neither; prints a line per kernel and, as its last line, a JSON record
 with the ratio this / other of the turns' means.
@@ -16,6 +18,7 @@ with the ratio this / other of the turns' means.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import sys
 from pathlib import Path
@@ -52,23 +55,47 @@ def bind(lib, binder, *args):
         build.load = saved
 
 
+def bind_2d(lib, name: str):
+    """(launch, None, cluster) of a 2D kernel's library: the float entry
+    points only, which every version of it has."""
+    fn = getattr(lib, f"pyfft_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    cluster = getattr(lib, f"pyfft_{name}_cluster")
+    cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+    cluster.restype = ctypes.c_int
+    return fn, None, cluster
+
+
 def main(other: Path) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     csrc = other / "pyfft_tpu_torch" / "ops" / "csrc"
     dtypes = (torch.float32, torch.float64)
+    other_cols = load_other(csrc, "local_cols")
     cols = {"this": {d: local._cols_lib(d) for d in dtypes},
-            "other": {d: bind(load_other(csrc, "local_cols"),
-                              local._cols_lib.__wrapped__, d)
+            "other": {d: bind(other_cols, local._cols_lib.__wrapped__, d)
                       for d in dtypes}}
-    f2d = {"this": fused2d._lib(),
-           "other": bind(load_other(csrc, "fused2d"),
-                         fused2d._lib.__wrapped__)}
-    saved = local._cols_lib, fused2d._lib
+    row_fns = {"this": local._rows_fn(torch.float32),
+            "other": bind(load_other(csrc, "local_rows"),
+                          local._rows_fn.__wrapped__, torch.float32)}
+    swap = {"this": local._rows_swap_fn(),
+            "other": bind(other_cols, local._rows_swap_fn.__wrapped__)}
+    f2d = {"this": bind_2d(build.load("fused2d"), "fused2d"),
+           "other": bind_2d(load_other(csrc, "fused2d"), "fused2d")}
+    tiled = {"this": bind_2d(build.load("fused2d_tiled"), "fused2d_tiled"),
+             "other": bind_2d(load_other(csrc, "fused2d_tiled"),
+                              "fused2d_tiled")}
+    saved = (local._cols_lib, local._rows_fn, local._rows_swap_fn,
+             fused2d._lib, fused2d._tiled_lib)
 
     def use(which):
         local._cols_lib = lambda d: cols[which][d]
+        local._rows_fn = lambda d: row_fns[which]
+        local._rows_swap_fn = lambda: swap[which]
         fused2d._lib = lambda: f2d[which]
+        fused2d._tiled_lib = lambda: tiled[which]
 
     def planes(shape, real):
         g = torch.Generator(device="cuda").manual_seed(5)
@@ -96,8 +123,24 @@ def main(other: Path) -> int:
                       (re, im, out)))
     re, im = planes((256, 256, 256), torch.float32)
     out = (torch.empty_like(re), torch.empty_like(im))
-    cases.append(("K8 config 4 (256^3)", lambda: fused2d.fft2_fused(
-        re, im, -1, out=out), (re, im, out)))
+    cases.append(("K8 config 4 (256^3)", lambda re=re, im=im, out=out:
+                  fused2d.fft2_fused(re, im, -1, out=out), (re, im, out)))
+    re, im = planes((4096, 4096), torch.float32)
+    out = (torch.empty_like(re), torch.empty_like(im))
+    cases.append(("K1 config 2 (4096 x 4096)", lambda re=re, im=im, out=out:
+                  local.fft_axis(re, im, -1, out=out), (re, im, out)))
+    re, im = planes((8, 2048, 2048), torch.float32)
+    out = (torch.empty_like(re), torch.empty_like(im))
+    cases.append(("K4 variant B pass 2 (8, 2048, 2048)",
+                  lambda re=re, im=im, out=out: local.fft_rows_swap(
+                      re, im, -1, out=out),
+                  (re, im, out)))
+    re, im = planes((16, 1024, 1024), torch.float32)
+    out = (torch.empty_like(re), torch.empty_like(im))
+    cases.append(("K9 config 3 (16 x 1024^2)",
+                  lambda re=re, im=im, out=out: fused2d.fft2_fused_tiled(
+                      re, im, -1, out=out),
+                  (re, im, out)))
 
     rows = {}
     try:
@@ -115,7 +158,8 @@ def main(other: Path) -> int:
                   + ("(within 3 %)" if abs(ratio - 1) <= 0.03
                      else "(NOT within 3 %)"))
     finally:
-        local._cols_lib, fused2d._lib = saved
+        (local._cols_lib, local._rows_fn, local._rows_swap_fn, fused2d._lib,
+         fused2d._tiled_lib) = saved
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "ab": rows}))
     return 0

@@ -2,8 +2,14 @@
 // buffer, with functors for the first stage's loads and the last stage's
 // stores: the stage code of the 2D kernels (fused2d.cu, K8, and
 // fused2d_tiled.cu, K9).  NT is the block's thread count.  Complex64.
+// For their int8 kernels (precision="int8"), `lead` runs the stages in
+// front of the f-point int8 stage and ChainMap gives that stage
+// (int8_stage.cuh) the buffer's layout.  At the bottom, the host side the
+// two sources share: their operands (Planes2D) and the cluster launch.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include "stockham.cuh"
 
@@ -78,6 +84,113 @@ __device__ __forceinline__ void chain(float2* sm,
   if constexpr (STAGE + 1 < NSTAGES)
     chain<NT, LOGN, C, ROWS, STAGE + 1, NS * R, LOAD, STORE>(sm, tw, s, load,
                                                             store);
+}
+
+// The stages of an N-point chain (N = 2^LOGN) in front of its f-point
+// int8 stage (f = 2^LOGF), from stage STAGE on: LOGN - LOGF bits, a
+// radix-2 or radix-4 stage first when that is not a multiple of 3, then
+// radix 8, every result left in the buffer; stage 0 takes its inputs from
+// `load` when LOAD.  None at n = f.
+template <int NT, int LOGN, int LOGF, int C, bool ROWS, int STAGE, int NS,
+          bool LOAD, class Load>
+__device__ __forceinline__ void lead(float2* sm, const float2* __restrict__ tw,
+                                     float s, const Load& load) {
+  constexpr int LB = LOGN - LOGF, REM = LB % 3;
+  constexpr int NL = LB / 3 + (REM ? 1 : 0);
+  if constexpr (STAGE < NL) {
+    constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
+    const auto none = [](int, int, float2) {};
+    stage<NT, 1 << LOGN, C, ROWS, R, NS, LOAD && STAGE == 0, false>(
+        sm, tw, s, load, none);
+    lead<NT, LOGN, LOGF, C, ROWS, STAGE + 1, NS * R, LOAD>(sm, tw, s, load);
+  }
+}
+
+// The int8 stage's view of C transforms of length N in the buffer after
+// `lead` (NS = N / F): column q = (transform c, run j), its element r at
+// index(c, j + r*NS) of the chain's layout (ROWS: c*N + k, else k*C + c),
+// the run j fastest in ROWS so that neighbouring lanes read neighbouring
+// slots.  Output k of column q is element j + k*NS of transform c, natural
+// order, handed to put(c, k, part, v).
+template <int N, int F, int C, bool ROWS, class Put>
+struct ChainMap {
+  static constexpr int NS = N / F, Q = C * NS;
+  Put out;
+  __device__ int cof(int q) const { return ROWS ? q / NS : q % C; }
+  __device__ int jof(int q) const { return ROWS ? q % NS : q / C; }
+  __device__ int index(int q, int r) const {
+    const int k = jof(q) + r * NS;
+    return ROWS ? cof(q) * N + k : k * C + cof(q);
+  }
+  __device__ void put(int q, int k, int part, float v) const {
+    out(cof(q), jof(q) + k * NS, part, v);
+  }
+};
+
+// The operands of a 2D kernel: L planes, strides (l, y, x) in floats.
+struct Planes2D {
+  const float* in_re;
+  const float* in_im;
+  float* out_re;
+  float* out_im;
+  long long L;
+  long long in_ls, in_ys, in_xs;
+  long long out_ls, out_ys, out_xs;
+  float post;
+};
+
+// The operands and `dims` (L, the input strides (l, y, x), the output
+// strides (l, y, x)) as a Planes2D.
+inline Planes2D planes_2d(const void* in_re, const void* in_im, void* out_re,
+                          void* out_im, const long long* dims,
+                          float postscale) {
+  Planes2D io;
+  io.in_re = static_cast<const float*>(in_re);
+  io.in_im = static_cast<const float*>(in_im);
+  io.out_re = static_cast<float*>(out_re);
+  io.out_im = static_cast<float*>(out_im);
+  io.L = dims[0];
+  io.in_ls = dims[1];
+  io.in_ys = dims[2];
+  io.in_xs = dims[3];
+  io.out_ls = dims[4];
+  io.out_ys = dims[5];
+  io.out_xs = dims[6];
+  io.post = postscale;
+  return io;
+}
+
+// `kernel` over L planes, one cluster of G blocks (NT threads each) a
+// plane, `smem` bytes of shared memory a block.
+template <int NT, class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), long long L, int G,
+                           int smem, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (G > 8) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = L * G;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace pyfft

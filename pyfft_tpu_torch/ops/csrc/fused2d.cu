@@ -48,29 +48,40 @@
 // two planes of torch.view_as_real(complex64) twice those.  Offsets are
 // 64-bit.
 //
+// K8 + K10 (precision="int8"), a kernel of its own (fused2d_i8_kernel,
+// so K8's code is what it was): each axis's chain is radix-2/4/8 stages
+// over n/f bits, then the f-point int8-split stage of int8_stage.cuh (f
+// the last factor of the JAX package's default chain, `default_factors`,
+// as `_fft2_fused` takes), in K8's frame: one cluster a plane, x first,
+// the exchange through distributed shared memory, y second.  Its alignment
+// groups are a block's rows in phase 1 and a block's columns in phase 2,
+// each a subset of the JAX kernel's group, the whole plane.  The JAX
+// kernel runs y first, then x; in float the order changes nothing, under
+// int8 each stage quantises other data, so the kernel matches JAX's
+// function within the int8 stage's error (held at 2e-6), not bit for bit.
+// Phase 1's output has to stay in shared memory for the gather, and at
+// 2^18 points a plane a block's share is 128 KB, so a second buffer does
+// not fit: phase 1's stage runs in place (int8_stage's IN_PLACE, output k
+// of a column in the slot of its input k, after a barrier where warps
+// share columns).  Phase 2's stage writes its outputs straight to device
+// memory, postscale folded.  At ny = f the gather stage only gathers (radix
+// 1); at nx = f phase 1 loads the rows first.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry point `pyfft_fused2d` at the bottom.
+// library with the plain C entry points `pyfft_fused2d` and
+// `pyfft_fused2d_i8` at the bottom.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "chain.cuh"
+#include "int8_stage.cuh"
 
 namespace {
 
 using namespace pyfft;
 namespace cg = cooperative_groups;
-
-struct Fused {
-  const float* in_re;
-  const float* in_im;
-  float* out_re;
-  float* out_im;
-  long long L;
-  long long in_ls, in_ys, in_xs;
-  long long out_ls, out_ys, out_xs;
-  float post;
-};
 
 constexpr int NT = 512;       // threads a block
 
@@ -90,7 +101,7 @@ struct Shape2 {
 // butterflies' inputs, the points (k, column c) for k = j + r*NY/R, from
 // the shared memory of the block that holds row k, then every block waits
 // at the cluster barrier before the stage's results overwrite its buffer
-// in the [k][c] layout.
+// in the [k][c] layout.  R = 1 only gathers (the int8 kernel at ny = f).
 template <int LY, int LX, int R>
 __device__ __forceinline__ void column_gather_stage(cg::cluster_group& cluster,
                                                     float2* sm, int rank,
@@ -110,7 +121,7 @@ __device__ __forceinline__ void column_gather_stage(cg::cluster_group& cluster,
       const float2* src = cluster.map_shared_rank(sm, k / S::RB);
       v[b][r] = src[(k % S::RB) * S::NX + rank * C + c];
     }
-    dft<R>(v[b], s);
+    if constexpr (R > 1) dft<R>(v[b], s);
   }
   cluster.sync();
 #pragma unroll
@@ -125,7 +136,7 @@ __device__ __forceinline__ void column_gather_stage(cg::cluster_group& cluster,
 
 template <int LY, int LX>
 __global__ void __launch_bounds__(NT)
-    fused2d_kernel(Fused io, const float2* __restrict__ twy,
+    fused2d_kernel(Planes2D io, const float2* __restrict__ twy,
                    const float2* __restrict__ twx, float s) {
   using S = Shape2<LY, LX>;
   constexpr int RB = S::RB, CB = S::CB;
@@ -166,37 +177,74 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int LY, int LX>
-cudaError_t launch(const Fused& io, const float2* twy, const float2* twx,
+cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
                    float s, cudaStream_t stream) {
   using S = Shape2<LY, LX>;
-  constexpr int smem = S::PB * (int)sizeof(float2);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused2d_kernel<LY, LX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return e;
-  if (S::G > 8) {
-    e = cudaFuncSetAttribute(fused2d_kernel<LY, LX>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e != cudaSuccess) return e;
+  return launch_cluster<NT>(fused2d_kernel<LY, LX>, io.L, S::G,
+                            S::PB * (int)sizeof(float2), stream, io, twy,
+                            twx, s);
+}
+
+// ------------------------------------------------------ K8 + K10 (int8)
+
+// K8's function with the f-point int8 stage last on each axis (fy =
+// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' (3, 2f, 2f) int8 channels.
+template <int LY, int LFY, int LX, int LFX>
+__global__ void __launch_bounds__(NT)
+    fused2d_i8_kernel(Planes2D io, const float2* __restrict__ twy,
+                      const float2* __restrict__ twx, float s,
+                      const int8_t* __restrict__ wy,
+                      const int8_t* __restrict__ wx) {
+  using S = Shape2<LY, LX>;
+  constexpr int RB = S::RB, CB = S::CB, NX = S::NX, NY = S::NY;
+  constexpr int LBY = LY - LFY;     // bits of y's radix stages
+  constexpr int RY = LBY == 0 ? 1 : ((LBY % 3) ? (1 << (LBY % 3)) : 8);
+  extern __shared__ float2 sm[];
+  __shared__ float red[NT / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long l = blockIdx.x / S::G;
+
+  const float* in_re = io.in_re + l * io.in_ls;
+  const float* in_im = io.in_im + l * io.in_ls;
+  float* out_re = io.out_re + l * io.out_ls;
+  float* out_im = io.out_im + l * io.out_ls;
+  const auto load_row = [&](int c, int k) {       // row rank*RB + c, x = k
+    const long long o = (rank * RB + c) * io.in_ys + k * io.in_xs;
+    return make_float2(in_re[o], in_im[o]);
+  };
+  float* smf = reinterpret_cast<float*>(sm);
+  const auto put_row = [&](int c, int k, int part, float v) {
+    smf[2 * (c * NX + k) + part] = v;
+  };
+  const auto put_col = [&](int c, int k, int part, float v) {   // y = k
+    const long long o = k * io.out_ys + (rank * CB + c) * io.out_xs;
+    (part ? out_im : out_re)[o] = v * io.post;
+  };
+  const auto none_load = [](int, int) { return make_float2(0.f, 0.f); };
+
+  // phase 1: the block's rows, read along x, transformed along x, the int8
+  // stage in place
+  if constexpr (LX == LFX) {
+    for (int e = threadIdx.x; e < S::PB; e += NT)
+      sm[e] = load_row(e / NX, e % NX);
+    __syncthreads();
+  } else {
+    lead<NT, LX, LFX, RB, true, 0, 1, true>(sm, twx, s, load_row);
   }
-  const long long blocks = io.L * S::G;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S::G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, fused2d_kernel<LY, LX>, io, twy, twx, s);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  using RowMap = ChainMap<NX, (1 << LFX), RB, true, decltype(put_row)>;
+  int8_stage<(1 << LFX), NT, RowMap, true>(RowMap{put_row}, sm, twx, wx,
+                                            red);
+
+  // every block's rows transformed before any block gathers a column
+  cluster.sync();
+
+  // phase 2: the block's columns, gathered from the cluster, transformed
+  // along y, the int8 stage writing them along x
+  column_gather_stage<LY, LX, RY>(cluster, sm, rank, s);
+  lead<NT, LY, LFY, CB, false, 1, RY, false>(sm, twy, s, none_load);
+  using ColMap = ChainMap<NY, (1 << LFY), CB, false, decltype(put_col)>;
+  int8_stage<(1 << LFY), NT>(ColMap{put_col}, sm, twy, wy, red);
 }
 
 // (log2 ny, log2 nx) -> launch<LY, LX>, for 7 <= each <= 11 and a sum of
@@ -205,11 +253,33 @@ cudaError_t launch(const Fused& io, const float2* twy, const float2* twx,
   X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(7, 11) X(8, 7) X(8, 8) X(8, 9)   \
   X(8, 10) X(9, 7) X(9, 8) X(9, 9) X(10, 7) X(10, 8) X(11, 7)
 
-cudaError_t dispatch(int ly, int lx, const Fused& io, const float2* twy,
+cudaError_t dispatch(int ly, int lx, const Planes2D& io, const float2* twy,
                      const float2* twx, float s, cudaStream_t st) {
 #define PYFFT_CASE(a, b) \
   if (ly == a && lx == b) return launch<a, b>(io, twy, twx, s, st);
   PYFFT_FUSED2D_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// (log2 ny, log2 fy, log2 nx, log2 fx) of the int8 kernel: each of K8's
+// shapes with f the last factor of default_factors on each axis.
+#define PYFFT_FUSED2D_I8_CASES(X)                                          \
+  X(7, 7, 7, 7) X(7, 7, 8, 6) X(7, 7, 9, 7) X(7, 7, 10, 6) X(7, 7, 11, 7)   \
+  X(8, 6, 7, 7) X(8, 6, 8, 6) X(8, 6, 9, 7) X(8, 6, 10, 6) X(9, 7, 7, 7)    \
+  X(9, 7, 8, 6) X(9, 7, 9, 7) X(10, 6, 7, 7) X(10, 6, 8, 6) X(11, 7, 7, 7)
+
+cudaError_t dispatch_i8(int ly, int lfy, int lx, int lfx, const Planes2D& io,
+                        const float2* twy, const float2* twx, float s,
+                        const int8_t* wy, const int8_t* wx,
+                        cudaStream_t st) {
+#define PYFFT_CASE(a, fa, b, fb)                                          \
+  if (ly == a && lfy == fa && lx == b && lfx == fb)                       \
+    return launch_cluster<NT>(fused2d_i8_kernel<a, fa, b, fb>, io.L,      \
+                              Shape2<a, b>::G,                            \
+                              Shape2<a, b>::PB * (int)sizeof(float2), st, \
+                              io, twy, twx, s, wy, wx);
+  PYFFT_FUSED2D_I8_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return cudaErrorInvalidValue;
 }
@@ -235,22 +305,31 @@ extern "C" int pyfft_fused2d(const void* in_re, const void* in_im,
                              const void* twx, const long long* dims,
                              int log2ny, int log2nx, int sign,
                              float postscale, void* stream) {
-  Fused io;
-  io.in_re = static_cast<const float*>(in_re);
-  io.in_im = static_cast<const float*>(in_im);
-  io.out_re = static_cast<float*>(out_re);
-  io.out_im = static_cast<float*>(out_im);
-  io.L = dims[0];
-  io.in_ls = dims[1];
-  io.in_ys = dims[2];
-  io.in_xs = dims[3];
-  io.out_ls = dims[4];
-  io.out_ys = dims[5];
-  io.out_xs = dims[6];
-  io.post = postscale;
+  const Planes2D io = planes_2d(in_re, in_im, out_re, out_im, dims, postscale);
   if (io.L <= 0) return (int)cudaErrorInvalidValue;
   const float s = sign < 0 ? -1.f : 1.f;
   return (int)dispatch(log2ny, log2nx, io, static_cast<const float2*>(twy),
                        static_cast<const float2*>(twx), s,
                        static_cast<cudaStream_t>(stream));
+}
+
+// K8 + K10: as pyfft_fused2d with the f-point int8 stage last on each axis,
+// fy = 2^log2fy and fx = 2^log2fx (see PYFFT_FUSED2D_I8_CASES); `wchy` and
+// `wchx` hold the stages' channels, (3, 2f, 2f) int8 C-contiguous each.
+extern "C" int pyfft_fused2d_i8(const void* in_re, const void* in_im,
+                                void* out_re, void* out_im, const void* twy,
+                                const void* twx, const void* wchy,
+                                const void* wchx, const long long* dims,
+                                int log2ny, int log2fy, int log2nx,
+                                int log2fx, int sign, float postscale,
+                                void* stream) {
+  const Planes2D io = planes_2d(in_re, in_im, out_re, out_im, dims, postscale);
+  if (io.L <= 0) return (int)cudaErrorInvalidValue;
+  const float s = sign < 0 ? -1.f : 1.f;
+  return (int)dispatch_i8(log2ny, log2fy, log2nx, log2fx, io,
+                          static_cast<const float2*>(twy),
+                          static_cast<const float2*>(twx), s,
+                          static_cast<const int8_t*>(wchy),
+                          static_cast<const int8_t*>(wchx),
+                          static_cast<cudaStream_t>(stream));
 }

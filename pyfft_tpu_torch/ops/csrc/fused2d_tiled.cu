@@ -58,29 +58,36 @@
 // (ny*nx, nx, 1), the two planes of torch.view_as_real(complex64) twice
 // those.  Offsets are 64-bit.
 //
+// K9 + K10 (precision="int8"), a kernel of its own (fused2d_tiled_i8_kernel,
+// so K9's code is what it was): in each chunk the chain is radix-2/4/8
+// stages over n/f bits, then the f-point int8-split stage of
+// int8_stage.cuh (f the last factor of the JAX package's column chain,
+// `col_factors`, as `_fft2_fused_tiled` takes: 32 at 256), whose outputs go
+// straight to device memory, where both of K9's phases store anyway: no
+// second buffer, the 64 KB chunk unchanged.  The alignment group is the
+// chunk: RC rows or CC columns of one plane, at most CHUNK / n <= 64 and
+// aligned to their count, so inside one 128-wide slice, the width of the
+// JAX kernel's groups (a 128-column slice for y, 128 ky-rows for x).  The
+// JAX kernel runs y first, then x; this kernel keeps
+// K9's x first, so each int8 stage quantises other data than JAX's and
+// the kernel matches JAX's function within the stage's error (held at
+// 2e-6), not bit for bit.  At n = f a chunk loads its data first.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry point `pyfft_fused2d_tiled` at the bottom.
+// library with the plain C entry points `pyfft_fused2d_tiled` and
+// `pyfft_fused2d_tiled_i8` at the bottom.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "chain.cuh"
+#include "int8_stage.cuh"
 
 namespace {
 
 using namespace pyfft;
 namespace cg = cooperative_groups;
-
-struct Tiled {
-  const float* in_re;
-  const float* in_im;
-  float* out_re;
-  float* out_im;
-  long long L;
-  long long in_ls, in_ys, in_xs;
-  long long out_ls, out_ys, out_xs;
-  float post;
-};
 
 constexpr int NT = 512;          // threads a block
 constexpr int CHUNK = 8192;      // points a chunk, at most (64 KB)
@@ -105,7 +112,7 @@ struct ShapeT {
 
 template <int LY, int LX>
 __global__ void __launch_bounds__(NT)
-    fused2d_tiled_kernel(Tiled io, const float2* __restrict__ twy,
+    fused2d_tiled_kernel(Planes2D io, const float2* __restrict__ twy,
                          const float2* __restrict__ twx, float s) {
   using S = ShapeT<LY, LX>;
   extern __shared__ float2 sm[];
@@ -154,39 +161,90 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ------------------------------------------------------ K9 + K10 (int8)
+
+// K9's function with the f-point int8 stage last on each axis (fy =
+// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' (3, 2f, 2f) int8 channels.
+template <int LY, int LFY, int LX, int LFX>
+__global__ void __launch_bounds__(NT)
+    fused2d_tiled_i8_kernel(Planes2D io, const float2* __restrict__ twy,
+                            const float2* __restrict__ twx, float s,
+                            const int8_t* __restrict__ wy,
+                            const int8_t* __restrict__ wx) {
+  using S = ShapeT<LY, LX>;
+  constexpr int NX = S::NX, NY = S::NY, RC = S::RC, CC = S::CC;
+  extern __shared__ float2 sm[];
+  __shared__ float red[NT / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long l = blockIdx.x / S::G;
+
+  const float* in_re = io.in_re + l * io.in_ls;
+  const float* in_im = io.in_im + l * io.in_ls;
+  float* out_re = io.out_re + l * io.out_ls;
+  float* out_im = io.out_im + l * io.out_ls;
+
+  // phase 1: the block's rows, chunk by chunk, transformed along x, the
+  // int8 stage writing them to the output
+  for (int r0 = rank * S::RB; r0 < (rank + 1) * S::RB; r0 += RC) {
+    const auto load_row = [&](int c, int k) {        // row r0 + c, x = k
+      const long long o = (r0 + c) * io.in_ys + k * io.in_xs;
+      return make_float2(in_re[o], in_im[o]);
+    };
+    const auto put_row = [&](int c, int k, int part, float v) {
+      const long long o = (r0 + c) * io.out_ys + k * io.out_xs;
+      (part ? out_im : out_re)[o] = v;
+    };
+    if constexpr (LX == LFX) {
+      for (int e = threadIdx.x; e < RC * NX; e += NT)
+        sm[e] = load_row(e / NX, e % NX);
+      __syncthreads();
+    } else {
+      lead<NT, LX, LFX, RC, true, 0, 1, true>(sm, fresh(twx), s, load_row);
+    }
+    using RowMap = ChainMap<NX, (1 << LFX), RC, true, decltype(put_row)>;
+    int8_stage<(1 << LFX), NT>(RowMap{put_row}, sm, fresh(twx), fresh(wx),
+                               red);
+    __syncthreads();    // the stage's reads done before the next chunk
+  }
+
+  // every row of the plane written before any block reads a column
+  __threadfence();
+  cluster.sync();
+
+  // phase 2: the block's columns, chunk by chunk, read back from the
+  // output through the L2, transformed along y, the int8 stage writing
+  // them in place
+  for (int c0 = rank * S::CB; c0 < (rank + 1) * S::CB; c0 += CC) {
+    const auto load_col = [&](int c, int k) {        // column c0 + c, y = k
+      const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
+      return make_float2(__ldcg(out_re + o), __ldcg(out_im + o));
+    };
+    const auto put_col = [&](int c, int k, int part, float v) {
+      const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
+      (part ? out_im : out_re)[o] = v * io.post;
+    };
+    if constexpr (LY == LFY) {
+      for (int e = threadIdx.x; e < CC * NY; e += NT)
+        sm[e] = load_col(e % CC, e / CC);
+      __syncthreads();
+    } else {
+      lead<NT, LY, LFY, CC, false, 0, 1, true>(sm, fresh(twy), s, load_col);
+    }
+    using ColMap = ChainMap<NY, (1 << LFY), CC, false, decltype(put_col)>;
+    int8_stage<(1 << LFY), NT>(ColMap{put_col}, sm, fresh(twy), fresh(wy),
+                               red);
+    __syncthreads();
+  }
+}
+
 template <int LY, int LX>
-cudaError_t launch(const Tiled& io, const float2* twy, const float2* twx,
+cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
                    float s, cudaStream_t stream) {
   using S = ShapeT<LY, LX>;
-  constexpr int smem = S::PC * (int)sizeof(float2);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused2d_tiled_kernel<LY, LX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  if (S::G > 8) {
-    e = cudaFuncSetAttribute(fused2d_tiled_kernel<LY, LX>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = io.L * S::G;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S::G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, fused2d_tiled_kernel<LY, LX>, io, twy, twx,
-                         s);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_cluster<NT>(fused2d_tiled_kernel<LY, LX>, io.L, S::G,
+                            S::PC * (int)sizeof(float2), stream, io, twy,
+                            twx, s);
 }
 
 // (log2 ny, log2 nx) -> launch<LY, LX>, for 7 <= each <= 13 and a sum of
@@ -197,11 +255,37 @@ cudaError_t launch(const Tiled& io, const float2* twy, const float2* twx,
   X(9, 10) X(9, 11) X(10, 7) X(10, 8) X(10, 9) X(10, 10) X(11, 7) X(11, 8) \
   X(11, 9) X(12, 7) X(12, 8) X(13, 7)
 
-cudaError_t dispatch(int ly, int lx, const Tiled& io, const float2* twy,
+cudaError_t dispatch(int ly, int lx, const Planes2D& io, const float2* twy,
                      const float2* twx, float s, cudaStream_t st) {
 #define PYFFT_CASE(a, b) \
   if (ly == a && lx == b) return launch<a, b>(io, twy, twx, s, st);
   PYFFT_TILED_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// (log2 ny, log2 fy, log2 nx, log2 fx) of the int8 kernel: each of K9's
+// shapes with f the last factor of col_factors on each axis (128 at 128 and
+// 512, 32 at 256, 64 at 1024 to 4096, 128 at 8192).
+#define PYFFT_TILED_I8_CASES(X)                                              \
+  X(7, 7, 7, 7) X(7, 7, 8, 5) X(7, 7, 9, 7) X(7, 7, 10, 6) X(7, 7, 11, 6)     \
+  X(7, 7, 12, 6) X(7, 7, 13, 7) X(8, 5, 7, 7) X(8, 5, 8, 5) X(8, 5, 9, 7)     \
+  X(8, 5, 10, 6) X(8, 5, 11, 6) X(8, 5, 12, 6) X(9, 7, 7, 7) X(9, 7, 8, 5)    \
+  X(9, 7, 9, 7) X(9, 7, 10, 6) X(9, 7, 11, 6) X(10, 6, 7, 7) X(10, 6, 8, 5)   \
+  X(10, 6, 9, 7) X(10, 6, 10, 6) X(11, 6, 7, 7) X(11, 6, 8, 5) X(11, 6, 9, 7) \
+  X(12, 6, 7, 7) X(12, 6, 8, 5) X(13, 7, 7, 7)
+
+cudaError_t dispatch_i8(int ly, int lfy, int lx, int lfx, const Planes2D& io,
+                        const float2* twy, const float2* twx, float s,
+                        const int8_t* wy, const int8_t* wx,
+                        cudaStream_t st) {
+#define PYFFT_CASE(a, fa, b, fb)                                             \
+  if (ly == a && lfy == fa && lx == b && lfx == fb)                          \
+    return launch_cluster<NT>(fused2d_tiled_i8_kernel<a, fa, b, fb>, io.L,   \
+                              ShapeT<a, b>::G,                               \
+                              ShapeT<a, b>::PC * (int)sizeof(float2), st,    \
+                              io, twy, twx, s, wy, wx);
+  PYFFT_TILED_I8_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return cudaErrorInvalidValue;
 }
@@ -228,22 +312,33 @@ extern "C" int pyfft_fused2d_tiled(const void* in_re, const void* in_im,
                                    const long long* dims, int log2ny,
                                    int log2nx, int sign, float postscale,
                                    void* stream) {
-  Tiled io;
-  io.in_re = static_cast<const float*>(in_re);
-  io.in_im = static_cast<const float*>(in_im);
-  io.out_re = static_cast<float*>(out_re);
-  io.out_im = static_cast<float*>(out_im);
-  io.L = dims[0];
-  io.in_ls = dims[1];
-  io.in_ys = dims[2];
-  io.in_xs = dims[3];
-  io.out_ls = dims[4];
-  io.out_ys = dims[5];
-  io.out_xs = dims[6];
-  io.post = postscale;
+  const Planes2D io = planes_2d(in_re, in_im, out_re, out_im, dims, postscale);
   if (io.L <= 0) return (int)cudaErrorInvalidValue;
   const float s = sign < 0 ? -1.f : 1.f;
   return (int)dispatch(log2ny, log2nx, io, static_cast<const float2*>(twy),
                        static_cast<const float2*>(twx), s,
                        static_cast<cudaStream_t>(stream));
+}
+
+// K9 + K10: as pyfft_fused2d_tiled with the f-point int8 stage last on
+// each axis, fy = 2^log2fy and fx = 2^log2fx (see PYFFT_TILED_I8_CASES);
+// `wchy` and `wchx` hold the stages' channels, (3, 2f, 2f) int8
+// C-contiguous each.
+extern "C" int pyfft_fused2d_tiled_i8(const void* in_re, const void* in_im,
+                                      void* out_re, void* out_im,
+                                      const void* twy, const void* twx,
+                                      const void* wchy, const void* wchx,
+                                      const long long* dims, int log2ny,
+                                      int log2fy, int log2nx, int log2fx,
+                                      int sign, float postscale,
+                                      void* stream) {
+  const Planes2D io = planes_2d(in_re, in_im, out_re, out_im, dims, postscale);
+  if (io.L <= 0) return (int)cudaErrorInvalidValue;
+  const float s = sign < 0 ? -1.f : 1.f;
+  return (int)dispatch_i8(log2ny, log2fy, log2nx, log2fx, io,
+                          static_cast<const float2*>(twy),
+                          static_cast<const float2*>(twx), s,
+                          static_cast<const int8_t*>(wchy),
+                          static_cast<const int8_t*>(wchx),
+                          static_cast<cudaStream_t>(stream));
 }

@@ -1,19 +1,24 @@
-// K10: the int8-split DFT stage, a policy of the row kernel (K1,
-// local_rows.cu) and of the column kernel (K5, local_cols.cu), complex64.
+// K10: the int8-split DFT stage, complex64: a policy of the row kernel
+// (K1, local_rows.cu), of the column kernel (K5) and the digit-swapped row
+// pass (K4, both local_cols.cu), and of the fused 2D kernels (K8,
+// fused2d.cu, and K9, fused2d_tiled.cu).
 //
 // Replaces pyfft_tpu/ops/pallas_local.py `_int8_stage`, the matrix stage
 // of the JAX package's tile FFT under precision="int8" (inside the Pallas
-// kernels `_kernel` and `_col_kernel`).  It computes the last stage of a
-// Stockham chain, an f-point DFT (f = 16, 32, 64 or 128) over the block's
-// data in shared memory, as exact integer products on the int8 tensor
-// cores:
+// kernels `_kernel`, `_col_kernel`, `_row_swap_kernel`, `_col_fold_kernel`,
+// `_fused2d_kernel` and `_fused2d_tiled_kernel`).  It computes the last
+// stage of a Stockham chain, an f-point DFT (f = 16, 32, 64 or 128) over
+// the block's data in shared memory, as exact integer products on the
+// int8 tensor cores:
 //
 //   1. the twiddle of the stage, x[j + r*NS] *= w_N^(j*r), in place, and
 //      amax, the largest |re|, |im| of the twiddled block (warp shuffles,
 //      then shared memory): the alignment exponent
 //      m = clip(biased_exp(amax) - 126, -40, 120).  The alignment group is
-//      the thread block: RPB rows in K1, C columns of one l in K5, each a
-//      subset of one JAX block, so the scale is never coarser than JAX's;
+//      the data of one call: RPB rows in K1, C columns (rows in K4) of one
+//      l in K5, a block's rows or columns of one plane in K8, a chunk's in
+//      K9, each a subset of one JAX block, so the scale is never coarser
+//      than JAX's;
 //   2. each column (a run j of one row, or of one column c) is the 2f-long
 //      vector [xr; xi], split into 4 int8 channels by progressive
 //      extraction at shifts 7, 14, 21, 28 below 2^m (round half even, clip
@@ -38,7 +43,7 @@
 // once, then runs every (row tile, shift group, channel pair, k tile).
 //
 // What bounds it on an H100: at config 2 (4096 x 4096, f = 64) the stage
-// is 72*f = 4608 int8 operations a complex point, 7.7e13 in all, 0.04 ms at
+// is 72*f = 4608 int8 operations a complex point, 7.7e10 in all, 0.04 ms at
 // the published 1979 TOPS, below the 0.09 ms of the copy: bytes, for a
 // kernel that reaches the tensor cores' rate.  This first version does not:
 // mma.sync with A from global memory and B cut from float in registers
@@ -52,6 +57,14 @@
 //   void put(int q, int k, int part, float v)
 //                                  write output row k of column q (part 0
 //                                  the real, 1 the imaginary value)
+//
+// IN_PLACE: put writes the slots the stage reads (K8's rows, which stay in
+// shared memory for the cluster's exchange and leave no room for a second
+// buffer at 2^18 points a plane).  Output k of column q lands in the slot
+// of its input k, so a unit's writes touch its own columns only; where
+// several warps share an 8-column tile (MSPLIT > 1, one unit a warp at
+// most) a block barrier parts the building of every B fragment from the
+// first write.
 
 #pragma once
 
@@ -102,7 +115,7 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
 // written by the previous stage and visible to all threads), F = f, NT the
 // block's threads, `tw` the n-point twiddle table, `wch` the 3 (2F x 2F)
 // int8 channels of the stacked matrix, `red` NT/32 floats of scratch.
-template <int F, int NT, class Map>
+template <int F, int NT, class Map, bool IN_PLACE = false>
 __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
                                            const float2* __restrict__ tw,
                                            const int8_t* __restrict__ wch,
@@ -117,8 +130,10 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
   constexpr int MSPLIT = NTILE >= NW ? 1 : (MT < NW / NTILE ? MT : NW / NTILE);
   constexpr int MPU = MT / MSPLIT;      // row tiles a unit
   constexpr int UNITS = NTILE * MSPLIT;
+  constexpr bool SYNC = IN_PLACE && MSPLIT > 1;   // warps share columns
   static_assert(NT % 32 == 0 && F % 16 == 0 && MT % MSPLIT == 0,
                 "the stage tiles the block");
+  static_assert(!SYNC || UNITS <= NW, "one unit a warp where warps share");
 
   // 1. twiddle in place, and the block's largest magnitude
   float amax = 0.f;
@@ -146,7 +161,8 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
   // 2-4. the products, a unit (8 columns, MPU row tiles) at a time
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  for (int u = warp; u < UNITS; u += NW) {
+  for (int u = warp; u < (SYNC ? NW : UNITS); u += NW) {
+    const bool live = !SYNC || u < UNITS;   // every warp meets the barrier
     const int nt = u % NTILE, mt0 = (u / NTILE) * MPU;
     const int q = nt * 8 + g;           // this lane's column in B
     unsigned bf[KT][4][2];
@@ -159,7 +175,7 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
         for (int i = 0; i < 4; ++i) {
           const int kk = kt * 32 + h * 16 + t4 * 4 + i;   // stacked row
           float x = 0.f;
-          if (q < Q) {
+          if (live && q < Q) {
             const float2 v = sm[map.index(q, kk % F)];
             x = kk < F ? v.x : v.y;
           }
@@ -174,6 +190,9 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
         for (int c = 0; c < 4; ++c) bf[kt][c][h] = packed[c];
       }
     }
+    if constexpr (SYNC) __syncthreads();
+    else if constexpr (IN_PLACE) __syncwarp();
+    if (!live) continue;
 #pragma unroll 1
     for (int mt = mt0; mt < mt0 + MPU; ++mt) {
       float acc[4];

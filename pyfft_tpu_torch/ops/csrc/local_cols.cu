@@ -128,11 +128,23 @@
 // kernel of its own (local_cols_i8_kernel), so K5's, K12's, K4's and
 // K6's code is what it was.  In place for the plain store, as K5.
 //
+// K4 + K10 (precision="int8" on the digit-swapped row pass) is that int8
+// kernel, launched through pyfft_local_cols_i8 on K4's strides: input
+// (l, j, row), output (l, k, 0, row), no twiddle, the plain store, f the
+// last factor of the JAX package's default chain (`_fft_rows_swap` takes
+// `default_factors`, so f = 128 at n = 2048, not 64 as in the column
+// chain; the entry instantiates that one pair beside PYFFT_I8_CHAINS).
+// Its first stage reads the rows through the column kernel's strided
+// load, threads running along the rows, not through K4's coalesced row
+// load: right, not fast.  A block takes the int8 kernel's C rows, a
+// divisor of 128, so its alignment group lies inside one of JAX's 128-row
+// blocks.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_cols` (float),
 // `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
 // `pyfft_local_cols_ctile` (K6) and `pyfft_local_cols_i8` (float, int8
-// stage), and the column widths, at the bottom.
+// stage; K4 + K10 too), and the column widths, at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -697,9 +709,9 @@ extern "C" int pyfft_local_cols_width_i8(int log2n) {
 }
 
 // K5 + K10: the complex64 column DFT with the f-point int8 stage last (f =
-// 2^log2f, see PYFFT_I8_CHAINS); `wch` holds the stage's 3 channels, (3,
-// 2f, 2f) int8 C-contiguous.  Other arguments as pyfft_local_cols's; a
-// plain store may write in place.
+// 2^log2f, see PYFFT_I8_CHAINS, and (11, 7) for K4); `wch` holds the
+// stage's 3 channels, (3, 2f, 2f) int8 C-contiguous.  Other arguments as
+// pyfft_local_cols's; a plain store may write in place.
 extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
                                    void* out_re, void* out_im, const void* tw,
                                    const void* ta, const void* tb,
@@ -721,5 +733,8 @@ extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
                       : (int)launch_i8<LN, LF, false>(io, t, s, w, st);
   PYFFT_I8_CHAINS(PYFFT_I8_COLS)
 #undef PYFFT_I8_COLS
+  // K4 + K10 at n = 2048: the default chain's f = 128
+  if (log2n == 11 && log2f == 7 && !swap_store)
+    return (int)launch_i8<11, 7, false>(io, t, s, w, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,14 @@ points, which no ``Plan`` route takes: the Hopper kernel
 output, a cluster barrier, the columns in place; ``_launch_tiled``) and its
 plain version ``fft2_tiled_plain`` (``col_factors`` chains).
 
+Under ``precision="int8"`` both run each axis's matrix stage as the
+int8-split stage K10 (``ops/int8.py``): on the card the kernels
+``fused2d_i8_kernel`` (K8 + K10) and ``fused2d_tiled_i8_kernel`` (K9 + K10)
+beside the float ones, x first as the float kernels, each block's or
+chunk's data one alignment group; on the CPU the plain versions, y first
+with JAX's groups (K8: the whole plane on each axis; K9: 128-column slices
+for y, 128-row slices for x, per plane).
+
 ``fft2_fused`` and ``fft2_fused_tiled`` decide by the tensor's device alone.
 For a CUDA tensor they launch the kernel or raise; nothing falls back to
 the plain version.
@@ -34,19 +42,23 @@ import math
 import torch
 
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.ops.int8 import w_channels
 from pyfft_tpu_torch.planner import MAX_FUSED2D_ELEMS, MIN_TRAIL
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "supported_2d_tiled", "fft2_fused_tiled", "fft2_tiled_plain",
            "tiled_cluster_size", "MAX_FUSED2D_TILED_ELEMS", "LAUNCHES",
-           "TILED_LAUNCHES"]
+           "TILED_LAUNCHES", "I8_LAUNCHES", "TILED_I8_LAUNCHES"]
 
 # Kernel launches made by _launch since the last reset (a caller sets it
 # to 0): the proof that a run went through the CUDA kernel.
 LAUNCHES = 0
 # The same for _launch_tiled (K9).
 TILED_LAUNCHES = 0
+# The same for the int8 kernels: K8 + K10 and K9 + K10.
+I8_LAUNCHES = 0
+TILED_I8_LAUNCHES = 0
 
 # The tiled kernel's largest plane (pallas_local.MAX_FUSED2D_TILED_ELEMS).
 MAX_FUSED2D_TILED_ELEMS = 1 << 20
@@ -80,28 +92,51 @@ def supported_2d_tiled(re: torch.Tensor) -> bool:
 
 
 def fft2_plain(re, im, sign, postscale: float = 1.0, factors_y=None,
-               factors_x=None):
+               factors_x=None, precision: str = "highest"):
     """The plain torch version of the fused kernel, on any device: the DFT
     over the last two axes of (..., ny, nx) float32 planes, as
     pallas_local._fused2d_kernel computes it: ``tile_fft`` along y (chain
-    ``default_factors(ny)``), then along x, then ``postscale``."""
+    ``default_factors(ny)``), then along x, then ``postscale``.  Under
+    ``precision="int8"`` each plane is one alignment group of each axis's
+    int8 stage, as the JAX kernel's whole-plane tiles."""
+    ny, nx = re.shape[-2:]
+    return _fft2_plain(re, im, sign, postscale,
+                       factors_y or local.default_factors(ny),
+                       factors_x or local.default_factors(nx), precision,
+                       nx, ny)
+
+
+def _fft2_plain(re, im, sign, postscale, fy, fx, precision, lanes_y,
+                lanes_x):
+    """``tile_fft`` along y, then along x, then ``postscale``; under int8
+    the alignment groups are, per plane, slices of ``lanes_y`` columns for
+    the y stage and of ``lanes_x`` (ky) rows for the x stage."""
+    local._check_precision(precision, re.dtype)
     shape = tuple(re.shape)
     ny, nx = shape[-2:]
     L = re.numel() // (ny * nx)
-    fy = tuple(factors_y or local.default_factors(ny))
-    fx = tuple(factors_x or local.default_factors(nx))
-    ty = local._device_tables(ny, sign, fy, re.device)
-    tx = local._device_tables(nx, sign, fx, re.device)
+    fy, fx = tuple(fy), tuple(fx)
+    if precision == "int8":       # (groups, lanes) trails, a group each
+        trail_y = (L * nx // lanes_y, lanes_y)
+        trail_x = (L * ny // lanes_x, lanes_x)
+        ty = local._device_tables(ny, sign, fy, re.device, "int8", 2)
+        tx = local._device_tables(nx, sign, fx, re.device, "int8", 2)
+        kw = dict(sign=sign, precision="int8", group_axis=-2)
+    else:
+        trail_y, trail_x = (L * nx,), (L * ny,)
+        ty = local._device_tables(ny, sign, fy, re.device)
+        tx = local._device_tables(nx, sign, fx, re.device)
+        kw = dict(sign=sign)
 
-    def y_major(t):                      # (L, ny, nx) -> (ny, L*nx)
-        return t.reshape(L, ny, nx).transpose(0, 1).reshape(ny, L * nx)
+    def y_major(t):                # (L, ny, nx) -> (ny, *trail_y)
+        return t.reshape(L, ny, nx).transpose(0, 1).reshape(ny, *trail_y)
 
-    xr, xi = local.tile_fft(y_major(re), y_major(im), ty, ny, fy, sign=sign)
+    xr, xi = local.tile_fft(y_major(re), y_major(im), ty, ny, fy, **kw)
 
-    def x_major(t):                      # (ny, L*nx) -> (nx, L*ny)
-        return t.reshape(ny, L, nx).permute(2, 1, 0).reshape(nx, L * ny)
+    def x_major(t):                # (ny, L*nx) -> (nx, *trail_x)
+        return t.reshape(ny, L, nx).permute(2, 1, 0).reshape(nx, *trail_x)
 
-    xr, xi = local.tile_fft(x_major(xr), x_major(xi), tx, nx, fx, sign=sign)
+    xr, xi = local.tile_fft(x_major(xr), x_major(xi), tx, nx, fx, **kw)
     xr = xr.reshape(nx, L, ny).permute(1, 2, 0)
     xi = xi.reshape(nx, L, ny).permute(1, 2, 0)
     if postscale != 1.0:
@@ -110,67 +145,75 @@ def fft2_plain(re, im, sign, postscale: float = 1.0, factors_y=None,
 
 
 def fft2_tiled_plain(re, im, sign, postscale: float = 1.0, factors_y=None,
-                     factors_x=None):
+                     factors_x=None, precision: str = "highest"):
     """The plain torch version of K9, on any device: ``fft2_plain`` with
     the chains pallas_local._fft2_fused_tiled takes by default,
-    ``col_factors(ny)`` and ``col_factors(nx)``."""
+    ``col_factors(ny)`` and ``col_factors(nx)``.  Under
+    ``precision="int8"`` the alignment groups are JAX's slices: per plane,
+    each 128-column slice for the y stage and each 128-row slice of the
+    y-transformed plane for the x stage."""
     ny, nx = re.shape[-2:]
-    return fft2_plain(re, im, sign, postscale,
-                      factors_y or local.col_factors(ny),
-                      factors_x or local.col_factors(nx))
+    return _fft2_plain(re, im, sign, postscale,
+                       factors_y or local.col_factors(ny),
+                       factors_x or local.col_factors(nx), precision,
+                       MIN_TRAIL, MIN_TRAIL)
+
+
+def _typed(lib, name: str):
+    """(launch, launch_i8, cluster): the typed C entry points
+    ``pyfft_<name>``, ``pyfft_<name>_i8`` and ``pyfft_<name>_cluster`` of a
+    2D kernel's library (K8's and K9's share their C interface)."""
+    fn = getattr(lib, f"pyfft_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn_i8 = getattr(lib, f"pyfft_{name}_i8")
+    fn_i8.argtypes = ([ctypes.c_void_p] * 8
+                      + [ctypes.POINTER(ctypes.c_longlong)]
+                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn_i8.restype = ctypes.c_int
+    cluster = getattr(lib, f"pyfft_{name}_cluster")
+    cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+    cluster.restype = ctypes.c_int
+    return fn, fn_i8, cluster
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """(launch, cluster): the typed C entry points of csrc/fused2d.cu,
-    built at first use."""
+    """(launch, launch_i8, cluster): the typed C entry points of
+    csrc/fused2d.cu, built at first use."""
     from pyfft_tpu_torch.ops.build import load
-    lib = load("fused2d")
-    fn = lib.pyfft_fused2d
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    cluster = lib.pyfft_fused2d_cluster
-    cluster.argtypes = [ctypes.c_int, ctypes.c_int]
-    cluster.restype = ctypes.c_int
-    return fn, cluster
+    return _typed(load("fused2d"), "fused2d")
 
 
 def cluster_size(ny: int, nx: int) -> int:
     """The blocks of the cluster that takes one (ny, nx) plane; builds the
     kernel on first use."""
-    return _lib()[1](ilog2(ny), ilog2(nx))
+    return _lib()[2](ilog2(ny), ilog2(nx))
 
 
 @functools.lru_cache(maxsize=None)
 def _tiled_lib():
-    """(launch, cluster): the typed C entry points of
+    """(launch, launch_i8, cluster): the typed C entry points of
     csrc/fused2d_tiled.cu, built at first use."""
     from pyfft_tpu_torch.ops.build import load
-    lib = load("fused2d_tiled")
-    fn = lib.pyfft_fused2d_tiled
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    cluster = lib.pyfft_fused2d_tiled_cluster
-    cluster.argtypes = [ctypes.c_int, ctypes.c_int]
-    cluster.restype = ctypes.c_int
-    return fn, cluster
+    return _typed(load("fused2d_tiled"), "fused2d_tiled")
 
 
 def tiled_cluster_size(ny: int, nx: int) -> int:
     """The blocks of the cluster that takes one (ny, nx) plane in K9;
     builds the kernel on first use."""
-    return _tiled_lib()[1](ilog2(ny), ilog2(nx))
+    return _tiled_lib()[2](ilog2(ny), ilog2(nx))
 
 
 def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
-                 postscale: float) -> bool:
+                 postscale: float, factors=None) -> bool:
     """Launch the kernel of library ``name`` over the (L, ny, nx) view of
     the planes, after the checks; ``libs()`` gives its typed (launch,
-    cluster) entry points.  K8 and K9 share this C interface, the checks
-    and the tables.  No synchronise; False when there is nothing to
-    launch."""
+    launch_i8, cluster) entry points.  With ``factors`` (the chains of y
+    and x) the int8 kernel runs, its stages' f the chains' matrix factors.
+    K8 and K9 share this C interface, the checks and the tables.  No
+    synchronise; False when there is nothing to launch."""
     shape = tuple(re.shape)
     ny, nx = shape[-2:]
     L = math.prod(shape[:-2])
@@ -197,39 +240,65 @@ def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
                     or dst.stride() != r3.stride()):
                 raise ValueError("fused 2D kernel output overlaps its input "
                                  "other than exactly")
-    fn, cluster = libs()
+    fn, fn_i8, cluster = libs()
     if L * cluster(ilog2(ny), ilog2(nx)) >= 2 ** 31:
         raise ValueError("fused 2D kernel block count must fit int32")
     dims = (ctypes.c_longlong * 7)(L, *r3.stride(), *o_r.stride())
     twy = local._kernel_twiddles(ny, sign, re.device)
     twx = local._kernel_twiddles(nx, sign, re.device)
+    ptrs = (r3.data_ptr(), i3.data_ptr(), o_r.data_ptr(), o_i.data_ptr(),
+            twy.data_ptr(), twx.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = fn(r3.data_ptr(), i3.data_ptr(), o_r.data_ptr(),
-                 o_i.data_ptr(), twy.data_ptr(), twx.data_ptr(), dims,
-                 ilog2(ny), ilog2(nx), int(sign), float(postscale), stream)
+        if factors:
+            fy, fx = (local.matrix_factor(f) for f in factors)
+            wy = w_channels(fy, sign, re.device)
+            wx = w_channels(fx, sign, re.device)
+            err = fn_i8(*ptrs, wy.data_ptr(), wx.data_ptr(), dims, ilog2(ny),
+                        ilog2(fy), ilog2(nx), ilog2(fx), int(sign),
+                        float(postscale), stream)
+            name += "_i8"
+        else:
+            err = fn(*ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
+                     float(postscale), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return True
 
 
-def _launch(re, im, out_re, out_im, sign: int, postscale: float):
-    """Launch csrc/fused2d.cu (K8); the caller (``fft2_fused``) has
-    checked ``supported_2d``."""
-    global LAUNCHES
+def _launch(re, im, out_re, out_im, sign: int, postscale: float,
+            int8: bool = False):
+    """Launch csrc/fused2d.cu: K8, or with ``int8`` K8 + K10 (f from
+    ``default_factors``); the caller (``fft2_fused``) has checked
+    ``supported_2d``."""
+    global LAUNCHES, I8_LAUNCHES
+    ny, nx = re.shape[-2:]
+    factors = ((local.default_factors(ny), local.default_factors(nx))
+               if int8 else None)
     if _launch_with(_lib, "fused2d", re, im, out_re, out_im, sign,
-                    postscale):
-        LAUNCHES += 1
+                    postscale, factors):
+        if int8:
+            I8_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return out_re, out_im
 
 
-def _launch_tiled(re, im, out_re, out_im, sign: int, postscale: float):
-    """Launch csrc/fused2d_tiled.cu (K9); the caller
-    (``fft2_fused_tiled``) has checked ``supported_2d_tiled``."""
-    global TILED_LAUNCHES
+def _launch_tiled(re, im, out_re, out_im, sign: int, postscale: float,
+                  int8: bool = False):
+    """Launch csrc/fused2d_tiled.cu: K9, or with ``int8`` K9 + K10 (f
+    from ``col_factors``); the caller (``fft2_fused_tiled``) has checked
+    ``supported_2d_tiled``."""
+    global TILED_LAUNCHES, TILED_I8_LAUNCHES
+    ny, nx = re.shape[-2:]
+    factors = ((local.col_factors(ny), local.col_factors(nx))
+               if int8 else None)
     if _launch_with(_tiled_lib, "fused2d_tiled", re, im, out_re, out_im,
-                    sign, postscale):
-        TILED_LAUNCHES += 1
+                    sign, postscale, factors):
+        if int8:
+            TILED_I8_LAUNCHES += 1
+        else:
+            TILED_LAUNCHES += 1
     return out_re, out_im
 
 
@@ -242,11 +311,11 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
     them.  ``out=(re, im)`` names the planes to write, of the input's
     shape; they may be the inputs themselves (in place).  Without it, new
     planes are allocated with the input's layout.  Raises where the kernel
-    does not apply; nothing falls back.  ``precision="int8"`` raises
-    NotImplementedError on every device: the int8 stage inside K8 is not
-    ported yet.
+    does not apply; nothing falls back.  ``precision="int8"`` runs K8 + K10
+    on the card and ``fft2_plain(precision="int8")`` on the CPU (see the
+    module's docstring).
     """
-    local.refuse_int8(precision, "K8 (fft2_fused)")
+    int8 = local._check_precision(precision, re.dtype)
     if not supported_2d(re):
         raise ValueError(f"fused 2D FFT does not cover a {re.dtype} tensor "
                          f"of shape {tuple(re.shape)}")
@@ -255,8 +324,9 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
     if re.is_cuda:
         if out is None:
             out = local._empty_like_planes(re, im, tuple(re.shape))
-        return _launch(re, im, out[0], out[1], sign, postscale)
-    rr, ii = fft2_plain(re, im, sign, postscale, factors_y, factors_x)
+        return _launch(re, im, out[0], out[1], sign, postscale, int8)
+    rr, ii = fft2_plain(re, im, sign, postscale, factors_y, factors_x,
+                        precision)
     if out is None:
         return rr, ii
     out[0].copy_(rr)
@@ -277,10 +347,11 @@ def fft2_fused_tiled(re, im, sign, *, postscale: float = 1.0,
     of the input's shape; they may be the inputs themselves (JAX's
     ``alias_io``).  Without it, new planes are allocated with the input's
     layout.  Raises where K9 does not apply; nothing falls back.
-    ``precision="int8"`` raises NotImplementedError on every device: the
-    int8 stage inside K9 is not ported yet.
+    ``precision="int8"`` runs K9 + K10 on the card and
+    ``fft2_tiled_plain(precision="int8")`` on the CPU (see the module's
+    docstring).
     """
-    local.refuse_int8(precision, "K9 (fft2_fused_tiled)")
+    int8 = local._check_precision(precision, re.dtype)
     if not supported_2d_tiled(re):
         raise ValueError(f"tiled fused 2D FFT does not cover a {re.dtype} "
                          f"tensor of shape {tuple(re.shape)}")
@@ -289,8 +360,9 @@ def fft2_fused_tiled(re, im, sign, *, postscale: float = 1.0,
     if re.is_cuda:
         if out is None:
             out = local._empty_like_planes(re, im, tuple(re.shape))
-        return _launch_tiled(re, im, out[0], out[1], sign, postscale)
-    rr, ii = fft2_tiled_plain(re, im, sign, postscale, factors_y, factors_x)
+        return _launch_tiled(re, im, out[0], out[1], sign, postscale, int8)
+    rr, ii = fft2_tiled_plain(re, im, sign, postscale, factors_y, factors_x,
+                              precision)
     if out is None:
         return rr, ii
     out[0].copy_(rr)

@@ -7,9 +7,12 @@ kernel ``_kernel``) and the column path (``axis != -1`` -> ``_fft_cols``
 fused four-step twiddles and swapped stores); of its
 ``fft_rows_interleaved``, the row DFT of interleaved complex64 storage
 (the same ``_kernel`` with ``interleaved=True``, packed or not); and of the
-two kernels no ``Plan`` route reaches: ``fft_rows_swap`` (``_fft_rows_swap``
--> ``_row_swap_kernel``, the four-step "variant B" second pass) and
-``fft_axis(..., ctile=c)`` (``_fft_cols_ctile``, c lane tiles a block).
+kernels no ``Plan`` route reaches: ``fft_rows_swap`` (``_fft_rows_swap``
+-> ``_row_swap_kernel``, the four-step "variant B" second pass),
+``fft_axis(..., ctile=c)`` (``_fft_cols_ctile``, c lane tiles a block) and
+``fft_axis_fold`` (``_fft_cols_fold`` -> ``_col_fold_kernel``, the column
+pass stored in the native layout, which on row-major memory is the column
+kernel's plain store).
 Two implementations of each function live here:
 
 * the Hopper kernels ``csrc/local_rows.cu`` and ``csrc/local_cols.cu``
@@ -21,6 +24,8 @@ Two implementations of each function live here:
   ``ops/fp64.py``), and on interleaved complex64 K1's interleaved I/O
   policy, K2, which serves the packed form K3 too; K4 (``_launch_rows_swap``)
   and K6 (``_launch_cols`` with ``ctile``) are two policies of K5's source;
+  under ``precision="int8"`` K1, K5 and K4 run kernels of their own whose
+  last stage is the int8-split stage K10 (``ops/int8.py``);
 * their plain torch versions, ``fft_rows_plain``, ``fft_cols_plain``,
   ``fft_rows_interleaved_plain`` and ``fft_rows_swap_plain`` (K6's is
   ``fft_cols_plain``), taken for every CPU tensor.  On float32 planes they are built on
@@ -64,7 +69,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
            "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
-           "matrix_factor", "col_width_i8", "refuse_int8"]
+           "SWAP_I8_LAUNCHES", "matrix_factor", "col_width_i8",
+           "supported_fold", "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -81,9 +87,10 @@ IL_LAUNCHES = 0
 SWAP_LAUNCHES = 0
 CTILE_LAUNCHES = 0
 # The same for the int8 instantiations (the stage K10): rows in K1, columns
-# in K5.
+# in K5, the digit-swapped rows in K4.
 I8_LAUNCHES = 0
 COL_I8_LAUNCHES = 0
+SWAP_I8_LAUNCHES = 0
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -488,15 +495,16 @@ def _tiles_int8(xr, xi, n: int, sign: int, factors: tuple):
 
 
 def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None,
-                   precision: str = "highest"):
+                   precision: str = "highest", lanes: int = MIN_TRAIL):
     """The plain torch version of the row kernel, on any device: the DFT
     along the last axis of (..., n) planes, times ``postscale``.  Float32
     planes go through ``tile_fft`` (default chain ``row_factors(n)``),
     float64 planes through ``fft_planar`` in float64 (``factors`` unused).
 
     Under ``precision="int8"`` (float32 only) the rows are zero-padded to
-    whole 128-row tiles and each tile is one alignment group of the int8
-    stage, as the JAX kernel's blocks (pallas_local.fft_axis pads so)."""
+    whole tiles of ``lanes`` rows and each tile is one alignment group of
+    the int8 stage, as the JAX kernel's blocks (pallas_local.fft_axis pads
+    to 128-row tiles; _fft_rows_swap's blocks are ``lanes`` rows)."""
     _check_precision(precision, re.dtype)
     if re.dtype == torch.float64:
         xr, xi = fft_planar(re, im, sign, axis=-1)
@@ -508,11 +516,11 @@ def fft_rows_plain(re, im, sign, postscale: float = 1.0, factors=None,
     r2, i2 = re.reshape(-1, n), im.reshape(-1, n)
     if precision == "int8":
         rows = r2.shape[0]
-        pad = (-rows) % MIN_TRAIL
-        g = (rows + pad) // MIN_TRAIL
+        pad = (-rows) % lanes
+        g = (rows + pad) // lanes
         tiles = [torch.nn.functional.pad(t, (0, 0, 0, pad))
-                 .reshape(g, MIN_TRAIL, n).permute(2, 0, 1) for t in (r2, i2)]
-        xr, xi = (t.permute(1, 2, 0).reshape(g * MIN_TRAIL, n)[:rows].T
+                 .reshape(g, lanes, n).permute(2, 0, 1) for t in (r2, i2)]
+        xr, xi = (t.permute(1, 2, 0).reshape(g * lanes, n)[:rows].T
                   for t in _tiles_int8(*tiles, n, sign, factors))
     else:
         tables = _device_tables(n, sign, factors, re.device)
@@ -799,15 +807,20 @@ def _swap_n(re, lanes: int) -> tuple[int, int]:
     return n1, n
 
 
-def fft_rows_swap_plain(re, im, sign, postscale: float = 1.0, factors=None):
+def fft_rows_swap_plain(re, im, sign, postscale: float = 1.0, factors=None,
+                        precision: str = "highest", lanes: int = MIN_TRAIL):
     """The plain torch version of K4, on any device: the DFT along the
     last axis of (..., n1, n) float32 planes, times ``postscale``, stored
     with the last two axes exchanged, (..., n, n1).  As
     pallas_local._fft_rows_swap: ``tile_fft`` with ``default_factors(n)``
-    (not ``row_factors``), then the postscale, then the swap."""
+    (not ``row_factors``), then the postscale, then the swap.  Under
+    ``precision="int8"`` each block of ``lanes`` consecutive rows (of the
+    flattened leading axes and n1) is one alignment group, as JAX's row
+    blocks."""
     n = re.shape[-1]
     factors = tuple(factors or default_factors(n))
-    xr, xi = fft_rows_plain(re, im, sign, postscale, factors)
+    xr, xi = fft_rows_plain(re, im, sign, postscale, factors, precision,
+                            lanes)
     return (xr.transpose(-1, -2).contiguous(),
             xi.transpose(-1, -2).contiguous())
 
@@ -824,11 +837,13 @@ def _rows_swap_fn():
     return fn
 
 
-def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float):
+def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
+                      i8_f: int = 0):
     """Launch K4 from the (L, n1, n) view of the planes into the
-    (L, n, n1) view of the outputs; no synchronise.  The caller
+    (L, n, n1) view of the outputs, or with ``i8_f`` K4 whose last stage
+    is the f-point int8 stage K10; no synchronise.  The caller
     (``fft_rows_swap``) has checked n and n1."""
-    global SWAP_LAUNCHES
+    global SWAP_LAUNCHES, SWAP_I8_LAUNCHES
     shape = tuple(re.shape)
     n1, n = shape[-2:]
     L = math.prod(shape[:-2])
@@ -854,7 +869,7 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float):
                                                (out_im, "out_im"))]
     if r3.stride() != i3.stride() or o3[0].stride() != o3[1].stride():
         raise ValueError("K4 needs equal strides for re and im")
-    blocks = -(-n1 // col_width(n)) * L
+    blocks = -(-n1 // (col_width_i8(n) if i8_f else col_width(n))) * L
     if max(n1, blocks) >= 2 ** 31:
         raise ValueError("K4 row count and block count must fit int32")
     ls, rs, js = r3.stride()
@@ -864,14 +879,26 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float):
     dims = (ctypes.c_longlong * 16)(L, n1, ls, js, rs, ols, oks, 0, ors,
                                     1 << 62, 0, 0, 1, 0, 0, 0)
     tw = _kernel_twiddles(n, sign, re.device)
+    ptrs = (r3.data_ptr(), i3.data_ptr(), o3[0].data_ptr(), o3[1].data_ptr(),
+            tw.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = _rows_swap_fn()(r3.data_ptr(), i3.data_ptr(), o3[0].data_ptr(),
-                              o3[1].data_ptr(), tw.data_ptr(), dims, ilog2(n),
-                              int(sign), float(postscale), stream)
+        if i8_f:
+            # K4 + K10 is the int8 column kernel on K4's dims
+            w = w_channels(i8_f, sign, re.device)
+            err = _cols_i8_lib()[0](*ptrs, None, None, w.data_ptr(), dims,
+                                    ilog2(n), ilog2(i8_f), int(sign),
+                                    float(postscale), 0, stream)
+        else:
+            err = _rows_swap_fn()(*ptrs, dims, ilog2(n), int(sign),
+                                  float(postscale), stream)
     if err != 0:
-        raise RuntimeError(f"local_rows_swap launch failed: cudaError {err}")
-    SWAP_LAUNCHES += 1
+        name = "local_rows_swap_i8" if i8_f else "local_rows_swap"
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if i8_f:
+        SWAP_I8_LAUNCHES += 1
+    else:
+        SWAP_LAUNCHES += 1
     return out_re, out_im
 
 
@@ -891,11 +918,17 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
     check).  ``out=(re, im)`` names the (..., n, n1) planes to write, which
     may not overlap the input: K4 runs out of place only, as in JAX.
     Without it, new planes are allocated with the input's layout.  Raises
-    where K4 does not apply; nothing falls back.  ``precision="int8"``
-    raises NotImplementedError on every device: the int8 stage inside K4
-    is not ported yet.
+    where K4 does not apply; nothing falls back.
+
+    ``precision="int8"`` runs the chain's matrix stage as the int8-split
+    stage K10, f the last factor of ``default_factors(n)`` (128 at n =
+    2048): on the card K4 + K10, whose alignment group is a block of
+    ``col_width_i8(n)`` rows, inside one of JAX's ``lanes``-row groups (a
+    ``lanes`` that the block does not divide raises there); on the CPU
+    JAX's groups of ``lanes`` rows.  At n = 8 the chain has no matrix stage
+    and K4 runs unchanged.
     """
-    refuse_int8(precision, "K4 (fft_rows_swap)")
+    int8 = _check_precision(precision, re.dtype)
     n1, n = _swap_n(re, lanes)
     oshape = tuple(re.shape[:-2]) + (n, n1)
     if out is not None and any(_shares_memory(a, b) for a in (re, im)
@@ -903,12 +936,19 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
         raise ValueError("fft_rows_swap runs out of place only: out shares "
                          "memory with the input")
     if re.is_cuda:
+        i8_f = matrix_factor(default_factors(n)) if int8 else 0
+        if i8_f and lanes % col_width_i8(n):
+            raise ValueError(f"fft_rows_swap int8 on the card groups "
+                             f"{col_width_i8(n)} rows a block, which must "
+                             f"divide lanes={lanes}")
         if out is None:
             out = _empty_like_planes(re, im, oshape)
-        return _launch_rows_swap(re, im, out[0], out[1], sign, postscale)
+        return _launch_rows_swap(re, im, out[0], out[1], sign, postscale,
+                                 i8_f)
     if re.device.type != "cpu":
         raise ValueError(f"no fft_rows_swap for device {re.device}")
-    rr, ii = fft_rows_swap_plain(re, im, sign, postscale, factors)
+    rr, ii = fft_rows_swap_plain(re, im, sign, postscale, factors, precision,
+                                 lanes)
     if out is None:
         return rr, ii
     out[0].copy_(rr)
@@ -1007,7 +1047,7 @@ def _plain_twiddle(n: int, T: int, tw_n: int, tw_mode: str, tw_period: int,
 def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
                    tw_n: int = 0, tw_mode: str = "full", tw_period: int = 0,
                    swap_store: bool = False, swap_mid: int = 0,
-                   precision: str = "highest"):
+                   precision: str = "highest", lanes: int = 0):
     """The plain torch version of the column kernel, on any device.
 
     The DFT over axis 1 of (L, n, T) planes, then the mode's twiddle,
@@ -1021,9 +1061,11 @@ def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
 
     Under ``precision="int8"`` (float32 only) each l's trail is cut into
     the JAX kernel's blocks, each one alignment group of the int8 stage:
-    256-column tiles where n <= 512, T % 256 == 0 and there is no twiddle
-    or swapped store (pallas_local.fft_axis widens its lane tile so), else
-    128-column tiles, the trail zero-padded to whole tiles.
+    tiles of ``lanes`` columns where given (the fold kernel's slices,
+    ``fold_lanes``), else 256-column tiles where n <= 512, T % 256 == 0 and
+    there is no twiddle or swapped store (pallas_local.fft_axis widens its
+    lane tile so), else 128-column tiles, the trail zero-padded to whole
+    tiles.
     """
     L, n, T = re.shape
     _check_col_modes(T, tw_n, tw_mode, tw_period, swap_store, swap_mid)
@@ -1032,10 +1074,11 @@ def fft_cols_plain(re, im, sign, *, postscale: float = 1.0, factors=None,
         xr, xi = fft_planar(re, im, sign, axis=1)
     elif precision == "int8":
         factors = tuple(factors or col_factors(n))
-        lanes = MIN_TRAIL
-        if (n <= 512 and T % 256 == 0 and not tw_n and not swap_store
-                and not swap_mid):
-            lanes = 256
+        if not lanes:
+            lanes = MIN_TRAIL
+            if (n <= 512 and T % 256 == 0 and not tw_n and not swap_store
+                    and not swap_mid):
+                lanes = 256
         pad = (-T) % lanes
         g = (T + pad) // lanes
         tiles = [torch.nn.functional.pad(t, (0, pad))
@@ -1386,6 +1429,98 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     return out
 
 
+# ------------------------------------------------ native-layout column pass
+
+
+def supported_fold(re: torch.Tensor, axis: int) -> bool:
+    """Whether the fold-store column pass covers this tensor/axis: the JAX
+    package's rule (pallas_local.supported_fold), its TPU caps included,
+    so that both packages take the same arrays: float32, n a power of two
+    in [MIN_LOCAL_N, MAX_LOCAL_N], at least two trailing axes, the last
+    (x_ext) a multiple of MIN_TRAIL of at most 4 * MIN_TRAIL points,
+    n * x_ext <= 2^17 (a VMEM cap of the TPU), the other trailing axes a
+    multiple of 8 rows, and a trail of at least MIN_TRAIL."""
+    if re.dtype != torch.float32 or re.ndim == 0:
+        return False
+    axis = axis % re.ndim
+    n = re.shape[axis]
+    if not (is_power_of_two(n) and MIN_LOCAL_N <= n <= MAX_LOCAL_N):
+        return False
+    trail = tuple(re.shape[axis + 1:])
+    if len(trail) < 2:
+        return False
+    x_ext = trail[-1]
+    rows = math.prod(trail[:-1])
+    if n * x_ext > 1 << 17:
+        return False
+    return (x_ext % MIN_TRAIL == 0 and x_ext <= 4 * MIN_TRAIL
+            and rows % 8 == 0 and math.prod(trail) >= MIN_TRAIL)
+
+
+def fold_lanes(n: int, x_ext: int) -> int:
+    """The lane slice of the JAX fold kernel, each one alignment group of
+    the int8 stage: 256 where n <= 512 and x_ext is a multiple of 256,
+    else 128 (pallas_local._fft_cols_fold's xc)."""
+    if n <= 512 and x_ext % (2 * MIN_TRAIL) == 0:
+        return 2 * MIN_TRAIL
+    return min(x_ext, MIN_TRAIL)
+
+
+def fft_axis_fold(re, im, sign, *, axis, postscale: float = 1.0,
+                  factors=None, precision: str = "highest", by: int = 8,
+                  out=None):
+    """DFT along a non-minor ``axis`` with the output in the input's
+    native layout (pallas_local.fft_axis_fold): ``out[..., k, *trail] =
+    postscale * sum_j x[..., j, *trail] * w_n^(sign*j*k)``, for the arrays
+    ``supported_fold`` takes.
+
+    The JAX kernel reads the folded (lead, n, trail) view and stores the
+    native (lead, n, rows, x_ext) one, two tilings of the TPU's memory; on
+    row-major memory they are the same bytes.  So a CUDA tensor runs the
+    column kernel's plain store over the (L, n, T) view: K5, or under
+    ``precision="int8"`` K5 + K10 (f the last factor of ``col_factors(n)``),
+    whose alignment group, C <= 128 columns of one l, lies inside one of
+    JAX's slices.  A CPU tensor runs ``fft_cols_plain``, under int8 with
+    JAX's groups: per l, slices of ``fold_lanes(n, x_ext)`` columns, which
+    differ from ``fft_axis``'s where x_ext is 128 or 384 and n <= 512.
+    ``by`` (JAX's rows a grid step) must divide the rows and changes
+    nothing else.  ``out=(re, im)`` names the planes to write, of the
+    input's shape, the inputs themselves allowed (in place).  Raises where
+    the pass does not apply; nothing falls back.
+    """
+    if not supported_fold(re, axis):
+        raise ValueError(f"fft_axis_fold does not cover axis {axis} of a "
+                         f"{re.dtype} tensor of shape {tuple(re.shape)}")
+    if re.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fft_axis_fold for device {re.device}")
+    int8 = _check_precision(precision, re.dtype)
+    axis = axis % re.ndim
+    shape = tuple(re.shape)
+    n, x_ext = shape[axis], shape[-1]
+    L, T = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
+    if by < 1 or (T // x_ext) % by:
+        raise ValueError(f"by={by} must divide the {T // x_ext} rows of the "
+                         f"trail")
+    if re.is_cuda:
+        if out is None:
+            out = _empty_like_planes(re, im, shape)
+        i8_f = matrix_factor(col_factors(n)) if int8 else 0
+        return _launch_cols(re, im, out[0], out[1], sign, axis=axis,
+                            postscale=postscale, tw_n=0, tw_mode="full",
+                            tw_period=0, swap_store=False, swap_mid=0,
+                            i8_f=i8_f)
+    rr, ii = fft_cols_plain(re.reshape(L, n, T), im.reshape(L, n, T), sign,
+                            postscale=postscale, factors=factors,
+                            precision=precision,
+                            lanes=fold_lanes(n, x_ext))
+    rr, ii = rr.reshape(shape), ii.reshape(shape)
+    if out is None:
+        return rr, ii
+    out[0].copy_(rr)
+    out[1].copy_(ii)
+    return out
+
+
 def _check_precision(precision: str, dtype: torch.dtype,
                      ctile: int = 0) -> bool:
     """Whether ``precision`` asks for the int8 stage; raise where a local
@@ -1402,15 +1537,6 @@ def _check_precision(precision: str, dtype: torch.dtype,
         raise ValueError("precision='int8' does not run with ctile (K6), as "
                          "in the JAX package")
     return True
-
-
-def refuse_int8(precision: str, kernel: str) -> None:
-    """The precision check of a kernel that does not hold the int8 stage
-    yet: ``"int8"`` raises NotImplementedError on every device."""
-    if precision == "int8":
-        raise NotImplementedError(f"precision='int8': the int8 stage (K10) "
-                                  f"inside {kernel} is not ported yet")
-    _check_precision(precision, torch.float32)
 
 
 def _empty_like_planes(re, im, shape):

@@ -280,21 +280,22 @@ def test_int8_ragged_swap_raises(kw):
         local.fft_axis(z, z, -1, axis=1, precision="int8", **kw)
 
 
-def test_other_hosts_refuse_int8():
-    """K4, K8 and K9 do not hold the int8 stage yet: "int8" raises
-    NotImplementedError on the CPU as it does on the card."""
-    z = torch.zeros(2, 128, 128)
-    with pytest.raises(NotImplementedError, match="K4"):
-        local.fft_rows_swap(z, z, -1, precision="int8")
-    with pytest.raises(NotImplementedError, match="K8"):
-        fused2d.fft2_fused(z, z, -1, precision="int8")
-    with pytest.raises(NotImplementedError, match="K9"):
-        fused2d.fft2_fused_tiled(z, z, -1, precision="int8")
-    for fn in (local.fft_rows_swap, fused2d.fft2_fused,
-               fused2d.fft2_fused_tiled):
-        with pytest.raises(ValueError):
-            fn(z, z, -1, precision="default")
-        assert fn(z, z, -1, precision="highest")[0].shape[-1] == 128
+def test_every_host_takes_int8():
+    """K4, K8, K9 and the fold take "int8" on the CPU (their plain versions)
+    and still refuse an unknown precision such as JAX's "default"."""
+    z = torch.ones(2, 128, 128)
+    f = torch.ones(1, 128, 8, 128)
+    calls = ((local.fft_rows_swap, (z, z, -1), {}),
+             (fused2d.fft2_fused, (z, z, -1), {}),
+             (fused2d.fft2_fused_tiled, (z, z, -1), {}),
+             (local.fft_axis_fold, (f, f, -1), dict(axis=1)))
+    for fn, args, kw in calls:
+        got = fn(*args, precision="int8", **kw)
+        want = fn(*args, precision="highest", **kw)
+        assert got[0].shape == want[0].shape
+        assert rel_err(cplx(got), cplx(want)) < C64
+        with pytest.raises(ValueError, match="'highest' or 'int8'"):
+            fn(*args, precision="default", **kw)
 
 
 def test_int8_launch_checks_raise_before_any_launch():
@@ -319,21 +320,58 @@ def test_matrix_factor(n, chain, f):
     assert local.matrix_factor(factors) == f
 
 
-@pytest.mark.parametrize("chain", ["row", "col"])
-def test_kernel_instantiations_cover_every_chain(chain):
-    """csrc/int8_stage.cuh instantiates the kernels for the (log2 n,
-    log2 f) pairs of PYFFT_I8_CHAINS: every n's matrix factor, of either
-    chain, must be among them, or the launch returns an error."""
+def macro_cases(source: str, macro: str, arity: int) -> list:
+    """The X(...) tuples of ``#define macro(X)`` in csrc/``source``."""
     import re
     from pathlib import Path
-    src = (Path(local.__file__).parent / "csrc" / "int8_stage.cuh").read_text()
-    body = src.split("#define PYFFT_I8_CHAINS(X)")[1].split("namespace")[0]
-    pairs = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)",
-                                                     body)}
-    factors = local.row_factors if chain == "row" else local.col_factors
+    src = (Path(local.__file__).parent / "csrc" / source).read_text()
+    body = src.split(f"#define {macro}(X)")[1].split("\n\n")[0]
+    pat = r"X\(" + ", ".join([r"(\d+)"] * arity) + r"\)"
+    return [tuple(map(int, t)) for t in re.findall(pat, body)]
+
+
+def log2f(n: int, factors) -> int:
+    return local.matrix_factor(factors(n)).bit_length() - 1
+
+
+@pytest.mark.parametrize("chain", ["row", "col", "default"])
+def test_kernel_instantiations_cover_every_chain(chain):
+    """csrc/int8_stage.cuh instantiates the kernels for the (log2 n,
+    log2 f) pairs of PYFFT_I8_CHAINS (K1, K5: the row and column chains);
+    the column entry adds the pairs it names outside the list (K4 + K10:
+    JAX's default chain, f = 128 at n = 2048).  Every n's matrix factor
+    must be among them, or the launch returns an error."""
+    import re
+    from pathlib import Path
+    pairs = macro_cases("int8_stage.cuh", "PYFFT_I8_CHAINS", 2)
+    if chain == "default":
+        src = (Path(local.__file__).parent / "csrc" / "local_cols.cu")
+        entry = src.read_text().split("int pyfft_local_cols_i8(")[1]
+        pairs += [tuple(map(int, t)) for t in re.findall(
+            r"log2n == (\d+) && log2f == (\d+)", entry)]
+        factors = local.default_factors
+    else:
+        factors = local.row_factors if chain == "row" else local.col_factors
     for p in range(4, 14):
         f = local.matrix_factor(factors(1 << p))
         assert f and (p, f.bit_length() - 1) in pairs
+
+
+@pytest.mark.parametrize("source,float_cases,i8_cases,factors", [
+    ("fused2d.cu", "PYFFT_FUSED2D_CASES", "PYFFT_FUSED2D_I8_CASES",
+     local.default_factors),
+    ("fused2d_tiled.cu", "PYFFT_TILED_CASES", "PYFFT_TILED_I8_CASES",
+     local.col_factors)])
+def test_2d_int8_instantiations_cover_every_shape(source, float_cases,
+                                                  i8_cases, factors):
+    """K8's and K9's int8 kernels are instantiated at every plane shape of
+    the float kernels, each axis with the matrix factor of the chain the
+    JAX kernel takes (K8 default_factors, K9 col_factors)."""
+    shapes = macro_cases(source, float_cases, 2)
+    cases = macro_cases(source, i8_cases, 4)
+    assert len(shapes) == {"fused2d.cu": 15, "fused2d_tiled.cu": 28}[source]
+    assert cases == [(a, log2f(1 << a, factors), b, log2f(1 << b, factors))
+                     for a, b in shapes]
 
 
 @pytest.mark.cuda

@@ -56,8 +56,9 @@ def test_offroute_entry_points_leave_jax_out():
 
 
 def test_int8_entry_points_leave_jax_out():
-    """precision="int8" runs on CPU tensors, rows and columns, in a fresh
-    interpreter without loading jax; the hosts without the stage refuse."""
+    """precision="int8" runs on CPU tensors in a fresh interpreter without
+    loading jax: rows and columns, and the other hosts (K4, K8, K9 and the
+    fold)."""
     code = ("import sys, torch\n"
             "from pyfft_tpu_torch.ops import fused2d, int8, local\n"
             "z = torch.ones(2, 256, 128)\n"
@@ -66,11 +67,12 @@ def test_int8_entry_points_leave_jax_out():
             "local.fft_rows_plain(z, z, -1, precision='int8')\n"
             "local.fft_cols_plain(z, z, -1, precision='int8')\n"
             "assert int8.w_channels(64, -1, z.device).dtype == torch.int8\n"
-            "try:\n"
-            "    fused2d.fft2_fused(z, z, -1, precision='int8')\n"
-            "    raise SystemExit('K8 took int8')\n"
-            "except NotImplementedError:\n"
-            "    pass\n"
+            "local.fft_rows_swap(z, z, -1, precision='int8', lanes=64)\n"
+            "fused2d.fft2_fused(z, z, -1, precision='int8')\n"
+            "fused2d.fft2_fused_tiled(z, z, +1, precision='int8')\n"
+            "f = torch.ones(1, 256, 8, 128)\n"
+            "assert local.supported_fold(f, 1)\n"
+            "local.fft_axis_fold(f, f, -1, axis=1, precision='int8')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             "             in ('jax', 'jaxlib', 'pyfft_tpu'))\n"
             "assert not bad, bad\n")
