@@ -4,7 +4,7 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in twenty phases, one or more lines each:
+numpy.fft, in twenty-one phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
@@ -136,7 +136,18 @@ numpy.fft, in twenty phases, one or more lines each:
      3 through K9+K10 and config 6+ variant B through K5+K10 then K4+K10,
      forward and inverse with exact counts, against numpy and, call by
      call, the plain versions; K4+K10, K8+K10 and K9+K10 timed beside their
-     float kernels, plain versions, bounds and library calls.
+     float kernels, plain versions, bounds and library calls;
+ 21. K10 inside K2 (fft_rows_interleaved(precision="int8"), f the last
+     factor of default_factors: 128 at n = 2048): K2+K10 at every n from 8
+     to 8192, 1, 130 and 384 rows (the 384 spread 2^20 apart by 128-row
+     tile), both directions with postscale 0.3, out of place, in place and
+     on a view whose rows lie 2n + 16 floats apart, against its plain
+     version and numpy per tile with exact launch counts (n = 8 runs K2),
+     and the packed form refused; config 2i through K2+K10, forward and
+     inverse with exact counts, against numpy and the plain version;
+     K2+K10 timed at config 2i (f = 64) and at 2048 x 8192 (f = 128)
+     beside K2, K1+K10 on the same view's stride-2 planes, the plain
+     version, the bounds and torch.fft.fft.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -180,7 +191,7 @@ KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
            "local_cols_f64", "local_rows_il", "deinterleave", "interleave",
            "local_rows_swap", "local_cols_ctile", "fused2d_tiled",
            "local_rows_i8", "local_cols_i8", "local_rows_swap_i8",
-           "fused2d_i8", "fused2d_tiled_i8")
+           "fused2d_i8", "fused2d_tiled_i8", "local_rows_il_i8")
 
 # Launches of one complex-form execute of a 1D plan of one local pass, by
 # its interleaved route; the stream route adds K13 and K14 around any plan.
@@ -232,6 +243,7 @@ def reset_counts():
     local.I8_LAUNCHES = 0
     local.COL_I8_LAUNCHES = 0
     local.SWAP_I8_LAUNCHES = 0
+    local.IL_I8_LAUNCHES = 0
     fused2d.LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
     fused2d.I8_LAUNCHES = 0
@@ -257,7 +269,8 @@ def read_counts() -> dict:
             "local_cols_i8": local.COL_I8_LAUNCHES,
             "local_rows_swap_i8": local.SWAP_I8_LAUNCHES,
             "fused2d_i8": fused2d.I8_LAUNCHES,
-            "fused2d_tiled_i8": fused2d.TILED_I8_LAUNCHES}
+            "fused2d_tiled_i8": fused2d.TILED_I8_LAUNCHES,
+            "local_rows_il_i8": local.IL_I8_LAUNCHES}
 
 
 def expect(*parts) -> dict:
@@ -1056,11 +1069,11 @@ def held_against_plain(log: list):
                     interleave.interleave)
 
     def rows_il(v, sign, *, postscale=1.0, factors=None, packed=None,
-                out=None):
+                precision="highest", out=None):
         want = local.fft_rows_interleaved_plain(v, sign, postscale, factors,
-                                                bool(packed))
+                                                bool(packed), precision)
         got = k2(v, sign, postscale=postscale, factors=factors,
-                 packed=packed, out=out)
+                 packed=packed, precision=precision, out=out)
         e = rel_err(as_c64(got), as_c64(want))
         check(f"K2 {tuple(v.shape)} vs plain", e)
         log.append(("local_rows_il", tuple(v.shape),
@@ -1350,6 +1363,12 @@ def phase_config2i(copy_gbs):
               f"({b_by}, published peaks), {copy_ms:.4f} ms at the measured "
               f"{copy_gbs:.1f} GB/s copy, kernel at {copy_ms / ms:.3f} of "
               f"it; library {lib:.4f} ms (context only)")
+    # K3 (packed=True) runs K2's kernel; its plain version mirrors
+    # tile_fft_packed
+    k3_plain = timed["local_rows_il"]["packed_plain_ms"] = time_ms(
+        lambda: local.fft_rows_interleaved_plain(xf, -1, packed=True))
+    print(f"    K3's plain version (packed) on the same view: "
+          f"{k3_plain:.4f} ms")
     del x, y, xf, yf, re, im
     torch.cuda.empty_cache()
 
@@ -2566,6 +2585,148 @@ def phase_int8_host_paths(copy_gbs):
             "errs": errs}
 
 
+# ------------------------------------------ K10 inside K2 (phase 21)
+
+
+def il_operand(xc: torch.Tensor, mode: str) -> tuple:
+    """(v, out) of the complex (rows, n) tensor ``xc`` for a K2+K10 check:
+    its interleaved float view out of place, the same view in place, or
+    the view of a copy whose rows lie 2n + 16 floats apart."""
+    if mode == "stride":
+        rows, n = xc.shape
+        big = torch.zeros((rows, n + 8), dtype=xc.dtype, device=xc.device)
+        big[:, :n] = xc
+        return torch.view_as_real(big[:, :n]).flatten(-2), None
+    v = xc.clone().view(torch.float32)
+    return v, (v if mode == "inplace" else None)
+
+
+def phase_int8_il():
+    """K10 in K2 at every n against fft_rows_interleaved_plain(precision=
+    "int8") and numpy, per 128-row tile (the plain version's group)."""
+    from pyfft_tpu_torch.ops import local
+    rng = np.random.RandomState(21)
+    for n in IL_NS:
+        f = local.matrix_factor(local.default_factors(n))
+        worst_plain = worst_np = 0.0
+        before = (local.IL_I8_LAUNCHES, local.IL_LAUNCHES)
+        cases = 0
+        for rows in (1, 130, 384):
+            x = (rng.standard_normal((rows, n))
+                 + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+            if rows == 384:
+                x = spread_rows(x)
+            xc = torch.from_numpy(x).cuda()
+            for sign in (-1, +1):
+                post = 0.3
+                X = (np.fft.fft(x.astype(np.complex128)) if sign < 0
+                     else np.fft.ifft(x.astype(np.complex128)) * n)
+                ref = torch.from_numpy(X * post).cuda()
+                plain = as_c64(local.fft_rows_interleaved_plain(
+                    xc.view(torch.float32), sign, post, precision="int8"))
+                for mode in ("out", "inplace", "stride"):
+                    v, out = il_operand(xc, mode)
+                    y = local.fft_rows_interleaved(v, sign, postscale=post,
+                                                   precision="int8", out=out)
+                    torch.cuda.synchronize()
+                    if out is not None and y.data_ptr() != v.data_ptr():
+                        raise AssertionError("in-place K2+K10 wrote "
+                                             "elsewhere")
+                    g = as_c64(y)
+                    tag = f"n={n} rows={rows} sign={sign} {mode}"
+                    e_plain = tiles_err(g, plain, [(0, 128)])
+                    e_np = tiles_err(g, ref, [(0, 128)])
+                    check(f"K2+K10 vs plain {tag}", e_plain)
+                    check(f"K2+K10 vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+        made = (local.IL_I8_LAUNCHES - before[0],
+                local.IL_LAUNCHES - before[1])
+        if made != ((cases, 0) if f else (0, cases)):
+            raise AssertionError(f"int8 interleaved rows n={n}: launches "
+                                 f"(int8, float) {made} for {cases} calls")
+        print(f"phase 21 K2+K10 n={n} (f={f or 'none: K2 unchanged'}): "
+              f"{cases} cases (out of place, in place, row stride 2n + 16) "
+              f"incl. a 2^20 spread over 128-row tiles, max rel err per "
+              f"tile vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e} "
+              f"(gate {TOL:.0e})")
+    v = torch.zeros((128, 128), device="cuda")
+    try:
+        local.fft_rows_interleaved(v, -1, precision="int8", packed=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2+K10 took the packed form")
+
+
+def phase_int8_il_paths(copy_gbs):
+    """Phase 21's path: config 2i through K2+K10, forward and inverse with
+    exact counts, against numpy and the plain version; K2+K10 timed at
+    config 2i (f = 64) and at 2048 x 8192 (f = 128) beside K2, K1+K10 on
+    the same view's stride-2 planes, the plain version, the bounds and
+    torch.fft.fft."""
+    from pyfft_tpu_torch.ops import local
+    from pyfft_tpu_torch.utils.profiling import time_ms
+    x = make_data((BATCH, N), seed=210)
+    ref, ref_inv = numpy_refs(x, 1)
+    v = torch.view_as_real(x).flatten(-2)
+
+    def both():
+        return (local.fft_rows_interleaved(v, -1, precision="int8"),
+                local.fft_rows_interleaved(v, +1, postscale=1.0 / N,
+                                           precision="int8"))
+
+    (y, yi), counts = counted({"local_rows_il_i8": 2}, "config 2i int8",
+                              both)
+    e = (rel_err(as_c64(y), ref), rel_err(as_c64(yi), ref_inv))
+    check("config 2i int8 forward vs numpy", e[0])
+    check("config 2i int8 inverse vs numpy", e[1])
+    want = local.fft_rows_interleaved_plain(v, -1, precision="int8")
+    e_plain = tiles_err(as_c64(y), as_c64(want), [(0, 128)])
+    check("config 2i K2+K10 vs plain", e_plain)
+    checks = [("local_rows_il_i8", "config 2i (K2+K10)",
+               float((y - want).abs().max()), e_plain)]
+    del y, yi, want, ref, ref_inv
+    print(f"phase 21 config 2i {tuple(x.shape)} through K2+K10 (f=64): "
+          f"launches {counts['local_rows_il_i8']} local_rows_il_i8 over a "
+          f"forward and an inverse run, err vs numpy {e[0]:.3e} forward, "
+          f"{e[1]:.3e} inverse, vs plain {e_plain:.3e} per tile (gate "
+          f"{TOL:.0e})")
+    rows = []
+    for label, n in (("config 2i", N), ("n = 8192", 8192)):
+        xs = x.view(BATCH * N // n, n)
+        vs = torch.view_as_real(xs).flatten(-2)
+        out = torch.empty_like(vs)
+        f = local.matrix_factor(local.default_factors(n))
+        fl, ops = i8_ops(n, f, BATCH * N)
+        rows.append(time_pass(
+            label, f"rows (K2+K10, f={f})", vs, vs,
+            lambda: local.fft_rows_interleaved(vs, -1, precision="int8",
+                                               out=out),
+            lambda: local.fft_rows_interleaved_plain(vs, -1,
+                                                     precision="int8"),
+            lambda: torch.fft.fft(xs), 2 * BATCH * N * 8, fl, copy_gbs,
+            phase=21, int8_ops=ops))
+        row = rows[-1]
+        row["kernel"] = "local_rows_il_i8"
+        row["float_ms"] = time_ms(lambda: local.fft_rows_interleaved(
+            vs, -1, out=out))
+        ov = out.view(xs.shape[0], n, 2)
+        xv = vs.view(xs.shape[0], n, 2)
+        row["rival_ms"] = time_ms(lambda: local.fft_axis(
+            xv[..., 0], xv[..., 1], -1, precision="int8",
+            out=(ov[..., 0], ov[..., 1])))
+        print(f"    K2 (float) on the same view: {row['float_ms']:.4f} ms; "
+              f"K1+K10 on its stride-2 planes (f="
+              f"{local.matrix_factor(local.row_factors(n))}): "
+              f"{row['rival_ms']:.4f} ms")
+        del xs, vs, out, ov, xv
+    del x, v
+    torch.cuda.empty_cache()
+    return {"counts": counts, "checks": checks, "timed": rows, "errs": e}
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -2624,8 +2785,12 @@ def main() -> int:
     phase_int8_fold()
     i8h = phase_int8_host_paths(t["copy_gbs"])
 
+    phase_int8_il()
+    i8il = phase_int8_il_paths(t["copy_gbs"])
+
     launches = dict(counts2)
-    for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h):
+    for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h,
+              i8il):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -2733,7 +2898,10 @@ def main() -> int:
              "pallas_local.py:1409", (i8h,)),
             ("fused2d_tiled_i8", "fused2d_tiled",
              "config 3, 16 x 1024 x 1024, f = 64 both axes",
-             "pallas_local.py:1502", (i8h,))):
+             "pallas_local.py:1502", (i8h,)),
+            ("local_rows_il_i8", "local_rows",
+             "config 2i, 4096 x 4096 interleaved, f = 64",
+             "pallas_local.py:743 (interleaved)", (i8il,))):
         row = next(r for r in res[0]["timed"] if r["kernel"] == name)
         mine = [c for r in res for c in r["checks"] if c[0] == name]
         off_entries.append({
@@ -2750,7 +2918,7 @@ def main() -> int:
                                   rows64_entry, cols64_entry, *il_entries,
                                   *off_entries],
                       "passes": (timed + timed64 + off["timed"] + i8["timed"]
-                                 + i8h["timed"]),
+                                 + i8h["timed"] + i8il["timed"]),
                       "variant_b": off["variant_b"], "end_to_end": e2e,
                       "routes": {k: il[k] for k in
                                  ("config_2i_routes", "library_ms",

@@ -6,9 +6,11 @@ the same sources, in one process on one CUDA card.
 OTHER_CHECKOUT is an unpacked copy of another commit (``git archive`` of
 the parent, say).  Its ``local_rows.cu``, ``local_cols.cu``, ``fused2d.cu``
 and ``fused2d_tiled.cu`` are built beside this checkout's, and the same
-wrappers run each build in turn: the row kernel K1 at config 2, the column
-kernel K5 at config 6+'s two passes and config 4's z pass, its complex128
-instantiation K12 at config 5's two passes, the digit-swapped row pass K4
+wrappers run each build in turn: the row kernel K1 at config 2, its
+interleaved policy K2 at config 2i, K1 with the int8 stage (K1+K10) at
+config 2, the column kernel K5 at config 6+'s two passes and config 4's z
+pass, its complex128 instantiation K12 at config 5's two passes, the
+digit-swapped row pass K4
 at variant B's pass 2, the fused 2D kernel K8 at config 4 and the tiled
 one K9 at config 3.  Each is timed by CUDA events (``time_ms``) in four
 turns, other, this, this, other, so that a drift of the card favours
@@ -77,9 +79,14 @@ def main(other: Path) -> int:
     cols = {"this": {d: local._cols_lib(d) for d in dtypes},
             "other": {d: bind(other_cols, local._cols_lib.__wrapped__, d)
                       for d in dtypes}}
+    other_rows = load_other(csrc, "local_rows")
     row_fns = {"this": local._rows_fn(torch.float32),
-            "other": bind(load_other(csrc, "local_rows"),
-                          local._rows_fn.__wrapped__, torch.float32)}
+               "other": bind(other_rows, local._rows_fn.__wrapped__,
+                             torch.float32)}
+    row_il = {"this": local._rows_il_fn(),
+              "other": bind(other_rows, local._rows_il_fn.__wrapped__)}
+    row_i8 = {"this": local._rows_i8_fn(),
+              "other": bind(other_rows, local._rows_i8_fn.__wrapped__)}
     swap = {"this": local._rows_swap_fn(),
             "other": bind(other_cols, local._rows_swap_fn.__wrapped__)}
     f2d = {"this": bind_2d(build.load("fused2d"), "fused2d"),
@@ -88,7 +95,8 @@ def main(other: Path) -> int:
              "other": bind_2d(load_other(csrc, "fused2d_tiled"),
                               "fused2d_tiled")}
     saved = (local._cols_lib, local._rows_fn, local._rows_swap_fn,
-             fused2d._lib, fused2d._tiled_lib)
+             fused2d._lib, fused2d._tiled_lib, local._rows_il_fn,
+             local._rows_i8_fn)
 
     def use(which):
         local._cols_lib = lambda d: cols[which][d]
@@ -96,6 +104,8 @@ def main(other: Path) -> int:
         local._rows_swap_fn = lambda: swap[which]
         fused2d._lib = lambda: f2d[which]
         fused2d._tiled_lib = lambda: tiled[which]
+        local._rows_il_fn = lambda: row_il[which]
+        local._rows_i8_fn = lambda: row_i8[which]
 
     def planes(shape, real):
         g = torch.Generator(device="cuda").manual_seed(5)
@@ -129,6 +139,14 @@ def main(other: Path) -> int:
     out = (torch.empty_like(re), torch.empty_like(im))
     cases.append(("K1 config 2 (4096 x 4096)", lambda re=re, im=im, out=out:
                   local.fft_axis(re, im, -1, out=out), (re, im, out)))
+    cases.append(("K1+K10 config 2 (4096 x 4096, int8)",
+                  lambda re=re, im=im, out=out: local.fft_axis(
+                      re, im, -1, precision="int8", out=out), (re, im, out)))
+    v = torch.view_as_real(torch.complex(re, im)).flatten(-2)
+    vout = torch.empty_like(v)
+    cases.append(("K2 config 2i (4096 x 4096 interleaved)",
+                  lambda v=v, vout=vout: local.fft_rows_interleaved(
+                      v, -1, out=vout), (v, vout)))
     re, im = planes((8, 2048, 2048), torch.float32)
     out = (torch.empty_like(re), torch.empty_like(im))
     cases.append(("K4 variant B pass 2 (8, 2048, 2048)",
@@ -159,7 +177,7 @@ def main(other: Path) -> int:
                      else "(NOT within 3 %)"))
     finally:
         (local._cols_lib, local._rows_fn, local._rows_swap_fn, fused2d._lib,
-         fused2d._tiled_lib) = saved
+         fused2d._tiled_lib, local._rows_il_fn, local._rows_i8_fn) = saved
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "ab": rows}))
     return 0

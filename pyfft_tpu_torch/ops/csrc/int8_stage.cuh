@@ -1,7 +1,7 @@
-// K10: the int8-split DFT stage, complex64: a policy of the row kernel
-// (K1, local_rows.cu), of the column kernel (K5) and the digit-swapped row
-// pass (K4, both local_cols.cu), and of the fused 2D kernels (K8,
-// fused2d.cu, and K9, fused2d_tiled.cu).
+// K10: the int8-split DFT stage, complex64: a policy of the row kernels
+// (K1 and the interleaved K2, local_rows.cu), of the column kernel (K5)
+// and the digit-swapped row pass (K4, both local_cols.cu), and of the
+// fused 2D kernels (K8, fused2d.cu, and K9, fused2d_tiled.cu).
 //
 // Replaces pyfft_tpu/ops/pallas_local.py `_int8_stage`, the matrix stage
 // of the JAX package's tile FFT under precision="int8" (inside the Pallas
@@ -76,6 +76,8 @@
 // The (log2 n, log2 f) pairs of the JAX row and column chains that hold a
 // matrix stage: f = n up to 128, then f the chain's last factor (the row
 // chain ends in 64 at n = 256, the column chain in 32).  X(LN, LF) for each.
+// The hosts that take JAX's default chain (K4, K2) add its one other pair,
+// (11, 7), in their entries.
 #define PYFFT_I8_CHAINS(X)                                                 \
   X(4, 4) X(5, 5) X(6, 6) X(7, 7) X(8, 6) X(8, 5) X(9, 7) X(10, 6) X(11, 6) \
   X(12, 6) X(13, 7)

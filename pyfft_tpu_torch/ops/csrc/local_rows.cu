@@ -81,10 +81,18 @@
 // folded.  It is a kernel of its own (local_rows_i8_kernel), so K1's and
 // K2's code is what it was.  In place as K1.
 //
+// K2 + K10 (precision="int8", interleaved float2 pairs) is the same kernel
+// with K2's I/O policy (IL = true): the first stage, or the n = f load,
+// reads each point with one 8-byte __ldg, and the stage's output writes
+// each part of a point into its pair with a 4-byte store.  f is the last
+// factor of JAX's default chain, which K2 takes (128 at n = 2048, where
+// the row chain has 64).  In place as K2.
+//
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_rows` (float),
 // `pyfft_local_rows_f64` (double), `pyfft_local_rows_il` (interleaved
-// float2) and `pyfft_local_rows_i8` (float, int8 stage) at the bottom.
+// float2), `pyfft_local_rows_i8` (float, int8 stage) and
+// `pyfft_local_rows_il_i8` (interleaved, int8 stage) at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -275,8 +283,9 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
 // ------------------------------------------------ K1 + K10 (int8 policy)
 
 // The radix-2/4/8 stages in front of the int8 stage: log2(n/f) bits, the
-// odd ones first, each writing shared memory.
-template <int LOGN, int LOGF, int STAGE, int NS>
+// odd ones first, each writing shared memory.  IL selects the interleaved
+// load of the first, as in `stage`.
+template <int LOGN, int LOGF, int STAGE, int NS, bool IL>
 __device__ __forceinline__ void lead_stages(const Io<float>& io, float2* sm,
                                             const float2* __restrict__ tw,
                                             int row0, float s) {
@@ -284,14 +293,14 @@ __device__ __forceinline__ void lead_stages(const Io<float>& io, float2* sm,
   constexpr int LB = LOGN - LOGF, REM = LB % 3;
   constexpr int NL = LB / 3 + (REM ? 1 : 0);
   constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
-  stage<float, false, S::N, S::T, S::RPB, R, NS, STAGE == 0, false>(
+  stage<float, IL, S::N, S::T, S::RPB, R, NS, STAGE == 0, false>(
       io, sm, tw, row0, s);
   if constexpr (STAGE + 1 < NL)
-    lead_stages<LOGN, LOGF, STAGE + 1, NS * R>(io, sm, tw, row0, s);
+    lead_stages<LOGN, LOGF, STAGE + 1, NS * R, IL>(io, sm, tw, row0, s);
 }
 
 // At n = f: the block's rows into shared memory, rows past the end as 0.
-template <int LOGN>
+template <int LOGN, bool IL>
 __device__ __forceinline__ void load_block(const Io<float>& io, float2* sm,
                                            int row0) {
   using S = Shape<LOGN>;
@@ -299,8 +308,13 @@ __device__ __forceinline__ void load_block(const Io<float>& io, float2* sm,
     const int row = row0 + e / S::N, k = e % S::N;
     float2 v = make_float2(0.f, 0.f);
     if (row < io.rows) {
-      const long long o = (long long)row * io.in_rs + (long long)k * io.in_es;
-      v = make_float2(io.in_re[o], io.in_im[o]);
+      if constexpr (IL) {
+        v = __ldg(&io.in_c[(long long)row * io.in_rs + k]);
+      } else {
+        const long long o =
+            (long long)row * io.in_rs + (long long)k * io.in_es;
+        v = make_float2(io.in_re[o], io.in_im[o]);
+      }
     }
     sm[e] = v;
   }
@@ -309,7 +323,9 @@ __device__ __forceinline__ void load_block(const Io<float>& io, float2* sm,
 
 // The int8 stage's view of the block: column q = (row rr, run j) with
 // rr = q / NS, element r at rr*N + j + r*NS; outputs to device memory.
-template <int LOGN, int LOGF>
+// IL: out_re is the floats of the output's (re, im) pairs, out_im unused,
+// strides in pairs, and part picks the pair's member.
+template <int LOGN, int LOGF, bool IL>
 struct RowMap {
   static constexpr int N = 1 << LOGN, NS = N >> LOGF;
   static constexpr int Q = Shape<LOGN>::RPB * NS;
@@ -326,11 +342,15 @@ struct RowMap {
     if (row >= rows) return;
     const long long o = (long long)row * out_rs +
                         (long long)(q % NS + k * NS) * out_es;
-    (part ? out_im : out_re)[o] = v * post;
+    if constexpr (IL) {
+      out_re[2 * o + part] = v * post;
+    } else {
+      (part ? out_im : out_re)[o] = v * post;
+    }
   }
 };
 
-template <int LOGN, int LOGF>
+template <int LOGN, int LOGF, bool IL>
 __global__ void __launch_bounds__(Shape<LOGN>::T)
     local_rows_i8_kernel(Io<float> io, const float2* __restrict__ tw,
                          float s, const int8_t* __restrict__ wch) {
@@ -340,30 +360,55 @@ __global__ void __launch_bounds__(Shape<LOGN>::T)
   float2* sm = reinterpret_cast<float2*>(smem_raw);
   const int row0 = blockIdx.x * S::RPB;
   if constexpr (LOGN == LOGF) {
-    load_block<LOGN>(io, sm, row0);
+    load_block<LOGN, IL>(io, sm, row0);
   } else {
-    lead_stages<LOGN, LOGF, 0, 1>(io, sm, tw, row0, s);
+    lead_stages<LOGN, LOGF, 0, 1, IL>(io, sm, tw, row0, s);
   }
-  const RowMap<LOGN, LOGF> map{io.out_re, io.out_im, io.rows, io.out_es,
-                               io.out_rs, row0, io.post};
+  float* out_re = IL ? reinterpret_cast<float*>(io.out_c) : io.out_re;
+  const RowMap<LOGN, LOGF, IL> map{out_re, io.out_im, io.rows, io.out_es,
+                                   io.out_rs, row0, io.post};
   int8_stage<(1 << LOGF), S::T>(map, sm, tw, wch, red);
 }
 
-template <int LOGN, int LOGF>
+template <int LOGN, int LOGF, bool IL>
 cudaError_t launch_i8(const Io<float>& io, const float2* tw, float s,
                       const int8_t* wch, cudaStream_t stream) {
   using S = Shape<LOGN>;
   const int smem = S::P * (int)sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_rows_i8_kernel<LOGN, LOGF>,
+        local_rows_i8_kernel<LOGN, LOGF, IL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (io.rows + S::RPB - 1) / S::RPB;
-  local_rows_i8_kernel<LOGN, LOGF><<<blocks, S::T, smem, stream>>>(io, tw, s,
-                                                                   wch);
+  local_rows_i8_kernel<LOGN, LOGF, IL><<<blocks, S::T, smem, stream>>>(
+      io, tw, s, wch);
   return cudaGetLastError();
+}
+
+// (log2n, log2f) -> launch_i8<log2n, log2f, IL> over PYFFT_I8_CHAINS;
+// the interleaved policy adds (11, 7), the f = 128 of JAX's default chain
+// at n = 2048, which K2 + K10 takes.
+template <bool IL>
+cudaError_t dispatch_i8(int log2n, int log2f, const Io<float>& io,
+                        const void* tw, const void* wch, int sign,
+                        void* stream) {
+  const float2* t = static_cast<const float2*>(tw);
+  const int8_t* w = static_cast<const int8_t*>(wch);
+  const float s = sign < 0 ? -1.f : 1.f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io.rows <= 0) return cudaErrorInvalidValue;
+#define PYFFT_I8_ROWS(LN, LF)     \
+  if (log2n == LN && log2f == LF) \
+    return launch_i8<LN, LF, IL>(io, t, s, w, st);
+  PYFFT_I8_CHAINS(PYFFT_I8_ROWS)
+#undef PYFFT_I8_ROWS
+  if constexpr (IL) {
+    if (log2n == 11 && log2f == 7)
+      return launch_i8<11, 7, IL>(io, t, s, w, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The planar policy's operands.
@@ -435,16 +480,24 @@ extern "C" int pyfft_local_rows_i8(const void* in_re, const void* in_im,
                                    int log2f, int in_es, int in_rs,
                                    int out_es, int out_rs, int sign,
                                    float postscale, void* stream) {
-  const Io<float> io = planes<float>(in_re, in_im, out_re, out_im, rows,
-                                     in_es, in_rs, out_es, out_rs, postscale);
-  const float2* t = static_cast<const float2*>(tw);
-  const int8_t* w = static_cast<const int8_t*>(wch);
-  const float s = sign < 0 ? -1.f : 1.f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
-#define PYFFT_I8_ROWS(LN, LF) \
-  if (log2n == LN && log2f == LF) return (int)launch_i8<LN, LF>(io, t, s, w, st);
-  PYFFT_I8_CHAINS(PYFFT_I8_ROWS)
-#undef PYFFT_I8_ROWS
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_i8<false>(
+      log2n, log2f,
+      planes<float>(in_re, in_im, out_re, out_im, rows, in_es, in_rs, out_es,
+                    out_rs, postscale),
+      tw, wch, sign, stream);
+}
+
+// K2 + K10: K2's interleaved operands (as pyfft_local_rows_il's) with the
+// f-point int8 stage last, f = 2^log2f the last factor of JAX's default
+// chain at this n (PYFFT_I8_CHAINS and (11, 7)); `wch` as
+// pyfft_local_rows_i8's.  `out` may be `in` (in place).
+extern "C" int pyfft_local_rows_il_i8(const void* in, void* out,
+                                      const void* tw, const void* wch,
+                                      int rows, int log2n, int log2f,
+                                      int in_rs, int out_rs, int sign,
+                                      float postscale, void* stream) {
+  const Io<float> io{nullptr, nullptr, nullptr, nullptr,
+                     static_cast<const float2*>(in), static_cast<float2*>(out),
+                     rows, 1, in_rs, 1, out_rs, postscale};
+  return (int)dispatch_i8<true>(log2n, log2f, io, tw, wch, sign, stream);
 }

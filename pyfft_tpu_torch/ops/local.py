@@ -24,8 +24,8 @@ Two implementations of each function live here:
   ``ops/fp64.py``), and on interleaved complex64 K1's interleaved I/O
   policy, K2, which serves the packed form K3 too; K4 (``_launch_rows_swap``)
   and K6 (``_launch_cols`` with ``ctile``) are two policies of K5's source;
-  under ``precision="int8"`` K1, K5 and K4 run kernels of their own whose
-  last stage is the int8-split stage K10 (``ops/int8.py``);
+  under ``precision="int8"`` K1, K2, K5 and K4 run kernels of their own
+  whose last stage is the int8-split stage K10 (``ops/int8.py``);
 * their plain torch versions, ``fft_rows_plain``, ``fft_cols_plain``,
   ``fft_rows_interleaved_plain`` and ``fft_rows_swap_plain`` (K6's is
   ``fft_cols_plain``), taken for every CPU tensor.  On float32 planes they are built on
@@ -69,8 +69,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
            "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
-           "SWAP_I8_LAUNCHES", "matrix_factor", "col_width_i8",
-           "supported_fold", "fft_axis_fold", "fold_lanes"]
+           "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
+           "col_width_i8", "supported_fold", "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -87,10 +87,11 @@ IL_LAUNCHES = 0
 SWAP_LAUNCHES = 0
 CTILE_LAUNCHES = 0
 # The same for the int8 instantiations (the stage K10): rows in K1, columns
-# in K5, the digit-swapped rows in K4.
+# in K5, the digit-swapped rows in K4, the interleaved rows in K2.
 I8_LAUNCHES = 0
 COL_I8_LAUNCHES = 0
 SWAP_I8_LAUNCHES = 0
+IL_I8_LAUNCHES = 0
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -655,7 +656,8 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
 
 
 def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
-                               factors=None, packed: bool = False):
+                               factors=None, packed: bool = False,
+                               precision: str = "highest"):
     """The plain torch version of K2 on any device: the DFT of the complex
     rows of a (..., 2n) float32 interleaved view, times ``postscale``.
 
@@ -663,7 +665,14 @@ def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
     stacked back into pairs.  Packed: ``tile_fft_packed`` on the (2n, rows)
     transposed view, as the JAX kernel's packed branch.  The chain defaults
     to ``default_factors(n)``, as JAX's ``fft_rows_interleaved`` does.
+
+    ``precision="int8"`` (K2 + K10's plain version) runs the chain's matrix
+    stage as the int8-split stage, the rows zero-padded to 128-row tiles,
+    each tile one alignment group, as the JAX kernel's blocks.  The packed
+    form takes no int8 (JAX's ``tile_fft_packed`` has no int8 path) and
+    raises.
     """
+    _il_int8(precision, v.dtype, packed)
     n = v.shape[-1] // 2
     factors = tuple(factors or default_factors(n))
     v2 = v.reshape(-1, 2 * n)
@@ -674,7 +683,7 @@ def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
             x = x * postscale
         return x.T.contiguous().reshape(v.shape)
     xr, xi = fft_rows_plain(v2[:, 0::2], v2[:, 1::2], sign, postscale,
-                            factors)
+                            factors, precision)
     return torch.stack([xr, xi], dim=-1).reshape(v.shape)
 
 
@@ -685,6 +694,18 @@ def _rows_il_fn():
     from pyfft_tpu_torch.ops.build import load
     fn = load("local_rows").pyfft_local_rows_il
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_il_i8_fn():
+    """The C entry point ``pyfft_local_rows_il_i8`` of csrc/local_rows.cu
+    (K2 with the int8 stage K10), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_rows").pyfft_local_rows_il_i8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -723,10 +744,23 @@ def _il_n(v) -> int:
     return n
 
 
-def _launch_rows_il(v, out, sign: int, postscale: float):
+def _il_int8(precision: str, dtype: torch.dtype, packed: bool) -> bool:
+    """Whether K2 runs the int8 stage; raise where it does not take
+    ``precision``.  The packed form has none, as in JAX, whose
+    ``tile_fft_packed`` looks ``precision`` up in a map without "int8"."""
+    int8 = _check_precision(precision, dtype)
+    if int8 and packed:
+        raise ValueError("precision='int8' does not run the packed form, as "
+                         "in the JAX package")
+    return int8
+
+
+def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
     """Launch K2 (``pyfft_local_rows_il``) from the (..., 2n) view ``v``
-    into ``out``; no synchronise.  Every check raises before the launch."""
-    global IL_LAUNCHES
+    into ``out``, or with ``i8_f`` K2 whose last stage is the f-point int8
+    stage K10 (``pyfft_local_rows_il_i8``); no synchronise.  Every check
+    raises before the launch."""
+    global IL_LAUNCHES, IL_I8_LAUNCHES
     n = _il_n(v)
     if tuple(out.shape) != tuple(v.shape):
         raise ValueError(f"K2 output of shape {tuple(out.shape)}, expected "
@@ -745,22 +779,35 @@ def _launch_rows_il(v, out, sign: int, postscale: float):
     if rows == 0:
         return out
     tw = _kernel_twiddles(n, sign, v.device)
+    args = (rows, ilog2(n), v2.stride(0) // 2, o2.stride(0) // 2, int(sign),
+            float(postscale))
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = _rows_il_fn()(v2.data_ptr(), o2.data_ptr(), tw.data_ptr(),
-                            rows, ilog2(n), v2.stride(0) // 2,
-                            o2.stride(0) // 2, int(sign), float(postscale),
-                            stream)
+        if i8_f:
+            w = w_channels(i8_f, sign, v.device)
+            err = _rows_il_i8_fn()(v2.data_ptr(), o2.data_ptr(),
+                                   tw.data_ptr(), w.data_ptr(), *args[:2],
+                                   ilog2(i8_f), *args[2:], stream)
+        else:
+            err = _rows_il_fn()(v2.data_ptr(), o2.data_ptr(), tw.data_ptr(),
+                                *args, stream)
     if err != 0:
-        raise RuntimeError(f"local_rows_il launch failed: cudaError {err}")
-    IL_LAUNCHES += 1
+        name = "local_rows_il_i8" if i8_f else "local_rows_il"
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if i8_f:
+        IL_I8_LAUNCHES += 1
+    else:
+        IL_LAUNCHES += 1
     return out
 
 
 def fft_rows_interleaved(v, sign, *, postscale: float = 1.0, factors=None,
-                         packed: bool | None = None, out=None):
+                         packed: bool | None = None,
+                         precision: str = "highest", out=None):
     """DFT of the complex rows of ``v``, a (..., 2n) float32 view of
-    interleaved complex64 (pallas_local.fft_rows_interleaved).
+    interleaved complex64: pallas_local.fft_rows_interleaved, and with
+    ``precision`` its private ``_fft_rows_interleaved(precision=)``, which
+    the public function stands for too.
 
     A CUDA tensor runs K2, one device-memory round trip with ``postscale``
     folded into the store; ``packed`` and ``factors`` change nothing
@@ -769,17 +816,28 @@ def fft_rows_interleaved(v, sign, *, postscale: float = 1.0, factors=None,
     ``packed`` (default ``PACKED_INTERLEAVED``).  ``out`` names the
     (..., 2n) tensor to write; ``out=v`` runs in place (JAX's
     ``alias_io``).  Raises where K2 does not apply; nothing falls back.
+
+    ``precision="int8"`` runs the chain's matrix stage as the int8-split
+    stage K10, f the last factor of ``default_factors(n)`` (128 at n =
+    2048): on the card K2 + K10, whose alignment group is its thread
+    block's rows, inside one of JAX's 128-row tiles; on the CPU those
+    tiles.  At n = 8 the chain has no matrix stage and K2 runs unchanged.
+    The packed form takes no int8 and raises, as in JAX.
     """
     if packed is None:
         packed = PACKED_INTERLEAVED
+    int8 = _il_int8(precision, v.dtype, packed)
     if v.is_cuda:
+        n = _il_n(v)
+        i8_f = matrix_factor(default_factors(n)) if int8 else 0
         if out is None:
             out = torch.empty_like(v, memory_format=torch.contiguous_format)
-        return _launch_rows_il(v, out, sign, postscale)
+        return _launch_rows_il(v, out, sign, postscale, i8_f)
     if v.device.type != "cpu":
         raise ValueError(f"no interleaved FFT for device {v.device}")
     _il_n(v)
-    y = fft_rows_interleaved_plain(v, sign, postscale, factors, packed)
+    y = fft_rows_interleaved_plain(v, sign, postscale, factors, packed,
+                                   precision)
     if out is None:
         return y
     out.copy_(y)

@@ -334,21 +334,30 @@ def log2f(n: int, factors) -> int:
     return local.matrix_factor(factors(n)).bit_length() - 1
 
 
-@pytest.mark.parametrize("chain", ["row", "col", "default"])
+@pytest.mark.parametrize("chain", ["row", "col", "default",
+                                   "default_il"])
 def test_kernel_instantiations_cover_every_chain(chain):
     """csrc/int8_stage.cuh instantiates the kernels for the (log2 n,
     log2 f) pairs of PYFFT_I8_CHAINS (K1, K5: the row and column chains);
-    the column entry adds the pairs it names outside the list (K4 + K10:
-    JAX's default chain, f = 128 at n = 2048).  Every n's matrix factor
-    must be among them, or the launch returns an error."""
+    the column entry and the interleaved row entry add the pairs they name
+    outside the list (K4 + K10 and K2 + K10: JAX's default chain, f = 128
+    at n = 2048).  Every n's matrix factor must be among them, or the
+    launch returns an error."""
     import re
     from pathlib import Path
     pairs = macro_cases("int8_stage.cuh", "PYFFT_I8_CHAINS", 2)
-    if chain == "default":
-        src = (Path(local.__file__).parent / "csrc" / "local_cols.cu")
-        entry = src.read_text().split("int pyfft_local_cols_i8(")[1]
+    if chain.startswith("default"):
+        # K4 + K10: the column entry; K2 + K10: the row kernels' dispatch
+        # under `if constexpr (IL)`
+        source, entry = (("local_cols.cu", "int pyfft_local_cols_i8(")
+                         if chain == "default" else
+                         ("local_rows.cu", "cudaError_t dispatch_i8("))
+        src = (Path(local.__file__).parent / "csrc" / source)
+        body = src.read_text().split(entry)[1].split("\n}\n")[0]
+        if chain == "default_il":
+            body = body.split("if constexpr (IL)")[1]
         pairs += [tuple(map(int, t)) for t in re.findall(
-            r"log2n == (\d+) && log2f == (\d+)", entry)]
+            r"log2n == (\d+) && log2f == (\d+)", body)]
         factors = local.default_factors
     else:
         factors = local.row_factors if chain == "row" else local.col_factors

@@ -161,7 +161,7 @@ def test_packed_default_follows_flag(monkeypatch):
     calls = []
     real = local.fft_rows_interleaved_plain
     monkeypatch.setattr(local, "fft_rows_interleaved_plain",
-                        lambda *a: calls.append(a[-1]) or real(*a))
+                        lambda *a: calls.append(a[4]) or real(*a))
     v = torch.from_numpy(pairs((2, 128), 4))
     local.fft_rows_interleaved(v, -1)
     monkeypatch.setattr(local, "PACKED_INTERLEAVED", True)
