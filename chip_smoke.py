@@ -108,19 +108,21 @@ numpy.fft, in twenty-one phases, one or more lines each:
      pass after K8, against numpy; K9 on config 3's planes, against numpy
      and Plan's result; each timed beside its plain version, its bound, the
      routed kernels that compute the same and the library call;
- 19. K10, the int8-split stage (precision="int8"), inside K1 and K5: K1+K10
-     at every n from 8 to 8192 (1, 130 and 384 rows, the 384 spread 2^20
-     apart from one 128-row tile to the next; planar, stride-2, in place;
-     both directions) and K5+K10 at every n (L = 3 with l and tiles spread
-     2^20 apart; T in {128, 384} with a plain store planar and in place and
-     the full twiddle, a swapped store at T = 128, a ragged T = 200), each
-     against its plain version and numpy per alignment tile, with exact
-     launch counts (n = 8 has no matrix stage and runs K1 or K5); config 2
-     through K1+K10 and config 3 through K1+K10 then K5+K10, forward and
-     inverse, with exact counts, against numpy and, call by call, the plain
-     versions; K1+K10 at config 2 and at n = 8192 (f = 128) and K5+K10 at
-     config 3's column pass timed beside the float kernels, the plain
-     versions, the bounds and the library call;
+ 19. K10, the int8-split stage (precision="int8"), inside K1 and K5: the
+     stage each int8 row kernel runs (wgmma or mma.sync), as the kernel
+     reports it, against local.rows_i8_stage for every (n, f) of the
+     chains; K1+K10 at every n from 8 to 8192 (1, 130 and 384 rows, the 384
+     spread 2^20 apart from one 128-row tile to the next; planar, stride-2,
+     in place; both directions) and K5+K10 at every n (L = 3 with l and
+     tiles spread 2^20 apart; T in {128, 384} with a plain store planar and
+     in place and the full twiddle, a swapped store at T = 128, a ragged T
+     = 200), each against its plain version and numpy per alignment tile,
+     with exact launch counts (n = 8 has no matrix stage and runs K1 or
+     K5); config 2 through K1+K10 and config 3 through K1+K10 then K5+K10,
+     forward and inverse, with exact counts, against numpy and, call by
+     call, the plain versions; K1+K10 at config 2 and at n = 8192 (f = 128)
+     and K5+K10 at config 3's column pass timed beside the float kernels,
+     the plain versions, the bounds and the library call;
  20. K10 inside its other hosts: K4+K10 (fft_rows_swap, f the last factor
      of default_factors: 128 at n = 2048) at every n from 8 to 8192, n1 in
      {128, 384} (the 384 rows spread 2^20 apart by 128-row group), planar
@@ -1972,6 +1974,33 @@ def numpy_refs(x: torch.Tensor, ndim: int):
     return numpy_ref(x, ndim), numpy_ref(x.conj().resolve_conj(), ndim).conj() / size
 
 
+def phase_int8_stages():
+    """The stage each int8 row kernel runs, as the kernel reports it
+    (pyfft_local_rows_i8_stage), against local.rows_i8_stage, for every
+    (n, f) of the row, column and default chains: the pairs the row
+    kernels are instantiated at."""
+    from pyfft_tpu_torch.ops import local
+    code = {"wgmma": 1, "mma": 0}
+    seen = {}
+    for n in IL_NS:
+        for chain in (local.row_factors, local.col_factors,
+                      local.default_factors):
+            f = local.matrix_factor(chain(n))
+            if not f:
+                continue
+            want = local.rows_i8_stage(n, f)
+            got = local._rows_i8_stage_fn()(n.bit_length() - 1,
+                                            f.bit_length() - 1)
+            if got != code[want]:
+                raise AssertionError(f"int8 row kernel n={n} f={f} reports "
+                                     f"stage {got}, rows_i8_stage says "
+                                     f"{want}")
+            seen[(n, f)] = want
+    print("phase 19 int8 row kernels' stage, as each reports it, agrees "
+          "with rows_i8_stage: " + ", ".join(
+              f"({n}, {f}) {w}" for (n, f), w in sorted(seen.items())))
+
+
 def phase_int8_rows():
     """K10 in K1 at every n against fft_rows_plain(precision="int8") and
     numpy, per 128-row tile (the plain version's alignment group)."""
@@ -2016,7 +2045,9 @@ def phase_int8_rows():
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 rows n={n}: launches (int8, float) "
                                  f"{made} for {cases} calls")
-        print(f"phase 19 K1+K10 n={n} (f={f or 'none: K1 unchanged'}): "
+        stage = f" {local.rows_i8_stage(n, f)} stage" if f else ""
+        print(f"phase 19 K1+K10 n={n} (f={f or 'none: K1 unchanged'}"
+              f"{stage}): "
               f"{cases} cases incl. a 2^20 spread over 128-row tiles, max "
               f"rel err per tile vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {TOL:.0e})")
@@ -2775,6 +2806,7 @@ def main() -> int:
     phase_tiled_kernel()
     off = phase_offroute_paths(t["copy_gbs"])
 
+    phase_int8_stages()
     phase_int8_rows()
     phase_int8_cols()
     i8 = phase_int8_paths(t["copy_gbs"])

@@ -22,33 +22,71 @@
 //   2. each column (a run j of one row, or of one column c) is the 2f-long
 //      vector [xr; xi], split into 4 int8 channels by progressive
 //      extraction at shifts 7, 14, 21, 28 below 2^m (round half even, clip
-//      to +-127, every step exact in float), cut in registers right where
-//      each B fragment is built, with no int8 copy of the block;
+//      to +-127, every step exact in float);
 //   3. the stacked matrix [[Wr, -Wi], [Wi, Wr]] (2f x 2f) comes as 3 int8
-//      channels at shifts 7, 14, 21, built on the host (ops/int8.py) and
-//      read as A fragments from global memory: the table is common to all
-//      blocks and stays in L2 (3 * 256 * 256 B at f = 128 would not fit in
-//      shared memory beside K5's data);
-//   4. the 9 channel pairs whose shifts sum to at most 35 run as
-//      mma.sync.m16n8k32 s8 x s8 -> s32 (M = K = 2f, N = the block's
-//      columns), one shift group at a time into one int32 accumulator
-//      (each group's sum stays below 2^24, so its conversion is exact),
-//      recombined in float as acc += float(group) * 2^(m - s) in ascending
-//      s, the JAX package's order.
+//      channels at shifts 7, 14, 21, built on the host (ops/int8.py);
+//   4. the 9 channel pairs whose shifts sum to at most 35 run as s8 x s8 ->
+//      s32 products (M = K = 2f, N = the block's columns), one shift group
+//      at a time into one int32 accumulator (each group's sum stays below
+//      2^24, so its conversion is exact), recombined in float as
+//      acc += float(group) * 2^(m - s) in ascending s, the JAX package's
+//      order.
 //
 // The stage's outputs y[k] of column j land at j + k*NS, natural order, as
-// the radix-8 stages' do.  A warp takes one 8-column tile at a time (and a
-// share of the 16-row tiles of the output where the block has fewer tiles
-// than warps): it builds the B fragments of all 4 channels for its columns
-// once, then runs every (row tile, shift group, channel pair, k tile).
+// the radix-8 stages' do.  It comes in two versions, which compute the
+// same bits (integer sums do not depend on the order of the products, and
+// every float step is the same operation in the same order):
+//
+// int8_stage_tc, the stage on wgmma, wherever the block has a warpgroup
+// (128 threads) and f >= 32 (tc_stage below): the row kernels at n >= 1024
+// and the column kernel (K5, the fold, K4) at every f but 16.
+//   * W's channels come as an image in shared memory, laid out by the host
+//     (ops/int8.py `w_image`) in wgmma's K-major core matrices (8 rows of
+//     16 bytes, no swizzle), in slabs of 64 output rows (3 channels each:
+//     3 * 64 * 2f bytes), each slab the real and imaginary rows of 32
+//     outputs (`w_rows`).  One bulk asynchronous copy a slab, issued at
+//     kernel entry on an mbarrier, lands while the radix-2/4/8 lead stages
+//     run.  At f <= 64 the whole image stays (48 KB at f = 64); at f = 128
+//     (192 KB) the slabs stream through one or two buffers of 48 KB, two
+//     where the second costs the SM no block (TcPlan::NBUF), each slab
+//     applied to all the block's columns and all 4 x channels before the
+//     next comes.  W is read from device memory once a block.
+//   * x is cut once: each thread reads 16 values of one column, twiddles
+//     them in registers, and after the barrier that gives the block's amax
+//     writes their 4 channels (real and imaginary halves) into the float
+//     buffer's place, in the B operand's K-major core matrices: 8 bytes a
+//     complex point, the float2's own size.
+//   * The products are wgmma.mma_async m64nNk32 s8 with A (a W slab) and B
+//     (one x channel) both from shared memory: a warpgroup takes one m64
+//     tile and N = NCH of the block's columns (8 to 64; 32 for a streamed
+//     slab), runs each shift group's pairs and k32 steps into one int32
+//     accumulator, converts it and adds it in float.  Its fragments leave
+//     through Map::put2, both parts of an output for two columns a store.
+//     The row kernels and K4 + K10 write device memory; the column kernel
+//     holds its outputs in registers and writes them over x's channels
+//     after the last product (Map::INTO_X), so it needs no second buffer.
+// int8_stage, the first version, on mma.sync.m16n8k32 s8 with W's A
+// fragments read from global memory through L1 and x's B fragments cut in
+// registers: kept where wgmma does not apply, by the hosts' compile-time
+// choice (tc_stage): the row kernels at n <= 512 (64 threads a block), f =
+// 16 in every host, and the fused 2D kernels K8 and K9, whose stages sit
+// in a cluster's shared memory (K8 in place).  A warp takes one 8-column
+// tile at a time (and a share of the 16-row tiles of the output where the
+// block has fewer tiles than warps): it builds the B fragments of all 4
+// channels for its columns once, then runs every (row tile, shift group,
+// channel pair, k tile).
 //
 // What bounds it on an H100: at config 2 (4096 x 4096, f = 64) the stage
 // is 72*f = 4608 int8 operations a complex point, 7.7e10 in all, 0.04 ms at
 // the published 1979 TOPS, below the 0.09 ms of the copy: bytes, for a
-// kernel that reaches the tensor cores' rate.  This first version does not:
-// mma.sync with A from global memory and B cut from float in registers
-// issues far more instructions than the products need.  It is the simple
-// correct version; its time is in PERF.md.
+// kernel that reaches the tensor cores' rate.  The mma.sync version reads
+// W's channels again for every 8 columns, 4.5*f bytes of L2 traffic a
+// point (288 B at f = 64), and is bound by that.  The wgmma version reads
+// W from device memory once a block, 12*f/Q bytes a point (12-24 B at Q =
+// 64); its products read both operands from shared memory, and a unit N
+// columns wide reads the slab's A tile (2 KB a k32 step) for only those N,
+// so units of 16 columns are bound by shared memory at about 2.5 times
+// the tensor cores' time.  Times in PERF.md.
 //
 // A Map gives the stage its block's addressing:
 //   Map::Q                         the columns of the block
@@ -57,14 +95,18 @@
 //   void put(int q, int k, int part, float v)
 //                                  write output row k of column q (part 0
 //                                  the real, 1 the imaginary value)
+//   void put2(int q, int k, float2 re, float2 im)   (int8_stage_tc)
+//                                  write output k of columns q and q + 1
+//   Map::INTO_X                    (int8_stage_tc) put2 writes where x's
+//                                  channels lie
 //
-// IN_PLACE: put writes the slots the stage reads (K8's rows, which stay in
-// shared memory for the cluster's exchange and leave no room for a second
-// buffer at 2^18 points a plane).  Output k of column q lands in the slot
-// of its input k, so a unit's writes touch its own columns only; where
-// several warps share an 8-column tile (MSPLIT > 1, one unit a warp at
-// most) a block barrier parts the building of every B fragment from the
-// first write.
+// IN_PLACE (int8_stage only): put writes the slots the stage reads (K8's
+// rows, which stay in shared memory for the cluster's exchange and leave
+// no room for a second buffer at 2^18 points a plane).  Output k of column
+// q lands in the slot of its input k, so a unit's writes touch its own
+// columns only; where several warps share an 8-column tile (MSPLIT > 1,
+// one unit a warp at most) a block barrier parts the building of every B
+// fragment from the first write.
 
 #pragma once
 
@@ -229,6 +271,418 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
         if (qq < Q) map.put(qq, row % F, row / F, acc[i]);
       }
     }
+  }
+}
+
+// ------------------------------------------------- the stage on wgmma
+
+// Whether a host block of nt threads runs the f-point stage on wgmma: a
+// warpgroup (128 threads) and M = 2f of at least one m64 tile.
+__host__ __device__ constexpr bool tc_stage(int f, int nt) {
+  return nt >= 128 && f >= 32;
+}
+
+// Where the shared-memory image of W (ops/int8.py `w_image`) starts in the
+// table the hosts are handed: after the 3 (2f x 2f) channels that
+// int8_stage reads.
+__host__ __device__ constexpr int w_image_offset(int f) { return 12 * f * f; }
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Blocks of nt threads and `bytes` of shared memory an SM holds at once
+// (228 KB a SM, 1 KB of it reserved a block).
+constexpr int sm_blocks(int nt, int bytes) {
+  return cmin(2048 / nt, 233472 / (bytes + 1024));
+}
+
+// The wgmma stage's shape in a block of NT threads whose Map has Q columns
+// and whose host keeps HOST bytes of shared memory of its own (W's buffers
+// follow them).  HOLD: the Map's outputs take x's place (Map::INTO_X), so
+// a warpgroup holds them in registers until the last phase.
+template <int F, int NT, int Q, int HOST, bool HOLD = false>
+struct TcPlan {
+  static constexpr int K2 = 2 * F;                   // stacked length: M = K
+  static constexpr int MT = cmax(K2 / 64, 1);        // m64 tiles, a slab each
+  static constexpr int KT = K2 / 32;                 // k32 steps
+  static constexpr int SLAB = 3 * 64 * K2;           // bytes of one slab
+  static constexpr bool STREAM = MT > 2;             // f = 128
+  // slab buffers: the whole image, or two where the second costs no block
+  static constexpr int NBUF =
+      !STREAM ? MT
+              : (sm_blocks(NT, HOST + 2 * SLAB) >= sm_blocks(NT, HOST + SLAB)
+                     ? 2 : 1);
+  static constexpr int W_BYTES = NBUF * SLAB;
+  static constexpr int NWG = cmax(NT / 128, 1);      // warpgroups
+  static constexpr int MTP = STREAM ? 1 : MT;        // m64 tiles a phase
+  static constexpr int PHASES = MT / MTP;
+  // columns a unit (one warpgroup's m64 x NCH tile): the phase's tiles
+  // shared out over the warpgroups, 8 to 64 columns; a streamed slab that
+  // holds nothing goes to units of 32, fewer and wider (each re-reads the
+  // slab's A tile from shared memory: PERF.md)
+  static constexpr int NCH = STREAM && !HOLD
+                                 ? cmin(Q, 32)
+                                 : cmin(cmin(cmax(Q * MTP / NWG, 8), 64), Q);
+  static constexpr int UNITS = MTP * (Q / NCH);
+  static constexpr int XUNITS = Q * F / 16;          // 16-value runs to cut
+  static_assert(!tc_stage(F, NT) ||
+                    (NT % 128 == 0 && Q % NCH == 0 && NCH % 8 == 0 &&
+                     XUNITS <= NT && HOST % 16 == 0),
+                "the wgmma stage tiles the block");
+};
+
+// Shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(1) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on `bar`'s current phase.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// wgmma's shared-memory descriptor of a K-major operand without swizzle:
+// core matrices of 8 rows x 16 bytes (128 contiguous bytes), the two of a
+// k32 step 128 bytes apart (LBO), the next 8 rows `sbo` bytes on.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Keep the compiler from moving a register's uses across the asynchronous
+// products that write it.
+__device__ __forceinline__ void fence_reg(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+// d += a * b, one m64nNk32 s8 x s8 -> s32 product, both operands from
+// shared memory (descriptors); d holds N/2 registers a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&d)[4], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<16>(int (&d)[8], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// At kernel entry: thread 0 sets up the stage's barriers and starts the
+// copies of W's first NBUF slabs from `wimg` (the image, 16-byte aligned)
+// into `wsm`.  The stage's first barrier (step 1's) makes the set-up
+// visible to every thread before any waits on it.
+template <class Plan>
+__device__ __forceinline__ void tc_fetch_w(const int8_t* wimg, int8_t* wsm,
+                                           uint64_t* bars) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < Plan::NBUF; ++b) mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#pragma unroll
+    for (int b = 0; b < Plan::NBUF; ++b)
+      bulk_load(wsm + b * Plan::SLAB, wimg + b * Plan::SLAB, Plan::SLAB,
+                &bars[b]);
+  }
+}
+
+// Round, clamp and pack one channel value: with t = y + RND, RND =
+// 1.5 * 2^23, t - RND is rintf(y) (round half even) wherever |y| < 2^22,
+// and clamping t to RND +- 127 clamps it to +-127 for every y, as int8_stage's
+// fminf(fmaxf(rintf(y), -127), 127) does; t's low byte is then the int8.
+// Full-rate adds in place of a rounding and a float-to-int conversion.
+constexpr float RND = 12582912.f;
+
+// The f-point int8-split stage on wgmma over the block's data in `sm`
+// (float2, written by the previous stage and visible to all threads).  F =
+// f, NT the block's threads, HOST the host's own shared-memory bytes (see
+// TcPlan), `tw` the n-point twiddle table, `wimg` W's image in device
+// memory, `wsm` its buffers in shared memory and `bars` their barriers
+// (tc_fetch_w started the copies), `red` NT/32 floats of scratch.  The
+// float buffer is overwritten with x's channels; the Map's put2 writes
+// elsewhere, or (Map::INTO_X) into the float buffer's place once every
+// product is done.  put2(q, k, re, im) writes output k of columns q and q +
+// 1 (q even): re = (real of q, real of q+1), im likewise.
+template <int F, int NT, int HOST, class Map>
+__device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
+                                              const float2* __restrict__ tw,
+                                              const int8_t* __restrict__ wimg,
+                                              int8_t* wsm, uint64_t* bars,
+                                              float* red) {
+  constexpr int Q = Map::Q;             // columns
+  using Plan = TcPlan<F, NT, Q, HOST, Map::INTO_X>;
+  constexpr int K2 = Plan::K2;
+  constexpr int SBO = 8 * K2;           // bytes between 8-row core groups
+  constexpr int NCH = Plan::NCH;
+  static_assert(tc_stage(F, NT), "the wgmma stage needs a warpgroup, f>=32");
+
+  // 1-2. x cut once.  A thread takes elements r0..r0+15 of column q: it
+  // twiddles them in registers (x[j + r*NS] *= w_N^(j*r), as int8_stage
+  // does in place), and the block's largest magnitude gives m.  After
+  // that barrier it writes the 16 bytes of each channel of its real and of
+  // its imaginary half (stacked rows r0 + i and F + r0 + i) over the float
+  // buffer, in B's core matrices: channel c of column q, stacked row kk at
+  // c*K2*Q + (q/8)*SBO + (kk/16)*128 + (q%8)*16 + kk%16.
+  int8_t* xs = reinterpret_cast<int8_t*>(sm);
+  int m;
+  {
+    const int e = threadIdx.x;
+    const int q = e % Q, r0 = (e / Q) * 16;
+    const bool cuts = e < Plan::XUNITS;
+    float2 v[16];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      v[i] = make_float2(0.f, 0.f);
+      if (cuts) {
+        v[i] = sm[map.index(q, r0 + i)];
+        const int jr = map.jof(q) * (r0 + i);
+        if (jr) v[i] = cmul(v[i], __ldg(&tw[jr]));
+      }
+      amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));
+    }
+    amax = block_max<NT>(amax, red);    // its barrier ends every read of sm
+    m = ((__float_as_int(amax) >> 23) & 0xFF) - 126;
+    m = m < -40 ? -40 : (m > 120 ? 120 : m);
+    float inv[4], sh[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      inv[c] = exp2i(7 * (c + 1) - m);
+      sh[c] = exp2i(m - 7 * (c + 1));
+    }
+    if (cuts) {
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        unsigned w[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          w[c][0] = w[c][1] = w[c][2] = w[c][3] = 0u;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          float x = part ? v[i].y : v[i].x;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float t =
+                fminf(fmaxf(x * inv[c] + RND, RND - 127.f), RND + 127.f);
+            x = x - (t - RND) * sh[c];
+            w[c][i / 4] |= (__float_as_uint(t) & 0xFFu) << (8 * (i % 4));
+          }
+        }
+        const int off = (q / 8) * SBO + ((part * F + r0) / 16) * 128 +
+                        (q % 8) * 16;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<uint4*>(xs + c * K2 * Q + off) =
+              make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
+      }
+    }
+    // the products read shared memory through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  // 3. the products of one unit: slab sl (one m64 tile) x NCH columns from
+  // n0, every shift group's pairs and k32 steps into one int32
+  // accumulator, converted and added in float in ascending s.
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  auto products = [&](int sl, int n0, float (&acc)[NCH / 2]) {
+    const int8_t* a = wsm + (sl % Plan::NBUF) * Plan::SLAB;
+    const int8_t* b = xs + n0 * K2;     // (n0/8) core groups of SBO bytes
+#pragma unroll
+    for (int s = 2; s <= 5; ++s) {      // shift sum 7*s: 14, 21, 28, 35
+      int d[NCH / 2];
+#pragma unroll
+      for (int i = 0; i < NCH / 2; ++i) {
+        d[i] = 0;
+        fence_reg(d[i]);
+      }
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int wi = 0; wi < 3; ++wi) {
+        const int xc = s - 2 - wi;      // W shift 7(wi+1) + x shift 7(xc+1)
+        if (xc < 0 || xc > 3) continue;
+#pragma unroll
+        for (int kt = 0; kt < Plan::KT; ++kt)
+          wgmma_s8<NCH>(d, smem_desc(a + wi * 64 * K2 + kt * 256, SBO),
+                        smem_desc(b + xc * K2 * Q + kt * 256, SBO));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < NCH / 2; ++i) fence_reg(d[i]);
+      const float sc = exp2i(m - 7 * s);
+#pragma unroll
+      for (int i = 0; i < NCH / 2; ++i)
+        acc[i] = s == 2 ? (float)d[i] * sc : acc[i] + (float)d[i] * sc;
+    }
+  };
+  // The unit's outputs.  Accumulator i of a thread is row 16*warp + g
+  // (+8 for i&2) of the tile, column n0 + 8*(i/4) + 2*t4 + (i&1); w_image
+  // orders each slab's rows so that rows r and r + 8 of a warp's 16 are the
+  // real and the imaginary part of one output k = 32*sl + 8*warp + g.
+  auto put = [&](int sl, int n0, const float (&acc)[NCH / 2]) {
+    const int k = sl * 32 + warp * 8 + g;
+#pragma unroll
+    for (int j = 0; j < NCH / 8; ++j)
+      map.put2(n0 + 8 * j + 2 * t4, k,
+               make_float2(acc[4 * j], acc[4 * j + 1]),
+               make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  };
+
+  // a phase of resident slabs at a time, a unit a warpgroup at a time.
+  // Map::INTO_X: put writes the float buffer's place, so every product
+  // must have read x's channels first; a warpgroup holds its outputs (one
+  // unit a phase) until the barrier after the last phase.
+  constexpr bool HOLD = Map::INTO_X;
+  constexpr bool ONE = Plan::STREAM || HOLD;    // one unit a warpgroup
+  static_assert(!ONE || Plan::UNITS <= Plan::NWG, "one unit a warpgroup");
+  const bool mine = wg < Plan::UNITS;
+  const int n0 = (wg % (Q / NCH)) * NCH;        // the unit's, where ONE
+  float held[HOLD ? Plan::PHASES : 1][NCH / 2];
+#pragma unroll 1
+  for (int ph = 0; ph < Plan::PHASES; ++ph) {
+#pragma unroll
+    for (int t = 0; t < Plan::MTP; ++t) {
+      const int sl = ph * Plan::MTP + t;
+      mbar_wait(&bars[sl % Plan::NBUF], (sl / Plan::NBUF) & 1);
+    }
+    if constexpr (ONE) {
+      const int sl = ph * Plan::MTP + wg / (Q / NCH);
+      float acc[NCH / 2];
+      if (mine) products(sl, n0, acc);
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int t = 0; t < Plan::PHASES; ++t)
+          if (t == ph) {
+#pragma unroll
+            for (int i = 0; i < NCH / 2; ++i) held[t][i] = acc[i];
+          }
+      }
+      if constexpr (Plan::STREAM) {
+        // the next slab's copy starts before this one's outputs are stored
+        if (ph + Plan::NBUF < Plan::PHASES) {
+          __syncthreads();              // every warpgroup is done with it
+          if (threadIdx.x == 0)
+            bulk_load(wsm + (ph % Plan::NBUF) * Plan::SLAB,
+                      wimg + (ph + Plan::NBUF) * Plan::SLAB, Plan::SLAB,
+                      &bars[ph % Plan::NBUF]);
+        }
+      }
+      if constexpr (!HOLD) {
+        if (mine) put(sl, n0, acc);
+      }
+    } else {
+#pragma unroll 1
+      for (int u = wg; u < Plan::UNITS; u += Plan::NWG) {
+        const int sl = ph * Plan::MTP + u / (Q / NCH);
+        const int n = (u % (Q / NCH)) * NCH;
+        float acc[NCH / 2];
+        products(sl, n, acc);
+        put(sl, n, acc);
+      }
+    }
+  }
+  if constexpr (HOLD) {
+    __syncthreads();                    // x's channels are read: outputs
+    if (mine) {
+#pragma unroll
+      for (int t = 0; t < Plan::PHASES; ++t)
+        put(t * Plan::MTP + wg / (Q / NCH), n0, held[t]);
+    }
+  }
+}
+
+// The hosts' stage: int8_stage_tc where TC (the host's compile-time
+// choice, tc_stage), else int8_stage.  `wch` holds the 3 (2f x 2f)
+// channels, then W's image (w_image_offset); `wsm` and `bars` as
+// int8_stage_tc's, unused by int8_stage.
+template <int F, int NT, int HOST, bool TC, class Map>
+__device__ __forceinline__ void host_stage(const Map& map, float2* sm,
+                                           const float2* __restrict__ tw,
+                                           const int8_t* __restrict__ wch,
+                                           int8_t* wsm, uint64_t* bars,
+                                           float* red) {
+  if constexpr (TC) {
+    int8_stage_tc<F, NT, HOST>(map, sm, tw, wch + w_image_offset(F), wsm,
+                               bars, red);
+  } else {
+    int8_stage<F, NT>(map, sm, tw, wch, red);
   }
 }
 

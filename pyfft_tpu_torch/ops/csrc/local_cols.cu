@@ -119,32 +119,38 @@
 // stages: the leading radix-2/4/8 stages cover log2(n/f) bits in the
 // [k][c] buffer (at n = f a plain load fills it), then the stage takes its
 // alignment exponent over the block's C columns of one l and writes its
-// output into a second buffer, in the store pass's layout, and K5's store
-// pass (twiddle, postscale, plain or swapped store) follows unchanged.
-// Two buffers do not fit K5's widths at n >= 2048, so the int8 kernel
+// output in the store pass's layout, and K5's store pass (twiddle,
+// postscale, plain or swapped store) follows unchanged.  The int8 kernel
 // takes half K5's bytes a block (ColShape's I8: C = 128 up to n = 32, 64,
-// 32, 16, then 8 at n = 512 and 1024, 4, 2 and 1 at n = 8192).  For the
-// swapped store the stage writes the padded [c][k] layout itself.  A
-// kernel of its own (local_cols_i8_kernel), so K5's, K12's, K4's and
-// K6's code is what it was.  In place for the plain store, as K5.
+// 32, 16, then 8 at n = 512 and 1024, 4, 2 and 1 at n = 8192), the room
+// the first version's second buffer took.  For the swapped store the stage
+// writes the padded [c][k] layout itself.  The stage is int8_stage_tc, on
+// wgmma, wherever f >= 32 (every shape has 128 threads a block or more;
+// ColI8::TC): x's channels and then its outputs take the [k][c] buffer's
+// place, W's slabs follow it, copied from kernel entry on, so a block
+// holds one buffer and W (two blocks an SM at 1024 to 8192 points).  At f
+// = 16 the mma.sync stage, which writes a second buffer.  A kernel of its
+// own (local_cols_i8_kernel), so K5's, K12's, K4's and K6's code is what
+// it was.  In place for the plain store, as K5.
 //
 // K4 + K10 (precision="int8" on the digit-swapped row pass) is that int8
-// kernel, launched through pyfft_local_cols_i8 on K4's strides: input
-// (l, j, row), output (l, k, 0, row), no twiddle, the plain store, f the
-// last factor of the JAX package's default chain (`_fft_rows_swap` takes
-// `default_factors`, so f = 128 at n = 2048, not 64 as in the column
-// chain; the entry instantiates that one pair beside PYFFT_I8_CHAINS).
-// Its first stage reads the rows through the column kernel's strided
-// load, threads running along the rows, not through K4's coalesced row
-// load: right, not fast.  A block takes the int8 kernel's C rows, a
-// divisor of 128, so its alignment group lies inside one of JAX's 128-row
-// blocks.
+// kernel with K4's row load (policy ROWS: load_rows on the int8 shape,
+// then the lead stages from shared memory) and the stage's outputs
+// written straight to device memory (SwapMap: no second buffer, no store
+// pass), launched through pyfft_local_rows_swap_i8 on K4's strides: input
+// (l, j, row), output (l, k, 0, row), no twiddle, f the last factor of the JAX
+// package's default chain (`_fft_rows_swap` takes `default_factors`, so f
+// = 128 at n = 2048, not 64 as in the column chain; the entry
+// instantiates that one pair beside PYFFT_I8_CHAINS).  A block takes the
+// int8 kernel's C rows, a divisor of 128, so its alignment group lies
+// inside one of JAX's 128-row blocks.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_cols` (float),
 // `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
-// `pyfft_local_cols_ctile` (K6) and `pyfft_local_cols_i8` (float, int8
-// stage; K4 + K10 too), and the column widths, at the bottom.
+// `pyfft_local_cols_ctile` (K6), `pyfft_local_cols_i8` (float, int8
+// stage) and `pyfft_local_rows_swap_i8` (K4 + K10), and the column widths,
+// at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -293,12 +299,12 @@ __device__ __forceinline__ void stages(const Cols<Real>& io,
 // half-warp's 8-byte stores k*C + c apart) meet at most four-way bank
 // conflicts.  A thread issues all its loads before its first store, so
 // they are all in flight at once (one block an SM at n >= 1024).  Rows
-// past T read as 0.
-template <typename Real, int LOGN>
+// past T read as 0.  I8: on the int8 kernel's shape (K4 + K10).
+template <typename Real, int LOGN, bool I8 = false>
 __device__ __forceinline__ void load_rows(const Cols<Real>& io,
                                           typename Complex<Real>::V* sm,
                                           long long l, long long t0) {
-  using S = ColShape<LOGN, Real>;
+  using S = ColShape<LOGN, Real, I8>;
   using V = typename Complex<Real>::V;
   constexpr int C = S::C, E = S::P / S::NT;
   constexpr int KW = C <= 8 ? 8 : 4;
@@ -502,8 +508,9 @@ Cols<Real> cols_io(const void* in_re, const void* in_im, void* out_re,
 // ------------------------------------------------ K5 + K10 (int8 policy)
 
 // The radix-2/4/8 stages in front of the int8 stage: log2(n/f) bits, the
-// odd ones first, each writing the [k][c] buffer.
-template <int LOGN, int LOGF, int STAGE, int NS>
+// odd ones first, each writing the [k][c] buffer.  LOADED: the block's
+// data is already in it (K4's row load), so the first reads it there.
+template <int LOGN, int LOGF, int STAGE, int NS, bool LOADED = false>
 __device__ __forceinline__ void lead_stages(const Cols<float>& io, float2* sm,
                                             const float2* __restrict__ tw,
                                             long long l, long long t0,
@@ -512,10 +519,10 @@ __device__ __forceinline__ void lead_stages(const Cols<float>& io, float2* sm,
   constexpr int LB = LOGN - LOGF, REM = LB % 3;
   constexpr int NL = LB / 3 + (REM ? 1 : 0);
   constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
-  stage<float, S::N, S::C, S::NT, R, NS, STAGE == 0, false, false>(
-      io, sm, tw, l, t0, s);
+  stage<float, S::N, S::C, S::NT, R, NS, STAGE == 0 && !LOADED, false,
+        false>(io, sm, tw, l, t0, s);
   if constexpr (STAGE + 1 < NL)
-    lead_stages<LOGN, LOGF, STAGE + 1, NS * R>(io, sm, tw, l, t0, s);
+    lead_stages<LOGN, LOGF, STAGE + 1, NS * R, LOADED>(io, sm, tw, l, t0, s);
 }
 
 // At n = f: the block's columns into the [k][c] buffer, t past T as 0.
@@ -537,61 +544,170 @@ __device__ __forceinline__ void load_block(const Cols<float>& io, float2* sm,
 }
 
 // The int8 stage's view of the block: column q = (run j, column c) with
-// c = q % C, element r at (j + r*NS)*C + c; outputs into the second buffer
-// in the store pass's layout ([c][k] padded for the swapped store).
+// c = q % C, element r at (j + r*NS)*C + c; outputs into `out` in the store
+// pass's layout ([c][k] padded for the swapped store): the second buffer
+// for int8_stage, the float buffer's place for int8_stage_tc (INTO_X).
 template <int LOGN, int LOGF, bool SWAP>
 struct ColMap {
   using S = ColShape<LOGN, float, true>;
   static constexpr int N = S::N, C = S::C, NS = N >> LOGF, Q = C * NS;
+  static constexpr bool INTO_X = true;
   float* out;
   __device__ int index(int q, int r) const {
     return (q / C + r * NS) * C + q % C;
   }
   __device__ int jof(int q) const { return q / C; }
-  __device__ void put(int q, int k, int part, float v) const {
+  // the second buffer's slot of output k of column q
+  __device__ int slot(int q, int k) const {
     const int kk = q / C + k * NS, c = q % C;
-    out[2 * (SWAP ? c * (N + 1) + kk : kk * C + c) + part] = v;
+    return SWAP ? c * (N + 1) + kk : kk * C + c;
+  }
+  __device__ void put(int q, int k, int part, float v) const {
+    out[2 * slot(q, k) + part] = v;
+  }
+  // Output k of columns q and q + 1 (q even): in the plain layout their
+  // slots are q + k*Q and the next, one 16-byte store.
+  __device__ void put2(int q, int k, float2 re, float2 im) const {
+    float2* y = reinterpret_cast<float2*>(out);
+    if constexpr (SWAP) {
+      y[slot(q, k)] = make_float2(re.x, im.x);
+      y[slot(q + 1, k)] = make_float2(re.y, im.y);
+    } else {
+      *reinterpret_cast<float4*>(y + slot(q, k)) =
+          make_float4(re.x, im.x, re.y, im.y);
+    }
   }
 };
 
-template <int LOGN, int LOGF, bool SWAP,
+// K4 + K10's view of the block: ColMap's columns (run j, row c of the
+// block's C), its outputs straight to device memory as the store pass's
+// plain store without twiddle would write them, out[l, kk, t0 + c] *
+// postscale, kk = j + k*NS.
+template <int LOGN, int LOGF>
+struct SwapMap {
+  using S = ColShape<LOGN, float, true>;
+  static constexpr int N = S::N, C = S::C, NS = N >> LOGF, Q = C * NS;
+  static constexpr bool INTO_X = false;
+  float* out_re;
+  float* out_im;
+  long long base, out_ns, out_bs, rows;   // base: l*out_ls + t0*out_bs
+  float post;
+  __device__ int index(int q, int r) const {
+    return (q / C + r * NS) * C + q % C;
+  }
+  __device__ int jof(int q) const { return q / C; }
+  __device__ long long offset(int q, int k) const {
+    return base + (long long)(q / C + k * NS) * out_ns +
+           (long long)(q % C) * out_bs;
+  }
+  __device__ void put(int q, int k, int part, float v) const {
+    if (q % C >= rows) return;
+    (part ? out_im : out_re)[offset(q, k)] = v * post;
+  }
+  // Output k of columns q and q + 1 (q even): rows c, c + 1 of one run
+  // where C >= 2 (8-byte stores of each plane where the rows are adjacent
+  // and aligned), else the next run.
+  __device__ void put2(int q, int k, float2 re, float2 im) const {
+    const long long o = offset(q, k);
+    if (C >= 2 && out_bs == 1 && q % C + 1 < rows &&
+        ((reinterpret_cast<uintptr_t>(out_re + o) |
+          reinterpret_cast<uintptr_t>(out_im + o)) & 7) == 0) {
+      *reinterpret_cast<float2*>(out_re + o) =
+          make_float2(re.x * post, re.y * post);
+      *reinterpret_cast<float2*>(out_im + o) =
+          make_float2(im.x * post, im.y * post);
+    } else {
+      put(q, k, 0, re.x);
+      put(q, k, 1, im.x);
+      put(q + 1, k, 0, re.y);
+      put(q + 1, k, 1, im.y);
+    }
+  }
+};
+
+// The int8 kernel's plan: its stage (TC, the wgmma one wherever f >= 32)
+// and its shared memory.  Under COLS the mma.sync stage reads the [k][c]
+// buffer and writes a second one in the store pass's layout (padded
+// [c][k] for the swapped store); the wgmma stage cuts x's channels into
+// the [k][c] buffer's place and, once its products are done, writes its
+// outputs there too (ColMap::INTO_X), so one buffer of the larger layout.
+// Under ROWS (K4 + K10) either stage writes device memory (SwapMap), so
+// the [k][c] buffer alone.  W's slab buffers follow.
+template <int LOGN, int LOGF, bool SWAP, int POLICY>
+struct ColI8 {
+  using S = ColShape<LOGN, float, true>;
+  static constexpr int F = 1 << LOGF;
+  static constexpr int Q = S::C * (S::N >> LOGF);     // the Maps' Q
+  static constexpr int DATA = S::P * (int)sizeof(float2);
+  static constexpr int Y = POLICY == ROWS ? 0
+                           : (SWAP ? (S::N + 1) * S::C : S::P) *
+                                 (int)sizeof(float2);
+  static constexpr bool TC = tc_stage(F, S::NT);
+  static constexpr int HOST = TC ? (cmax(DATA, Y) + 127) / 128 * 128 : 0;
+  using Plan = TcPlan<F, S::NT, Q, HOST, POLICY != ROWS>;
+  static constexpr int SMEM = TC ? HOST + Plan::W_BYTES : DATA + Y;
+  // n = 8192 (C = 1, f = 128), swapped: 64 KB + 8 bytes of buffer and two
+  // 48 KB slabs
+  static_assert(SMEM + 1024 <= 227 * 1024, "fits a block's shared memory");
+};
+
+// `wch` holds the 3 (2f x 2f) channels, then W's image (w_image_offset).
+// POLICY: COLS, or ROWS for K4 + K10 (K4's row load).
+template <int LOGN, int LOGF, bool SWAP, int POLICY = COLS,
           int NT = ColShape<LOGN, float, true>::NT>
 __global__ void __launch_bounds__(NT)
     local_cols_i8_kernel(Cols<float> io, const float2* __restrict__ tw,
                          float s, const int8_t* __restrict__ wch) {
   using S = ColShape<LOGN, float, true>;
+  using K = ColI8<LOGN, LOGF, SWAP, POLICY>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[NT / 32];
+  __shared__ uint64_t bars[2];
   float2* sm = reinterpret_cast<float2*>(smem_raw);
-  float2* y = sm + S::P;
+  float2* y = K::TC ? sm : sm + S::P;   // where the stage's outputs go
+  int8_t* wsm = reinterpret_cast<int8_t*>(smem_raw + K::HOST);
+  if constexpr (K::TC)
+    tc_fetch_w<typename K::Plan>(wch + w_image_offset(K::F), wsm, bars);
   const long long l = blockIdx.x % io.L;
   const long long t0 = (blockIdx.x / io.L) * S::C;
-  if constexpr (LOGN == LOGF) {
+  if constexpr (POLICY == ROWS) {
+    load_rows<float, LOGN, true>(io, sm, l, t0);
+    __syncthreads();
+    if constexpr (LOGN != LOGF)
+      lead_stages<LOGN, LOGF, 0, 1, true>(io, sm, tw, l, t0, s);
+  } else if constexpr (LOGN == LOGF) {
     load_block<LOGN>(io, sm, l, t0);
   } else {
     lead_stages<LOGN, LOGF, 0, 1>(io, sm, tw, l, t0, s);
   }
-  const ColMap<LOGN, LOGF, SWAP> map{reinterpret_cast<float*>(y)};
-  int8_stage<(1 << LOGF), NT>(map, sm, tw, wch, red);
-  __syncthreads();
-  store<float, LOGN, SWAP, true>(io, y, l, t0);
+  if constexpr (POLICY == ROWS) {
+    // rows: those of the block's C that lie before T
+    const SwapMap<LOGN, LOGF> map{io.out_re, io.out_im,
+                                  l * io.out_ls + t0 * io.out_bs, io.out_ns,
+                                  io.out_bs, io.T - t0, io.post};
+    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, wsm, bars, red);
+  } else {
+    const ColMap<LOGN, LOGF, SWAP> map{reinterpret_cast<float*>(y)};
+    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, wsm, bars, red);
+    __syncthreads();
+    store<float, LOGN, SWAP, true>(io, y, l, t0);
+  }
 }
 
-template <int LOGN, int LOGF, bool SWAP>
+template <int LOGN, int LOGF, bool SWAP, int POLICY = COLS>
 cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
                       const int8_t* wch, cudaStream_t stream) {
   using S = ColShape<LOGN, float, true>;
-  const int smem =
-      (S::P + (SWAP ? (S::N + 1) * S::C : S::P)) * (int)sizeof(float2);
+  const int smem = ColI8<LOGN, LOGF, SWAP, POLICY>::SMEM;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        local_cols_i8_kernel<LOGN, LOGF, SWAP>,
+        local_cols_i8_kernel<LOGN, LOGF, SWAP, POLICY>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (io.T + S::C - 1) / S::C * io.L;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  local_cols_i8_kernel<LOGN, LOGF, SWAP>
+  local_cols_i8_kernel<LOGN, LOGF, SWAP, POLICY>
       <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s, wch);
   return cudaGetLastError();
 }
@@ -709,8 +825,9 @@ extern "C" int pyfft_local_cols_width_i8(int log2n) {
 }
 
 // K5 + K10: the complex64 column DFT with the f-point int8 stage last (f =
-// 2^log2f, see PYFFT_I8_CHAINS, and (11, 7) for K4); `wch` holds the
-// stage's 3 channels, (3, 2f, 2f) int8 C-contiguous.  Other arguments as
+// 2^log2f, see PYFFT_I8_CHAINS); `wch` holds the stage's 3 channels, (3,
+// 2f, 2f) int8 C-contiguous, followed (f >= 32) by their shared-memory
+// image (ops/int8.py `w_tables`), 16-byte aligned.  Other arguments as
 // pyfft_local_cols's; a plain store may write in place.
 extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
                                    void* out_re, void* out_im, const void* tw,
@@ -733,8 +850,38 @@ extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
                       : (int)launch_i8<LN, LF, false>(io, t, s, w, st);
   PYFFT_I8_CHAINS(PYFFT_I8_COLS)
 #undef PYFFT_I8_COLS
-  // K4 + K10 at n = 2048: the default chain's f = 128
-  if (log2n == 11 && log2f == 7 && !swap_store)
-    return (int)launch_i8<11, 7, false>(io, t, s, w, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4 + K10: K4's DFT along the rows of (L, T, n) float planes into (L, n,
+// T) with the f-point int8 stage last (f = 2^log2f, the last factor of the
+// JAX default chain: PYFFT_I8_CHAINS and (11, 7)).  Arguments as
+// pyfft_local_cols_i8's, with K4's dims (as pyfft_local_rows_swap's), no
+// table (mode 0) and no swapped store.  The output must not overlap the
+// input.
+extern "C" int pyfft_local_rows_swap_i8(const void* in_re, const void* in_im,
+                                        void* out_re, void* out_im,
+                                        const void* tw, const void* ta,
+                                        const void* tb, const void* wch,
+                                        const long long* dims, int log2n,
+                                        int log2f, int sign, float postscale,
+                                        int swap_store, void* stream) {
+  const Cols<float> io = cols_io<float>(in_re, in_im, out_re, out_im, ta, tb,
+                                        dims, postscale, 1);
+  if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0 || swap_store ||
+      io.tw_mode != TW_NONE)
+    return (int)cudaErrorInvalidValue;
+  const float2* t = static_cast<const float2*>(tw);
+  const int8_t* w = static_cast<const int8_t*>(wch);
+  const float s = sign < 0 ? -1.f : 1.f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PYFFT_I8_SWAP(LN, LF)     \
+  if (log2n == LN && log2f == LF) \
+    return (int)launch_i8<LN, LF, false, ROWS>(io, t, s, w, st);
+  PYFFT_I8_CHAINS(PYFFT_I8_SWAP)
+#undef PYFFT_I8_SWAP
+  // n = 2048: the default chain's f = 128
+  if (log2n == 11 && log2f == 7)
+    return (int)launch_i8<11, 7, false, ROWS>(io, t, s, w, st);
   return (int)cudaErrorInvalidValue;
 }

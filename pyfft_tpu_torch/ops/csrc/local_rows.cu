@@ -79,7 +79,11 @@
 // reads the block's RPB rows there, takes its alignment exponent over
 // them, and writes the output straight to device memory, postscale
 // folded.  It is a kernel of its own (local_rows_i8_kernel), so K1's and
-// K2's code is what it was.  In place as K1.
+// K2's code is what it was.  In place as K1.  Which stage it runs is a
+// compile-time choice (RowI8::TC, reported by pyfft_local_rows_i8_stage):
+// the wgmma stage from n = 1024 up (128 threads a block and more), whose
+// W slabs follow the float buffer in shared memory and start copying at
+// kernel entry; the mma.sync stage at n <= 512 (64 threads).
 //
 // K2 + K10 (precision="int8", interleaved float2 pairs) is the same kernel
 // with K2's I/O policy (IL = true): the first stage, or the n = f load,
@@ -91,8 +95,10 @@
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_rows` (float),
 // `pyfft_local_rows_f64` (double), `pyfft_local_rows_il` (interleaved
-// float2), `pyfft_local_rows_i8` (float, int8 stage) and
-// `pyfft_local_rows_il_i8` (interleaved, int8 stage) at the bottom.
+// float2), `pyfft_local_rows_i8` (float, int8 stage),
+// `pyfft_local_rows_il_i8` (interleaved, int8 stage) and
+// `pyfft_local_rows_i8_stage` (which stage an int8 instance runs) at the
+// bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -329,6 +335,7 @@ template <int LOGN, int LOGF, bool IL>
 struct RowMap {
   static constexpr int N = 1 << LOGN, NS = N >> LOGF;
   static constexpr int Q = Shape<LOGN>::RPB * NS;
+  static constexpr bool INTO_X = false;        // outputs to device memory
   float* out_re;
   float* out_im;
   int rows, out_es, out_rs, row0;
@@ -348,16 +355,73 @@ struct RowMap {
       (part ? out_im : out_re)[o] = v * post;
     }
   }
+  // Output k of columns q and q + 1 (q even, one row: NS is even), as
+  // 16-byte (re, im, re, im) stores of the pairs or 8-byte stores of each
+  // plane where the addresses allow.
+  __device__ void put2(int q, int k, float2 re, float2 im) const {
+    static_assert(NS % 2 == 0, "q and q + 1 share a row");
+    const int row = row0 + q / NS;
+    if (row >= rows) return;
+    const long long o = (long long)row * out_rs +
+                        (long long)(q % NS + k * NS) * out_es;
+    re = make_float2(re.x * post, re.y * post);
+    im = make_float2(im.x * post, im.y * post);
+    if constexpr (IL) {
+      float* p = out_re + 2 * o;
+      if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+        *reinterpret_cast<float4*>(p) = make_float4(re.x, im.x, re.y, im.y);
+      } else {
+        *reinterpret_cast<float2*>(p) = make_float2(re.x, im.x);
+        *reinterpret_cast<float2*>(p + 2) = make_float2(re.y, im.y);
+      }
+    } else {
+      float* pr = out_re + o;
+      float* pi = out_im + o;
+      if (out_es == 1 && ((reinterpret_cast<uintptr_t>(pr) |
+                           reinterpret_cast<uintptr_t>(pi)) & 7) == 0) {
+        *reinterpret_cast<float2*>(pr) = re;
+        *reinterpret_cast<float2*>(pi) = im;
+      } else {
+        pr[0] = re.x;
+        pr[out_es] = re.y;
+        pi[0] = im.x;
+        pi[out_es] = im.y;
+      }
+    }
+  }
 };
 
+// The int8 kernel's plan at (log2 n, log2 f): its stage (TC, the wgmma
+// one, wherever the block has a warpgroup and f >= 32) and its shared
+// memory, the float buffer (the stage's x channels take its place) and,
+// for the wgmma stage, W's slab buffers after it.
+template <int LOGN, int LOGF>
+struct RowI8 {
+  using S = Shape<LOGN>;
+  static constexpr int F = 1 << LOGF;
+  static constexpr int Q = S::RPB * (S::N >> LOGF);   // RowMap::Q
+  static constexpr int DATA = S::P * (int)sizeof(float2);
+  static constexpr bool TC = tc_stage(F, S::T);
+  using Plan = TcPlan<F, S::T, Q, DATA>;
+  static constexpr int SMEM = DATA + (TC ? Plan::W_BYTES : 0);
+  // n = 8192, f = 128: 64 KB of data and one 48 KB slab
+  static_assert(SMEM + 1024 <= 227 * 1024, "fits a block's shared memory");
+};
+
+// `wch` holds the 3 (2f x 2f) channels, then W's image (w_image_offset).
 template <int LOGN, int LOGF, bool IL>
 __global__ void __launch_bounds__(Shape<LOGN>::T)
     local_rows_i8_kernel(Io<float> io, const float2* __restrict__ tw,
                          float s, const int8_t* __restrict__ wch) {
   using S = Shape<LOGN>;
+  using R = RowI8<LOGN, LOGF>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[S::T / 32];
+  __shared__ uint64_t bars[2];
   float2* sm = reinterpret_cast<float2*>(smem_raw);
+  int8_t* wsm = reinterpret_cast<int8_t*>(smem_raw + R::DATA);
+  if constexpr (R::TC)
+    tc_fetch_w<typename R::Plan>(wch + w_image_offset(R::F), wsm, bars);
   const int row0 = blockIdx.x * S::RPB;
   if constexpr (LOGN == LOGF) {
     load_block<LOGN, IL>(io, sm, row0);
@@ -367,14 +431,14 @@ __global__ void __launch_bounds__(Shape<LOGN>::T)
   float* out_re = IL ? reinterpret_cast<float*>(io.out_c) : io.out_re;
   const RowMap<LOGN, LOGF, IL> map{out_re, io.out_im, io.rows, io.out_es,
                                    io.out_rs, row0, io.post};
-  int8_stage<(1 << LOGF), S::T>(map, sm, tw, wch, red);
+  host_stage<R::F, S::T, R::DATA, R::TC>(map, sm, tw, wch, wsm, bars, red);
 }
 
 template <int LOGN, int LOGF, bool IL>
 cudaError_t launch_i8(const Io<float>& io, const float2* tw, float s,
                       const int8_t* wch, cudaStream_t stream) {
   using S = Shape<LOGN>;
-  const int smem = S::P * (int)sizeof(float2);
+  const int smem = RowI8<LOGN, LOGF>::SMEM;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         local_rows_i8_kernel<LOGN, LOGF, IL>,
@@ -472,8 +536,9 @@ extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
 // K1 + K10: the complex64 row DFT with the f-point int8 stage last (f =
 // 2^log2f, the last factor of the JAX row or column chain at this n, see
 // PYFFT_I8_CHAINS); `wch` holds the stage's 3 channels, (3, 2f, 2f) int8
-// C-contiguous.  Other arguments as pyfft_local_rows's; `out` may be the
-// input (in place).
+// C-contiguous, followed (f >= 32) by their shared-memory image
+// (ops/int8.py `w_tables`), 16-byte aligned.  Other arguments as
+// pyfft_local_rows's; `out` may be the input (in place).
 extern "C" int pyfft_local_rows_i8(const void* in_re, const void* in_im,
                                    void* out_re, void* out_im, const void* tw,
                                    const void* wch, int rows, int log2n,
@@ -500,4 +565,16 @@ extern "C" int pyfft_local_rows_il_i8(const void* in, void* out,
                      static_cast<const float2*>(in), static_cast<float2*>(out),
                      rows, 1, in_rs, 1, out_rs, postscale};
   return (int)dispatch_i8<true>(log2n, log2f, io, tw, wch, sign, stream);
+}
+
+// The stage the int8 row kernels (K1 + K10, K2 + K10) run at (log2n,
+// log2f): 1 the wgmma stage, 0 the mma.sync one, -1 where no kernel is
+// instantiated.
+extern "C" int pyfft_local_rows_i8_stage(int log2n, int log2f) {
+#define PYFFT_I8_STAGE(LN, LF) \
+  if (log2n == LN && log2f == LF) return RowI8<LN, LF>::TC ? 1 : 0;
+  PYFFT_I8_CHAINS(PYFFT_I8_STAGE)
+  PYFFT_I8_STAGE(11, 7)
+#undef PYFFT_I8_STAGE
+  return -1;
 }

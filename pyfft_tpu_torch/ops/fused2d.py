@@ -42,7 +42,7 @@ import math
 import torch
 
 from pyfft_tpu_torch.ops import local
-from pyfft_tpu_torch.ops.int8 import w_channels
+from pyfft_tpu_torch.ops.int8 import w_tables
 from pyfft_tpu_torch.planner import MAX_FUSED2D_ELEMS, MIN_TRAIL
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
@@ -252,8 +252,8 @@ def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if factors:
             fy, fx = (local.matrix_factor(f) for f in factors)
-            wy = w_channels(fy, sign, re.device)
-            wx = w_channels(fx, sign, re.device)
+            wy = w_tables(fy, sign, re.device)
+            wx = w_tables(fx, sign, re.device)
             err = fn_i8(*ptrs, wy.data_ptr(), wx.data_ptr(), dims, ilog2(ny),
                         ilog2(fy), ilog2(nx), ilog2(fx), int(sign),
                         float(postscale), stream)

@@ -17,10 +17,12 @@ integer products.  For a stage input x = (xr, xi):
    groups recombined in float32 in ascending order of shift.
 
 Here live the port's copies of the constants and of ``_int8_chunks_np``,
-the plain torch version ``int8_stage`` and the device cache of the
-channels the kernels read (``w_channels``).  The kernels themselves are
-``csrc/int8_stage.cuh``, a stage inside the row kernel (K1) and the column
-kernel (K5); ``ops/local.py`` launches them.
+the plain torch version ``int8_stage``, the shared-memory image of the
+channels that the wgmma stage copies (``w_image``) and the device cache of
+what the kernels read (``w_tables``: the channels, then the image).  The kernels themselves are ``csrc/int8_stage.cuh``,
+a stage inside the row kernels (K1, K2), the column kernel (K5, K4) and the
+fused 2D kernels (K8, K9); ``ops/local.py`` and ``ops/fused2d.py`` launch
+them.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import torch
 from pyfft_tpu_torch.ops.twiddle import dft_matrix
 
 __all__ = ["B", "W_SHIFTS", "X_SHIFTS", "KEEP", "int8_chunks_np",
-           "stacked_channels", "int8_stage", "w_channels", "PRECISIONS"]
+           "stacked_channels", "int8_stage", "w_rows", "w_image",
+           "w_tables", "SLAB_ROWS", "PRECISIONS"]
 
 B = 7
 W_SHIFTS = tuple(B * (i + 1) for i in range(3))
@@ -42,6 +45,9 @@ KEEP = 35
 
 # The precisions the local FFTs take: the float path, and the int8 stage.
 PRECISIONS = ("highest", "int8")
+
+# Output rows of one slab of W's shared-memory image: one m64 tile of wgmma.
+SLAB_ROWS = 64
 
 
 def int8_chunks_np(x: np.ndarray, shifts) -> tuple[np.ndarray, ...]:
@@ -63,13 +69,54 @@ def stacked_channels(f: int, sign: int) -> tuple[np.ndarray, ...]:
     return int8_chunks_np(np.block([[wr, -wi], [wi, wr]]), W_SHIFTS)
 
 
+def w_rows(f: int) -> np.ndarray:
+    """The stacked rows of the matrix in the order of ``w_image``'s slabs:
+    row r of slab t is output k = 32t + 8(r // 16) + r % 8, its real part
+    (stacked row k) where (r // 8) is even, else its imaginary part
+    (stacked row f + k).  So the rows r and r + 8 of each warp's 16 rows of
+    a wgmma tile hold both parts of one output."""
+    r = np.arange(2 * f)
+    t, r = r // SLAB_ROWS, r % SLAB_ROWS
+    return ((r >> 3) & 1) * f + 32 * t + (r >> 4) * 8 + (r & 7)
+
+
+def w_image(f: int, sign: int) -> np.ndarray:
+    """The channels of ``stacked_channels(f, sign)`` (f >= 32) as the wgmma
+    stage reads them from shared memory: flat int8 bytes in slabs of
+    ``SLAB_ROWS`` output rows (the stacked rows ``w_rows(f)``), each slab the
+    3 channels of those rows, each channel's rows in wgmma's K-major core
+    matrices without swizzle (8 rows of 16 bytes, 128 contiguous bytes),
+    the core matrices of 8 rows in order along k, then the next 8 rows.
+    Channel c's element (row w_rows(f)[i], column k) lies at byte
+
+        (i // 64) * 3*64*2f + c * 64*2f + ((i % 64) // 8) * 8*2f
+            + (k // 16) * 128 + (i % 8) * 16 + k % 16,
+
+    so a slab is 3 * 64 * 2f bytes (48 KB at f = 128) and the image
+    3 * (2f)^2, as the channels."""
+    k2 = 2 * f
+    if k2 % SLAB_ROWS:
+        raise ValueError(f"the wgmma stage takes f >= {SLAB_ROWS // 2}, "
+                         f"got {f}")
+    w = np.stack(stacked_channels(f, sign))[:, w_rows(f)]   # (c, i, k)
+    img = w.reshape(3, k2 // SLAB_ROWS, SLAB_ROWS // 8, 8, k2 // 16, 16)
+    # (c, slab, i-group, i % 8, k-group, k % 16)
+    #   -> (slab, c, i-group, k-group, i % 8, k % 16)
+    return np.ascontiguousarray(img.transpose(1, 0, 2, 4, 3, 5)).reshape(-1)
+
+
 @functools.lru_cache(maxsize=None)
-def w_channels(f: int, sign: int, device: torch.device) -> torch.Tensor:
-    """The channels of ``stacked_channels(f, sign)`` as one C-contiguous
-    (3, 2f, 2f) int8 tensor on ``device``, as the kernels read them (row
-    k, column r at offset (channel * 2f + k) * 2f + r)."""
-    w = np.ascontiguousarray(np.stack(stacked_channels(f, sign)))
-    return torch.from_numpy(w).to(device)
+def w_tables(f: int, sign: int, device: torch.device) -> torch.Tensor:
+    """What the kernels' int8 stage is handed, on ``device``: the (3, 2f,
+    2f) channels of ``stacked_channels(f, sign)`` flat and C-contiguous
+    (row k, column r of channel c at byte (c * 2f + k) * 2f + r), followed
+    for f >= 32 by ``w_image``, which starts 16-byte aligned (at 12 f^2
+    bytes) for the bulk copy.  The mma.sync stage reads the first part, the
+    wgmma stage the second."""
+    parts = [np.stack(stacked_channels(f, sign)).reshape(-1)]
+    if 2 * f >= SLAB_ROWS:
+        parts.append(w_image(f, sign))
+    return torch.from_numpy(np.concatenate(parts)).to(device)
 
 
 def _exp2(e: torch.Tensor) -> torch.Tensor:

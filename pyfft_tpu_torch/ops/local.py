@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from pyfft_tpu_torch.ops.int8 import (PRECISIONS, int8_stage,
-                                      stacked_channels, w_channels)
+                                      stacked_channels, w_tables)
 from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
                                          twiddle_table_strided)
 from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
@@ -70,7 +70,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
            "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
-           "col_width_i8", "supported_fold", "fft_axis_fold", "fold_lanes"]
+           "col_width_i8", "rows_i8_stage", "supported_fold",
+           "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -591,6 +592,29 @@ def _rows_i8_fn():
     return fn
 
 
+def rows_i8_stage(n: int, f: int) -> str:
+    """Which K10 stage the int8 row kernels (K1 + K10, K2 + K10) run at
+    length n with matrix factor f: "wgmma" where the block has a warpgroup
+    (128 threads: n >= 1024, since a block takes max(n, 512) points at 8 a
+    thread, at most 512 threads) and f >= 32, else "mma" (mma.sync).  The
+    kernels make the same choice at compile time; ``_rows_i8_stage_fn``
+    reports it."""
+    threads = min(max(n, 512) // 8, 512)
+    return "wgmma" if threads >= 128 and f >= 32 else "mma"
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_i8_stage_fn():
+    """The C entry point ``pyfft_local_rows_i8_stage`` of csrc/local_rows.cu:
+    (log2 n, log2 f) -> 1 for the wgmma stage, 0 for the mma.sync one, -1
+    where no int8 row kernel is instantiated."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_rows").pyfft_local_rows_i8_stage
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def matrix_factor(factors) -> int:
     """The f of a chain's matrix stage, the one the int8 stage replaces:
     its last factor where that is not a radix 2, 4 or 8, else 0 (no
@@ -635,7 +659,7 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if i8_f:
-            w = w_channels(i8_f, sign, re.device)
+            w = w_tables(i8_f, sign, re.device)
             err = _rows_i8_fn()(*ptrs, w.data_ptr(), *args[:2], ilog2(i8_f),
                                 *args[2:], stream)
         else:
@@ -784,7 +808,7 @@ def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         if i8_f:
-            w = w_channels(i8_f, sign, v.device)
+            w = w_tables(i8_f, sign, v.device)
             err = _rows_il_i8_fn()(v2.data_ptr(), o2.data_ptr(),
                                    tw.data_ptr(), w.data_ptr(), *args[:2],
                                    ilog2(i8_f), *args[2:], stream)
@@ -895,6 +919,20 @@ def _rows_swap_fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _rows_swap_i8_fn():
+    """The C entry point ``pyfft_local_rows_swap_i8`` of csrc/local_cols.cu
+    (K4 with the int8 stage K10: the int8 column kernel with K4's row
+    load), built at first use; its arguments are ``pyfft_local_cols_i8``'s."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_rows_swap_i8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
                       i8_f: int = 0):
     """Launch K4 from the (L, n1, n) view of the planes into the
@@ -942,11 +980,11 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if i8_f:
-            # K4 + K10 is the int8 column kernel on K4's dims
-            w = w_channels(i8_f, sign, re.device)
-            err = _cols_i8_lib()[0](*ptrs, None, None, w.data_ptr(), dims,
-                                    ilog2(n), ilog2(i8_f), int(sign),
-                                    float(postscale), 0, stream)
+            # K4 + K10: the int8 column kernel with K4's row load
+            w = w_tables(i8_f, sign, re.device)
+            err = _rows_swap_i8_fn()(*ptrs, None, None, w.data_ptr(), dims,
+                                     ilog2(n), ilog2(i8_f), int(sign),
+                                     float(postscale), 0, stream)
         else:
             err = _rows_swap_fn()(*ptrs, dims, ilog2(n), int(sign),
                                   float(postscale), stream)
@@ -1376,7 +1414,7 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         if ctile:
             err = _ctile_fn()(*ptrs, int(ctile), stream)
         elif i8_f:
-            w = w_channels(i8_f, sign, re.device)
+            w = w_tables(i8_f, sign, re.device)
             err = fn(*ptrs[:7], w.data_ptr(), *ptrs[7:9], ilog2(i8_f),
                      *ptrs[9:], int(bool(swap_store)), stream)
         else:

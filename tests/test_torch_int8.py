@@ -65,9 +65,9 @@ def test_int8_chunks_bit_equal(f, sign):
         assert a.dtype == b.dtype == np.int8 and np.array_equal(a, b)
     for a, b in zip(int8.stacked_channels(f, sign), want):
         assert np.array_equal(a, b)
-    w = int8.w_channels(f, sign, torch.device("cpu"))
+    w = int8.w_tables(f, sign, torch.device("cpu"))
     assert w.dtype == torch.int8 and w.is_contiguous()
-    assert tuple(w.shape) == (3, 2 * f, 2 * f)
+    w = w[:12 * f * f].reshape(3, 2 * f, 2 * f)
     assert np.array_equal(w.numpy(), np.stack(want))
 
 
@@ -339,7 +339,7 @@ def log2f(n: int, factors) -> int:
 def test_kernel_instantiations_cover_every_chain(chain):
     """csrc/int8_stage.cuh instantiates the kernels for the (log2 n,
     log2 f) pairs of PYFFT_I8_CHAINS (K1, K5: the row and column chains);
-    the column entry and the interleaved row entry add the pairs they name
+    the K4 + K10 entry and the interleaved row entry add the pairs they name
     outside the list (K4 + K10 and K2 + K10: JAX's default chain, f = 128
     at n = 2048).  Every n's matrix factor must be among them, or the
     launch returns an error."""
@@ -347,9 +347,9 @@ def test_kernel_instantiations_cover_every_chain(chain):
     from pathlib import Path
     pairs = macro_cases("int8_stage.cuh", "PYFFT_I8_CHAINS", 2)
     if chain.startswith("default"):
-        # K4 + K10: the column entry; K2 + K10: the row kernels' dispatch
-        # under `if constexpr (IL)`
-        source, entry = (("local_cols.cu", "int pyfft_local_cols_i8(")
+        # K4 + K10: its entry in the column source; K2 + K10: the row
+        # kernels' dispatch under `if constexpr (IL)`
+        source, entry = (("local_cols.cu", "int pyfft_local_rows_swap_i8(")
                          if chain == "default" else
                          ("local_rows.cu", "cudaError_t dispatch_i8("))
         src = (Path(local.__file__).parent / "csrc" / source)

@@ -66,7 +66,7 @@ def test_int8_entry_points_leave_jax_out():
             "local.fft_axis(z, z, +1, axis=1, precision='int8', tw_n=256*128)\n"
             "local.fft_rows_plain(z, z, -1, precision='int8')\n"
             "local.fft_cols_plain(z, z, -1, precision='int8')\n"
-            "assert int8.w_channels(64, -1, z.device).dtype == torch.int8\n"
+            "assert int8.w_tables(64, -1, z.device).dtype == torch.int8\n"
             "local.fft_rows_swap(z, z, -1, precision='int8', lanes=64)\n"
             "fused2d.fft2_fused(z, z, -1, precision='int8')\n"
             "fused2d.fft2_fused_tiled(z, z, +1, precision='int8')\n"
