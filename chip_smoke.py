@@ -2320,6 +2320,54 @@ def phase_int8_swap():
               f"C={width} rows a block): {cases} cases incl. a 2^20 spread "
               f"over 128-row groups, max rel err per group vs plain "
               f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {TOL:.0e})")
+    phase_int8_swap_lanes(rng)
+
+
+def phase_int8_swap_lanes(rng):
+    """K4+K10 with lanes = 64 at n = 16 and 32, where a block holds 128
+    rows (two of JAX's groups): against fft_rows_swap_plain(lanes=64) and
+    numpy per 64-row group, every other group 2^20 above the rest."""
+    from pyfft_tpu_torch.ops import local
+    lanes = 64
+    for n in (16, 32):
+        before = local.SWAP_I8_LAUNCHES
+        worst_plain = worst_np = 0.0
+        cases = 0
+        x = rand_c64(rng, (2, 384, n))
+        x[:, lanes:2 * lanes] *= 2.0 ** 20
+        x[:, 3 * lanes:4 * lanes] *= 2.0 ** -20
+        xc = torch.from_numpy(x).cuda()
+        x128 = x.astype(np.complex128)
+        for sign in (-1, +1):
+            X = np.fft.fft(x128) if sign < 0 else np.fft.ifft(x128) * n
+            ref = torch.from_numpy(np.ascontiguousarray(
+                X.transpose(0, 2, 1))).cuda()
+            plain = cplx(*local.fft_rows_swap_plain(
+                xc.real.contiguous(), xc.imag.contiguous(), sign,
+                precision="int8", lanes=lanes))
+            re, im, _ = operands(xc, "planar")
+            g = cplx(*local.fft_rows_swap(re, im, sign, lanes=lanes,
+                                          precision="int8"))
+            torch.cuda.synchronize()
+            tiles = [(0, 1), (2, lanes)]
+            tag = f"n={n} lanes={lanes} sign={sign}"
+            e_plain = tiles_err(g, plain, tiles)
+            e_np = tiles_err(g, ref, tiles)
+            check(f"K4+K10 vs plain {tag}", e_plain)
+            check(f"K4+K10 vs numpy {tag}", e_np)
+            worst_plain = max(worst_plain, e_plain)
+            worst_np = max(worst_np, e_np)
+            cases += 1
+        if local.SWAP_I8_LAUNCHES - before != cases:
+            raise AssertionError(f"K4+K10 lanes={lanes} n={n}: "
+                                 f"{local.SWAP_I8_LAUNCHES - before} "
+                                 f"launches for {cases} calls")
+        print(f"phase 20 K4+K10 n={n} lanes={lanes} (C="
+              f"{local.col_width_i8(n)} rows a block, groups of "
+              f"{local.swap_i8_group(n, lanes)} rows): {cases} cases, a 2^20 "
+              f"spread over {lanes}-row groups, max rel err per group vs "
+              f"plain {worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
+              f"{TOL:.0e})")
 
 
 def phase_int8_2d(tiled: bool):
@@ -2338,7 +2386,21 @@ def phase_int8_2d(tiled: bool):
                                       fused2d.fft2_fused, fused2d.fft2_plain)
         count, cluster = lambda: fused2d.I8_LAUNCHES, fused2d.cluster_size
     rng = np.random.RandomState(23 if tiled else 22)
+    stage_fn = fused2d._i8_stage_fn(tiled)
     for ny, nx in shapes:
+        ly, lx = ny.bit_length() - 1, nx.bit_length() - 1
+        stage = {1: "wgmma", 0: "mma"}.get(stage_fn(ly, lx), "none")
+        if stage != fused2d.i8_stage(ny, nx, tiled) or stage != "wgmma":
+            raise AssertionError(f"{name} {ny}x{nx} reports stage {stage}, "
+                                 f"i8_stage says "
+                                 f"{fused2d.i8_stage(ny, nx, tiled)}")
+        placed = ""
+        if not tiled:
+            clusters = fused2d._i8_clusters_fn()(ly, lx)
+            if clusters < 1:
+                raise AssertionError(f"{name} {ny}x{nx}: no cluster places "
+                                     f"({clusters})")
+            placed = f", {clusters} clusters at once"
         worst_plain = worst_np = 0.0
         before, cases = count(), 0
         for L in (1, 3):
@@ -2373,8 +2435,9 @@ def phase_int8_2d(tiled: bool):
         if count() - before != cases:
             raise AssertionError(f"{name} {ny}x{nx}: {count() - before} "
                                  f"launches for {cases} calls")
-        print(f"phase 20 {name} {ny}x{nx} (a cluster of {cluster(ny, nx)} "
-              f"blocks a plane): {cases} cases incl. 3 planes 2^20 apart, "
+        print(f"phase 20 {name} {ny}x{nx} ({stage} stage, a cluster of "
+              f"{cluster(ny, nx)} blocks a plane{placed}): {cases} cases "
+              f"incl. 3 planes 2^20 apart, "
               f"max rel err per plane vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {TOL:.0e})")
 

@@ -17,7 +17,9 @@ wrappers run each build in turn:
 * the int8 kernels (the stage K10, precision="int8"): K1+K10 at config 2
   and at 2048 x 8192 (f = 128), K2+K10 at config 2i and at 2048 x 8192
   interleaved, K5+K10 at config 3's column pass, K4+K10 at variant B's
-  pass 2, K8+K10 at config 4 and K9+K10 at config 3.
+  pass 2, K8+K10 at config 4 and at 16 x 512 x 512 (f = 128: W's slabs
+  streamed, two cut runs a thread), K9+K10 at config 3 and at 16 x 512 x
+  512 (f = 128).
 
 Each is timed by CUDA events (``time_ms``) in four turns, other, this,
 this, other, so that a drift of the card favours neither; then each build
@@ -26,11 +28,14 @@ outputs is printed beside the times.  The last line is a JSON record with
 the card, the ratio this / other of the turns' means and that difference
 for every kernel.  A checkout older than the K4 + K10 entry
 (``pyfft_local_rows_swap_i8``) runs K4 + K10 through its column entry,
-which takes the same arguments.
+which takes the same arguments; one older than K4 + K10's ``group``
+argument takes it without (the block's rows are its group at lanes =
+128).
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -71,13 +76,34 @@ def bind(lib, binder, *args):
         build.load = saved
 
 
-def bindings(libs: dict) -> dict:
+def without_group(fn):
+    """A K4 + K10 entry point from before its ``group`` argument, called
+    as the current one: the group (the block's rows where lanes = 128, all
+    the older entry took) is dropped."""
+    def call(*args):
+        return fn(*args[:-2], args[-1])
+    return call
+
+
+def bindings(libs: dict, csrc: Path | None = None) -> dict:
     """Every entry point the timed wrappers look up, by the name of the
-    lookup function in ``local`` or ``fused2d``, bound to ``libs``."""
+    lookup function in ``local`` or ``fused2d``, bound to ``libs``, built
+    from the sources in ``csrc`` (this checkout's by default)."""
     rows, cols = libs["local_rows"], libs["local_cols"]
-    swap_i8 = (local._rows_swap_i8_fn.__wrapped__
-               if hasattr(cols, "pyfft_local_rows_swap_i8")
-               else lambda: local._cols_i8_lib.__wrapped__()[0])
+    src = ((csrc or build.CSRC) / "local_cols.cu").read_text()
+    if not hasattr(cols, "pyfft_local_rows_swap_i8"):
+        swap_i8 = lambda: without_group(local._cols_i8_lib.__wrapped__()[0])
+    elif "int swap_store, int group," not in src:
+        def swap_i8():
+            fn = cols.pyfft_local_rows_swap_i8
+            fn.argtypes = ([ctypes.c_void_p] * 8
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            return without_group(fn)
+    else:
+        swap_i8 = local._rows_swap_i8_fn.__wrapped__
     return {
         "_cols_lib": {d: bind(cols, local._cols_lib.__wrapped__, d)
                       for d in DTYPES},
@@ -166,6 +192,10 @@ def cases() -> list:
          fused(fused2d.fft2_fused, (256, 256, 256), "int8")),
         ("K9+K10 config 3 (16 x 1024^2, int8)",
          fused(fused2d.fft2_fused_tiled, (16, 1024, 1024), "int8")),
+        ("K8+K10 16 x 512^2 (int8, f=128)",
+         fused(fused2d.fft2_fused, (16, 512, 512), "int8")),
+        ("K9+K10 16 x 512^2 (int8, f=128)",
+         fused(fused2d.fft2_fused_tiled, (16, 512, 512), "int8")),
     ]
 
 
@@ -180,7 +210,8 @@ def main(other: Path) -> int:
     csrc = other / "pyfft_tpu_torch" / "ops" / "csrc"
     libs = {"this": {k: build.load(k) for k in SOURCES},
             "other": {k: load_other(csrc, k) for k in SOURCES}}
-    bound = {w: bindings(libs[w]) for w in libs}
+    bound = {"this": bindings(libs["this"]),
+             "other": bindings(libs["other"], csrc)}
     saved = {k: getattr(fused2d if k in ("_lib", "_tiled_lib") else local, k)
              for k in bound["this"]}
 

@@ -1,11 +1,12 @@
-"""Where the time of the int8 row and column kernels goes: each piece of
-K10's wgmma stage removed in turn, on one CUDA card.
+"""Where the time of the int8 kernels goes: each piece of K10's wgmma
+stage removed in turn, on one CUDA card.
 
     python3 probes/int8_split.py
 
 Builds, from copies of this checkout's ``csrc/`` patched in a temporary
-directory (the checkout is not touched), ``local_rows.cu`` and
-``local_cols.cu`` in six variants, one nvcc each, all at once:
+directory (the checkout is not touched), ``local_rows.cu``,
+``local_cols.cu``, ``fused2d.cu`` and ``fused2d_tiled.cu`` in six variants,
+one nvcc each, eight at a time:
 
   full    the sources as they are (built with ``-Xptxas -v``: the int8
           kernels' registers, spills and serialised wgmma are printed)
@@ -16,10 +17,12 @@ directory (the checkout is not touched), ``local_rows.cu`` and
   occ     as now, with the shared memory of the float host alone (the
           blocks an SM the W buffers cost)
 
-and times each on the int8 main-path shapes: K1+K10 at config 2 and at
-2048 x 8192, K2+K10 at config 2i, K5+K10 at config 3's column pass and
-K4+K10 at variant B's pass 2, by CUDA events (``time_ms``), the full
-kernel first and last.  The difference between neighbouring variants is
+and times each on the int8 shapes of probes/ab_parent.py: K1+K10 at
+config 2 and at 2048 x 8192, K2+K10 at config 2i, K5+K10 at config 3's
+column pass, K4+K10 at variant B's pass 2, K8+K10 at config 4 and at 16 x
+512 x 512 and K9+K10 at config 3 and at 16 x 512 x 512, by CUDA events
+(``time_ms``), the full kernel first and last.  In K8+K10 without stores
+the gather reads x's channels: the time is still the kernel's work.  The difference between neighbouring variants is
 the time of the piece removed.  Every patch asserts that its text is in
 the sources, so an edited stage fails here instead of timing the wrong
 thing.  The last line is a JSON record with the card.
@@ -48,9 +51,11 @@ from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
 from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
 VARIANTS = ("full", "noput", "noprod", "nocut", "now", "occ")
-SOURCES = ("local_rows", "local_cols")
+SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled")
 CASES = ("K1+K10 config 2", "K1+K10 2048", "K2+K10 config 2i",
-         "K5+K10", "K4+K10")
+         "K5+K10", "K4+K10", "K8+K10", "K9+K10")
+FUSED_SMEM = ("static constexpr int SMEM = HOST + cmax(PlanX::W_BYTES, "
+              "PlanY::W_BYTES);")
 
 # (file, text, replacement), cumulative: a variant takes its own patches
 # and every earlier one's but noput's
@@ -58,8 +63,8 @@ PATCHES = {
     "noput": [("int8_stage.cuh", "      map.put2(n0 + 8 * j + 2 * t4, k,",
                "      if (acc[0] == 1234.5f)\n"
                "      map.put2(n0 + 8 * j + 2 * t4, k,")],
-    "noprod": [("int8_stage.cuh", "wgmma_s8<NCH>(d, smem_desc(",
-                "if (m == 99999) wgmma_s8<NCH>(d, smem_desc(")],
+    "noprod": [("int8_stage.cuh", "wgmma_s8<NCH>(d, desc(",
+                "if (m == 99999) wgmma_s8<NCH>(d, desc(")],
     "nocut": [("int8_stage.cuh",
                "*reinterpret_cast<uint4*>(xs + c * K2 * Q + off) =",
                "if (m == 99999)\n"
@@ -76,7 +81,10 @@ PATCHES = {
             ("local_cols.cu",
              "static constexpr int SMEM = TC ? HOST + Plan::W_BYTES : "
              "DATA + Y;",
-             "static constexpr int SMEM = TC ? HOST : DATA + Y;")],
+             "static constexpr int SMEM = TC ? HOST : DATA + Y;"),
+            ("fused2d.cu", FUSED_SMEM, "static constexpr int SMEM = HOST;"),
+            ("fused2d_tiled.cu", FUSED_SMEM,
+             "static constexpr int SMEM = HOST;")],
 }
 
 
@@ -100,12 +108,17 @@ def patched(variant: str, tmp: Path) -> Path:
 
 
 def compile_all(tmp: Path) -> dict:
-    """{(variant, source): CDLL}, every nvcc at once; the full variant's
+    """{(variant, source): CDLL}, eight nvcc at a time; the full variant's
     ptxas report kept as (variant, source, "log")."""
     dirs = {v: patched(v, tmp) for v in VARIANTS}
     out, errors = {}, {}
+    slots = threading.Semaphore(8)
 
     def one(v, name):
+        with slots:
+            build_one(v, name)
+
+    def build_one(v, name):
         flags = [*build.NVCC_FLAGS] + (["-Xptxas", "-v"] if v == "full"
                                        else [])
         lib = dirs[v] / f"lib{name}.so"
@@ -129,9 +142,10 @@ def compile_all(tmp: Path) -> dict:
     return out
 
 
-# an int8 kernel's mangled name -> local_<rows|cols>_i8_kernel<its
-# template arguments>
-KERNEL = re.compile(r"(local_(?:rows|cols)_i8_kernel)I(\w+?)E(?:EEv|Ev)")
+# an int8 kernel's mangled name -> local_<rows|cols>_i8_kernel or
+# fused2d[_tiled]_i8_kernel <its template arguments>
+KERNEL = re.compile(r"((?:local_(?:rows|cols)|fused2d(?:_tiled)?)_i8_kernel)"
+                    r"I(\w+?)E(?:EEv|Ev)")
 
 
 def short(mangled: str) -> str:
@@ -171,7 +185,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
-    fused = {k: build.load(k) for k in ("fused2d", "fused2d_tiled")}
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_all(Path(tmp))
         for name in SOURCES:
@@ -179,9 +192,7 @@ def main() -> int:
                     libs[("full", name, "log")]):
                 print(f"ptxas {kern}: {regs} registers, {spill} bytes "
                       f"spilled" + (", wgmma serialised" if serial else ""))
-        bound = {v: ab_parent.bindings({"local_rows": libs[(v, "local_rows")],
-                                        "local_cols": libs[(v, "local_cols")],
-                                        **fused})
+        bound = {v: ab_parent.bindings({n: libs[(v, n)] for n in SOURCES})
                  for v in VARIANTS}
         saved = {k: getattr(fused2d if k in ("_lib", "_tiled_lib") else local,
                             k) for k in bound["full"]}

@@ -3,7 +3,10 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries go to
-``build/pyfft_tpu_torch/`` beside the package, named by a hash of the
+``build/pyfft_tpu_torch/`` in a checkout of the repository (the directory
+that holds ``pyproject.toml`` beside the package), and to
+``~/.cache/pyfft_tpu_torch/build`` for an installed package, whose
+site-packages may not be writable.  They are named by a hash of the
 source together with every ``csrc/*.cuh`` header and the flags, so an
 edited ``.cu`` or shared header rebuilds and an unchanged one is reused.
 Each kernel has its own lock, so several kernels can build at once from
@@ -26,7 +29,19 @@ from pathlib import Path
 __all__ = ["load", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyfft_tpu_torch"
+
+
+def _build_dir(package: Path) -> Path:
+    """Where the libraries of the package at ``package`` (the
+    ``pyfft_tpu_torch`` directory) go: ``build/pyfft_tpu_torch`` in the
+    checkout that holds it, else the user's cache."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "pyfft_tpu_torch"
+    return Path.home() / ".cache" / "pyfft_tpu_torch" / "build"
+
+
+BUILD_DIR = _build_dir(Path(__file__).resolve().parents[1])
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -3,13 +3,15 @@
 // stores: the stage code of the 2D kernels (fused2d.cu, K8, and
 // fused2d_tiled.cu, K9).  NT is the block's thread count.  Complex64.
 // For their int8 kernels (precision="int8"), `lead` runs the stages in
-// front of the f-point int8 stage and ChainMap gives that stage
-// (int8_stage.cuh) the buffer's layout.  At the bottom, the host side the
-// two sources share: their operands (Planes2D) and the cluster launch.
+// front of the f-point int8 stage, ChainMap gives that stage
+// (int8_stage.cuh's int8_stage_tc) the buffer's layout and put_pair writes
+// its outputs.  At the bottom, the host side the two sources share: their
+// operands (Planes2D) and the cluster launch.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "stockham.cuh"
 
@@ -111,21 +113,46 @@ __device__ __forceinline__ void lead(float2* sm, const float2* __restrict__ tw,
 // index(c, j + r*NS) of the chain's layout (ROWS: c*N + k, else k*C + c),
 // the run j fastest in ROWS so that neighbouring lanes read neighbouring
 // slots.  Output k of column q is element j + k*NS of transform c, natural
-// order, handed to put(c, k, part, v).
-template <int N, int F, int C, bool ROWS, class Put>
+// order; int8_stage_tc hands it over for two columns at a time, q and q +
+// 1, to out(c0, k0, c1, k1, re, im): element k0 of transform c0 is (re.x,
+// im.x), element k1 of c1 is (re.y, im.y).  INTO_X: out writes where x's
+// channels lie (the buffer), so the stage holds its outputs until its
+// last product.
+template <int N, int F, int C, bool ROWS, class Out, bool HOLD = false>
 struct ChainMap {
   static constexpr int NS = N / F, Q = C * NS;
-  Put out;
+  static constexpr bool INTO_X = HOLD, GROUPS = false;
+  Out out;
   __device__ int cof(int q) const { return ROWS ? q / NS : q % C; }
   __device__ int jof(int q) const { return ROWS ? q % NS : q / C; }
   __device__ int index(int q, int r) const {
     const int k = jof(q) + r * NS;
     return ROWS ? cof(q) * N + k : k * C + cof(q);
   }
-  __device__ void put(int q, int k, int part, float v) const {
-    out(cof(q), jof(q) + k * NS, part, v);
+  __device__ void put2(int q, int k, float2 re, float2 im) const {
+    out(cof(q), jof(q) + k * NS, cof(q + 1), jof(q + 1) + k * NS, re, im);
   }
 };
+
+// Two outputs of an int8 stage to device memory, times `post`: (re.x,
+// im.x) at offset o0 of the planes, (re.y, im.y) at o1; one 8-byte store
+// of each plane where they are neighbours.
+__device__ __forceinline__ void put_pair(float* out_re, float* out_im,
+                                         long long o0, long long o1,
+                                         float2 re, float2 im, float post) {
+  re = make_float2(re.x * post, re.y * post);
+  im = make_float2(im.x * post, im.y * post);
+  if (o1 == o0 + 1 && ((reinterpret_cast<uintptr_t>(out_re + o0) |
+                        reinterpret_cast<uintptr_t>(out_im + o0)) & 7) == 0) {
+    *reinterpret_cast<float2*>(out_re + o0) = re;
+    *reinterpret_cast<float2*>(out_im + o0) = im;
+  } else {
+    out_re[o0] = re.x;
+    out_im[o0] = im.x;
+    out_re[o1] = re.y;
+    out_im[o1] = im.y;
+  }
+}
 
 // The operands of a 2D kernel: L planes, strides (l, y, x) in floats.
 struct Planes2D {

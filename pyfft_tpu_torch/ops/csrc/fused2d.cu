@@ -59,17 +59,28 @@
 // kernel runs y first, then x; in float the order changes nothing, under
 // int8 each stage quantises other data, so the kernel matches JAX's
 // function within the int8 stage's error (held at 2e-6), not bit for bit.
-// Phase 1's output has to stay in shared memory for the gather, and at
-// 2^18 points a plane a block's share is 128 KB, so a second buffer does
-// not fit: phase 1's stage runs in place (int8_stage's IN_PLACE, output k
-// of a column in the slot of its input k, after a barrier where warps
-// share columns).  Phase 2's stage writes its outputs straight to device
-// memory, postscale folded.  At ny = f the gather stage only gathers (radix
-// 1); at nx = f phase 1 loads the rows first.
+// Both stages are int8_stage_tc, on wgmma (512 threads and f >= 32 at
+// every shape): W's image copied into shared memory after the block's
+// share of the plane by cp.async.bulk, x cut once into the share's place,
+// the products from shared memory.  Phase 1's output has to stay in shared
+// memory for the gather, and at 2^18 points a plane a block's share is
+// 128 KB, so a second buffer does not fit: phase 1's stage holds its
+// outputs in registers and writes them over x's channels, in the row
+// layout the gather reads, after its last product (Map::INTO_X).  Phase
+// 2's stage writes its outputs straight to device memory, two columns a
+// store, postscale folded.  wx's image is copied from kernel entry on, so
+// it lands while phase 1's radix stages run; where fy = fx phase 2 reuses
+// it (at f = 128 the last slabs of phase 1 start the copies of phase 2's
+// first), else wy's copy starts once every warpgroup is done with phase
+// 1's products, across the cluster barrier and the gather.  At 2^18 points
+// a plane a block holds 128 KB of the plane and W's buffers (two 48 KB
+// slabs at f = 128: 224 KB in all), and its stages cut two 16-value runs
+// a thread.  At ny = f the gather stage only gathers (radix 1); at nx = f
+// phase 1 loads the rows first.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry points `pyfft_fused2d` and
-// `pyfft_fused2d_i8` at the bottom.
+// library with the plain C entry points `pyfft_fused2d`, `pyfft_fused2d_i8`
+// and the int8 kernel's records at the bottom.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -187,8 +198,26 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 
 // ------------------------------------------------------ K8 + K10 (int8)
 
+// The int8 kernel's plan at (log2 ny, log2 fy, log2 nx, log2 fx): each
+// axis's wgmma stage and the shared memory, the block's share of the plane
+// (HOST bytes) and W's buffers after it, the larger of the two stages'.
+template <int LY, int LFY, int LX, int LFX>
+struct I8Plan {
+  using S = Shape2<LY, LX>;
+  static constexpr int FY = 1 << LFY, FX = 1 << LFX;
+  static constexpr int HOST = S::PB * (int)sizeof(float2);
+  using PlanX = TcPlan<FX, NT, S::RB * (S::NX >> LFX), HOST, true>;
+  using PlanY = TcPlan<FY, NT, S::CB * (S::NY >> LFY), HOST>;
+  static constexpr bool TC = tc_stage(FX, NT) && tc_stage(FY, NT);
+  static constexpr int SMEM = HOST + cmax(PlanX::W_BYTES, PlanY::W_BYTES);
+  static_assert(TC, "both stages on wgmma");
+  // 2^18 points a plane, f = 128: 128 KB of the plane and two 48 KB slabs
+  static_assert(SMEM + 1024 <= 227 * 1024, "fits a block's shared memory");
+};
+
 // K8's function with the f-point int8 stage last on each axis (fy =
-// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' (3, 2f, 2f) int8 channels.
+// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' tables, the (3, 2f, 2f) int8
+// channels and then W's image (w_image_offset).
 template <int LY, int LFY, int LX, int LFX>
 __global__ void __launch_bounds__(NT)
     fused2d_i8_kernel(Planes2D io, const float2* __restrict__ twy,
@@ -196,11 +225,18 @@ __global__ void __launch_bounds__(NT)
                       const int8_t* __restrict__ wy,
                       const int8_t* __restrict__ wx) {
   using S = Shape2<LY, LX>;
+  using K = I8Plan<LY, LFY, LX, LFX>;
   constexpr int RB = S::RB, CB = S::CB, NX = S::NX, NY = S::NY;
   constexpr int LBY = LY - LFY;     // bits of y's radix stages
   constexpr int RY = LBY == 0 ? 1 : ((LBY % 3) ? (1 << (LBY % 3)) : 8);
-  extern __shared__ float2 sm[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[NT / 32];
+  __shared__ uint64_t bars[W_BARS];
+  float2* sm = reinterpret_cast<float2*>(smem_raw);
+  const int8_t* wimx = wx + w_image_offset(K::FX);
+  const int8_t* wimy = wy + w_image_offset(K::FY);
+  WBufs w = tc_fetch_w<typename K::PlanX>(
+      wimx, reinterpret_cast<int8_t*>(smem_raw + K::HOST), bars);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long l = blockIdx.x / S::G;
@@ -213,18 +249,30 @@ __global__ void __launch_bounds__(NT)
     const long long o = (rank * RB + c) * io.in_ys + k * io.in_xs;
     return make_float2(in_re[o], in_im[o]);
   };
-  float* smf = reinterpret_cast<float*>(sm);
-  const auto put_row = [&](int c, int k, int part, float v) {
-    smf[2 * (c * NX + k) + part] = v;
+  // phase 1's outputs, row c at x = k, into the row layout the gather
+  // reads: one 16-byte store where the two are neighbours
+  const auto put_row = [&](int c0, int k0, int c1, int k1, float2 re,
+                           float2 im) {
+    const int s0 = c0 * NX + k0, s1 = c1 * NX + k1;
+    if (s1 == s0 + 1 && (s0 & 1) == 0) {
+      *reinterpret_cast<float4*>(sm + s0) =
+          make_float4(re.x, im.x, re.y, im.y);
+    } else {
+      sm[s0] = make_float2(re.x, im.x);
+      sm[s1] = make_float2(re.y, im.y);
+    }
   };
-  const auto put_col = [&](int c, int k, int part, float v) {   // y = k
-    const long long o = k * io.out_ys + (rank * CB + c) * io.out_xs;
-    (part ? out_im : out_re)[o] = v * io.post;
+  // phase 2's outputs, column c at y = k, to device memory, postscale
+  // folded: 8-byte stores of each plane where the two are neighbours
+  const auto put_col = [&](int c0, int k0, int c1, int k1, float2 re,
+                           float2 im) {
+    put_pair(out_re, out_im, k0 * io.out_ys + (rank * CB + c0) * io.out_xs,
+             k1 * io.out_ys + (rank * CB + c1) * io.out_xs, re, im, io.post);
   };
   const auto none_load = [](int, int) { return make_float2(0.f, 0.f); };
 
   // phase 1: the block's rows, read along x, transformed along x, the int8
-  // stage in place
+  // stage's outputs held until its last product, then over its input
   if constexpr (LX == LFX) {
     for (int e = threadIdx.x; e < S::PB; e += NT)
       sm[e] = load_row(e / NX, e % NX);
@@ -232,9 +280,12 @@ __global__ void __launch_bounds__(NT)
   } else {
     lead<NT, LX, LFX, RB, true, 0, 1, true>(sm, twx, s, load_row);
   }
-  using RowMap = ChainMap<NX, (1 << LFX), RB, true, decltype(put_row)>;
-  int8_stage<(1 << LFX), NT, RowMap, true>(RowMap{put_row}, sm, twx, wx,
-                                            red);
+  using RowMap = ChainMap<NX, K::FX, RB, true, decltype(put_row), true>;
+  int8_stage_tc<K::FX, NT, K::HOST, 64, true>(RowMap{put_row}, sm, twx, wimx,
+                                              w, red, K::FX == K::FY);
+  // every warpgroup is done with wx's image: wy's copy, where it differs,
+  // lands across the cluster barrier, the gather and y's radix stages
+  if constexpr (K::FX != K::FY) tc_issue_w<typename K::PlanY>(wimy, w);
 
   // every block's rows transformed before any block gathers a column
   cluster.sync();
@@ -243,8 +294,9 @@ __global__ void __launch_bounds__(NT)
   // along y, the int8 stage writing them along x
   column_gather_stage<LY, LX, RY>(cluster, sm, rank, s);
   lead<NT, LY, LFY, CB, false, 1, RY, false>(sm, twy, s, none_load);
-  using ColMap = ChainMap<NY, (1 << LFY), CB, false, decltype(put_col)>;
-  int8_stage<(1 << LFY), NT>(ColMap{put_col}, sm, twy, wy, red);
+  using ColMap = ChainMap<NY, K::FY, CB, false, decltype(put_col)>;
+  int8_stage_tc<K::FY, NT, K::HOST, 64, true>(ColMap{put_col}, sm, twy, wimy,
+                                              w, red);
 }
 
 // (log2 ny, log2 nx) -> launch<LY, LX>, for 7 <= each <= 11 and a sum of
@@ -273,18 +325,68 @@ cudaError_t dispatch_i8(int ly, int lfy, int lx, int lfx, const Planes2D& io,
                         const float2* twy, const float2* twx, float s,
                         const int8_t* wy, const int8_t* wx,
                         cudaStream_t st) {
-#define PYFFT_CASE(a, fa, b, fb)                                          \
-  if (ly == a && lfy == fa && lx == b && lfx == fb)                       \
-    return launch_cluster<NT>(fused2d_i8_kernel<a, fa, b, fb>, io.L,      \
-                              Shape2<a, b>::G,                            \
-                              Shape2<a, b>::PB * (int)sizeof(float2), st, \
-                              io, twy, twx, s, wy, wx);
+#define PYFFT_CASE(a, fa, b, fb)                                        \
+  if (ly == a && lfy == fa && lx == b && lfx == fb)                     \
+    return launch_cluster<NT>(fused2d_i8_kernel<a, fa, b, fb>, io.L,    \
+                              Shape2<a, b>::G, I8Plan<a, fa, b, fb>::SMEM, \
+                              st, io, twy, twx, s, wy, wx);
   PYFFT_FUSED2D_I8_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return cudaErrorInvalidValue;
 }
 
+// The clusters of the int8 kernel at (log2 ny, log2 nx) that the card can
+// hold at once (cudaOccupancyMaxActiveClusters), 0 where none places, a
+// negative cudaError_t where the query fails, -1000 outside the range.
+int i8_clusters(int ly, int lx) {
+#define PYFFT_CASE(a, fa, b, fb)                                          \
+  if (ly == a && lx == b) {                                               \
+    const auto kernel = fused2d_i8_kernel<a, fa, b, fb>;                  \
+    const int smem = I8Plan<a, fa, b, fb>::SMEM;                          \
+    cudaError_t e = cudaFuncSetAttribute(                                 \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);       \
+    if (e == cudaSuccess && Shape2<a, b>::G > 8)                          \
+      e = cudaFuncSetAttribute(                                           \
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);     \
+    if (e != cudaSuccess) return -(int)e;                                 \
+    cudaLaunchConfig_t cfg = {};                                          \
+    cfg.gridDim = dim3(Shape2<a, b>::G);                                  \
+    cfg.blockDim = dim3(NT);                                              \
+    cfg.dynamicSmemBytes = smem;                                          \
+    cudaLaunchAttribute attr[1];                                          \
+    attr[0].id = cudaLaunchAttributeClusterDimension;                     \
+    attr[0].val.clusterDim.x = Shape2<a, b>::G;                           \
+    attr[0].val.clusterDim.y = 1;                                         \
+    attr[0].val.clusterDim.z = 1;                                         \
+    cfg.attrs = attr;                                                     \
+    cfg.numAttrs = 1;                                                     \
+    int n = 0;                                                            \
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);                 \
+    return e == cudaSuccess ? n : -(int)e;                                \
+  }
+  PYFFT_FUSED2D_I8_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return -1000;
+}
+
 }  // namespace
+
+// The stage the int8 kernel runs at (log2 ny, log2 nx): 1 the wgmma stage
+// on both axes, 0 the mma.sync one, -1 where no int8 kernel is
+// instantiated.
+extern "C" int pyfft_fused2d_i8_stage(int log2ny, int log2nx) {
+#define PYFFT_CASE(a, fa, b, fb) \
+  if (log2ny == a && log2nx == b) return I8Plan<a, fa, b, fb>::TC ? 1 : 0;
+  PYFFT_FUSED2D_I8_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return -1;
+}
+
+// Its clusters that fit the card at once (see i8_clusters): at least 1
+// wherever a 16-block cluster of 224 KB blocks places.
+extern "C" int pyfft_fused2d_i8_clusters(int log2ny, int log2nx) {
+  return i8_clusters(log2ny, log2nx);
+}
 
 // The cluster size (blocks a plane) at (log2 ny, log2 nx), 0 outside the
 // kernel's range: for the wrapper's checks and the records.
@@ -315,7 +417,8 @@ extern "C" int pyfft_fused2d(const void* in_re, const void* in_im,
 
 // K8 + K10: as pyfft_fused2d with the f-point int8 stage last on each axis,
 // fy = 2^log2fy and fx = 2^log2fx (see PYFFT_FUSED2D_I8_CASES); `wchy` and
-// `wchx` hold the stages' channels, (3, 2f, 2f) int8 C-contiguous each.
+// `wchx` hold the stages' channels, (3, 2f, 2f) int8 C-contiguous each,
+// followed by their shared-memory image (ops/int8.py `w_tables`).
 extern "C" int pyfft_fused2d_i8(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* twy,
                                 const void* twx, const void* wchy,

@@ -64,14 +64,21 @@
 // int8_stage.cuh (f the last factor of the JAX package's column chain,
 // `col_factors`, as `_fft2_fused_tiled` takes: 32 at 256), whose outputs go
 // straight to device memory, where both of K9's phases store anyway: no
-// second buffer, the 64 KB chunk unchanged.  The alignment group is the
-// chunk: RC rows or CC columns of one plane, at most CHUNK / n <= 64 and
-// aligned to their count, so inside one 128-wide slice, the width of the
-// JAX kernel's groups (a 128-column slice for y, 128 ky-rows for x).  The
-// JAX kernel runs y first, then x; this kernel keeps
-// K9's x first, so each int8 stage quantises other data than JAX's and
-// the kernel matches JAX's function within the stage's error (held at
-// 2e-6), not bit for bit.  At n = f a chunk loads its data first.
+// second buffer, the 64 KB chunk unchanged.  The stage is int8_stage_tc,
+// on wgmma (512 threads, f >= 32 at every shape): W's image sits after the
+// chunk in shared memory, copied by cp.async.bulk from kernel entry on.
+// At f <= 64 it stays there for every chunk of the axis, and for both axes
+// where fy = fx: one copy a block.  At f = 128 its 48 KB slabs stream
+// through the buffers again for each chunk, the last slabs of one chunk
+// starting the copies of the next's first.  Where fy differs from fx, wy's
+// copy starts after phase 1's last chunk, across the cluster barrier.
+// The alignment group is the chunk: RC rows or CC columns of one plane, at
+// most CHUNK / n <= 64 and aligned to their count, so inside one
+// 128-wide slice, the width of the JAX kernel's groups (a 128-column slice
+// for y, 128 ky-rows for x).  The JAX kernel runs y first, then x; this
+// kernel keeps K9's x first, so each int8 stage quantises other data than
+// JAX's and the kernel matches JAX's function within the stage's error
+// (held at 2e-6), not bit for bit.  At n = f a chunk loads its data first.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_fused2d_tiled` and
@@ -163,8 +170,28 @@ __global__ void __launch_bounds__(NT)
 
 // ------------------------------------------------------ K9 + K10 (int8)
 
+// The int8 kernel's plan at (log2 ny, log2 fy, log2 nx, log2 fx): each
+// axis's wgmma stage and the shared memory, the chunk buffer (HOST bytes)
+// and W's buffers after it, the larger of the two stages'.
+template <int LY, int LFY, int LX, int LFX>
+struct I8Plan {
+  using S = ShapeT<LY, LX>;
+  static constexpr int FY = 1 << LFY, FX = 1 << LFX;
+  static constexpr int HOST = S::PC * (int)sizeof(float2);
+  // units of at most 32 columns: 64 leave the kernel, whose chunk loop
+  // holds more than K1's, too few registers (spills, serialised wgmma)
+  static constexpr int NMAX = 32;
+  using PlanX = TcPlan<FX, NT, S::RC * (S::NX >> LFX), HOST, false, NMAX>;
+  using PlanY = TcPlan<FY, NT, S::CC * (S::NY >> LFY), HOST, false, NMAX>;
+  static constexpr bool TC = tc_stage(FX, NT) && tc_stage(FY, NT);
+  static constexpr int SMEM = HOST + cmax(PlanX::W_BYTES, PlanY::W_BYTES);
+  static_assert(TC, "both stages on wgmma");
+  static_assert(SMEM + 1024 <= 227 * 1024, "fits a block's shared memory");
+};
+
 // K9's function with the f-point int8 stage last on each axis (fy =
-// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' (3, 2f, 2f) int8 channels.
+// 2^LFY, fx = 2^LFX); `wy`, `wx` the stages' tables, the (3, 2f, 2f) int8
+// channels and then W's image (w_image_offset).
 template <int LY, int LFY, int LX, int LFX>
 __global__ void __launch_bounds__(NT)
     fused2d_tiled_i8_kernel(Planes2D io, const float2* __restrict__ twy,
@@ -172,9 +199,16 @@ __global__ void __launch_bounds__(NT)
                             const int8_t* __restrict__ wy,
                             const int8_t* __restrict__ wx) {
   using S = ShapeT<LY, LX>;
+  using K = I8Plan<LY, LFY, LX, LFX>;
   constexpr int NX = S::NX, NY = S::NY, RC = S::RC, CC = S::CC;
-  extern __shared__ float2 sm[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[NT / 32];
+  __shared__ uint64_t bars[W_BARS];
+  float2* sm = reinterpret_cast<float2*>(smem_raw);
+  const int8_t* wimx = wx + w_image_offset(K::FX);
+  const int8_t* wimy = wy + w_image_offset(K::FY);
+  WBufs w = tc_fetch_w<typename K::PlanX>(
+      wimx, reinterpret_cast<int8_t*>(smem_raw + K::HOST), bars);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long l = blockIdx.x / S::G;
@@ -186,14 +220,16 @@ __global__ void __launch_bounds__(NT)
 
   // phase 1: the block's rows, chunk by chunk, transformed along x, the
   // int8 stage writing them to the output
-  for (int r0 = rank * S::RB; r0 < (rank + 1) * S::RB; r0 += RC) {
+  const int rend = (rank + 1) * S::RB;
+  for (int r0 = rank * S::RB; r0 < rend; r0 += RC) {
     const auto load_row = [&](int c, int k) {        // row r0 + c, x = k
       const long long o = (r0 + c) * io.in_ys + k * io.in_xs;
       return make_float2(in_re[o], in_im[o]);
     };
-    const auto put_row = [&](int c, int k, int part, float v) {
-      const long long o = (r0 + c) * io.out_ys + k * io.out_xs;
-      (part ? out_im : out_re)[o] = v;
+    const auto put_row = [&](int c0, int k0, int c1, int k1, float2 re,
+                             float2 im) {
+      put_pair(out_re, out_im, (r0 + c0) * io.out_ys + k0 * io.out_xs,
+               (r0 + c1) * io.out_ys + k1 * io.out_xs, re, im, 1.f);
     };
     if constexpr (LX == LFX) {
       for (int e = threadIdx.x; e < RC * NX; e += NT)
@@ -202,11 +238,16 @@ __global__ void __launch_bounds__(NT)
     } else {
       lead<NT, LX, LFX, RC, true, 0, 1, true>(sm, fresh(twx), s, load_row);
     }
-    using RowMap = ChainMap<NX, (1 << LFX), RC, true, decltype(put_row)>;
-    int8_stage<(1 << LFX), NT>(RowMap{put_row}, sm, fresh(twx), fresh(wx),
-                               red);
+    using RowMap = ChainMap<NX, K::FX, RC, true, decltype(put_row)>;
+    // the next call takes wx's image again: the next chunk's, or where fy
+    // = fx phase 2's first
+    const bool again = r0 + RC < rend || K::FX == K::FY;
+    int8_stage_tc<K::FX, NT, K::HOST, K::NMAX, true>(RowMap{put_row}, sm,
+                                               fresh(twx), wimx, w, red,
+                                               again);
     __syncthreads();    // the stage's reads done before the next chunk
   }
+  if constexpr (K::FX != K::FY) tc_issue_w<typename K::PlanY>(wimy, w);
 
   // every row of the plane written before any block reads a column
   __threadfence();
@@ -215,14 +256,16 @@ __global__ void __launch_bounds__(NT)
   // phase 2: the block's columns, chunk by chunk, read back from the
   // output through the L2, transformed along y, the int8 stage writing
   // them in place
-  for (int c0 = rank * S::CB; c0 < (rank + 1) * S::CB; c0 += CC) {
+  const int cend = (rank + 1) * S::CB;
+  for (int c0 = rank * S::CB; c0 < cend; c0 += CC) {
     const auto load_col = [&](int c, int k) {        // column c0 + c, y = k
       const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
       return make_float2(__ldcg(out_re + o), __ldcg(out_im + o));
     };
-    const auto put_col = [&](int c, int k, int part, float v) {
-      const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
-      (part ? out_im : out_re)[o] = v * io.post;
+    const auto put_col = [&](int ca, int ka, int cb, int kb, float2 re,
+                             float2 im) {
+      put_pair(out_re, out_im, ka * io.out_ys + (c0 + ca) * io.out_xs,
+               kb * io.out_ys + (c0 + cb) * io.out_xs, re, im, io.post);
     };
     if constexpr (LY == LFY) {
       for (int e = threadIdx.x; e < CC * NY; e += NT)
@@ -231,9 +274,10 @@ __global__ void __launch_bounds__(NT)
     } else {
       lead<NT, LY, LFY, CC, false, 0, 1, true>(sm, fresh(twy), s, load_col);
     }
-    using ColMap = ChainMap<NY, (1 << LFY), CC, false, decltype(put_col)>;
-    int8_stage<(1 << LFY), NT>(ColMap{put_col}, sm, fresh(twy), fresh(wy),
-                               red);
+    using ColMap = ChainMap<NY, K::FY, CC, false, decltype(put_col)>;
+    int8_stage_tc<K::FY, NT, K::HOST, K::NMAX, true>(ColMap{put_col}, sm,
+                                               fresh(twy), wimy, w, red,
+                                               c0 + CC < cend);
     __syncthreads();
   }
 }
@@ -279,18 +323,28 @@ cudaError_t dispatch_i8(int ly, int lfy, int lx, int lfx, const Planes2D& io,
                         const float2* twy, const float2* twx, float s,
                         const int8_t* wy, const int8_t* wx,
                         cudaStream_t st) {
-#define PYFFT_CASE(a, fa, b, fb)                                             \
-  if (ly == a && lfy == fa && lx == b && lfx == fb)                          \
-    return launch_cluster<NT>(fused2d_tiled_i8_kernel<a, fa, b, fb>, io.L,   \
-                              ShapeT<a, b>::G,                               \
-                              ShapeT<a, b>::PC * (int)sizeof(float2), st,    \
-                              io, twy, twx, s, wy, wx);
+#define PYFFT_CASE(a, fa, b, fb)                                           \
+  if (ly == a && lfy == fa && lx == b && lfx == fb)                        \
+    return launch_cluster<NT>(fused2d_tiled_i8_kernel<a, fa, b, fb>, io.L, \
+                              ShapeT<a, b>::G, I8Plan<a, fa, b, fb>::SMEM, \
+                              st, io, twy, twx, s, wy, wx);
   PYFFT_TILED_I8_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// The stage the int8 kernel runs at (log2 ny, log2 nx): 1 the wgmma stage
+// on both axes, 0 the mma.sync one, -1 where no int8 kernel is
+// instantiated.
+extern "C" int pyfft_fused2d_tiled_i8_stage(int log2ny, int log2nx) {
+#define PYFFT_CASE(a, fa, b, fb) \
+  if (log2ny == a && log2nx == b) return I8Plan<a, fa, b, fb>::TC ? 1 : 0;
+  PYFFT_TILED_I8_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return -1;
+}
 
 // The cluster size (blocks a plane) at (log2 ny, log2 nx), 0 outside the
 // kernel's range: for the wrapper's checks and the records.
@@ -323,7 +377,8 @@ extern "C" int pyfft_fused2d_tiled(const void* in_re, const void* in_im,
 // K9 + K10: as pyfft_fused2d_tiled with the f-point int8 stage last on
 // each axis, fy = 2^log2fy and fx = 2^log2fx (see PYFFT_TILED_I8_CASES);
 // `wchy` and `wchx` hold the stages' channels, (3, 2f, 2f) int8
-// C-contiguous each.
+// C-contiguous each, followed by their shared-memory image (ops/int8.py
+// `w_tables`).
 extern "C" int pyfft_fused2d_tiled_i8(const void* in_re, const void* in_im,
                                       void* out_re, void* out_im,
                                       const void* twy, const void* twx,

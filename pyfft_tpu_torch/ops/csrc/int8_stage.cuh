@@ -38,8 +38,9 @@
 // every float step is the same operation in the same order):
 //
 // int8_stage_tc, the stage on wgmma, wherever the block has a warpgroup
-// (128 threads) and f >= 32 (tc_stage below): the row kernels at n >= 1024
-// and the column kernel (K5, the fold, K4) at every f but 16.
+// (128 threads) and f >= 32 (tc_stage below): the row kernels at n >= 1024,
+// the column kernel (K5, the fold, K4) at every f but 16, and the fused 2D
+// kernels K8 and K9 (512 threads, f >= 32 at every shape).
 //   * W's channels come as an image in shared memory, laid out by the host
 //     (ops/int8.py `w_image`) in wgmma's K-major core matrices (8 rows of
 //     16 bytes, no swizzle), in slabs of 64 output rows (3 channels each:
@@ -50,31 +51,35 @@
 //     (192 KB) the slabs stream through one or two buffers of 48 KB, two
 //     where the second costs the SM no block (TcPlan::NBUF), each slab
 //     applied to all the block's columns and all 4 x channels before the
-//     next comes.  W is read from device memory once a block.
-//   * x is cut once: each thread reads 16 values of one column, twiddles
-//     them in registers, and after the barrier that gives the block's amax
-//     writes their 4 channels (real and imaginary halves) into the float
-//     buffer's place, in the B operand's K-major core matrices: 8 bytes a
-//     complex point, the float2's own size.
+//     next comes.  W is read from device memory once a call (once a block
+//     where the image stays).  A host that calls the stage more than once
+//     (K8's two axes, K9's chunks) carries the barriers' state from call to
+//     call in a WBufs: a copy is waited for once, on the parity of its own
+//     phase, and a resident image is not copied again.
+//   * x is cut once: each thread reads 16 values of one column (two such
+//     runs where the block has more than one a thread: K8's 2^18-point
+//     planes), twiddles them in registers, and after the barrier that
+//     gives the block's amax writes their 4 channels (real and imaginary
+//     halves) into the float buffer's place, in the B operand's K-major
+//     core matrices: 8 bytes a complex point, the float2's own size.
 //   * The products are wgmma.mma_async m64nNk32 s8 with A (a W slab) and B
 //     (one x channel) both from shared memory: a warpgroup takes one m64
 //     tile and N = NCH of the block's columns (8 to 64; 32 for a streamed
 //     slab), runs each shift group's pairs and k32 steps into one int32
 //     accumulator, converts it and adds it in float.  Its fragments leave
 //     through Map::put2, both parts of an output for two columns a store.
-//     The row kernels and K4 + K10 write device memory; the column kernel
-//     holds its outputs in registers and writes them over x's channels
-//     after the last product (Map::INTO_X), so it needs no second buffer.
+//     The row kernels, K4 + K10, K9 and K8's second axis write device
+//     memory; the column kernel and K8's first axis hold their outputs in
+//     registers and write them over x's channels after the last product
+//     (Map::INTO_X), so they need no second buffer.
 // int8_stage, the first version, on mma.sync.m16n8k32 s8 with W's A
 // fragments read from global memory through L1 and x's B fragments cut in
 // registers: kept where wgmma does not apply, by the hosts' compile-time
-// choice (tc_stage): the row kernels at n <= 512 (64 threads a block), f =
-// 16 in every host, and the fused 2D kernels K8 and K9, whose stages sit
-// in a cluster's shared memory (K8 in place).  A warp takes one 8-column
-// tile at a time (and a share of the 16-row tiles of the output where the
-// block has fewer tiles than warps): it builds the B fragments of all 4
-// channels for its columns once, then runs every (row tile, shift group,
-// channel pair, k tile).
+// choice (tc_stage): the row kernels at n <= 512 (64 threads a block) and f
+// = 16 in every host.  A warp takes one 8-column tile at a time (and a
+// share of the 16-row tiles of the output where the block has fewer tiles
+// than warps): it builds the B fragments of all 4 channels for its columns
+// once, then runs every (row tile, shift group, channel pair, k tile).
 //
 // What bounds it on an H100: at config 2 (4096 x 4096, f = 64) the stage
 // is 72*f = 4608 int8 operations a complex point, 7.7e10 in all, 0.04 ms at
@@ -99,14 +104,15 @@
 //                                  write output k of columns q and q + 1
 //   Map::INTO_X                    (int8_stage_tc) put2 writes where x's
 //                                  channels lie
-//
-// IN_PLACE (int8_stage only): put writes the slots the stage reads (K8's
-// rows, which stay in shared memory for the cluster's exchange and leave
-// no room for a second buffer at 2^18 points a plane).  Output k of column
-// q lands in the slot of its input k, so a unit's writes touch its own
-// columns only; where several warps share an 8-column tile (MSPLIT > 1,
-// one unit a warp at most) a block barrier parts the building of every B
-// fragment from the first write.
+//   Map::GROUPS                    the block holds several alignment
+//                                  groups (K4 + K10, whose block of rows
+//                                  may span several of JAX's `lanes`-row
+//                                  groups): then
+//   int group(int q)               the group of column q, below 128, and
+//   unsigned* gmax                 one zeroed slot a group in shared
+//                                  memory, where the stage takes each
+//                                  group's amax (its bits: a float >= 0
+//                                  orders as its bits do)
 
 #pragma once
 
@@ -145,6 +151,20 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return v;
 }
 
+// The alignment exponent of a group whose largest magnitude is amax:
+// clip(biased_exp(amax) - 126, -40, 120).
+__device__ __forceinline__ int align_exp(float amax) {
+  const int m = ((__float_as_int(amax) >> 23) & 0xFF) - 126;
+  return m < -40 ? -40 : (m > 120 ? 120 : m);
+}
+
+// The exponent of column q's group, after the stage has taken every
+// group's amax into map.gmax and a barrier has published it.
+template <class Map>
+__device__ __forceinline__ int group_exp(const Map& map, int q) {
+  return align_exp(__uint_as_float(map.gmax[map.group(q)]));
+}
+
 // d += a * b, one 16x8x32 int8 tile (a row-major, b column-major).
 __device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
                                        const unsigned (&b)[2]) {
@@ -159,7 +179,7 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
 // written by the previous stage and visible to all threads), F = f, NT the
 // block's threads, `tw` the n-point twiddle table, `wch` the 3 (2F x 2F)
 // int8 channels of the stacked matrix, `red` NT/32 floats of scratch.
-template <int F, int NT, class Map, bool IN_PLACE = false>
+template <int F, int NT, class Map>
 __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
                                            const float2* __restrict__ tw,
                                            const int8_t* __restrict__ wch,
@@ -174,12 +194,10 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
   constexpr int MSPLIT = NTILE >= NW ? 1 : (MT < NW / NTILE ? MT : NW / NTILE);
   constexpr int MPU = MT / MSPLIT;      // row tiles a unit
   constexpr int UNITS = NTILE * MSPLIT;
-  constexpr bool SYNC = IN_PLACE && MSPLIT > 1;   // warps share columns
   static_assert(NT % 32 == 0 && F % 16 == 0 && MT % MSPLIT == 0,
                 "the stage tiles the block");
-  static_assert(!SYNC || UNITS <= NW, "one unit a warp where warps share");
 
-  // 1. twiddle in place, and the block's largest magnitude
+  // 1. twiddle in place, and the block's (each group's) largest magnitude
   float amax = 0.f;
   for (int e = threadIdx.x; e < P; e += NT) {
     const int q = e % Q, r = e / Q;
@@ -190,25 +208,40 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
       v = cmul(v, __ldg(&tw[jr]));
       sm[i] = v;
     }
-    amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
+    const float a = fmaxf(fabsf(v.x), fabsf(v.y));
+    if constexpr (Map::GROUPS)
+      atomicMax(&map.gmax[map.group(q)], __float_as_uint(a));
+    else
+      amax = fmaxf(amax, a);
   }
-  amax = block_max<NT>(amax, red);      // its barrier publishes the twiddle
-  int m = ((__float_as_int(amax) >> 23) & 0xFF) - 126;
-  m = m < -40 ? -40 : (m > 120 ? 120 : m);
-  float inv[4], sh[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    inv[c] = exp2i(7 * (c + 1) - m);
-    sh[c] = exp2i(m - 7 * (c + 1));
-  }
+  int m = 0;
+  if constexpr (Map::GROUPS)
+    __syncthreads();                    // publishes the twiddle and gmax
+  else
+    m = align_exp(block_max<NT>(amax, red));   // its barrier publishes them
+  // column q's exponent
+  const auto mof = [&](int q) {
+    if constexpr (Map::GROUPS) return q < Q ? group_exp(map, q) : 0;
+    else return m;
+  };
 
   // 2-4. the products, a unit (8 columns, MPU row tiles) at a time
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  for (int u = warp; u < (SYNC ? NW : UNITS); u += NW) {
-    const bool live = !SYNC || u < UNITS;   // every warp meets the barrier
+  for (int u = warp; u < UNITS; u += NW) {
     const int nt = u % NTILE, mt0 = (u / NTILE) * MPU;
     const int q = nt * 8 + g;           // this lane's column in B
+    float inv[4], sh[4];
+    {
+      const int mq = mof(q);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        inv[c] = exp2i(7 * (c + 1) - mq);
+        sh[c] = exp2i(mq - 7 * (c + 1));
+      }
+    }
+    // the exponents of this lane's two output columns
+    const int mo[2] = {mof(nt * 8 + t4 * 2), mof(nt * 8 + t4 * 2 + 1)};
     unsigned bf[KT][4][2];
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
@@ -219,7 +252,7 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
         for (int i = 0; i < 4; ++i) {
           const int kk = kt * 32 + h * 16 + t4 * 4 + i;   // stacked row
           float x = 0.f;
-          if (live && q < Q) {
+          if (q < Q) {
             const float2 v = sm[map.index(q, kk % F)];
             x = kk < F ? v.x : v.y;
           }
@@ -234,9 +267,6 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
         for (int c = 0; c < 4; ++c) bf[kt][c][h] = packed[c];
       }
     }
-    if constexpr (SYNC) __syncthreads();
-    else if constexpr (IN_PLACE) __syncwarp();
-    if (!live) continue;
 #pragma unroll 1
     for (int mt = mt0; mt < mt0 + MPU; ++mt) {
       float acc[4];
@@ -259,10 +289,11 @@ __device__ __forceinline__ void int8_stage(const Map& map, float2* sm,
             mma_s8(d, af, bf[kt][xc]);
           }
         }
-        const float sc = exp2i(m - 7 * s);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          const float sc = exp2i(mo[i & 1] - 7 * s);
           acc[i] = s == 2 ? (float)d[i] * sc : acc[i] + (float)d[i] * sc;
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -299,8 +330,9 @@ constexpr int sm_blocks(int nt, int bytes) {
 // The wgmma stage's shape in a block of NT threads whose Map has Q columns
 // and whose host keeps HOST bytes of shared memory of its own (W's buffers
 // follow them).  HOLD: the Map's outputs take x's place (Map::INTO_X), so
-// a warpgroup holds them in registers until the last phase.
-template <int F, int NT, int Q, int HOST, bool HOLD = false>
+// a warpgroup holds them in registers until the last phase.  NMAX: the
+// widest unit, 64 columns, or 32 where the host needs the registers (K9).
+template <int F, int NT, int Q, int HOST, bool HOLD = false, int NMAX = 64>
 struct TcPlan {
   static constexpr int K2 = 2 * F;                   // stacked length: M = K
   static constexpr int MT = cmax(K2 / 64, 1);        // m64 tiles, a slab each
@@ -317,18 +349,36 @@ struct TcPlan {
   static constexpr int MTP = STREAM ? 1 : MT;        // m64 tiles a phase
   static constexpr int PHASES = MT / MTP;
   // columns a unit (one warpgroup's m64 x NCH tile): the phase's tiles
-  // shared out over the warpgroups, 8 to 64 columns; a streamed slab that
+  // shared out over the warpgroups, 8 to NMAX columns; a streamed slab that
   // holds nothing goes to units of 32, fewer and wider (each re-reads the
   // slab's A tile from shared memory: PERF.md)
   static constexpr int NCH = STREAM && !HOLD
                                  ? cmin(Q, 32)
-                                 : cmin(cmin(cmax(Q * MTP / NWG, 8), 64), Q);
+                                 : cmin(cmin(cmax(Q * MTP / NWG, 8), NMAX), Q);
   static constexpr int UNITS = MTP * (Q / NCH);
+  static constexpr int UPW = (UNITS + NWG - 1) / NWG;   // units a warpgroup
   static constexpr int XUNITS = Q * F / 16;          // 16-value runs to cut
+  static constexpr int RUNS = (XUNITS + NT - 1) / NT;   // runs a thread
   static_assert(!tc_stage(F, NT) ||
                     (NT % 128 == 0 && Q % NCH == 0 && NCH % 8 == 0 &&
-                     XUNITS <= NT && HOST % 16 == 0),
+                     RUNS <= 2 && HOST % 16 == 0 &&
+                     (!STREAM || UNITS <= NWG) &&
+                     (!HOLD || UNITS % NWG == 0 || UNITS < NWG)),
                 "the wgmma stage tiles the block");
+};
+
+// The barriers W's slab buffers complete on (one a buffer, at most two).
+constexpr int W_BARS = 2;
+
+// W's slab buffers in shared memory and the state of their barriers, the
+// same in every thread: bit b of `pend` says a copy into buffer b has been
+// issued and not yet waited for, bit b of `par` the parity of that copy's
+// phase of bars[b] (each copy completes one phase).  A host that calls the
+// stage more than once keeps one WBufs across the calls.
+struct WBufs {
+  int8_t* sm;
+  uint64_t* bars;
+  unsigned pend, par;
 };
 
 // Shared-memory address of a generic pointer into shared memory.
@@ -378,6 +428,19 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int sbo) {
 // products that write it.
 __device__ __forceinline__ void fence_reg(int& r) {
   asm volatile("" : "+r"(r) :: "memory");
+}
+
+// v, opaque to the compiler: what is derived from it is computed where it
+// is used, not hoisted out of a host's calls of the stage (K9's chunk
+// loop, K8's two axes) and held in registers across them, which spills.
+template <typename T>
+__device__ __forceinline__ T opaque(T v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
 
 // d += a * b, one m64nNk32 s8 x s8 -> s32 product, both operands from
@@ -443,21 +506,43 @@ __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// At kernel entry: thread 0 sets up the stage's barriers and starts the
-// copies of W's first NBUF slabs from `wimg` (the image, 16-byte aligned)
-// into `wsm`.  The stage's first barrier (step 1's) makes the set-up
-// visible to every thread before any waits on it.
+// Start the copies of W's first NBUF slabs from `wimg` (the image, 16-byte
+// aligned) into the buffers: thread 0 issues them, every thread marks them
+// pending.  The buffers' last readers must be past a block barrier.
 template <class Plan>
-__device__ __forceinline__ void tc_fetch_w(const int8_t* wimg, int8_t* wsm,
-                                           uint64_t* bars) {
+__device__ __forceinline__ void tc_issue_w(const int8_t* wimg, WBufs& w) {
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int b = 0; b < Plan::NBUF; ++b) mbar_init(&bars[b]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-#pragma unroll
     for (int b = 0; b < Plan::NBUF; ++b)
-      bulk_load(wsm + b * Plan::SLAB, wimg + b * Plan::SLAB, Plan::SLAB,
-                &bars[b]);
+      bulk_load(w.sm + b * Plan::SLAB, wimg + b * Plan::SLAB, Plan::SLAB,
+                &w.bars[b]);
+  }
+  w.pend |= (1u << Plan::NBUF) - 1u;
+}
+
+// At kernel entry: thread 0 sets up the W_BARS barriers at `bars` and
+// starts the copies of W's first NBUF slabs into `wsm`.  The stage's first
+// barrier (step 1's) makes the set-up visible to every thread before any
+// waits on it.
+template <class Plan>
+__device__ __forceinline__ WBufs tc_fetch_w(const int8_t* wimg, int8_t* wsm,
+                                            uint64_t* bars) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < W_BARS; ++b) mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  WBufs w{wsm, bars, 0u, 0u};
+  tc_issue_w<Plan>(wimg, w);
+  return w;
+}
+
+// Wait for the copy into buffer b, if one is pending.
+__device__ __forceinline__ void tc_wait_w(WBufs& w, int b) {
+  if ((w.pend >> b) & 1u) {
+    mbar_wait(&w.bars[b], (w.par >> b) & 1u);
+    w.par ^= 1u << b;
+    w.pend &= ~(1u << b);
   }
 }
 
@@ -472,66 +557,84 @@ constexpr float RND = 12582912.f;
 // (float2, written by the previous stage and visible to all threads).  F =
 // f, NT the block's threads, HOST the host's own shared-memory bytes (see
 // TcPlan), `tw` the n-point twiddle table, `wimg` W's image in device
-// memory, `wsm` its buffers in shared memory and `bars` their barriers
-// (tc_fetch_w started the copies), `red` NT/32 floats of scratch.  The
-// float buffer is overwritten with x's channels; the Map's put2 writes
+// memory, `w` its buffers in shared memory (tc_fetch_w or tc_issue_w
+// started the copies of its first slabs, or, at f <= 64, an earlier call
+// left the same image there), `red` NT/32 floats of scratch.  `again`
+// (f = 128): the next call takes the same image, so this one starts the
+// copies of its first slabs as its own last ones are done.  The float
+// buffer is overwritten with x's channels; the Map's put2 writes
 // elsewhere, or (Map::INTO_X) into the float buffer's place once every
 // product is done.  put2(q, k, re, im) writes output k of columns q and q +
-// 1 (q even): re = (real of q, real of q+1), im likewise.
-template <int F, int NT, int HOST, class Map>
+// 1 (q even): re = (real of q, real of q+1), im likewise.  NMAX as
+// TcPlan's.  FRESH: the host calls the stage more than once, so the thread
+// index and the descriptors' bases are made opaque at each call.
+template <int F, int NT, int HOST, int NMAX = 64, bool FRESH = false,
+          class Map>
 __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
                                               const float2* __restrict__ tw,
                                               const int8_t* __restrict__ wimg,
-                                              int8_t* wsm, uint64_t* bars,
-                                              float* red) {
+                                              WBufs& w, float* red,
+                                              bool again = false) {
   constexpr int Q = Map::Q;             // columns
-  using Plan = TcPlan<F, NT, Q, HOST, Map::INTO_X>;
+  using Plan = TcPlan<F, NT, Q, HOST, Map::INTO_X, NMAX>;
   constexpr int K2 = Plan::K2;
   constexpr int SBO = 8 * K2;           // bytes between 8-row core groups
   constexpr int NCH = Plan::NCH;
+  constexpr int RUNS = Plan::RUNS;
   static_assert(tc_stage(F, NT), "the wgmma stage needs a warpgroup, f>=32");
 
-  // 1-2. x cut once.  A thread takes elements r0..r0+15 of column q: it
-  // twiddles them in registers (x[j + r*NS] *= w_N^(j*r), as int8_stage
-  // does in place), and the block's largest magnitude gives m.  After
-  // that barrier it writes the 16 bytes of each channel of its real and of
-  // its imaginary half (stacked rows r0 + i and F + r0 + i) over the float
-  // buffer, in B's core matrices: channel c of column q, stacked row kk at
-  // c*K2*Q + (q/8)*SBO + (kk/16)*128 + (q%8)*16 + kk%16.
+  // 1-2. x cut once.  Run u (u < XUNITS) is elements r0..r0+15 of column
+  // q = u % Q, r0 = (u / Q) * 16; thread e takes runs e and, where RUNS =
+  // 2, e + NT.  It twiddles a run in registers (x[j + r*NS] *= w_N^(j*r),
+  // as int8_stage does in place), and the block's (each group's) largest
+  // magnitude gives m.  After that barrier it writes the 16 bytes of each
+  // channel of its real and of its imaginary half (stacked rows r0 + i and
+  // F + r0 + i) over the float buffer, in B's core matrices: channel c of
+  // column q, stacked row kk at c*K2*Q + (q/8)*SBO + (kk/16)*128 + (q%8)*16
+  // + kk%16.  With two runs a thread the first pass only takes the amax;
+  // the second reads and twiddles each run again (the same products of the
+  // same values, so the same bits), cuts both, and a barrier ends every
+  // read of the float buffer before the channels overwrite it.
   int8_t* xs = reinterpret_cast<int8_t*>(sm);
-  int m;
+  const unsigned tid =
+      FRESH ? static_cast<unsigned>(opaque(static_cast<int>(threadIdx.x)))
+            : threadIdx.x;
+  int m = 0;
   {
-    const int e = threadIdx.x;
-    const int q = e % Q, r0 = (e / Q) * 16;
-    const bool cuts = e < Plan::XUNITS;
-    float2 v[16];
-    float amax = 0.f;
+    const auto load_run = [&](int u, float2 (&v)[16]) {
+      const int q = u % Q, r0 = (u / Q) * 16;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      v[i] = make_float2(0.f, 0.f);
-      if (cuts) {
-        v[i] = sm[map.index(q, r0 + i)];
-        const int jr = map.jof(q) * (r0 + i);
-        if (jr) v[i] = cmul(v[i], __ldg(&tw[jr]));
+      for (int i = 0; i < 16; ++i) {
+        v[i] = make_float2(0.f, 0.f);
+        if (u < Plan::XUNITS) {
+          v[i] = sm[map.index(q, r0 + i)];
+          const int jr = map.jof(q) * (r0 + i);
+          if (jr) v[i] = cmul(v[i], __ldg(&tw[jr]));
+        }
       }
-      amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));
-    }
-    amax = block_max<NT>(amax, red);    // its barrier ends every read of sm
-    m = ((__float_as_int(amax) >> 23) & 0xFF) - 126;
-    m = m < -40 ? -40 : (m > 120 ? 120 : m);
-    float inv[4], sh[4];
+    };
+    const auto run_max = [](const float2 (&v)[16]) {
+      float a = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      inv[c] = exp2i(7 * (c + 1) - m);
-      sh[c] = exp2i(m - 7 * (c + 1));
-    }
-    if (cuts) {
+      for (int i = 0; i < 16; ++i)
+        a = fmaxf(a, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));
+      return a;
+    };
+    // channel c of part `part` (real, imaginary), bytes 4i..4i+3 of 16
+    using Cut = unsigned[2][4][4];
+    const auto cut_run = [&](const float2 (&v)[16], int mq, Cut& wd) {
+      float inv[4], sh[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        inv[c] = exp2i(7 * (c + 1) - mq);
+        sh[c] = exp2i(mq - 7 * (c + 1));
+      }
 #pragma unroll
       for (int part = 0; part < 2; ++part) {
-        unsigned w[4][4];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          w[c][0] = w[c][1] = w[c][2] = w[c][3] = 0u;
+          wd[part][c][0] = wd[part][c][1] = wd[part][c][2] = wd[part][c][3] =
+              0u;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           float x = part ? v[i].y : v[i].x;
@@ -540,16 +643,77 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
             const float t =
                 fminf(fmaxf(x * inv[c] + RND, RND - 127.f), RND + 127.f);
             x = x - (t - RND) * sh[c];
-            w[c][i / 4] |= (__float_as_uint(t) & 0xFFu) << (8 * (i % 4));
+            wd[part][c][i / 4] |= (__float_as_uint(t) & 0xFFu)
+                                  << (8 * (i % 4));
           }
         }
+      }
+    };
+    const auto store_run = [&](int u, const Cut& wd) {
+      if (u >= Plan::XUNITS) return;
+      const int q = u % Q, r0 = (u / Q) * 16;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
         const int off = (q / 8) * SBO + ((part * F + r0) / 16) * 128 +
                         (q % 8) * 16;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           *reinterpret_cast<uint4*>(xs + c * K2 * Q + off) =
-              make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
+              make_uint4(wd[part][c][0], wd[part][c][1], wd[part][c][2],
+                         wd[part][c][3]);
       }
+    };
+    // the amax of the thread's runs, then the block's (its barrier ends
+    // every read of sm where RUNS = 1) or each group's
+    const auto exps = [&](const float (&a)[RUNS], int (&mr)[RUNS]) {
+      if constexpr (Map::GROUPS) {
+#pragma unroll
+        for (int r = 0; r < RUNS; ++r) {
+          const int u = tid + r * NT;
+          if (u < Plan::XUNITS)
+            atomicMax(&map.gmax[map.group(u % Q)], __float_as_uint(a[r]));
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < RUNS; ++r)
+          mr[r] = group_exp(map, (tid + r * NT) % Q);
+      } else {
+        float am = a[0];
+#pragma unroll
+        for (int r = 1; r < RUNS; ++r) am = fmaxf(am, a[r]);
+        m = align_exp(block_max<NT>(am, red));
+#pragma unroll
+        for (int r = 0; r < RUNS; ++r) mr[r] = m;
+      }
+    };
+    float a[RUNS];
+    int mr[RUNS];
+    if constexpr (RUNS == 1) {
+      float2 v[16];
+      load_run(tid, v);
+      a[0] = run_max(v);
+      exps(a, mr);
+      Cut wd;
+      cut_run(v, mr[0], wd);
+      store_run(tid, wd);
+    } else {
+#pragma unroll
+      for (int r = 0; r < RUNS; ++r) {
+        float2 v[16];
+        load_run(tid + r * NT, v);
+        a[r] = run_max(v);
+      }
+      exps(a, mr);
+      Cut wd[RUNS];
+#pragma unroll
+      for (int r = 0; r < RUNS; ++r) {
+        float2 v[16];
+        load_run(tid + r * NT, v);
+        cut_run(v, mr[r], wd[r]);
+      }
+      __syncthreads();                  // every read of sm is done
+#pragma unroll
+      for (int r = 0; r < RUNS; ++r) store_run(tid + r * NT, wd[r]);
     }
     // the products read shared memory through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -559,11 +723,30 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
   // 3. the products of one unit: slab sl (one m64 tile) x NCH columns from
   // n0, every shift group's pairs and k32 steps into one int32
   // accumulator, converted and added in float in ascending s.
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  // FRESH: the operands' descriptors are an opaque base for each, the
+  // steps added to its address field (16-byte units; every address lies
+  // below 2^18, so the field's 14 bits hold the sum).
   auto products = [&](int sl, int n0, float (&acc)[NCH / 2]) {
-    const int8_t* a = wsm + (sl % Plan::NBUF) * Plan::SLAB;
+    const int8_t* a = w.sm + (sl % Plan::NBUF) * Plan::SLAB;
     const int8_t* b = xs + n0 * K2;     // (n0/8) core groups of SBO bytes
+    uint64_t da = 0, db = 0;
+    if constexpr (FRESH) {
+      da = opaque(smem_desc(a, SBO));
+      db = opaque(smem_desc(b, SBO));
+    }
+    const auto desc = [&](const int8_t* p, uint64_t base, int off) {
+      if constexpr (FRESH) return base + (off >> 4);
+      else return smem_desc(p + off, SBO);
+    };
+    // accumulator i's column is n0 + 8*(i/4) + 2*t4 + (i&1): its exponent
+    int mc[Map::GROUPS ? NCH / 4 : 1];
+    if constexpr (Map::GROUPS) {
+#pragma unroll
+      for (int j = 0; j < NCH / 4; ++j)
+        mc[j] = group_exp(map, n0 + 8 * (j / 2) + 2 * t4 + (j & 1));
+    }
 #pragma unroll
     for (int s = 2; s <= 5; ++s) {      // shift sum 7*s: 14, 21, 28, 35
       int d[NCH / 2];
@@ -579,8 +762,8 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
         if (xc < 0 || xc > 3) continue;
 #pragma unroll
         for (int kt = 0; kt < Plan::KT; ++kt)
-          wgmma_s8<NCH>(d, smem_desc(a + wi * 64 * K2 + kt * 256, SBO),
-                        smem_desc(b + xc * K2 * Q + kt * 256, SBO));
+          wgmma_s8<NCH>(d, desc(a, da, wi * 64 * K2 + kt * 256),
+                        desc(b, db, xc * K2 * Q + kt * 256));
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -588,8 +771,12 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
       for (int i = 0; i < NCH / 2; ++i) fence_reg(d[i]);
       const float sc = exp2i(m - 7 * s);
 #pragma unroll
-      for (int i = 0; i < NCH / 2; ++i)
-        acc[i] = s == 2 ? (float)d[i] * sc : acc[i] + (float)d[i] * sc;
+      for (int i = 0; i < NCH / 2; ++i) {
+        float si = sc;
+        if constexpr (Map::GROUPS)
+          si = exp2i(mc[(i / 4) * 2 + (i & 1)] - 7 * s);
+        acc[i] = s == 2 ? (float)d[i] * si : acc[i] + (float)d[i] * si;
+      }
     }
   };
   // The unit's outputs.  Accumulator i of a thread is row 16*warp + g
@@ -604,26 +791,27 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
                make_float2(acc[4 * j], acc[4 * j + 1]),
                make_float2(acc[4 * j + 2], acc[4 * j + 3]));
   };
+  // unit u's slab and first column
+  constexpr int NU = Q / NCH;           // units a slab
+  const auto unit_sl = [&](int ph, int u) { return ph * Plan::MTP + u / NU; };
+  const auto unit_n0 = [&](int u) { return (u % NU) * NCH; };
 
-  // a phase of resident slabs at a time, a unit a warpgroup at a time.
-  // Map::INTO_X: put writes the float buffer's place, so every product
-  // must have read x's channels first; a warpgroup holds its outputs (one
-  // unit a phase) until the barrier after the last phase.
+  // a phase of resident slabs at a time, UPW units a warpgroup (unit wg +
+  // i*NWG).  Map::INTO_X: put writes the float buffer's place, so every
+  // product must have read x's channels first; a warpgroup holds its
+  // outputs until the barrier after the last phase.  A streamed slab has
+  // one unit a warpgroup at most.
   constexpr bool HOLD = Map::INTO_X;
-  constexpr bool ONE = Plan::STREAM || HOLD;    // one unit a warpgroup
-  static_assert(!ONE || Plan::UNITS <= Plan::NWG, "one unit a warpgroup");
-  const bool mine = wg < Plan::UNITS;
-  const int n0 = (wg % (Q / NCH)) * NCH;        // the unit's, where ONE
-  float held[HOLD ? Plan::PHASES : 1][NCH / 2];
+  constexpr int UPW = Plan::UPW;
+  float held[HOLD ? Plan::PHASES : 1][HOLD ? UPW : 1][NCH / 2];
 #pragma unroll 1
   for (int ph = 0; ph < Plan::PHASES; ++ph) {
 #pragma unroll
-    for (int t = 0; t < Plan::MTP; ++t) {
-      const int sl = ph * Plan::MTP + t;
-      mbar_wait(&bars[sl % Plan::NBUF], (sl / Plan::NBUF) & 1);
-    }
-    if constexpr (ONE) {
-      const int sl = ph * Plan::MTP + wg / (Q / NCH);
+    for (int t = 0; t < Plan::MTP; ++t)
+      tc_wait_w(w, (ph * Plan::MTP + t) % Plan::NBUF);
+    if constexpr (Plan::STREAM) {
+      const bool mine = wg < Plan::UNITS;
+      const int sl = unit_sl(ph, wg), n0 = unit_n0(wg);
       float acc[NCH / 2];
       if (mine) products(sl, n0, acc);
       if constexpr (HOLD) {
@@ -631,56 +819,70 @@ __device__ __forceinline__ void int8_stage_tc(const Map& map, float2* sm,
         for (int t = 0; t < Plan::PHASES; ++t)
           if (t == ph) {
 #pragma unroll
-            for (int i = 0; i < NCH / 2; ++i) held[t][i] = acc[i];
+            for (int i = 0; i < NCH / 2; ++i) held[t][0][i] = acc[i];
           }
       }
-      if constexpr (Plan::STREAM) {
-        // the next slab's copy starts before this one's outputs are stored
-        if (ph + Plan::NBUF < Plan::PHASES) {
-          __syncthreads();              // every warpgroup is done with it
-          if (threadIdx.x == 0)
-            bulk_load(wsm + (ph % Plan::NBUF) * Plan::SLAB,
-                      wimg + (ph + Plan::NBUF) * Plan::SLAB, Plan::SLAB,
-                      &bars[ph % Plan::NBUF]);
-        }
+      // the next slab's copy (this call's, or where `again` the next
+      // call's first) starts before this one's outputs are stored
+      const int next = ph + Plan::NBUF;
+      if (next < Plan::PHASES || again) {
+        __syncthreads();                // every warpgroup is done with it
+        if (threadIdx.x == 0)
+          bulk_load(w.sm + (ph % Plan::NBUF) * Plan::SLAB,
+                    wimg + (next % Plan::PHASES) * Plan::SLAB, Plan::SLAB,
+                    &w.bars[ph % Plan::NBUF]);
+        w.pend |= 1u << (ph % Plan::NBUF);
       }
       if constexpr (!HOLD) {
         if (mine) put(sl, n0, acc);
       }
+    } else if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < UPW; ++i) {
+        const int u = wg + i * Plan::NWG;
+        if (u < Plan::UNITS) {
+          float acc[NCH / 2];
+          products(unit_sl(ph, u), unit_n0(u), acc);
+#pragma unroll
+          for (int t = 0; t < Plan::PHASES; ++t)
+            if (t == ph) {
+#pragma unroll
+              for (int j = 0; j < NCH / 2; ++j) held[t][i][j] = acc[j];
+            }
+        }
+      }
     } else {
 #pragma unroll 1
       for (int u = wg; u < Plan::UNITS; u += Plan::NWG) {
-        const int sl = ph * Plan::MTP + u / (Q / NCH);
-        const int n = (u % (Q / NCH)) * NCH;
         float acc[NCH / 2];
-        products(sl, n, acc);
-        put(sl, n, acc);
+        products(unit_sl(ph, u), unit_n0(u), acc);
+        put(unit_sl(ph, u), unit_n0(u), acc);
       }
     }
   }
   if constexpr (HOLD) {
     __syncthreads();                    // x's channels are read: outputs
-    if (mine) {
 #pragma unroll
-      for (int t = 0; t < Plan::PHASES; ++t)
-        put(t * Plan::MTP + wg / (Q / NCH), n0, held[t]);
-    }
+    for (int t = 0; t < Plan::PHASES; ++t)
+#pragma unroll
+      for (int i = 0; i < UPW; ++i) {
+        const int u = wg + i * Plan::NWG;
+        if (u < Plan::UNITS) put(unit_sl(t, u), unit_n0(u), held[t][i]);
+      }
   }
 }
 
 // The hosts' stage: int8_stage_tc where TC (the host's compile-time
 // choice, tc_stage), else int8_stage.  `wch` holds the 3 (2f x 2f)
-// channels, then W's image (w_image_offset); `wsm` and `bars` as
-// int8_stage_tc's, unused by int8_stage.
+// channels, then W's image (w_image_offset); `w` as int8_stage_tc's,
+// unused by int8_stage.
 template <int F, int NT, int HOST, bool TC, class Map>
 __device__ __forceinline__ void host_stage(const Map& map, float2* sm,
                                            const float2* __restrict__ tw,
                                            const int8_t* __restrict__ wch,
-                                           int8_t* wsm, uint64_t* bars,
-                                           float* red) {
+                                           WBufs& w, float* red) {
   if constexpr (TC) {
-    int8_stage_tc<F, NT, HOST>(map, sm, tw, wch + w_image_offset(F), wsm,
-                               bars, red);
+    int8_stage_tc<F, NT, HOST>(map, sm, tw, wch + w_image_offset(F), w, red);
   } else {
     int8_stage<F, NT>(map, sm, tw, wch, red);
   }

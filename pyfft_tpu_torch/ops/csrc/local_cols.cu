@@ -142,8 +142,10 @@
 // package's default chain (`_fft_rows_swap` takes `default_factors`, so f
 // = 128 at n = 2048, not 64 as in the column chain; the entry
 // instantiates that one pair beside PYFFT_I8_CHAINS).  A block takes the
-// int8 kernel's C rows, a divisor of 128, so its alignment group lies
-// inside one of JAX's 128-row blocks.
+// int8 kernel's C rows, a divisor of 128, and takes one alignment exponent
+// for each run of gcd(C, lanes) of them (the wrapper's `group`), so every
+// group lies inside one of JAX's blocks of `lanes` rows, whatever `lanes`
+// divides the row count.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_local_cols` (float),
@@ -551,7 +553,7 @@ template <int LOGN, int LOGF, bool SWAP>
 struct ColMap {
   using S = ColShape<LOGN, float, true>;
   static constexpr int N = S::N, C = S::C, NS = N >> LOGF, Q = C * NS;
-  static constexpr bool INTO_X = true;
+  static constexpr bool INTO_X = true, GROUPS = false;
   float* out;
   __device__ int index(int q, int r) const {
     return (q / C + r * NS) * C + q % C;
@@ -582,16 +584,21 @@ struct ColMap {
 // K4 + K10's view of the block: ColMap's columns (run j, row c of the
 // block's C), its outputs straight to device memory as the store pass's
 // plain store without twiddle would write them, out[l, kk, t0 + c] *
-// postscale, kk = j + k*NS.
+// postscale, kk = j + k*NS.  Its alignment groups are the runs of `grp`
+// rows (a power of two dividing C, and JAX's `lanes`: gcd(C, lanes)), each
+// inside one of JAX's groups of `lanes` rows; their amax in `gmax`.
 template <int LOGN, int LOGF>
 struct SwapMap {
   using S = ColShape<LOGN, float, true>;
   static constexpr int N = S::N, C = S::C, NS = N >> LOGF, Q = C * NS;
-  static constexpr bool INTO_X = false;
+  static constexpr bool INTO_X = false, GROUPS = true;
   float* out_re;
   float* out_im;
   long long base, out_ns, out_bs, rows;   // base: l*out_ls + t0*out_bs
   float post;
+  int grp;
+  unsigned* gmax;
+  __device__ int group(int q) const { return (q % C) / grp; }
   __device__ int index(int q, int r) const {
     return (q / C + r * NS) * C + q % C;
   }
@@ -652,22 +659,27 @@ struct ColI8 {
 };
 
 // `wch` holds the 3 (2f x 2f) channels, then W's image (w_image_offset).
-// POLICY: COLS, or ROWS for K4 + K10 (K4's row load).
+// POLICY: COLS, or ROWS for K4 + K10 (K4's row load, alignment groups of
+// `grp` rows).
 template <int LOGN, int LOGF, bool SWAP, int POLICY = COLS,
           int NT = ColShape<LOGN, float, true>::NT>
 __global__ void __launch_bounds__(NT)
     local_cols_i8_kernel(Cols<float> io, const float2* __restrict__ tw,
-                         float s, const int8_t* __restrict__ wch) {
+                         float s, const int8_t* __restrict__ wch, int grp) {
   using S = ColShape<LOGN, float, true>;
   using K = ColI8<LOGN, LOGF, SWAP, POLICY>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[NT / 32];
-  __shared__ uint64_t bars[2];
+  __shared__ uint64_t bars[W_BARS];
+  __shared__ unsigned gmax[POLICY == ROWS ? 128 : 1];   // a group's amax
   float2* sm = reinterpret_cast<float2*>(smem_raw);
   float2* y = K::TC ? sm : sm + S::P;   // where the stage's outputs go
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem_raw + K::HOST);
+  WBufs w{reinterpret_cast<int8_t*>(smem_raw + K::HOST), bars, 0u, 0u};
   if constexpr (K::TC)
-    tc_fetch_w<typename K::Plan>(wch + w_image_offset(K::F), wsm, bars);
+    w = tc_fetch_w<typename K::Plan>(wch + w_image_offset(K::F), w.sm, bars);
+  if constexpr (POLICY == ROWS) {       // zeroed before load_rows' barrier
+    for (int i = threadIdx.x; i < 128; i += NT) gmax[i] = 0u;
+  }
   const long long l = blockIdx.x % io.L;
   const long long t0 = (blockIdx.x / io.L) * S::C;
   if constexpr (POLICY == ROWS) {
@@ -684,11 +696,11 @@ __global__ void __launch_bounds__(NT)
     // rows: those of the block's C that lie before T
     const SwapMap<LOGN, LOGF> map{io.out_re, io.out_im,
                                   l * io.out_ls + t0 * io.out_bs, io.out_ns,
-                                  io.out_bs, io.T - t0, io.post};
-    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, wsm, bars, red);
+                                  io.out_bs, io.T - t0, io.post, grp, gmax};
+    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, w, red);
   } else {
     const ColMap<LOGN, LOGF, SWAP> map{reinterpret_cast<float*>(y)};
-    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, wsm, bars, red);
+    host_stage<K::F, NT, K::HOST, K::TC>(map, sm, tw, wch, w, red);
     __syncthreads();
     store<float, LOGN, SWAP, true>(io, y, l, t0);
   }
@@ -696,7 +708,7 @@ __global__ void __launch_bounds__(NT)
 
 template <int LOGN, int LOGF, bool SWAP, int POLICY = COLS>
 cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
-                      const int8_t* wch, cudaStream_t stream) {
+                      const int8_t* wch, cudaStream_t stream, int grp = 1) {
   using S = ColShape<LOGN, float, true>;
   const int smem = ColI8<LOGN, LOGF, SWAP, POLICY>::SMEM;
   if (smem > 48 * 1024) {
@@ -708,7 +720,7 @@ cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
   const long long blocks = (io.T + S::C - 1) / S::C * io.L;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   local_cols_i8_kernel<LOGN, LOGF, SWAP, POLICY>
-      <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s, wch);
+      <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s, wch, grp);
   return cudaGetLastError();
 }
 
@@ -857,19 +869,24 @@ extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
 // T) with the f-point int8 stage last (f = 2^log2f, the last factor of the
 // JAX default chain: PYFFT_I8_CHAINS and (11, 7)).  Arguments as
 // pyfft_local_cols_i8's, with K4's dims (as pyfft_local_rows_swap's), no
-// table (mode 0) and no swapped store.  The output must not overlap the
-// input.
+// table (mode 0) and no swapped store, and `group`, the rows of an
+// alignment group: a power of two dividing the block's rows
+// (pyfft_local_cols_width_i8), gcd(that, JAX's lanes).  The output must not
+// overlap the input.
 extern "C" int pyfft_local_rows_swap_i8(const void* in_re, const void* in_im,
                                         void* out_re, void* out_im,
                                         const void* tw, const void* ta,
                                         const void* tb, const void* wch,
                                         const long long* dims, int log2n,
                                         int log2f, int sign, float postscale,
-                                        int swap_store, void* stream) {
+                                        int swap_store, int group,
+                                        void* stream) {
   const Cols<float> io = cols_io<float>(in_re, in_im, out_re, out_im, ta, tb,
                                         dims, postscale, 1);
+  const int c = width<float, 13, true>(log2n);
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0 || swap_store ||
-      io.tw_mode != TW_NONE)
+      io.tw_mode != TW_NONE || group < 1 || c % group ||
+      (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   const float2* t = static_cast<const float2*>(tw);
   const int8_t* w = static_cast<const int8_t*>(wch);
@@ -877,11 +894,11 @@ extern "C" int pyfft_local_rows_swap_i8(const void* in_re, const void* in_im,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PYFFT_I8_SWAP(LN, LF)     \
   if (log2n == LN && log2f == LF) \
-    return (int)launch_i8<LN, LF, false, ROWS>(io, t, s, w, st);
+    return (int)launch_i8<LN, LF, false, ROWS>(io, t, s, w, st, group);
   PYFFT_I8_CHAINS(PYFFT_I8_SWAP)
 #undef PYFFT_I8_SWAP
   // n = 2048: the default chain's f = 128
   if (log2n == 11 && log2f == 7)
-    return (int)launch_i8<11, 7, false, ROWS>(io, t, s, w, st);
+    return (int)launch_i8<11, 7, false, ROWS>(io, t, s, w, st, group);
   return (int)cudaErrorInvalidValue;
 }

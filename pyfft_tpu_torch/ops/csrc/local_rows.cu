@@ -336,6 +336,7 @@ struct RowMap {
   static constexpr int N = 1 << LOGN, NS = N >> LOGF;
   static constexpr int Q = Shape<LOGN>::RPB * NS;
   static constexpr bool INTO_X = false;        // outputs to device memory
+  static constexpr bool GROUPS = false;
   float* out_re;
   float* out_im;
   int rows, out_es, out_rs, row0;
@@ -417,11 +418,11 @@ __global__ void __launch_bounds__(Shape<LOGN>::T)
   using R = RowI8<LOGN, LOGF>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[S::T / 32];
-  __shared__ uint64_t bars[2];
+  __shared__ uint64_t bars[W_BARS];
   float2* sm = reinterpret_cast<float2*>(smem_raw);
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem_raw + R::DATA);
+  WBufs w{reinterpret_cast<int8_t*>(smem_raw + R::DATA), bars, 0u, 0u};
   if constexpr (R::TC)
-    tc_fetch_w<typename R::Plan>(wch + w_image_offset(R::F), wsm, bars);
+    w = tc_fetch_w<typename R::Plan>(wch + w_image_offset(R::F), w.sm, bars);
   const int row0 = blockIdx.x * S::RPB;
   if constexpr (LOGN == LOGF) {
     load_block<LOGN, IL>(io, sm, row0);
@@ -431,7 +432,7 @@ __global__ void __launch_bounds__(Shape<LOGN>::T)
   float* out_re = IL ? reinterpret_cast<float*>(io.out_c) : io.out_re;
   const RowMap<LOGN, LOGF, IL> map{out_re, io.out_im, io.rows, io.out_es,
                                    io.out_rs, row0, io.post};
-  host_stage<R::F, S::T, R::DATA, R::TC>(map, sm, tw, wch, wsm, bars, red);
+  host_stage<R::F, S::T, R::DATA, R::TC>(map, sm, tw, wch, w, red);
 }
 
 template <int LOGN, int LOGF, bool IL>

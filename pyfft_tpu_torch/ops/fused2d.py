@@ -24,9 +24,10 @@ Under ``precision="int8"`` both run each axis's matrix stage as the
 int8-split stage K10 (``ops/int8.py``): on the card the kernels
 ``fused2d_i8_kernel`` (K8 + K10) and ``fused2d_tiled_i8_kernel`` (K9 + K10)
 beside the float ones, x first as the float kernels, each block's or
-chunk's data one alignment group; on the CPU the plain versions, y first
-with JAX's groups (K8: the whole plane on each axis; K9: 128-column slices
-for y, 128-row slices for x, per plane).
+chunk's data one alignment group, the stage on ``wgmma`` at every shape
+(``i8_stage``); on the CPU the plain versions, y first with JAX's groups
+(K8: the whole plane on each axis; K9: 128-column slices for y, 128-row
+slices for x, per plane).
 
 ``fft2_fused`` and ``fft2_fused_tiled`` decide by the tensor's device alone.
 For a CUDA tensor they launch the kernel or raise; nothing falls back to
@@ -48,7 +49,8 @@ from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "supported_2d_tiled", "fft2_fused_tiled", "fft2_tiled_plain",
-           "tiled_cluster_size", "MAX_FUSED2D_TILED_ELEMS", "LAUNCHES",
+           "tiled_cluster_size", "i8_stage", "MAX_FUSED2D_TILED_ELEMS",
+           "LAUNCHES",
            "TILED_LAUNCHES", "I8_LAUNCHES", "TILED_I8_LAUNCHES"]
 
 # Kernel launches made by _launch since the last reset (a caller sets it
@@ -204,6 +206,44 @@ def tiled_cluster_size(ny: int, nx: int) -> int:
     """The blocks of the cluster that takes one (ny, nx) plane in K9;
     builds the kernel on first use."""
     return _tiled_lib()[2](ilog2(ny), ilog2(nx))
+
+
+def i8_stage(ny: int, nx: int, tiled: bool = False) -> str:
+    """Which K10 stage the int8 kernel K8 + K10 (or, with ``tiled``, K9 +
+    K10) runs on (ny, nx) planes: "wgmma" where both axes' f (the matrix
+    factor of ``default_factors``, or ``col_factors`` for K9) is at least
+    32 (a block is 512 threads, four warpgroups), else "mma" (mma.sync).
+    The kernels make the same choice at compile time; ``_i8_stage_fn``
+    reports it."""
+    chain = local.col_factors if tiled else local.default_factors
+    fs = [local.matrix_factor(chain(n)) for n in (ny, nx)]
+    return "wgmma" if min(fs) >= 32 else "mma"
+
+
+@functools.lru_cache(maxsize=None)
+def _i8_stage_fn(tiled: bool = False):
+    """The C entry point ``pyfft_fused2d_i8_stage`` of csrc/fused2d.cu (or
+    ``pyfft_fused2d_tiled_i8_stage`` of csrc/fused2d_tiled.cu): (log2 ny,
+    log2 nx) -> 1 for the wgmma stage, 0 for the mma.sync one, -1 where no
+    int8 kernel is instantiated."""
+    from pyfft_tpu_torch.ops.build import load
+    name = "fused2d_tiled" if tiled else "fused2d"
+    fn = getattr(load(name), f"pyfft_{name}_i8_stage")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _i8_clusters_fn():
+    """The C entry point ``pyfft_fused2d_i8_clusters`` of csrc/fused2d.cu:
+    (log2 ny, log2 nx) -> the K8 + K10 clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters), 0 where none places."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("fused2d").pyfft_fused2d_i8_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,

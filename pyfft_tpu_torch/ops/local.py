@@ -928,16 +928,26 @@ def _rows_swap_i8_fn():
     fn = load("local_cols").pyfft_local_rows_swap_i8
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def swap_i8_group(n: int, lanes: int) -> int:
+    """The rows of one alignment group of K4 + K10 at length n: the block's
+    ``col_width_i8(n)`` rows where they divide ``lanes``, else
+    gcd(block, lanes), so that every group lies inside one of JAX's groups
+    of ``lanes`` rows."""
+    return math.gcd(col_width_i8(n), lanes)
+
+
 def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
-                      i8_f: int = 0):
+                      i8_f: int = 0, lanes: int = MIN_TRAIL):
     """Launch K4 from the (L, n1, n) view of the planes into the
     (L, n, n1) view of the outputs, or with ``i8_f`` K4 whose last stage
-    is the f-point int8 stage K10; no synchronise.  The caller
+    is the f-point int8 stage K10, its alignment groups of
+    ``swap_i8_group(n, lanes)`` rows; no synchronise.  The caller
     (``fft_rows_swap``) has checked n and n1."""
     global SWAP_LAUNCHES, SWAP_I8_LAUNCHES
     shape = tuple(re.shape)
@@ -984,7 +994,8 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
             w = w_tables(i8_f, sign, re.device)
             err = _rows_swap_i8_fn()(*ptrs, None, None, w.data_ptr(), dims,
                                      ilog2(n), ilog2(i8_f), int(sign),
-                                     float(postscale), 0, stream)
+                                     float(postscale), 0,
+                                     swap_i8_group(n, lanes), stream)
         else:
             err = _rows_swap_fn()(*ptrs, dims, ilog2(n), int(sign),
                                   float(postscale), stream)
@@ -1018,11 +1029,12 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
 
     ``precision="int8"`` runs the chain's matrix stage as the int8-split
     stage K10, f the last factor of ``default_factors(n)`` (128 at n =
-    2048): on the card K4 + K10, whose alignment group is a block of
-    ``col_width_i8(n)`` rows, inside one of JAX's ``lanes``-row groups (a
-    ``lanes`` that the block does not divide raises there); on the CPU
-    JAX's groups of ``lanes`` rows.  At n = 8 the chain has no matrix stage
-    and K4 runs unchanged.
+    2048): on the card K4 + K10, a block of ``col_width_i8(n)`` rows whose
+    alignment groups are runs of ``swap_i8_group(n, lanes)`` rows, each
+    inside one of JAX's ``lanes``-row groups (the same groups wherever
+    ``lanes`` divides the block's rows or the block divides ``lanes``); on
+    the CPU JAX's groups of ``lanes`` rows.  At n = 8 the chain has no
+    matrix stage and K4 runs unchanged.
     """
     int8 = _check_precision(precision, re.dtype)
     n1, n = _swap_n(re, lanes)
@@ -1033,14 +1045,10 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
                          "memory with the input")
     if re.is_cuda:
         i8_f = matrix_factor(default_factors(n)) if int8 else 0
-        if i8_f and lanes % col_width_i8(n):
-            raise ValueError(f"fft_rows_swap int8 on the card groups "
-                             f"{col_width_i8(n)} rows a block, which must "
-                             f"divide lanes={lanes}")
         if out is None:
             out = _empty_like_planes(re, im, oshape)
         return _launch_rows_swap(re, im, out[0], out[1], sign, postscale,
-                                 i8_f)
+                                 i8_f, lanes)
     if re.device.type != "cpu":
         raise ValueError(f"no fft_rows_swap for device {re.device}")
     rr, ii = fft_rows_swap_plain(re, im, sign, postscale, factors, precision,

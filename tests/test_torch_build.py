@@ -92,3 +92,27 @@ def test_every_source_follows_each_shared_header(tmp_path, monkeypatch,
     after = {n: build.library_path(n) for n in names}
     assert all(before[n] != after[n] for n in names)
     assert "fused2d_tiled" in names
+
+
+def test_build_dir_in_a_checkout_and_installed(tmp_path, monkeypatch):
+    """A checkout (pyproject.toml beside the package) builds into its own
+    build/pyfft_tpu_torch; an installed package, whose site-packages may
+    not be writable, into the user's cache."""
+    checkout = tmp_path / "repo"
+    (checkout / "pyfft_tpu_torch" / "ops").mkdir(parents=True)
+    (checkout / "pyproject.toml").write_text("[project]\n")
+    assert (build._build_dir(checkout / "pyfft_tpu_torch")
+            == checkout / "build" / "pyfft_tpu_torch")
+    site = tmp_path / "site-packages"
+    (site / "pyfft_tpu_torch" / "ops").mkdir(parents=True)
+    home = tmp_path / "home"
+    monkeypatch.setenv("HOME", str(home))
+    assert (build._build_dir(site / "pyfft_tpu_torch")
+            == home / ".cache" / "pyfft_tpu_torch" / "build")
+
+
+def test_build_dir_of_this_checkout():
+    from pathlib import Path
+    root = Path(build.__file__).resolve().parents[2]
+    assert (root / "pyproject.toml").is_file()
+    assert build.BUILD_DIR == root / "build" / "pyfft_tpu_torch"

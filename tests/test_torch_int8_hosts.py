@@ -16,6 +16,8 @@ nothing but JAX's grid.  The CUDA kernels are checked on the card by
 chip_smoke.py (phase 20).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -323,3 +325,81 @@ def test_int8_hosts_on_the_card():
                                 -1, precision="int8", lanes=128)
     assert rel_err(cplx([t.cpu().reshape(2, 128, 1024) for t in got]),
                    cplx([t.cpu() for t in want])) < C64
+
+
+# ------------------------------------------- K4 + K10's groups and lanes
+
+
+def i8_width(n: int) -> int:
+    """ColShape<log2 n, float, true>::C of csrc/local_cols.cu: the rows a
+    K4 + K10 block takes (32 KB, at most 128 rows, at least a sector's 8
+    within 64 KB)."""
+    point = 8
+    return max(min(32768 // (n * point), 128), min(65536 // (n * point), 8))
+
+
+@pytest.fixture
+def stub_widths(monkeypatch):
+    """The int8 column library's width entry without nvcc: the source's
+    rule, so col_width_i8 and swap_i8_group run on the CPU."""
+    width = lambda log2n: i8_width(1 << log2n)
+    monkeypatch.setattr(local, "_cols_i8_lib", lambda: (None, width))
+
+
+@pytest.mark.parametrize("n,lanes,want", [
+    (16, 64, 64), (16, 128, 128), (32, 64, 64), (32, 128, 128),
+    (64, 32, 32), (64, 128, 64), (2048, 96, 4), (16, 384, 128),
+    (16, 3, 1)])
+def test_swap_i8_group_lies_inside_a_jax_group(stub_widths, n, lanes, want):
+    """A K4 + K10 group is gcd(block rows, lanes) rows: it divides the
+    block (so blocks hold whole groups) and ``lanes`` (so it lies inside
+    one of JAX's groups); where one of the two divides the other it is
+    the smaller, JAX's own group where lanes divides the block."""
+    c = local.col_width_i8(n)
+    assert c == i8_width(n)
+    g = local.swap_i8_group(n, lanes)
+    assert g == want and c % g == 0 and lanes % g == 0
+    if c % lanes == 0 or lanes % c == 0:
+        assert g == min(c, lanes)
+
+
+def test_width_rule_matches_the_source():
+    """i8_width mirrors ColShape's I8 rule as the source states it."""
+    src = (Path(local.__file__).parent / "csrc" / "local_cols.cu").read_text()
+    assert "constexpr int WIDE = 64 * 1024;" in src
+    assert "constexpr int DEEP = 128 * 1024;" in src
+    assert "static constexpr int W = WIDE / (I8 ? 2 : 1) / BYTES;" in src
+    assert [i8_width(1 << k) for k in range(3, 14)] == [
+        128, 128, 128, 64, 32, 16, 8, 8, 4, 2, 1]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, to walk the card branch
+    of a wrapper up to its launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("lanes", [64, 128])
+def test_swap_int8_card_branch_reaches_the_launch(stub_widths, monkeypatch,
+                                                  n, lanes):
+    """lanes = 64 at n = 16 and 32, where the block holds 128 rows, once
+    refused on the card: fft_rows_swap now hands it to K4 + K10's launch,
+    with the matrix factor and lanes, whose group is then lanes rows."""
+    seen = []
+
+    def launch(re, im, out_re, out_im, sign, postscale, i8_f=0,
+               lanes=local.MIN_TRAIL):
+        seen.append((i8_f, lanes, local.swap_i8_group(n, lanes)))
+        return out_re, out_im
+
+    monkeypatch.setattr(local, "_launch_rows_swap", launch)
+    z = torch.zeros(2, 256, n).as_subclass(_OnCard)
+    out = (torch.empty(2, n, 256), torch.empty(2, n, 256))
+    got = local.fft_rows_swap(z, z, -1, lanes=lanes, precision="int8",
+                              out=out)
+    assert got[0] is out[0]
+    assert seen == [(n, lanes, lanes)]

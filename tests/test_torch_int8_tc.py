@@ -125,23 +125,49 @@ def b_offset(q, kk, f: int, Q: int) -> np.ndarray:
     return (q // 8) * 8 * 2 * f + (kk // 16) * 128 + (q % 8) * 16 + kk % 16
 
 
-def tc_model(xr: np.ndarray, xi: np.ndarray, f: int, sign: int):
+def cut_runs(xs: np.ndarray, f: int, m: int, nt: int) -> np.ndarray:
+    """x's 4 channels in B's byte layout as the kernel writes them: run u
+    (elements r0..r0+15 of column q = u % Q, r0 = 16*(u // Q)) is cut by
+    thread u % nt in its pass u // nt (two runs a thread where the block
+    has more runs than threads, K8's 2^18-point planes), both halves of
+    it at store_run's offsets (q/8)*SBO + ((part*f + r0)/16)*128 +
+    (q%8)*16 + i.  Every byte is written once."""
+    k2, Q = xs.shape
+    runs = Q * f // 16
+    assert runs <= 2 * nt, "at most two runs a thread"
+    chans = np.zeros((4, k2 * Q), np.int8)
+    written = np.zeros(k2 * Q, np.int64)
+    for u in range(runs):
+        assert u % nt < nt and u // nt < 2
+        q, r0 = u % Q, (u // Q) * 16
+        for part in range(2):
+            x = xs[part * f + r0:part * f + r0 + 16, q].astype(np.float32)
+            off = ((q // 8) * 8 * k2 + ((part * f + r0) // 16) * 128
+                   + (q % 8) * 16 + np.arange(16))
+            for c in range(4):
+                t = cut(x, exp2(7 * (c + 1) - m))
+                x = (x - (t - RND) * exp2(m - 7 * (c + 1))).astype(np.float32)
+                chans[c, off] = t.view(np.uint32).astype(np.uint8).view(
+                    np.int8)
+            written[off] += 1
+    assert (written == 1).all()
+    return chans
+
+
+def tc_model(xr: np.ndarray, xi: np.ndarray, f: int, sign: int,
+             nt: int = 512):
     """The wgmma stage's arithmetic on one alignment group: (f, Q) float32
-    planes (column q along axis 1) -> the f-point DFT's (f, Q) planes."""
+    planes (column q along axis 1) -> the f-point DFT's (f, Q) planes, the
+    cut run by run over ``nt`` threads."""
     Q = xr.shape[1]
     k2 = 2 * f
     amax = np.float32(max(np.abs(xr).max(), np.abs(xi).max()))
     m = int(np.clip(((amax.view(np.int32) >> 23) & 0xFF) - 126, -40, 120))
     # 2. the cut, every step in float32, into B's byte layout
     xs = np.concatenate([xr, xi], axis=0)                 # (2f, Q)
-    chans = np.zeros((4, k2 * Q), np.int8)
     kk, q = np.meshgrid(np.arange(k2), np.arange(Q), indexing="ij")
     off = b_offset(q, kk, f, Q)
-    r = xs.astype(np.float32)
-    for c in range(4):
-        t = cut(r, exp2(7 * (c + 1) - m))
-        r = (r - (t - RND) * exp2(m - 7 * (c + 1))).astype(np.float32)
-        chans[c, off] = t.view(np.uint32).astype(np.uint8).view(np.int8)
+    chans = cut_runs(xs, f, m, nt)
     img = int8.w_image(f, sign)
     W = unpack_image(img, f).astype(np.int64)             # (3, 2f, 2f)
     X = chans[:, off].astype(np.int64)                    # (4, 2f, Q)
@@ -167,7 +193,7 @@ def tc_model(xr: np.ndarray, xi: np.ndarray, f: int, sign: int):
 
 
 @pytest.mark.parametrize("f,Q", [(32, 128), (64, 16), (64, 128), (128, 16),
-                                 (128, 64)])
+                                 (128, 64), (128, 128), (32, 256)])
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_tc_order_bit_equal_to_plain_and_jax(f, Q, sign):
     rng = np.random.RandomState(f + Q)
@@ -218,3 +244,62 @@ def test_row_stage_entry_covers_every_pair():
     body = src.split("int pyfft_local_rows_i8_stage(")[1].split("\n}\n")[0]
     assert "PYFFT_I8_CHAINS(PYFFT_I8_STAGE)" in body
     assert "PYFFT_I8_STAGE(11, 7)" in body
+
+
+def fused_i8_cases(tiled: bool):
+    """(log2 ny, log2 fy, log2 nx, log2 fx) of every K8 + K10 (or K9 +
+    K10) instance: the source's PYFFT_FUSED2D_I8_CASES (or
+    PYFFT_TILED_I8_CASES)."""
+    name, macro = (("fused2d_tiled.cu", "PYFFT_TILED_I8_CASES") if tiled
+                   else ("fused2d.cu", "PYFFT_FUSED2D_I8_CASES"))
+    src = (CSRC / name).read_text()
+    body = src.split(f"#define {macro}(X)")[1].split("\n\n")[0]
+    return [tuple(map(int, t))
+            for t in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", body)]
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_fused_i8_cases_take_the_chains_factor(tiled):
+    """Each instance's f is the matrix factor of the chain the wrapper
+    hands it (default_factors for K8, col_factors for K9): 15 and 28."""
+    cases = fused_i8_cases(tiled)
+    assert len(cases) == (28 if tiled else 15)
+    chain = local.col_factors if tiled else local.default_factors
+    for ly, lfy, lx, lfx in cases:
+        assert local.matrix_factor(chain(1 << ly)) == 1 << lfy
+        assert local.matrix_factor(chain(1 << lx)) == 1 << lfx
+
+
+@pytest.mark.parametrize("case", fused_i8_cases(False))
+def test_fused2d_i8_stage_pinned(case):
+    from pyfft_tpu_torch.ops import fused2d
+    assert fused2d.i8_stage(1 << case[0], 1 << case[2]) == "wgmma"
+
+
+@pytest.mark.parametrize("case", fused_i8_cases(True))
+def test_fused2d_tiled_i8_stage_pinned(case):
+    from pyfft_tpu_torch.ops import fused2d
+    assert fused2d.i8_stage(1 << case[0], 1 << case[2], tiled=True) == "wgmma"
+
+
+@pytest.mark.parametrize("name,macro", [
+    ("fused2d", "PYFFT_FUSED2D_I8_CASES"),
+    ("fused2d_tiled", "PYFFT_TILED_I8_CASES")])
+def test_fused_stage_entries_cover_every_case(name, macro):
+    """pyfft_fused2d_i8_stage and pyfft_fused2d_tiled_i8_stage report
+    I8Plan::TC for every instance (chip_smoke.py phase 20 holds them
+    against fused2d.i8_stage on the card), and both kernels call the
+    wgmma stage alone."""
+    src = (CSRC / f"{name}.cu").read_text()
+    body = src.split(f'extern "C" int pyfft_{name}_i8_stage(')[1]
+    body = body.split("\n}\n")[0]
+    assert f"{macro}(PYFFT_CASE)" in body and "::TC ? 1 : 0" in body
+    kernel = src.split(f"{name}_i8_kernel(")[1].split("\n}\n")[0]
+    assert kernel.count("int8_stage_tc<") == 2
+    assert "int8_stage<" not in kernel
+
+
+def test_in_place_path_is_gone():
+    """No host uses int8_stage's old IN_PLACE form."""
+    for path in CSRC.glob("*.cu*"):
+        assert "IN_PLACE" not in path.read_text(), path.name
