@@ -54,7 +54,9 @@ numpy.fft, in twenty-one phases, one or more lines each:
      version and numpy.fft for every n from 8 to 4096, 1 and 130 rows,
      forward and inverse with postscale 0.3, planar, stride-2 and in-place
      operands;
- 11. complex128 column kernel K12: as phase 6, for every n from 8 to 4096;
+ 11. complex128 column kernel K12: as phase 6, for every n from 8 to 4096,
+     and where the cluster kernel takes n (1024 to 4096) the twiddled and
+     swapped modes on planar planes too;
  12. the complex128 paths through Plan (complex and planar forms, inverse
      round trip) and the functional API, with an exact launch count per
      kernel: config 5 (2^22 x 64, four-step: 2 K12; against numpy on rows
@@ -530,6 +532,11 @@ def phase_timings(xt, re, im):
 
 COL_MODES = ("plain planar", "plain stride2", "plain inplace",
              "full swap_store", "strided swap_mid", "factored swap_store")
+# the twiddled and swapped modes on planar planes too where the complex128
+# cluster kernel takes n: its planar table is another instance than the
+# stride-2 planes' one
+COL_MODES_PLANAR = ("full swap_store planar", "strided swap_mid planar",
+                    "factored swap_store planar")
 
 
 def col_reference(X, n, T, mode, sign, post):
@@ -573,6 +580,9 @@ def phase_cols_kernel(prec: str = "complex64"):
     for n in (1 << p for p in range(3, spec["max_log"] + 1)):
         worst_plain = worst_np = 0.0
         cases = 0
+        modes = COL_MODES
+        if prec == "complex128" and local.col_xshape_f64(n):
+            modes += COL_MODES_PLANAR
         # one plane only at the largest n; elsewhere l = 0 of three
         for L in ((1, 3) if n == 1 << spec["max_log"] else (3,)):
             for T in (128, 384):
@@ -584,11 +594,11 @@ def phase_cols_kernel(prec: str = "complex64"):
                     X = np.fft.fft(x.astype(np.complex128), axis=1)
                     if sign > 0:
                         X = np.fft.ifft(x.astype(np.complex128), axis=1) * n
-                    for mode in COL_MODES:
+                    for mode in modes:
                         ref, tw_n = col_reference(X, n, T, mode, sign, post)
                         kw = col_kwargs(mode, tw_n)
                         out = None
-                        if mode == "plain planar":
+                        if mode.endswith("planar"):
                             re, im = (xc.real.contiguous(),
                                       xc.imag.contiguous())
                         else:           # the complex form's planes
@@ -620,6 +630,18 @@ def phase_cols_kernel(prec: str = "complex64"):
         print(f"phase {phase} {prec} column kernel n={n} (C={width} columns "
               f"a block): {cases} cases, max rel err vs plain "
               f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {tol:.0e})")
+        for strided in (False, True):
+            xs = (local.col_xshape_f64(n, strided)
+                  if prec == "complex128" else None)
+            if xs:
+                print(f"phase {phase} complex128 cluster column kernel n={n}"
+                      f" on {'stride-2' if strided else 'planar'} planes: "
+                      f"(G, C) = ({xs['cluster']}, {xs['columns']}), a tile "
+                      f"of {xs['columns']} columns over a cluster of "
+                      f"{xs['cluster']} blocks, registers for "
+                      f"{xs['blocks_an_sm']} blocks an SM; clusters the card "
+                      f"holds at once: {xs['clusters_plain']} (plain store),"
+                      f" {xs['clusters_swap']} (swapped store)")
 
 
 # ------------------------------------------------- the fused 2D kernel
@@ -1692,10 +1714,15 @@ def phase_tiled_kernel():
             raise AssertionError(f"K9 {ny}x{nx}: "
                                  f"{fused2d.TILED_LAUNCHES - before} launches "
                                  f"for {cases} calls")
-        print(f"phase 17 K9 {ny}x{nx} (a cluster of "
-              f"{fused2d.tiled_cluster_size(ny, nx)} blocks a plane): "
-              f"{cases} cases, max rel err vs plain {worst_plain:.3e}, vs "
-              f"numpy {worst_np:.3e} (gate {TOL:.0e})")
+        sh = fused2d.tiled_shape(ny, nx)
+        print(f"phase 17 K9 {ny}x{nx} (a cluster of {sh['cluster']} blocks "
+              f"a plane, phase 2 in tiles of {sh['run']} columns"
+              + (f" split over groups of {sh['group']} blocks"
+                 if sh["group"] > 1 else "")
+              + f", planes cap {sh['planes']}, {sh['clusters_held']} "
+              f"clusters held at once): {cases} cases, max rel err vs plain "
+              f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
+              f"{TOL:.0e})")
 
 
 def variant_b(re, im, sign, post, ctile=0):
@@ -1901,8 +1928,10 @@ def phase_offroute_paths(copy_gbs):
     against_plain("fused2d_tiled", "config 3 (K9)", y,
                   fused2d.fft2_tiled_plain(re, im, -1))
     del y, back, ref, routed
+    sh = fused2d.tiled_shape(1024, 1024)
     print(f"phase 18 config 3 (16 x 1024^2) through K9 (a cluster of "
-          f"{fused2d.tiled_cluster_size(1024, 1024)} blocks a plane): "
+          f"{sh['cluster']} blocks a plane, planes cap {sh['planes']} of "
+          f"the card's L2, {sh['clusters_held']} clusters held at once): "
           f"launches 2 fused2d_tiled over a forward and an inverse run, err "
           f"vs numpy {e3[0]:.3e}, vs Plan {e3[1]:.3e}, round trip "
           f"{e3[2]:.3e} (gate {TOL:.0e})")

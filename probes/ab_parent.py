@@ -6,14 +6,17 @@ outputs.
 
 OTHER_CHECKOUT is an unpacked copy of another commit (``git archive`` of
 the parent, say).  Its ``local_rows.cu``, ``local_cols.cu``, ``fused2d.cu``
-and ``fused2d_tiled.cu`` are built beside this checkout's, and the same
-wrappers run each build in turn:
+and ``fused2d_tiled.cu`` are built beside this checkout's, all eight at
+once, and the same wrappers run each build in turn:
 
 * the float kernels: the row kernel K1 at config 2, its interleaved policy
   K2 at config 2i, the column kernel K5 at config 6+'s two passes and
-  config 4's z pass, its complex128 instantiation K12 at config 5's two
-  passes, the digit-swapped row pass K4 at variant B's pass 2, the fused
-  2D kernel K8 at config 4 and the tiled one K9 at config 3;
+  config 4's z pass, the complex128 column kernel K12 at config 5's two
+  passes (planar and on the complex form's stride-2 planes) and at the
+  complex128 2D path's column pass (16 x 1024 x 1024), the digit-swapped
+  row pass K4 at variant B's pass 2, the fused 2D kernel K8 at config 4
+  and the tiled one K9 at config 3 and at 16 planes of each of its 28
+  plane shapes;
 * the int8 kernels (the stage K10, precision="int8"): K1+K10 at config 2
   and at 2048 x 8192 (f = 128), K2+K10 at config 2i and at 2048 x 8192
   interleaved, K5+K10 at config 3's column pass, K4+K10 at variant B's
@@ -39,6 +42,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import torch
@@ -50,20 +54,36 @@ from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
 from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
 SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled")
+# K9's plane shapes: (ny, nx), powers of two from 128 to 8192, 2^20 points
+# at most
+TILED_SHAPES = [(1 << a, 1 << b) for a in range(7, 14) for b in range(7, 14)
+                if a + b <= 20]
 DTYPES = (torch.float32, torch.float64)
 
 
-def load_other(csrc: Path, name: str):
-    """Build and load ``csrc/<name>.cu`` of the other checkout (its library
-    is named by its own sources, so it sits beside this checkout's)."""
-    saved = build.CSRC
-    build.CSRC = csrc
-    try:
-        build._LOADED.pop(name, None)
-        return build.load(name)
-    finally:
-        build.CSRC = saved
-        build._LOADED.pop(name, None)
+def load_all(other: Path) -> dict:
+    """{"this": {source: CDLL}, "other": {...}}: every source of both
+    checkouts built at once, one nvcc each (the other checkout's libraries
+    are named by its own sources, so they sit beside this one's)."""
+    libs = {"this": {}, "other": {}}
+    errors = []
+
+    def one(which, name):
+        try:
+            libs[which][name] = build.load(
+                name, other if which == "other" else None)
+        except Exception as e:          # reported below, after the joins
+            errors.append(f"{which} {name}: {e}")
+
+    threads = [threading.Thread(target=one, args=(w, n))
+               for w in libs for n in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return libs
 
 
 def bind(lib, binder, *args):
@@ -138,6 +158,15 @@ def cases() -> list:
         o = empty((L, T, n) if kw.get("swap_store") else shape, real)
         return lambda: local.fft_axis(re, im, -1, axis=1, out=o, **kw)
 
+    def cols_complex(shape, **kw):      # complex128, stride-2 planes
+        v = torch.view_as_real(torch.complex(*planes(shape, torch.float64)))
+        L, n, T = shape
+        w = torch.view_as_real(torch.empty(
+            (L, T, n) if kw.get("swap_store") else shape, device="cuda",
+            dtype=torch.complex128))
+        return lambda: local.fft_axis(v[..., 0], v[..., 1], -1, axis=1,
+                                      out=(w[..., 0], w[..., 1]), **kw)
+
     def rows(shape, precision):
         re, im = planes(shape)
         o = empty(shape)
@@ -170,10 +199,18 @@ def cases() -> list:
         ("K12 config 5 pass 1 (full + swap_store)",
          cols((64, 2048, 2048), f64, **full)),
         ("K12 config 5 pass 2 (plain store)", cols((64, 2048, 2048), f64)),
+        ("K12 config 5 pass 1 complex form (full + swap_store)",
+         cols_complex((64, 2048, 2048), **full)),
+        ("K12 config 5 pass 2 complex form (plain store)",
+         cols_complex((64, 2048, 2048))),
+        ("K12 c128 2D column pass (16, 1024, 1024)",
+         cols((16, 1024, 1024), f64)),
         ("K8 config 4 (256^3)",
          fused(fused2d.fft2_fused, (256, 256, 256), "highest")),
         ("K9 config 3 (16 x 1024^2)",
          fused(fused2d.fft2_fused_tiled, (16, 1024, 1024), "highest")),
+        ("K9 16 x 512^2",
+         fused(fused2d.fft2_fused_tiled, (16, 512, 512), "highest")),
         ("K1 config 2 (4096 x 4096)", rows((4096, 4096), "highest")),
         ("K2 config 2i (4096 x 4096 interleaved)",
          rows_il((4096, 4096), "highest")),
@@ -196,7 +233,10 @@ def cases() -> list:
          fused(fused2d.fft2_fused, (16, 512, 512), "int8")),
         ("K9+K10 16 x 512^2 (int8, f=128)",
          fused(fused2d.fft2_fused_tiled, (16, 512, 512), "int8")),
-    ]
+    ] + [(f"K9 16 x {ny}x{nx}",
+          fused(fused2d.fft2_fused_tiled, (16, ny, nx), "highest"))
+         for ny, nx in TILED_SHAPES if (ny, nx) not in ((1024, 1024),
+                                                        (512, 512))]
 
 
 def main(other: Path) -> int:
@@ -208,8 +248,7 @@ def main(other: Path) -> int:
         check=True).stdout.strip()
     print(f"card: {card}")
     csrc = other / "pyfft_tpu_torch" / "ops" / "csrc"
-    libs = {"this": {k: build.load(k) for k in SOURCES},
-            "other": {k: load_other(csrc, k) for k in SOURCES}}
+    libs = load_all(csrc)
     bound = {"this": bindings(libs["this"]),
              "other": bindings(libs["other"], csrc)}
     saved = {k: getattr(fused2d if k in ("_lib", "_tiled_lib") else local, k)

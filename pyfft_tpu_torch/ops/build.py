@@ -10,7 +10,8 @@ site-packages may not be writable.  They are named by a hash of the
 source together with every ``csrc/*.cuh`` header and the flags, so an
 edited ``.cu`` or shared header rebuilds and an unchanged one is reused.
 Each kernel has its own lock, so several kernels can build at once from
-threads.
+threads; ``load(name, csrc)`` builds another checkout's source beside
+this one's (``probes/ab_parent.py``).
 
 Nothing here runs at import time: the host may have no ``nvcc`` and no
 GPU, and the CPU tests import every module.
@@ -62,30 +63,37 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built on this host")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: named by the hash of the source,
-    every header in ``csrc/`` (by name and content) and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def library_path(name: str, csrc: Path | None = None) -> Path:
+    """Where ``<csrc>/<name>.cu`` builds to (``csrc`` this package's
+    ``csrc/`` by default): named by the hash of the source, every header in
+    ``csrc`` (by name and content) and the flags."""
+    csrc = csrc or CSRC
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``<csrc>/<name>.cu`` (``csrc`` this
+    package's ``csrc/`` by default, another checkout's for a comparison);
+    cached per process and source directory."""
+    csrc = csrc or CSRC
+    key = f"{name}@{csrc}"
     with _LOCKS_LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
+        lock = _LOCKS.setdefault(key, threading.Lock())
     with lock:
-        lib = _LOADED.get(name)
+        lib = _LOADED.get(key)
         if lib is not None:
             return lib
-        path = library_path(name)
+        path = library_path(name, csrc)
         if not path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            tmp = path.with_name(f"{path.name}.{os.getpid()}."
+                                 f"{threading.get_ident()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+                   str(csrc / f"{name}.cu")]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -93,5 +101,5 @@ def load(name: str) -> ctypes.CDLL:
                                    f"(rc {res.returncode}):\n{res.stderr}")
             # atomic: concurrent builders each write their own temp file
             os.replace(tmp, path)
-        lib = _LOADED[name] = ctypes.CDLL(str(path))
+        lib = _LOADED[key] = ctypes.CDLL(str(path))
         return lib

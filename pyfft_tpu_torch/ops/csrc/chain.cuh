@@ -6,27 +6,46 @@
 // front of the f-point int8 stage, ChainMap gives that stage
 // (int8_stage.cuh's int8_stage_tc) the buffer's layout and put_pair writes
 // its outputs.  At the bottom, the host side the two sources share: their
-// operands (Planes2D) and the cluster launch.
+// operands (Planes2D); the cluster launch is cluster_cols.cuh's.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_cols.cuh"
 #include "stockham.cuh"
 
 namespace pyfft {
 
+// Where element k of transform c of an N-point chain over C transforms
+// lies in the buffer: ROWS c*N + k, and with PAD one float2 of padding
+// after every 16 (a bank cycle), so that a stage's strided writes (runs of
+// NS, NS*R apart) meet at most the two wavefronts of a warp's 8-byte
+// accesses instead of up to sixteen-way conflicts; else k*C + c.  The
+// buffer of C padded transforms holds C*(N + N/16) values.
+template <int N, int C, bool ROWS, bool PAD = false>
+__device__ __forceinline__ int chain_index(int c, int k) {
+  if constexpr (!ROWS) return k * C + c;
+  else if constexpr (PAD) return c * (N + N / 16) + k + k / 16;
+  else return c * N + k;
+}
+
 // One radix-R Stockham stage over C transforms of length N held in shared
-// memory.  ROWS: transform (c, k) at sm[c*N + k], threads running along k;
-// else at sm[k*C + c], threads running along c.  NS is the product of the
-// radices of the stages before it.  FIRST takes its inputs from load(c, k)
-// (device memory) instead of the buffer, LAST hands its outputs to
-// store(c, k, v) instead.  A stage that reads and writes the buffer does
-// all its reads, then a barrier, then all its writes: one buffer serves in
-// and out.
+// memory.  ROWS: transform (c, k) at sm[c*N + k] (chain_index, PAD),
+// threads running along k; else at sm[k*C + c], threads running along c.
+// NS is the product of the radices of the stages before it.  FIRST takes
+// its inputs from load(c, k) (device memory) instead of the buffer, LAST
+// hands its outputs to store(c, k, v) instead.  A stage that reads and
+// writes the buffer does all its reads, then a barrier, then all its
+// writes: one buffer serves in and out.  TWD: a butterfly reads the
+// twiddles w^1, w^2, w^4 (and w^7 at radix 8) and forms the others with
+// one product each (w^3, w^5, w^6), four table reads instead of seven; at
+// radix 16 it reads w^1, w^2, w^3, w^4, w^8 and forms the other ten with
+// one or two products.
 template <int NT, int N, int C, bool ROWS, int R, int NS, bool FIRST,
-          bool LAST, class Load, class Store>
+          bool LAST, bool PAD = false, bool TWD = false, class Load,
+          class Store>
 __device__ __forceinline__ void stage(float2* sm,
                                       const float2* __restrict__ tw, float s,
                                       const Load& load, const Store& store) {
@@ -41,13 +60,44 @@ __device__ __forceinline__ void stage(float2* sm,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int k = j + r * NR;
-      v[b][r] = FIRST ? load(c, k) : sm[ROWS ? c * N + k : k * C + c];
+      v[b][r] = FIRST ? load(c, k) : sm[chain_index<N, C, ROWS, PAD>(c, k)];
     }
     if (NS > 1) {
       const int jj = j % NS;
+      if constexpr (TWD && R == 16) {
+        // w^1, w^2, w^3, w^4, w^8 read; the others one or two products
+        const int e = jj * (N / (NS * R));      // w^r at tw[r*e]
+        float2 w[R];
+        w[1] = __ldg(&tw[e]);
+        w[2] = __ldg(&tw[2 * e]);
+        w[3] = __ldg(&tw[3 * e]);
+        w[4] = __ldg(&tw[4 * e]);
+        w[8] = __ldg(&tw[8 * e]);
+        w[5] = cmul(w[1], w[4]);
+        w[6] = cmul(w[2], w[4]);
+        w[7] = cmul(w[3], w[4]);
 #pragma unroll
-      for (int r = 1; r < R; ++r)
-        v[b][r] = cmul(v[b][r], __ldg(&tw[jj * r * (N / (NS * R))]));
+        for (int r = 9; r < R; ++r) w[r] = cmul(w[r - 8], w[8]);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[b][r] = cmul(v[b][r], w[r]);
+      } else if constexpr (TWD && R >= 4) {
+        const int e = jj * (N / (NS * R));      // w^r at tw[r*e]
+        const float2 w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+        v[b][1] = cmul(v[b][1], w1);
+        v[b][2] = cmul(v[b][2], w2);
+        v[b][3] = cmul(v[b][3], cmul(w1, w2));
+        if constexpr (R == 8) {
+          const float2 w4 = __ldg(&tw[4 * e]);
+          v[b][4] = cmul(v[b][4], w4);
+          v[b][5] = cmul(v[b][5], cmul(w1, w4));
+          v[b][6] = cmul(v[b][6], cmul(w2, w4));
+          v[b][7] = cmul(v[b][7], __ldg(&tw[7 * e]));
+        }
+      } else {
+#pragma unroll
+        for (int r = 1; r < R; ++r)
+          v[b][r] = cmul(v[b][r], __ldg(&tw[jj * r * (N / (NS * R))]));
+      }
     }
     dft<R>(v[b], s);
   }
@@ -63,29 +113,34 @@ __device__ __forceinline__ void stage(float2* sm,
       if (LAST)
         store(c, k, v[b][r]);
       else
-        sm[ROWS ? c * N + k : k * C + c] = v[b][r];
+        sm[chain_index<N, C, ROWS, PAD>(c, k)] = v[b][r];
     }
   }
   if (!LAST) __syncthreads();
 }
 
 // The chain along one axis from stage STAGE on: a radix-2 or radix-4 stage
-// first when LOGN is not a multiple of 3, then radix 8; stage 0 takes its
+// first when LOGN is not a multiple of 3, then radix 8 (R16: a radix-2, 4
+// or 8 stage first when LOGN is not a multiple of 4, then radix 16, a
+// shared-memory round trip fewer at most lengths); stage 0 takes its
 // inputs from `load` when LOAD, the last stage hands its outputs to `store`
-// when STORE, else the result stays in natural order in the buffer.
+// when STORE, else the result stays in natural order in the buffer (PAD:
+// chain_index's padded rows; TWD: stage's twiddles from fewer reads).
 template <int NT, int LOGN, int C, bool ROWS, int STAGE, int NS, bool LOAD,
-          bool STORE, class Load, class Store>
+          bool STORE, bool PAD = false, bool TWD = false, bool R16 = false,
+          class Load, class Store>
 __device__ __forceinline__ void chain(float2* sm,
                                       const float2* __restrict__ tw, float s,
                                       const Load& load, const Store& store) {
-  constexpr int REM = LOGN % 3;
-  constexpr int NSTAGES = LOGN / 3 + (REM ? 1 : 0);
-  constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : 8;
+  constexpr int RB = R16 ? 4 : 3;                // log2 of the main radix
+  constexpr int REM = LOGN % RB;
+  constexpr int NSTAGES = LOGN / RB + (REM ? 1 : 0);
+  constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : (1 << RB);
   stage<NT, 1 << LOGN, C, ROWS, R, NS, LOAD && STAGE == 0,
-        STORE && STAGE == NSTAGES - 1>(sm, tw, s, load, store);
+        STORE && STAGE == NSTAGES - 1, PAD, TWD>(sm, tw, s, load, store);
   if constexpr (STAGE + 1 < NSTAGES)
-    chain<NT, LOGN, C, ROWS, STAGE + 1, NS * R, LOAD, STORE>(sm, tw, s, load,
-                                                            store);
+    chain<NT, LOGN, C, ROWS, STAGE + 1, NS * R, LOAD, STORE, PAD, TWD, R16>(
+        sm, tw, s, load, store);
 }
 
 // The stages of an N-point chain (N = 2^LOGN) in front of its f-point
@@ -185,39 +240,6 @@ inline Planes2D planes_2d(const void* in_re, const void* in_im, void* out_re,
   io.out_xs = dims[6];
   io.post = postscale;
   return io;
-}
-
-// `kernel` over L planes, one cluster of G blocks (NT threads each) a
-// plane, `smem` bytes of shared memory a block.
-template <int NT, class... Params, class... Args>
-cudaError_t launch_cluster(void (*kernel)(Params...), long long L, int G,
-                           int smem, cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  if (G > 8) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = L * G;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 }  // namespace pyfft

@@ -339,31 +339,10 @@ cudaError_t dispatch_i8(int ly, int lfy, int lx, int lfx, const Planes2D& io,
 // hold at once (cudaOccupancyMaxActiveClusters), 0 where none places, a
 // negative cudaError_t where the query fails, -1000 outside the range.
 int i8_clusters(int ly, int lx) {
-#define PYFFT_CASE(a, fa, b, fb)                                          \
-  if (ly == a && lx == b) {                                               \
-    const auto kernel = fused2d_i8_kernel<a, fa, b, fb>;                  \
-    const int smem = I8Plan<a, fa, b, fb>::SMEM;                          \
-    cudaError_t e = cudaFuncSetAttribute(                                 \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);       \
-    if (e == cudaSuccess && Shape2<a, b>::G > 8)                          \
-      e = cudaFuncSetAttribute(                                           \
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);     \
-    if (e != cudaSuccess) return -(int)e;                                 \
-    cudaLaunchConfig_t cfg = {};                                          \
-    cfg.gridDim = dim3(Shape2<a, b>::G);                                  \
-    cfg.blockDim = dim3(NT);                                              \
-    cfg.dynamicSmemBytes = smem;                                          \
-    cudaLaunchAttribute attr[1];                                          \
-    attr[0].id = cudaLaunchAttributeClusterDimension;                     \
-    attr[0].val.clusterDim.x = Shape2<a, b>::G;                           \
-    attr[0].val.clusterDim.y = 1;                                         \
-    attr[0].val.clusterDim.z = 1;                                         \
-    cfg.attrs = attr;                                                     \
-    cfg.numAttrs = 1;                                                     \
-    int n = 0;                                                            \
-    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);                 \
-    return e == cudaSuccess ? n : -(int)e;                                \
-  }
+#define PYFFT_CASE(a, fa, b, fb)                                       \
+  if (ly == a && lx == b)                                              \
+    return max_clusters<NT>(fused2d_i8_kernel<a, fa, b, fb>,           \
+                            Shape2<a, b>::G, I8Plan<a, fa, b, fb>::SMEM);
   PYFFT_FUSED2D_I8_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return -1000;

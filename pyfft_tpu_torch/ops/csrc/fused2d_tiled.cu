@@ -19,31 +19,42 @@
 // between its two axes, but a 2^20-point plane (8 MiB) is more than even a
 // 16-block cluster holds (16 x 227 KB).  So this kernel keeps K8's frame
 // and moves the exchange to device memory, the output planes serving as
-// the scratch plane:
+// the scratch plane, held in the L2 where the planes in flight fit it:
 //
-//   * one thread-block cluster of G blocks per plane, G = ny*nx / 8192
-//     capped at 16 (clusters above 8 blocks are Hopper's non-portable
-//     sizes), launched with cudaLaunchKernelEx;
+//   * a persistent grid of min(L, cap) clusters of G blocks, G = ny*nx /
+//     CHUNK capped at 16 (clusters above 8 blocks are Hopper's
+//     non-portable sizes), launched with cudaLaunchKernelEx; cluster i
+//     takes planes i, i + clusters, ...; cap = the card's L2
+//     (cudaDevAttrL2CacheSize, read at launch) over a plane's 8 bytes a
+//     point, at least 1, so that the planes in flight's intermediates fit
+//     the L2 (6 planes of 2^20 points on an H100);
 //   * phase 1: block b takes rows [b*ny/G, (b+1)*ny/G) in chunks of at
-//     most CHUNK points (64 KB of shared memory, so that blocks of
-//     several clusters share an SM), each chunk a Stockham
-//     radix-8 chain along x whose first stage reads the rows from the
-//     input and whose last stage writes them to the output, both with
-//     threads running along x;
+//     most CHUNK points (64 KB of shared memory), each chunk a Stockham
+//     radix-16 chain along x (a radix-2, 4 or 8 stage first: 4 x 16 x 16
+//     at 1024 points, two shared-memory round trips where radix 8 took
+//     three), its rows padded in shared memory (chain_index) and its
+//     fifteen twiddles a butterfly formed from five reads, whose first
+//     stage reads the rows from the input (L2 evict_first: read once) and
+//     whose last stage writes them to the output (evict_last: kept for
+//     phase 2), threads running along x;
 //   * a __threadfence() and a cluster barrier: every row of the plane is
 //     in the output before any block reads a column;
-//   * phase 2: block b takes columns [b*nx/G, (b+1)*nx/G) in chunks, each
-//     a chain along y that reads the columns from the output and writes
-//     them back in place, postscale folded, threads running along x.
-//     Those loads read what other blocks wrote during this launch, so
-//     they take __ldcg (the L2, where every SM's stores meet) and never
-//     the read-only path (__ldg, or a const __restrict__ pointer's
-//     ld.global.nc), which may hold stale lines.
+//   * phase 2: the columns read back from the output (evict_first: their
+//     last use), transformed along y (radix 16 too) and written back in
+//     place, postscale folded (evict_first): block b takes columns
+//     [b*nx/G, (b+1)*nx/G) in chunks of CC whole columns while CC reaches
+//     RUN floats of each plane (up to ny = 1024 at 8 floats, 32 bytes), and
+//     beyond that a group of G2 blocks splits y and exchanges through DSMEM
+//     (cluster_cols.cuh), tiles of RUN columns.  Those loads read what
+//     other blocks wrote during this launch, so they go through the L2
+//     (.cg) and never the read-only path (__ldg, or a const __restrict__
+//     pointer's ld.global.nc), which may hold stale lines.
 //
-// So each point crosses device memory four times (in, out, out, out) where
-// a row pass and a column pass cross it four times too: the gain over K1 +
-// K5 can come only from the L2 holding a plane between the phases, which
-// at 8 MiB a plane and 16 planes in flight (128 MiB) the 50 MB L2 cannot.
+// So a point crosses device memory twice where its plane's intermediate
+// stays in the L2 and four times where it does not; on an H100 the
+// blocks' own pace (shared-memory round trips, one 512-thread block an SM
+// at 128 registers, seven 16-block clusters held) limits it before the
+// bytes do (PERF.md).
 //
 // Twiddles come from two tables exp(sign*2*pi*i*k/n), k < n, for ny and nx,
 // built on the host in float64 and rounded once (no device sinf/cosf); the
@@ -52,14 +63,18 @@
 // stage's in registers across the chunk loop.
 //
 // In place: phase 1 reads only the block's own rows and writes them after
-// reading them, and phase 2 touches only the block's own columns, so the
-// output may alias the input exactly.  Each operand is a pair of float
-// planes with three strides in floats (l, y, x): planar data has
+// reading them, and phase 2 touches only the block's (or its group's) own
+// columns, each tile's loads all before the group's first barrier, so the
+// output may alias the input exactly; the planes of one cluster follow
+// one another, and no two clusters share a plane.  Each operand is a pair
+// of float planes with three strides in floats (l, y, x): planar data has
 // (ny*nx, nx, 1), the two planes of torch.view_as_real(complex64) twice
 // those.  Offsets are 64-bit.
 //
 // K9 + K10 (precision="int8"), a kernel of its own (fused2d_tiled_i8_kernel,
-// so K9's code is what it was): in each chunk the chain is radix-2/4/8
+// on the first version's frame, ShapeT: one cluster a plane, all at once,
+// CHUNK points a chunk; its code and bits are what they were): in each
+// chunk the chain is radix-2/4/8
 // stages over n/f bits, then the f-point int8-split stage of
 // int8_stage.cuh (f the last factor of the JAX package's column chain,
 // `col_factors`, as `_fft2_fused_tiled` takes: 32 at 256), whose outputs go
@@ -82,13 +97,15 @@
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
 // library with the plain C entry points `pyfft_fused2d_tiled` and
-// `pyfft_fused2d_tiled_i8` at the bottom.
+// `pyfft_fused2d_tiled_i8`, and K9's shape (`pyfft_fused2d_tiled_shape`),
+// at the bottom.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain.cuh"
+#include "cluster_cols.cuh"
 #include "int8_stage.cuh"
 
 namespace {
@@ -99,72 +116,218 @@ namespace cg = cooperative_groups;
 constexpr int NT = 512;          // threads a block
 constexpr int CHUNK = 8192;      // points a chunk, at most (64 KB)
 
-template <int LY, int LX>
-struct ShapeT {
-  static constexpr int NY = 1 << LY, NX = 1 << LX;
-  static constexpr int G0 = NY * NX / 8192;
-  static constexpr int G = G0 < 16 ? G0 : 16;   // blocks a cluster
-  static constexpr int RB = NY / G;             // rows a block
-  static constexpr int CB = NX / G;             // columns a block
-  static constexpr int RC0 = CHUNK / NX, CC0 = CHUNK / NY;
-  static constexpr int RC = RB < RC0 ? RB : RC0;  // rows a chunk
-  static constexpr int CC = CB < CC0 ? CB : CC0;  // columns a chunk
+// K9's shape knobs (the int8 kernel keeps CHUNK and clusters of at most
+// 16), each default the fastest measured (PERF.md; probes/float_split.py
+// builds the others): points a chunk, at most; blocks a cluster, at most;
+// the planes in flight, 0 for the card's L2 over a plane's bytes (6 planes
+// of 2^20 points on an H100).
+#ifndef PYFFT_TILED_CHUNK
+#define PYFFT_TILED_CHUNK 8192
+#endif
+#ifndef PYFFT_TILED_GMAX
+#define PYFFT_TILED_GMAX 16
+#endif
+#ifndef PYFFT_TILED_PLANES
+#define PYFFT_TILED_PLANES 0
+#endif
+
+// Phase 2's run in floats of each plane, reached by splitting y over a
+// group of the cluster's blocks where whole columns of that many do not
+// fit a chunk (8: 32 bytes, a split from ny = 2048; 32 floats, 128 bytes,
+// split from ny = 512, lost to the DSMEM exchange's barriers).
+constexpr int RUN = 8;
+
+// A plane's frame at (log2 ny, log2 nx) with chunks of CHUNKF points and
+// clusters of at most GMAX blocks: G blocks a plane, RB rows and CB columns
+// a block, RC rows and CC whole columns a chunk, PC points the larger.
+template <int LY, int LX, int CHUNKF_, int GMAX>
+struct Frame {
+  static constexpr int NY = 1 << LY, NX = 1 << LX, CHUNKF = CHUNKF_;
+  static constexpr int G0 = NY * NX / CHUNKF;
+  static constexpr int G = G0 < GMAX ? G0 : GMAX;   // blocks a cluster
+  static constexpr int RB = NY / G;                 // rows a block
+  static constexpr int CB = NX / G;                 // columns a block
+  static constexpr int RC0 = CHUNKF / NX, CC0 = CHUNKF / NY;
+  static constexpr int RC = RB < RC0 ? RB : RC0;    // rows a chunk
+  static constexpr int CC = CB < CC0 ? CB : CC0;    // columns a chunk
   static constexpr int PC = RC * NX > CC * NY ? RC * NX : CC * NY;
-  static_assert(G >= 2 && RB >= 1 && CB >= 1 && RC >= 1 && CC >= 1,
+};
+
+// The int8 kernel's frame: CHUNK points a chunk, clusters of at most 16.
+template <int LY, int LX>
+struct ShapeT : Frame<LY, LX, CHUNK, 16> {
+  using F = Frame<LY, LX, CHUNK, 16>;
+  static_assert(F::G >= 2 && F::RB >= 1 && F::CB >= 1 && F::RC >= 1 &&
+                    F::CC >= 1,
                 "plane out of range");
-  static_assert(RB % RC == 0 && CB % CC == 0, "chunks tile a block's share");
-  static_assert(PC <= CHUNK && RC * NX >= 8 * NT && CC * NY >= 8 * NT,
+  static_assert(F::RB % F::RC == 0 && F::CB % F::CC == 0,
+                "chunks tile a block's share");
+  static_assert(F::PC <= CHUNK && F::RC * F::NX >= 8 * NT &&
+                    F::CC * F::NY >= 8 * NT,
                 "a chunk fits the buffer and gives every thread a butterfly");
 };
+
+// K9's chunk at nx = 2^LX: the knob, or a whole row where that is more.
+constexpr int tiled_chunk(int lx) {
+  return PYFFT_TILED_CHUNK > (1 << lx) ? PYFFT_TILED_CHUNK : 1 << lx;
+}
+
+// K9's shape at (log2 ny, log2 nx): the frame on the knobs above, and
+// phase 2's tiles.  Where a tile of RUN columns of the whole y axis is
+// more than a chunk, it splits over a group of G2 blocks (G2 = ny*RUN /
+// CHUNK, at most 8 and at most G), ny/G2 rows a block, exchanged through
+// DSMEM (cluster_cols.cuh): CW = G2*CHUNK/ny columns a tile (RUN, or
+// fewer where G2 is capped); G/G2 groups a cluster, each taking CG
+// columns.  Else (G2 = 1) a block takes CC columns of the whole axis a
+// chunk, as phase 1 takes rows.
+template <int LY, int LX>
+struct ShapeF : Frame<LY, LX, tiled_chunk(LX), PYFFT_TILED_GMAX> {
+  using F = Frame<LY, LX, tiled_chunk(LX), PYFFT_TILED_GMAX>;
+  static constexpr int G2W = F::NY * RUN / F::CHUNKF;
+  static constexpr int G2C = F::G < 8 ? F::G : 8;
+  static constexpr int G2 = G2W <= 1 ? 1 : (G2W < G2C ? G2W : G2C);
+  static constexpr int CW =                             // columns a tile
+      G2 == 1 ? F::CC : G2 * F::CHUNKF / F::NY;
+  static constexpr int CG = F::NX / (F::G / G2);        // columns a group
+  static constexpr int M2 = F::NY / G2;                 // rows a block
+  using X = XTile<float, LY - ilog2c(G2), (G2 > 1 ? G2 : 2), CW, NT>;
+  // phase 1's rows in chain_index's padded layout (against packed rows'
+  // 16-way write conflicts); the chains' twiddles from five reads of
+  // fifteen a radix-16 butterfly (four of seven at radix 8); the chains on
+  // radix 16 (two shared-memory round trips a 1024-point chunk, three at
+  // radix 8)
+  static constexpr bool PAD = true, TWD = true, R16 = true;
+  // phase 1's RC padded rows, the largest buffer (RC*NX = CHUNKF)
+  static constexpr int SMEM =
+      F::RC * (F::NX + (PAD ? F::NX / 16 : 0)) * (int)sizeof(float2);
+  static_assert(F::CHUNKF <= (1 << 14) && F::CHUNKF >= 8 * NT,
+                "a chunk fits the smallest plane and gives every thread a "
+                "butterfly");
+  static_assert(F::G >= 1 && F::RB % F::RC == 0 &&
+                    F::RC * F::NX == F::CHUNKF,
+                "chunks tile a block's rows");
+  static_assert(G2 > 1 || (F::CC >= 1 && F::CB % F::CC == 0 &&
+                           F::CC * F::NY <= F::CHUNKF &&
+                           F::CC * F::NY >= 8 * NT),
+                "chunks tile a block's columns");
+  static_assert(G2 == 1 || (F::G % G2 == 0 && CG % CW == 0 &&
+                            M2 * CW == F::CHUNKF),
+                "tiles tile a group's columns");
+};
+
+// L2 eviction policies (createpolicy) and loads and stores that carry one.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ float ld_hint(const float* a, uint64_t pol) {
+  float v;
+  asm volatile("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(v) : "l"(a), "l"(pol) : "memory");
+  return v;
+}
+
+// through the L2 (.cg), for data other blocks wrote during the launch
+__device__ __forceinline__ float ldcg_hint(const float* a, uint64_t pol) {
+  float v;
+  asm volatile("ld.global.cg.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(v) : "l"(a), "l"(pol) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_hint(float* a, float v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;"
+               :: "l"(a), "f"(v), "l"(pol) : "memory");
+}
 
 template <int LY, int LX>
 __global__ void __launch_bounds__(NT)
     fused2d_tiled_kernel(Planes2D io, const float2* __restrict__ twy,
                          const float2* __restrict__ twx, float s) {
-  using S = ShapeT<LY, LX>;
+  using S = ShapeF<LY, LX>;
+  using X = typename S::X;
   extern __shared__ float2 sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const long long l = blockIdx.x / S::G;
+  const uint64_t first = l2_evict_first(), last = l2_evict_last();
+  const long long clusters = gridDim.x / S::G;
 
-  const float* in_re = io.in_re + l * io.in_ls;
-  const float* in_im = io.in_im + l * io.in_ls;
-  float* out_re = io.out_re + l * io.out_ls;
-  float* out_im = io.out_im + l * io.out_ls;
+  // the clusters walk the planes: at most `clusters` planes in flight
+  for (long long l = blockIdx.x / S::G; l < io.L; l += clusters) {
+    const float* in_re = io.in_re + l * io.in_ls;
+    const float* in_im = io.in_im + l * io.in_ls;
+    float* out_re = io.out_re + l * io.out_ls;
+    float* out_im = io.out_im + l * io.out_ls;
 
-  // phase 1: the block's rows, chunk by chunk, transformed along x
-  for (int r0 = rank * S::RB; r0 < (rank + 1) * S::RB; r0 += S::RC) {
-    const auto load_row = [&](int c, int k) {        // row r0 + c, x = k
+    // phase 1: the block's rows, chunk by chunk, transformed along x; the
+    // input read once (evict first), the rows kept in the L2 for phase 2
+    const auto load_row = [&](int r0, int c, int k) {  // row r0 + c, x = k
       const long long o = (r0 + c) * io.in_ys + k * io.in_xs;
-      return make_float2(in_re[o], in_im[o]);
+      return make_float2(ld_hint(in_re + o, first),
+                         ld_hint(in_im + o, first));
     };
-    const auto store_row = [&](int c, int k, float2 v) {
+    const auto store_row = [&](int r0, int c, int k, float2 v) {
       const long long o = (r0 + c) * io.out_ys + k * io.out_xs;
-      out_re[o] = v.x;
-      out_im[o] = v.y;
+      st_hint(out_re + o, v.x, last);
+      st_hint(out_im + o, v.y, last);
     };
-    chain<NT, LX, S::RC, true, 0, 1, true, true>(sm, fresh(twx), s,
-                                                 load_row, store_row);
-  }
+    for (int r0 = rank * S::RB; r0 < (rank + 1) * S::RB; r0 += S::RC)
+      chain<NT, LX, S::RC, true, 0, 1, true, true, S::PAD, S::TWD, S::R16>(
+          sm, fresh(twx), s,
+          [&](int c, int k) { return load_row(r0, c, k); },
+          [&](int c, int k, float2 v) { store_row(r0, c, k, v); });
 
-  // every row of the plane written before any block reads a column
-  __threadfence();
-  cluster.sync();
+    // every row of the plane written before any block reads a column
+    __threadfence();
+    cluster.sync();
 
-  // phase 2: the block's columns, chunk by chunk, read back from the
-  // output through the L2, transformed along y and written in place
-  for (int c0 = rank * S::CB; c0 < (rank + 1) * S::CB; c0 += S::CC) {
-    const auto load_col = [&](int c, int k) {        // column c0 + c, y = k
+    // phase 2: the columns read back from the output through the L2 (last
+    // use), transformed along y and written in place, postscale folded
+    const auto load_col = [&](int c0, int c, int k) {  // column c0 + c, y = k
       const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
-      return make_float2(__ldcg(out_re + o), __ldcg(out_im + o));
+      return make_float2(ldcg_hint(out_re + o, first),
+                         ldcg_hint(out_im + o, first));
     };
-    const auto store_col = [&](int c, int k, float2 v) {
+    const auto store_col = [&](int c0, int c, int k, float2 v) {
       const long long o = k * io.out_ys + (c0 + c) * io.out_xs;
-      out_re[o] = v.x * io.post;
-      out_im[o] = v.y * io.post;
+      st_hint(out_re + o, v.x * io.post, first);
+      st_hint(out_im + o, v.y * io.post, first);
     };
-    chain<NT, LY, S::CC, false, 0, 1, true, true>(sm, fresh(twy), s,
-                                                  load_col, store_col);
+    if constexpr (S::G2 == 1) {
+      // the block's columns, CC a chunk, each chunk the whole y axis
+      for (int c0 = rank * S::CB; c0 < (rank + 1) * S::CB; c0 += S::CC)
+        chain<NT, LY, S::CC, false, 0, 1, true, true, false, S::TWD,
+              S::R16>(
+            sm, fresh(twy), s,
+            [&](int c, int k) { return load_col(c0, c, k); },
+            [&](int c, int k, float2 v) { store_col(c0, c, k, v); });
+    } else {
+      // the group's columns, CW a tile, each tile's y axis split over the
+      // group's G2 blocks
+      const int grp = rank / S::G2, gr = rank % S::G2;
+      for (int c0 = grp * S::CG; c0 < (grp + 1) * S::CG; c0 += S::CW) {
+        xt_load<X>(sm, gr,
+                   [&](int c, int j) { return load_col(c0, c, j); });
+        __syncthreads();
+        xt_chain<X>(sm, fresh(twy), s);
+        xt_exchange<X>(cluster, sm, fresh(twy), s, grp * S::G2, gr,
+                       [&](int c, int kp, const float2* y) {
+#pragma unroll
+                         for (int k2 = 0; k2 < S::G2; ++k2)
+                           store_col(c0, c, kp + S::M2 * k2, y[k2]);
+                       });
+      }
+    }
   }
 }
 
@@ -282,13 +445,30 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// The planes K9 keeps in flight at (log2 ny, log2 nx): PYFFT_TILED_PLANES,
+// or the current card's L2 (cudaDevAttrL2CacheSize) over a plane's bytes
+// (its intermediate, 8 a point), at least 1; a negative cudaError_t where
+// the query fails.
+long long planes_cap(int ly, int lx) {
+  if (PYFFT_TILED_PLANES > 0) return PYFFT_TILED_PLANES;
+  int dev = 0, l2 = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (e != cudaSuccess) return -(long long)e;
+  const long long cap = (long long)l2 / (8LL << (ly + lx));
+  return cap > 1 ? cap : 1;
+}
+
 template <int LY, int LX>
 cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
                    float s, cudaStream_t stream) {
-  using S = ShapeT<LY, LX>;
-  return launch_cluster<NT>(fused2d_tiled_kernel<LY, LX>, io.L, S::G,
-                            S::PC * (int)sizeof(float2), stream, io, twy,
-                            twx, s);
+  using S = ShapeF<LY, LX>;
+  const long long cap = planes_cap(LY, LX);
+  if (cap < 0) return static_cast<cudaError_t>(-cap);
+  return launch_cluster<NT>(fused2d_tiled_kernel<LY, LX>,
+                            io.L < cap ? io.L : cap, S::G, S::SMEM, stream,
+                            io, twy, twx, s);
 }
 
 // (log2 ny, log2 nx) -> launch<LY, LX>, for 7 <= each <= 13 and a sum of
@@ -350,10 +530,37 @@ extern "C" int pyfft_fused2d_tiled_i8_stage(int log2ny, int log2nx) {
 // kernel's range: for the wrapper's checks and the records.
 extern "C" int pyfft_fused2d_tiled_cluster(int log2ny, int log2nx) {
 #define PYFFT_CASE(a, b) \
-  if (log2ny == a && log2nx == b) return ShapeT<a, b>::G;
+  if (log2ny == a && log2nx == b) return ShapeF<a, b>::G;
   PYFFT_TILED_CASES(PYFFT_CASE)
 #undef PYFFT_CASE
   return 0;
+}
+
+// K9's shape at (log2 ny, log2 nx) into out[0..6]: G (blocks a cluster),
+// RC (rows a phase-1 chunk), G2 (blocks a phase-2 group, 1 where a block
+// takes whole columns), CW (columns a phase-2 tile: the run of each plane
+// it reads and writes, in floats), the planes in flight on the current
+// card (planes_cap), the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters) and the chunk's points.  Returns 0, or
+// a cudaError_t.
+extern "C" int pyfft_fused2d_tiled_shape(int log2ny, int log2nx,
+                                         long long* out) {
+#define PYFFT_CASE(a, b)                                                  \
+  if (log2ny == a && log2nx == b) {                                       \
+    using S = ShapeF<a, b>;                                               \
+    const long long cap = planes_cap(a, b);                               \
+    const int held = pyfft::max_clusters<NT>(fused2d_tiled_kernel<a, b>,  \
+                                             S::G, S::SMEM);              \
+    if (cap < 0) return (int)-cap;                                        \
+    if (held < 0) return -held;                                           \
+    const long long v[7] = {S::G, S::RC, S::G2, S::CW, cap, held,         \
+                            S::CHUNKF};                                   \
+    for (int i = 0; i < 7; ++i) out[i] = v[i];                            \
+    return 0;                                                             \
+  }
+  PYFFT_TILED_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the 2D DFT on `stream` without synchronising.  `twy` and `twx`

@@ -56,8 +56,15 @@
 //   * one thread block per (l, run of C consecutive t), C a power of two
 //     that divides 128 (the table ColShape below: C*n complex values of
 //     shared memory, at most 128 KB, and C at least one 32-byte sector of
-//     each plane, 8 floats or 4 doubles, wherever that fits; so 128 KB
-//     plus the swapped store's padding at n = 2048 in double, C = 4);
+//     each plane, 8 floats or 4 doubles, wherever that fits);
+//   * except complex128 from n = 1024, where a block's 128 KB would hold
+//     only 4 columns (32-byte runs, one block an SM: config 5's planar
+//     plain store reached 0.29 of its bound): there a cluster of G blocks
+//     takes a tile of C = 16 columns (8 on the complex form's stride-2
+//     planes), 128-byte runs of each row, n/G rows a block (64 KB at n =
+//     1024 and 2048, two blocks an SM), exchanging through DSMEM
+//     (local_cols_x_kernel, csrc/cluster_cols.cuh; the tables
+//     PYFFT_XCOLS_F64 and PYFFT_XCOLS_F64_S2 below);
 //   * blocks are numbered with l fastest, so neighbouring blocks read the
 //     same rows of a `full` twiddle table and share them in the L2;
 //   * the first stage reads the tile straight from global memory, threads
@@ -76,7 +83,8 @@
 // Every global read of a block happens in the first stage and every global
 // write in the store pass, after a barrier, and blocks own disjoint (l, t)
 // tiles: so a plain store may alias the input (in place).  A swapped store
-// writes elsewhere than it reads and may not.
+// writes elsewhere than it reads and may not.  The cluster kernel keeps
+// both rules: a cluster's loads all come before its first barrier.
 //
 // Each operand is a pair of real planes with strides in elements: planar
 // data has unit t stride, the two planes of torch.view_as_real of a
@@ -151,18 +159,21 @@
 // library with the plain C entry points `pyfft_local_cols` (float),
 // `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
 // `pyfft_local_cols_ctile` (K6), `pyfft_local_cols_i8` (float, int8
-// stage) and `pyfft_local_rows_swap_i8` (K4 + K10), and the column widths,
+// stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths and
+// the complex128 cluster kernel's shape (`pyfft_local_cols_xshape_f64`),
 // at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_cols.cuh"
 #include "int8_stage.cuh"
 #include "stockham.cuh"
 
 namespace {
 
 using namespace pyfft;
+namespace cg = cooperative_groups;
 
 enum TwMode { TW_NONE = 0, TW_TABLE = 1, TW_FACTORED = 2 };
 
@@ -724,6 +735,113 @@ cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
   return cudaGetLastError();
 }
 
+// ------------------------------- K12 from n = 1024: cluster column tiles
+
+// (log2 n, G, C, B) of the complex128 cluster column kernel: at these
+// lengths a tile of C columns (C doubles a row of each plane) is split over
+// a cluster of G blocks, n/G rows a block (cluster_cols.cuh), with
+// registers for B blocks an SM (its launch bounds).  Every other length
+// runs local_cols_kernel.
+#ifndef PYFFT_XCOLS_F64
+#define PYFFT_XCOLS_F64(X) X(10, 4, 16, 2) X(11, 8, 16, 2) X(12, 8, 16, 1)
+#endif
+// The same for planes whose t stride is not 1 (the complex form's stride-2
+// planes of interleaved pairs), where 8 columns already span 128 bytes.
+#ifndef PYFFT_XCOLS_F64_S2
+#define PYFFT_XCOLS_F64_S2(X) X(10, 2, 8, 2) X(11, 4, 8, 2) X(12, 8, 8, 2)
+#endif
+
+// Whether planes of t stride `in_ts` take PYFFT_XCOLS_F64_S2.
+inline bool xcols_strided(long long in_ts) { return in_ts != 1; }
+
+template <int LOGN, int G, int C>
+struct XCols {
+  static constexpr int M = (1 << LOGN) / G;                  // rows a block
+  static constexpr int NT = M * C / 8 < 512 ? M * C / 8 : 512;
+  using X = XTile<double, LOGN - ilog2c(G), G, C, NT>;
+  static constexpr int SMEM_PLAIN = X::P * (int)sizeof(double2);
+  // the swapped store's [c][k] buffer, padded by one element a column
+  static constexpr int SMEM_SWAP = (M + 1) * C * (int)sizeof(double2);
+  static_assert(128 % C == 0, "a tile's t-run must not cross 128");
+  static_assert(SMEM_SWAP <= 227 * 1024, "fits a block's shared memory");
+};
+
+// K12's function on one (l, run of C consecutive t) tile a cluster: the
+// tile's loads, the n/G-point chain and the exchange of cluster_cols.cuh,
+// then the store pass's twiddle, postscale and store for each value, from
+// registers.  The plain store (and swap_mid) runs threads along t; the
+// swapped store has the chain leave [c][k] buffers and runs threads along
+// k (the exchange's KMAJOR), M/G consecutive k of a column.
+template <int LOGN, int G, int C, int MINB, bool SWAP,
+          int NT = XCols<LOGN, G, C>::NT>
+__global__ void __launch_bounds__(NT, MINB)
+    local_cols_x_kernel(Cols<double> io, const double2* __restrict__ tw,
+                        double s) {
+  using X = typename XCols<LOGN, G, C>::X;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double2* sm = reinterpret_cast<double2*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  // l fastest: neighbouring clusters work on the same t-run
+  const long long tile = blockIdx.x / G;
+  const long long l = tile % io.L, t0 = (tile / io.L) * C;
+  xt_load<X>(sm, rank, [&](int c, int j) {
+    const long long t = t0 + c;
+    if (t >= io.T) return make_double2(0.0, 0.0);
+    const long long o = l * io.in_ls + j * io.in_ns + t * io.in_ts;
+    return make_double2(io.in_re[o], io.in_im[o]);
+  });
+  __syncthreads();
+  xt_chain<X, SWAP>(sm, tw, s);
+  // as `store`: t / P, t / adiv and t / 128 are the same for the tile
+  const long long a0 = t0 / io.P, b0 = t0 - a0 * io.P;
+  const long long q0 = io.adiv > 1 ? t0 / io.adiv : 0;
+  const int r0 = static_cast<int>(t0 & 127);
+  // the store pass's twiddle of output k of column c (t = t0 + c)
+  const auto twiddle = [&](int c, long long t, int k) {
+    const long long q = io.adiv > 1 ? q0 : t;
+    double2 w = __ldg(&io.ta[k * io.ak + q * io.aq]);
+    if (io.tw_mode == TW_FACTORED)
+      w = cmul(w, __ldg(&io.tb[k * io.bk + (r0 + c) * io.bq]));
+    return w;
+  };
+  // outputs k = k' + M*k2 of column c: at a fixed t every mode's twiddle
+  // is w^(k*q) for one root w, so w(k' + M*k2) = w(k') * w(M)^k2, two
+  // table reads for the G outputs
+  const auto out = [&](int c, int kp, const double2* y) {
+    const long long t = t0 + c;
+    if (t >= io.T) return;
+    double2 w = make_double2(1.0, 0.0), step = w;
+    if (io.tw_mode != TW_NONE) {
+      w = twiddle(c, t, kp);
+      step = twiddle(c, t, X::M);
+    }
+    const long long o = l * io.out_ls + a0 * io.out_as + (b0 + c) * io.out_bs;
+#pragma unroll
+    for (int k2 = 0; k2 < G; ++k2) {
+      double2 v = y[k2];
+      if (io.tw_mode != TW_NONE) {
+        v = cmul(v, w);
+        w = cmul(w, step);
+      }
+      const long long ok = o + (kp + X::M * k2) * io.out_ns;
+      io.out_re[ok] = v.x * io.post;
+      io.out_im[ok] = v.y * io.post;
+    }
+  };
+  xt_exchange<X, SWAP>(cluster, sm, tw, s, 0, rank, out);
+}
+
+template <int LOGN, int G, int C, int MINB, bool SWAP>
+cudaError_t launch_x(const Cols<double>& io, const double2* tw, double s,
+                     cudaStream_t stream) {
+  using K = XCols<LOGN, G, C>;
+  const long long tiles = (io.T + C - 1) / C * io.L;
+  return launch_cluster<K::NT>(local_cols_x_kernel<LOGN, G, C, MINB, SWAP>,
+                               tiles, G, SWAP ? K::SMEM_SWAP : K::SMEM_PLAIN,
+                               stream, io, tw, s);
+}
+
 // The launch of the entry points below.  `policy` COLS runs the column
 // kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
 // the plain store, complex64 only.
@@ -754,6 +872,17 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     }
     return (int)cudaErrorInvalidValue;
   }
+  if constexpr (sizeof(Real) == sizeof(double)) {
+#define PYFFT_XCOL(LN, G, C, B)                                         \
+  if (log2n == LN)                                                      \
+    return swap_store ? (int)launch_x<LN, G, C, B, true>(io, t, s, st)  \
+                      : (int)launch_x<LN, G, C, B, false>(io, t, s, st);
+    if (xcols_strided(io.in_ts)) {
+      PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
+    }
+    PYFFT_XCOLS_F64(PYFFT_XCOL)
+#undef PYFFT_XCOL
+  }
   return swap_store ? (int)dispatch<Real, MAXLOG, true>(log2n, io, t, s, st)
                     : (int)dispatch<Real, MAXLOG, false>(log2n, io, t, s, st);
 }
@@ -766,9 +895,62 @@ extern "C" int pyfft_local_cols_width(int log2n) {
   return width<float, 13>(log2n);
 }
 
-// The same for the complex128 kernel (0 outside 3..12).
+// The same for the complex128 kernels (0 outside 3..12): C of the cluster
+// kernel's tile where it runs (PYFFT_XCOLS_F64).
 extern "C" int pyfft_local_cols_width_f64(int log2n) {
+#define PYFFT_XCOL(LN, G, C, B) \
+  if (log2n == LN) return C;
+  PYFFT_XCOLS_F64(PYFFT_XCOL)
+#undef PYFFT_XCOL
   return width<double, 12>(log2n);
+}
+
+// The complex128 cluster column kernel's tile at log2n on planes of t
+// stride `in_ts`, as the launch takes it: G and C into out[0..1], and 1;
+// 0 where local_cols_kernel takes the length.  No CUDA call.
+extern "C" int pyfft_local_cols_xtile_f64(int log2n, long long in_ts,
+                                          int* out) {
+#define PYFFT_XCOL(LN, G, C, B) \
+  if (log2n == LN) {            \
+    out[0] = G;                 \
+    out[1] = C;                 \
+    return 1;                   \
+  }
+  if (xcols_strided(in_ts)) {
+    PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
+  }
+  PYFFT_XCOLS_F64(PYFFT_XCOL)
+#undef PYFFT_XCOL
+  return 0;
+}
+
+// The complex128 cluster column kernel's shape at log2n into out[0..4]:
+// G, C, B (PYFFT_XCOLS_F64, or PYFFT_XCOLS_F64_S2 where `strided`: planes
+// whose t stride is not 1) and the clusters of it the card holds at once
+// (cudaOccupancyMaxActiveClusters) with the plain and with the swapped
+// store.  Returns 0, -1000 where local_cols_kernel takes the length, or a
+// cudaError_t.
+extern "C" int pyfft_local_cols_xshape_f64(int log2n, int strided,
+                                           long long* out) {
+#define PYFFT_XCOL(LN, G, C, B)                                          \
+  if (log2n == LN) {                                                     \
+    using K = XCols<LN, G, C>;                                           \
+    const int plain = pyfft::max_clusters<K::NT>(                        \
+        local_cols_x_kernel<LN, G, C, B, false>, G, K::SMEM_PLAIN);      \
+    const int swap = pyfft::max_clusters<K::NT>(                         \
+        local_cols_x_kernel<LN, G, C, B, true>, G, K::SMEM_SWAP);        \
+    if (plain < 0) return -plain;                                        \
+    if (swap < 0) return -swap;                                          \
+    const long long v[5] = {G, C, B, plain, swap};                       \
+    for (int i = 0; i < 5; ++i) out[i] = v[i];                           \
+    return 0;                                                            \
+  }
+  if (strided) {
+    PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
+  }
+  PYFFT_XCOLS_F64(PYFFT_XCOL)
+#undef PYFFT_XCOL
+  return -1000;
 }
 
 // Launch the column DFT on `stream` without synchronising.  `tw` holds n

@@ -79,7 +79,8 @@ __device__ __forceinline__ const T* fresh(const T* p) {
   return p;
 }
 
-// In-register R-point DFT, y[k] = sum_r v[r] * exp(s*2*pi*i*r*k/R).
+// In-register R-point DFT, y[k] = sum_r v[r] * exp(s*2*pi*i*r*k/R), R = 2,
+// 4, 8 or 16.
 template <int R, typename Real>
 __device__ __forceinline__ void dft(typename Complex<Real>::V* v, Real s) {
   using C = Complex<Real>;
@@ -95,11 +96,45 @@ __device__ __forceinline__ void dft(typename Complex<Real>::V* v, Real s) {
     v[1] = b + d;
     v[2] = a - c;
     v[3] = b - d;
+  } else if constexpr (R == 16) {
+    // 16 = 4 x 4: 4-point DFTs over the high input digit (inputs r1 + 4*r2
+    // for each r1), the w16^(r1*k1) twiddles as constants, then 4-point
+    // DFTs over r1 whose outputs interleave as k = k1 + 4*k2.
+    constexpr Real C1 = 0.92387953251128675613;   // cos(pi/8)
+    constexpr Real S1 = 0.38268343236508977173;   // sin(pi/8)
+    constexpr Real H = C::SQRT1_2;
+    // w16^(s*m) for m = r1*k1 in 1, 2, 3, 4, 6, 9: (cos, sin) of 2*pi*m/16
+    const auto rot = [s](V a, Real c, Real sn) {
+      return C::make(a.x * c - s * sn * a.y, s * sn * a.x + a.y * c);
+    };
+    V a[4][4];
+#pragma unroll
+    for (int r1 = 0; r1 < 4; ++r1) {
+#pragma unroll
+      for (int r2 = 0; r2 < 4; ++r2) a[r1][r2] = v[r1 + 4 * r2];
+      dft<4, Real>(a[r1], s);
+    }
+    a[1][1] = rot(a[1][1], C1, S1);
+    a[1][2] = rot(a[1][2], H, H);
+    a[1][3] = rot(a[1][3], S1, C1);
+    a[2][1] = rot(a[2][1], H, H);
+    a[2][2] = mul_si<Real>(a[2][2], s);
+    a[2][3] = rot(a[2][3], -H, H);
+    a[3][1] = rot(a[3][1], S1, C1);
+    a[3][2] = rot(a[3][2], -H, H);
+    a[3][3] = rot(a[3][3], -C1, -S1);
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      V b[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+      dft<4, Real>(b, s);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = b[k2];
+    }
   } else {
     // 8 = 2 x 4: a radix-2 step over the high input digit, the w8^j
     // twiddles as constants (w8 = c(1 + s*i), c = sqrt(1/2)), then two
     // 4-point DFTs whose outputs interleave as k = 2*k2 + k1.
-    static_assert(R == 8, "radix 2, 4 or 8");
+    static_assert(R == 8, "radix 2, 4, 8 or 16");
     const Real c = C::SQRT1_2;
     V e[4], o[4];
 #pragma unroll

@@ -16,9 +16,11 @@ It is also the counterpart of ``fft2_fused_tiled`` and its Pallas kernel
 ``_fused2d_tiled_kernel`` (launched by ``_fft2_fused_tiled``), the same
 function in one launch for planes of up to ``MAX_FUSED2D_TILED_ELEMS``
 points, which no ``Plan`` route takes: the Hopper kernel
-``csrc/fused2d_tiled.cu`` (K9: one cluster a plane, the rows into the
-output, a cluster barrier, the columns in place; ``_launch_tiled``) and its
-plain version ``fft2_tiled_plain`` (``col_factors`` chains).
+``csrc/fused2d_tiled.cu`` (K9: a persistent grid of clusters walking the
+planes, as many in flight as the card's L2 holds, each plane's rows into
+the output, a cluster barrier, the columns in place; ``_launch_tiled``,
+``tiled_shape``) and its plain version ``fft2_tiled_plain``
+(``col_factors`` chains).
 
 Under ``precision="int8"`` both run each axis's matrix stage as the
 int8-split stage K10 (``ops/int8.py``): on the card the kernels
@@ -49,7 +51,8 @@ from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "supported_2d_tiled", "fft2_fused_tiled", "fft2_tiled_plain",
-           "tiled_cluster_size", "i8_stage", "MAX_FUSED2D_TILED_ELEMS",
+           "tiled_cluster_size", "tiled_shape", "i8_stage",
+           "MAX_FUSED2D_TILED_ELEMS",
            "LAUNCHES",
            "TILED_LAUNCHES", "I8_LAUNCHES", "TILED_I8_LAUNCHES"]
 
@@ -206,6 +209,37 @@ def tiled_cluster_size(ny: int, nx: int) -> int:
     """The blocks of the cluster that takes one (ny, nx) plane in K9;
     builds the kernel on first use."""
     return _tiled_lib()[2](ilog2(ny), ilog2(nx))
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_shape_fn():
+    """The C entry point ``pyfft_fused2d_tiled_shape`` of
+    csrc/fused2d_tiled.cu, built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("fused2d_tiled").pyfft_fused2d_tiled_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+TILED_SHAPE_KEYS = ("cluster", "rows_a_chunk", "group", "run", "planes",
+                    "clusters_held", "chunk")
+
+
+def tiled_shape(ny: int, nx: int) -> dict:
+    """K9's shape on (ny, nx) planes on the current card: blocks a cluster,
+    rows a phase-1 chunk, blocks a phase-2 group (1 where a block takes
+    whole columns), the columns of a phase-2 tile (the run of each plane it
+    reads and writes, in floats), the planes in flight (its share of the
+    card's L2), the clusters the card holds at once and the chunk's
+    points; builds the kernel on first use."""
+    out = (ctypes.c_longlong * len(TILED_SHAPE_KEYS))()
+    err = _tiled_shape_fn()(ilog2(ny), ilog2(nx), out)
+    if err != 0:
+        raise RuntimeError(f"pyfft_fused2d_tiled_shape failed: cudaError "
+                           f"{err}")
+    return dict(zip(TILED_SHAPE_KEYS, out))
 
 
 def i8_stage(ny: int, nx: int, tiled: bool = False) -> str:

@@ -21,7 +21,9 @@ Two implementations of each function live here:
   ``_launch_cols`` for every CUDA tensor: on float32 planes K1 and K5, on
   float64 planes (complex128) their native-FP64 instantiations K11 and
   K12, the counterparts of ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see
-  ``ops/fp64.py``), and on interleaved complex64 K1's interleaved I/O
+  ``ops/fp64.py``; K12 from n = 1024 a cluster kernel of its own, a column
+  tile split over a thread-block cluster, ``col_xshape_f64``), and on
+  interleaved complex64 K1's interleaved I/O
   policy, K2, which serves the packed form K3 too; K4 (``_launch_rows_swap``)
   and K6 (``_launch_cols`` with ``ctile``) are two policies of K5's source;
   under ``precision="int8"`` K1, K2, K5 and K4 run kernels of their own
@@ -70,7 +72,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
            "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
-           "col_width_i8", "rows_i8_stage", "supported_fold",
+           "col_width_i8", "col_xshape_f64", "rows_i8_stage",
+           "supported_fold",
            "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
@@ -1299,6 +1302,52 @@ def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _cols_xshape_fn():
+    """The C entry point ``pyfft_local_cols_xshape_f64`` of
+    csrc/local_cols.cu, built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_cols_xshape_f64
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _col_xtile_f64(log2n: int, in_ts: int) -> tuple[int, int] | None:
+    """(G, C) of the complex128 cluster column kernel's tile at length
+    2^log2n on planes of t stride ``in_ts``, as its launch takes it
+    (``pyfft_local_cols_xtile_f64``: no CUDA call); None where one block
+    takes a tile."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_cols_xtile_f64
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    return (out[0], out[1]) if fn(log2n, in_ts, out) else None
+
+
+def col_xshape_f64(n: int, strided: bool = False) -> dict | None:
+    """The complex128 cluster column kernel's shape at length n on planar
+    data (or, with ``strided``, on planes whose t stride is not 1, as the
+    complex form's): the blocks G of a cluster, the columns C of its tile,
+    the blocks an SM its registers leave room for, and the clusters the
+    card holds at once with the plain and with the swapped store; None
+    where one block takes a tile (n <= 512).  Builds the kernel on first
+    use."""
+    out = (ctypes.c_longlong * 5)()
+    err = _cols_xshape_fn()(ilog2(n), int(bool(strided)), out)
+    if err == -1000:
+        return None
+    if err != 0:
+        raise RuntimeError(f"pyfft_local_cols_xshape_f64 failed: cudaError "
+                           f"{err}")
+    return dict(zip(("cluster", "columns", "blocks_an_sm", "clusters_plain",
+                     "clusters_swap"), out))
+
+
+@functools.lru_cache(maxsize=None)
 def _cols_i8_lib():
     """(launch, width): the C entry points ``pyfft_local_cols_i8`` and
     ``pyfft_local_cols_width_i8`` of csrc/local_cols.cu (K5 with the int8
@@ -1335,29 +1384,26 @@ def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
             == b.untyped_storage().data_ptr())
 
 
-def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
-                 postscale: float, tw_n: int, tw_mode: str, tw_period: int,
-                 swap_store: bool, swap_mid: int, ctile: int = 0,
-                 i8_f: int = 0):
-    """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
-    no synchronise: the column kernel, K6 with ``ctile`` tiles a block
-    (already clamped), or with ``i8_f`` the column kernel whose last stage
-    is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
-    ``supported`` and the modes."""
-    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES, COL_I8_LAUNCHES
+def _col_operands(re, im, out_re, out_im, sign: int, *, axis: int,
+                  tw_n: int, tw_mode: str, tw_period: int, swap_store: bool,
+                  swap_mid: int):
+    """The column kernel's operands over the (L, n, T) view of the planes,
+    after the checks of shapes, strides and overlap, on any device: the
+    input views (L, n, T), the output views, the 16 ``dims`` of its C entry
+    point (see ``pyfft_local_cols``) and the twiddle tables (None where
+    unused); None where there is nothing to launch."""
     shape = tuple(re.shape)
     n = shape[axis]
     L = math.prod(shape[:axis])
     T = math.prod(shape[axis + 1:])
     oshape = _col_out_shape(shape, axis, swap_store, swap_mid)
-    _check_planes("column", re, (re, im, out_re, out_im))
     for t, want in ((re, shape), (im, shape), (out_re, oshape),
                     (out_im, oshape)):
         if tuple(t.shape) != want:
             raise ValueError(f"column kernel plane of shape "
                              f"{tuple(t.shape)}, expected {want}")
     if L * T == 0:
-        return out_re, out_im
+        return None
     r3, i3 = _view(re, (L, n, T), "re"), _view(im, (L, n, T), "im")
     if swap_store:
         o = [_view(t, (L, T, n), w) for t, w in ((out_re, "out_re"),
@@ -1387,19 +1433,6 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                     or d3.stride() != r3.stride()):
                 raise ValueError("column kernel output overlaps its input; "
                                  "only a plain store may run in place")
-    if i8_f and (re.dtype != torch.float32 or ctile):
-        raise ValueError("the int8 stage takes float32 planes and no ctile")
-    fn, width = _cols_i8_lib() if i8_f else _cols_lib(re.dtype)
-    blocks = -(-T // width(ilog2(n))) * L
-    if ctile:
-        if re.dtype != torch.float32:
-            raise ValueError("K6 (ctile) takes float32 planes")
-        if T % (MIN_TRAIL * ctile):
-            raise ValueError(f"K6 needs a trail that is a multiple of "
-                             f"{MIN_TRAIL * ctile}, got {T}")
-        blocks = T // (MIN_TRAIL * ctile) * L
-    if max(T, blocks) >= 2 ** 31:
-        raise ValueError("column kernel trail and block count must fit int32")
     ta = tb = None
     ak = aq = adiv = bk = bq = 0
     mode = 0
@@ -1409,9 +1442,48 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
             re.device, re.dtype)
         mode = 2 if tw_mode == "factored" else 1
         assert all(t is None or t.is_contiguous() for t in (ta, tb))
-    dims = (ctypes.c_longlong * 16)(
-        L, T, *r3.stride(), *ostr[0], period, ak, aq, max(adiv, 1), bk, bq,
-        mode)
+    dims = (L, T, *r3.stride(), *ostr[0], period, ak, aq, max(adiv, 1), bk,
+            bq, mode)
+    return r3, i3, o, dims, ta, tb
+
+
+def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
+                 postscale: float, tw_n: int, tw_mode: str, tw_period: int,
+                 swap_store: bool, swap_mid: int, ctile: int = 0,
+                 i8_f: int = 0):
+    """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
+    no synchronise: the column kernel, K6 with ``ctile`` tiles a block
+    (already clamped), or with ``i8_f`` the column kernel whose last stage
+    is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
+    ``supported`` and the modes."""
+    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES, COL_I8_LAUNCHES
+    _check_planes("column", re, (re, im, out_re, out_im))
+    ops = _col_operands(re, im, out_re, out_im, sign, axis=axis, tw_n=tw_n,
+                        tw_mode=tw_mode, tw_period=tw_period,
+                        swap_store=swap_store, swap_mid=swap_mid)
+    if ops is None:
+        return out_re, out_im
+    r3, i3, o, dims, ta, tb = ops
+    L, T = dims[:2]
+    n = r3.shape[1]
+    if i8_f and (re.dtype != torch.float32 or ctile):
+        raise ValueError("the int8 stage takes float32 planes and no ctile")
+    fn, width = _cols_i8_lib() if i8_f else _cols_lib(re.dtype)
+    blocks = -(-T // width(ilog2(n))) * L
+    xtile = (_col_xtile_f64(ilog2(n), dims[4])
+             if re.dtype == torch.float64 else None)
+    if xtile:                   # a cluster of G blocks a tile of C columns
+        blocks = -(-T // xtile[1]) * L * xtile[0]
+    if ctile:
+        if re.dtype != torch.float32:
+            raise ValueError("K6 (ctile) takes float32 planes")
+        if T % (MIN_TRAIL * ctile):
+            raise ValueError(f"K6 needs a trail that is a multiple of "
+                             f"{MIN_TRAIL * ctile}, got {T}")
+        blocks = T // (MIN_TRAIL * ctile) * L
+    if max(T, blocks) >= 2 ** 31:
+        raise ValueError("column kernel trail and block count must fit int32")
+    dims = (ctypes.c_longlong * 16)(*dims)
     tw = _kernel_twiddles(n, sign, re.device, re.dtype)
     ptrs = (r3.data_ptr(), i3.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
             tw.data_ptr(), None if ta is None else ta.data_ptr(),
