@@ -94,19 +94,22 @@ numpy.fft, in twenty-one phases, one or more lines each:
      against its plain version; each timed beside torch.fft.rfft* and its
      untangle alone;
  17. the kernels no Plan route takes, each against its plain torch
-     version and numpy: K4 (the digit-swapped row pass, fft_rows_swap) for
-     every n from 8 to 8192, n1 in {128, 384}, 3 planes (and 1 at n =
-     8192), forward and
-     inverse with postscale 0.3, planar and stride-2 operands; K6 (the
-     column pass over c 128-column tiles, fft_axis(ctile=c)) for every n
-     from 8 to 8192 with c in {1, 2, 8}, plain and full-twiddle, in place
-     too; K9 (the one-launch 2D DFT up to 2^20 points, fft2_fused_tiled)
+     version and numpy: K4 (the digit-swapped row pass, fft_rows_swap; a
+     cluster a tile of rows from n = 512) for every n from 8 to 8192, n1
+     in {128, 200 (lanes 8: ragged tiles), 384}, 3 planes (and 1 at n =
+     8192), forward and inverse with postscale 0.3, planar and stride-2
+     operands and (128 rows) planes 4 bytes off 16-byte alignment; K6 (the
+     column pass over c 128-column tiles, fft_axis(ctile=c); a ring of
+     runs, a cluster a step from n = 1024) for every n from 8 to 8192 with
+     c in {1, 2, 8}, plain and full-twiddle, in place too, on stride-2 and
+     on misaligned planes; K9 (the one-launch 2D DFT up to 2^20 points, fft2_fused_tiled)
      at each of its 28 plane shapes, 1 and 3 planes, both directions,
      planar, stride-2 and in place;
  18. their paths at full size, with exact launch counts and every kernel
      call held against its plain version: the four-step variant B at
      config 6+ (a column pass with the full twiddle, K5 or K6, then K4),
-     against numpy on all eight rows, and its inverse; K6 as config 4's z
+     against numpy on all eight rows, and its inverse, its pass 1 by K6
+     timed beside K5's; K6 as config 4's z
      pass after K8, against numpy; K9 on config 3's planes, against numpy
      and Plan's result; each timed beside its plain version, its bound, the
      routed kernels that compute the same and the library call;
@@ -1566,10 +1569,18 @@ TILED_SHAPES = [(1 << a, 1 << b) for a in range(7, 14) for b in range(7, 14)
 
 def operands(xc, mode):
     """(re, im, out) of the complex tensor ``xc`` for a kernel check:
-    planar copies, or the stride-2 planes of a copy (``out`` those planes
-    again in place)."""
+    planar copies, the stride-2 planes of a copy (``out`` those planes
+    again in place), or (``offset``) planar planes of one buffer 4 bytes
+    past a 16-byte boundary, which K4's and K6's box copies cannot read
+    where they lie (``out`` those planes again)."""
     if mode == "planar":
         return xc.real.contiguous(), xc.imag.contiguous(), None
+    if mode == "offset":
+        m = xc.numel()
+        flat = torch.empty(2 * m + 1, device=xc.device)
+        re = flat[1:1 + m].view(xc.shape).copy_(xc.real)
+        im = flat[1 + m:].view(xc.shape).copy_(xc.imag)
+        return re, im, (re, im)
     v = torch.view_as_real(xc.clone())
     re, im = v[..., 0], v[..., 1]
     return re, im, ((re, im) if mode == "inplace" else None)
@@ -1590,7 +1601,9 @@ def held(name, got, want, tag, tol=TOL):
 
 
 def phase_swap_kernel():
-    """K4 at every n against fft_rows_swap_plain and numpy."""
+    """K4 at every n against fft_rows_swap_plain and numpy: row counts of
+    whole and of ragged tiles (200 rows, lanes = 8), planar and stride-2
+    planes, and (128 rows) planes off 16-byte alignment."""
     from pyfft_tpu_torch.ops import local
     rng = np.random.RandomState(17)
     for n in IL_NS:
@@ -1598,7 +1611,8 @@ def phase_swap_kernel():
         before, cases = local.SWAP_LAUNCHES, 0
         # one plane only at the largest n; elsewhere l = 0 of three
         for L in ((1, 3) if n == IL_NS[-1] else (3,)):
-            for n1 in (128, 384):
+            for n1 in (128, 200, 384):
+                lanes = 8 if n1 == 200 else 128
                 x = (rng.standard_normal((L, n1, n))
                      + 1j * rng.standard_normal((L, n1, n))
                      ).astype(np.complex64)
@@ -1613,10 +1627,12 @@ def phase_swap_kernel():
                     plain = local.fft_rows_swap_plain(
                         xc.real.contiguous(), xc.imag.contiguous(), sign,
                         post)
-                    for mode in ("planar", "stride2"):
+                    for mode in ("planar", "stride2") + (
+                            ("offset",) if n1 == 128 else ()):
                         re, im, _ = operands(xc, mode)
                         got = local.fft_rows_swap(re, im, sign,
-                                                  postscale=post)
+                                                  postscale=post,
+                                                  lanes=lanes)
                         torch.cuda.synchronize()
                         tag = f"n={n} n1={n1} L={L} sign={sign} {mode}"
                         worst_plain = max(worst_plain, held(
@@ -1627,18 +1643,25 @@ def phase_swap_kernel():
         if local.SWAP_LAUNCHES - before != cases:
             raise AssertionError(f"K4 n={n}: {local.SWAP_LAUNCHES - before} "
                                  f"launches for {cases} calls")
-        print(f"phase 17 K4 n={n} (C={local.col_width(n)} rows a block): "
-              f"{cases} cases, max rel err vs plain {worst_plain:.3e}, vs "
-              f"numpy {worst_np:.3e} (gate {TOL:.0e})")
+        tile = local.swap_tile(n)
+        shape = (f"a cluster of {tile[0]} blocks a tile of {tile[1]} rows"
+                 if tile else f"C={local.col_width(n)} rows a block")
+        print(f"phase 17 K4 n={n} ({shape}): {cases} cases, max rel err vs "
+              f"plain {worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
+              f"{TOL:.0e})")
 
 
 def phase_ctile_kernel():
-    """K6 at every n, c in {1, 2, 8}, against fft_cols_plain and numpy."""
+    """K6 at every n, c in {1, 2, 8}, against fft_cols_plain and numpy:
+    planar, stride-2 planes in place, the full twiddle, and planes off
+    16-byte alignment in place."""
     from pyfft_tpu_torch.ops import local
     rng = np.random.RandomState(18)
     T = 1024                             # 8 tiles: c = 8 is not clamped
     for n in IL_NS:
-        L = 2 if n <= 1024 else 1
+        # at n = 1024 five planes: c = 1 (40 steps) takes the cluster tile,
+        # c = 2 and 8 whole runs
+        L = 5 if n == 1024 else 2 if n < 1024 else 1
         worst_plain = worst_np = 0.0
         before, cases = local.CTILE_LAUNCHES, 0
         x = (rng.standard_normal((L, n, T))
@@ -1649,7 +1672,8 @@ def phase_ctile_kernel():
             X = np.fft.fft(x.astype(np.complex128), axis=1)
             if sign > 0:
                 X = np.fft.ifft(x.astype(np.complex128), axis=1) * n
-            for mode in ("plain planar", "plain inplace", "full planar"):
+            for mode in ("plain planar", "plain inplace", "full planar",
+                         "plain offset"):
                 ref, tw_n = col_reference(X, n, T, mode, sign, post)
                 ref = torch.from_numpy(ref).cuda()
                 kw = dict(tw_n=tw_n) if tw_n else {}
@@ -1673,9 +1697,16 @@ def phase_ctile_kernel():
         if local.CTILE_LAUNCHES - before != cases:
             raise AssertionError(f"K6 n={n}: {local.CTILE_LAUNCHES - before} "
                                  f"launches for {cases} calls")
-        print(f"phase 17 K6 n={n} ({L} x {n} x {T}, c in 1, 2, 8): {cases} "
-              f"cases, max rel err vs plain {worst_plain:.3e}, vs numpy "
-              f"{worst_np:.3e} (gate {TOL:.0e})")
+        ring = local.ring_shape(n)
+        print(f"phase 17 K6 n={n} ({L} x {n} x {T}, c in 1, 2, 8; runs of "
+              f"{ring['columns']} columns"
+              + (f" split over a cluster of {ring['cluster']} blocks"
+                 if ring["cluster"] > 1 else "")
+              + (", or whole runs where a step's blocks cover 128 bytes"
+                 if n == 1024 else "")
+              + f", a ring of {ring['slots']} slots): {cases} cases, max rel "
+              f"err vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e} "
+              f"(gate {TOL:.0e})")
 
 
 def phase_tiled_kernel():
@@ -1834,6 +1865,20 @@ def phase_offroute_paths(copy_gbs):
     print(f"    K5's swapped store (routed pass 1, full twiddle) on the same "
           f"data: {rows[-1]['routed_ms']:.4f} ms; K5's plain store (variant "
           f"B pass 1, full twiddle): {rows[-1]['pass1_ms']:.4f} ms")
+    # variant B's pass 1 by K6 (c = 8: 16 steps), no library call for the
+    # twiddled pass
+    rows.append(time_pass(
+        "config 6+", "variant B pass 1 (K6 c=8, full twiddle)", r3, i3,
+        lambda: local.fft_axis(r3, i3, -1, axis=-2, tw_n=N, ctile=8,
+                               out=out),
+        lambda: local.fft_cols_plain(r3, i3, -1, tw_n=N), None, moved,
+        fft_flops(2048, B * 2048) + 6 * B * N, copy_gbs,
+        2048 * 2048 * 8, phase=18))
+    rows[-1]["kernel"] = "local_cols_ctile"
+    rows[-1]["k5_ms"] = rows[-2]["pass1_ms"]
+    print(f"    K5's plain store on the same pass: {rows[-1]['k5_ms']:.4f} ms "
+          f"({B * 2048 // (128 * 8)} K6 steps of c = 8, each a cluster of "
+          f"{local.ring_shape(2048)['cluster']} blocks)")
     del p1, out
     plan = pyfft_tpu_torch.Plan((N,), device="cuda")
     vb = {"path": "config 6+", "pass": "variant B total",
@@ -1901,7 +1946,8 @@ def phase_offroute_paths(copy_gbs):
           f"{rows[-1]['routed_ms']:.4f} ms; K6 by c: "
           + ", ".join(f"c={c} {ms:.4f} ms"
                       for c, ms in rows[-1]["ctile_ms"].items())
-          + f" ({65536 // 128 // 8} blocks at c = 8)")
+          + f" ({65536 // 128 // 8} steps at c = 8, runs of "
+          f"{local.ring_shape(256)['columns']} columns)")
     del x, re, im, f2, z3, out, xs
     torch.cuda.empty_cache()
 
@@ -2983,17 +3029,18 @@ def main() -> int:
     # K4, K6 and K9 timed at their phase-18 shapes, their errors over every
     # kernel call of phase 18 held against the plain version
     off_entries = []
-    for name, src, replaces, shape in (
+    for name, src, replaces, shape, path in (
             ("local_rows_swap", "local_cols",
              "pyfft_tpu/ops/pallas_local.py:875",
-             "config 6+ variant B pass 2, (8, 2048, 2048)"),
+             "config 6+ variant B pass 2, (8, 2048, 2048)", "config 6+"),
             ("local_cols_ctile", "local_cols",
              "pyfft_tpu/ops/pallas_local.py:1073",
-             "config 4 z pass, (1, 256, 65536), c = 8"),
+             "config 4 z pass, (1, 256, 65536), c = 8", "config 4"),
             ("fused2d_tiled", "fused2d_tiled",
              "pyfft_tpu/ops/pallas_local.py:1502",
-             "config 3, 16 x 1024 x 1024")):
-        row = next(r for r in off["timed"] if r["kernel"] == name)
+             "config 3, 16 x 1024 x 1024", "config 3")):
+        row = next(r for r in off["timed"]
+                   if r["kernel"] == name and r["path"] == path)
         mine = [c for c in off["checks"] if c[0] == name]
         off_entries.append({
             "name": name, "route": "cuda",

@@ -14,9 +14,11 @@ once, and the same wrappers run each build in turn:
   config 4's z pass, the complex128 column kernel K12 at config 5's two
   passes (planar and on the complex form's stride-2 planes) and at the
   complex128 2D path's column pass (16 x 1024 x 1024), the digit-swapped
-  row pass K4 at variant B's pass 2, the fused 2D kernel K8 at config 4
-  and the tiled one K9 at config 3 and at 16 planes of each of its 28
-  plane shapes;
+  row pass K4 at variant B's pass 2 and at its 2^25 points with rows of
+  1024 and 4096, the multi-tile column pass K6 at config 4's z pass (c =
+  1, 2, 8) and at variant B's pass 1 (`full` twiddle, c = 8), the fused
+  2D kernel K8 at config 4 and the tiled one K9 at config 3 and at 16
+  planes of each of its 28 plane shapes;
 * the int8 kernels (the stage K10, precision="int8"): K1+K10 at config 2
   and at 2048 x 8192 (f = 128), K2+K10 at config 2i and at 2048 x 8192
   interleaved, K5+K10 at config 3's column pass, K4+K10 at variant B's
@@ -133,6 +135,7 @@ def bindings(libs: dict, csrc: Path | None = None) -> dict:
         "_rows_il_i8_fn": bind(rows, local._rows_il_i8_fn.__wrapped__),
         "_cols_i8_lib": bind(cols, local._cols_i8_lib.__wrapped__),
         "_rows_swap_fn": bind(cols, local._rows_swap_fn.__wrapped__),
+        "_ctile_fn": bind(cols, local._ctile_fn.__wrapped__),
         "_rows_swap_i8_fn": bind(cols, swap_i8),
         "_lib": fused2d._typed(libs["fused2d"], "fused2d"),
         "_tiled_lib": fused2d._typed(libs["fused2d_tiled"], "fused2d_tiled"),
@@ -178,11 +181,17 @@ def cases() -> list:
         return lambda: (local.fft_rows_interleaved(v, -1, out=vo,
                                                    precision=precision),)
 
-    def swap(precision):
-        re, im = planes((8, 2048, 2048))
-        o = empty((8, 2048, 2048))
+    def swap(precision, n=2048):
+        re, im = planes((8, (1 << 22) // n, n))
+        o = empty((8, n, (1 << 22) // n))
         return lambda: local.fft_rows_swap(re, im, -1, out=o,
                                            precision=precision)
+
+    def ctile(shape, c, **kw):
+        re, im = planes(shape)
+        o = empty(shape)
+        return lambda: local.fft_axis(re, im, -1, axis=1, ctile=c, out=o,
+                                      **kw)
 
     def fused(fn, shape, precision):
         re, im = planes(shape)
@@ -215,6 +224,16 @@ def cases() -> list:
         ("K2 config 2i (4096 x 4096 interleaved)",
          rows_il((4096, 4096), "highest")),
         ("K4 variant B pass 2 (8, 2048, 2048)", swap("highest")),
+        ("K4 (8, 4096, 1024)", swap("highest", 1024)),
+        ("K4 (8, 1024, 4096)", swap("highest", 4096)),
+        ("K6 config 4 z pass (1, 256, 65536) c=8",
+         ctile((1, 256, 65536), 8)),
+        ("K6 config 4 z pass (1, 256, 65536) c=2",
+         ctile((1, 256, 65536), 2)),
+        ("K6 config 4 z pass (1, 256, 65536) c=1",
+         ctile((1, 256, 65536), 1)),
+        ("K6 variant B pass 1 (8, 2048, 2048; full twiddle) c=8",
+         ctile((8, 2048, 2048), 8, tw_n=1 << 22)),
         ("K1+K10 config 2 (4096 x 4096, int8)", rows((4096, 4096), "int8")),
         ("K1+K10 2048 x 8192 (int8, f=128)", rows((2048, 8192), "int8")),
         ("K2+K10 config 2i (4096 x 4096 interleaved, int8)",

@@ -1,13 +1,14 @@
 """Where the time of the complex128 cluster column kernel (K12 from n =
-1024) and of the tiled 2D kernel (K9) goes: pieces removed and shape knobs
+1024), the tiled 2D kernel (K9), the multi-tile column kernel (K6) and
+the digit-swapped row kernel (K4) goes: pieces removed and shape knobs
 changed, one build each, on one CUDA card.
 
-    python3 probes/float_split.py
+    python3 probes/float_split.py [K12] [K9] [K6] [K4]
 
-Builds, from copies of this checkout's ``csrc/`` patched in a temporary
-directory (the checkout is not touched), ``local_cols.cu`` (K12) and
-``fused2d_tiled.cu`` (K9) in these variants, one nvcc each, eight at a
-time:
+(the kernels named, all four by default).  Builds, from copies of this
+checkout's ``csrc/`` patched in a temporary directory (the checkout is not
+touched), ``local_cols.cu`` (K12, K6, K4) and ``fused2d_tiled.cu`` (K9) in
+these variants, one nvcc each, eight at a time:
 
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
@@ -31,13 +32,38 @@ time:
   pct50     K9's planes cap at half the L2 (3 planes of 2^20 points)
   run32     K9's phase 2 in runs of 32 floats (128 bytes), y split over
             groups of 2 to 8 blocks from ny = 512
+  k46notw   K6 and K4 without twiddle multiplies (the chains', the
+            exchange's and K6's `full` table in its stores)
+  k46copy   nor the DFTs' arithmetic, nor K6's chain, nor K4's but one
+            stage, and every exchange reads its own block's shared memory
+            instead of DSMEM: K6 is its ring of box copies and its stores,
+            K4 its box copy, its exchange's shared-memory passes and its
+            stores
+  k46local  K6's and K4's exchanges read their own block, not DSMEM
+  s2        K6's ring of 2 slots (3 by default)
+  grp1,     K6's blocks a step where they take whole runs fixed at 1 or 4
+  grp4      (by default as many as fill one wave)
+  x8        K6 at n = 2048 on a cluster of 8 blocks (64 KB slots, one
+            block an SM; 16 blocks of 32 KB slots by default)
+  runs1024  K6 at n = 1024 in whole runs of 8 columns (a cluster of 4
+            blocks a tile of 32 by default)
+  x512      K6 at n = 512 on a cluster of 2 blocks a tile of 32 columns
+            (whole runs of 16 by default)
+  r16       K4's tiles of 16 rows at n = 1024 and 2048 (64-byte runs)
+  k4old     K4's first design at every n (the column kernel's row policy,
+            one block of C rows, at n = 512 too)
+  k4r8      K4's 256-point chains on radix 4, 8, 8 (two radix-16 stages)
+  k4t512    K4's blocks of 512 threads, two an SM (256, three)
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
 complex128, split 2048 x 2048: pass 1 the full twiddle and the swapped
 store, pass 2 the plain store), planar and on the complex form's stride-2
 planes, and the complex128 2D column pass (16 x 1024 x 1024); K9 at config
-3 (16 x 1024 x 1024) and 16 x 512 x 512.  Every patch asserts that its
+3 (16 x 1024 x 1024) and 16 x 512 x 512; K6 at config 4's z pass (1 x 256
+x 65536, c = 1, 2, 8), variant B's pass 1 (8 x 2048 x 2048, `full`
+twiddle, c = 1, 8) and 2^24 points at n = 512 and 1024 (c = 1, 8); K4 at variant B's pass 2 (8 x 2048 x 2048) and at the
+same 2^25 points with n = 512, 1024 and 4096.  Every patch asserts that its
 text is in the sources, so an edited kernel fails here instead of timing
 the wrong thing.  The last line is a JSON record with the card.
 """
@@ -73,6 +99,16 @@ XCOLS_S2 = ("#define PYFFT_XCOLS_F64_S2(X) X(10, 2, 8, 2) X(11, 4, 8, 2) "
 
 # K9's constant chain options (fused2d_tiled.cu's ShapeF)
 KNOBS = "static constexpr bool PAD = true, TWD = true, R16 = true;"
+
+RING_X = ("#define PYFFT_RING_X(X) X(10, 4, 32) X(11, 16, 32) X(12, 8, 16) "
+          "X(13, 16, 16)")
+SWAP_X = ("#define PYFFT_SWAP_X(X) \\\n  X(9, 4, 32) X(10, 4, 32) X(11, 8, 32) "
+          "X(12, 16, 32) X(13, 16, 16)")
+# K6's and K4's constant shape options (local_cols.cu)
+SLOTS = "constexpr int RING_SLOTS = 3;"
+GROUP = "  while (2 * g <= runs && steps * 2 * g <= wave) g *= 2;\n"
+SWAP_R16 = "constexpr bool SWAP_R16 = true;"
+SWAP_NT = "constexpr int SWAP_THREADS = 256, SWAP_BLOCKS = 3;"
 
 # (file, text, replacement) steps, by name
 STEPS = {
@@ -117,26 +153,86 @@ STEPS = {
                "(long long)l2 / 2 / (8LL")],
     "run32": [("fused2d_tiled.cu", "constexpr int RUN = 8;",
                "constexpr int RUN = 32;")],
+    "k46notw": [
+        ("cluster_cols.cuh", "    if (NS > 1) {", "    if (NS < 0) {"),
+        ("ring_cols.cuh", "    if (NS > 1) {", "    if (NS < 0) {"),
+        ("cluster_cols.cuh",
+         "    for (int b = 1; b < G; ++b) u[i][b] = cmul(u[i][b], "
+         "__ldg(&tw[b * kp]));\n", ""),
+        ("local_cols.cu", "    const bool twd = io.tw_mode != TW_NONE;",
+         "    const bool twd = false;"),
+        ("local_cols.cu",
+         "      x[i][k1] = cmul(x[i][k1], __ldg(&tw[(rank * MG + jl) * k1]));",
+         "      ;")],
+    "k46arith": [
+        ("cluster_cols.cuh", "    dft<R>(v[b], s);\n", ""),
+        ("cluster_cols.cuh", "    dft<G>(u[i], s);\n", ""),
+        ("ring_cols.cuh", "    dft<R>(v[b], s);\n", ""),
+        ("ring_cols.cuh", "    dft<R>(v, s);\n", ""),
+        ("local_cols.cu", "    dft<G>(x[i], s);\n", ""),
+        ("local_cols.cu", "    xt_chain_from<X>(sm, t, s, [&](int k, int c) {",
+         "    if (i < 0) xt_chain_from<X>(sm, t, s, [&](int k, int c) {"),
+        ("local_cols.cu", "    xt_stage_out<X, 16, 16>(sm, tw, s, put);",
+         "    xt_stage_out<X, 16, 1>(sm, tw, s, put);"),
+        ("local_cols.cu", "    xt_chain_out<X, 1, R0>(sm, tw, s, put);",
+         "    xt_stage_out<X, 8, 1>(sm, tw, s, put);")],
+    "k46local": [
+        ("cluster_cols.cuh",
+         "    const V* src = cluster.map_shared_rank(sm, g0 + b);",
+         "    const V* src = sm;"),
+        ("local_cols.cu",
+         "        const float2* src = cluster.map_shared_rank(sm, k / MG);",
+         "        const float2* src = sm;")],
+    "x8": [("local_cols.cu", RING_X, RING_X.replace("X(11, 16, 32)",
+                                                    "X(11, 8, 32)"))],
+    "runs1024": [("local_cols.cu", RING_X,
+                  RING_X.replace("X(10, 4, 32) ", ""))],
+    "x512": [("local_cols.cu", RING_X,
+              RING_X.replace("X(10, 4, 32)", "X(9, 2, 32) X(10, 4, 32)"))],
+    "r16": [("local_cols.cu", SWAP_X, SWAP_X.replace(
+        "X(10, 4, 32) X(11, 8, 32)", "X(10, 4, 16) X(11, 8, 16)"))],
+    "k4old": [("local_cols.cu", SWAP_X, "#define PYFFT_SWAP_X(X)")],
+    "s2": [("local_cols.cu", SLOTS, SLOTS.replace("3", "2"))],
+    "grp1": [("local_cols.cu", GROUP, "")],
+    "grp4": [("local_cols.cu", GROUP, "  g = runs < 4 ? runs : 4;\n")],
+    "k4r8": [("local_cols.cu", SWAP_R16, SWAP_R16.replace("true", "false"))],
+    "k4t512": [("local_cols.cu", SWAP_NT,
+                SWAP_NT.replace("256", "512").replace("3", "2"))],
 }
 
-# name -> (sources built, steps taken in order, -D macros)
+# name -> (kernels timed, steps taken in order, -D macros)
 VARIANTS = {
-    "full": ((K12, K9), [], {}),
-    "notw": ((K12, K9), ["notw"], {}),
-    "copy": ((K12, K9), ["notw", "noarith", "copy"], {}),
-    "g4": ((K12,), ["g4"], {}),
-    "m1": ((K12,), ["m1"], {}),
-    "s2c16": ((K12,), ["s2c16"], {}),
-    "r8": ((K9,), ["r8"], {}),
-    "twd0": ((K9,), ["twd0"], {}),
-    "pad0": ((K9,), ["pad0"], {}),
-    "nohint": ((K9,), ["nohint"], {}),
-    "p5": ((K9,), [], {"PYFFT_TILED_PLANES": 5}),
-    "p7": ((K9,), [], {"PYFFT_TILED_PLANES": 7}),
-    "p16": ((K9,), [], {"PYFFT_TILED_PLANES": 16}),
-    "pct50": ((K9,), ["pct50"], {}),
-    "run32": ((K9,), ["run32"], {}),
+    "full": (("K12", "K9", "K6", "K4"), [], {}),
+    "notw": (("K12", "K9"), ["notw"], {}),
+    "copy": (("K12", "K9"), ["notw", "noarith", "copy"], {}),
+    "g4": (("K12",), ["g4"], {}),
+    "m1": (("K12",), ["m1"], {}),
+    "s2c16": (("K12",), ["s2c16"], {}),
+    "r8": (("K9",), ["r8"], {}),
+    "twd0": (("K9",), ["twd0"], {}),
+    "pad0": (("K9",), ["pad0"], {}),
+    "nohint": (("K9",), ["nohint"], {}),
+    "p5": (("K9",), [], {"PYFFT_TILED_PLANES": 5}),
+    "p7": (("K9",), [], {"PYFFT_TILED_PLANES": 7}),
+    "p16": (("K9",), [], {"PYFFT_TILED_PLANES": 16}),
+    "pct50": (("K9",), ["pct50"], {}),
+    "run32": (("K9",), ["run32"], {}),
+    "k46notw": (("K6", "K4"), ["k46notw"], {}),
+    "k46copy": (("K6", "K4"), ["k46notw", "k46arith", "k46local"], {}),
+    "k46local": (("K6", "K4"), ["k46local"], {}),
+    "s2": (("K6",), ["s2"], {}),
+    "grp1": (("K6",), ["grp1"], {}),
+    "grp4": (("K6",), ["grp4"], {}),
+    "x8": (("K6",), ["x8"], {}),
+    "runs1024": (("K6",), ["runs1024"], {}),
+    "x512": (("K6",), ["x512"], {}),
+    "r16": (("K4",), ["r16"], {}),
+    "k4old": (("K4",), ["k4old"], {}),
+    "k4r8": (("K4",), ["k4r8"], {}),
+    "k4t512": (("K4",), ["k4t512"], {}),
 }
+# the source each kernel is built from
+SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12}
 
 
 def patched(variant: str, tmp: Path) -> Path:
@@ -154,9 +250,15 @@ def patched(variant: str, tmp: Path) -> Path:
     return d
 
 
-def compile_all(tmp: Path) -> dict:
-    """{(variant, source): CDLL}, eight nvcc at a time; the full variant's
-    ptxas report kept as (variant, source, "log")."""
+def sources(variant: str, kernels) -> set:
+    """The sources a variant builds for the kernels timed."""
+    return {SOURCE[k] for k in VARIANTS[variant][0] if k in kernels}
+
+
+def compile_all(tmp: Path, kernels) -> dict:
+    """{(variant, source): CDLL} of every variant of the ``kernels`` timed,
+    eight nvcc at a time; the full variant's ptxas report kept as
+    (variant, source, "log")."""
     out, errors = {}, {}
     slots = threading.Semaphore(8)
 
@@ -175,9 +277,9 @@ def compile_all(tmp: Path) -> dict:
             out[(v, name)] = ctypes.CDLL(str(lib))
             out[(v, name, "log")] = res.stderr
 
-    dirs = {v: patched(v, tmp) for v in VARIANTS}
+    dirs = {v: patched(v, tmp) for v in VARIANTS if sources(v, kernels)}
     threads = [threading.Thread(target=one, args=(v, n, dirs[v]))
-               for v, (names, _, _) in VARIANTS.items() for n in names]
+               for v in dirs for n in sorted(sources(v, kernels))]
     for t in threads:
         t.start()
     for t in threads:
@@ -188,7 +290,8 @@ def compile_all(tmp: Path) -> dict:
 
 
 # a kernel's mangled name -> its name <template arguments>
-KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel)I(\w+?)E"
+KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel|"
+                    r"local_cols_ring_kernel|local_rows_swap_x_kernel)I(\w+?)E"
                     r"(?:EEv|Ev)")
 
 
@@ -215,8 +318,8 @@ def ptxas_report(log: str) -> list:
 
 
 def cases() -> list:
-    """(kernel source, name, run): ``run()`` launches one kernel, on
-    inputs made once from a seed."""
+    """(kernel, name, make): ``make()`` makes the inputs from a seed and
+    returns ``run``, which launches one kernel on them."""
     g = torch.Generator(device="cuda").manual_seed(7)
     f64 = torch.float64
 
@@ -244,21 +347,51 @@ def cases() -> list:
         o = (torch.empty_like(re), torch.empty_like(im))
         return lambda: fused2d.fft2_fused_tiled(re, im, -1, out=o)
 
+    def ctile(shape, c, **kw):
+        re, im = planes(shape, torch.float32)
+        o = (torch.empty_like(re), torch.empty_like(im))
+        return lambda: local.fft_axis(re, im, -1, axis=1, ctile=c, out=o,
+                                      **kw)
+
+    def swap(n):
+        re, im = planes((8, (1 << 22) // n, n), torch.float32)
+        o = (torch.empty((8, n, (1 << 22) // n), device="cuda"),
+             torch.empty((8, n, (1 << 22) // n), device="cuda"))
+        return lambda: local.fft_rows_swap(re, im, -1, out=o)
+
     full = dict(tw_n=1 << 22, swap_store=True)
     five = (64, 2048, 2048)
     return [
-        (K12, "K12 config 5 pass 1 planar", cols(five, "planar", **full)),
-        (K12, "K12 config 5 pass 2 planar", cols(five, "planar")),
-        (K12, "K12 config 5 pass 1 complex", cols(five, "complex", **full)),
-        (K12, "K12 config 5 pass 2 complex", cols(five, "complex")),
-        (K12, "K12 c128 2D column pass (16, 1024, 1024)",
-         cols((16, 1024, 1024), "planar")),
-        (K9, "K9 config 3 (16 x 1024^2)", tiled((16, 1024, 1024))),
-        (K9, "K9 16 x 512^2", tiled((16, 512, 512))),
-    ]
+        ("K12", "K12 config 5 pass 1 planar",
+         lambda: cols(five, "planar", **full)),
+        ("K12", "K12 config 5 pass 2 planar",
+         lambda: cols(five, "planar")),
+        ("K12", "K12 config 5 pass 1 complex",
+         lambda: cols(five, "complex", **full)),
+        ("K12", "K12 config 5 pass 2 complex",
+         lambda: cols(five, "complex")),
+        ("K12", "K12 c128 2D column pass (16, 1024, 1024)",
+         lambda: cols((16, 1024, 1024), "planar")),
+        ("K9", "K9 config 3 (16 x 1024^2)",
+         lambda: tiled((16, 1024, 1024))),
+        ("K9", "K9 16 x 512^2",
+         lambda: tiled((16, 512, 512))),
+    ] + [("K6", f"K6 config 4 z pass (1, 256, 65536) c={c}",
+          lambda c=c: ctile((1, 256, 65536), c)) for c in (8, 2, 1)] + [
+        ("K6", f"K6 variant B pass 1 (8, 2048, 2048) full c={c}",
+         lambda c=c: ctile((8, 2048, 2048), c, tw_n=1 << 22))
+        for c in (8, 1)] + [
+        ("K6", f"K6 (1, {n}, {(1 << 24) // n}) c={c}",
+         lambda n=n, c=c: ctile((1, n, (1 << 24) // n), c))
+        for n in (512, 1024) for c in (8, 1)] + [
+        ("K4", f"K4 (8, {(1 << 22) // n}, {n})", lambda n=n: swap(n))
+        for n in (2048, 1024, 4096, 512)]
 
 
-COLS_BINDER = local._cols_lib.__wrapped__   # before any use() replaces it
+# before any use() replaces them
+COLS_BINDER = local._cols_lib.__wrapped__
+CTILE_BINDER = local._ctile_fn.__wrapped__
+SWAP_BINDER = local._rows_swap_fn.__wrapped__
 
 
 def use(lib, name: str) -> None:
@@ -267,6 +400,10 @@ def use(lib, name: str) -> None:
         typed = {d: ab_parent.bind(lib, COLS_BINDER, d)
                  for d in ab_parent.DTYPES}
         local._cols_lib = lambda d: typed[d]
+        ctile = ab_parent.bind(lib, CTILE_BINDER)
+        swap = ab_parent.bind(lib, SWAP_BINDER)
+        local._ctile_fn = lambda: ctile
+        local._rows_swap_fn = lambda: swap
     else:
         typed = fused2d._typed(lib, K9)
         fused2d._tiled_lib = lambda: typed
@@ -284,7 +421,7 @@ def shape_line(lib) -> str:
                                                 out))
 
 
-def main() -> int:
+def main(kernels) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     card = subprocess.run(
@@ -292,22 +429,33 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
-    saved = (local._cols_lib, fused2d._tiled_lib)
+    saved = (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
+             local._rows_swap_fn)
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = compile_all(Path(tmp))
-        for name in (K12, K9):
+        libs = compile_all(Path(tmp), kernels)
+        for name in sorted({SOURCE[k] for k in kernels}):
             for kern, regs, spill in ptxas_report(libs[("full", name,
                                                         "log")]):
                 print(f"ptxas {kern}: {regs} registers, {spill} bytes "
                       "spilled")
-        for v, (names, _, _) in VARIANTS.items():
-            if K9 in names:
-                print(f"K9 {v} at config 3: {shape_line(libs[(v, K9)])}")
+        if ("full", K12) in libs:     # the wrappers' shape queries
+            ab_parent.bind(libs[("full", K12)], lambda: [
+                f(1 << k) for f in (local.swap_tile, local.ring_shape)
+                for k in range(3, 14)])
+        if "K9" in kernels:
+            for v, (names, _, _) in VARIANTS.items():
+                if "K9" in names:
+                    print(f"K9 {v} at config 3: "
+                          f"{shape_line(libs[(v, K9)])}")
         try:
-            for src, name, run in cases():
+            for kern, name, make in cases():
+                if kern not in kernels:
+                    continue
+                run = make()
+                src = SOURCE[kern]
                 order = [v for v, (names, _, _) in VARIANTS.items()
-                         if src in names] + ["full"]
+                         if kern in names] + ["full"]
                 t = {}
                 for v in order:
                     use(libs[(v, src)], src)
@@ -319,11 +467,12 @@ def main() -> int:
                       + " ms", flush=True)
                 torch.cuda.empty_cache()
         finally:
-            local._cols_lib, fused2d._tiled_lib = saved
+            (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
+             local._rows_swap_fn) = saved
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
                       "split": result}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:] or ["K12", "K9", "K6", "K4"]))

@@ -36,6 +36,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "stockham.cuh"
 
 namespace pyfft {
@@ -67,7 +69,9 @@ struct XTile {
   static constexpr int PAIRS = KR * C / NT;  // (k', c) a thread in step 3
   static constexpr int REM = LOGM % 3;
   static constexpr int NSTAGES = LOGM / 3 + (REM ? 1 : 0);
-  static_assert(G == 2 || G == 4 || G == 8, "G-point DFTs of radix 2, 4, 8");
+  // G = 1: one block holds the whole tile (no exchange; csrc/ring_cols.cuh)
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8 || G == 16,
+                "G-point DFTs of radix 2, 4, 8 or 16");
   static_assert(E * NT == P && PAIRS * NT == KR * C && PAIRS >= 1,
                 "threads tile the block and the exchange");
   static_assert(P / 8 >= NT, "every thread a butterfly of every stage");
@@ -181,7 +185,11 @@ __device__ __forceinline__ void xt_exchange(
 #pragma unroll
     for (int b = 1; b < G; ++b) u[i][b] = cmul(u[i][b], __ldg(&tw[b * kp]));
     dft<G>(u[i], s);
-    put(c, kp, u[i]);
+    // a put that takes the pair's index i may hold per-pair values
+    if constexpr (std::is_invocable_v<const Put&, int, int, const V*, int>)
+      put(c, kp, u[i], i);
+    else
+      put(c, kp, u[i]);
   }
   cluster_wait();
 }

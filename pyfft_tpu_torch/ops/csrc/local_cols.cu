@@ -91,11 +91,7 @@
 // complex tensor stride 2.  Offsets are 64-bit.  T and the block count
 // must fit int32 (the wrapper checks).
 //
-// Two more complex64 kernels are policies of this one, template parameters
-// that default to the column kernel's behaviour (so K5's and K12's code is
-// what it was without them):
-//
-// K4, the digit-swapped row pass (policy ROWS).  It replaces
+// K4, the digit-swapped row pass.  It replaces
 // pyfft_tpu/ops/pallas_local.py `_row_swap_kernel`, launched by
 // `_fft_rows_swap` through `pl.pallas_call`: the DFT along the rows of
 // (L, n1, n) planes, stored as (L, n, n1),
@@ -104,22 +100,60 @@
 //
 // the second pass of the four-step "variant B".  With t = r that is the
 // plain store above over the input read as x[l, j, t] (element stride
-// in_ns, row stride in_ts), so a block takes C consecutive rows.  Only the
-// load differs: a row is contiguous along j, so a first pass copies the
-// block's C rows into the [k][c] buffer with threads running along j, in
-// runs of KW points of one row (load_rows below: a 32-byte sector of each
-// plane a run from n = 1024 up, at most four-way bank conflicts on the
-// buffer), and the chain starts from shared memory.  The plain store writes C*4-byte runs per k
-// (32 bytes at n = 2048, C = 8).  Out of place only: rows and columns
-// cross.
+// in_ns, row stride in_ts).  Out of place only: rows and columns cross.
 //
-// K6, the multi-tile column pass (policy WALK).  It replaces
+//   * Below n = 512 it is a policy of the column kernel (ROWS, a template
+//     parameter that defaults to the column kernel's behaviour, so K5's
+//     and K12's code is what it was without it): a block takes C
+//     consecutive rows, and a first pass copies them into the [k][c]
+//     buffer with threads running along j, in runs of KW points of one row
+//     (load_rows below), and the chain starts from shared memory.
+//   * From n = 512 (local_rows_swap_x_kernel, the table PYFFT_SWAP_X): a
+//     cluster of G blocks takes a tile of R consecutive rows (32: each
+//     output row k is one 128-byte run a plane), in decimation in
+//     frequency, so that its loads stay contiguous along j.  With n = G*M,
+//     j = j1*M + j2 and k = k1 + G*k2, block b loads j2 in [b*M/G,
+//     (b+1)*M/G) for every j1 (G runs of M/G points a row: one box copy of
+//     the tensor map a plane, rows past T as zeros), reads them into
+//     registers, runs the G-point DFTs over j1, twiddles output k1 by
+//     w_n^(j2*k1) and leaves it in its own buffer, from which block k1
+//     reads it through DSMEM into its [j2][r] buffer; then each block runs
+//     the M-point chain
+//     over j2 and stores X[k1 + G*k2] with threads along r:
+//       X[k1 + G*k2] = sum_j2 w_M^(j2*k2) w_n^(j2*k1)
+//                      sum_j1 x[j1*M + j2] w_G^(j1*k1).
+//     The decimation in time of the column tile would gather j = b +
+//     G*j', one float in G of each sector.  The plain load and store of
+//     the first design wrote C*4-byte runs per k (32 bytes at n = 2048).
+//
+// K6, the multi-tile column pass (local_cols_ring_kernel).  It replaces
 // pyfft_tpu/ops/pallas_local.py `_fft_cols_ctile`'s `pl.pallas_call` (the
 // body is `_col_kernel` over (1, n, c, 128) blocks): the column kernel's
-// function, plain or `full` twiddle and plain store only, with one block
-// taking c 128-column tiles, c*128 consecutive t, which it walks in
-// c*128/C runs of the column kernel, one after another through the same
-// buffer.  The grid is L x T/(128*c).  In place as the column kernel.
+// function, plain or `full` twiddle and plain store only, each of JAX's
+// grid steps (l, c 128-column tiles, c*128 consecutive t) walked in runs
+// of C columns.  Its first design walked them in one block a step through
+// one buffer, a barrier between the runs, the next run's loads issued after
+// the last one's stores: 64 blocks on 132 SMs at config 4's z pass (c = 8).
+// Now:
+//
+//   * a ring of S slots a block (csrc/ring_cols.cuh): one thread keeps the
+//     box copies (TMA) of the next S - 1 runs in flight while the block
+//     runs the chain and the stores of the current one;
+//   * up to n = 512 a step is `group` blocks that take alternate runs, no
+//     exchange, as many as fill one wave of the card (runs of ColShape's C
+//     columns, 128 bytes of each plane at n = 256);
+//   * from n = 1024 (PYFFT_RING_X) a step is a cluster of G blocks that
+//     takes tiles of C columns (128- or 64-byte runs), n/G rows a block,
+//     through cluster_cols.cuh's exchange; the `full` twiddle of output k'
+//     + M*k2 is read as w(k') * w(M*k2), both before the chain.  At n =
+//     1024 a step whose blocks of whole runs (8 columns) would together
+//     cover 128 bytes of a row takes those instead (launch_ring_at).
+//
+// Both read the planar planes or the complex form's stride-2 planes,
+// 16-byte aligned (the tensor maps' rules; the wrappers copy an input of
+// any other layout first).  Every run a block stores is one it loaded,
+// and the runs of a step are disjoint, so the plain store may alias the
+// input (in place), as the column kernel's.
 //
 // K5 + K10, the int8 policy (precision="int8", complex64 planes).  The
 // chain's last stage is the f-point int8-split stage of int8_stage.cuh (f
@@ -159,15 +193,19 @@
 // library with the plain C entry points `pyfft_local_cols` (float),
 // `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
 // `pyfft_local_cols_ctile` (K6), `pyfft_local_cols_i8` (float, int8
-// stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths and
-// the complex128 cluster kernel's shape (`pyfft_local_cols_xshape_f64`),
-// at the bottom.
+// stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths,
+// the complex128 cluster kernel's shape (`pyfft_local_cols_xshape_f64`)
+// and K4's and K6's (`pyfft_local_rows_swap_shape`,
+// `pyfft_local_cols_ring_shape`), at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "cluster_cols.cuh"
 #include "int8_stage.cuh"
+#include "ring_cols.cuh"
 #include "stockham.cuh"
 
 namespace {
@@ -177,8 +215,8 @@ namespace cg = cooperative_groups;
 
 enum TwMode { TW_NONE = 0, TW_TABLE = 1, TW_FACTORED = 2 };
 
-// How a block finds its data: the column kernel's (K5, K12), K4's row load,
-// K6's walk over c tiles.
+// How a block finds its data: the column kernel's (K5, K12), K4's row load
+// (below n = 1024), K6's ring (its own kernel).
 enum Policy { COLS = 0, ROWS = 1, WALK = 2 };
 
 template <typename Real>
@@ -197,7 +235,6 @@ struct Cols {
   long long bk, bq;
   int tw_mode;
   Real post;
-  int ctile;     // WALK: 128-column tiles a block
 };
 
 // The columns a block takes at length n, in bytes of its complex type:
@@ -393,27 +430,15 @@ __global__ void __launch_bounds__(NT)
   V* sm = reinterpret_cast<V*>(smem_raw);
   // l fastest: neighbouring blocks work on the same t-run
   const long long l = blockIdx.x % io.L;
-  if constexpr (POLICY == WALK) {
-    // c tiles of 128 columns, in runs of C, one after another
-    const int runs = io.ctile * (128 / C);
-    const long long base = (blockIdx.x / io.L) * (long long)runs * C;
-    for (int run = 0; run < runs; ++run) {
-      if (run) __syncthreads();       // the last store pass read the buffer
-      stages<Real, LOGN, SWAP, 0, 1>(io, sm, fresh(tw), l, base + run * C,
-                                     s);
-      store<Real, LOGN, SWAP>(io, sm, l, base + run * C);
-    }
+  const long long t0 = (blockIdx.x / io.L) * C;
+  if constexpr (POLICY == ROWS) {
+    load_rows<Real, LOGN>(io, sm, l, t0);
+    __syncthreads();
+    stages<Real, LOGN, SWAP, 0, 1, true>(io, sm, tw, l, t0, s);
   } else {
-    const long long t0 = (blockIdx.x / io.L) * C;
-    if constexpr (POLICY == ROWS) {
-      load_rows<Real, LOGN>(io, sm, l, t0);
-      __syncthreads();
-      stages<Real, LOGN, SWAP, 0, 1, true>(io, sm, tw, l, t0, s);
-    } else {
-      stages<Real, LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
-    }
-    store<Real, LOGN, SWAP>(io, sm, l, t0);
+    stages<Real, LOGN, SWAP, 0, 1>(io, sm, tw, l, t0, s);
   }
+  store<Real, LOGN, SWAP>(io, sm, l, t0);
 }
 
 template <typename Real, int LOGN, bool SWAP, int POLICY>
@@ -428,12 +453,7 @@ cudaError_t launch(const Cols<Real>& io, const typename Complex<Real>::V* tw,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  long long blocks = (io.T + S::C - 1) / S::C * io.L;
-  if (POLICY == WALK) {
-    const long long span = 128LL * io.ctile;     // columns a block
-    if (io.ctile <= 0 || io.T % span) return cudaErrorInvalidValue;
-    blocks = io.T / span * io.L;
-  }
+  const long long blocks = (io.T + S::C - 1) / S::C * io.L;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   local_cols_kernel<Real, LOGN, SWAP, POLICY>
       <<<(unsigned)blocks, S::NT, smem, stream>>>(io, tw, s);
@@ -488,7 +508,7 @@ int width(int log2n) {
 template <typename Real>
 Cols<Real> cols_io(const void* in_re, const void* in_im, void* out_re,
                    void* out_im, const void* ta, const void* tb,
-                   const long long* dims, Real postscale, int ctile) {
+                   const long long* dims, Real postscale) {
   using V = typename Complex<Real>::V;
   Cols<Real> io;
   io.in_re = static_cast<const Real*>(in_re);
@@ -514,7 +534,6 @@ Cols<Real> cols_io(const void* in_re, const void* in_im, void* out_re,
   io.bq = dims[14];
   io.tw_mode = static_cast<int>(dims[15]);
   io.post = postscale;
-  io.ctile = ctile;
   return io;
 }
 
@@ -842,6 +861,465 @@ cudaError_t launch_x(const Cols<double>& io, const double2* tw, double s,
                                stream, io, tw, s);
 }
 
+// ------------------------------------------- K6: a ring of runs a block
+
+// The slots of K6's ring: the runs of a block in shared memory at once,
+// S - 1 of them loading while one is transformed.
+constexpr int RING_SLOTS = 3;
+// (log2 n, G, C) where a cluster of G blocks takes each tile of C columns
+// of a K6 step, n/G rows a block, exchanging through DSMEM
+// (cluster_cols.cuh).  Up to n = 1024 a length missing here runs a step as
+// `group` blocks of whole runs of ColShape's C columns; from n = 2048 every
+// length must be here.
+#ifndef PYFFT_RING_X
+#define PYFFT_RING_X(X) X(10, 4, 32) X(11, 16, 32) X(12, 8, 16) X(13, 16, 16)
+#endif
+// The most rows a box of a tensor copy takes (the copy engine's limit).
+constexpr int BOX = 256;
+
+// `raw` rounded up to 128 bytes, where the box copies write.
+__device__ __forceinline__ float2* align128(unsigned char* raw) {
+  return reinterpret_cast<float2*>(raw + ((128u - (smem_u32(raw) & 127u)) &
+                                          127u));
+}
+
+template <int LOGN, int G, int C>
+struct Ring {
+  static constexpr int S = RING_SLOTS;
+  static constexpr int M = (1 << LOGN) / G;                  // rows a block
+  static constexpr int MB = M < BOX ? M : BOX;               // rows a box
+  // at most 512, one butterfly of every stage and one (k', c) of the
+  // exchange a thread
+  static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);
+  using X = XTile<float, LOGN - ilog2c(G), G, C, NT>;
+  static constexpr int SLOT = X::P * (int)sizeof(float2);
+  static constexpr int SMEM = S * SLOT + 128;                // + alignment
+  static_assert(S >= 2 && SMEM <= 227 * 1024,
+                "the ring fits a block's shared memory");
+  static_assert(C % 4 == 0 && 128 % C == 0 && M % MB == 0,
+                "a run's row of a plane is whole 16-byte units of one tile");
+};
+
+// K6's operands: planar planes (t stride 1) or the complex form's stride-2
+// planes (the imaginary plane one float after the real one), 16-byte
+// aligned, their (l, n) strides multiples of 16 bytes (the tensor maps').
+inline bool ring_operands(const Cols<float>& io) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(io.in_re);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
+  const bool planar = io.in_ts == 1 && b % 16 == 0;
+  const bool pairs = io.in_ts == 2 && b == a + sizeof(float);
+  return (planar || pairs) && a % 16 == 0 && io.in_ns % 4 == 0 &&
+         (io.L == 1 || io.in_ls % 4 == 0);
+}
+
+// K6's tensor map of the plane (or the pairs) at `base`: {T, G, n/G, L},
+// its box the C columns of MB rows rank + G*j'.
+template <int LOGN, int G, int C>
+cudaError_t ring_map(CUtensorMap* map, const float* base,
+                     const Cols<float>& io) {
+  using K = Ring<LOGN, G, C>;
+  const cuuint64_t row = (cuuint64_t)io.in_ns * 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)io.T, (cuuint64_t)G,
+                              (cuuint64_t)K::M, (cuuint64_t)io.L};
+  const cuuint64_t strides[3] = {
+      row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * 4 : row * (1 << LOGN)};
+  const cuuint32_t box[4] = {(cuuint32_t)C, 1, (cuuint32_t)K::MB, 1};
+  return tensor_map_4d(map, base, io.in_ts == 2, dims, strides, box);
+}
+
+// K6: `ctile` 128-column tiles of one l a step, walked in runs of C
+// columns.  G > 1: a cluster of G blocks a step that splits each run (rows
+// rank + G*j' a block) and exchanges through DSMEM; G = 1: `group` blocks
+// a step, block `rank` taking runs rank, rank + group, ...  A block walks
+// its runs through the ring: run i in slot i % S, on barrier bars[i % S],
+// copied by thread 0 in boxes of the tensor maps (map_im unused on pairs).
+template <int LOGN, int G, int C, int NT = Ring<LOGN, G, C>::NT>
+__global__ void __launch_bounds__(NT)
+    local_cols_ring_kernel(Cols<float> io, const float2* __restrict__ tw,
+                           float s, int ctile, int group,
+                           const __grid_constant__ CUtensorMap map_re,
+                           const __grid_constant__ CUtensorMap map_im) {
+  using K = Ring<LOGN, G, C>;
+  using X = typename K::X;
+  constexpr int S = K::S, P = X::P, M = X::M, MB = K::MB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bars[S];
+  float2* slots = align128(smem_raw);
+  const int g = G > 1 ? G : group;
+  const int rank = static_cast<int>(blockIdx.x % g);
+  const long long step = blockIdx.x / g;
+  // l fastest: neighbouring steps read the same rows of a `full` table
+  const long long l = step % io.L;
+  const long long base = (step / io.L) * 128LL * ctile;
+  const int runs = ctile * (128 / C);
+  const int first = G > 1 ? 0 : rank, every = G > 1 ? 1 : g;
+  const int count = first < runs ? (runs - first + every - 1) / every : 0;
+  const bool split = io.in_ts == 1;     // planar, else stride-2 pairs
+  // this block's run i into slot i % S: M rows, of each plane or of pairs
+  const auto issue = [&](int i) {
+    uint64_t* bar = &bars[i % S];
+    float* dst = reinterpret_cast<float*>(slots + (i % S) * P);
+    const int t0 = static_cast<int>(base + (long long)(first + i * every) * C);
+    fence_async_smem();
+    mbar_expect(bar, P * (int)sizeof(float2));
+    for (int part = 0; part < (split ? 2 : 1); ++part)
+      for (int h = 0; h < M / MB; ++h)
+        tma_load_4d(dst + (split ? part * P + h * MB * C : 2 * h * MB * C),
+                    part ? &map_im : &map_re, t0, G > 1 ? rank : 0, h * MB,
+                    static_cast<int>(l), bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < S; ++b) mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < S && j < count; ++j) issue(j);
+  }
+  __syncthreads();                  // the barriers are set up
+  for (int i = 0; i < count; ++i) {
+    // thread 0 fills the slot of run i - 1, whose readers are past a
+    // barrier, with run i + S - 1
+    if (threadIdx.x == 0 && i && i + S - 1 < count) issue(i + S - 1);
+    float2* sm = slots + (i % S) * P;
+    const float* f = reinterpret_cast<const float*>(sm);
+    const long long t0 = base + (long long)(first + i * every) * C;
+    const float2* t = fresh(tw);
+    const bool twd = io.tw_mode != TW_NONE;
+    // G > 1: the `full` twiddles of this run's outputs, read before its
+    // chain so that their latency hides behind it: w(k') of each pair (k',
+    // c) of the thread and w(M*k2) of its column (the same c for every
+    // pair, NT being a multiple of C).  At a fixed t the twiddle is a
+    // character in k: w(k' + M*k2) = w(k') * w(M*k2).
+    float2 wk[G > 1 ? X::PAIRS : 1], wm[G];
+    if (G > 1 && twd) {
+      const long long tc = t0 + threadIdx.x % C;
+#pragma unroll
+      for (int q = 0; q < X::PAIRS; ++q) {
+        const int kp = rank * X::KR + (threadIdx.x + q * NT) / C;
+        wk[q] = __ldg(&io.ta[kp * io.ak + tc * io.aq]);
+      }
+#pragma unroll
+      for (int k2 = 0; k2 < G; ++k2)
+        wm[k2] = __ldg(&io.ta[(long long)(M * k2) * io.ak + tc * io.aq]);
+    }
+    mbar_wait(&bars[i % S], (i / S) & 1);
+    xt_chain_from<X>(sm, t, s, [&](int k, int c) {
+      return split ? make_float2(f[k * C + c], f[P + k * C + c])
+                   : sm[k * C + c];
+    });
+    if constexpr (G > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      // outputs k' + M*k2 of column c, pair q of the thread
+      const auto put = [&](int c, int kp, const float2* y, int q) {
+        const long long tc = t0 + c;
+        const long long o = l * io.out_ls + tc * io.out_bs;
+#pragma unroll
+        for (int k2 = 0; k2 < G; ++k2) {
+          float2 v = y[k2];
+          if (twd) v = cmul(v, k2 ? cmul(wk[q], wm[k2]) : wk[q]);
+          const long long ok = o + (long long)(kp + M * k2) * io.out_ns;
+          io.out_re[ok] = v.x * io.post;
+          io.out_im[ok] = v.y * io.post;
+        }
+      };
+      // ends past a cluster barrier after every block's reads of this slot
+      xt_exchange<X>(cluster, sm, t, s, 0, rank, put);
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < P; e += NT) {
+        const int k = e / C, c = e % C;
+        const long long tc = t0 + c;
+        float2 v = sm[e];
+        if (twd) v = cmul(v, __ldg(&io.ta[k * io.ak + tc * io.aq]));
+        const long long o = l * io.out_ls + k * io.out_ns + tc * io.out_bs;
+        io.out_re[o] = v.x * io.post;
+        io.out_im[o] = v.y * io.post;
+      }
+      __syncthreads();            // the store pass is done with the slot
+    }
+  }
+}
+
+// The blocks of a K6 step in whole runs of ColShape's C columns at LOGN
+// (up to n = 1024), over `steps` steps of `runs` runs, into `g`: the
+// largest power of two, at most `runs`, with which the grid fills at most
+// one wave of the card (its SMs times the blocks an SM holds).  The wave
+// is asked of the card once a device, with the kernel's shared memory set
+// there for its launches.
+template <int LOGN>
+cudaError_t ring_group(long long steps, int runs, int& g) {
+  constexpr int C = ColShape<LOGN, float>::C;
+  using K = Ring<LOGN, 1, C>;
+  static std::atomic<long long> waves[64];     // by device, 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  long long wave = waves[dev].load(std::memory_order_relaxed);
+  if (!wave) {
+    const auto kernel = local_cols_ring_kernel<LOGN, 1, C>;
+    int sms = 0, per = 0;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, K::NT,
+                                                        K::SMEM);
+    if (e != cudaSuccess) return e;
+    wave = (long long)sms * (per > 1 ? per : 1);
+    waves[dev].store(wave, std::memory_order_relaxed);
+  }
+  g = 1;
+  while (2 * g <= runs && steps * 2 * g <= wave) g *= 2;
+  return cudaSuccess;
+}
+
+// K6 at `ctile` tiles a step over `io`: `g` blocks a step (G = 1, whole
+// runs; the kernel's shared memory set by ring_group) or a cluster of G.
+template <int LOGN, int G, int C>
+cudaError_t launch_ring(const Cols<float>& io, const float2* tw, float s,
+                        int ctile, int g, cudaStream_t stream) {
+  using K = Ring<LOGN, G, C>;
+  const auto kernel = local_cols_ring_kernel<LOGN, G, C>;
+  if (!ring_operands(io)) return cudaErrorInvalidValue;
+  CUtensorMap mre, mim;
+  cudaError_t e = ring_map<LOGN, G, C>(&mre, io.in_re, io);
+  if (e != cudaSuccess) return e;
+  mim = mre;
+  if (io.in_ts == 1) e = ring_map<LOGN, G, C>(&mim, io.in_im, io);
+  if (e != cudaSuccess) return e;
+  const long long steps = io.T / (128LL * ctile) * io.L;
+  if constexpr (G > 1) {
+    return launch_cluster<K::NT>(kernel, steps, G, K::SMEM, stream, io, tw,
+                                 s, ctile, G, mre, mim);
+  } else {
+    const long long blocks = steps * g;
+    if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, K::NT, K::SMEM, stream>>>(io, tw, s, ctile, g,
+                                                          mre, mim);
+    return cudaGetLastError();
+  }
+}
+
+// K6 at LOGN: whole runs up to n = 1024, `ring_group` blocks a step, or
+// the cluster tile (GX, CX) of PYFFT_RING_X.  Where both take the length
+// (n = 1024): whole runs when the blocks of a step together cover 128
+// bytes of each row (g * C >= 32 columns), else the cluster tile.  Over
+// 2^24 points at n = 1024, c = 8 (16 steps, 8 blocks a step) runs took
+// 0.135 ms and the cluster 0.233; c = 1 (128 steps, a block a step) 0.353
+// and 0.181 (PERF.md section 6).
+template <int LOGN, int GX = 0, int CX = 0>
+cudaError_t launch_ring_at(const Cols<float>& io, const float2* tw, float s,
+                           int ctile, cudaStream_t st) {
+  if constexpr (LOGN <= 10) {
+    constexpr int C = ColShape<LOGN, float>::C;
+    int g = 0;
+    const cudaError_t e =
+        ring_group<LOGN>(io.T / (128LL * ctile) * io.L, 128 * ctile / C, g);
+    if (e != cudaSuccess) return e;
+    if (GX == 0 || g * C >= 32)
+      return launch_ring<LOGN, 1, C>(io, tw, s, ctile, g, st);
+  }
+  if constexpr (GX > 0)
+    return launch_ring<LOGN, GX, CX>(io, tw, s, ctile, GX, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
+                          const float2* tw, float s, int ctile,
+                          cudaStream_t st) {
+  if (ctile <= 0 || io.T % (128LL * ctile)) return cudaErrorInvalidValue;
+#define PYFFT_RING(LN, GX, CX) \
+  if (log2n == LN) return launch_ring_at<LN, GX, CX>(io, tw, s, ctile, st);
+  PYFFT_RING_X(PYFFT_RING)
+#undef PYFFT_RING
+  switch (log2n) {
+    case 3: return launch_ring_at<3>(io, tw, s, ctile, st);
+    case 4: return launch_ring_at<4>(io, tw, s, ctile, st);
+    case 5: return launch_ring_at<5>(io, tw, s, ctile, st);
+    case 6: return launch_ring_at<6>(io, tw, s, ctile, st);
+    case 7: return launch_ring_at<7>(io, tw, s, ctile, st);
+    case 8: return launch_ring_at<8>(io, tw, s, ctile, st);
+    case 9: return launch_ring_at<9>(io, tw, s, ctile, st);
+    case 10: return launch_ring_at<10>(io, tw, s, ctile, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------- K4 from n = 512: a cluster's tile
+
+// (log2 n, G, R) of K4's cluster tile: R consecutive rows split over a
+// cluster of G blocks in decimation in frequency, M = n/G points of each
+// row a block (64 KB, three blocks an SM).  Every other length runs the
+// ROWS policy of local_cols_kernel.
+#ifndef PYFFT_SWAP_X
+#define PYFFT_SWAP_X(X) \
+  X(9, 4, 32) X(10, 4, 32) X(11, 8, 32) X(12, 16, 32) X(13, 16, 16)
+#endif
+// K4's 256-point chains (n = 1024 to 4096) as two radix-16 stages, one
+// shared-memory round trip fewer than radix 4, 8, 8 (where the tile's
+// rows give every thread a 16-point butterfly).
+constexpr bool SWAP_R16 = true;
+// K4's threads a block and the blocks an SM its registers leave room for
+// (three 64 KB blocks of 256 threads beat two of 512).
+constexpr int SWAP_THREADS = 256, SWAP_BLOCKS = 3;
+
+template <int LOGN, int G, int R>
+struct SwapX {
+  static constexpr int N = 1 << LOGN, M = N / G;
+  static constexpr int MG = M / G;             // j2 a block loads
+  static constexpr int NT = SWAP_THREADS;
+  using X = XTile<float, LOGN - ilog2c(G), G, R, NT>;
+  static constexpr int PAIRS = MG * R / NT;    // (j2, r) a thread
+  static constexpr int SMEM = X::P * (int)sizeof(float2) + 128;
+  static_assert(PAIRS >= 1 && PAIRS * NT == MG * R, "threads tile the loads");
+  static_assert(MG <= BOX && 128 % R == 0, "one box a plane");
+  static_assert(SWAP_BLOCKS * (SMEM + 1024) <= 228 * 1024,
+                "the blocks an SM fit its shared memory");
+};
+
+// K4's operands from n = 512: planar planes (j stride 1) or the complex
+// form's stride-2 planes (the imaginary plane one float after the real
+// one), 16-byte aligned, their (l, row) strides multiples of 16 bytes.
+inline bool swap_operands(const Cols<float>& io) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(io.in_re);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
+  const bool planar = io.in_ns == 1 && b % 16 == 0;
+  const bool pairs = io.in_ns == 2 && b == a + sizeof(float);
+  return (planar || pairs) && a % 16 == 0 && io.in_ts % 4 == 0 &&
+         (io.L == 1 || io.in_ls % 4 == 0);
+}
+
+// K4's tensor map of the plane (or the pairs) at `base`: {M (j2), G (j1),
+// T (rows), L}, its box the j2 of one block for every j1 of R rows.
+template <int LOGN, int G, int R>
+cudaError_t swap_map(CUtensorMap* map, const float* base,
+                     const Cols<float>& io) {
+  using K = SwapX<LOGN, G, R>;
+  const cuuint64_t row = (cuuint64_t)io.in_ts * 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)K::M, (cuuint64_t)G,
+                              (cuuint64_t)io.T, (cuuint64_t)io.L};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)K::M * io.in_ns * 4, row,
+      io.L > 1 ? (cuuint64_t)io.in_ls * 4 : row * (cuuint64_t)io.T};
+  const cuuint32_t box[4] = {(cuuint32_t)K::MG, (cuuint32_t)G, (cuuint32_t)R,
+                             1};
+  return tensor_map_4d(map, base, io.in_ns == 2, dims, strides, box);
+}
+
+// K4 on one (l, R consecutive rows) tile a cluster, block `rank` = k1:
+// one box a plane (map_im unused on pairs), rows past T read as zeros.
+// The exchange pulls, as K12's: each block leaves its G outputs in chunks
+// of its own buffer, chunk k1 = [j2][r] over its j2 (r XOR j2's low bits,
+// against bank conflicts as threads run along j2), and the first stage of
+// block k1's chain reads chunk k1 of every block through DSMEM, threads
+// running along r.
+template <int LOGN, int G, int R, int NT = SwapX<LOGN, G, R>::NT>
+__global__ void __launch_bounds__(NT, SWAP_BLOCKS)
+    local_rows_swap_x_kernel(Cols<float> io, const float2* __restrict__ tw,
+                             float s,
+                             const __grid_constant__ CUtensorMap map_re,
+                             const __grid_constant__ CUtensorMap map_im) {
+  using K = SwapX<LOGN, G, R>;
+  using X = typename K::X;
+  constexpr int MG = K::MG, P = X::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bar;
+  float2* sm = align128(smem_raw);
+  const float* f = reinterpret_cast<const float*>(sm);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long tile = blockIdx.x / G;
+  // l fastest, as the column kernel's blocks
+  const long long l = tile % io.L, r0 = (tile / io.L) * R;
+  const bool split = io.in_ns == 1;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&bar, P * (int)sizeof(float2));
+    tma_load_4d(sm, &map_re, rank * MG, 0, static_cast<int>(r0),
+                static_cast<int>(l), &bar);
+    if (split)
+      tma_load_4d(reinterpret_cast<float*>(sm) + P, &map_im, rank * MG, 0,
+                  static_cast<int>(r0), static_cast<int>(l), &bar);
+  }
+  __syncthreads();                  // the barrier is set up
+  mbar_wait(&bar, 0);
+  // x[j1*M + j2] for j1 < G of each (j2, r) of the thread (box element (r,
+  // j1, j2 - rank*MG)), the G-point DFT over j1, output k1 twiddled by
+  // w_n^(j2*k1)
+  float2 x[K::PAIRS][G];
+#pragma unroll
+  for (int i = 0; i < K::PAIRS; ++i) {
+    const int p = threadIdx.x + i * NT, jl = p % MG, r = p / MG;
+#pragma unroll
+    for (int j1 = 0; j1 < G; ++j1) {
+      const int e = (r * G + j1) * MG + jl;
+      x[i][j1] = split ? make_float2(f[e], f[P + e]) : sm[e];
+    }
+    dft<G>(x[i], s);
+#pragma unroll
+    for (int k1 = 1; k1 < G; ++k1)
+      x[i][k1] = cmul(x[i][k1], __ldg(&tw[(rank * MG + jl) * k1]));
+  }
+  __syncthreads();                  // the box is read
+#pragma unroll
+  for (int i = 0; i < K::PAIRS; ++i) {
+    const int p = threadIdx.x + i * NT, jl = p % MG, r = p / MG;
+#pragma unroll
+    for (int k1 = 0; k1 < G; ++k1)
+      sm[(k1 * MG + jl) * R + (r ^ (jl & (R - 1)))] = x[i][k1];
+  }
+  cluster_arrive();        // this block's chunks are written
+  cluster_wait();
+  // the M-point chain over j2 = b*MG + jl in this block's [j2][r] buffer:
+  // its first stage reads chunk `rank` of every block b through DSMEM, and
+  // waits for the cluster's reads of this buffer before it writes it; its
+  // last stage stores X[rank + G*k2] of row r0 + r, threads along r
+  constexpr bool R16 =
+      SWAP_R16 && X::M == 256 && X::M / 16 * R % NT == 0;
+  constexpr int R0 = R16 ? 16 : X::REM ? (1 << X::REM) : 8;
+  xt_first<X, R0>(
+      sm, s,
+      [&](int k, int c) {
+        const int jl = k % MG;
+        const float2* src = cluster.map_shared_rank(sm, k / MG);
+        return src[(rank * MG + jl) * R + (c ^ (jl & (R - 1)))];
+      },
+      [] {
+        cluster_arrive();  // this block's reads of the cluster are done
+        cluster_wait();    // and every block's of this one
+      });
+  const auto put = [&](int k2, int r, float2 v) {
+    const long long row = r0 + r;
+    if (row >= io.T) return;
+    const long long o = l * io.out_ls + (long long)(rank + G * k2) * io.out_ns +
+                        row * io.out_bs;
+    io.out_re[o] = v.x * io.post;
+    io.out_im[o] = v.y * io.post;
+  };
+  if constexpr (R16)
+    xt_stage_out<X, 16, 16>(sm, tw, s, put);
+  else
+    xt_chain_out<X, 1, R0>(sm, tw, s, put);
+}
+
+template <int LOGN, int G, int R>
+cudaError_t launch_swap_x(const Cols<float>& io, const float2* tw, float s,
+                          cudaStream_t stream) {
+  using K = SwapX<LOGN, G, R>;
+  if (!swap_operands(io)) return cudaErrorInvalidValue;
+  CUtensorMap mre, mim;
+  cudaError_t e = swap_map<LOGN, G, R>(&mre, io.in_re, io);
+  if (e != cudaSuccess) return e;
+  mim = mre;
+  if (io.in_ns == 1) e = swap_map<LOGN, G, R>(&mim, io.in_im, io);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (io.T + R - 1) / R * io.L;
+  return launch_cluster<K::NT>(local_rows_swap_x_kernel<LOGN, G, R>, tiles,
+                               G, K::SMEM, stream, io, tw, s, mre, mim);
+}
+
 // The launch of the entry points below.  `policy` COLS runs the column
 // kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
 // the plain store, complex64 only.
@@ -853,7 +1331,7 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
                 int ctile = 1) {
   using V = typename Complex<Real>::V;
   const Cols<Real> io = cols_io<Real>(in_re, in_im, out_re, out_im, ta, tb,
-                                      dims, postscale, ctile);
+                                      dims, postscale);
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
     return (int)cudaErrorInvalidValue;
   const V* t = static_cast<const V*>(tw);
@@ -864,11 +1342,15 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
       if (swap_store) return (int)cudaErrorInvalidValue;
       if (policy == ROWS) {
         if (io.tw_mode != TW_NONE) return (int)cudaErrorInvalidValue;
+#define PYFFT_SWAPX(LN, G, R) \
+  if (log2n == LN) return (int)launch_swap_x<LN, G, R>(io, t, s, st);
+        PYFFT_SWAP_X(PYFFT_SWAPX)
+#undef PYFFT_SWAPX
         return (int)dispatch<Real, MAXLOG, false, ROWS>(log2n, io, t, s, st);
       }
       if (io.tw_mode == TW_FACTORED || io.adiv != 1)
         return (int)cudaErrorInvalidValue;
-      return (int)dispatch<Real, MAXLOG, false, WALK>(log2n, io, t, s, st);
+      return (int)dispatch_ring(log2n, io, t, s, ctile, st);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -953,6 +1435,42 @@ extern "C" int pyfft_local_cols_xshape_f64(int log2n, int strided,
   return -1000;
 }
 
+// K4's cluster tile at log2n (PYFFT_SWAP_X): G and R (rows a tile) into
+// out[0..1], and 1; 0 where the ROWS policy of the column kernel takes the
+// length.  No CUDA call.
+extern "C" int pyfft_local_rows_swap_shape(int log2n, int* out) {
+#define PYFFT_SWAPX(LN, G, R) \
+  if (log2n == LN) {          \
+    out[0] = G;               \
+    out[1] = R;               \
+    return 1;                 \
+  }
+  PYFFT_SWAP_X(PYFFT_SWAPX)
+#undef PYFFT_SWAPX
+  return 0;
+}
+
+// K6's shape at log2n into out[0..3]: G (the blocks of a cluster that
+// split each run, PYFFT_RING_X; 1 where a step's blocks take whole runs),
+// C (the columns of a run), S (the ring's slots) and a block's bytes of
+// shared memory; returns 1, or 0 where K6 takes no such length.  No CUDA
+// call.
+extern "C" int pyfft_local_cols_ring_shape(int log2n, int* out) {
+#define PYFFT_RING(LN, G, C)                                     \
+  if (log2n == LN) {                                             \
+    const int v[4] = {G, C, Ring<LN, G, C>::S, Ring<LN, G, C>::SMEM}; \
+    for (int i = 0; i < 4; ++i) out[i] = v[i];                   \
+    return 1;                                                    \
+  }
+  PYFFT_RING_X(PYFFT_RING)
+#define PYFFT_RUNS(LN) PYFFT_RING(LN, 1, (ColShape<LN, float>::C))
+  PYFFT_RUNS(3) PYFFT_RUNS(4) PYFFT_RUNS(5) PYFFT_RUNS(6) PYFFT_RUNS(7)
+  PYFFT_RUNS(8) PYFFT_RUNS(9) PYFFT_RUNS(10)
+#undef PYFFT_RUNS
+#undef PYFFT_RING
+  return 0;
+}
+
 // Launch the column DFT on `stream` without synchronising.  `tw` holds n
 // (cos, sin) pairs of sign*2*pi*k/n in the planes' type; `ta` and `tb` are
 // the twiddle tables, pairs of that type (null when unused).  `dims` holds
@@ -1031,7 +1549,7 @@ extern "C" int pyfft_local_cols_i8(const void* in_re, const void* in_im,
                                    float postscale, int swap_store,
                                    void* stream) {
   const Cols<float> io = cols_io<float>(in_re, in_im, out_re, out_im, ta, tb,
-                                        dims, postscale, 1);
+                                        dims, postscale);
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0)
     return (int)cudaErrorInvalidValue;
   const float2* t = static_cast<const float2*>(tw);
@@ -1064,7 +1582,7 @@ extern "C" int pyfft_local_rows_swap_i8(const void* in_re, const void* in_im,
                                         int swap_store, int group,
                                         void* stream) {
   const Cols<float> io = cols_io<float>(in_re, in_im, out_re, out_im, ta, tb,
-                                        dims, postscale, 1);
+                                        dims, postscale);
   const int c = width<float, 13, true>(log2n);
   if (io.L <= 0 || io.T <= 0 || io.P <= 0 || io.adiv <= 0 || swap_store ||
       io.tw_mode != TW_NONE || group < 1 || c % group ||

@@ -73,7 +73,7 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
            "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
-           "supported_fold",
+           "supported_fold", "swap_tile", "ring_shape",
            "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
@@ -923,6 +923,21 @@ def _rows_swap_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def swap_tile(n: int) -> tuple[int, int] | None:
+    """(G, R) of K4's cluster tile at length n (csrc/local_cols.cu
+    ``PYFFT_SWAP_X``): R consecutive rows split over a cluster of G blocks,
+    n/G points of each row a block; None where one block of the column
+    kernel's row policy takes ``col_width(n)`` rows (n < 512).  Builds
+    the library on first use (no CUDA call)."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_rows_swap_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    return (out[0], out[1]) if fn(ilog2(n), out) else None
+
+
+@functools.lru_cache(maxsize=None)
 def _rows_swap_i8_fn():
     """The C entry point ``pyfft_local_rows_swap_i8`` of csrc/local_cols.cu
     (K4 with the int8 stage K10: the int8 column kernel with K4's row
@@ -978,7 +993,12 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
                                                (out_im, "out_im"))]
     if r3.stride() != i3.stride() or o3[0].stride() != o3[1].stride():
         raise ValueError("K4 needs equal strides for re and im")
-    blocks = -(-n1 // (col_width_i8(n) if i8_f else col_width(n))) * L
+    xtile = None if i8_f else swap_tile(n)
+    if xtile:                       # a cluster of G blocks a tile of R rows
+        r3, i3 = _box_operands(r3, i3)
+        blocks = -(-n1 // xtile[1]) * L * xtile[0]
+    else:
+        blocks = -(-n1 // (col_width_i8(n) if i8_f else col_width(n))) * L
     if max(n1, blocks) >= 2 ** 31:
         raise ValueError("K4 row count and block count must fit int32")
     ls, rs, js = r3.stride()
@@ -1021,9 +1041,13 @@ def fft_rows_swap(re, im, sign, *, postscale: float = 1.0, factors=None,
     the four-step "variant B" (a column pass with the ``full`` twiddle and
     a plain store, then this).
 
-    A CUDA tensor runs K4 (``csrc/local_cols.cu``'s row-load policy), which
-    ignores ``factors``; a CPU tensor runs ``fft_rows_swap_plain`` with
-    ``factors`` (default ``default_factors(n)``).  ``n1`` must be a
+    A CUDA tensor runs K4 (``csrc/local_cols.cu``: below n = 512 the
+    column kernel's row-load policy, from n = 512 a cluster a tile of
+    rows, ``swap_tile``, whose box copies read planar planes or the complex
+    form's stride-2 planes, 16-byte aligned, and take a contiguous copy of
+    input planes of any other layout), which ignores ``factors``; a CPU
+    tensor runs ``fft_rows_swap_plain`` with ``factors`` (default
+    ``default_factors(n)``).  ``n1`` must be a
     multiple of ``lanes`` (JAX's row block; on the card it is only this
     check).  ``out=(re, im)`` names the (..., n, n1) planes to write, which
     may not overlap the input: K4 runs out of place only, as in JAX.
@@ -1090,7 +1114,7 @@ def _check_col_modes(T: int, tw_n: int, tw_mode: str, tw_period: int,
 
 def clamp_ctile(T: int, ctile: int, *, tw_n: int = 0, tw_mode: str = "full",
                 swap_store: bool = False, swap_mid: int = 0) -> int:
-    """The tiles a K6 block takes over a trail of T, or raise: ``ctile``
+    """The tiles a K6 step takes over a trail of T, or raise: ``ctile``
     halved until it divides T // MIN_TRAIL (pallas_local._fft_cols_ctile),
     with JAX's assertions as ValueErrors: a plain store only, no twiddle or
     the ``full`` one, T a multiple of MIN_TRAIL."""
@@ -1265,7 +1289,7 @@ def _kernel_col_tables(n: int, T: int, tw_n: int, tw_mode: str,
 @functools.lru_cache(maxsize=None)
 def _ctile_fn():
     """The C entry point ``pyfft_local_cols_ctile`` of csrc/local_cols.cu
-    (K6, the column kernel's walk over c tiles), built at first use."""
+    (K6, the ring of runs over c tiles a step), built at first use."""
     from pyfft_tpu_torch.ops.build import load
     fn = load("local_cols").pyfft_local_cols_ctile
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -1273,6 +1297,55 @@ def _ctile_fn():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+RING_SHAPE_KEYS = ("cluster", "columns", "slots", "smem_bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def ring_shape(n: int) -> dict:
+    """K6's shape at length n (csrc/local_cols.cu): ``cluster``, the
+    blocks of a cluster that split each run of a step (``PYFFT_RING_X``;
+    1 where a step's blocks take whole runs), ``columns`` of a run,
+    ``slots`` of a block's ring and its ``smem_bytes``.  At n = 1024 a
+    grid whose blocks of whole runs would together cover 128 bytes of a
+    row takes those instead of the cluster tile.  Builds the library on
+    first use (no CUDA call)."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_cols_ring_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    if not fn(ilog2(n), out):
+        raise ValueError(f"K6 takes no length {n}")
+    return dict(zip(RING_SHAPE_KEYS, out))
+
+
+def _boxable(r3: torch.Tensor, i3: torch.Tensor) -> bool:
+    """Whether the kernel's tensor maps copy boxes of the (L, m, f) planes
+    where they lie: planar (f stride 1) or the complex form's stride-2
+    planes (the imaginary plane one float after the real one), 16-byte
+    aligned, the m stride (and, for L > 1, the l stride) a multiple of 4
+    elements (csrc/local_cols.cu ``ring_operands``, ``swap_operands``)."""
+    L = r3.shape[0]
+    ls, ms, fs = r3.stride()
+    a, b = r3.data_ptr(), i3.data_ptr()
+    planar = fs == 1 and b % 16 == 0
+    pairs = fs == 2 and b == a + 4
+    return ((planar or pairs) and a % 16 == 0 and ms % 4 == 0
+            and (L == 1 or ls % 4 == 0))
+
+
+def _box_operands(r3: torch.Tensor, i3: torch.Tensor):
+    """The (L, m, f) planes K4 (from n = 512) and K6 read: the planes
+    themselves where the tensor maps take them (``_boxable``), else one
+    contiguous copy of each, on the device's current stream, where the
+    kernel then runs (m is a power of two from 512 for K4, f a multiple of
+    128 for K6, so the copies are boxable)."""
+    if _boxable(r3, i3):
+        return r3, i3
+    return (r3.clone(memory_format=torch.contiguous_format),
+            i3.clone(memory_format=torch.contiguous_format))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1452,7 +1525,7 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                  swap_store: bool, swap_mid: int, ctile: int = 0,
                  i8_f: int = 0):
     """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
-    no synchronise: the column kernel, K6 with ``ctile`` tiles a block
+    no synchronise: the column kernel, K6 with ``ctile`` tiles a step
     (already clamped), or with ``i8_f`` the column kernel whose last stage
     is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
     ``supported`` and the modes."""
@@ -1480,7 +1553,9 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         if T % (MIN_TRAIL * ctile):
             raise ValueError(f"K6 needs a trail that is a multiple of "
                              f"{MIN_TRAIL * ctile}, got {T}")
-        blocks = T // (MIN_TRAIL * ctile) * L
+        r3, i3 = _box_operands(r3, i3)
+        dims = (L, T, *r3.stride(), *dims[5:])
+        blocks = -(-T // 4) * L     # at most a block a run of 4 columns
     if max(T, blocks) >= 2 ** 31:
         raise ValueError("column kernel trail and block count must fit int32")
     dims = (ctypes.c_longlong * 16)(*dims)
@@ -1527,9 +1602,14 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     shape ``(*shape[:axis], *shape[axis+1:], n)`` and ``swap_mid=P``
     returns ``(*shape[:axis], trail // P, n, P)``.  ``ctile=c`` (float32
     column passes with a plain store and no twiddle or the ``full`` one, a
-    trail of whole 128-column tiles) runs K6, one block taking c tiles, c
-    clamped to a divisor of the tile count (``clamp_ctile``); its function
-    is the column kernel's, so a CPU tensor takes ``fft_cols_plain``.  (JAX
+    trail of whole 128-column tiles) runs K6, each of JAX's grid steps of c
+    tiles walked by a group or a cluster of blocks through a ring of runs
+    (``ring_shape``; its box copies read planar planes or the complex
+    form's stride-2 planes, 16-byte aligned, and take a contiguous copy of
+    input planes of any other layout, in place too), c clamped to a divisor
+    of the tile count
+    (``clamp_ctile``); its function is the column kernel's, so a CPU
+    tensor takes ``fft_cols_plain``.  (JAX
     also lets ``ctile`` turn off its 256-lane tile for small n; the port
     has no such tile.)
 
