@@ -251,6 +251,7 @@ def reset_counts():
     local.COL_I8_LAUNCHES = 0
     local.SWAP_I8_LAUNCHES = 0
     local.IL_I8_LAUNCHES = 0
+    local.RING_LAUNCHES = 0
     fused2d.LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
     fused2d.I8_LAUNCHES = 0
@@ -427,6 +428,107 @@ def phase_kernel(prec: str = "complex64"):
         print(f"phase {phase} {prec} row kernel n={n}: {cases} cases, max "
               f"rel err vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {tol:.0e})")
+        if prec == "complex64":
+            ring_rows_cases(n, rng)
+
+
+def ring_wave_rows(n: int) -> tuple[int, dict | None]:
+    """3 x grid x RPB + 1 rows at length n: every block of the row ring's
+    persistent grid walks three row blocks and one walks a fourth, ragged
+    one (the first design: 3 x 132 blocks + 1), with the ring's shape."""
+    from pyfft_tpu_torch.ops import local
+    shape = local.rows_ring_shape(n)
+    if shape is None:
+        return 3 * 132 * max(1, 512 // n) + 1, None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 3 * sms * shape["blocks_per_sm"] * shape["rows"] + 1, shape
+
+
+# the layouts of ring_rows_cases and ring_il_cases that the row ring's bulk
+# copies read as they lie (16-byte aligned, rows 16 bytes apart); the
+# others (rows 4 or 8 bytes apart, views off 16-byte alignment) run the
+# first design
+RING_MODES = ("planar", "stride2", "inplace", "out", "padded 16")
+
+
+def ring_expected(n: int, mode: str) -> bool:
+    """Whether K1 or K2 must run the row ring on ``mode``'s layout at
+    length n: the length in the ring's table and a layout of RING_MODES.
+    The ring's launches are counted from what the C entry reports it ran."""
+    from pyfft_tpu_torch.ops import local
+    return local.rows_ring_shape(n) is not None and mode in RING_MODES
+
+
+def padded_rows(x: torch.Tensor, pad: int, lead: int = 0) -> torch.Tensor:
+    """x's (rows, m) values in a buffer with rows m + pad apart, starting
+    ``lead`` elements in."""
+    rows, m = x.shape
+    buf = torch.zeros(rows * (m + pad) + lead, device=x.device,
+                      dtype=x.dtype)
+    view = buf[lead:].view(rows, m + pad)[:, :m]
+    view.copy_(x)
+    return view
+
+
+def ring_rows_cases(n: int, rng):
+    """K1 on the row ring's edges at length n: a row count that walks every
+    persistent block three times and ends ragged, planar, on stride-2
+    planes, in place, with rows padded apart by 16 bytes (the ring) and by
+    4 (the first design) and on planes 4 bytes off 16-byte alignment (the
+    first design), against the plain version and numpy."""
+    from pyfft_tpu_torch.ops import local
+    rows, shape = ring_wave_rows(n)
+    x = (rng.standard_normal((rows, n))
+         + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    xc = torch.from_numpy(x).cuda()
+    worst_plain = worst_np = 0.0
+    took = []
+    for sign, post in posts("complex64", n):
+        ref = torch.from_numpy(
+            (np.fft.fft(x.astype(np.complex128)) if sign < 0
+             else np.fft.ifft(x.astype(np.complex128)) * n) * post).cuda()
+        plain = cplx(*local.fft_rows_plain(xc.real.contiguous(),
+                                           xc.imag.contiguous(), sign, post))
+        for mode in ("planar", "stride2", "inplace", "padded 16",
+                     "padded 4", "offset 4"):
+            out = None
+            if mode == "planar":
+                re, im = xc.real.contiguous(), xc.imag.contiguous()
+            elif mode in ("stride2", "inplace"):
+                v = torch.view_as_real(xc.clone())
+                re, im = v[..., 0], v[..., 1]
+                out = (re, im) if mode == "inplace" else None
+            else:
+                pad, lead = {"padded 16": (4, 0), "padded 4": (1, 0),
+                             "offset 4": (0, 1)}[mode]
+                re, im = (padded_rows(t.contiguous(), pad, lead)
+                          for t in (xc.real, xc.imag))
+            takes = ring_expected(n, mode)
+            before = (local.LAUNCHES, local.RING_LAUNCHES)
+            rr, ii = local.fft_axis(re, im, sign, postscale=post, out=out)
+            torch.cuda.synchronize()
+            got = (local.LAUNCHES - before[0],
+                   local.RING_LAUNCHES - before[1])
+            if got != (1, int(takes)):
+                raise AssertionError(f"n={n} {mode}: (K1, ring) launches "
+                                     f"{got}, expected (1, {int(takes)})")
+            if mode == "inplace" and rr.data_ptr() != re.data_ptr():
+                raise AssertionError("in-place launch wrote elsewhere")
+            got = cplx(rr, ii)
+            e_plain, e_np = rel_err(got, plain), rel_err(got, ref)
+            tag = f"n={n} rows={rows} sign={sign} {mode}"
+            check(f"ring kernel vs plain {tag}", e_plain)
+            check(f"ring kernel vs numpy {tag}", e_np)
+            worst_plain = max(worst_plain, e_plain)
+            worst_np = max(worst_np, e_np)
+            if sign < 0:
+                took.append(f"{mode} {'ring' if takes else 'first design'}")
+    del xc, plain, ref
+    torch.cuda.empty_cache()
+    print(f"phase 3 row kernel n={n}, {rows} rows "
+          f"({shape or 'the first design'}): {', '.join(took)}; max rel "
+          f"err vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
+          f"{TOL:.0e})")
 
 
 def phase_main_path():
@@ -451,6 +553,8 @@ def phase_main_path():
     yf = pyfft_tpu_torch.fft(xt)
     yb = pyfft_tpu_torch.ifft(yf)
     counts = read_counts()
+    from pyfft_tpu_torch.ops import local
+    ring = local.RING_LAUNCHES
 
     errs = {"complex": rel_err(to_np(y), ref),
             "planar": rel_err(to_np(rr, ii), ref),
@@ -463,9 +567,13 @@ def phase_main_path():
     if counts != want:
         raise AssertionError(f"config 2 made launches {counts}, expected "
                              f"{want} (complex form: {plan.il_route()})")
+    if ring != counts["local_rows"] + counts["local_rows_il"]:
+        raise AssertionError(f"config 2: {ring} of its K1 and K2 launches "
+                             "ran the row ring, expected all")
     print(f"phase 4 main path: {plan!r}, complex form by the "
           f"{plan.il_route()!r} route, launches "
-          f"{ {k: v for k, v in counts.items() if v} }, "
+          f"{ {k: v for k, v in counts.items() if v} } (all on the row "
+          f"ring), "
           + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
           + f" (gate {TOL:.0e})")
     return xt, re, im, counts
@@ -514,6 +622,11 @@ def phase_timings(xt, re, im):
     roof_ms = moved / (bw * 1e9) * 1e3
     bound_ms, bound_by = bound(moved, fft_flops(N, BATCH))
     gf = effective_gflops(N, BATCH, ms * 1e-3)
+    ring = local.rows_ring_shape(N)
+    print(f"phase 5 row ring at n={N}: {ring['slots']} slots of "
+          f"{ring['rows']} row(s), {ring['threads']} threads, "
+          f"{ring['blocks_per_sm']} blocks an SM, {ring['smem_bytes']} "
+          "bytes of shared memory a block")
     print(f"phase 5 timings: kernel planar {ms:.4f} ms = {gf:.1f} GFLOP/s, "
           f"kernel complex form {ms_complex:.4f} ms = "
           f"{effective_gflops(N, BATCH, ms_complex * 1e-3):.1f} GFLOP/s, "
@@ -1198,6 +1311,7 @@ def phase_il_kernels():
         print(f"phase 14 K2 n={n}: {cases} cases (out of place, in place, "
               f"packed), max rel err vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {TOL:.0e})")
+        ring_il_cases(n, rng)
 
     def strided(t, pad, lead=0):
         """t's values in a wider buffer: a view with row stride
@@ -1241,6 +1355,62 @@ def phase_il_kernels():
         cases.append(f"({rows}, 2*{n}) {layout}")
     print(f"phase 14 K13/K14 bit-exact against their plain versions and "
           f"in a round trip: {', '.join(cases)}")
+
+
+def ring_il_cases(n: int, rng):
+    """K2 on the row ring's edges at length n: a row count that walks every
+    persistent block three times and ends ragged, out of place, in place,
+    with rows padded apart by 16 bytes (the ring) and by 8 (the first
+    design) and on a view 8 bytes off 16-byte alignment (the first
+    design), against the plain version and numpy."""
+    from pyfft_tpu_torch.ops import local
+    rows, shape = ring_wave_rows(n)
+    x = (rng.standard_normal((rows, n))
+         + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    xf = torch.from_numpy(x).cuda().view(torch.float32)
+    worst_plain = worst_np = 0.0
+    took = []
+    for sign in (-1, +1):
+        post = 0.3
+        ref = torch.from_numpy(
+            (np.fft.fft(x.astype(np.complex128)) if sign < 0
+             else np.fft.ifft(x.astype(np.complex128)) * n) * post).cuda()
+        plain = as_c64(local.fft_rows_interleaved_plain(xf, sign, post))
+        for mode in ("out", "inplace", "padded 16", "padded 8", "offset 8"):
+            out = None
+            if mode in ("out", "inplace"):
+                v = xf.clone()
+                out = v if mode == "inplace" else None
+            else:
+                pad, lead = {"padded 16": (4, 0), "padded 8": (2, 0),
+                             "offset 8": (0, 2)}[mode]
+                v = padded_rows(xf, pad, lead)
+            takes = ring_expected(n, mode)
+            before = (local.IL_LAUNCHES, local.RING_LAUNCHES)
+            y = local.fft_rows_interleaved(v, sign, postscale=post, out=out)
+            torch.cuda.synchronize()
+            got = (local.IL_LAUNCHES - before[0],
+                   local.RING_LAUNCHES - before[1])
+            if got != (1, int(takes)):
+                raise AssertionError(f"K2 n={n} {mode}: (K2, ring) launches "
+                                     f"{got}, expected (1, {int(takes)})")
+            if mode == "inplace" and y.data_ptr() != v.data_ptr():
+                raise AssertionError("in-place K2 wrote elsewhere")
+            got = as_c64(y)
+            e_plain, e_np = rel_err(got, plain), rel_err(got, ref)
+            tag = f"n={n} rows={rows} sign={sign} {mode}"
+            check(f"K2 ring vs plain {tag}", e_plain)
+            check(f"K2 ring vs numpy {tag}", e_np)
+            worst_plain = max(worst_plain, e_plain)
+            worst_np = max(worst_np, e_np)
+            if sign < 0:
+                took.append(f"{mode} {'ring' if takes else 'first design'}")
+    del xf, plain, ref
+    torch.cuda.empty_cache()
+    print(f"phase 14 K2 n={n}, {rows} rows "
+          f"({shape or 'the first design'}): {', '.join(took)}; max rel "
+          f"err vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
+          f"{TOL:.0e})")
 
 
 def route_run(plan, x, ref, label: str, phase: int = 15) -> dict:

@@ -9,8 +9,11 @@ the parent, say).  Its ``local_rows.cu``, ``local_cols.cu``, ``fused2d.cu``
 and ``fused2d_tiled.cu`` are built beside this checkout's, all eight at
 once, and the same wrappers run each build in turn:
 
-* the float kernels: the row kernel K1 at config 2, its interleaved policy
-  K2 at config 2i, the column kernel K5 at config 6+'s two passes and
+* the float kernels: the row kernel K1 at config 2 (planar and on the
+  complex form's stride-2 planes) and at 2^24 points with rows of 8, 16,
+  32, 64, 512, 1024 (config 3's row pass) and 8192, its interleaved form K2 at config
+  2i and at 2048 x 8192, the complex128 row kernel K11 at the complex128
+  2D path's row pass (16384 x 1024), the column kernel K5 at config 6+'s two passes and
   config 4's z pass, the complex128 column kernel K12 at config 5's two
   passes (planar and on the complex form's stride-2 planes) and at the
   complex128 2D path's column pass (16 x 1024 x 1024), the digit-swapped
@@ -129,7 +132,8 @@ def bindings(libs: dict, csrc: Path | None = None) -> dict:
     return {
         "_cols_lib": {d: bind(cols, local._cols_lib.__wrapped__, d)
                       for d in DTYPES},
-        "_rows_fn": bind(rows, local._rows_fn.__wrapped__, torch.float32),
+        "_rows_fn": {d: bind(rows, local._rows_fn.__wrapped__, d)
+                     for d in DTYPES},
         "_rows_il_fn": bind(rows, local._rows_il_fn.__wrapped__),
         "_rows_i8_fn": bind(rows, local._rows_i8_fn.__wrapped__),
         "_rows_il_i8_fn": bind(rows, local._rows_il_i8_fn.__wrapped__),
@@ -170,10 +174,17 @@ def cases() -> list:
         return lambda: local.fft_axis(v[..., 0], v[..., 1], -1, axis=1,
                                       out=(w[..., 0], w[..., 1]), **kw)
 
-    def rows(shape, precision):
-        re, im = planes(shape)
-        o = empty(shape)
+    def rows(shape, precision, real=torch.float32):
+        re, im = planes(shape, real)
+        o = empty(shape, real)
         return lambda: local.fft_axis(re, im, -1, out=o, precision=precision)
+
+    def rows_complex(shape):            # complex64, stride-2 planes
+        v = torch.view_as_real(torch.complex(*planes(shape)))
+        w = torch.view_as_real(torch.empty(shape, device="cuda",
+                                           dtype=torch.complex64))
+        return lambda: local.fft_axis(v[..., 0], v[..., 1], -1,
+                                      out=(w[..., 0], w[..., 1]))
 
     def rows_il(shape, precision):
         v = torch.view_as_real(torch.complex(*planes(shape))).flatten(-2)
@@ -221,8 +232,16 @@ def cases() -> list:
         ("K9 16 x 512^2",
          fused(fused2d.fft2_fused_tiled, (16, 512, 512), "highest")),
         ("K1 config 2 (4096 x 4096)", rows((4096, 4096), "highest")),
+        ("K1 config 2 stride-2 planes (complex form)",
+         rows_complex((4096, 4096))),
         ("K2 config 2i (4096 x 4096 interleaved)",
          rows_il((4096, 4096), "highest")),
+        ("K2 2048 x 8192 interleaved", rows_il((2048, 8192), "highest")),
+        *[(f"K1 ({(1 << 24) // n}, {n})",
+           rows(((1 << 24) // n, n), "highest"))
+          for n in (8, 16, 32, 64, 512, 1024, 8192)],
+        ("K11 c128 2D row pass (16384, 1024)",
+         rows((16384, 1024), "highest", f64)),
         ("K4 variant B pass 2 (8, 2048, 2048)", swap("highest")),
         ("K4 (8, 4096, 1024)", swap("highest", 1024)),
         ("K4 (8, 1024, 4096)", swap("highest", 4096)),
@@ -276,10 +295,8 @@ def main(other: Path) -> int:
     def use(which):
         for k, v in bound[which].items():
             mod = fused2d if k in ("_lib", "_tiled_lib") else local
-            if k == "_cols_lib":
+            if k in ("_cols_lib", "_rows_fn"):
                 setattr(mod, k, lambda d, v=v: v[d])
-            elif k == "_rows_fn":           # float32 only
-                setattr(mod, k, lambda d, v=v: v)
             else:
                 setattr(mod, k, lambda v=v: v)
 

@@ -1,14 +1,15 @@
 """Where the time of the complex128 cluster column kernel (K12 from n =
-1024), the tiled 2D kernel (K9), the multi-tile column kernel (K6) and
-the digit-swapped row kernel (K4) goes: pieces removed and shape knobs
-changed, one build each, on one CUDA card.
+1024), the tiled 2D kernel (K9), the multi-tile column kernel (K6), the
+digit-swapped row kernel (K4) and the complex64 row kernels (K1, K2) goes:
+pieces removed and shape knobs changed, one build each, on one CUDA card.
 
-    python3 probes/float_split.py [K12] [K9] [K6] [K4]
+    python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2]
 
-(the kernels named, all four by default).  Builds, from copies of this
+(the kernels named, all six by default).  Builds, from copies of this
 checkout's ``csrc/`` patched in a temporary directory (the checkout is not
-touched), ``local_cols.cu`` (K12, K6, K4) and ``fused2d_tiled.cu`` (K9) in
-these variants, one nvcc each, eight at a time:
+touched), ``local_cols.cu`` (K12, K6, K4), ``fused2d_tiled.cu`` (K9) and
+``local_rows.cu`` (K1, K2) in these variants, one nvcc each, eight at a
+time:
 
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
@@ -54,6 +55,33 @@ these variants, one nvcc each, eight at a time:
             one block of C rows, at n = 512 too)
   k4r8      K4's 256-point chains on radix 4, 8, 8 (two radix-16 stages)
   k4t512    K4's blocks of 512 threads, two an SM (256, three)
+  old       K1's and K2's first design at every n (local_rows_kernel, the
+            kernel they ran before the row ring: the ring's table
+            PYFFT_ROWS_RING empty)
+  oldnotw   the first design without twiddle multiplies
+  oldcopy   the first design as its first stage's loads and its last
+            stage's stores (one stage, no DFT arithmetic, no chain): P1's
+            counterpart, the floor under it
+  rnotw     the row ring without twiddle multiplies
+  rcopy     the ring's copies, one pass reading the slot and the stores
+            (no chain)
+  rr8       the ring's chains on radix 8 (R16 off; on, radix 16 where it
+            takes a stage fewer, not at n = 8 and 512)
+  rpad0     the ring's chains without chain_index's padding
+  rtwd0     the ring's chains reading every twiddle of a butterfly
+  rall      the ring at every n, slots of 4096 points (the source's table
+            leaves n = 128 to 512 to the first design)
+  rs2       the ring of 2 slots at every n (3 by default, 2 at n = 8192)
+  rs3       the ring of 3 slots at every n
+  r8k       slots of 8192 points at every n (one block of 512 threads an
+            SM; 4096 points, 256 threads, by default from n = 1024)
+  r2k       slots of 2048 points from n = 16 (128 threads, four blocks an
+            SM; 4096 and 8192 stay one row)
+  rbulk     the ring's last stage writing the slot and a bulk copy a row
+            out from n = 1024 (cp.async.bulk, shared to global; thread 0
+            waits for the copies' reads before it refills the slot), not
+            stores from registers: the alternative the chip showed slower,
+            kept here as a patch and not in the source
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
@@ -63,9 +91,12 @@ planes, and the complex128 2D column pass (16 x 1024 x 1024); K9 at config
 3 (16 x 1024 x 1024) and 16 x 512 x 512; K6 at config 4's z pass (1 x 256
 x 65536, c = 1, 2, 8), variant B's pass 1 (8 x 2048 x 2048, `full`
 twiddle, c = 1, 8) and 2^24 points at n = 512 and 1024 (c = 1, 8); K4 at variant B's pass 2 (8 x 2048 x 2048) and at the
-same 2^25 points with n = 512, 1024 and 4096.  Every patch asserts that its
-text is in the sources, so an edited kernel fails here instead of timing
-the wrong thing.  The last line is a JSON record with the card.
+same 2^25 points with n = 512, 1024 and 4096; K1 at config 2 (4096 x
+4096) planar and on the complex form's stride-2 planes and at 2^24 points
+at every n from 8 to 8192 (planar), K2 at config 2i and at 2048 x 8192.
+Every patch asserts that its text is in the sources, so an edited kernel
+fails here instead of timing the wrong thing.  The last line is a JSON
+record with the card.
 """
 
 from __future__ import annotations
@@ -90,7 +121,7 @@ import ab_parent  # noqa: E402
 from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
 from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
-K12, K9 = "local_cols", "fused2d_tiled"
+K12, K9, K1 = "local_cols", "fused2d_tiled", "local_rows"
 
 XCOLS = ("#define PYFFT_XCOLS_F64(X) X(10, 4, 16, 2) X(11, 8, 16, 2) "
          "X(12, 8, 16, 1)")
@@ -109,6 +140,36 @@ SLOTS = "constexpr int RING_SLOTS = 3;"
 GROUP = "  while (2 * g <= runs && steps * 2 * g <= wave) g *= 2;\n"
 SWAP_R16 = "constexpr bool SWAP_R16 = true;"
 SWAP_NT = "constexpr int SWAP_THREADS = 256, SWAP_BLOCKS = 3;"
+# the row ring's chain options and its store (local_rows.cu)
+RING_KNOBS = ("constexpr bool RING_PAD = true, RING_TWD = true, "
+              "RING_R16 = true;")
+# the ring's table, (log2 n, rows a slot, slots), as the source states it
+ROWS_RING = re.search(r"#define PYFFT_ROWS_RING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
+                      (build.CSRC / "local_rows.cu").read_text()).group(0)
+
+
+# rows a slot and slots by log2 n in the source's table
+TABLE = re.findall(r"X\((\d+), (\d+), (\d+)\)", ROWS_RING)
+RPB_AT = {int(k): int(r) for k, r, _ in TABLE}
+SLOTS_AT = {int(k): int(v) for k, _, v in TABLE}
+
+
+def rows_ring(rpb: dict, slots: int = 0) -> tuple:
+    """The patch that sets the ring's table to ``rpb`` rows a slot by log2
+    n (none: every length runs the first design) and ``slots`` (by default
+    the source's slots at that length, else 3)."""
+    table = " ".join(f"X({k}, {r}, {slots or SLOTS_AT.get(k, 3)})"
+                     for k, r in sorted(rpb.items()))
+    return ("local_rows.cu", ROWS_RING,
+            f"#define PYFFT_ROWS_RING(X) {table}\n")
+
+
+# rows a slot by log2 n: 4096 points (2048 at n = 8, 8192 at n = 8192) at
+# every n (the source's table leaves n = 128 to 512 to the first design);
+# 8192 points; 2048 points
+RPB = {k: min(256, max(1, 4096 >> k)) for k in range(3, 14)}
+RPB_8K = {k: min(256, max(1, 8192 >> k)) for k in range(3, 14)}
+RPB_2K = {k: min(256, max(1, 2048 >> k)) for k in range(3, 14)}
 
 # (file, text, replacement) steps, by name
 STEPS = {
@@ -198,11 +259,131 @@ STEPS = {
     "k4r8": [("local_cols.cu", SWAP_R16, SWAP_R16.replace("true", "false"))],
     "k4t512": [("local_cols.cu", SWAP_NT,
                 SWAP_NT.replace("256", "512").replace("3", "2"))],
+    "old": [rows_ring({})],
+    "oldnotw": [("local_rows.cu", "    if (NS > 1) {", "    if (NS < 0) {")],
+    "oldcopy": [
+        ("local_rows.cu", "    dft<R>(v[b], s);\n", ""),
+        ("local_rows.cu",
+         "  static constexpr int NSTAGES = LOGN / 3 + (REM ? 1 : 0);",
+         "  static constexpr int NSTAGES = 1;"),
+        ("local_rows.cu",
+         "  const int smem = S::NSTAGES > 1 ? S::P * (int)sizeof(V) : 0;",
+         "  const int smem = S::P * (int)sizeof(V);"),
+        # the one stage stores as the last one does, threads along k
+        ("local_rows.cu",
+         "    const int base = (j / NS) * NS * R + j % NS;",
+         "    const int base = j;"),
+        ("local_rows.cu", "      const int k = base + r * NS;",
+         "      const int k = base + r * NR;")],
+    "rnotw": [("chain.cuh", "    if (NS > 1) {", "    if (NS < 0) {")],
+    "rcopy": [("local_rows.cu",
+               "    chain<NT, LOGN, RPB, true, 0, 1, !K::PASS_IN, !K::PASS_OUT, "
+               "RING_PAD,\n          RING_TWD, K::R16, true>(sm, fresh(tw), s, "
+               "load, store);",
+               "    if constexpr (!K::PASS_OUT) {\n"
+               "      for (int e = threadIdx.x; e < P; e += NT)\n"
+               "        store(e / N, e % N, load(e / N, e % N));\n"
+               "      __syncthreads();\n"
+               "    }")],
+    "rr8": [("local_rows.cu", RING_KNOBS,
+             RING_KNOBS.replace("R16 = true", "R16 = false"))],
+    "rpad0": [("local_rows.cu", RING_KNOBS,
+               RING_KNOBS.replace("PAD = true", "PAD = false"))],
+    "rtwd0": [("local_rows.cu", RING_KNOBS,
+               RING_KNOBS.replace("TWD = true", "TWD = false"))],
+    "rbulk": [
+        ("local_rows.cu",
+         "// Copy the box of the 2D tensor map `map` at (c0, c1) into shared "
+         "`dst`,\n",
+         "__device__ __forceinline__ void bulk_store(void* dst, const void* "
+         "src,\n                                           int bytes) {\n"
+         "  asm volatile(\"cp.async.bulk.global.shared::cta.bulk_group "
+         "[%0], [%1], %2;\\n\"\n"
+         "               :: \"l\"(dst), \"r\"(smem_u32(src)), \"r\"(bytes) "
+         ": \"memory\");\n}\n\n"
+         "template <bool ALL = false>\n"
+         "__device__ __forceinline__ void bulk_wait() {\n"
+         "  if constexpr (ALL)\n"
+         "    asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: "
+         "\"memory\");\n"
+         "  else\n"
+         "    asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
+         "\"memory\");\n}\n\n"
+         "inline bool ring_rows_out_bulk(const RingIo& io) {\n"
+         "  const uintptr_t a = reinterpret_cast<uintptr_t>(io.out);\n"
+         "  const uintptr_t b = reinterpret_cast<uintptr_t>(io.out_im);\n"
+         "  return (io.out_pairs || (io.out_es == 1 && b % 16 == 0)) && "
+         "a % 16 == 0 &&\n"
+         "         (io.rows == 1 || io.out_rs % 4 == 0);\n}\n\n"
+         "// Copy the box of the 2D tensor map `map` at (c0, c1) into shared "
+         "`dst`,\n"),
+        ("local_rows.cu",
+         "  constexpr int N = K::N, P = K::P, NT = K::NT, SLOT = K::SLOT;\n",
+         "  constexpr int N = K::N, P = K::P, NT = K::NT, SLOT = K::SLOT;\n"
+         "  constexpr bool BULK = !K::BOX;\n"),
+        ("local_rows.cu",
+         "    if (threadIdx.x == 0 && i && i + S - 1 < count) "
+         "issue(i + S - 1);\n",
+         "    if (BULK && threadIdx.x == 0 && i) bulk_wait();\n"
+         "    if (threadIdx.x == 0 && i && i + S - 1 < count) "
+         "issue(i + S - 1);\n"),
+        # the last stage writes the slot's raw rows, as they were read
+        ("local_rows.cu",
+         "      const float2 y = make_float2(v.x * io.post, v.y * io.post);\n",
+         "      const float2 y = make_float2(v.x * io.post, v.y * io.post);\n"
+         "      if constexpr (BULK) {\n"
+         "        float* g = reinterpret_cast<float*>(sm);\n"
+         "        if (pout) {\n"
+         "          sm[c * N + k] = y;\n"
+         "        } else {\n"
+         "          g[c * N + k] = y.x;\n"
+         "          g[P + c * N + k] = y.y;\n"
+         "        }\n"
+         "        return;\n"
+         "      }\n"),
+        # thread 0 copies the slot's rows out, one bulk copy a row a plane
+        ("local_rows.cu",
+         "      __syncthreads();\n    }\n  }\n}\n\n// The card's SMs",
+         "      __syncthreads();\n    }\n"
+         "    if constexpr (BULK) {\n"
+         "      fence_async_smem();\n"
+         "      __syncthreads();\n"
+         "      if (threadIdx.x == 0) {\n"
+         "        const int nr = static_cast<int>(\n"
+         "            io.rows - row0 < RPB ? io.rows - row0 : RPB);\n"
+         "        for (int r = 0; r < nr; ++r) {\n"
+         "          const long long o = (row0 + r) * io.out_rs;\n"
+         "          if (pout) {\n"
+         "            bulk_store(io.out + o, sm + r * N, N * 8);\n"
+         "          } else {\n"
+         "            bulk_store(io.out + o, f + r * N, N * 4);\n"
+         "            bulk_store(io.out_im + o, f + P + r * N, N * 4);\n"
+         "          }\n"
+         "        }\n"
+         "        asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
+         "\"memory\");\n"
+         "      }\n"
+         "    }\n"
+         "  }\n"
+         "  if (BULK && threadIdx.x == 0) bulk_wait<true>();\n"
+         "}\n\n// The card's SMs"),
+        # outputs the bulk store cannot write run the first design
+        ("local_rows.cu",
+         "  if (ring.rows > 0 && ring_rows_rpb(log2n) && "
+         "ring_rows_operands(ring)) {\n",
+         "  if (ring.rows > 0 && ring_rows_rpb(log2n) && "
+         "ring_rows_operands(ring) &&\n"
+         "      (log2n < 9 || ring_rows_out_bulk(ring))) {\n")],
+    "rall": [rows_ring(RPB)],
+    "rs2": [rows_ring(RPB, 2)],
+    "rs3": [rows_ring(RPB_AT, 3)],
+    "r8k": [rows_ring(RPB_8K)],
+    "r2k": [rows_ring(RPB_2K)],
 }
 
 # name -> (kernels timed, steps taken in order, -D macros)
 VARIANTS = {
-    "full": (("K12", "K9", "K6", "K4"), [], {}),
+    "full": (("K12", "K9", "K6", "K4", "K1", "K2"), [], {}),
     "notw": (("K12", "K9"), ["notw"], {}),
     "copy": (("K12", "K9"), ["notw", "noarith", "copy"], {}),
     "g4": (("K12",), ["g4"], {}),
@@ -230,9 +411,24 @@ VARIANTS = {
     "k4old": (("K4",), ["k4old"], {}),
     "k4r8": (("K4",), ["k4r8"], {}),
     "k4t512": (("K4",), ["k4t512"], {}),
+    "old": (("K1", "K2"), ["old"], {}),
+    "oldnotw": (("K1", "K2"), ["old", "oldnotw"], {}),
+    "oldcopy": (("K1", "K2"), ["old", "oldnotw", "oldcopy"], {}),
+    "rnotw": (("K1", "K2"), ["rnotw"], {}),
+    "rcopy": (("K1", "K2"), ["rcopy"], {}),
+    "rr8": (("K1", "K2"), ["rr8"], {}),
+    "rpad0": (("K1", "K2"), ["rpad0"], {}),
+    "rtwd0": (("K1", "K2"), ["rtwd0"], {}),
+    "rall": (("K1", "K2"), ["rall"], {}),
+    "rs2": (("K1", "K2"), ["rs2"], {}),
+    "rs3": (("K1", "K2"), ["rs3"], {}),
+    "r8k": (("K1", "K2"), ["r8k"], {}),
+    "r2k": (("K1", "K2"), ["r2k"], {}),
+    "rbulk": (("K1", "K2"), ["rbulk"], {}),
 }
+ALL = ("K12", "K9", "K6", "K4", "K1", "K2")
 # the source each kernel is built from
-SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12}
+SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12, "K1": K1, "K2": K1}
 
 
 def patched(variant: str, tmp: Path) -> Path:
@@ -291,8 +487,8 @@ def compile_all(tmp: Path, kernels) -> dict:
 
 # a kernel's mangled name -> its name <template arguments>
 KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel|"
-                    r"local_cols_ring_kernel|local_rows_swap_x_kernel)I(\w+?)E"
-                    r"(?:EEv|Ev)")
+                    r"local_cols_ring_kernel|local_rows_swap_x_kernel|"
+                    r"local_rows_ring_kernel)I(\w+?)E(?:EEv|Ev)")
 
 
 def ptxas_report(log: str) -> list:
@@ -359,6 +555,24 @@ def cases() -> list:
              torch.empty((8, n, (1 << 22) // n), device="cuda"))
         return lambda: local.fft_rows_swap(re, im, -1, out=o)
 
+    def rows(shape, complex_form=False):
+        if complex_form:
+            v = torch.view_as_real(torch.complex(*planes(shape,
+                                                         torch.float32)))
+            w = torch.view_as_real(torch.empty(shape, device="cuda",
+                                               dtype=torch.complex64))
+            re, im, o = v[..., 0], v[..., 1], (w[..., 0], w[..., 1])
+        else:
+            re, im = planes(shape, torch.float32)
+            o = (torch.empty_like(re), torch.empty_like(im))
+        return lambda: local.fft_axis(re, im, -1, out=o)
+
+    def rows_il(shape):
+        v = torch.view_as_real(torch.complex(*planes(
+            shape, torch.float32))).flatten(-2)
+        vo = torch.empty_like(v)
+        return lambda: local.fft_rows_interleaved(v, -1, out=vo)
+
     full = dict(tw_n=1 << 22, swap_store=True)
     five = (64, 2048, 2048)
     return [
@@ -385,13 +599,24 @@ def cases() -> list:
          lambda n=n, c=c: ctile((1, n, (1 << 24) // n), c))
         for n in (512, 1024) for c in (8, 1)] + [
         ("K4", f"K4 (8, {(1 << 22) // n}, {n})", lambda n=n: swap(n))
-        for n in (2048, 1024, 4096, 512)]
+        for n in (2048, 1024, 4096, 512)] + [
+        ("K1", "K1 config 2 (4096 x 4096)", lambda: rows((4096, 4096))),
+        ("K1", "K1 config 2 stride-2 planes (complex form)",
+         lambda: rows((4096, 4096), True)),
+        ("K2", "K2 config 2i (4096 x 4096 interleaved)",
+         lambda: rows_il((4096, 4096))),
+        ("K2", "K2 2048 x 8192 interleaved", lambda: rows_il((2048, 8192)))
+    ] + [("K1", f"K1 ({(1 << 24) >> k}, {1 << k})",
+          lambda k=k: rows(((1 << 24) >> k, 1 << k)))
+         for k in range(3, 14) if k != 12]
 
 
 # before any use() replaces them
 COLS_BINDER = local._cols_lib.__wrapped__
 CTILE_BINDER = local._ctile_fn.__wrapped__
 SWAP_BINDER = local._rows_swap_fn.__wrapped__
+ROWS_BINDER = local._rows_fn.__wrapped__
+IL_BINDER = local._rows_il_fn.__wrapped__
 
 
 def use(lib, name: str) -> None:
@@ -404,6 +629,11 @@ def use(lib, name: str) -> None:
         swap = ab_parent.bind(lib, SWAP_BINDER)
         local._ctile_fn = lambda: ctile
         local._rows_swap_fn = lambda: swap
+    elif name == K1:
+        rows = ab_parent.bind(lib, ROWS_BINDER, torch.float32)
+        il = ab_parent.bind(lib, IL_BINDER)
+        local._rows_fn = lambda d: rows
+        local._rows_il_fn = lambda: il
     else:
         typed = fused2d._typed(lib, K9)
         fused2d._tiled_lib = lambda: typed
@@ -421,6 +651,17 @@ def shape_line(lib) -> str:
                                                 out))
 
 
+def ring_line(lib) -> str:
+    """The row ring's shape at n = 4096 as the variant builds it."""
+    fn = lib.pyfft_local_rows_ring_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * len(local.ROWS_RING_KEYS))()
+    got = fn(12, out)
+    if got <= 0:
+        return "first design" if got == 0 else f"query failed ({got})"
+    return ", ".join(f"{k} {v}" for k, v in zip(local.ROWS_RING_KEYS, out))
+
+
 def main(kernels) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
@@ -430,7 +671,7 @@ def main(kernels) -> int:
         check=True).stdout.strip()
     print(f"card: {card}")
     saved = (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
-             local._rows_swap_fn)
+             local._rows_swap_fn, local._rows_fn, local._rows_il_fn)
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_all(Path(tmp), kernels)
@@ -448,6 +689,10 @@ def main(kernels) -> int:
                 if "K9" in names:
                     print(f"K9 {v} at config 3: "
                           f"{shape_line(libs[(v, K9)])}")
+        if {"K1", "K2"} & set(kernels):
+            for v, (names, _, _) in VARIANTS.items():
+                if "K1" in names:
+                    print(f"K1 {v} at n = 4096: {ring_line(libs[(v, K1)])}")
         try:
             for kern, name, make in cases():
                 if kern not in kernels:
@@ -468,11 +713,11 @@ def main(kernels) -> int:
                 torch.cuda.empty_cache()
         finally:
             (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
-             local._rows_swap_fn) = saved
+             local._rows_swap_fn, local._rows_fn, local._rows_il_fn) = saved
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
                       "split": result}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["K12", "K9", "K6", "K4"]))
+    sys.exit(main(sys.argv[1:] or list(ALL)))

@@ -42,10 +42,12 @@ __device__ __forceinline__ int chain_index(int c, int k) {
 // twiddles w^1, w^2, w^4 (and w^7 at radix 8) and forms the others with
 // one product each (w^3, w^5, w^6), four table reads instead of seven; at
 // radix 16 it reads w^1, w^2, w^3, w^4, w^8 and forms the other ten with
-// one or two products.
+// one or two products.  SYNC0: a first stage whose load reads the buffer
+// it writes (a slot of the row ring in local_rows.cu) takes that barrier
+// too.
 template <int NT, int N, int C, bool ROWS, int R, int NS, bool FIRST,
-          bool LAST, bool PAD = false, bool TWD = false, class Load,
-          class Store>
+          bool LAST, bool PAD = false, bool TWD = false, bool SYNC0 = false,
+          class Load, class Store>
 __device__ __forceinline__ void stage(float2* sm,
                                       const float2* __restrict__ tw, float s,
                                       const Load& load, const Store& store) {
@@ -101,7 +103,7 @@ __device__ __forceinline__ void stage(float2* sm,
     }
     dft<R>(v[b], s);
   }
-  if (!FIRST) __syncthreads();
+  if (!FIRST || SYNC0) __syncthreads();
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int q = threadIdx.x + b * NT;
@@ -125,10 +127,11 @@ __device__ __forceinline__ void stage(float2* sm,
 // shared-memory round trip fewer at most lengths); stage 0 takes its
 // inputs from `load` when LOAD, the last stage hands its outputs to `store`
 // when STORE, else the result stays in natural order in the buffer (PAD:
-// chain_index's padded rows; TWD: stage's twiddles from fewer reads).
+// chain_index's padded rows; TWD: stage's twiddles from fewer reads;
+// SYNC0: stage 0's load reads the buffer).
 template <int NT, int LOGN, int C, bool ROWS, int STAGE, int NS, bool LOAD,
           bool STORE, bool PAD = false, bool TWD = false, bool R16 = false,
-          class Load, class Store>
+          bool SYNC0 = false, class Load, class Store>
 __device__ __forceinline__ void chain(float2* sm,
                                       const float2* __restrict__ tw, float s,
                                       const Load& load, const Store& store) {
@@ -137,7 +140,8 @@ __device__ __forceinline__ void chain(float2* sm,
   constexpr int NSTAGES = LOGN / RB + (REM ? 1 : 0);
   constexpr int R = (STAGE == 0 && REM) ? (1 << REM) : (1 << RB);
   stage<NT, 1 << LOGN, C, ROWS, R, NS, LOAD && STAGE == 0,
-        STORE && STAGE == NSTAGES - 1, PAD, TWD>(sm, tw, s, load, store);
+        STORE && STAGE == NSTAGES - 1, PAD, TWD, SYNC0 && STAGE == 0>(
+      sm, tw, s, load, store);
   if constexpr (STAGE + 1 < NSTAGES)
     chain<NT, LOGN, C, ROWS, STAGE + 1, NS * R, LOAD, STORE, PAD, TWD, R16>(
         sm, tw, s, load, store);

@@ -877,12 +877,6 @@ constexpr int RING_SLOTS = 3;
 // The most rows a box of a tensor copy takes (the copy engine's limit).
 constexpr int BOX = 256;
 
-// `raw` rounded up to 128 bytes, where the box copies write.
-__device__ __forceinline__ float2* align128(unsigned char* raw) {
-  return reinterpret_cast<float2*>(raw + ((128u - (smem_u32(raw) & 127u)) &
-                                          127u));
-}
-
 template <int LOGN, int G, int C>
 struct Ring {
   static constexpr int S = RING_SLOTS;

@@ -23,7 +23,12 @@
 // round trip.  By the 5*n*log2(n) count that is under 4 flop per byte in
 // float and under 2 in double, far below the ~20 FP32 (~10 FP64) flop per
 // byte at which the card's arithmetic, not its memory, would be the limit.
-// So the design keeps the data in device memory exactly once each way:
+// So the design keeps the data in device memory exactly once each way.
+// The complex64 kernels K1 and K2 run, wherever the input is one a bulk
+// copy reads and the length is in its table, the row ring below
+// (local_rows_ring_kernel: a persistent grid, a ring of slots fed by bulk
+// copies, chain.cuh's padded radix-16 chain).  The first design, which
+// K11 runs and K1 and K2 keep for every other input and length, is:
 //
 //   * one thread block per row (several rows per block for n < 512, so each
 //     block has 512 points of work); the row is read straight from global
@@ -96,14 +101,20 @@
 // library with the plain C entry points `pyfft_local_rows` (float),
 // `pyfft_local_rows_f64` (double), `pyfft_local_rows_il` (interleaved
 // float2), `pyfft_local_rows_i8` (float, int8 stage),
-// `pyfft_local_rows_il_i8` (interleaved, int8 stage) and
-// `pyfft_local_rows_i8_stage` (which stage an int8 instance runs) at the
-// bottom.
+// `pyfft_local_rows_il_i8` (interleaved, int8 stage),
+// `pyfft_local_rows_i8_stage` (which stage an int8 instance runs),
+// and `pyfft_local_rows_ring_shape` (the row ring's shape at a length) at
+// the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "chain.cuh"
 #include "int8_stage.cuh"
+#include "ring_cols.cuh"   // encode_tiled, mbar_expect, fence_async_smem,
+                            // align128
 #include "stockham.cuh"
 
 namespace {
@@ -284,6 +295,366 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ------------------------------- K1 and K2: a persistent ring of row blocks
+//
+// The complex64 kernel behind both C entries (local_rows_ring_kernel).  A
+// grid of at most one wave (the card's SMs times the blocks an SM holds)
+// walks the row blocks of RPB rows: block b takes b, b + grid, ...  Its
+// shared memory is a ring of S slots of one row block each, one mbarrier a
+// slot.  Thread 0 issues the copies of the next row blocks while the block
+// runs the chain and the stores of the current one, so S - 1 row blocks are
+// in flight from device memory at any time:
+//
+//   * from n = 512 one 1D bulk copy (cp.async.bulk) a row of a plane, or
+//     of the (re, im) pairs, several KB each; below 512 one tensor-map box
+//     [RPB][n] a plane (n <= 256, the copy engine's box limit), rows past
+//     the end filled with zeros.  One copy a row of 128 bytes would be
+//     paced by the copy engine's issue rate (K6's first design); these are
+//     2 KB and more;
+//   * the chain is chain.cuh's, ROWS over the slot's RPB rows: radix 16
+//     after a radix-2, 4 or 8 head (R16: 4096 = 16^3 is two shared-memory
+//     round trips, not radix 8's three), chain_index's padded rows (PAD:
+//     the strided stage writes meet no more than two wavefronts), five
+//     twiddle reads of fifteen a radix-16 butterfly (TWD).  Its first stage
+//     reads the slot's raw rows through a load functor and writes the
+//     padded layout into the same slot after a barrier (SYNC0), so the slot
+//     is the chain's buffer;
+//   * the last stage stores from registers with threads along k (128-byte
+//     runs a warp on each plane, 256 on pairs), the postscale folded (on
+//     the H100 faster than writing the slot and a bulk copy a row out:
+//     0.1078 against 0.1107 ms at 4096 x 4096, probes/float_split.py
+//     rbulk); the barrier between its reads and its stores is the slot's
+//     last, and the refill at the top of the next iteration follows it.
+//     Up to n = 64, where a thread of the last stage holds fewer than 8
+//     points of a row, the stores go in a pass along the rows instead (and
+//     up to n = 16, where it holds one row, a pass along the rows fills
+//     the chain).
+//
+// Operands: planar planes, or pairs ((re, im) adjacent: K2's float2 arrays
+// and the complex form's stride-2 planes), read from anywhere a bulk copy
+// reads (ring_rows_operands: 16-byte aligned, row stride a multiple of 16
+// bytes); the output at any strides, pairs stored as float2.  Any other
+// input layout, and any length missing from PYFFT_ROWS_RING, runs
+// local_rows_kernel above (K1's and K2's first design), which reads any
+// strides.  In place: every row is read whole, when its copy completes, by
+// the block that owns it, before that block stores it.
+
+// (log2 n, RPB, S): rows a slot and slots of the ring, by length.  A slot
+// holds 4096 points (2048 at n = 8; 8192 at n = 32, 64 and 8192), a
+// thread 16 points a stage.  n = 128 to 512 run the first design, which
+// the H100 showed as fast or faster there, and at n = 8192 two slots beat
+// three (one run of probes/float_split.py K1 over 2^24 points, ms: `old`
+// 0.0994, 0.0973, 0.1024 against `rall` 0.1027, 0.1036, 0.1063 at n =
+// 128, 256, 512; `rs2` 0.1243 against three slots' 0.1328 at 8192).
+#ifndef PYFFT_ROWS_RING
+#define PYFFT_ROWS_RING(X)                                               \
+  X(3, 256, 3) X(4, 256, 3) X(5, 256, 3) X(6, 128, 3) X(10, 4, 3)        \
+  X(11, 2, 3) X(12, 1, 3) X(13, 1, 2)
+#endif
+// the chains' options (chain.cuh); radix 16 where it takes a stage fewer
+// than radix 8 (not at n = 8)
+constexpr bool RING_PAD = true, RING_TWD = true, RING_R16 = true;
+// The most rows or points a tensor copy's box takes (the copy engine's
+// limit).
+constexpr int RING_BOX = 256;
+
+template <int LOGN, int RPB_, int S_>
+struct RowRing {
+  static constexpr int N = 1 << LOGN, RPB = RPB_, S = S_, P = RPB * N;
+  static constexpr int NT = P / (N < 16 ? N : 16);    // threads a block
+  static constexpr bool BOX = N < 512;                 // tensor-map boxes
+  // short rows, where a thread of the first or the last stage takes fewer
+  // than 8 consecutive points of a row: up to n = 16 (one row a thread)
+  // the slot's raw rows go into the chain's layout in a pass along the
+  // rows; up to n = 64 the outputs are stored in such a pass
+  static constexpr bool PASS_IN = N <= 16, PASS_OUT = N <= 64;
+  static constexpr bool R16 = RING_R16 && (LOGN + 3) / 4 < (LOGN + 2) / 3;
+  // a slot: the raw rows (P values) or the chain's padded rows, rounded to
+  // 128 bytes (the box copies' alignment), in float2
+  static constexpr int RAW = P > RPB * (N + N / 16) ? P : RPB * (N + N / 16);
+  static constexpr int SLOT = (RAW * 8 + 127) / 128 * 128 / 8;
+  static constexpr int SMEM = S * SLOT * 8 + 128;      // + alignment
+  // the blocks an SM's shared memory (228 KB, 1 KB a block reserved) and
+  // threads allow: the registers are held to that many (launch bounds)
+  static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);
+  static constexpr int PER = PER_SMEM < 2048 / NT ? PER_SMEM : 2048 / NT;
+  static_assert(S >= 2 && SMEM <= 227 * 1024,
+                "the ring fits a block's shared memory");
+  static_assert(NT <= 1024 && P % NT == 0, "whole butterflies a thread");
+  static_assert(!BOX || (N <= RING_BOX && RPB <= RING_BOX),
+                "a slot is one box a plane");
+  static_assert(BOX || RPB * N * 8 < (1 << 20), "an mbarrier's byte count");
+};
+
+// The ring's operands: `in` the real plane (planar: `in_im` the imaginary
+// one) or the (re, im) pairs; `out` likewise; strides in floats (pairs:
+// twice the pairs' row stride).
+struct RingIo {
+  const float* in;
+  const float* in_im;
+  float* out;
+  float* out_im;
+  int rows;
+  int in_pairs, out_pairs;
+  long long in_es, in_rs, out_rs, out_es;
+  float post;
+};
+
+// Whether bulk copies read the ring's input where it lies: planar planes
+// (unit stride) or pairs, 16-byte aligned, rows a multiple of 16 bytes
+// apart (any stride for one row).
+inline bool ring_rows_operands(const RingIo& io) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(io.in);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
+  return (io.in_pairs || (io.in_es == 1 && b % 16 == 0)) && a % 16 == 0 &&
+         (io.rows == 1 || io.in_rs % 4 == 0);
+}
+
+// Copy `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on `bar`'s current phase (which the caller's
+// mbar_expect counts).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Copy the box of the 2D tensor map `map` at (c0, c1) into shared `dst`,
+// completing on `bar`'s current phase.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 2D tensor map over the ring's input plane (or pairs) at `base`: `n`
+// elements a row, `rows` rows `row_bytes` apart, boxes of [rpb][n].
+inline cudaError_t ring_rows_map(CUtensorMap* map, const float* base,
+                                 bool pairs, int n, int rows,
+                                 long long row_bytes, int rpb) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)n, (cuuint32_t)rpb};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = enc(
+      map, pairs ? CU_TENSOR_MAP_DATA_TYPE_INT64 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<float*>(base), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The ring over `blocks` row blocks: row block first + i*every in slot
+// i % S on barrier bars[i % S], filled by thread 0 (map_re, map_im: the
+// boxes below n = 512; map_im unused on pairs).
+template <int LOGN, int RPB, int S>
+__global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
+                                  RowRing<LOGN, RPB, S>::PER)
+    local_rows_ring_kernel(RingIo io, const float2* __restrict__ tw, float s,
+                           long long blocks,
+                           const __grid_constant__ CUtensorMap map_re,
+                           const __grid_constant__ CUtensorMap map_im) {
+  using K = RowRing<LOGN, RPB, S>;
+  constexpr int N = K::N, P = K::P, NT = K::NT, SLOT = K::SLOT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bars[S];
+  float2* slots = align128(smem_raw);
+  const long long first = blockIdx.x, every = gridDim.x;
+  const int count =
+      first < blocks ? static_cast<int>((blocks - first + every - 1) / every)
+                     : 0;
+  const bool pin = io.in_pairs, pout = io.out_pairs;
+  // this block's row block i into slot i % S: its rows of each plane, or
+  // of pairs (planar: the real rows, then the imaginary rows)
+  const auto issue = [&](int i) {
+    uint64_t* bar = &bars[i % S];
+    float* dst = reinterpret_cast<float*>(slots + (i % S) * SLOT);
+    const long long row0 = (first + (long long)i * every) * RPB;
+    fence_async_smem();
+    if constexpr (K::BOX) {
+      mbar_expect(bar, P * (int)sizeof(float2));
+      tma_load_2d(dst, &map_re, 0, static_cast<int>(row0), bar);
+      if (!pin) tma_load_2d(dst + P, &map_im, 0, static_cast<int>(row0), bar);
+    } else {
+      const int nr = static_cast<int>(
+          io.rows - row0 < RPB ? io.rows - row0 : RPB);
+      mbar_expect(bar, nr * N * (int)sizeof(float2));
+      for (int r = 0; r < nr; ++r) {
+        const long long o = (row0 + r) * io.in_rs;
+        if (pin) {
+          bulk_copy(dst + 2 * r * N, io.in + o, N * 8, bar);
+        } else {
+          bulk_copy(dst + r * N, io.in + o, N * 4, bar);
+          bulk_copy(dst + P + r * N, io.in_im + o, N * 4, bar);
+        }
+      }
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < S; ++b) mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < S && j < count; ++j) issue(j);
+  }
+  __syncthreads();                  // the barriers are set up
+  for (int i = 0; i < count; ++i) {
+    // thread 0 fills the slot of row block i - 1, whose readers are past
+    // its last stage's barrier, with row block i + S - 1
+    if (threadIdx.x == 0 && i && i + S - 1 < count) issue(i + S - 1);
+    float2* sm = slots + (i % S) * SLOT;
+    const float* f = reinterpret_cast<const float*>(sm);
+    const long long row0 = (first + (long long)i * every) * RPB;
+    const auto load = [&](int c, int k) {
+      return pin ? sm[c * N + k] : make_float2(f[c * N + k], f[P + c * N + k]);
+    };
+    const auto store = [&](int c, int k, float2 v) {
+      const float2 y = make_float2(v.x * io.post, v.y * io.post);
+      const long long row = row0 + c;
+      if (row >= io.rows) return;
+      if (pout) {
+        reinterpret_cast<float2*>(io.out + row * io.out_rs)[k] = y;
+      } else {
+        const long long o = row * io.out_rs + k * io.out_es;
+        io.out[o] = y.x;
+        io.out_im[o] = y.y;
+      }
+    };
+    mbar_wait(&bars[i % S], (i / S) & 1);
+    constexpr int E = P / NT;                 // points a thread a pass
+    if constexpr (K::PASS_IN) {
+      // the slot's raw rows into the chain's padded layout, along the rows
+      float2 v[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) {
+        const int e = threadIdx.x + q * NT;
+        v[q] = load(e / N, e % N);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < E; ++q) {
+        const int e = threadIdx.x + q * NT;
+        sm[chain_index<N, RPB, true, RING_PAD>(e / N, e % N)] = v[q];
+      }
+      __syncthreads();
+    }
+    // the first stage reads the slot's raw rows (SYNC0: a barrier before
+    // it writes the slot) or, after the pass, the chain's layout; the last
+    // stores, or leaves the result for the pass below
+    chain<NT, LOGN, RPB, true, 0, 1, !K::PASS_IN, !K::PASS_OUT, RING_PAD,
+          RING_TWD, K::R16, true>(sm, fresh(tw), s, load, store);
+    if constexpr (K::PASS_OUT) {
+      // the stores along the rows, then the slot's last barrier
+#pragma unroll 4
+      for (int q = 0; q < E; ++q) {
+        const int e = threadIdx.x + q * NT;
+        store(e / N, e % N,
+              sm[chain_index<N, RPB, true, RING_PAD>(e / N, e % N)]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The card's SMs and the blocks of the ring's kernel an SM holds, into
+// `sms` and `per`: asked of the card once a device, with the kernel's
+// shared memory set there for its launches.
+template <int LOGN, int RPB, int S>
+cudaError_t ring_rows_wave(int& sms, int& per) {
+  using K = RowRing<LOGN, RPB, S>;
+  const auto kernel = local_rows_ring_kernel<LOGN, RPB, S>;
+  static std::atomic<long long> waves[64];     // by device, 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  long long got = waves[dev].load(std::memory_order_relaxed);
+  if (!got) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, K::NT,
+                                                        K::SMEM);
+    if (e != cudaSuccess) return e;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    got = ((long long)sms << 8) | per;
+    waves[dev].store(got, std::memory_order_relaxed);
+  }
+  sms = static_cast<int>(got >> 8);
+  per = static_cast<int>(got & 255);
+  return cudaSuccess;
+}
+
+template <int LOGN, int RPB, int S>
+cudaError_t launch_rows_ring(const RingIo& io, const float2* tw, float s,
+                             cudaStream_t stream) {
+  using K = RowRing<LOGN, RPB, S>;
+  const auto kernel = local_rows_ring_kernel<LOGN, RPB, S>;
+  int sms = 0, per = 0;
+  cudaError_t e = ring_rows_wave<LOGN, RPB, S>(sms, per);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mre{}, mim{};
+  if constexpr (K::BOX) {
+    // one row: any stride the map takes (16-byte units)
+    const long long rb = io.rows > 1 ? io.in_rs * 4 : (long long)K::N * 8;
+    e = ring_rows_map(&mre, io.in, io.in_pairs, K::N, io.rows, rb, RPB);
+    if (e == cudaSuccess && !io.in_pairs)
+      e = ring_rows_map(&mim, io.in_im, false, K::N, io.rows, rb, RPB);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = (io.rows + RPB - 1) / RPB;
+  const long long wave = (long long)sms * per;
+  const long long grid = blocks < wave ? blocks : wave;
+  kernel<<<(unsigned)grid, K::NT, K::SMEM, stream>>>(io, tw, s, blocks, mre,
+                                                     mim);
+  return cudaGetLastError();
+}
+
+// RPB of the ring at log2n, 0 where PYFFT_ROWS_RING keeps the first design.
+inline int ring_rows_rpb(int log2n) {
+#define PYFFT_RING_RPB(LN, RPB, S) \
+  if (log2n == LN) return RPB;
+  PYFFT_ROWS_RING(PYFFT_RING_RPB)
+#undef PYFFT_RING_RPB
+  return 0;
+}
+
+// What K1's and K2's C entries return where the row ring ran: 0 where
+// local_rows_kernel ran, else the launch's cudaError_t.  The wrappers count
+// the ring's launches from it.
+constexpr int RAN_RING = -1;
+
+// K1 and K2 (complex64): the ring where it takes the length and the input
+// layout (RAN_RING), else local_rows_kernel (`old`, IL its interleaved
+// policy; 0), or a cudaError_t.
+template <bool IL>
+int rows_f32(int log2n, const RingIo& ring, const Io<float>& old,
+             const void* tw, int sign, void* stream) {
+  if (ring.rows > 0 && ring_rows_rpb(log2n) && ring_rows_operands(ring)) {
+    const float2* t = static_cast<const float2*>(tw);
+    const float s = sign < 0 ? -1.f : 1.f;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PYFFT_RING_LAUNCH(LN, RPB, S)                                    \
+  if (log2n == LN) {                                                    \
+    const cudaError_t e = launch_rows_ring<LN, RPB, S>(ring, t, s, st); \
+    return e == cudaSuccess ? RAN_RING : (int)e;                        \
+  }
+    PYFFT_ROWS_RING(PYFFT_RING_LAUNCH)
+#undef PYFFT_RING_LAUNCH
+  }
+  return (int)dispatch<float, IL, 13>(log2n, old, tw, sign, stream);
 }
 
 // ------------------------------------------------ K1 + K10 (int8 policy)
@@ -489,22 +860,36 @@ Io<Real> planes(const void* in_re, const void* in_im, void* out_re,
                   postscale};
 }
 
+// K1's planes as the ring's operands: pairs where the imaginary plane is
+// the real one's next float (the complex form's stride-2 planes; stored as
+// float2 where they are 8-byte aligned), else planar.
+inline RingIo ring_planes(const Io<float>& io) {
+  const bool in_pairs = io.in_es == 2 && io.in_im == io.in_re + 1;
+  const bool out_pairs =
+      io.out_es == 2 && io.out_im == io.out_re + 1 &&
+      reinterpret_cast<uintptr_t>(io.out_re) % 8 == 0 &&
+      (io.rows == 1 || io.out_rs % 2 == 0);
+  return RingIo{io.in_re, io.in_im, io.out_re, io.out_im, io.rows,
+                in_pairs, out_pairs, io.in_es, io.in_rs, io.out_rs,
+                io.out_es, io.post};
+}
+
 }  // namespace
 
 // Launch the row DFT on `stream` without synchronising.  Strides are in
 // elements of the planes' type; `tw` holds n (cos, sin) pairs of
-// sign*2*pi*k/n in that type.  Return the launch's cudaError_t (0 on
-// success).  complex64: float planes, 8 <= n <= 8192.
+// sign*2*pi*k/n in that type.  Return the launch's cudaError_t: 0 on
+// success, or on a complex64 launch that ran the row ring RAN_RING (-1).
+// complex64: float planes, 8 <= n <= 8192.
 extern "C" int pyfft_local_rows(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,
                                 int rows, int log2n, int in_es, int in_rs,
                                 int out_es, int out_rs, int sign,
                                 float postscale, void* stream) {
-  return (int)dispatch<float, false, 13>(
-      log2n,
-      planes<float>(in_re, in_im, out_re, out_im, rows, in_es, in_rs, out_es,
-                    out_rs, postscale),
-      tw, sign, stream);
+  const Io<float> old = planes<float>(in_re, in_im, out_re, out_im, rows,
+                                      in_es, in_rs, out_es, out_rs,
+                                      postscale);
+  return rows_f32<false>(log2n, ring_planes(old), old, tw, sign, stream);
 }
 
 // complex128: double planes, 8 <= n <= 4096, computed in native FP64.
@@ -523,7 +908,7 @@ extern "C" int pyfft_local_rows_f64(const void* in_re, const void* in_im,
 
 // K2, complex64 interleaved: `in` and `out` are (rows, n) arrays of float2
 // (re, im) pairs, each 8-byte aligned, with row strides in pairs; 8 <= n
-// <= 8192.  `out` may be `in` (in place).
+// <= 8192.  `out` may be `in` (in place).  Returns as pyfft_local_rows.
 extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
                                    int rows, int log2n, int in_rs,
                                    int out_rs, int sign, float postscale,
@@ -531,7 +916,10 @@ extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
   const Io<float> io{nullptr, nullptr, nullptr, nullptr,
                      static_cast<const float2*>(in), static_cast<float2*>(out),
                      rows, 1, in_rs, 1, out_rs, postscale};
-  return (int)dispatch<float, true, 13>(log2n, io, tw, sign, stream);
+  const RingIo ring{static_cast<const float*>(in), nullptr,
+                    static_cast<float*>(out), nullptr, rows, 1, 1, 2,
+                    2LL * in_rs, 2LL * out_rs, 2, postscale};
+  return rows_f32<true>(log2n, ring, io, tw, sign, stream);
 }
 
 // K1 + K10: the complex64 row DFT with the f-point int8 stage last (f =
@@ -579,3 +967,28 @@ extern "C" int pyfft_local_rows_i8_stage(int log2n, int log2f) {
 #undef PYFFT_I8_STAGE
   return -1;
 }
+
+// The row ring at log2n (PYFFT_ROWS_RING) into out[0..4]: rows a slot,
+// threads a block, slots, a block's shared memory in bytes and the blocks
+// an SM holds on the current device (asked of the card, which sets the
+// kernel's shared memory there).  Returns 1, 0 where the length runs
+// local_rows_kernel, or minus a cudaError_t.
+extern "C" int pyfft_local_rows_ring_shape(int log2n, int* out) {
+#define PYFFT_RING_SHAPE(LN, RPB, S)                             \
+  if (log2n == LN) {                                             \
+    using K = RowRing<LN, RPB, S>;                               \
+    int sms = 0, per = 0;                                        \
+    const cudaError_t e = ring_rows_wave<LN, RPB, S>(sms, per);  \
+    if (e != cudaSuccess) return -(int)e;                        \
+    out[0] = RPB;                                                \
+    out[1] = K::NT;                                              \
+    out[2] = S;                                                  \
+    out[3] = K::SMEM;                                            \
+    out[4] = per;                                                \
+    return 1;                                                    \
+  }
+  PYFFT_ROWS_RING(PYFFT_RING_SHAPE)
+#undef PYFFT_RING_SHAPE
+  return 0;
+}
+

@@ -1,7 +1,9 @@
 // The pieces that the multi-tile column kernel K6 (a ring of runs fed by
 // tensor copies) and the digit-swapped row kernel K4 from n = 512 (a row
 // tile split over a cluster, loaded by a tensor copy) add to the cluster
-// column tile of cluster_cols.cuh; both kernels are in local_cols.cu.
+// column tile of cluster_cols.cuh; both kernels are in local_cols.cu.  The
+// row ring of local_rows.cu (K1 and K2) takes the tensor-map encoder, the
+// barrier and fence helpers and align128 from here.
 //
 //   * Tensor maps (TMA): a host helper that encodes a 4D map of a float
 //     plane or of the complex form's pairs, and the box copy into shared
@@ -81,6 +83,12 @@ inline cudaError_t tensor_map_4d(CUtensorMap* map, const void* base,
 }
 
 // ------------------------------------------------------------ device side
+
+// `raw` rounded up to 128 bytes, where the box copies write.
+__device__ __forceinline__ float2* align128(unsigned char* raw) {
+  return reinterpret_cast<float2*>(raw + ((128u - (smem_u32(raw) & 127u)) &
+                                          127u));
+}
 
 // Copy the box of `map` at (c0, c1, c2, c3) into shared `dst` (128-byte
 // aligned), completing on `bar`'s current phase.

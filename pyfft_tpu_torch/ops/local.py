@@ -73,8 +73,8 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
            "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
-           "supported_fold", "swap_tile", "ring_shape",
-           "fft_axis_fold", "fold_lanes"]
+           "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
+           "RING_LAUNCHES", "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -87,6 +87,11 @@ LAUNCHES_F64 = 0
 COL_LAUNCHES_F64 = 0
 # The same for _launch_rows_il (K2, interleaved complex64 rows).
 IL_LAUNCHES = 0
+# Of the K1 and K2 launches, those that ran the row ring
+# (csrc/local_rows.cu local_rows_ring_kernel) and not the first design,
+# counted where their C entry returns RAN_RING (that source's constant).
+RING_LAUNCHES = 0
+RAN_RING = -1
 # The same for _launch_rows_swap (K4) and for _launch_cols with ctile (K6).
 SWAP_LAUNCHES = 0
 CTILE_LAUNCHES = 0
@@ -667,16 +672,49 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
                                 *args[2:], stream)
         else:
             err = _rows_fn(re.dtype)(*ptrs, *args, stream)
-    if err != 0:
-        name = "local_rows_i8" if i8_f else "local_rows"
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     if i8_f:
+        _launched("local_rows_i8", err, False)
         I8_LAUNCHES += 1
     elif re.dtype == torch.float64:
+        _launched("local_rows", err, False)
         LAUNCHES_F64 += 1
     else:
+        _launched("local_rows", err, True)
         LAUNCHES += 1
     return out_re, out_im
+
+
+def _launched(name: str, err: int, ring: bool) -> None:
+    """Raise where the C entry ``name`` returned a failed launch; count a
+    launch of the row ring where it returned RAN_RING (only K1's and K2's
+    complex64 entries, ``ring``, may)."""
+    global RING_LAUNCHES
+    if ring and err == RAN_RING:
+        RING_LAUNCHES += 1
+    elif err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+ROWS_RING_KEYS = ("rows", "threads", "slots", "smem_bytes", "blocks_per_sm")
+
+
+@functools.lru_cache(maxsize=None)
+def rows_ring_shape(n: int) -> dict | None:
+    """The row ring's shape at length n (csrc/local_rows.cu
+    ``PYFFT_ROWS_RING``), which K1 and K2 run on inputs a bulk copy reads
+    (``ring_rows_operands`` there): ``rows`` a slot, ``threads`` a block,
+    ``slots`` of the ring, a block's ``smem_bytes`` and the
+    ``blocks_per_sm`` the current card holds (asked of it); None where the
+    length runs the first design (local_rows_kernel).  Builds the library on first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_rows").pyfft_local_rows_ring_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(ROWS_RING_KEYS))()
+    got = fn(ilog2(n), out)
+    if got < 0:
+        raise RuntimeError(f"row ring shape query failed: cudaError {-got}")
+    return dict(zip(ROWS_RING_KEYS, out)) if got else None
 
 
 # ------------------------------------------------- interleaved row path
@@ -818,12 +856,11 @@ def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
         else:
             err = _rows_il_fn()(v2.data_ptr(), o2.data_ptr(), tw.data_ptr(),
                                 *args, stream)
-    if err != 0:
-        name = "local_rows_il_i8" if i8_f else "local_rows_il"
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     if i8_f:
+        _launched("local_rows_il_i8", err, False)
         IL_I8_LAUNCHES += 1
     else:
+        _launched("local_rows_il", err, True)
         IL_LAUNCHES += 1
     return out
 
@@ -1624,8 +1661,10 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     ``"default"`` (one bf16 pass of the TPU's matrix unit) does not carry
     over.
 
-    A CUDA tensor goes to a kernel, which runs its own radix-8 chain and
-    ignores ``factors``; a CPU tensor goes to the plain torch version,
+    A CUDA tensor goes to a kernel, which runs its own chain and ignores
+    ``factors`` (complex64 rows: the row ring, ``rows_ring_shape``, on
+    inputs its bulk copies read, else the first design; both read any
+    layout the checks take); a CPU tensor goes to the plain torch version,
     which runs ``factors`` (default: ``row_factors(n)`` or
     ``col_factors(n)``).  ``out=(re, im)`` names the planes to write, of
     the output's shape; with a plain store they may be the inputs

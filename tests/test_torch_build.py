@@ -77,7 +77,8 @@ def test_every_source_is_named_by_its_hash():
 
 
 @pytest.mark.parametrize("header", ["chain.cuh", "stockham.cuh",
-                                    "int8_stage.cuh"])
+                                    "int8_stage.cuh", "ring_cols.cuh",
+                                    "cluster_cols.cuh"])
 def test_every_source_follows_each_shared_header(tmp_path, monkeypatch,
                                                  header):
     """An edit to a shared header renames every library, fused2d_tiled.cu's
