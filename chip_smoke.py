@@ -17,7 +17,10 @@ numpy.fft, in twenty-one phases, one or more lines each:
      phase 4's, and phase 5 starts when every build has ended;
   3. row kernel: against its plain torch version and numpy.fft for every
      n from 8 to 8192, 1 and 130 rows, forward and inverse with a
-     postscale, planar, stride-2 and in-place operands;
+     postscale, planar, stride-2 and in-place operands, and on the row
+     ring's edges (3 x grid x RPB + 1 rows; rows 16 bytes and one element
+     apart, one element off alignment), each launch checked against the
+     design it must run (row ring or first design) by the ring's count;
   4. config 2 (batched 1D, 4096 x 4096 complex64) through Plan.execute
      (complex and planar forms, inverse round trip) and fft/ifft, against
      numpy.fft, with each kernel's launch count read around the run (the
@@ -30,8 +33,13 @@ numpy.fft, in twenty-one phases, one or more lines each:
      from 8 to 8192, L = 3 (and L = 1 at n = 8192), T in {128, 384},
      forward and inverse
      with a postscale, in each mode a route uses: plain store (planar,
-     stride-2, in place), full twiddle + swap_store, strided twiddle +
-     swap_mid, factored twiddle + swap_store;
+     stride-2, in place, and planes 4 bytes off 16-byte alignment), full
+     twiddle with a plain store and with swap_store, strided twiddle +
+     swap_mid, factored twiddle + swap_store; each launch checked against
+     the design it must run (the persistent ring from n = 16 to 256 on a
+     plain store of planes its tensor maps read, the cluster tile from
+     1024, else the first design) by the designs' counts, and the ring's
+     and the cluster tile's shapes printed;
   7. fused 2D kernel: against its plain torch version and numpy for every
      (ny, nx) it takes (both 128 to 2048, at most 2^18 points), 1 and 3
      planes, forward and inverse with a postscale, planar, stride-2 and
@@ -45,15 +53,16 @@ numpy.fft, in twenty-one phases, one or more lines each:
      every kernel pass of each path is held against its plain version at
      the shape the plan gives it, each pass taking the previous pass's
      output;
-  9. timings: the column passes of config 6+ and config 3 and config 4's
-     z pass, and config 4's fused 2D pass beside the row and column
+  9. timings: the column passes of config 6+, config 3 and the mid route
+     and config 4's z pass (each with the design it ran), and config 4's
+     fused 2D pass beside the row and column
      passes it replaces: each with its plain version, its bounds and the
      one PyTorch call that computes the same function where there is one;
      each config's Plan.execute beside torch.fft on the same data;
- 10. complex128 row kernel K11 (native FP64): against its plain torch
-     version and numpy.fft for every n from 8 to 4096, 1 and 130 rows,
-     forward and inverse with postscale 0.3, planar, stride-2 and in-place
-     operands;
+ 10. complex128 row kernel K11 (native FP64): as phase 3, for every n
+     from 8 to 4096, forward and inverse with postscale 0.3, each launch
+     checked against the design it must run (the row ring in FP64 from n
+     = 1024, else the first design);
  11. complex128 column kernel K12: as phase 6, for every n from 8 to 4096,
      and where the cluster kernel takes n (1024 to 4096) the twiddled and
      swapped modes on planar planes too;
@@ -67,7 +76,8 @@ numpy.fft, in twenty-one phases, one or more lines each:
      version at the plan's shapes, chained;
  13. complex128 timings: config 5's two passes with their plain versions,
      bounds (FP64 peak) and torch.fft.fft(dim=-2) for pass 2, the 2D
-     path's K11 row pass beside torch.fft.fft and its K12 column pass, and
+     path's K11 row pass (with the design it ran) beside torch.fft.fft
+     and its K12 column pass, and
      each path's Plan.execute beside torch.fft;
  14. interleaved kernels: the row kernel K2 against its plain version and
      numpy.fft for every n from 8 to 8192, 1 and 130 rows, forward and
@@ -252,6 +262,9 @@ def reset_counts():
     local.SWAP_I8_LAUNCHES = 0
     local.IL_I8_LAUNCHES = 0
     local.RING_LAUNCHES = 0
+    local.RING_LAUNCHES_F64 = 0
+    local.COL_RING_LAUNCHES = 0
+    local.COL_X_LAUNCHES = 0
     fused2d.LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
     fused2d.I8_LAUNCHES = 0
@@ -279,6 +292,17 @@ def read_counts() -> dict:
             "fused2d_i8": fused2d.I8_LAUNCHES,
             "fused2d_tiled_i8": fused2d.TILED_I8_LAUNCHES,
             "local_rows_il_i8": local.IL_I8_LAUNCHES}
+
+
+def design_counts() -> dict:
+    """Of the launches counted since the last reset, those that ran each
+    redesign, as the C entries report it: the row ring (K1 and K2; K11 on
+    double planes) and K5's persistent column ring and cluster tile."""
+    from pyfft_tpu_torch.ops import local
+    return {"row ring": local.RING_LAUNCHES,
+            "row ring f64": local.RING_LAUNCHES_F64,
+            "column ring": local.COL_RING_LAUNCHES,
+            "column cluster tile": local.COL_X_LAUNCHES}
 
 
 def expect(*parts) -> dict:
@@ -428,16 +452,15 @@ def phase_kernel(prec: str = "complex64"):
         print(f"phase {phase} {prec} row kernel n={n}: {cases} cases, max "
               f"rel err vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {tol:.0e})")
-        if prec == "complex64":
-            ring_rows_cases(n, rng)
+        ring_rows_cases(n, rng, prec)
 
 
-def ring_wave_rows(n: int) -> tuple[int, dict | None]:
+def ring_wave_rows(n: int, dtype=torch.float32) -> tuple[int, dict | None]:
     """3 x grid x RPB + 1 rows at length n: every block of the row ring's
     persistent grid walks three row blocks and one walks a fourth, ragged
     one (the first design: 3 x 132 blocks + 1), with the ring's shape."""
     from pyfft_tpu_torch.ops import local
-    shape = local.rows_ring_shape(n)
+    shape = local.rows_ring_shape(n, dtype)
     if shape is None:
         return 3 * 132 * max(1, 512 // n) + 1, None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -451,12 +474,14 @@ def ring_wave_rows(n: int) -> tuple[int, dict | None]:
 RING_MODES = ("planar", "stride2", "inplace", "out", "padded 16")
 
 
-def ring_expected(n: int, mode: str) -> bool:
-    """Whether K1 or K2 must run the row ring on ``mode``'s layout at
-    length n: the length in the ring's table and a layout of RING_MODES.
-    The ring's launches are counted from what the C entry reports it ran."""
+def ring_expected(n: int, mode: str, dtype=torch.float32) -> bool:
+    """Whether K1 or K2 (K11 on float64) must run the row ring on
+    ``mode``'s layout at length n: the length in the ring's table and a
+    layout of RING_MODES.  The ring's launches are counted from what the C
+    entry reports it ran."""
     from pyfft_tpu_torch.ops import local
-    return local.rows_ring_shape(n) is not None and mode in RING_MODES
+    return (local.rows_ring_shape(n, dtype) is not None
+            and mode in RING_MODES)
 
 
 def padded_rows(x: torch.Tensor, pad: int, lead: int = 0) -> torch.Tensor:
@@ -470,27 +495,36 @@ def padded_rows(x: torch.Tensor, pad: int, lead: int = 0) -> torch.Tensor:
     return view
 
 
-def ring_rows_cases(n: int, rng):
-    """K1 on the row ring's edges at length n: a row count that walks every
-    persistent block three times and ends ragged, planar, on stride-2
-    planes, in place, with rows padded apart by 16 bytes (the ring) and by
-    4 (the first design) and on planes 4 bytes off 16-byte alignment (the
-    first design), against the plain version and numpy."""
+def ring_rows_cases(n: int, rng, prec: str = "complex64"):
+    """K1 (K11 for complex128) on the row ring's edges at length n: a row
+    count that walks every persistent block three times and ends ragged,
+    planar, on stride-2 planes, in place, with rows padded apart by 16
+    bytes (the ring) and by one element, 4 or 8 bytes (the first design),
+    and on planes one element off 16-byte alignment (the first design),
+    against the plain version and numpy; each launch checked against the
+    design it must run by the ring's count."""
     from pyfft_tpu_torch.ops import local
-    rows, shape = ring_wave_rows(n)
+    spec = PRECISIONS[prec]
+    f64 = prec == "complex128"
+    real = torch.float64 if f64 else torch.float32
+    rows, shape = ring_wave_rows(n, real)
     x = (rng.standard_normal((rows, n))
-         + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+         + 1j * rng.standard_normal((rows, n))).astype(spec["dtype"])
     xc = torch.from_numpy(x).cuda()
     worst_plain = worst_np = 0.0
     took = []
-    for sign, post in posts("complex64", n):
+    elem = 8 if f64 else 4              # bytes of a real
+    one = f"{elem}"
+    count = ("LAUNCHES_F64", "RING_LAUNCHES_F64") if f64 else (
+        "LAUNCHES", "RING_LAUNCHES")
+    for sign, post in posts(prec, n):
         ref = torch.from_numpy(
             (np.fft.fft(x.astype(np.complex128)) if sign < 0
              else np.fft.ifft(x.astype(np.complex128)) * n) * post).cuda()
         plain = cplx(*local.fft_rows_plain(xc.real.contiguous(),
                                            xc.imag.contiguous(), sign, post))
         for mode in ("planar", "stride2", "inplace", "padded 16",
-                     "padded 4", "offset 4"):
+                     "padded " + one, "offset " + one):
             out = None
             if mode == "planar":
                 re, im = xc.real.contiguous(), xc.imag.contiguous()
@@ -499,36 +533,37 @@ def ring_rows_cases(n: int, rng):
                 re, im = v[..., 0], v[..., 1]
                 out = (re, im) if mode == "inplace" else None
             else:
-                pad, lead = {"padded 16": (4, 0), "padded 4": (1, 0),
-                             "offset 4": (0, 1)}[mode]
+                pad, lead = {"padded 16": (16 // elem, 0),
+                             "padded " + one: (1, 0),
+                             "offset " + one: (0, 1)}[mode]
                 re, im = (padded_rows(t.contiguous(), pad, lead)
                           for t in (xc.real, xc.imag))
-            takes = ring_expected(n, mode)
-            before = (local.LAUNCHES, local.RING_LAUNCHES)
+            takes = ring_expected(n, mode, real)
+            before = tuple(getattr(local, c) for c in count)
             rr, ii = local.fft_axis(re, im, sign, postscale=post, out=out)
             torch.cuda.synchronize()
-            got = (local.LAUNCHES - before[0],
-                   local.RING_LAUNCHES - before[1])
+            got = tuple(getattr(local, c) - b for c, b in zip(count, before))
             if got != (1, int(takes)):
-                raise AssertionError(f"n={n} {mode}: (K1, ring) launches "
-                                     f"{got}, expected (1, {int(takes)})")
+                raise AssertionError(f"{prec} n={n} {mode}: (kernel, ring) "
+                                     f"launches {got}, expected "
+                                     f"(1, {int(takes)})")
             if mode == "inplace" and rr.data_ptr() != re.data_ptr():
                 raise AssertionError("in-place launch wrote elsewhere")
             got = cplx(rr, ii)
             e_plain, e_np = rel_err(got, plain), rel_err(got, ref)
-            tag = f"n={n} rows={rows} sign={sign} {mode}"
-            check(f"ring kernel vs plain {tag}", e_plain)
-            check(f"ring kernel vs numpy {tag}", e_np)
+            tag = f"{prec} n={n} rows={rows} sign={sign} {mode}"
+            check(f"ring kernel vs plain {tag}", e_plain, spec["tol"])
+            check(f"ring kernel vs numpy {tag}", e_np, spec["tol"])
             worst_plain = max(worst_plain, e_plain)
             worst_np = max(worst_np, e_np)
             if sign < 0:
                 took.append(f"{mode} {'ring' if takes else 'first design'}")
     del xc, plain, ref
     torch.cuda.empty_cache()
-    print(f"phase 3 row kernel n={n}, {rows} rows "
+    print(f"phase {spec['phases'][0]} {prec} row kernel n={n}, {rows} rows "
           f"({shape or 'the first design'}): {', '.join(took)}; max rel "
           f"err vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e} (gate "
-          f"{TOL:.0e})")
+          f"{spec['tol']:.0e})")
 
 
 def phase_main_path():
@@ -647,7 +682,8 @@ def phase_timings(xt, re, im):
 # ------------------------------------------------------ the column kernel
 
 COL_MODES = ("plain planar", "plain stride2", "plain inplace",
-             "full swap_store", "strided swap_mid", "factored swap_store")
+             "plain offset", "full plain", "full swap_store",
+             "strided swap_mid", "factored swap_store")
 # the twiddled and swapped modes on planar planes too where the complex128
 # cluster kernel takes n: its planar table is another instance than the
 # stride-2 planes' one
@@ -679,7 +715,7 @@ def col_reference(X, n, T, mode, sign, post):
 
 def col_kwargs(mode, tw_n):
     if mode.startswith("full"):
-        return dict(tw_n=tw_n, swap_store=True)
+        return dict(tw_n=tw_n, swap_store="swap_store" in mode)
     if mode.startswith("strided"):
         return dict(tw_n=tw_n, tw_mode="strided", tw_period=128,
                     swap_mid=128)
@@ -688,7 +724,27 @@ def col_kwargs(mode, tw_n):
     return {}
 
 
+def offset_plane(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a plane one element off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# the complex64 column pass's designs, by the count of their launches
+COL_DESIGN_COUNTS = {"ring": "COL_RING_LAUNCHES", "x": "COL_X_LAUNCHES"}
+
+
 def phase_cols_kernel(prec: str = "complex64"):
+    """The column kernel at every n and mode (COL_MODES: planar, stride-2,
+    in place and one element off alignment with a plain store, the `full`
+    twiddle with a plain and a swapped store, the mid and huge routes'
+    modes) against its plain version and numpy; for complex64 each launch
+    checked against the design it must run (``local.col_design``: the
+    cluster tile from n = 1024, the persistent ring from 16 to 256 on a
+    plain store of planes its tensor maps read, else the first design) by
+    the designs' counts."""
     from pyfft_tpu_torch.ops import local
     spec = PRECISIONS[prec]
     tol, phase = spec["tol"], spec["phases"][1]
@@ -696,6 +752,7 @@ def phase_cols_kernel(prec: str = "complex64"):
     for n in (1 << p for p in range(3, spec["max_log"] + 1)):
         worst_plain = worst_np = 0.0
         cases = 0
+        designs = {}
         modes = COL_MODES
         if prec == "complex128" and local.col_xshape_f64(n):
             modes += COL_MODES_PLANAR
@@ -717,15 +774,35 @@ def phase_cols_kernel(prec: str = "complex64"):
                         if mode.endswith("planar"):
                             re, im = (xc.real.contiguous(),
                                       xc.imag.contiguous())
+                        elif mode == "plain offset":
+                            re, im = (offset_plane(xc.real.contiguous()),
+                                      offset_plane(xc.imag.contiguous()))
                         else:           # the complex form's planes
                             v = torch.view_as_real(xc.clone())
                             re, im = v[..., 0], v[..., 1]
                             if mode == "plain inplace":
                                 out = (re, im)
+                        want = local.col_design(
+                            n, re.dtype, boxable=local._boxable(re, im),
+                            in_ts=re.stride(2), T=T,
+                            tw_mode=kw.get("tw_mode", "full"),
+                            tw_n=kw.get("tw_n", 0),
+                            swap_store=kw.get("swap_store", False),
+                            swap_mid=kw.get("swap_mid", 0))
+                        before = {d: getattr(local, c)
+                                  for d, c in COL_DESIGN_COUNTS.items()}
                         rr, ii = local.fft_axis(re, im, sign, axis=1,
                                                 postscale=post, out=out,
                                                 **kw)
                         torch.cuda.synchronize()
+                        ran = [d for d, c in COL_DESIGN_COUNTS.items()
+                               if getattr(local, c) != before[d]]
+                        ran = ran[0] if ran else "first"
+                        if prec == "complex64" and ran != want:
+                            raise AssertionError(
+                                f"column pass n={n} T={T} {mode}: ran the "
+                                f"{ran} design, expected {want}")
+                        designs[f"{mode}: {want}"] = None
                         if out is not None and rr.data_ptr() != re.data_ptr():
                             raise AssertionError("in-place column launch "
                                                  "wrote elsewhere")
@@ -744,13 +821,22 @@ def phase_cols_kernel(prec: str = "complex64"):
                         cases += 1
         width = local.col_width(n, xc.real.dtype)
         print(f"phase {phase} {prec} column kernel n={n} (C={width} columns "
-              f"a block): {cases} cases, max rel err vs plain "
+              f"a tile on planar planes with a plain store): {cases} cases, "
+              f"designs (by "
+              f"{'their counts' if prec == 'complex64' else 'the rule'}): "
+              f"{', '.join(designs)}; max rel err vs plain "
               f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {tol:.0e})")
+        ring = (local.col_ring_shape(n) if prec == "complex64"
+                and n in local.COL_RING_LENGTHS else None)
+        if ring:
+            print(f"phase {phase} complex64 persistent column ring n={n}: "
+                  f"tiles of {ring['columns']} columns, {ring['threads']} "
+                  f"threads, {ring['slots']} slots, {ring['smem_bytes']} "
+                  f"bytes a block, {ring['blocks_per_sm']} blocks an SM")
         for strided in (False, True):
-            xs = (local.col_xshape_f64(n, strided)
-                  if prec == "complex128" else None)
+            xs = local.col_xshape_f64(n, strided, xc.real.dtype)
             if xs:
-                print(f"phase {phase} complex128 cluster column kernel n={n}"
+                print(f"phase {phase} {prec} cluster column kernel n={n}"
                       f" on {'stride-2' if strided else 'planar'} planes: "
                       f"(G, C) = ({xs['cluster']}, {xs['columns']}), a tile "
                       f"of {xs['columns']} columns over a cluster of "
@@ -890,6 +976,7 @@ def run_path(name: str, seed: int, phase: int) -> dict:
     yf = getattr(pyfft_tpu_torch, fn)(x)
     yb = getattr(pyfft_tpu_torch, ifn)(yf)
     counts = read_counts()
+    designs = design_counts()
     wall = time.perf_counter() - t0
     errs = {"complex": rel_err(y[rows], ref), "roundtrip": rel_err(back, x),
             "planar": rel_err(cplx(rr[rows], ii[rows]), ref),
@@ -910,8 +997,11 @@ def run_path(name: str, seed: int, phase: int) -> dict:
     print(f"phase {phase} {name} {full}: {plan!r}, launches "
           f"{ {k: v for k, v in counts.items() if v} } over 5 executes, "
           + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
-          + f" (against {against}; gate {tol:.0e}; {wall:.2f} s host wall)")
-    return {"x": x, "plan": plan, "counts": counts, "errs": errs}
+          + f" (against {against}; gate {tol:.0e}; {wall:.2f} s host wall)"
+          + "; of those launches, on the redesigns: "
+          + str({k: v for k, v in designs.items() if v}))
+    return {"x": x, "plan": plan, "counts": counts, "errs": errs,
+            "designs": designs}
 
 
 def path_passes(name: str, plan) -> list:
@@ -1047,10 +1137,30 @@ def time_complex_form(row, xs, oshape, run):
           f"{row['complex_ms']:.4f} ms (planar {row['ms']:.4f} ms)")
 
 
+def ran_design(run, f64: bool = False, rows: bool = False) -> str:
+    """The design one launch of ``run`` ran, by the counts its C entry
+    reports: the row ring or the first design (rows; K11 on float64), the
+    persistent ring, the cluster tile or the first design (complex64
+    columns; complex128 columns: the rule, K12 reports nothing)."""
+    from pyfft_tpu_torch.ops import local
+    counts = (("RING_LAUNCHES_F64" if f64 else "RING_LAUNCHES",) if rows
+              else () if f64 else ("COL_RING_LAUNCHES", "COL_X_LAUNCHES"))
+    before = [getattr(local, c) for c in counts]
+    run()
+    torch.cuda.synchronize()
+    for c, b in zip(counts, before):
+        if getattr(local, c) != b:
+            return {"RING_LAUNCHES": "row ring", "RING_LAUNCHES_F64":
+                    "row ring", "COL_RING_LAUNCHES": "persistent ring",
+                    "COL_X_LAUNCHES": "cluster tile"}[c]
+    return "first design" if counts else "not reported (K12 reports none)"
+
+
 def time_col_passes(results, copy_gbs, cases, phase, f64=False):
     """Time column passes [(path, (L, n, T), label, modes, table bytes)]
-    on their path's data, planar and in the complex form; a plain column
-    pass's library call is torch.fft.fft over dim -2."""
+    on their path's data, planar and in the complex form, with the design
+    each ran; a plain column pass's library call is torch.fft.fft over dim
+    -2."""
     from pyfft_tpu_torch.ops import local
     rows = []
     point = 16 if f64 else 8                    # bytes of a complex point
@@ -1058,12 +1168,16 @@ def time_col_passes(results, copy_gbs, cases, phase, f64=False):
         xs = results[path]["x"].reshape(shape3)
         re, im = xs.real.contiguous(), xs.imag.contiguous()
         L, n, T = shape3
-        oshape = (L, T, n) if kw.get("swap_store") else shape3
+        oshape = local._col_out_shape(shape3, 1, kw.get("swap_store", False),
+                                      kw.get("swap_mid", 0))
         out = (torch.empty(oshape, device="cuda", dtype=re.dtype),
                torch.empty(oshape, device="cuda", dtype=re.dtype))
         library = None
         if not kw:
             library = lambda xs=xs: torch.fft.fft(xs, dim=-2)  # noqa: E731
+        design = ran_design(lambda: local.fft_axis(re, im, -1, axis=-2,
+                                                   out=out, **kw), f64)
+        print(f"phase {phase} {path} {label}: design {design}")
         rows.append(time_pass(
             path, label, re, im,
             lambda: local.fft_axis(re, im, -1, axis=-2, out=out, **kw),
@@ -1072,6 +1186,7 @@ def time_col_passes(results, copy_gbs, cases, phase, f64=False):
             fft_flops(n, L * T) + (6 * L * n * T if kw else 0), copy_gbs,
             table_bytes, phase, PEAK_FP64_S if f64 else PEAK_FP32_S))
         rows[-1]["kernel"] = "local_cols_f64" if f64 else "local_cols"
+        rows[-1]["design"] = design
         del out, re, im
         time_complex_form(rows[-1], xs, oshape,
                           lambda r, i, o, kw=kw: local.fft_axis(
@@ -1088,6 +1203,10 @@ def phase_pass_timings(results, copy_gbs):
         ("config 6+", (8, 2048, 2048), "pass 2 (plain store)", {}, 0),
         ("config 3", (16, 1024, 1024), "column pass", {}, 0),
         ("config 4", (1, 256, 65536), "z pass", {}, 0),
+        ("mid", (2, 128, 131072), "pass 1 (strided + swap_mid)",
+         dict(tw_n=128 * 128, tw_mode="strided", tw_period=1024,
+              swap_mid=1024), 128 * 128 * 8),
+        ("mid", (2, 128, 131072), "pass 2 (plain store)", {}, 0),
     ], phase=9)
     # config 4's fused 2D pass, and the row and column passes it replaces
     x = results["config 4"]["x"]
@@ -1131,6 +1250,9 @@ def phase_f64_timings(results, copy_gbs):
     out = (torch.empty_like(re), torch.empty_like(im))
     n = re.shape[-1]
     count = re.numel() // n
+    design = ran_design(lambda: local.fft_axis(re, im, -1, out=out), True,
+                        rows=True)
+    print(f"phase 13 c128 2D row pass: design {design}")
     rows.append(time_pass(
         "c128 2D", "row pass", re, im,
         lambda: local.fft_axis(re, im, -1, out=out),
@@ -1138,6 +1260,7 @@ def phase_f64_timings(results, copy_gbs):
         lambda: torch.fft.fft(x, dim=-1), 2 * re.numel() * 16,
         fft_flops(n, count), copy_gbs, phase=13, peak_flops=PEAK_FP64_S))
     rows[-1]["kernel"] = "local_rows_f64"
+    rows[-1]["design"] = design
     del out, re, im
     time_complex_form(rows[-1], x, tuple(x.shape),
                       lambda r, i, o: local.fft_axis(r, i, -1, out=o))
@@ -3135,6 +3258,10 @@ def main() -> int:
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
               for c in r["pass_checks"]]
+    # the main paths' launches on each redesign (phases 8 and 12)
+    designs = {k: sum(r["designs"][k] for r in (*results.values(),
+                                                 *results64.values()))
+               for k in design_counts()}
     rows_entry = {
         "name": "local_rows", "route": "cuda",
         "source": "pyfft_tpu_torch/ops/csrc/local_rows.cu",
@@ -3156,6 +3283,9 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_local.py:1173", six, checks, launches,
         "config 6+, 2^22 x 8: both four-step passes")
     cols_entry["library_ms"] = e2e["config 6+"]["library_ms"]
+    cols_entry["design_launches"] = {
+        "persistent ring": designs["column ring"],
+        "cluster tile": designs["column cluster tile"]}
     fused = [c for c in timed if c["kernel"] == "fused2d"]
     fused_entry = kernel_entry(
         "fused2d", "pyfft_tpu_torch/ops/csrc/fused2d.cu",
@@ -3170,6 +3300,7 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_df64.py:656", r64, checks, launches,
         "complex128 1024^2 x 16: the row pass")
     rows64_entry["library_ms"] = r64[0]["library_ms"]
+    rows64_entry["design_launches"] = {"row ring": designs["row ring f64"]}
     five = [c for c in timed64 if c["path"] == "config 5"]
     cols64_entry = kernel_entry(
         "local_cols_f64", "pyfft_tpu_torch/ops/csrc/local_cols.cu",

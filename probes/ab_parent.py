@@ -13,8 +13,13 @@ once, and the same wrappers run each build in turn:
   complex form's stride-2 planes) and at 2^24 points with rows of 8, 16,
   32, 64, 512, 1024 (config 3's row pass) and 8192, its interleaved form K2 at config
   2i and at 2048 x 8192, the complex128 row kernel K11 at the complex128
-  2D path's row pass (16384 x 1024), the column kernel K5 at config 6+'s two passes and
-  config 4's z pass, the complex128 column kernel K12 at config 5's two
+  2D path's row pass (16384 x 1024), planar and on the complex form's
+  stride-2 planes, the column kernel K5 at config 6+'s two passes, config
+  4's z pass (planar and stride-2 planes), config 3's column pass (planar
+  and stride-2 planes) and every pass of the mid route (16384 x 1024 x 2)
+  and of the huge route (2^27) and at 2^24 points with n = 8 to 512 (one
+  plane), K11 at 2^24 points with n = 2048 and 4096 too, the complex128
+  column kernel K12 at config 5's two
   passes (planar and on the complex form's stride-2 planes) and at the
   complex128 2D path's column pass (16 x 1024 x 1024), the digit-swapped
   row pass K4 at variant B's pass 2 and at its 2^25 points with rows of
@@ -159,18 +164,21 @@ def cases() -> list:
         return (torch.empty(shape, device="cuda", dtype=real),
                 torch.empty(shape, device="cuda", dtype=real))
 
+    def oshape(shape, kw):
+        return local._col_out_shape(shape, 1, kw.get("swap_store", False),
+                                    kw.get("swap_mid", 0))
+
     def cols(shape, real=torch.float32, **kw):
         re, im = planes(shape, real)
-        L, n, T = shape
-        o = empty((L, T, n) if kw.get("swap_store") else shape, real)
+        o = empty(oshape(shape, kw), real)
         return lambda: local.fft_axis(re, im, -1, axis=1, out=o, **kw)
 
-    def cols_complex(shape, **kw):      # complex128, stride-2 planes
-        v = torch.view_as_real(torch.complex(*planes(shape, torch.float64)))
-        L, n, T = shape
+    def cols_complex(shape, real=torch.float64, **kw):   # stride-2 planes
+        v = torch.view_as_real(torch.complex(*planes(shape, real)))
         w = torch.view_as_real(torch.empty(
-            (L, T, n) if kw.get("swap_store") else shape, device="cuda",
-            dtype=torch.complex128))
+            oshape(shape, kw), device="cuda",
+            dtype=torch.complex128 if real == torch.float64
+            else torch.complex64))
         return lambda: local.fft_axis(v[..., 0], v[..., 1], -1, axis=1,
                                       out=(w[..., 0], w[..., 1]), **kw)
 
@@ -179,10 +187,11 @@ def cases() -> list:
         o = empty(shape, real)
         return lambda: local.fft_axis(re, im, -1, out=o, precision=precision)
 
-    def rows_complex(shape):            # complex64, stride-2 planes
-        v = torch.view_as_real(torch.complex(*planes(shape)))
-        w = torch.view_as_real(torch.empty(shape, device="cuda",
-                                           dtype=torch.complex64))
+    def rows_complex(shape, real=torch.float32):        # stride-2 planes
+        v = torch.view_as_real(torch.complex(*planes(shape, real)))
+        w = torch.view_as_real(torch.empty(
+            shape, device="cuda", dtype=torch.complex128
+            if real == torch.float64 else torch.complex64))
         return lambda: local.fft_axis(v[..., 0], v[..., 1], -1,
                                       out=(w[..., 0], w[..., 1]))
 
@@ -216,6 +225,27 @@ def cases() -> list:
          cols((8, 2048, 2048), **full)),
         ("K5 config 6+ pass 2 (plain store)", cols((8, 2048, 2048))),
         ("K5 config 4 z pass", cols((1, 256, 65536))),
+        ("K5 config 4 z pass stride-2 planes (complex form)",
+         cols_complex((1, 256, 65536), torch.float32)),
+        ("K5 config 3 column pass (16, 1024, 1024)",
+         cols((16, 1024, 1024))),
+        ("K5 config 3 column pass stride-2 planes (complex form)",
+         cols_complex((16, 1024, 1024), torch.float32)),
+        ("K5 mid pass 1 (2, 128, 131072; strided + swap_mid)",
+         cols((2, 128, 131072), tw_n=128 * 128, tw_mode="strided",
+              tw_period=1024, swap_mid=1024)),
+        ("K5 mid pass 2 (2, 128, 131072; plain store)",
+         cols((2, 128, 131072))),
+        ("K5 huge pass 1 (1, 512, 262144; factored + swap_store)",
+         cols((1, 512, 262144), tw_n=1 << 27, tw_mode="factored",
+              swap_store=True)),
+        ("K5 huge pass 2 (1, 512, 262144; strided + swap_mid)",
+         cols((1, 512, 262144), tw_n=1 << 18, tw_mode="strided",
+              tw_period=512, swap_mid=512)),
+        ("K5 huge pass 3 (1, 512, 262144; plain store)",
+         cols((1, 512, 262144))),
+        *[(f"K5 (1, {n}, {(1 << 24) // n})", cols((1, n, (1 << 24) // n)))
+          for n in (8, 16, 32, 64, 128, 256, 512)],
         ("K12 config 5 pass 1 (full + swap_store)",
          cols((64, 2048, 2048), f64, **full)),
         ("K12 config 5 pass 2 (plain store)", cols((64, 2048, 2048), f64)),
@@ -242,6 +272,10 @@ def cases() -> list:
           for n in (8, 16, 32, 64, 512, 1024, 8192)],
         ("K11 c128 2D row pass (16384, 1024)",
          rows((16384, 1024), "highest", f64)),
+        ("K11 c128 2D row pass complex form (16384, 1024)",
+         rows_complex((16384, 1024), f64)),
+        ("K11 (8192, 2048)", rows((8192, 2048), "highest", f64)),
+        ("K11 (4096, 4096)", rows((4096, 4096), "highest", f64)),
         ("K4 variant B pass 2 (8, 2048, 2048)", swap("highest")),
         ("K4 (8, 4096, 1024)", swap("highest", 1024)),
         ("K4 (8, 1024, 4096)", swap("highest", 4096)),

@@ -1,15 +1,16 @@
 """Where the time of the complex128 cluster column kernel (K12 from n =
 1024), the tiled 2D kernel (K9), the multi-tile column kernel (K6), the
-digit-swapped row kernel (K4) and the complex64 row kernels (K1, K2) goes:
+digit-swapped row kernel (K4), the complex64 row kernels (K1, K2), the
+complex64 column kernel (K5) and the complex128 row kernel (K11) goes:
 pieces removed and shape knobs changed, one build each, on one CUDA card.
 
-    python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2]
+    python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2] [K5] [K11]
 
-(the kernels named, all six by default).  Builds, from copies of this
+(the kernels named, all eight by default).  Builds, from copies of this
 checkout's ``csrc/`` patched in a temporary directory (the checkout is not
-touched), ``local_cols.cu`` (K12, K6, K4), ``fused2d_tiled.cu`` (K9) and
-``local_rows.cu`` (K1, K2) in these variants, one nvcc each, eight at a
-time:
+touched), ``local_cols.cu`` (K12, K6, K4, K5), ``fused2d_tiled.cu`` (K9)
+and ``local_rows.cu`` (K1, K2, K11) in these variants, one nvcc each,
+eight at a time:
 
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
@@ -82,12 +83,49 @@ time:
             waits for the copies' reads before it refills the slot), not
             stores from registers: the alternative the chip showed slower,
             kept here as a patch and not in the source
+  c5old     K5's first design at every n (local_cols_kernel: the
+            persistent ring's table PYFFT_COLS_PRING and the float cluster
+            tables emptied), P2's counterpart
+  c5oldnotw the first design without twiddle multiplies
+  c5oldcopy the first design as its loads and its store pass (one stage,
+            no DFT arithmetic, no chain)
+  c5notw    the persistent ring and the float cluster tile without
+            twiddle multiplies (the chains', the exchange's)
+  c5copy    the ring's box copies and its stores alone (no chain: the
+            slot's raw planes stored from registers)
+  c5r8      the ring's chain on radix 8 (PRING_R16 off)
+  c5twd0    the ring's chain reading every twiddle of a butterfly
+  c5s2      the ring of 2 slots (3 by default)
+  c5c16     the ring at n = 256 on tiles of 16 columns (64-byte runs,
+            32 KB slots, two blocks an SM)
+  c5c16s6   the same with 6 slots (one block an SM)
+  c5wave    the ring's grid one whole wave (not cut to whole rounds)
+  c5ring512 the ring at n = 512 too (C = 16, two boxes of 256 rows a
+            plane; the source's table leaves 512 to the first design)
+  c5n512    the same on tiles of 8 columns (32 KB slots)
+  c5ring8   the ring at n = 8 too (the source's table leaves 8 to the first
+            design)
+  k11old    K11's first design at every n (PYFFT_ROWS_RING_F64 emptied),
+            P4's K11 half; k11oldnotw and k11oldcopy as oldnotw and oldcopy
+  k11oldtwd0 the first design reading every twiddle of a radix-8
+            butterfly (OLD_TWD_F64 off: the design before this split)
+  k11ring   K11's ring at n = 1024, 2048 and 4096 (the source's table
+            leaves 1024 and 2048 to the first design with TWD)
+  k11r8     K11's ring on radix 8 (RING_R16_F64 off)
+  k11rpb4   k11ring with 4 rows a slot at n = 1024 (one block an SM)
+  k11rpb1   k11ring with 1 row a slot at n = 1024 (four blocks an SM)
+  k11rs2    k11ring of 2 slots
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
 complex128, split 2048 x 2048: pass 1 the full twiddle and the swapped
 store, pass 2 the plain store), planar and on the complex form's stride-2
-planes, and the complex128 2D column pass (16 x 1024 x 1024); K9 at config
+planes, and the complex128 2D column pass (16 x 1024 x 1024); K5 at
+config 4's z pass (1 x 256 x 65536, planar and stride-2 planes), config
+3's column pass (16 x 1024 x 1024), config 6+'s two passes and the plain
+passes of the mid and huge routes (n = 128, 512); K11 at the complex128
+2D row pass (16384 x 1024, planar and complex form) and at 2^24 points
+with n = 2048 and 4096; K9 at config
 3 (16 x 1024 x 1024) and 16 x 512 x 512; K6 at config 4's z pass (1 x 256
 x 65536, c = 1, 2, 8), variant B's pass 1 (8 x 2048 x 2048, `full`
 twiddle, c = 1, 8) and 2^24 points at n = 512 and 1024 (c = 1, 8); K4 at variant B's pass 2 (8 x 2048 x 2048) and at the
@@ -143,6 +181,28 @@ SWAP_NT = "constexpr int SWAP_THREADS = 256, SWAP_BLOCKS = 3;"
 # the row ring's chain options and its store (local_rows.cu)
 RING_KNOBS = ("constexpr bool RING_PAD = true, RING_TWD = true, "
               "RING_R16 = true;")
+# K5's persistent ring: its table, its chain options and its grid; the
+# float cluster tables; K11's ring table and radix
+PRING = re.search(r"#define PYFFT_COLS_PRING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
+                  (build.CSRC / "local_cols.cu").read_text()).group(0)
+PRING_KNOBS = "constexpr bool PRING_R16 = true, PRING_TWD = true;"
+PRING_GRID = "  const long long grid = (tiles + rounds - 1) / rounds;"
+XCOLS_F32 = re.search(r"#define PYFFT_XCOLS_F32\(X\)[^\n]*\\\n[^\n]*\n",
+                      (build.CSRC / "local_cols.cu").read_text()).group(0)
+XCOLS_F32_S2 = re.search(
+    r"#define PYFFT_XCOLS_F32_S2\(X\)[^\n]*\\\n[^\n]*\n",
+    (build.CSRC / "local_cols.cu").read_text()).group(0)
+ROWS_RING_F64 = "#define PYFFT_ROWS_RING_F64(X) X(12, 1, 2)"
+# K11's ring at every length it may take (the table before the split sent
+# n = 1024 and 2048 back to the first design)
+K11_RING = ("#define PYFFT_ROWS_RING_F64(X) X(10, 2, 3) X(11, 1, 3) "
+            "X(12, 1, 2)")
+R16_F64 = "constexpr bool RING_R16_F64 = true;"
+# the ring's chain call, which c5copy replaces by stores of the raw slot
+PRING_CHAIN = ("    chain<NT, LOGN, C, false, 0, 1, true, true, false, "
+               "PRING_TWD, K::R16,\n          true>(sm, fresh(tw), s, load, "
+               "store);")
+
 # the ring's table, (log2 n, rows a slot, slots), as the source states it
 ROWS_RING = re.search(r"#define PYFFT_ROWS_RING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
                       (build.CSRC / "local_rows.cu").read_text()).group(0)
@@ -180,8 +240,8 @@ STEPS = {
          "__ldg(&tw[b * kp]));\n", ""),
         ("chain.cuh", "    if (NS > 1) {", "    if (NS < 0) {"),
         ("local_cols.cu",
-         "    double2 w = __ldg(&io.ta[k * io.ak + q * io.aq]);",
-         "    double2 w = make_double2(1.0, 0.0);")],
+         "\n    V w = __ldg(&io.ta[k * io.ak + q * io.aq]);",
+         "\n    V w = Complex<Real>::make(1, 0);")],
     "noarith": [
         ("cluster_cols.cuh", "    dft<R>(v[b], s);\n", ""),
         ("cluster_cols.cuh", "    dft<G>(u[i], s);\n", ""),
@@ -309,12 +369,14 @@ STEPS = {
          "  else\n"
          "    asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
          "\"memory\");\n}\n\n"
-         "inline bool ring_rows_out_bulk(const RingIo& io) {\n"
+         "template <typename Real>\n"
+         "inline bool ring_rows_out_bulk(const RingIo<Real>& io) {\n"
          "  const uintptr_t a = reinterpret_cast<uintptr_t>(io.out);\n"
          "  const uintptr_t b = reinterpret_cast<uintptr_t>(io.out_im);\n"
          "  return (io.out_pairs || (io.out_es == 1 && b % 16 == 0)) && "
          "a % 16 == 0 &&\n"
-         "         (io.rows == 1 || io.out_rs % 4 == 0);\n}\n\n"
+         "         (io.rows == 1 || io.out_rs * (long long)sizeof(Real) % 16 "
+         "== 0);\n}\n\n"
          "// Copy the box of the 2D tensor map `map` at (c0, c1) into shared "
          "`dst`,\n"),
         ("local_rows.cu",
@@ -329,10 +391,12 @@ STEPS = {
          "issue(i + S - 1);\n"),
         # the last stage writes the slot's raw rows, as they were read
         ("local_rows.cu",
-         "      const float2 y = make_float2(v.x * io.post, v.y * io.post);\n",
-         "      const float2 y = make_float2(v.x * io.post, v.y * io.post);\n"
+         "      const V y = Complex<Real>::make(v.x * io.post, v.y * io.post);"
+         "\n",
+         "      const V y = Complex<Real>::make(v.x * io.post, v.y * io.post);"
+         "\n"
          "      if constexpr (BULK) {\n"
-         "        float* g = reinterpret_cast<float*>(sm);\n"
+         "        Real* g = reinterpret_cast<Real*>(sm);\n"
          "        if (pout) {\n"
          "          sm[c * N + k] = y;\n"
          "        } else {\n"
@@ -354,10 +418,13 @@ STEPS = {
          "        for (int r = 0; r < nr; ++r) {\n"
          "          const long long o = (row0 + r) * io.out_rs;\n"
          "          if (pout) {\n"
-         "            bulk_store(io.out + o, sm + r * N, N * 8);\n"
+         "            bulk_store(io.out + o, sm + r * N, "
+         "N * (int)sizeof(V));\n"
          "          } else {\n"
-         "            bulk_store(io.out + o, f + r * N, N * 4);\n"
-         "            bulk_store(io.out_im + o, f + P + r * N, N * 4);\n"
+         "            bulk_store(io.out + o, f + r * N, "
+         "N * (int)sizeof(Real));\n"
+         "            bulk_store(io.out_im + o, f + P + r * N,\n"
+         "                       N * (int)sizeof(Real));\n"
          "          }\n"
          "        }\n"
          "        asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
@@ -369,11 +436,65 @@ STEPS = {
          "}\n\n// The card's SMs"),
         # outputs the bulk store cannot write run the first design
         ("local_rows.cu",
-         "  if (ring.rows > 0 && ring_rows_rpb(log2n) && "
-         "ring_rows_operands(ring)) {\n",
-         "  if (ring.rows > 0 && ring_rows_rpb(log2n) && "
-         "ring_rows_operands(ring) &&\n"
+         "  if (ring.rows > 0 && ring_rows_rpb<Real>(log2n) &&\n"
+         "      ring_rows_operands(ring)) {\n",
+         "  if (ring.rows > 0 && ring_rows_rpb<Real>(log2n) &&\n"
+         "      ring_rows_operands(ring) &&\n"
          "      (log2n < 9 || ring_rows_out_bulk(ring))) {\n")],
+    "c5old": [("local_cols.cu", PRING, "#define PYFFT_COLS_PRING(X)\n"),
+              ("local_cols.cu", XCOLS_F32, "#define PYFFT_XCOLS_F32(X)\n"),
+              ("local_cols.cu", XCOLS_F32_S2,
+               "#define PYFFT_XCOLS_F32_S2(X)\n")],
+    "c5oldnotw": [("local_cols.cu", "    if (NS > 1) {\n      const int jj",
+                   "    if (NS < 0) {\n      const int jj")],
+    "c5oldcopy": [
+        ("local_cols.cu", "    dft<R>(v[b], s);\n  }\n  // a stage after",
+         "  }\n  // a stage after"),
+        ("local_cols.cu",
+         "  static constexpr int NSTAGES = LOGN / 3 + (REM ? 1 : 0);\n"
+         "  static_assert(C >= 1 && 128 % C == 0",
+         "  static constexpr int NSTAGES = 1;\n"
+         "  static_assert(C >= 1 && 128 % C == 0")],
+    "c5notw": [
+        ("chain.cuh", "    if (NS > 1) {", "    if (NS < 0) {"),
+        ("cluster_cols.cuh", "    if (NS > 1) {", "    if (NS < 0) {"),
+        ("cluster_cols.cuh",
+         "    for (int b = 1; b < G; ++b) u[i][b] = cmul(u[i][b], "
+         "__ldg(&tw[b * kp]));\n", "")],
+    "c5copy": [("local_cols.cu", PRING_CHAIN,
+                "    __syncthreads();\n"
+                "    for (int e = threadIdx.x; e < P; e += NT)\n"
+                "      store(e % C, e / C, load(e % C, e / C));\n"
+                "    __syncthreads();")],
+    "c5r8": [("local_cols.cu", PRING_KNOBS,
+              PRING_KNOBS.replace("R16 = true", "R16 = false"))],
+    "c5twd0": [("local_cols.cu", PRING_KNOBS,
+                PRING_KNOBS.replace("TWD = true", "TWD = false"))],
+    "c5s2": [("local_cols.cu", PRING, PRING.replace(", 3)", ", 2)"))],
+    "c5c16": [("local_cols.cu", PRING, PRING.replace(
+        "X(8, 32, 3)", "X(8, 16, 3)"))],
+    "c5c16s6": [("local_cols.cu", PRING, PRING.replace(
+        "X(8, 32, 3)", "X(8, 16, 6)"))],
+    "c5ring512": [("local_cols.cu", PRING, PRING.replace(
+        "X(8, 32, 3)", "X(8, 32, 3) X(9, 16, 3)"))],
+    "c5ring8": [("local_cols.cu", PRING, PRING.replace(
+        "X(4, 128, 3)", "X(3, 128, 3) X(4, 128, 3)"))],
+    "c5wave": [("local_cols.cu", PRING_GRID,
+                "  const long long grid = tiles < wave ? tiles : wave;")],
+    "k11old": [("local_rows.cu", ROWS_RING_F64,
+                "#define PYFFT_ROWS_RING_F64(X)")],
+    "k11r8": [("local_rows.cu", R16_F64, R16_F64.replace("true", "false"))],
+    "k11twd0": [("local_rows.cu", "constexpr bool OLD_TWD_F64 = true;",
+                 "constexpr bool OLD_TWD_F64 = false;")],
+    "c5n512": [("local_cols.cu", PRING, PRING.replace(
+        "X(8, 32, 3)", "X(8, 32, 3) X(9, 8, 3)"))],
+    "k11ring": [("local_rows.cu", ROWS_RING_F64, K11_RING)],
+    "k11rpb4": [("local_rows.cu", ROWS_RING_F64,
+                 K11_RING.replace("X(10, 2, 3)", "X(10, 4, 3)"))],
+    "k11rpb1": [("local_rows.cu", ROWS_RING_F64,
+                 K11_RING.replace("X(10, 2, 3)", "X(10, 1, 3)"))],
+    "k11rs2": [("local_rows.cu", ROWS_RING_F64,
+                K11_RING.replace(", 3)", ", 2)"))],
     "rall": [rows_ring(RPB)],
     "rs2": [rows_ring(RPB, 2)],
     "rs3": [rows_ring(RPB_AT, 3)],
@@ -383,9 +504,9 @@ STEPS = {
 
 # name -> (kernels timed, steps taken in order, -D macros)
 VARIANTS = {
-    "full": (("K12", "K9", "K6", "K4", "K1", "K2"), [], {}),
-    "notw": (("K12", "K9"), ["notw"], {}),
-    "copy": (("K12", "K9"), ["notw", "noarith", "copy"], {}),
+    "full": (("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11"), [], {}),
+    "notw": (("K12", "K9", "K5"), ["notw"], {}),
+    "copy": (("K12", "K9", "K5"), ["notw", "noarith", "copy"], {}),
     "g4": (("K12",), ["g4"], {}),
     "m1": (("K12",), ["m1"], {}),
     "s2c16": (("K12",), ["s2c16"], {}),
@@ -425,10 +546,36 @@ VARIANTS = {
     "r8k": (("K1", "K2"), ["r8k"], {}),
     "r2k": (("K1", "K2"), ["r2k"], {}),
     "rbulk": (("K1", "K2"), ["rbulk"], {}),
+    "c5old": (("K5",), ["c5old"], {}),
+    "c5oldnotw": (("K5",), ["c5old", "c5oldnotw"], {}),
+    "c5oldcopy": (("K5",), ["c5old", "c5oldnotw", "c5oldcopy"], {}),
+    "c5notw": (("K5",), ["c5notw"], {}),
+    "c5copy": (("K5",), ["c5copy"], {}),
+    "c5r8": (("K5",), ["c5r8"], {}),
+    "c5twd0": (("K5",), ["c5twd0"], {}),
+    "c5s2": (("K5",), ["c5s2"], {}),
+    "c5c16": (("K5",), ["c5c16"], {}),
+    "c5c16s6": (("K5",), ["c5c16s6"], {}),
+    "c5wave": (("K5",), ["c5wave"], {}),
+    "k11old": (("K11",), ["k11old"], {}),
+    "k11oldnotw": (("K11",), ["k11old", "oldnotw"], {}),
+    "k11oldcopy": (("K11",), ["k11old", "oldnotw", "oldcopy"], {}),
+    "k11oldtwd0": (("K11",), ["k11old", "k11twd0"], {}),
+    "c5n512": (("K5",), ["c5n512"], {}),
+    "c5ring512": (("K5",), ["c5ring512"], {}),
+    "c5ring8": (("K5",), ["c5ring8"], {}),
+    "k11ring": (("K11",), ["k11ring"], {}),
+    "k11rnotw": (("K11",), ["rnotw"], {}),
+    "k11rcopy": (("K11",), ["rcopy"], {}),
+    "k11r8": (("K11",), ["k11r8"], {}),
+    "k11rpb4": (("K11",), ["k11rpb4"], {}),
+    "k11rpb1": (("K11",), ["k11rpb1"], {}),
+    "k11rs2": (("K11",), ["k11rs2"], {}),
 }
-ALL = ("K12", "K9", "K6", "K4", "K1", "K2")
+ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11")
 # the source each kernel is built from
-SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12, "K1": K1, "K2": K1}
+SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12, "K1": K1, "K2": K1,
+          "K5": K12, "K11": K1}
 
 
 def patched(variant: str, tmp: Path) -> Path:
@@ -488,7 +635,8 @@ def compile_all(tmp: Path, kernels) -> dict:
 # a kernel's mangled name -> its name <template arguments>
 KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel|"
                     r"local_cols_ring_kernel|local_rows_swap_x_kernel|"
-                    r"local_rows_ring_kernel)I(\w+?)E(?:EEv|Ev)")
+                    r"local_rows_ring_kernel|local_cols_pring_kernel)"
+                    r"I(\w+?)E(?:EEv|Ev)")
 
 
 def ptxas_report(log: str) -> list:
@@ -555,17 +703,32 @@ def cases() -> list:
              torch.empty((8, n, (1 << 22) // n), device="cuda"))
         return lambda: local.fft_rows_swap(re, im, -1, out=o)
 
-    def rows(shape, complex_form=False):
+    def rows(shape, complex_form=False, real=torch.float32):
+        if complex_form:
+            v = torch.view_as_real(torch.complex(*planes(shape, real)))
+            w = torch.view_as_real(torch.empty(
+                shape, device="cuda", dtype=torch.complex128
+                if real == f64 else torch.complex64))
+            re, im, o = v[..., 0], v[..., 1], (w[..., 0], w[..., 1])
+        else:
+            re, im = planes(shape, real)
+            o = (torch.empty_like(re), torch.empty_like(im))
+        return lambda: local.fft_axis(re, im, -1, out=o)
+
+    def cols32(shape, complex_form=False, **kw):
+        L, n, T = shape
+        oshape = (L, T, n) if kw.get("swap_store") else shape
         if complex_form:
             v = torch.view_as_real(torch.complex(*planes(shape,
                                                          torch.float32)))
-            w = torch.view_as_real(torch.empty(shape, device="cuda",
+            w = torch.view_as_real(torch.empty(oshape, device="cuda",
                                                dtype=torch.complex64))
             re, im, o = v[..., 0], v[..., 1], (w[..., 0], w[..., 1])
         else:
             re, im = planes(shape, torch.float32)
-            o = (torch.empty_like(re), torch.empty_like(im))
-        return lambda: local.fft_axis(re, im, -1, out=o)
+            o = (torch.empty(oshape, device="cuda"),
+                 torch.empty(oshape, device="cuda"))
+        return lambda: local.fft_axis(re, im, -1, axis=1, out=o, **kw)
 
     def rows_il(shape):
         v = torch.view_as_real(torch.complex(*planes(
@@ -608,7 +771,27 @@ def cases() -> list:
         ("K2", "K2 2048 x 8192 interleaved", lambda: rows_il((2048, 8192)))
     ] + [("K1", f"K1 ({(1 << 24) >> k}, {1 << k})",
           lambda k=k: rows(((1 << 24) >> k, 1 << k)))
-         for k in range(3, 14) if k != 12]
+         for k in range(3, 14) if k != 12] + [
+        ("K5", "K5 config 4 z pass (1, 256, 65536)",
+         lambda: cols32((1, 256, 65536))),
+        ("K5", "K5 config 4 z pass stride-2 planes",
+         lambda: cols32((1, 256, 65536), True)),
+        ("K5", "K5 config 3 column pass (16, 1024, 1024)",
+         lambda: cols32((16, 1024, 1024))),
+        ("K5", "K5 config 6+ pass 1 (8, 2048, 2048; full + swap_store)",
+         lambda: cols32((8, 2048, 2048), tw_n=1 << 22, swap_store=True)),
+        ("K5", "K5 config 6+ pass 2 (8, 2048, 2048)",
+         lambda: cols32((8, 2048, 2048))),
+        ("K5", "K5 mid pass 2 (2, 128, 131072)",
+         lambda: cols32((2, 128, 131072))),
+        ("K5", "K5 huge pass 3 (1, 512, 262144)",
+         lambda: cols32((1, 512, 262144))),
+        ("K11", "K11 c128 2D row pass (16384, 1024)",
+         lambda: rows((16384, 1024), real=f64)),
+        ("K11", "K11 c128 2D row pass complex form",
+         lambda: rows((16384, 1024), True, f64)),
+        ("K11", "K11 (8192, 2048)", lambda: rows((8192, 2048), real=f64)),
+        ("K11", "K11 (4096, 4096)", lambda: rows((4096, 4096), real=f64))]
 
 
 # before any use() replaces them
@@ -630,9 +813,10 @@ def use(lib, name: str) -> None:
         local._ctile_fn = lambda: ctile
         local._rows_swap_fn = lambda: swap
     elif name == K1:
-        rows = ab_parent.bind(lib, ROWS_BINDER, torch.float32)
+        rows = {d: ab_parent.bind(lib, ROWS_BINDER, d)
+                for d in ab_parent.DTYPES}
         il = ab_parent.bind(lib, IL_BINDER)
-        local._rows_fn = lambda d: rows
+        local._rows_fn = lambda d: rows[d]
         local._rows_il_fn = lambda: il
     else:
         typed = fused2d._typed(lib, K9)

@@ -1,7 +1,11 @@
 // A Stockham radix-8 chain over C transforms held in one shared-memory
 // buffer, with functors for the first stage's loads and the last stage's
 // stores: the stage code of the 2D kernels (fused2d.cu, K8, and
-// fused2d_tiled.cu, K9).  NT is the block's thread count.  Complex64.
+// fused2d_tiled.cu, K9), of the row ring (local_rows.cu, K1, K2 and K11)
+// and of the column ring (local_cols.cu, K5).  NT is the block's thread
+// count.  `stage` and `chain` take complex64 (float2) or complex128
+// (double2) values, their type deduced from the buffer; the rest is
+// complex64.
 // For their int8 kernels (precision="int8"), `lead` runs the stages in
 // front of the f-point int8 stage, ChainMap gives that stage
 // (int8_stage.cuh's int8_stage_tc) the buffer's layout and put_pair writes
@@ -47,14 +51,14 @@ __device__ __forceinline__ int chain_index(int c, int k) {
 // too.
 template <int NT, int N, int C, bool ROWS, int R, int NS, bool FIRST,
           bool LAST, bool PAD = false, bool TWD = false, bool SYNC0 = false,
-          class Load, class Store>
-__device__ __forceinline__ void stage(float2* sm,
-                                      const float2* __restrict__ tw, float s,
+          class V, class Load, class Store>
+__device__ __forceinline__ void stage(V* sm, const V* __restrict__ tw,
+                                      typename RealOf<V>::T s,
                                       const Load& load, const Store& store) {
   constexpr int NR = N / R;          // butterflies per transform
   constexpr int B = NR * C / NT;     // butterflies per thread
   static_assert(B * R * NT == N * C, "threads must tile the block exactly");
-  float2 v[B][R];
+  V v[B][R];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int q = threadIdx.x + b * NT;
@@ -69,7 +73,7 @@ __device__ __forceinline__ void stage(float2* sm,
       if constexpr (TWD && R == 16) {
         // w^1, w^2, w^3, w^4, w^8 read; the others one or two products
         const int e = jj * (N / (NS * R));      // w^r at tw[r*e]
-        float2 w[R];
+        V w[R];
         w[1] = __ldg(&tw[e]);
         w[2] = __ldg(&tw[2 * e]);
         w[3] = __ldg(&tw[3 * e]);
@@ -84,12 +88,12 @@ __device__ __forceinline__ void stage(float2* sm,
         for (int r = 1; r < R; ++r) v[b][r] = cmul(v[b][r], w[r]);
       } else if constexpr (TWD && R >= 4) {
         const int e = jj * (N / (NS * R));      // w^r at tw[r*e]
-        const float2 w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+        const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
         v[b][1] = cmul(v[b][1], w1);
         v[b][2] = cmul(v[b][2], w2);
         v[b][3] = cmul(v[b][3], cmul(w1, w2));
         if constexpr (R == 8) {
-          const float2 w4 = __ldg(&tw[4 * e]);
+          const V w4 = __ldg(&tw[4 * e]);
           v[b][4] = cmul(v[b][4], w4);
           v[b][5] = cmul(v[b][5], cmul(w1, w4));
           v[b][6] = cmul(v[b][6], cmul(w2, w4));
@@ -131,9 +135,9 @@ __device__ __forceinline__ void stage(float2* sm,
 // SYNC0: stage 0's load reads the buffer).
 template <int NT, int LOGN, int C, bool ROWS, int STAGE, int NS, bool LOAD,
           bool STORE, bool PAD = false, bool TWD = false, bool R16 = false,
-          bool SYNC0 = false, class Load, class Store>
-__device__ __forceinline__ void chain(float2* sm,
-                                      const float2* __restrict__ tw, float s,
+          bool SYNC0 = false, class V, class Load, class Store>
+__device__ __forceinline__ void chain(V* sm, const V* __restrict__ tw,
+                                      typename RealOf<V>::T s,
                                       const Load& load, const Store& store) {
   constexpr int RB = R16 ? 4 : 3;                // log2 of the main radix
   constexpr int REM = LOGN % RB;

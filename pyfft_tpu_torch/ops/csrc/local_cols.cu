@@ -86,6 +86,16 @@
 // writes elsewhere than it reads and may not.  The cluster kernel keeps
 // both rules: a cluster's loads all come before its first barrier.
 //
+// That first design is K5's only where the redesigns below do not take the
+// pass.  complex64 from n = 1024 runs the cluster tile of K12 in float
+// (local_cols_x_kernel<float, ...>, PYFFT_XCOLS_F32: 128-byte runs of each
+// plane, every twiddle mode and store); up to n = 512, a plain store with
+// no twiddle or the `full` one on planes a tensor map reads runs a
+// persistent ring of tiles fed by tensor copies (local_cols_pring_kernel,
+// PYFFT_COLS_PRING, n = 16 to 256, below K4).  The C entry returns RAN_X or
+// RAN_RING
+// where they ran.
+//
 // Each operand is a pair of real planes with strides in elements: planar
 // data has unit t stride, the two planes of torch.view_as_real of a
 // complex tensor stride 2.  Offsets are 64-bit.  T and the block count
@@ -194,15 +204,18 @@
 // `pyfft_local_cols_f64` (double), `pyfft_local_rows_swap` (K4),
 // `pyfft_local_cols_ctile` (K6), `pyfft_local_cols_i8` (float, int8
 // stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths,
-// the complex128 cluster kernel's shape (`pyfft_local_cols_xshape_f64`)
-// and K4's and K6's (`pyfft_local_rows_swap_shape`,
-// `pyfft_local_cols_ring_shape`), at the bottom.
+// the cluster kernel's shape (`pyfft_local_cols_xshape_f64`,
+// `pyfft_local_cols_xshape`), the persistent ring's
+// (`pyfft_local_cols_pring_shape`) and K4's and K6's
+// (`pyfft_local_rows_swap_shape`, `pyfft_local_cols_ring_shape`), at the
+// bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "chain.cuh"
 #include "cluster_cols.cuh"
 #include "int8_stage.cuh"
 #include "ring_cols.cuh"
@@ -754,7 +767,7 @@ cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
   return cudaGetLastError();
 }
 
-// ------------------------------- K12 from n = 1024: cluster column tiles
+// ------------------- K12 and K5 from n = 1024: cluster column tiles
 
 // (log2 n, G, C, B) of the complex128 cluster column kernel: at these
 // lengths a tile of C columns (C doubles a row of each plane) is split over
@@ -769,36 +782,54 @@ cudaError_t launch_i8(const Cols<float>& io, const float2* tw, float s,
 #ifndef PYFFT_XCOLS_F64_S2
 #define PYFFT_XCOLS_F64_S2(X) X(10, 2, 8, 2) X(11, 4, 8, 2) X(12, 8, 8, 2)
 #endif
+// The complex64 tables (K5 from n = 1024, every twiddle mode and store):
+// 32 floats, 128 bytes of each plane a row, planar, 256 rows a block (64
+// KB of shared memory); 16 pairs on the stride-2 planes, 256 rows a block
+// (32 KB) up to n = 2048, then 512; registers for two blocks an SM.  At
+// n = 8192 a cluster of 16 blocks (the largest) takes 16 columns, 64
+// bytes a row of each plane planar.
+#ifndef PYFFT_XCOLS_F32
+#define PYFFT_XCOLS_F32(X) \
+  X(10, 4, 32, 2) X(11, 8, 32, 2) X(12, 16, 32, 2) X(13, 16, 16, 2)
+#endif
+#ifndef PYFFT_XCOLS_F32_S2
+#define PYFFT_XCOLS_F32_S2(X) \
+  X(10, 4, 16, 2) X(11, 8, 16, 2) X(12, 8, 16, 2) X(13, 16, 16, 2)
+#endif
 
-// Whether planes of t stride `in_ts` take PYFFT_XCOLS_F64_S2.
+// Whether planes of t stride `in_ts` take the _S2 table.
 inline bool xcols_strided(long long in_ts) { return in_ts != 1; }
 
-template <int LOGN, int G, int C>
+template <typename Real, int LOGN, int G, int C>
 struct XCols {
+  using V = typename Complex<Real>::V;
   static constexpr int M = (1 << LOGN) / G;                  // rows a block
   static constexpr int NT = M * C / 8 < 512 ? M * C / 8 : 512;
-  using X = XTile<double, LOGN - ilog2c(G), G, C, NT>;
-  static constexpr int SMEM_PLAIN = X::P * (int)sizeof(double2);
+  using X = XTile<Real, LOGN - ilog2c(G), G, C, NT>;
+  static constexpr int SMEM_PLAIN = X::P * (int)sizeof(V);
   // the swapped store's [c][k] buffer, padded by one element a column
-  static constexpr int SMEM_SWAP = (M + 1) * C * (int)sizeof(double2);
+  static constexpr int SMEM_SWAP = (M + 1) * C * (int)sizeof(V);
   static_assert(128 % C == 0, "a tile's t-run must not cross 128");
   static_assert(SMEM_SWAP <= 227 * 1024, "fits a block's shared memory");
 };
 
-// K12's function on one (l, run of C consecutive t) tile a cluster: the
-// tile's loads, the n/G-point chain and the exchange of cluster_cols.cuh,
-// then the store pass's twiddle, postscale and store for each value, from
-// registers.  The plain store (and swap_mid) runs threads along t; the
-// swapped store has the chain leave [c][k] buffers and runs threads along
-// k (the exchange's KMAJOR), M/G consecutive k of a column.
-template <int LOGN, int G, int C, int MINB, bool SWAP,
-          int NT = XCols<LOGN, G, C>::NT>
+// The column function on one (l, run of C consecutive t) tile a cluster
+// (K12, and K5 in float): the tile's loads, the n/G-point chain and the
+// exchange of cluster_cols.cuh, then the store pass's twiddle, postscale
+// and store for each value, from registers.  The plain store (and
+// swap_mid) runs threads along t; the swapped store has the chain leave
+// [c][k] buffers and runs threads along k (the exchange's KMAJOR), M/G
+// consecutive k of a column.
+template <typename Real, int LOGN, int G, int C, int MINB, bool SWAP,
+          int NT = XCols<Real, LOGN, G, C>::NT>
 __global__ void __launch_bounds__(NT, MINB)
-    local_cols_x_kernel(Cols<double> io, const double2* __restrict__ tw,
-                        double s) {
-  using X = typename XCols<LOGN, G, C>::X;
+    local_cols_x_kernel(Cols<Real> io,
+                        const typename Complex<Real>::V* __restrict__ tw,
+                        Real s) {
+  using X = typename XCols<Real, LOGN, G, C>::X;
+  using V = typename Complex<Real>::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double2* sm = reinterpret_cast<double2*>(smem_raw);
+  V* sm = reinterpret_cast<V*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   // l fastest: neighbouring clusters work on the same t-run
@@ -806,9 +837,9 @@ __global__ void __launch_bounds__(NT, MINB)
   const long long l = tile % io.L, t0 = (tile / io.L) * C;
   xt_load<X>(sm, rank, [&](int c, int j) {
     const long long t = t0 + c;
-    if (t >= io.T) return make_double2(0.0, 0.0);
+    if (t >= io.T) return Complex<Real>::make(0, 0);
     const long long o = l * io.in_ls + j * io.in_ns + t * io.in_ts;
-    return make_double2(io.in_re[o], io.in_im[o]);
+    return Complex<Real>::make(io.in_re[o], io.in_im[o]);
   });
   __syncthreads();
   xt_chain<X, SWAP>(sm, tw, s);
@@ -819,7 +850,7 @@ __global__ void __launch_bounds__(NT, MINB)
   // the store pass's twiddle of output k of column c (t = t0 + c)
   const auto twiddle = [&](int c, long long t, int k) {
     const long long q = io.adiv > 1 ? q0 : t;
-    double2 w = __ldg(&io.ta[k * io.ak + q * io.aq]);
+    V w = __ldg(&io.ta[k * io.ak + q * io.aq]);
     if (io.tw_mode == TW_FACTORED)
       w = cmul(w, __ldg(&io.tb[k * io.bk + (r0 + c) * io.bq]));
     return w;
@@ -827,10 +858,10 @@ __global__ void __launch_bounds__(NT, MINB)
   // outputs k = k' + M*k2 of column c: at a fixed t every mode's twiddle
   // is w^(k*q) for one root w, so w(k' + M*k2) = w(k') * w(M)^k2, two
   // table reads for the G outputs
-  const auto out = [&](int c, int kp, const double2* y) {
+  const auto out = [&](int c, int kp, const V* y) {
     const long long t = t0 + c;
     if (t >= io.T) return;
-    double2 w = make_double2(1.0, 0.0), step = w;
+    V w = Complex<Real>::make(1, 0), step = w;
     if (io.tw_mode != TW_NONE) {
       w = twiddle(c, t, kp);
       step = twiddle(c, t, X::M);
@@ -838,7 +869,7 @@ __global__ void __launch_bounds__(NT, MINB)
     const long long o = l * io.out_ls + a0 * io.out_as + (b0 + c) * io.out_bs;
 #pragma unroll
     for (int k2 = 0; k2 < G; ++k2) {
-      double2 v = y[k2];
+      V v = y[k2];
       if (io.tw_mode != TW_NONE) {
         v = cmul(v, w);
         w = cmul(w, step);
@@ -851,14 +882,15 @@ __global__ void __launch_bounds__(NT, MINB)
   xt_exchange<X, SWAP>(cluster, sm, tw, s, 0, rank, out);
 }
 
-template <int LOGN, int G, int C, int MINB, bool SWAP>
-cudaError_t launch_x(const Cols<double>& io, const double2* tw, double s,
+template <typename Real, int LOGN, int G, int C, int MINB, bool SWAP>
+cudaError_t launch_x(const Cols<Real>& io,
+                     const typename Complex<Real>::V* tw, Real s,
                      cudaStream_t stream) {
-  using K = XCols<LOGN, G, C>;
+  using K = XCols<Real, LOGN, G, C>;
   const long long tiles = (io.T + C - 1) / C * io.L;
-  return launch_cluster<K::NT>(local_cols_x_kernel<LOGN, G, C, MINB, SWAP>,
-                               tiles, G, SWAP ? K::SMEM_SWAP : K::SMEM_PLAIN,
-                               stream, io, tw, s);
+  return launch_cluster<K::NT>(
+      local_cols_x_kernel<Real, LOGN, G, C, MINB, SWAP>, tiles, G,
+      SWAP ? K::SMEM_SWAP : K::SMEM_PLAIN, stream, io, tw, s);
 }
 
 // ------------------------------------------- K6: a ring of runs a block
@@ -1314,6 +1346,225 @@ cudaError_t launch_swap_x(const Cols<float>& io, const float2* tw, float s,
                                G, K::SMEM, stream, io, tw, s, mre, mim);
 }
 
+// ---------------------------- K5 up to n = 512: a persistent column ring
+//
+// The complex64 column pass with a plain store and no twiddle or the `full`
+// one (config 4's z pass, the fold's K7), at the lengths of its table (n =
+// 16 to 256), on planes a tensor map reads
+// (ring_operands: planar or the complex form's stride-2 planes, 16-byte
+// aligned; any other input runs local_cols_kernel).  K6's ring without
+// JAX's grid steps: a grid of one wave (the card's SMs times the blocks an
+// SM holds, asked of the card once a device) walks every (l, run of C
+// columns) tile of the pass, block b taking tiles b, b + grid, ... (l
+// fastest, so that neighbouring blocks read the same rows of a `full`
+// table); the grid is cut to whole rounds, every block taking the same
+// count of tiles but the last ones.  A block's shared memory is a ring of
+// S slots of one tile each, one mbarrier a slot; thread 0 keeps the next
+// S - 1 tiles in flight as tensor-map boxes [n][C] of each plane (or of
+// the pairs), in boxes of 256 rows at n = 512 (the copy engine's limit).
+// The chain is chain.cuh's over the slot's C columns ([k][c], threads
+// along c, so its shared-memory accesses meet no bank conflict and need no
+// padding): radix 16 where it takes a stage fewer than radix 8 (256 = 16 x
+// 16: one shared-memory round trip, not two), five twiddle reads of
+// fifteen a radix-16 butterfly (TWD).  Its first stage reads the slot's
+// raw planes and writes the [k][c] layout into the same slot after a
+// barrier; its last stage applies the `full` twiddle and the postscale and
+// stores from registers, threads along t: 128-byte runs of each plane at
+// n = 256.  Every tile a block stores is one it loaded, whole, before, and
+// tiles are disjoint, so the output may alias the input (in place).
+
+// (log2 n, C, S): the columns of a tile and the slots of the ring, by
+// length; C is local_cols_kernel's (ColShape), so that both designs take
+// the same tiles; a slot of 16 KB (n = 16) to 64 KB (n >= 64).  n = 8 (4
+// KB boxes, paced by the copy engine's issue rate) and n = 512 (two boxes
+// a plane) run the first design, which the H100 showed as fast or faster
+// there (2^24 points at n = 8: 0.0996-0.1089 ms against the ring's
+// 0.1072-0.1077, probes/ab_parent.py; the huge route's plain pass, 2^27
+// points at n = 512: 0.9133 ms against the ring's 0.9421 at C = 16,
+// 1.6399 at C = 8, probes/float_split.py c5old, c5ring512, c5n512;
+// PERF.md section 6).
+#ifndef PYFFT_COLS_PRING
+#define PYFFT_COLS_PRING(X)                                              \
+  X(4, 128, 3) X(5, 128, 3) X(6, 128, 3) X(7, 64, 3) X(8, 32, 3)
+#endif
+// the chain's options: radix 16 where it takes a stage fewer, TWD
+constexpr bool PRING_R16 = true, PRING_TWD = true;
+
+template <int LOGN, int C_, int S_>
+struct PRing {
+  static constexpr int N = 1 << LOGN, C = C_, S = S_, P = N * C;
+  static constexpr int NT = P / 16;                   // 16 points a thread
+  static constexpr int MB = N < BOX ? N : BOX;        // rows a box
+  static constexpr bool R16 = PRING_R16 && (LOGN + 3) / 4 < (LOGN + 2) / 3;
+  static constexpr int SLOT = P * (int)sizeof(float2);
+  static constexpr int SMEM = S * SLOT + 128;         // + alignment
+  static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);
+  static constexpr int PER = PER_SMEM < 2048 / NT ? PER_SMEM : 2048 / NT;
+  static_assert(S >= 2 && SMEM <= 227 * 1024,
+                "the ring fits a block's shared memory");
+  static_assert(NT >= 32 && NT <= 1024 && NT % 32 == 0 && N % MB == 0,
+                "whole warps, whole boxes");
+  static_assert(C % 4 == 0 && C <= BOX && P * 8 < (1 << 20),
+                "a box's row is whole 16-byte units; an mbarrier's count");
+};
+
+// The persistent ring's tensor map of the plane (or the pairs) at `base`:
+// {T, MB, n/MB, L}, its box the C columns of MB rows.
+template <int LOGN, int C, int S>
+cudaError_t pring_map(CUtensorMap* map, const float* base,
+                      const Cols<float>& io) {
+  using K = PRing<LOGN, C, S>;
+  const cuuint64_t row = (cuuint64_t)io.in_ns * 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)io.T, (cuuint64_t)K::MB,
+                              (cuuint64_t)(K::N / K::MB), (cuuint64_t)io.L};
+  const cuuint64_t strides[3] = {
+      row, row * K::MB,
+      io.L > 1 ? (cuuint64_t)io.in_ls * 4 : row * (cuuint64_t)K::N};
+  const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)K::MB, 1, 1};
+  return tensor_map_4d(map, base, io.in_ts == 2, dims, strides, box);
+}
+
+// The ring over `tiles` tiles: tile first + i*every in slot i % S on
+// barrier full[i % S], filled by thread 0 (map_im unused on pairs).
+template <int LOGN, int C, int S>
+__global__ void __launch_bounds__(PRing<LOGN, C, S>::NT,
+                                  PRing<LOGN, C, S>::PER)
+    local_cols_pring_kernel(Cols<float> io, const float2* __restrict__ tw,
+                            float s, long long tiles,
+                            const __grid_constant__ CUtensorMap map_re,
+                            const __grid_constant__ CUtensorMap map_im) {
+  using K = PRing<LOGN, C, S>;
+  constexpr int N = K::N, P = K::P, NT = K::NT, MB = K::MB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t full[S];
+  float2* slots = align128(smem_raw);
+  const long long first = blockIdx.x, every = gridDim.x;
+  const int count =
+      first < tiles ? static_cast<int>((tiles - first + every - 1) / every)
+                    : 0;
+  const bool split = io.in_ts == 1;     // planar, else stride-2 pairs
+  // this block's tile i into slot i % S: its n rows of C columns, of each
+  // plane (the real rows, then the imaginary rows) or of pairs
+  const auto fill = [&](int i) {
+    const long long tile = first + (long long)i * every;
+    uint64_t* bar = &full[i % S];
+    float* dst = reinterpret_cast<float*>(slots + (i % S) * P);
+    const int l = static_cast<int>(tile % io.L);
+    const int t0 = static_cast<int>((tile / io.L) * C);
+    fence_async_smem();
+    mbar_expect(bar, P * (int)sizeof(float2));
+    for (int part = 0; part < (split ? 2 : 1); ++part)
+      for (int h = 0; h < N / MB; ++h)
+        tma_load_4d(dst + (split ? part * P + h * MB * C : 2 * h * MB * C),
+                    part ? &map_im : &map_re, t0, 0, h, l, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < S; ++b) mbar_init(&full[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < S && j < count; ++j) fill(j);
+  }
+  __syncthreads();                  // the barriers are set up
+  const bool twd = io.tw_mode != TW_NONE;
+  for (int i = 0; i < count; ++i) {
+    // thread 0 fills the slot of tile i - 1, whose readers are past its
+    // last stage's barrier, with tile i + S - 1
+    if (threadIdx.x == 0 && i && i + S - 1 < count) fill(i + S - 1);
+    const long long tile = first + (long long)i * every;
+    const long long l = tile % io.L, t0 = (tile / io.L) * C;
+    float2* sm = slots + (i % S) * P;
+    const float* f = reinterpret_cast<const float*>(sm);
+    const auto load = [&](int c, int k) {
+      return split ? make_float2(f[k * C + c], f[P + k * C + c])
+                   : sm[k * C + c];
+    };
+    const auto store = [&](int c, int k, float2 v) {
+      const long long t = t0 + c;
+      if (t >= io.T) return;
+      if (twd) v = cmul(v, __ldg(&io.ta[k * io.ak + t * io.aq]));
+      const long long o = l * io.out_ls + k * io.out_ns + t * io.out_bs;
+      io.out_re[o] = v.x * io.post;
+      io.out_im[o] = v.y * io.post;
+    };
+    mbar_wait(&full[i % S], (i / S) & 1);
+    // the first stage reads the slot's raw planes (SYNC0: a barrier before
+    // it writes the slot), the last stores from registers after its
+    // barrier, the slot's last
+    chain<NT, LOGN, C, false, 0, 1, true, true, false, PRING_TWD, K::R16,
+          true>(sm, fresh(tw), s, load, store);
+  }
+}
+
+// The card's SMs and the blocks of the persistent ring an SM holds, into
+// `sms` and `per`: asked of the card once a device, with the kernel's
+// shared memory set there for its launches.
+template <int LOGN, int C, int S>
+cudaError_t pring_wave(int& sms, int& per) {
+  using K = PRing<LOGN, C, S>;
+  const auto kernel = local_cols_pring_kernel<LOGN, C, S>;
+  static std::atomic<long long> waves[64];     // by device, 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  long long got = waves[dev].load(std::memory_order_relaxed);
+  if (!got) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, K::NT,
+                                                        K::SMEM);
+    if (e != cudaSuccess) return e;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    got = ((long long)sms << 8) | per;
+    waves[dev].store(got, std::memory_order_relaxed);
+  }
+  sms = static_cast<int>(got >> 8);
+  per = static_cast<int>(got & 255);
+  return cudaSuccess;
+}
+
+template <int LOGN, int C, int S>
+cudaError_t launch_pring(const Cols<float>& io, const float2* tw, float s,
+                         cudaStream_t stream) {
+  using K = PRing<LOGN, C, S>;
+  int sms = 0, per = 0;
+  cudaError_t e = pring_wave<LOGN, C, S>(sms, per);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mre, mim;
+  e = pring_map<LOGN, C, S>(&mre, io.in_re, io);
+  if (e != cudaSuccess) return e;
+  mim = mre;
+  if (io.in_ts == 1) e = pring_map<LOGN, C, S>(&mim, io.in_im, io);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (io.T + C - 1) / C * io.L;
+  const long long wave = (long long)sms * per;
+  // whole rounds: the fewest blocks that take the rounds one wave needs
+  const long long rounds = (tiles + wave - 1) / wave;
+  const long long grid = (tiles + rounds - 1) / rounds;
+  local_cols_pring_kernel<LOGN, C, S>
+      <<<(unsigned)grid, K::NT, K::SMEM, stream>>>(io, tw, s, tiles, mre,
+                                                   mim);
+  return cudaGetLastError();
+}
+
+// What the complex64 column entry returns where the persistent ring
+// (RAN_RING) or the cluster tile (RAN_X) ran: 0 where local_cols_kernel
+// ran, else the launch's cudaError_t.  The wrapper counts each design's
+// launches from it.
+constexpr int RAN_RING = -1, RAN_X = -2;
+
+// Whether the persistent ring takes the pass: a plain store (no swap, no
+// mid swap), no twiddle or the `full` one, planes a tensor map reads.
+inline bool pring_takes(const Cols<float>& io, int swap_store) {
+  return !swap_store && io.P >= io.T &&
+         (io.tw_mode == TW_NONE ||
+          (io.tw_mode == TW_TABLE && io.adiv == 1)) &&
+         ring_operands(io);
+}
+
 // The launch of the entry points below.  `policy` COLS runs the column
 // kernel with its `swap_store`; ROWS (K4) and WALK (K6, c = `ctile`) run
 // the plain store, complex64 only.
@@ -1348,26 +1599,62 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     }
     return (int)cudaErrorInvalidValue;
   }
+#define PYFFT_XCOL(LN, G, C, B)                                             \
+  if (log2n == LN)                                                          \
+    return swap_store                                                       \
+               ? (int)launch_x<Real, LN, G, C, B, true>(io, t, s, st)      \
+               : (int)launch_x<Real, LN, G, C, B, false>(io, t, s, st);
   if constexpr (sizeof(Real) == sizeof(double)) {
-#define PYFFT_XCOL(LN, G, C, B)                                         \
-  if (log2n == LN)                                                      \
-    return swap_store ? (int)launch_x<LN, G, C, B, true>(io, t, s, st)  \
-                      : (int)launch_x<LN, G, C, B, false>(io, t, s, st);
     if (xcols_strided(io.in_ts)) {
       PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
     }
     PYFFT_XCOLS_F64(PYFFT_XCOL)
-#undef PYFFT_XCOL
+  } else {
+    // K5: the cluster tile from n = 1024 (RAN_X), the persistent ring up to
+    // 512 where it takes the pass (RAN_RING)
+#define PYFFT_XCOL32(LN, G, C, B)                                           \
+  if (log2n == LN) {                                                        \
+    const int e =                                                           \
+        swap_store ? (int)launch_x<Real, LN, G, C, B, true>(io, t, s, st)  \
+                   : (int)launch_x<Real, LN, G, C, B, false>(io, t, s, st); \
+    return e == 0 ? RAN_X : e;                                              \
   }
+    if (xcols_strided(io.in_ts)) {
+      PYFFT_XCOLS_F32_S2(PYFFT_XCOL32)
+    }
+    PYFFT_XCOLS_F32(PYFFT_XCOL32)
+#undef PYFFT_XCOL32
+    if (pring_takes(io, swap_store)) {
+#define PYFFT_PRING(LN, C, S)                                          \
+  if (log2n == LN) {                                                   \
+    const cudaError_t e = launch_pring<LN, C, S>(io, t, s, st);        \
+    return e == cudaSuccess ? RAN_RING : (int)e;                       \
+  }
+      PYFFT_COLS_PRING(PYFFT_PRING)
+#undef PYFFT_PRING
+    }
+  }
+#undef PYFFT_XCOL
   return swap_store ? (int)dispatch<Real, MAXLOG, true>(log2n, io, t, s, st)
                     : (int)dispatch<Real, MAXLOG, false>(log2n, io, t, s, st);
 }
 
 }  // namespace
 
-// The columns per block the complex64 kernel uses at log2n (0 outside
-// 3..13), for the wrapper's limit checks and the records.
+// The columns of a tile the complex64 column pass takes at log2n on
+// planar planes with a plain store (0 outside 3..13), for the wrapper's
+// limit checks and the records: C of the cluster tile where it runs
+// (PYFFT_XCOLS_F32), else of the persistent ring (PYFFT_COLS_PRING), else
+// local_cols_kernel's.
 extern "C" int pyfft_local_cols_width(int log2n) {
+#define PYFFT_XCOL(LN, G, C, B) \
+  if (log2n == LN) return C;
+  PYFFT_XCOLS_F32(PYFFT_XCOL)
+#undef PYFFT_XCOL
+#define PYFFT_PRING(LN, C, S) \
+  if (log2n == LN) return C;
+  PYFFT_COLS_PRING(PYFFT_PRING)
+#undef PYFFT_PRING
   return width<float, 13>(log2n);
 }
 
@@ -1381,52 +1668,93 @@ extern "C" int pyfft_local_cols_width_f64(int log2n) {
   return width<double, 12>(log2n);
 }
 
-// The complex128 cluster column kernel's tile at log2n on planes of t
-// stride `in_ts`, as the launch takes it: G and C into out[0..1], and 1;
-// 0 where local_cols_kernel takes the length.  No CUDA call.
-extern "C" int pyfft_local_cols_xtile_f64(int log2n, long long in_ts,
-                                          int* out) {
+// The cluster column kernel's tile at log2n on planes of t stride `in_ts`,
+// as the launch takes it: G and C into out[0..1], and 1; 0 where another
+// design takes the length.  No CUDA call.  complex128 (K12), and complex64
+// (K5) below.
 #define PYFFT_XCOL(LN, G, C, B) \
   if (log2n == LN) {            \
     out[0] = G;                 \
     out[1] = C;                 \
     return 1;                   \
   }
+extern "C" int pyfft_local_cols_xtile_f64(int log2n, long long in_ts,
+                                          int* out) {
   if (xcols_strided(in_ts)) {
     PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
   }
   PYFFT_XCOLS_F64(PYFFT_XCOL)
-#undef PYFFT_XCOL
   return 0;
 }
 
-// The complex128 cluster column kernel's shape at log2n into out[0..4]:
-// G, C, B (PYFFT_XCOLS_F64, or PYFFT_XCOLS_F64_S2 where `strided`: planes
-// whose t stride is not 1) and the clusters of it the card holds at once
+extern "C" int pyfft_local_cols_xtile(int log2n, long long in_ts, int* out) {
+  if (xcols_strided(in_ts)) {
+    PYFFT_XCOLS_F32_S2(PYFFT_XCOL)
+  }
+  PYFFT_XCOLS_F32(PYFFT_XCOL)
+  return 0;
+}
+#undef PYFFT_XCOL
+
+// The cluster column kernel's shape at log2n into out[0..4]: G, C, B (the
+// table's, or the _S2 table's where `strided`: planes whose t stride is
+// not 1) and the clusters of it the card holds at once
 // (cudaOccupancyMaxActiveClusters) with the plain and with the swapped
-// store.  Returns 0, -1000 where local_cols_kernel takes the length, or a
-// cudaError_t.
+// store.  Returns 0, -1000 where another design takes the length, or a
+// cudaError_t.  complex128 (K12), and complex64 (K5) below.
+#define PYFFT_XCOL(LN, G, C, B)                                           \
+  if (log2n == LN) {                                                      \
+    using K = XCols<Real, LN, G, C>;                                      \
+    const int plain = pyfft::max_clusters<K::NT>(                         \
+        local_cols_x_kernel<Real, LN, G, C, B, false>, G, K::SMEM_PLAIN); \
+    const int swap = pyfft::max_clusters<K::NT>(                          \
+        local_cols_x_kernel<Real, LN, G, C, B, true>, G, K::SMEM_SWAP);   \
+    if (plain < 0) return -plain;                                         \
+    if (swap < 0) return -swap;                                           \
+    const long long v[5] = {G, C, B, plain, swap};                        \
+    for (int i = 0; i < 5; ++i) out[i] = v[i];                            \
+    return 0;                                                             \
+  }
 extern "C" int pyfft_local_cols_xshape_f64(int log2n, int strided,
                                            long long* out) {
-#define PYFFT_XCOL(LN, G, C, B)                                          \
-  if (log2n == LN) {                                                     \
-    using K = XCols<LN, G, C>;                                           \
-    const int plain = pyfft::max_clusters<K::NT>(                        \
-        local_cols_x_kernel<LN, G, C, B, false>, G, K::SMEM_PLAIN);      \
-    const int swap = pyfft::max_clusters<K::NT>(                         \
-        local_cols_x_kernel<LN, G, C, B, true>, G, K::SMEM_SWAP);        \
-    if (plain < 0) return -plain;                                        \
-    if (swap < 0) return -swap;                                          \
-    const long long v[5] = {G, C, B, plain, swap};                       \
-    for (int i = 0; i < 5; ++i) out[i] = v[i];                           \
-    return 0;                                                            \
-  }
+  using Real = double;
   if (strided) {
     PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
   }
   PYFFT_XCOLS_F64(PYFFT_XCOL)
-#undef PYFFT_XCOL
   return -1000;
+}
+
+extern "C" int pyfft_local_cols_xshape(int log2n, int strided,
+                                       long long* out) {
+  using Real = float;
+  if (strided) {
+    PYFFT_XCOLS_F32_S2(PYFFT_XCOL)
+  }
+  PYFFT_XCOLS_F32(PYFFT_XCOL)
+  return -1000;
+}
+#undef PYFFT_XCOL
+
+// The persistent column ring's shape at log2n (PYFFT_COLS_PRING) into
+// out[0..4]: the columns of a tile, its threads, slots, a block's shared
+// memory in bytes and the blocks an SM holds on the current device (asked
+// of the card, which sets the kernel's shared memory there).  Returns 1, 0
+// where the ring takes no such length, or minus a cudaError_t.
+extern "C" int pyfft_local_cols_pring_shape(int log2n, int* out) {
+#define PYFFT_PRING(LN, C, S)                                      \
+  if (log2n == LN) {                                               \
+    using K = PRing<LN, C, S>;                                     \
+    int sms = 0, per = 0;                                          \
+    const cudaError_t e = pring_wave<LN, C, S>(sms, per);          \
+    if (e != cudaSuccess) return -(int)e;                          \
+    const int v[5] = {C, K::NT, S, K::SMEM, per};                  \
+    for (int i = 0; i < 5; ++i) out[i] = v[i];                     \
+    return 1;                                                      \
+  }
+  PYFFT_COLS_PRING(PYFFT_PRING)
+#undef PYFFT_PRING
+  return 0;
 }
 
 // K4's cluster tile at log2n (PYFFT_SWAP_X): G and R (rows a tile) into
@@ -1472,7 +1800,9 @@ extern "C" int pyfft_local_cols_ring_shape(int log2n, int* out) {
 // (l, k, t / P, t % P), P, the table strides ak, aq, adiv, bk, bq, and the
 // twiddle mode (0 none, 1 table, 2 factored).  Strides are in elements
 // (table strides in pairs).  Return the launch's cudaError_t (0 on
-// success).  complex64: float planes, 8 <= n <= 8192.
+// success; complex64: RAN_RING (-1) where the persistent ring ran, RAN_X
+// (-2) where the cluster tile did).  complex64: float planes, 8 <= n <=
+// 8192.
 extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,
                                 const void* ta, const void* tb,

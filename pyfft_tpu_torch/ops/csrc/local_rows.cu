@@ -24,11 +24,11 @@
 // float and under 2 in double, far below the ~20 FP32 (~10 FP64) flop per
 // byte at which the card's arithmetic, not its memory, would be the limit.
 // So the design keeps the data in device memory exactly once each way.
-// The complex64 kernels K1 and K2 run, wherever the input is one a bulk
-// copy reads and the length is in its table, the row ring below
+// K1, K2 and K11 run, wherever the input is one a bulk copy reads and the
+// length is in its type's table, the row ring below
 // (local_rows_ring_kernel: a persistent grid, a ring of slots fed by bulk
 // copies, chain.cuh's padded radix-16 chain).  The first design, which
-// K11 runs and K1 and K2 keep for every other input and length, is:
+// they keep for every other input and length, is:
 //
 //   * one thread block per row (several rows per block for n < 512, so each
 //     block has 512 points of work); the row is read straight from global
@@ -103,8 +103,8 @@
 // float2), `pyfft_local_rows_i8` (float, int8 stage),
 // `pyfft_local_rows_il_i8` (interleaved, int8 stage),
 // `pyfft_local_rows_i8_stage` (which stage an int8 instance runs),
-// and `pyfft_local_rows_ring_shape` (the row ring's shape at a length) at
-// the bottom.
+// and `pyfft_local_rows_ring_shape` and `pyfft_local_rows_ring_shape_f64`
+// (the row ring's shape at a length) at the bottom.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,6 +148,11 @@ struct Shape {
   static constexpr int NSTAGES = LOGN / 3 + (REM ? 1 : 0);
 };
 
+// The first design's radix-8 stages in double (K11) form three of a
+// butterfly's seven twiddles from the other four (chain.cuh's TWD); the
+// float stages (K1, K2, the int8 kernels' lead stages) read all seven.
+constexpr bool OLD_TWD_F64 = true;
+
 // One radix-R Stockham stage over the block's RPB rows.  NS is the product
 // of the radices of the stages before it.  FIRST reads global memory, LAST
 // writes it; the stages between read and write shared memory.  IL selects
@@ -188,9 +193,25 @@ __device__ __forceinline__ void stage(const Io<Real>& io,
     }
     if (NS > 1) {
       const int jj = j % NS;
+      if constexpr (OLD_TWD_F64 && sizeof(Real) == sizeof(double) &&
+                    R == 8) {
+        // K11: w^1, w^2, w^4, w^7 read, w^3, w^5, w^6 one product each
+        // (chain.cuh's TWD), four table reads of seven
+        const int e = jj * (N / (NS * R));      // w^r at tw[r*e]
+        const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+        const V w4 = __ldg(&tw[4 * e]);
+        v[b][1] = cmul(v[b][1], w1);
+        v[b][2] = cmul(v[b][2], w2);
+        v[b][3] = cmul(v[b][3], cmul(w1, w2));
+        v[b][4] = cmul(v[b][4], w4);
+        v[b][5] = cmul(v[b][5], cmul(w1, w4));
+        v[b][6] = cmul(v[b][6], cmul(w2, w4));
+        v[b][7] = cmul(v[b][7], __ldg(&tw[7 * e]));
+      } else {
 #pragma unroll
-      for (int r = 1; r < R; ++r)
-        v[b][r] = cmul(v[b][r], __ldg(&tw[jj * r * (N / (NS * R))]));
+        for (int r = 1; r < R; ++r)
+          v[b][r] = cmul(v[b][r], __ldg(&tw[jj * r * (N / (NS * R))]));
+      }
     }
     dft<R>(v[b], s);
   }
@@ -297,9 +318,11 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
   }
 }
 
-// ------------------------------- K1 and K2: a persistent ring of row blocks
+// -------------------- K1, K2 and K11: a persistent ring of row blocks
 //
-// The complex64 kernel behind both C entries (local_rows_ring_kernel).  A
+// The kernel behind K1's and K2's C entries (local_rows_ring_kernel) and,
+// on double planes, K11's (a template on the real type, its tables
+// PYFFT_ROWS_RING and PYFFT_ROWS_RING_F64 below).  A
 // grid of at most one wave (the card's SMs times the blocks an SM holds)
 // walks the row blocks of RPB rows: block b takes b, b + grid, ...  Its
 // shared memory is a ring of S slots of one row block each, one mbarrier a
@@ -335,11 +358,17 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
 // Operands: planar planes, or pairs ((re, im) adjacent: K2's float2 arrays
 // and the complex form's stride-2 planes), read from anywhere a bulk copy
 // reads (ring_rows_operands: 16-byte aligned, row stride a multiple of 16
-// bytes); the output at any strides, pairs stored as float2.  Any other
-// input layout, and any length missing from PYFFT_ROWS_RING, runs
-// local_rows_kernel above (K1's and K2's first design), which reads any
-// strides.  In place: every row is read whole, when its copy completes, by
-// the block that owns it, before that block stores it.
+// bytes); the output at any strides, pairs stored as float2 (double2).
+// Any other input layout, and any length missing from the type's table,
+// runs local_rows_kernel above (the first design of K1, K2 and K11), which
+// reads any strides.  In place: every row is read whole, when its copy
+// completes, by the block that owns it, before that block stores it.
+//
+// K11 (complex128) runs the same kernel on double planes at the lengths of
+// PYFFT_ROWS_RING_F64: one bulk copy a row of a plane (32 KB at n = 4096)
+// or of pairs, the same chain in FP64.  Its table may hold only lengths of
+// bulk copies (n >= 512): a tensor map has no 16-byte element for the
+// pairs of doubles.
 
 // (log2 n, RPB, S): rows a slot and slots of the ring, by length.  A slot
 // holds 4096 points (2048 at n = 8; 8192 at n = 32, 64 and 8192), a
@@ -353,15 +382,27 @@ cudaError_t dispatch(int log2n, const Io<Real>& io, const void* tw, int sign,
   X(3, 256, 3) X(4, 256, 3) X(5, 256, 3) X(6, 128, 3) X(10, 4, 3)        \
   X(11, 2, 3) X(12, 1, 3) X(13, 1, 2)
 #endif
+// The same for complex128 (K11), n >= 512 only: n = 4096.  At 1024 and
+// 2048 the first design with TWD (OLD_TWD_F64) was as fast or faster on the
+// H100, its loads and stores under the ring's copy floor (16384 x 1024:
+// first design 0.1907 ms against the ring's 0.1969 at 2 rows a slot, copy
+// 0.1836 against 0.1910; 8192 x 2048: 0.1964 against 0.1981; 4096 x 4096:
+// 0.2418 against 0.2064; probes/float_split.py k11old, PERF.md section 6).
+#ifndef PYFFT_ROWS_RING_F64
+#define PYFFT_ROWS_RING_F64(X) X(12, 1, 2)
+#endif
 // the chains' options (chain.cuh); radix 16 where it takes a stage fewer
-// than radix 8 (not at n = 8)
+// than radix 8 (not at n = 8), in float and (RING_R16_F64) in double
 constexpr bool RING_PAD = true, RING_TWD = true, RING_R16 = true;
+constexpr bool RING_R16_F64 = true;
 // The most rows or points a tensor copy's box takes (the copy engine's
 // limit).
 constexpr int RING_BOX = 256;
 
-template <int LOGN, int RPB_, int S_>
+template <typename Real, int LOGN, int RPB_, int S_>
 struct RowRing {
+  using V = typename Complex<Real>::V;
+  static constexpr int VB = (int)sizeof(V);            // bytes a value
   static constexpr int N = 1 << LOGN, RPB = RPB_, S = S_, P = RPB * N;
   static constexpr int NT = P / (N < 16 ? N : 16);    // threads a block
   static constexpr bool BOX = N < 512;                 // tensor-map boxes
@@ -370,12 +411,13 @@ struct RowRing {
   // the slot's raw rows go into the chain's layout in a pass along the
   // rows; up to n = 64 the outputs are stored in such a pass
   static constexpr bool PASS_IN = N <= 16, PASS_OUT = N <= 64;
-  static constexpr bool R16 = RING_R16 && (LOGN + 3) / 4 < (LOGN + 2) / 3;
+  static constexpr bool R16 = (VB == 8 ? RING_R16 : RING_R16_F64) &&
+                              (LOGN + 3) / 4 < (LOGN + 2) / 3;
   // a slot: the raw rows (P values) or the chain's padded rows, rounded to
-  // 128 bytes (the box copies' alignment), in float2
+  // 128 bytes (the box copies' alignment), in values
   static constexpr int RAW = P > RPB * (N + N / 16) ? P : RPB * (N + N / 16);
-  static constexpr int SLOT = (RAW * 8 + 127) / 128 * 128 / 8;
-  static constexpr int SMEM = S * SLOT * 8 + 128;      // + alignment
+  static constexpr int SLOT = (RAW * VB + 127) / 128 * 128 / VB;
+  static constexpr int SMEM = S * SLOT * VB + 128;     // + alignment
   // the blocks an SM's shared memory (228 KB, 1 KB a block reserved) and
   // threads allow: the registers are held to that many (launch bounds)
   static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);
@@ -383,33 +425,35 @@ struct RowRing {
   static_assert(S >= 2 && SMEM <= 227 * 1024,
                 "the ring fits a block's shared memory");
   static_assert(NT <= 1024 && P % NT == 0, "whole butterflies a thread");
-  static_assert(!BOX || (N <= RING_BOX && RPB <= RING_BOX),
-                "a slot is one box a plane");
-  static_assert(BOX || RPB * N * 8 < (1 << 20), "an mbarrier's byte count");
+  static_assert(!BOX || (N <= RING_BOX && RPB <= RING_BOX && VB == 8),
+                "a slot is one box a plane (of floats)");
+  static_assert(BOX || RPB * N * VB < (1 << 20), "an mbarrier's byte count");
 };
 
 // The ring's operands: `in` the real plane (planar: `in_im` the imaginary
-// one) or the (re, im) pairs; `out` likewise; strides in floats (pairs:
+// one) or the (re, im) pairs; `out` likewise; strides in reals (pairs:
 // twice the pairs' row stride).
+template <typename Real>
 struct RingIo {
-  const float* in;
-  const float* in_im;
-  float* out;
-  float* out_im;
+  const Real* in;
+  const Real* in_im;
+  Real* out;
+  Real* out_im;
   int rows;
   int in_pairs, out_pairs;
   long long in_es, in_rs, out_rs, out_es;
-  float post;
+  Real post;
 };
 
 // Whether bulk copies read the ring's input where it lies: planar planes
 // (unit stride) or pairs, 16-byte aligned, rows a multiple of 16 bytes
 // apart (any stride for one row).
-inline bool ring_rows_operands(const RingIo& io) {
+template <typename Real>
+inline bool ring_rows_operands(const RingIo<Real>& io) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(io.in);
   const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
   return (io.in_pairs || (io.in_es == 1 && b % 16 == 0)) && a % 16 == 0 &&
-         (io.rows == 1 || io.in_rs % 4 == 0);
+         (io.rows == 1 || io.in_rs * (long long)sizeof(Real) % 16 == 0);
 }
 
 // Copy `bytes` (a multiple of 16) from global `src` to shared `dst`, both
@@ -458,18 +502,20 @@ inline cudaError_t ring_rows_map(CUtensorMap* map, const float* base,
 // The ring over `blocks` row blocks: row block first + i*every in slot
 // i % S on barrier bars[i % S], filled by thread 0 (map_re, map_im: the
 // boxes below n = 512; map_im unused on pairs).
-template <int LOGN, int RPB, int S>
-__global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
-                                  RowRing<LOGN, RPB, S>::PER)
-    local_rows_ring_kernel(RingIo io, const float2* __restrict__ tw, float s,
-                           long long blocks,
+template <typename Real, int LOGN, int RPB, int S>
+__global__ void __launch_bounds__(RowRing<Real, LOGN, RPB, S>::NT,
+                                  RowRing<Real, LOGN, RPB, S>::PER)
+    local_rows_ring_kernel(RingIo<Real> io,
+                           const typename Complex<Real>::V* __restrict__ tw,
+                           Real s, long long blocks,
                            const __grid_constant__ CUtensorMap map_re,
                            const __grid_constant__ CUtensorMap map_im) {
-  using K = RowRing<LOGN, RPB, S>;
+  using K = RowRing<Real, LOGN, RPB, S>;
+  using V = typename K::V;
   constexpr int N = K::N, P = K::P, NT = K::NT, SLOT = K::SLOT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[S];
-  float2* slots = align128(smem_raw);
+  V* slots = reinterpret_cast<V*>(align128(smem_raw));
   const long long first = blockIdx.x, every = gridDim.x;
   const int count =
       first < blocks ? static_cast<int>((blocks - first + every - 1) / every)
@@ -479,7 +525,7 @@ __global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
   // of pairs (planar: the real rows, then the imaginary rows)
   const auto issue = [&](int i) {
     uint64_t* bar = &bars[i % S];
-    float* dst = reinterpret_cast<float*>(slots + (i % S) * SLOT);
+    Real* dst = reinterpret_cast<Real*>(slots + (i % S) * SLOT);
     const long long row0 = (first + (long long)i * every) * RPB;
     fence_async_smem();
     if constexpr (K::BOX) {
@@ -489,14 +535,15 @@ __global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
     } else {
       const int nr = static_cast<int>(
           io.rows - row0 < RPB ? io.rows - row0 : RPB);
-      mbar_expect(bar, nr * N * (int)sizeof(float2));
+      mbar_expect(bar, nr * N * (int)sizeof(V));
       for (int r = 0; r < nr; ++r) {
         const long long o = (row0 + r) * io.in_rs;
         if (pin) {
-          bulk_copy(dst + 2 * r * N, io.in + o, N * 8, bar);
+          bulk_copy(dst + 2 * r * N, io.in + o, N * (int)sizeof(V), bar);
         } else {
-          bulk_copy(dst + r * N, io.in + o, N * 4, bar);
-          bulk_copy(dst + P + r * N, io.in_im + o, N * 4, bar);
+          bulk_copy(dst + r * N, io.in + o, N * (int)sizeof(Real), bar);
+          bulk_copy(dst + P + r * N, io.in_im + o, N * (int)sizeof(Real),
+                    bar);
         }
       }
     }
@@ -511,18 +558,19 @@ __global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
     // thread 0 fills the slot of row block i - 1, whose readers are past
     // its last stage's barrier, with row block i + S - 1
     if (threadIdx.x == 0 && i && i + S - 1 < count) issue(i + S - 1);
-    float2* sm = slots + (i % S) * SLOT;
-    const float* f = reinterpret_cast<const float*>(sm);
+    V* sm = slots + (i % S) * SLOT;
+    const Real* f = reinterpret_cast<const Real*>(sm);
     const long long row0 = (first + (long long)i * every) * RPB;
     const auto load = [&](int c, int k) {
-      return pin ? sm[c * N + k] : make_float2(f[c * N + k], f[P + c * N + k]);
+      return pin ? sm[c * N + k]
+                 : Complex<Real>::make(f[c * N + k], f[P + c * N + k]);
     };
-    const auto store = [&](int c, int k, float2 v) {
-      const float2 y = make_float2(v.x * io.post, v.y * io.post);
+    const auto store = [&](int c, int k, V v) {
+      const V y = Complex<Real>::make(v.x * io.post, v.y * io.post);
       const long long row = row0 + c;
       if (row >= io.rows) return;
       if (pout) {
-        reinterpret_cast<float2*>(io.out + row * io.out_rs)[k] = y;
+        reinterpret_cast<V*>(io.out + row * io.out_rs)[k] = y;
       } else {
         const long long o = row * io.out_rs + k * io.out_es;
         io.out[o] = y.x;
@@ -533,7 +581,7 @@ __global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
     constexpr int E = P / NT;                 // points a thread a pass
     if constexpr (K::PASS_IN) {
       // the slot's raw rows into the chain's padded layout, along the rows
-      float2 v[E];
+      V v[E];
 #pragma unroll
       for (int q = 0; q < E; ++q) {
         const int e = threadIdx.x + q * NT;
@@ -568,10 +616,10 @@ __global__ void __launch_bounds__(RowRing<LOGN, RPB, S>::NT,
 // The card's SMs and the blocks of the ring's kernel an SM holds, into
 // `sms` and `per`: asked of the card once a device, with the kernel's
 // shared memory set there for its launches.
-template <int LOGN, int RPB, int S>
+template <typename Real, int LOGN, int RPB, int S>
 cudaError_t ring_rows_wave(int& sms, int& per) {
-  using K = RowRing<LOGN, RPB, S>;
-  const auto kernel = local_rows_ring_kernel<LOGN, RPB, S>;
+  using K = RowRing<Real, LOGN, RPB, S>;
+  const auto kernel = local_rows_ring_kernel<Real, LOGN, RPB, S>;
   static std::atomic<long long> waves[64];     // by device, 0 until asked
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -597,21 +645,24 @@ cudaError_t ring_rows_wave(int& sms, int& per) {
   return cudaSuccess;
 }
 
-template <int LOGN, int RPB, int S>
-cudaError_t launch_rows_ring(const RingIo& io, const float2* tw, float s,
+template <typename Real, int LOGN, int RPB, int S>
+cudaError_t launch_rows_ring(const RingIo<Real>& io,
+                             const typename Complex<Real>::V* tw, Real s,
                              cudaStream_t stream) {
-  using K = RowRing<LOGN, RPB, S>;
-  const auto kernel = local_rows_ring_kernel<LOGN, RPB, S>;
+  using K = RowRing<Real, LOGN, RPB, S>;
+  const auto kernel = local_rows_ring_kernel<Real, LOGN, RPB, S>;
   int sms = 0, per = 0;
-  cudaError_t e = ring_rows_wave<LOGN, RPB, S>(sms, per);
+  cudaError_t e = ring_rows_wave<Real, LOGN, RPB, S>(sms, per);
   if (e != cudaSuccess) return e;
   CUtensorMap mre{}, mim{};
   if constexpr (K::BOX) {
     // one row: any stride the map takes (16-byte units)
     const long long rb = io.rows > 1 ? io.in_rs * 4 : (long long)K::N * 8;
-    e = ring_rows_map(&mre, io.in, io.in_pairs, K::N, io.rows, rb, RPB);
+    e = ring_rows_map(&mre, (const float*)io.in, io.in_pairs, K::N, io.rows,
+                      rb, RPB);
     if (e == cudaSuccess && !io.in_pairs)
-      e = ring_rows_map(&mim, io.in_im, false, K::N, io.rows, rb, RPB);
+      e = ring_rows_map(&mim, (const float*)io.in_im, false, K::N, io.rows,
+                        rb, RPB);
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (io.rows + RPB - 1) / RPB;
@@ -622,39 +673,53 @@ cudaError_t launch_rows_ring(const RingIo& io, const float2* tw, float s,
   return cudaGetLastError();
 }
 
-// RPB of the ring at log2n, 0 where PYFFT_ROWS_RING keeps the first design.
-inline int ring_rows_rpb(int log2n) {
+// RPB of the ring at log2n, 0 where the type's table (PYFFT_ROWS_RING,
+// PYFFT_ROWS_RING_F64) keeps the first design.
+template <typename Real>
+int ring_rows_rpb(int log2n) {
 #define PYFFT_RING_RPB(LN, RPB, S) \
   if (log2n == LN) return RPB;
-  PYFFT_ROWS_RING(PYFFT_RING_RPB)
+  if constexpr (sizeof(Real) == sizeof(float)) {
+    PYFFT_ROWS_RING(PYFFT_RING_RPB)
+  } else {
+    PYFFT_ROWS_RING_F64(PYFFT_RING_RPB)
+  }
 #undef PYFFT_RING_RPB
   return 0;
 }
 
-// What K1's and K2's C entries return where the row ring ran: 0 where
-// local_rows_kernel ran, else the launch's cudaError_t.  The wrappers count
-// the ring's launches from it.
+// What the C entries of K1, K2 and K11 return where the row ring ran: 0
+// where local_rows_kernel ran, else the launch's cudaError_t.  The wrappers
+// count the ring's launches from it.
 constexpr int RAN_RING = -1;
 
-// K1 and K2 (complex64): the ring where it takes the length and the input
-// layout (RAN_RING), else local_rows_kernel (`old`, IL its interleaved
-// policy; 0), or a cudaError_t.
-template <bool IL>
-int rows_f32(int log2n, const RingIo& ring, const Io<float>& old,
-             const void* tw, int sign, void* stream) {
-  if (ring.rows > 0 && ring_rows_rpb(log2n) && ring_rows_operands(ring)) {
-    const float2* t = static_cast<const float2*>(tw);
-    const float s = sign < 0 ? -1.f : 1.f;
+// K1 and K2 (complex64), K11 (complex128): the ring where it takes the
+// length and the input layout (RAN_RING), else local_rows_kernel (`old`,
+// IL its interleaved policy; 0), or a cudaError_t.
+template <typename Real, bool IL>
+int rows_ring(int log2n, const RingIo<Real>& ring, const Io<Real>& old,
+              const void* tw, int sign, void* stream) {
+  using V = typename Complex<Real>::V;
+  if (ring.rows > 0 && ring_rows_rpb<Real>(log2n) &&
+      ring_rows_operands(ring)) {
+    const V* t = static_cast<const V*>(tw);
+    const Real s = sign < 0 ? Real(-1) : Real(1);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PYFFT_RING_LAUNCH(LN, RPB, S)                                    \
-  if (log2n == LN) {                                                    \
-    const cudaError_t e = launch_rows_ring<LN, RPB, S>(ring, t, s, st); \
-    return e == cudaSuccess ? RAN_RING : (int)e;                        \
+#define PYFFT_RING_LAUNCH(LN, RPB, S)                                      \
+  if (log2n == LN) {                                                      \
+    const cudaError_t e =                                                 \
+        launch_rows_ring<Real, LN, RPB, S>(ring, t, s, st);               \
+    return e == cudaSuccess ? RAN_RING : (int)e;                          \
   }
-    PYFFT_ROWS_RING(PYFFT_RING_LAUNCH)
+    if constexpr (sizeof(Real) == sizeof(float)) {
+      PYFFT_ROWS_RING(PYFFT_RING_LAUNCH)
+    } else {
+      PYFFT_ROWS_RING_F64(PYFFT_RING_LAUNCH)
+    }
 #undef PYFFT_RING_LAUNCH
   }
-  return (int)dispatch<float, IL, 13>(log2n, old, tw, sign, stream);
+  return (int)dispatch<Real, IL, sizeof(Real) == sizeof(float) ? 13 : 12>(
+      log2n, old, tw, sign, stream);
 }
 
 // ------------------------------------------------ K1 + K10 (int8 policy)
@@ -860,18 +925,20 @@ Io<Real> planes(const void* in_re, const void* in_im, void* out_re,
                   postscale};
 }
 
-// K1's planes as the ring's operands: pairs where the imaginary plane is
-// the real one's next float (the complex form's stride-2 planes; stored as
-// float2 where they are 8-byte aligned), else planar.
-inline RingIo ring_planes(const Io<float>& io) {
+// K1's (K11's) planes as the ring's operands: pairs where the imaginary
+// plane is the real one's next element (the complex form's stride-2
+// planes; stored as float2 (double2) where they are aligned to a pair),
+// else planar.
+template <typename Real>
+RingIo<Real> ring_planes(const Io<Real>& io) {
   const bool in_pairs = io.in_es == 2 && io.in_im == io.in_re + 1;
   const bool out_pairs =
       io.out_es == 2 && io.out_im == io.out_re + 1 &&
-      reinterpret_cast<uintptr_t>(io.out_re) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(io.out_re) % (2 * sizeof(Real)) == 0 &&
       (io.rows == 1 || io.out_rs % 2 == 0);
-  return RingIo{io.in_re, io.in_im, io.out_re, io.out_im, io.rows,
-                in_pairs, out_pairs, io.in_es, io.in_rs, io.out_rs,
-                io.out_es, io.post};
+  return RingIo<Real>{io.in_re, io.in_im, io.out_re, io.out_im, io.rows,
+                      in_pairs, out_pairs, io.in_es, io.in_rs, io.out_rs,
+                      io.out_es, io.post};
 }
 
 }  // namespace
@@ -889,21 +956,23 @@ extern "C" int pyfft_local_rows(const void* in_re, const void* in_im,
   const Io<float> old = planes<float>(in_re, in_im, out_re, out_im, rows,
                                       in_es, in_rs, out_es, out_rs,
                                       postscale);
-  return rows_f32<false>(log2n, ring_planes(old), old, tw, sign, stream);
+  return rows_ring<float, false>(log2n, ring_planes(old), old, tw, sign,
+                                 stream);
 }
 
-// complex128: double planes, 8 <= n <= 4096, computed in native FP64.
+// complex128: double planes, 8 <= n <= 4096, computed in native FP64;
+// returns as pyfft_local_rows (RAN_RING where the ring ran).
 extern "C" int pyfft_local_rows_f64(const void* in_re, const void* in_im,
                                     void* out_re, void* out_im,
                                     const void* tw, int rows, int log2n,
                                     int in_es, int in_rs, int out_es,
                                     int out_rs, int sign, double postscale,
                                     void* stream) {
-  return (int)dispatch<double, false, 12>(
-      log2n,
-      planes<double>(in_re, in_im, out_re, out_im, rows, in_es, in_rs,
-                     out_es, out_rs, postscale),
-      tw, sign, stream);
+  const Io<double> old = planes<double>(in_re, in_im, out_re, out_im, rows,
+                                        in_es, in_rs, out_es, out_rs,
+                                        postscale);
+  return rows_ring<double, false>(log2n, ring_planes(old), old, tw, sign,
+                                  stream);
 }
 
 // K2, complex64 interleaved: `in` and `out` are (rows, n) arrays of float2
@@ -916,10 +985,10 @@ extern "C" int pyfft_local_rows_il(const void* in, void* out, const void* tw,
   const Io<float> io{nullptr, nullptr, nullptr, nullptr,
                      static_cast<const float2*>(in), static_cast<float2*>(out),
                      rows, 1, in_rs, 1, out_rs, postscale};
-  const RingIo ring{static_cast<const float*>(in), nullptr,
-                    static_cast<float*>(out), nullptr, rows, 1, 1, 2,
-                    2LL * in_rs, 2LL * out_rs, 2, postscale};
-  return rows_f32<true>(log2n, ring, io, tw, sign, stream);
+  const RingIo<float> ring{static_cast<const float*>(in), nullptr,
+                           static_cast<float*>(out), nullptr, rows, 1, 1, 2,
+                           2LL * in_rs, 2LL * out_rs, 2, postscale};
+  return rows_ring<float, true>(log2n, ring, io, tw, sign, stream);
 }
 
 // K1 + K10: the complex64 row DFT with the f-point int8 stage last (f =
@@ -973,22 +1042,30 @@ extern "C" int pyfft_local_rows_i8_stage(int log2n, int log2f) {
 // an SM holds on the current device (asked of the card, which sets the
 // kernel's shared memory there).  Returns 1, 0 where the length runs
 // local_rows_kernel, or minus a cudaError_t.
-extern "C" int pyfft_local_rows_ring_shape(int log2n, int* out) {
-#define PYFFT_RING_SHAPE(LN, RPB, S)                             \
-  if (log2n == LN) {                                             \
-    using K = RowRing<LN, RPB, S>;                               \
-    int sms = 0, per = 0;                                        \
-    const cudaError_t e = ring_rows_wave<LN, RPB, S>(sms, per);  \
-    if (e != cudaSuccess) return -(int)e;                        \
-    out[0] = RPB;                                                \
-    out[1] = K::NT;                                              \
-    out[2] = S;                                                  \
-    out[3] = K::SMEM;                                            \
-    out[4] = per;                                                \
-    return 1;                                                    \
+#define PYFFT_RING_SHAPE(LN, RPB, S)                                   \
+  if (log2n == LN) {                                                   \
+    using K = RowRing<Real, LN, RPB, S>;                               \
+    int sms = 0, per = 0;                                              \
+    const cudaError_t e = ring_rows_wave<Real, LN, RPB, S>(sms, per);  \
+    if (e != cudaSuccess) return -(int)e;                              \
+    out[0] = RPB;                                                      \
+    out[1] = K::NT;                                                    \
+    out[2] = S;                                                        \
+    out[3] = K::SMEM;                                                  \
+    out[4] = per;                                                      \
+    return 1;                                                          \
   }
+extern "C" int pyfft_local_rows_ring_shape(int log2n, int* out) {
+  using Real = float;
   PYFFT_ROWS_RING(PYFFT_RING_SHAPE)
-#undef PYFFT_RING_SHAPE
   return 0;
 }
+
+// The same for the complex128 ring (PYFFT_ROWS_RING_F64), K11's.
+extern "C" int pyfft_local_rows_ring_shape_f64(int log2n, int* out) {
+  using Real = double;
+  PYFFT_ROWS_RING_F64(PYFFT_RING_SHAPE)
+  return 0;
+}
+#undef PYFFT_RING_SHAPE
 

@@ -37,6 +37,20 @@ struct Complex<double> {
   }
 };
 
+// The real type of a complex type: RealOf<float2>::T is float.
+template <class V>
+struct RealOf;
+
+template <>
+struct RealOf<float2> {
+  using T = float;
+};
+
+template <>
+struct RealOf<double2> {
+  using T = double;
+};
+
 __device__ __forceinline__ float2 operator+(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }

@@ -22,7 +22,12 @@ Two implementations of each function live here:
   float64 planes (complex128) their native-FP64 instantiations K11 and
   K12, the counterparts of ``pyfft_tpu/ops/pallas_df64.py``'s kernels (see
   ``ops/fp64.py``; K12 from n = 1024 a cluster kernel of its own, a column
-  tile split over a thread-block cluster, ``col_xshape_f64``), and on
+  tile split over a thread-block cluster, ``col_xshape_f64``; K5 runs the
+  same cluster tile in float from n = 1024, ``col_xshape``, and from n =
+  16 to 256, on a plain store with no twiddle or the ``full`` one, a
+  persistent ring of tiles fed by tensor copies, ``col_ring_shape``; K1,
+  K2 and K11 run a persistent row ring where their table takes n,
+  ``rows_ring_shape``), and on
   interleaved complex64 K1's interleaved I/O
   policy, K2, which serves the packed form K3 too; K4 (``_launch_rows_swap``)
   and K6 (``_launch_cols`` with ``ctile``) are two policies of K5's source;
@@ -74,7 +79,9 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
            "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
-           "RING_LAUNCHES", "fft_axis_fold", "fold_lanes"]
+           "RING_LAUNCHES", "RING_LAUNCHES_F64", "COL_RING_LAUNCHES",
+           "COL_X_LAUNCHES", "col_ring_shape", "col_xshape",
+           "fft_axis_fold", "fold_lanes"]
 
 # Kernel launches made by _launch_rows on float32 planes (K1) since the
 # last reset (a caller sets it to 0): the proof that a run went through the
@@ -92,6 +99,15 @@ IL_LAUNCHES = 0
 # counted where their C entry returns RAN_RING (that source's constant).
 RING_LAUNCHES = 0
 RAN_RING = -1
+# The same for K11 (the ring on double planes).
+RING_LAUNCHES_F64 = 0
+# Of the K5 launches, those that ran the persistent column ring
+# (csrc/local_cols.cu local_cols_pring_kernel: its C entry returns
+# RAN_RING) and the cluster tile (local_cols_x_kernel in float: RAN_X), not
+# the first design.
+COL_RING_LAUNCHES = 0
+COL_X_LAUNCHES = 0
+RAN_X = -2
 # The same for _launch_rows_swap (K4) and for _launch_cols with ctile (K6).
 SWAP_LAUNCHES = 0
 CTILE_LAUNCHES = 0
@@ -676,7 +692,7 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
         _launched("local_rows_i8", err, False)
         I8_LAUNCHES += 1
     elif re.dtype == torch.float64:
-        _launched("local_rows", err, False)
+        _launched("local_rows", err, True, "RING_LAUNCHES_F64")
         LAUNCHES_F64 += 1
     else:
         _launched("local_rows", err, True)
@@ -684,13 +700,13 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
     return out_re, out_im
 
 
-def _launched(name: str, err: int, ring: bool) -> None:
+def _launched(name: str, err: int, ring: bool,
+              counter: str = "RING_LAUNCHES") -> None:
     """Raise where the C entry ``name`` returned a failed launch; count a
-    launch of the row ring where it returned RAN_RING (only K1's and K2's
-    complex64 entries, ``ring``, may)."""
-    global RING_LAUNCHES
+    launch of the row ring in ``counter`` where it returned RAN_RING (only
+    the entries of K1, K2 and K11, ``ring``, may)."""
     if ring and err == RAN_RING:
-        RING_LAUNCHES += 1
+        globals()[counter] += 1
     elif err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -699,15 +715,18 @@ ROWS_RING_KEYS = ("rows", "threads", "slots", "smem_bytes", "blocks_per_sm")
 
 
 @functools.lru_cache(maxsize=None)
-def rows_ring_shape(n: int) -> dict | None:
-    """The row ring's shape at length n (csrc/local_rows.cu
-    ``PYFFT_ROWS_RING``), which K1 and K2 run on inputs a bulk copy reads
+def rows_ring_shape(n: int,
+                    dtype: torch.dtype = torch.float32) -> dict | None:
+    """The row ring's shape at length n for planes of ``dtype``
+    (csrc/local_rows.cu ``PYFFT_ROWS_RING``, ``PYFFT_ROWS_RING_F64``),
+    which K1 and K2 (K11 on float64) run on inputs a bulk copy reads
     (``ring_rows_operands`` there): ``rows`` a slot, ``threads`` a block,
     ``slots`` of the ring, a block's ``smem_bytes`` and the
     ``blocks_per_sm`` the current card holds (asked of it); None where the
     length runs the first design (local_rows_kernel).  Builds the library on first use."""
     from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows_ring_shape
+    fn = getattr(load("local_rows"), "pyfft_local_rows_ring_shape"
+                 + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(ROWS_RING_KEYS))()
@@ -1358,6 +1377,14 @@ def ring_shape(n: int) -> dict:
     return dict(zip(RING_SHAPE_KEYS, out))
 
 
+# What the complex64 column entry returns where a new design ran, and the
+# count of that design's launches.
+_COL_DESIGNS = {RAN_RING: "COL_RING_LAUNCHES", RAN_X: "COL_X_LAUNCHES"}
+# The lengths K5's persistent ring takes (csrc/local_cols.cu
+# PYFFT_COLS_PRING); a test holds them to the source's table.
+COL_RING_LENGTHS = (16, 32, 64, 128, 256)
+
+
 def _boxable(r3: torch.Tensor, i3: torch.Tensor) -> bool:
     """Whether the kernel's tensor maps copy boxes of the (L, m, f) planes
     where they lie: planar (f stride 1) or the complex form's stride-2
@@ -1405,18 +1432,22 @@ def _cols_lib(dtype: torch.dtype):
 
 
 def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
-    """The columns (consecutive t) one block of the column kernel for
-    planes of ``dtype`` takes at length n; builds the kernel on first
-    use."""
+    """The columns (consecutive t) of the tile a block (or a cluster) of
+    the column pass for planes of ``dtype`` takes at length n, on planar
+    planes with a plain store: the cluster tile's where it takes n, the
+    persistent ring's (complex64, n = 16 to 256), else the first
+    design's; builds the kernel on first use."""
     return _cols_lib(dtype)[1](ilog2(n))
 
 
 @functools.lru_cache(maxsize=None)
-def _cols_xshape_fn():
-    """The C entry point ``pyfft_local_cols_xshape_f64`` of
-    csrc/local_cols.cu, built at first use."""
+def _cols_xshape_fn(dtype: torch.dtype = torch.float64):
+    """The C entry point ``pyfft_local_cols_xshape_f64`` (or, for float32,
+    ``pyfft_local_cols_xshape``) of csrc/local_cols.cu, built at first
+    use."""
     from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_cols_xshape_f64
+    fn = getattr(load("local_cols"), "pyfft_local_cols_xshape"
+                 + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
@@ -1424,13 +1455,15 @@ def _cols_xshape_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _col_xtile_f64(log2n: int, in_ts: int) -> tuple[int, int] | None:
-    """(G, C) of the complex128 cluster column kernel's tile at length
-    2^log2n on planes of t stride ``in_ts``, as its launch takes it
-    (``pyfft_local_cols_xtile_f64``: no CUDA call); None where one block
-    takes a tile."""
+def _col_xtile(log2n: int, in_ts: int,
+               dtype: torch.dtype = torch.float64) -> tuple[int, int] | None:
+    """(G, C) of the cluster column kernel's tile for planes of ``dtype``
+    at length 2^log2n and t stride ``in_ts``, as its launch takes it
+    (``pyfft_local_cols_xtile_f64``, ``pyfft_local_cols_xtile``: no CUDA
+    call); None where another design takes the length."""
     from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_cols_xtile_f64
+    fn = getattr(load("local_cols"), "pyfft_local_cols_xtile"
+                 + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.c_longlong,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -1438,23 +1471,75 @@ def _col_xtile_f64(log2n: int, in_ts: int) -> tuple[int, int] | None:
     return (out[0], out[1]) if fn(log2n, in_ts, out) else None
 
 
-def col_xshape_f64(n: int, strided: bool = False) -> dict | None:
-    """The complex128 cluster column kernel's shape at length n on planar
-    data (or, with ``strided``, on planes whose t stride is not 1, as the
-    complex form's): the blocks G of a cluster, the columns C of its tile,
-    the blocks an SM its registers leave room for, and the clusters the
-    card holds at once with the plain and with the swapped store; None
-    where one block takes a tile (n <= 512).  Builds the kernel on first
+def col_xshape_f64(n: int, strided: bool = False,
+                   dtype: torch.dtype = torch.float64) -> dict | None:
+    """The cluster column kernel's shape for planes of ``dtype`` (K12 by
+    default, K5 on float32) at length n on planar data (or, with
+    ``strided``, on planes whose t stride is not 1, as the complex
+    form's): the blocks G of a cluster, the columns C of its tile, the
+    blocks an SM its registers leave room for, and the clusters the card
+    holds at once with the plain and with the swapped store; None where
+    another design takes the length (n <= 512).  Builds the kernel on first
     use."""
     out = (ctypes.c_longlong * 5)()
-    err = _cols_xshape_fn()(ilog2(n), int(bool(strided)), out)
+    err = _cols_xshape_fn(dtype)(ilog2(n), int(bool(strided)), out)
     if err == -1000:
         return None
     if err != 0:
-        raise RuntimeError(f"pyfft_local_cols_xshape_f64 failed: cudaError "
+        raise RuntimeError(f"cluster column shape query failed: cudaError "
                            f"{err}")
     return dict(zip(("cluster", "columns", "blocks_an_sm", "clusters_plain",
                      "clusters_swap"), out))
+
+
+def col_xshape(n: int, strided: bool = False) -> dict | None:
+    """K5's cluster tile from n = 1024 (csrc/local_cols.cu
+    ``PYFFT_XCOLS_F32``, ``_S2``), as ``col_xshape_f64`` gives K12's."""
+    return col_xshape_f64(n, strided, torch.float32)
+
+
+COL_RING_KEYS = ("columns", "threads", "slots", "smem_bytes",
+                 "blocks_per_sm")
+
+
+@functools.lru_cache(maxsize=None)
+def col_ring_shape(n: int) -> dict | None:
+    """K5's persistent column ring at length n (csrc/local_cols.cu
+    ``PYFFT_COLS_PRING``), which complex64 column passes with a plain
+    store and no twiddle or the ``full`` one run on planes its tensor maps
+    read (``_boxable``): the ``columns`` of a tile, ``threads`` a block,
+    ``slots`` of the ring, a block's ``smem_bytes`` and the
+    ``blocks_per_sm`` the current card holds (asked of it); None where the
+    ring takes no such length.  Builds the library on first use."""
+    from pyfft_tpu_torch.ops.build import load
+    fn = load("local_cols").pyfft_local_cols_pring_shape
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(COL_RING_KEYS))()
+    got = fn(ilog2(n), out)
+    if got < 0:
+        raise RuntimeError(f"column ring shape query failed: cudaError "
+                           f"{-got}")
+    return dict(zip(COL_RING_KEYS, out)) if got else None
+
+
+def col_design(n: int, dtype: torch.dtype, *, boxable: bool, in_ts: int,
+               tw_mode: str = "", tw_n: int = 0, swap_store: bool = False,
+               swap_mid: int = 0, T: int = 0) -> str:
+    """Which design the column pass runs (csrc/local_cols.cu
+    ``launch_cols``): "x", the cluster tile, where its table takes n (K12
+    from n = 1024 in float64, K5 from n = 1024 in float32); "ring", K5's
+    persistent ring (float32, n = 16 to 256), on a plain store (no swap,
+    no mid swap shorter than the trail ``T``) with no twiddle or the
+    ``full`` one, on planes its tensor maps read (``boxable``); else
+    "first", the first design (local_cols_kernel).  No CUDA call."""
+    if _col_xtile(ilog2(n), in_ts, dtype):
+        return "x"
+    plain = not swap_store and (not swap_mid or swap_mid >= T)
+    if (dtype == torch.float32 and n in COL_RING_LENGTHS and plain
+            and (not tw_n or tw_mode == "full") and boxable):
+        return "ring"
+    return "first"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1580,8 +1665,8 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         raise ValueError("the int8 stage takes float32 planes and no ctile")
     fn, width = _cols_i8_lib() if i8_f else _cols_lib(re.dtype)
     blocks = -(-T // width(ilog2(n))) * L
-    xtile = (_col_xtile_f64(ilog2(n), dims[4])
-             if re.dtype == torch.float64 else None)
+    xtile = (None if i8_f or ctile
+             else _col_xtile(ilog2(n), dims[4], re.dtype))
     if xtile:                   # a cluster of G blocks a tile of C columns
         blocks = -(-T // xtile[1]) * L * xtile[0]
     if ctile:
@@ -1611,10 +1696,14 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
                      *ptrs[9:], int(bool(swap_store)), stream)
         else:
             err = fn(*ptrs, int(bool(swap_store)), stream)
-    if err != 0:
+    design = _COL_DESIGNS.get(err) if re.dtype == torch.float32 and not (
+        ctile or i8_f) else None
+    if err != 0 and design is None:
         name = ("local_cols_ctile" if ctile else
                 "local_cols_i8" if i8_f else "local_cols")
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if design:
+        globals()[design] += 1
     if ctile:
         CTILE_LAUNCHES += 1
     elif i8_f:
@@ -1662,9 +1751,10 @@ def fft_axis(re, im, sign, *, axis=-1, postscale: float = 1.0, factors=None,
     over.
 
     A CUDA tensor goes to a kernel, which runs its own chain and ignores
-    ``factors`` (complex64 rows: the row ring, ``rows_ring_shape``, on
-    inputs its bulk copies read, else the first design; both read any
-    layout the checks take); a CPU tensor goes to the plain torch version,
+    ``factors`` (rows: the row ring, ``rows_ring_shape``, on inputs its
+    bulk copies read, else the first design; both read any layout the
+    checks take; complex64 columns: the design ``col_design`` names); a
+    CPU tensor goes to the plain torch version,
     which runs ``factors`` (default: ``row_factors(n)`` or
     ``col_factors(n)``).  ``out=(re, im)`` names the planes to write, of
     the output's shape; with a plain store they may be the inputs

@@ -37,6 +37,7 @@ from test_torch_cluster_cols import CSRC, c_eval, macro_cases
 torch.set_num_threads(2)
 
 TOL = 2e-6
+TOL64 = 1e-11
 PARITY = 1e-6
 SMEM = 227 * 1024               # shared memory a block may take (H100)
 SM_SMEM = 228 * 1024            # an SM's, with 1 KB a block reserved
@@ -55,9 +56,13 @@ def rows_text(pattern: str) -> tuple:
 
 RING = {log2n: (rpb, slots) for log2n, rpb, slots in
         macro_cases("local_rows.cu", "PYFFT_ROWS_RING")}
+# K11's table: the same ring on double planes
+RING_F64 = {log2n: (rpb, slots) for log2n, rpb, slots in
+            macro_cases("local_rows.cu", "PYFFT_ROWS_RING_F64")}
 PAD, TWD, R16 = (v == "true" for v in rows_text(
     r"\nconstexpr bool RING_PAD = (\w+), RING_TWD = (\w+), "
     r"RING_R16 = (\w+);"))
+R16_F64 = rows_text(r"\nconstexpr bool RING_R16_F64 = (\w+);")[0] == "true"
 
 
 def rpb_of(log2n: int) -> int:
@@ -66,18 +71,20 @@ def rpb_of(log2n: int) -> int:
     return RING[log2n][0] if log2n in RING else min(256, max(1, 4096 >> log2n))
 
 
-def shape(log2n: int, rpb: int, slots: int) -> dict:
-    """RowRing's constants (csrc/local_rows.cu) at (log2 n, RPB, S)."""
+def shape(log2n: int, rpb: int, slots: int, vb: int = 8) -> dict:
+    """RowRing's constants (csrc/local_rows.cu) at (log2 n, RPB, S), for
+    values of ``vb`` bytes (8 complex64, 16 complex128)."""
     n = 1 << log2n
     p = rpb * n
     nt = p // min(n, 16)
     raw = max(p, rpb * (n + n // 16))
-    slot = (raw * 8 + 127) // 128 * 128 // 8
-    smem = slots * slot * 8 + 128
+    slot = (raw * vb + 127) // 128 * 128 // vb
+    smem = slots * slot * vb + 128
     return dict(n=n, rpb=rpb, slots=slots, p=p, nt=nt, box=n < 512,
                 pass_in=n <= 16, pass_out=n <= 64, slot=slot, smem=smem,
                 per=min(SM_SMEM // (smem + 1024), 2048 // nt),
-                r16=R16 and (log2n + 3) // 4 < (log2n + 2) // 3)
+                r16=(R16 if vb == 8 else R16_F64)
+                and (log2n + 3) // 4 < (log2n + 2) // 3)
 
 
 def test_shape_constants_are_the_sources():
@@ -86,12 +93,13 @@ def test_shape_constants_are_the_sources():
             "static constexpr int NT = P / (N < 16 ? N : 16);",
             "static constexpr bool BOX = N < 512;",
             "static constexpr bool PASS_IN = N <= 16, PASS_OUT = N <= 64;",
-            "static constexpr bool R16 = RING_R16 && (LOGN + 3) / 4 < "
-            "(LOGN + 2) / 3;",
+            "static constexpr int VB = (int)sizeof(V);",
+            "static constexpr bool R16 = (VB == 8 ? RING_R16 : RING_R16_F64) "
+            "&&\n" + " " * 30 + "(LOGN + 3) / 4 < (LOGN + 2) / 3;",
             "static constexpr int RAW = P > RPB * (N + N / 16) ? P : "
             "RPB * (N + N / 16);",
-            "static constexpr int SLOT = (RAW * 8 + 127) / 128 * 128 / 8;",
-            "static constexpr int SMEM = S * SLOT * 8 + 128;",
+            "static constexpr int SLOT = (RAW * VB + 127) / 128 * 128 / VB;",
+            "static constexpr int SMEM = S * SLOT * VB + 128;",
             "static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);"):
         assert text in ROWS_SRC, text
 
@@ -153,7 +161,7 @@ def chain_index(n: int, c, k, pad: bool):
 
 
 def butterfly_twiddles(tw: np.ndarray, e: np.ndarray, radix: int,
-                       twd: bool) -> np.ndarray:
+                       twd: bool, cdt=np.complex64) -> np.ndarray:
     """(B, R) twiddles w^r of each butterfly, w^r at tw[r*e], formed as
     the stage forms them: TWD reads w^1, w^2, w^3, w^4, w^8 at radix 16
     and multiplies the others out; at radix 4 and 8 it reads w^1, w^2
@@ -170,33 +178,34 @@ def butterfly_twiddles(tw: np.ndarray, e: np.ndarray, radix: int,
         if radix == 8:
             w[4], w[7] = read[4], read[7]
             w[5], w[6] = w[1] * w[4], w[2] * w[4]
-    return np.stack([w[r] for r in range(radix)], axis=1).astype(np.complex64)
+    return np.stack([w[r] for r in range(radix)], axis=1).astype(cdt)
 
 
 def chain_model(x: np.ndarray, sign: int, post: float, log2n: int,
-                rpb: int) -> np.ndarray:
-    """local_rows_ring_kernel's function over the (rows, n) complex64 rows
-    x, slot by slot: the slot's raw rows, the chain in its padded layout
-    (for short rows with the passes along the rows before and after it),
-    the stores times ``post``.  Asserts that every stage writes
-    each slot index once and inside the slot, and that every output is
-    stored once."""
-    s = shape(log2n, rpb, 3)
+                rpb: int, slots: int = 3) -> np.ndarray:
+    """local_rows_ring_kernel's function over the (rows, n) rows x
+    (complex64, or complex128 for K11's instantiation), slot by slot: the
+    slot's raw rows, the chain in its padded layout (for short rows with
+    the passes along the rows before and after it), the stores times
+    ``post``.  Asserts that every stage writes each slot index once and
+    inside the slot, and that every output is stored once."""
+    cdt = x.dtype
+    s = shape(log2n, rpb, slots, cdt.itemsize)
     n, p, slot = s["n"], s["p"], s["slot"]
-    tw = (np.exp(sign * 2j * np.pi * np.arange(n) / n)).astype(np.complex64)
+    tw = (np.exp(sign * 2j * np.pi * np.arange(n) / n)).astype(cdt)
     rows = x.shape[0]
-    out = np.zeros((rows, n), np.complex64)
+    out = np.zeros((rows, n), cdt)
     stored = np.zeros((rows, n), np.int64)
     rads = radices(log2n, s["r16"])
     for row0 in range(0, rows, rpb):
-        raw = np.zeros((rpb, n), np.complex64)        # rows past the end: 0
+        raw = np.zeros((rpb, n), cdt)                 # rows past the end: 0
         raw[:min(rpb, rows - row0)] = x[row0:row0 + rpb]
-        buf = np.full(slot, np.nan, np.complex64)
+        buf = np.full(slot, np.nan, cdt)
 
         def put(c, k, v):
             c, k, v = c.ravel(), k.ravel(), v.ravel()
             keep = row0 + c < rows
-            out[row0 + c[keep], k[keep]] = v[keep] * np.float32(post)
+            out[row0 + c[keep], k[keep]] = v[keep] * cdt.type(post).real
             np.add.at(stored, (row0 + c[keep], k[keep]), 1)
 
         if s["pass_in"]:               # the pass along the rows, in
@@ -214,10 +223,10 @@ def chain_model(x: np.ndarray, sign: int, post: float, log2n: int,
                  else buf[chain_index(n, c[:, None], kin, PAD)])
             if ns > 1:
                 e = (j % ns) * (n // (ns * radix))
-                v = v * butterfly_twiddles(tw, e, radix, TWD)
+                v = v * butterfly_twiddles(tw, e, radix, TWD, cdt)
             r_ = np.arange(radix)
             dft = np.exp(sign * 2j * np.pi * np.outer(r_, r_) / radix)
-            v = (v @ dft.astype(np.complex64)).astype(np.complex64)
+            v = (v @ dft.astype(cdt)).astype(cdt)
             base = (j // ns) * ns * radix + j % ns
             kout = base[:, None] + r_[None, :] * ns
             if last:
@@ -226,7 +235,7 @@ def chain_model(x: np.ndarray, sign: int, post: float, log2n: int,
                 idx = chain_index(n, c[:, None], kout, PAD).ravel()
                 assert len(np.unique(idx)) == idx.size, "a slot index twice"
                 assert idx.max() < slot, "a write past the slot"
-                buf = np.full(slot, np.nan, np.complex64)
+                buf = np.full(slot, np.nan, cdt)
                 buf[idx] = v.ravel()
             ns *= radix
         if s["pass_out"]:              # the pass along the rows, out
@@ -403,10 +412,13 @@ def test_fills_count_their_bytes():
     from 512 one copy a row of each plane (or of pairs) for the rows that
     exist, N*8 bytes a row either way."""
     assert "mbar_expect(bar, P * (int)sizeof(float2));" in ROWS_SRC
-    assert "mbar_expect(bar, nr * N * (int)sizeof(float2));" in ROWS_SRC
-    for copy in ("bulk_copy(dst + 2 * r * N, io.in + o, N * 8, bar);",
-                 "bulk_copy(dst + r * N, io.in + o, N * 4, bar);",
-                 "bulk_copy(dst + P + r * N, io.in_im + o, N * 4, bar);",
+    assert "mbar_expect(bar, nr * N * (int)sizeof(V));" in ROWS_SRC
+    for copy in ("bulk_copy(dst + 2 * r * N, io.in + o, N * (int)sizeof(V), "
+                 "bar);",
+                 "bulk_copy(dst + r * N, io.in + o, N * (int)sizeof(Real), "
+                 "bar);",
+                 "bulk_copy(dst + P + r * N, io.in_im + o, "
+                 "N * (int)sizeof(Real),\n                    bar);",
                  "tma_load_2d(dst, &map_re, 0, static_cast<int>(row0), bar);",
                  "if (!pin) tma_load_2d(dst + P, &map_im, 0, "
                  "static_cast<int>(row0), bar);"):
@@ -416,22 +428,22 @@ def test_fills_count_their_bytes():
 # ------------------------------------------------------ the operand rule
 
 
-def ring_planes(kind):
-    """(rows, n) float32 planes of each layout the rule sees, seeded."""
+def ring_planes(kind, dtype=torch.float32):
+    """(rows, n) planes of ``dtype`` of each layout the rule sees, seeded."""
     g = torch.Generator().manual_seed(5)
 
     def rand(*shape):
-        return torch.randn(*shape, generator=g)
+        return torch.randn(*shape, generator=g, dtype=dtype)
 
     if kind == "planar":
         return rand(64, 256), rand(64, 256)
     if kind == "pairs":
         v = torch.view_as_real(torch.complex(rand(64, 256), rand(64, 256)))
         return v[..., 0], v[..., 1]
-    if kind == "offset":                # 4 bytes off 16-byte alignment
+    if kind == "offset":                # one real off 16-byte alignment
         flat = rand(64 * 256 + 1)
         return flat[1:].view(64, 256), rand(64, 256)
-    if kind == "rows 4 bytes apart":    # a row stride of 257 floats
+    if kind == "rows 4 bytes apart":    # a row stride of 257 reals
         return rand(64, 257)[:, :256], rand(64, 257)[:, :256]
     if kind == "pairs swapped":         # im before re
         v = torch.view_as_real(torch.complex(rand(64, 256), rand(64, 256)))
@@ -444,38 +456,44 @@ def ring_planes(kind):
 # after the real one at element stride 2), K2's pairs directly (in_pairs 1,
 # the row stride in floats); ring_rows_operands then decides.
 OPERANDS = rows_text(
-    r"inline bool ring_rows_operands\(const RingIo& io\) \{\n"
+    r"inline bool ring_rows_operands\(const RingIo<Real>& io\) \{\n"
     r"  const uintptr_t a = reinterpret_cast<uintptr_t>\(io\.in\);\n"
     r"  const uintptr_t b = reinterpret_cast<uintptr_t>\(io\.in_im\);\n"
     r"  return ([^;]+);\n\}")[0]
 IN_PAIRS = rows_text(r"\n  const bool in_pairs = ([^;]+);\n")[0]
-K2_RING = ("  const RingIo ring{static_cast<const float*>(in), nullptr,\n"
-           "                    static_cast<float*>(out), nullptr, rows, 1, 1, "
-           "2,\n                    2LL * in_rs, 2LL * out_rs, 2, postscale};")
-DISPATCH = ("  if (ring.rows > 0 && ring_rows_rpb(log2n) && "
-            "ring_rows_operands(ring)) {")
+K2_RING = ("  const RingIo<float> ring{static_cast<const float*>(in), nullptr,"
+           "\n                           static_cast<float*>(out), nullptr, "
+           "rows, 1, 1, 2,\n                           2LL * in_rs, 2LL * "
+           "out_rs, 2, postscale};")
+DISPATCH = ("  if (ring.rows > 0 && ring_rows_rpb<Real>(log2n) &&\n"
+            "      ring_rows_operands(ring)) {")
 
 
-def c_bool(expr: str, **env) -> bool:
+def c_bool(expr: str, real_bytes: int = 4, **env) -> bool:
     """A boolean C expression of the source in Python: ``||`` and ``&&``,
-    the operand fields ``io.x`` from ``env``."""
-    py = expr.replace("||", " or ").replace("&&", " and ").replace("io.", "")
+    the operand fields ``io.x`` from ``env``, ``sizeof(Real)`` the planes'
+    ``real_bytes``."""
+    py = (expr.replace("||", " or ").replace("&&", " and ")
+          .replace("io.", "").replace("(long long)sizeof(Real)",
+                                      str(real_bytes)))
     return bool(eval(f"({py})", {"__builtins__": {}}, env))
 
 
 def ring_takes(re, im) -> bool:
-    """Whether the C rule sends K1's planes (``im`` given; pointers in
-    bytes, strides in floats) or K2's pairs (``im`` None, ``re`` the float
-    view of the pairs) to the ring."""
+    """Whether the C rule sends K1's (K11's on float64) planes (``im``
+    given; pointers in bytes, strides in reals) or K2's pairs (``im``
+    None, ``re`` the float view of the pairs) to the ring."""
     assert K2_RING in ROWS_SRC and DISPATCH in ROWS_SRC
+    rb = re.element_size()
     if im is None:
         pairs, b, es = 1, 0, 2
     else:
         pairs = c_bool(IN_PAIRS, in_es=re.stride(1),
-                       in_re=re.data_ptr() // 4, in_im=im.data_ptr() // 4)
+                       in_re=re.data_ptr() // rb, in_im=im.data_ptr() // rb)
         b, es = im.data_ptr(), re.stride(1)
-    return c_bool(OPERANDS, a=re.data_ptr(), b=b, in_pairs=pairs, in_es=es,
-                  rows=re.shape[0], in_rs=re.stride(0))
+    return c_bool(OPERANDS, real_bytes=rb, a=re.data_ptr(), b=b,
+                  in_pairs=pairs, in_es=es, rows=re.shape[0],
+                  in_rs=re.stride(0))
 
 
 @pytest.mark.parametrize("kind,ok", [
@@ -553,3 +571,200 @@ def test_failed_launch_raises(monkeypatch, name, err, ring):
     with pytest.raises(RuntimeError, match=f"{name} launch failed"):
         local._launched(name, err, ring)
     assert local.RING_LAUNCHES == 0
+
+
+# ------------------------------------------- K11: the ring on double planes
+
+F64_ENTRY = ("  return rows_ring<double, false>(log2n, ring_planes(old), "
+             "old, tw, sign,\n                                  stream);")
+
+
+# K11's ring at the lengths it may take: its table's, and the shapes of
+# the probe patch that puts n = 1024 and 2048 on it too (k11ring of
+# probes/float_split.py; the first design was as fast or faster there)
+F64_SHAPES = {10: (2, 3), 11: (1, 3), **RING_F64}
+
+
+def test_ring_f64_table_rules():
+    """K11's ring at n = 4096 (bulk copies only: a tensor map has no
+    16-byte element for pairs of doubles; 1024 and 2048 run the first
+    design with TWD), one row a slot in two slots, and at the probe
+    patch's 1024 and 2048 (2048 points a slot, three slots); every slot
+    within a block's shared memory, threads that take 16 points a stage
+    and tile the slot, one bulk copy a row within an mbarrier's byte
+    count, at least one block an SM; radix 16 in double (a round trip
+    fewer at each length)."""
+    assert sorted(RING_F64) == [12]
+    assert R16_F64 and F64_ENTRY in ROWS_SRC
+    assert "constexpr bool OLD_TWD_F64 = true;" in ROWS_SRC
+    for log2n, (rpb, slots) in F64_SHAPES.items():
+        s = shape(log2n, rpb, slots, 16)
+        n, p, nt = s["n"], s["p"], s["nt"]
+        assert not s["box"] and not s["pass_in"] and not s["pass_out"]
+        assert slots >= 2 and s["smem"] <= SMEM and s["per"] >= 1
+        assert nt * 16 == p and nt <= 1024 and nt % 32 == 0
+        assert p * 16 < 1 << 20 and (n * 8) % 16 == 0
+        assert s["slot"] * 16 % 128 == 0 and s["slot"] >= p
+        assert s["r16"]
+        for r in radices(log2n, s["r16"]):
+            assert (n // r) * rpb % nt == 0
+    # one block of 256 threads an SM at n = 4096; two of 128 at 1024
+    assert shape(12, *RING_F64[12], 16)["per"] == 1
+    assert shape(12, *RING_F64[12], 16)["nt"] == 256
+    assert shape(10, *F64_SHAPES[10], 16)["per"] == 2
+
+
+@pytest.fixture
+def static_jax_tables(tmp_path, monkeypatch):
+    """Point the JAX package's autotune record at an empty file."""
+    path = tmp_path / "tuned.json"
+    path.write_text("{}")
+    monkeypatch.setenv("PYFFT_TPU_TUNE_FILE", str(path))
+    jax_local.reload_tuned()
+    yield
+    jax_local._TUNED = None
+
+
+@pytest.mark.parametrize("sign,post", [(-1, 0.5), (1, 0.3)])
+@pytest.mark.parametrize("log2n", [10, 11, 12])
+def test_ring_f64_chain_matches_numpy_and_jax(log2n, sign, post,
+                                              static_jax_tables):
+    """K11's ring in FP64 (radix 16 after a radix-4 or 8 head, padded
+    rows, TWD's twiddle products in double) on a ragged last slot (RPB + 1
+    rows), against numpy.fft and JAX's double-float row kernel
+    (``pallas_df64.fft_axis_df64``, interpret mode) at 1e-11."""
+    from pyfft_tpu.ops import df64 as jax_df64
+    from pyfft_tpu.ops import pallas_df64
+    n = 1 << log2n
+    rpb, slots = F64_SHAPES[log2n]
+    rows = rpb + 1
+    rng = np.random.default_rng(log2n * 3 + (sign > 0))
+    x = rng.standard_normal((rows, n)) + 1j * rng.standard_normal((rows, n))
+    got = chain_model(x, sign, post, log2n, rpb, slots)
+    ref = (np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n) * post
+    assert rel(got, ref) < TOL64
+    quad = []
+    for plane in (x.real, x.imag):
+        hi, lo = jax_df64.split_f64(np.ascontiguousarray(plane))
+        quad += [jnp.asarray(hi), jnp.asarray(lo)]
+    rh, rl, ih, il = (np.asarray(q) for q in pallas_df64.fft_axis_df64(
+        tuple(quad), sign, axis=-1, postscale=post, interpret=True))
+    jgot = (jax_df64.combine_f64(rh, rl) + 1j * jax_df64.combine_f64(ih, il))
+    assert rel(got, jgot) < TOL64
+
+
+@pytest.mark.parametrize("log2n", sorted(RING_F64))
+@pytest.mark.parametrize("case", ["ragged waves", "under a wave", "one row"])
+def test_ring_f64_walk_visits_every_row_once(log2n, case):
+    """K11's walk (the kernel's own expressions at its table's shapes):
+    every row copied once, no slot filled before it is freed, each wait at
+    its fill's parity."""
+    rpb, slots = RING_F64[log2n]
+    per = shape(log2n, rpb, slots, 16)["per"]
+    grid = SMS * per
+    rows = {"ragged waves": 3 * grid * rpb + 1,
+            "under a wave": (grid // 2) * rpb - 1, "one row": 1}[case]
+    _, blocks = ring_walk(rows, rpb, slots, per)
+    seen = np.zeros(rows, np.int64)
+    for bx, ev in blocks:
+        held, fills = {}, {}
+        for kind, i, slot, rws, parity in ev:
+            if kind == "issue":
+                assert slot not in held
+                held[slot] = i
+                fills[slot] = fills.get(slot, 0) + 1
+                seen[rws] += 1
+            elif kind == "wait":
+                assert held.get(slot) == i
+                assert parity == (fills[slot] - 1) & 1
+            else:
+                assert held.pop(slot) == i
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("planar", True), ("pairs", True), ("offset", False),
+    ("rows 4 bytes apart", False), ("pairs swapped", False)])
+def test_ring_f64_operands_rule(kind, ok):
+    """K11's double planes go to the ring where its bulk copies read them
+    as they lie (planar, or the complex form's pairs of doubles; 16-byte
+    aligned; rows 16 bytes apart: an even row stride in doubles); a view
+    one double off alignment, rows one double longer or im before re run
+    the first design."""
+    re, im = ring_planes(kind, torch.float64)
+    assert ring_takes(re, im) == ok
+
+
+@pytest.mark.parametrize("log2n,ring", [(12, True), (11, False),
+                                        (10, False), (9, False), (3, False)])
+def test_ring_f64_dispatch_rule(log2n, ring):
+    """K11 runs the ring at the lengths of its table (n = 4096) and the
+    first design at every other (the ring's rpb lookup by the planes'
+    type)."""
+    assert (log2n in RING_F64) == ring
+    assert ("template <typename Real>\nint ring_rows_rpb(int log2n) {"
+            in ROWS_SRC)
+    assert ("  if constexpr (sizeof(Real) == sizeof(float)) {\n"
+            "    PYFFT_ROWS_RING(PYFFT_RING_RPB)\n  } else {\n"
+            "    PYFFT_ROWS_RING_F64(PYFFT_RING_RPB)\n  }") in ROWS_SRC
+
+
+@pytest.mark.parametrize("err,ring", [(local.RAN_RING, 1), (0, 0)])
+def test_ring_f64_launches_counted(monkeypatch, err, ring):
+    """RING_LAUNCHES_F64 counts a K11 launch whose C entry returned
+    RAN_RING, LAUNCHES_F64 every K11 launch; K1's counts stay."""
+    monkeypatch.setattr(local, "_rows_fn", lambda dtype: lambda *a: err)
+    monkeypatch.setattr(local, "_check_planes", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    for name in ("RING_LAUNCHES", "RING_LAUNCHES_F64", "LAUNCHES",
+                 "LAUNCHES_F64"):
+        monkeypatch.setattr(local, name, 0)
+    re, im = ring_planes("planar", torch.float64)
+    local._launch_rows(re, im, re.clone(), im.clone(), -1, 1.0)
+    assert (local.LAUNCHES_F64, local.RING_LAUNCHES_F64) == (1, ring)
+    assert (local.LAUNCHES, local.RING_LAUNCHES) == (0, 0)
+
+
+def test_ring_f64_failed_launch_raises(monkeypatch):
+    """A failed K11 launch raises and counts nothing."""
+    monkeypatch.setattr(local, "_rows_fn", lambda dtype: lambda *a: 700)
+    monkeypatch.setattr(local, "_check_planes", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(local, "RING_LAUNCHES_F64", 0)
+    monkeypatch.setattr(local, "LAUNCHES_F64", 0)
+    re, im = ring_planes("planar", torch.float64)
+    with pytest.raises(RuntimeError, match="local_rows launch failed"):
+        local._launch_rows(re, im, re.clone(), im.clone(), -1, 1.0)
+    assert (local.LAUNCHES_F64, local.RING_LAUNCHES_F64) == (0, 0)
+
+
+@pytest.mark.parametrize("log2n", [6, 10, 11])
+def test_first_design_twd_f64(log2n):
+    """K11's first design forms w^3, w^5 and w^6 of a radix-8 butterfly
+    from its reads of w^1, w^2 and w^4 (OLD_TWD_F64; K1's float stages
+    read all seven): at every butterfly of every stage the products agree
+    with the table's own entries to double's roundoff."""
+    text = ROWS_SRC[ROWS_SRC.index("      if constexpr (OLD_TWD_F64 && "
+                                   "sizeof(Real) == sizeof(double) &&"):]
+    text = text[:text.index("      } else {")]
+    for term in ("v[b][3] = cmul(v[b][3], cmul(w1, w2));",
+                 "v[b][5] = cmul(v[b][5], cmul(w1, w4));",
+                 "v[b][6] = cmul(v[b][6], cmul(w2, w4));",
+                 "v[b][7] = cmul(v[b][7], __ldg(&tw[7 * e]));"):
+        assert term in text, term
+    n = 1 << log2n
+    tw = np.exp(-2j * np.pi * np.arange(n) / n)
+    ns = 1 << (log2n % 3 or 3)            # after the first stage
+    while ns < n:
+        j = np.arange(n // 8)
+        e = (j % ns) * (n // (ns * 8))
+        got = butterfly_twiddles(tw, e, 8, True, np.complex128)
+        want = tw[np.arange(8)[None, :] * e[:, None]]
+        assert np.abs(got - want).max() < 1e-14
+        ns *= 8
