@@ -4,7 +4,7 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in twenty-one phases, one or more lines each:
+numpy.fft, in twenty-two phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
@@ -164,7 +164,20 @@ numpy.fft, in twenty-one phases, one or more lines each:
      inverse with exact counts, against numpy and the plain version;
      K2+K10 timed at config 2i (f = 64) and at 2048 x 8192 (f = 128)
      beside K2, K1+K10 on the same view's stride-2 planes, the plain
-     version, the bounds and torch.fft.fft.
+     version, the bounds and torch.fft.fft;
+ 22. the distributed FFT (``pyfft_tpu_torch.parallel``): ``warmup`` of
+     the shapes below, then one NCCL rank on card 0 and a (1, 1) ("dp",
+     "sp") device mesh (a missing NCCL fails); make_dist_fft at config 2
+     (K1 on the ring), make_dist_fft2 at config 3 (K1, then K5 on the
+     cluster tile), make_dist_fft3 at config 4 (K8, then K5 on the ring)
+     and make_dist_fft_df64 at 4096 x 4096 complex128 (K11 on the ring),
+     each forward and normalized inverse with exact launch counts,
+     against numpy and against the single-card Plan on the same data (at
+     s = 1 bit-equal), its forward timed beside Plan.execute with the
+     card's name and power limit; the long 1D case (2 x 2^16: the plain
+     chain, no kernel) against numpy and timed.  The multi-rank exchange
+     is checked on the CPU over gloo (tests/test_torch_dist.py): one card
+     holds one NCCL rank.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -339,14 +352,19 @@ def fft_flops(n: int, count: int) -> float:
     return 5.0 * n * math.log2(n) * count
 
 
-def phase_device():
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this smoke run has no CPU path")
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this smoke run has no CPU path")
+    print(card())
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -3189,6 +3207,167 @@ def phase_int8_il_paths(copy_gbs):
     return {"counts": counts, "checks": checks, "timed": rows, "errs": e}
 
 
+# ------------------------------------------ the distributed FFT (phase 22)
+
+
+class DistPath(NamedTuple):
+    make: str             # the parallel.dist function
+    arg: object           # its n or shape
+    shape: tuple          # the data, one rank's block at s = 1
+    dtype: torch.dtype
+    plan: tuple           # the single-card Plan's shape on the same data
+    per: dict             # launches of one call
+    designs: dict         # of those, on each redesign (design_counts)
+
+
+DIST_PATHS = {
+    "config 2": DistPath("make_dist_fft", N, (BATCH, N), torch.complex64,
+                         (N,), {"local_rows": 1}, {"row ring": 1}),
+    "config 3": DistPath("make_dist_fft2", (1024, 1024), (16, 1024, 1024),
+                         torch.complex64, (1024, 1024),
+                         {"local_rows": 1, "local_cols": 1},
+                         {"row ring": 1, "column cluster tile": 1}),
+    "config 4": DistPath("make_dist_fft3", (256, 256, 256),
+                         (1, 256, 256, 256), torch.complex64,
+                         (256, 256, 256), {"fused2d": 1, "local_cols": 1},
+                         {"column ring": 1}),
+    "c128 4096 x 4096": DistPath("make_dist_fft_df64", N, (BATCH, N),
+                                 torch.complex128, (N,),
+                                 {"local_rows_f64": 1}, {"row ring f64": 1}),
+}
+
+
+def queued_ms(fn) -> tuple[float, str]:
+    """Device ms a call with the host ahead (``time_queued_ms``), else,
+    where the host cannot get ahead, per-call events (``time_ms``)."""
+    from pyfft_tpu_torch.utils.profiling import time_ms, time_queued_ms
+    try:
+        return time_queued_ms(fn)[0], "host ahead"
+    except RuntimeError:
+        return time_ms(fn), "events"
+
+
+def dist_path(mesh, name: str, spec: DistPath, seed: int) -> dict:
+    """One distributed path at full width: forward and normalized inverse
+    with exact launch counts, against numpy and the single-card Plan on
+    the same data, and timed beside ``Plan.execute``."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.parallel import dist as pdist
+    tol = TOL64 if spec.dtype == torch.complex128 else TOL
+    make = getattr(pdist, spec.make)
+    fwd = make(mesh, spec.arg)
+    inv = make(mesh, spec.arg, sign=+1, normalize=True)
+    x = make_data(spec.shape, seed, spec.dtype)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    ref = numpy_ref(x, len(spec.plan))
+    reset_counts()
+    yr, yi = fwd(re, im)
+    br, bi = inv(yr, yi)
+    counts, designs = read_counts(), design_counts()
+    want = expect({k: 2 * v for k, v in spec.per.items()})
+    want_designs = {k: 2 * spec.designs.get(k, 0) for k in designs}
+    if counts != want or designs != want_designs:
+        raise AssertionError(f"dist {name}: launches {counts} on the "
+                             f"designs {designs}, expected {want} on "
+                             f"{want_designs}")
+    errs = {"fwd": rel_err(cplx(yr, yi), ref),
+            "roundtrip": rel_err(cplx(br, bi), x)}
+    for k, e in errs.items():
+        check(f"dist {name} {k}", e, tol)
+    # the single-card Plan on the same data: at s = 1 the exchanges are
+    # copies, the 1-point DFT and the twiddle multiply by exact ones and
+    # zeros, and the normalization is a power of two, so the bits match
+    plan = pyfft_tpu_torch.Plan(spec.plan, spec.dtype, device="cuda")
+    pr, pi = plan.execute(re, im)
+    qr, qi = plan.execute(yr, yi, inverse=True)
+    bits = {"fwd": torch.equal(yr, pr) and torch.equal(yi, pi),
+            "inv": torch.equal(br, qr) and torch.equal(bi, qi)}
+    vs_plan = {"fwd": rel_err(cplx(yr, yi), cplx(pr, pi)),
+               "inv": rel_err(cplx(br, bi), cplx(qr, qi))}
+    for k, e in vs_plan.items():
+        check(f"dist {name} {k} against Plan", e, tol)
+    ms, how = queued_ms(lambda: fwd(re, im))
+    plan_ms, plan_how = queued_ms(
+        lambda: plan.execute(re, im, wait_for_finish=False))
+    print(f"phase 22 dist {name} {spec.make} {tuple(spec.shape)} "
+          f"{spec.dtype}: launches "
+          f"{ {k: v for k, v in counts.items() if v} } over a forward and "
+          f"an inverse, on the redesigns "
+          f"{ {k: v for k, v in designs.items() if v} }; "
+          + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+          + f" (numpy, gate {tol:.0e}); against Plan: "
+          + ", ".join(f"{k} {'bit-equal' if bits[k] else f'{e:.3e}'}"
+                      for k, e in vs_plan.items())
+          + f"; forward {ms:.4f} ms ({how}) beside Plan.execute "
+          f"{plan_ms:.4f} ms ({plan_how}): {ms / plan_ms:.3f} x")
+    del x, re, im, yr, yi, br, bi, pr, pi, qr, qi
+    torch.cuda.empty_cache()
+    return {"counts": counts, "designs": designs, "errs": errs,
+            "bit_equal": bits, "vs_plan": vs_plan,
+            "timed": {"path": name, "make": spec.make, "ms": ms,
+                      "timing": how, "plan_ms": plan_ms,
+                      "plan_timing": plan_how, "ratio": ms / plan_ms}}
+
+
+def phase_dist() -> dict:
+    """Phase 22: ``warmup``, then one NCCL rank on card 0 and a (1, 1)
+    ("dp", "sp") mesh; the four distributed paths at full width
+    (DIST_PATHS) and the long 1D case (n = 2^16: the plain chain, no
+    kernel)."""
+    import tempfile
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.parallel import dist as pdist
+    print(f"phase 22 card: {card()}")
+    t0 = time.perf_counter()
+    count = pyfft_tpu_torch.warmup([(N,), (1024, 1024), (256, 256, 256)])
+    count += pyfft_tpu_torch.warmup([(N,)], dtypes=("complex128",))
+    print(f"phase 22 warmup: {count} plan executions (shape x dtype x "
+          f"batch x direction) in {time.perf_counter() - t0:.2f} s")
+    if not tdist.is_nccl_available():
+        raise RuntimeError("phase 22 needs NCCL, and this torch has none")
+    torch.cuda.set_device(0)
+    out = {"counts": dict.fromkeys(KERNELS, 0), "paths": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                 world_size=1, rank=0)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("dp", "sp"))
+            print(f"phase 22 NCCL rank and (1, 1) mesh up in "
+                  f"{time.perf_counter() - t1:.2f} s")
+            for seed, (name, spec) in enumerate(DIST_PATHS.items(), 220):
+                r = dist_path(mesh, name, spec, seed)
+                out["paths"][name] = r
+                for k, v in r["counts"].items():
+                    out["counts"][k] += v
+            # n/S = 2^16 > 8192: the local factor is the plain chain
+            fn = pdist.make_dist_fft(mesh, 1 << 16)
+            x = make_data((2, 1 << 16), 229)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            reset_counts()
+            yr, yi = fn(re, im)
+            counts = read_counts()
+            if any(counts.values()):
+                raise AssertionError(f"dist long 1D: launches {counts}, "
+                                     "expected none")
+            err = rel_err(cplx(yr, yi), numpy_ref(x, 1))
+            check("dist long 1D", err)
+            ms, how = queued_ms(lambda: fn(re, im))
+            out["long_1d"] = {"ms": ms, "timing": how, "err": err}
+            print(f"phase 22 dist long 1D make_dist_fft (2, 65536): no "
+                  f"kernel (n/S = 65536 > 8192: the plain chain, as JAX's "
+                  f"rule gives), err {err:.3e}, {ms:.4f} ms ({how})")
+        finally:
+            tdist.destroy_process_group()
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -3251,9 +3430,11 @@ def main() -> int:
     phase_int8_il()
     i8il = phase_int8_il_paths(t["copy_gbs"])
 
+    dist = phase_dist()
+
     launches = dict(counts2)
     for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h,
-              i8il):
+              i8il, dist):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -3395,7 +3576,10 @@ def main() -> int:
                       "routes": {k: il[k] for k in
                                  ("config_2i_routes", "library_ms",
                                   "winners", "single_pass", "multi_pass")},
-                      "real": rl["timings"]}))
+                      "real": rl["timings"],
+                      "dist": {"paths": [p["timed"] for p in
+                                         dist["paths"].values()],
+                               "long_1d": dist["long_1d"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

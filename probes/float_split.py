@@ -5,12 +5,14 @@ complex64 column kernel (K5) and the complex128 row kernel (K11) goes:
 pieces removed and shape knobs changed, one build each, on one CUDA card.
 
     python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2] [K5] [K11]
+                                  [P5]
 
-(the kernels named, all eight by default).  Builds, from copies of this
-checkout's ``csrc/`` patched in a temporary directory (the checkout is not
-touched), ``local_cols.cu`` (K12, K6, K4, K5), ``fused2d_tiled.cu`` (K9)
-and ``local_rows.cu`` (K1, K2, K11) in these variants, one nvcc each,
-eight at a time:
+(the kernels named, all by default; P5 is K5's ring without a load in
+flight, the counterpart of the JAX probe ``_fft_cols_stream``).  Builds,
+from copies of this checkout's ``csrc/`` patched in a temporary directory
+(the checkout is not touched), ``local_cols.cu`` (K12, K6, K4, K5, P5),
+``fused2d_tiled.cu`` (K9) and ``local_rows.cu`` (K1, K2, K11) in these
+variants, one nvcc each, eight at a time:
 
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
@@ -105,6 +107,15 @@ eight at a time:
   c5n512    the same on tiles of 8 columns (32 KB slots)
   c5ring8   the ring at n = 8 too (the source's table leaves 8 to the first
             design)
+  c5s1      P5: the ring of one slot, so that no load is in flight while
+            a block runs its chain (the next tile's copy starts after the
+            chain's last barrier), with the shared memory of three slots:
+            one block an SM, the same registers, as the default
+  c5s1p     the same with the blocks an SM that one slot's shared memory
+            allows (three at n = 256, under a tighter register cap)
+  c5s1w     c5s1 with a fence and a barrier after each chain, so that the
+            next tile's copy starts only when the last tile's stores are
+            done: nothing of the stream overlaps within a block
   k11old    K11's first design at every n (PYFFT_ROWS_RING_F64 emptied),
             P4's K11 half; k11oldnotw and k11oldcopy as oldnotw and oldcopy
   k11oldtwd0 the first design reading every twiddle of a radix-8
@@ -123,7 +134,9 @@ store, pass 2 the plain store), planar and on the complex form's stride-2
 planes, and the complex128 2D column pass (16 x 1024 x 1024); K5 at
 config 4's z pass (1 x 256 x 65536, planar and stride-2 planes), config
 3's column pass (16 x 1024 x 1024), config 6+'s two passes and the plain
-passes of the mid and huge routes (n = 128, 512); K11 at the complex128
+passes of the mid and huge routes (n = 128, 512); P5 (K5's ring of 3, 2
+and 1 slots and its first design, c5old; the mean of two turns, the
+second in reverse order) at config 4's z pass and at (1, 64, 262144); K11 at the complex128
 2D row pass (16384 x 1024, planar and complex form) and at 2^24 points
 with n = 2048 and 4096; K9 at config
 3 (16 x 1024 x 1024) and 16 x 512 x 512; K6 at config 4's z pass (1 x 256
@@ -187,6 +200,12 @@ PRING = re.search(r"#define PYFFT_COLS_PRING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
                   (build.CSRC / "local_cols.cu").read_text()).group(0)
 PRING_KNOBS = "constexpr bool PRING_R16 = true, PRING_TWD = true;"
 PRING_GRID = "  const long long grid = (tiles + rounds - 1) / rounds;"
+PRING_SMEM = ("  static constexpr int SMEM = S * SLOT + 128;         "
+              "// + alignment\n"
+              "  static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);\n"
+              "  static constexpr int PER = PER_SMEM < 2048 / NT ? PER_SMEM "
+              ": 2048 / NT;\n"
+              "  static_assert(S >= 2 && SMEM")
 XCOLS_F32 = re.search(r"#define PYFFT_XCOLS_F32\(X\)[^\n]*\\\n[^\n]*\n",
                       (build.CSRC / "local_cols.cu").read_text()).group(0)
 XCOLS_F32_S2 = re.search(
@@ -471,6 +490,14 @@ STEPS = {
     "c5twd0": [("local_cols.cu", PRING_KNOBS,
                 PRING_KNOBS.replace("TWD = true", "TWD = false"))],
     "c5s2": [("local_cols.cu", PRING, PRING.replace(", 3)", ", 2)"))],
+    "c5s1": [("local_cols.cu", PRING, PRING.replace(", 3)", ", 1)")),
+             ("local_cols.cu", PRING_SMEM, PRING_SMEM.replace(
+                 "S * SLOT", "3 * SLOT").replace("S >= 2", "S >= 1"))],
+    "c5s1w": [("local_cols.cu", PRING_CHAIN,
+               PRING_CHAIN + "\n    __threadfence();\n    __syncthreads();")],
+    "c5s1p": [("local_cols.cu", PRING, PRING.replace(", 3)", ", 1)")),
+              ("local_cols.cu", PRING_SMEM,
+               PRING_SMEM.replace("S >= 2", "S >= 1"))],
     "c5c16": [("local_cols.cu", PRING, PRING.replace(
         "X(8, 32, 3)", "X(8, 16, 3)"))],
     "c5c16s6": [("local_cols.cu", PRING, PRING.replace(
@@ -504,7 +531,8 @@ STEPS = {
 
 # name -> (kernels timed, steps taken in order, -D macros)
 VARIANTS = {
-    "full": (("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11"), [], {}),
+    "full": (("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11",
+             "P5"), [], {}),
     "notw": (("K12", "K9", "K5"), ["notw"], {}),
     "copy": (("K12", "K9", "K5"), ["notw", "noarith", "copy"], {}),
     "g4": (("K12",), ["g4"], {}),
@@ -546,14 +574,17 @@ VARIANTS = {
     "r8k": (("K1", "K2"), ["r8k"], {}),
     "r2k": (("K1", "K2"), ["r2k"], {}),
     "rbulk": (("K1", "K2"), ["rbulk"], {}),
-    "c5old": (("K5",), ["c5old"], {}),
+    "c5old": (("K5", "P5"), ["c5old"], {}),
     "c5oldnotw": (("K5",), ["c5old", "c5oldnotw"], {}),
     "c5oldcopy": (("K5",), ["c5old", "c5oldnotw", "c5oldcopy"], {}),
     "c5notw": (("K5",), ["c5notw"], {}),
     "c5copy": (("K5",), ["c5copy"], {}),
     "c5r8": (("K5",), ["c5r8"], {}),
     "c5twd0": (("K5",), ["c5twd0"], {}),
-    "c5s2": (("K5",), ["c5s2"], {}),
+    "c5s2": (("K5", "P5"), ["c5s2"], {}),
+    "c5s1": (("P5",), ["c5s1"], {}),
+    "c5s1p": (("P5",), ["c5s1p"], {}),
+    "c5s1w": (("P5",), ["c5s1", "c5s1w"], {}),
     "c5c16": (("K5",), ["c5c16"], {}),
     "c5c16s6": (("K5",), ["c5c16s6"], {}),
     "c5wave": (("K5",), ["c5wave"], {}),
@@ -572,10 +603,10 @@ VARIANTS = {
     "k11rpb1": (("K11",), ["k11rpb1"], {}),
     "k11rs2": (("K11",), ["k11rs2"], {}),
 }
-ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11")
+ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11", "P5")
 # the source each kernel is built from
 SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12, "K1": K1, "K2": K1,
-          "K5": K12, "K11": K1}
+          "K5": K12, "K11": K1, "P5": K12}
 
 
 def patched(variant: str, tmp: Path) -> Path:
@@ -786,6 +817,9 @@ def cases() -> list:
          lambda: cols32((2, 128, 131072))),
         ("K5", "K5 huge pass 3 (1, 512, 262144)",
          lambda: cols32((1, 512, 262144))),
+        ("P5", "P5 K5 config 4 z pass (1, 256, 65536)",
+         lambda: cols32((1, 256, 65536))),
+        ("P5", "P5 K5 (1, 64, 262144)", lambda: cols32((1, 64, 262144))),
         ("K11", "K11 c128 2D row pass (16384, 1024)",
          lambda: rows((16384, 1024), real=f64)),
         ("K11", "K11 c128 2D row pass complex form",
@@ -885,6 +919,8 @@ def main(kernels) -> int:
                 src = SOURCE[kern]
                 order = [v for v, (names, _, _) in VARIANTS.items()
                          if kern in names] + ["full"]
+                if kern == "P5":        # two turns, the second reversed
+                    order += order[::-1]
                 t = {}
                 for v in order:
                     use(libs[(v, src)], src)

@@ -24,6 +24,11 @@ PACKAGE = ROOT / "pyfft_tpu_torch"
     "pyfft_tpu_torch.real",
     "pyfft_tpu_torch.ops.build",
     "pyfft_tpu_torch.utils.profiling",
+    "pyfft_tpu_torch.parallel",
+    "pyfft_tpu_torch.parallel.dist",
+    "pyfft_tpu_torch.utils.cache",
+    "pyfft_tpu_torch.cpu",
+    "pyfft_tpu_torch.cuda",
 ])
 def test_import_leaves_jax_out(module):
     code = (f"import sys, {module}\n"
@@ -82,9 +87,12 @@ def test_int8_entry_points_leave_jax_out():
 
 
 def test_no_jax_import_in_sources():
-    """No module of the package names jax or the JAX package in an import
+    """No module of the package, nor chip_smoke.py, nor the gloo ranks of
+    test_torch_dist.py, names jax or the JAX package in an import
     statement, lazily or not."""
-    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                             ROOT / "tests" /
+                                             "torch_dist_ranks.py"]
     assert len(files) > 5
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
