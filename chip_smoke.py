@@ -4,7 +4,7 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in twenty-two phases, one or more lines each:
+numpy.fft, in twenty-five phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
@@ -177,7 +177,33 @@ numpy.fft, in twenty-two phases, one or more lines each:
      card's name and power limit; the long 1D case (2 x 2^16: the plain
      chain, no kernel) against numpy and timed.  The multi-rank exchange
      is checked on the CPU over gloo (tests/test_torch_dist.py): one card
-     holds one NCCL rank.
+     holds one NCCL rank;
+ 23. autotune (``pyfft_tpu_torch.autotune``) into a temporary record
+     (``PYFFT_TPU_TORCH_TUNE_FILE``, which points at an empty temporary
+     path from the start of the run, so that no other record sets the
+     kernels' tables): the four-step split at 2^22 (config 6+, 2^25
+     points a call), the complex128 split at 2^22 (config 5, 2^28), the
+     single-pass complex route at 4096 (config 2i) and the row ring's
+     table at 4096 (config 2), and K5's persistent ring's table at 256
+     (config 4's z pass), each candidate's time and the winner printed;
+     the row and column candidates' libraries build in threads, all at
+     once, while the splits are timed; the rings' shapes the tuned
+     libraries report against the record; config 6+, config 5, config 2
+     and config 4 through Plans built under the record (each repr
+     showing its split), planar and complex, against numpy with exact
+     launch counts; then the record removed and reloaded, the libraries'
+     names and the splits the source's again;
+ 24. the HBM chunk sweep at config 5 (2^22 x 64 complex128): the default
+     budget beside the card's memory; unswept, and with the budget pinned
+     to give 8 chunks of 8 rows, planar and complex, against numpy on
+     rows 0, 21, 42 and 63, the swept results bit-equal to the unswept
+     ones with 8 x the two K12 launches, the peak memory above the input
+     (``torch.cuda.max_memory_allocated``) within the bound of the plan's
+     fudge, and device time with the host ahead both ways;
+ 25. ``utils/profiling.trace`` around a config 2 ``Plan.execute``: the
+     trace file it writes holds K1's ring kernel
+     (``local_rows_ring_kernel``) as a CUPTI kernel record, and the
+     result holds numpy's.  Phases 23-25 each print their seconds.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -190,6 +216,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -3368,6 +3395,269 @@ def phase_dist() -> dict:
     return out
 
 
+# Phase 23's autotune calls: (ns, kinds, volume), at config 6+ (split),
+# config 5 (dsplit), config 2i (il1d) and config 2 (row), and config 4's z
+# pass (col).
+TUNE_RUNS = (([1 << 22], ("split",), 1 << 25),
+             ([1 << 22], ("dsplit",), 1 << 28),
+             ([N], ("il1d", "row"), 1 << 24),
+             ([256], ("col",), 1 << 24))
+# The plans phase 23 runs under the record: (label, shape, batch, dtype,
+# numpy rows, launches of a planar execute).
+TUNED_PLANS = (
+    ("config 6+", (1 << 22,), 8, torch.complex64, (0, 3, 7),
+     {"local_cols": 2}),
+    ("config 5", (1 << 22,), 64, torch.complex128, (0, 21, 42, 63),
+     {"local_cols_f64": 2}),
+    ("config 2", (N,), BATCH, torch.complex64, None, {"local_rows": 1}),
+    ("config 4", (256, 256, 256), 1, torch.complex64, None,
+     {"fused2d": 1, "local_cols": 1}))
+
+
+def tuned_plan(label, shape, batch, dtype, rows, per, record, seed) -> dict:
+    """One plan built under the autotune record: its repr, and a planar
+    and a complex execute against numpy with exact launch counts."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.utils.radix import ilog2
+    tol = TOL64 if dtype == torch.complex128 else TOL
+    full = ((batch,) if batch > 1 else ()) + shape
+    x = make_data(full, seed, dtype)
+    pick = slice(None) if rows is None else list(rows)
+    ref = numpy_ref(x[pick], len(shape))
+    plan = pyfft_tpu_torch.Plan(shape, dtype, device="cuda")
+    passes = plan._exec_plan.passes
+    kind = "dsplit" if dtype == torch.complex128 else "split"
+    for p in passes:
+        if (p.executor == "fourstep"
+                and list(p.split) != record[f"{kind}:{p.n}"]):
+            raise AssertionError(f"phase 23 {label}: {plan!r} does not take "
+                                 f"the record's {kind}:{p.n}")
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    reset_counts()
+    rr, ii = plan.execute(re, im)
+    y = plan.execute(x)
+    counts, designs = read_counts(), design_counts()
+    # a 1D plan of one local pass takes its route's kernels in place of
+    # its planar ones (route_counts); any other adds them
+    single = len(passes) == 1 and passes[0].executor == "local"
+    want = expect(per, *([] if single else [per]), route_counts(plan))
+    if counts != want:
+        raise AssertionError(f"phase 23 {label}: launches {counts}, "
+                             f"expected {want}")
+    errs = {"planar": rel_err(cplx(rr[pick], ii[pick]), ref),
+            "complex": rel_err(y[pick], ref)}
+    for k, e in errs.items():
+        check(f"phase 23 {label} {k}", e, tol)
+    against = ("numpy" if rows is None else f"numpy on rows {list(rows)}")
+    print(f"phase 23 {label} {full} under the record: {plan!r}, complex "
+          f"route {plan.il_route()}, launches "
+          f"{ {k: v for k, v in counts.items() if v} } on the designs "
+          f"{ {k: v for k, v in designs.items() if v} }; "
+          + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+          + f" (against {against}, gate {tol:.0e}); 2^{ilog2(x.numel())} "
+          f"points")
+    del x, re, im, rr, ii, y, ref
+    torch.cuda.empty_cache()
+    return {"counts": counts, "designs": designs, "errs": errs,
+            "plan": repr(plan)}
+
+
+def phase_autotune(tune_file: Path) -> dict:
+    """Phase 23: ``autotune`` (TUNE_RUNS) into ``tune_file``, the record's
+    temporary path (PYFFT_TPU_TORCH_TUNE_FILE); the kernels' tables it
+    sets; the plans of TUNED_PLANS under it against numpy; then the record
+    removed, so that the libraries are the source's again."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch import plan as planmod
+    from pyfft_tpu_torch.ops import build, fourstep, local
+    from pyfft_tpu_torch.utils import tune
+    print(f"phase 23 card: {card()}")
+    t0 = time.perf_counter()
+    libs = ("local_rows", "local_cols")
+    today = {name: build.library_path(name) for name in libs}
+    if tune.tuned_path() != str(tune_file) or tune_file.exists():
+        raise AssertionError(f"phase 23: the record is {tune.tuned_path()}")
+    waits = [tune.prebuild(ns, kinds) for ns, kinds, _ in TUNE_RUNS]
+    for ns, kinds, volume in TUNE_RUNS:
+        t1 = time.perf_counter()
+        print(f"phase 23 autotune({ns}, kinds={kinds}, volume=2^"
+              f"{volume.bit_length() - 1}):", flush=True)
+        pyfft_tpu_torch.autotune(ns, kinds=kinds, volume=volume)
+        print(f"phase 23 autotune({ns}, {kinds}) took "
+              f"{time.perf_counter() - t1:.1f} s")
+    for wait in waits:
+        wait()
+    record = json.loads(tune_file.read_text())
+    keys = {"device", f"split:{1 << 22}", f"dsplit:{1 << 22}", f"il1d:{N}",
+            f"row:{N}", "col:256"}
+    if set(record) != keys or record["device"] != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"phase 23: record {record}")
+    ring, pring = local.rows_ring_shape(N), local.col_ring_shape(256)
+    if ([ring["rows"], ring["slots"]] != record[f"row:{N}"]
+            or [pring["columns"], pring["slots"]] != record["col:256"]):
+        raise AssertionError(f"phase 23: the row ring {ring} and column "
+                             f"ring {pring} do not run the record {record}")
+    print(f"phase 23 record {record}; the libraries it sets: "
+          + ", ".join(f"{name} {build.library_path(name, defines=tune.defines(name)).name}"
+                      for name in libs)
+          + f"; row ring at {N} {ring}, column ring at 256 {pring}")
+    out = {"record": record, "counts": dict.fromkeys(KERNELS, 0),
+           "plans": {}}
+    for seed, (label, *spec) in enumerate(TUNED_PLANS, 230):
+        r = tuned_plan(label, *spec, record, seed)
+        out["plans"][label] = r
+        for k, v in r["counts"].items():
+            out["counts"][k] += v
+    tune_file.unlink()
+    tune.reload_tuned()
+    back = {name: build.library_path(name, defines=tune.defines(name))
+            for name in libs}
+    if (back != today or planmod._il1d_route(N) != planmod.IL1D_ROUTE
+            or fourstep.choose_split(1 << 22) != (2048, 2048)):
+        raise AssertionError(f"phase 23: with the record removed the "
+                             f"libraries are {back}, not {today}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 23 record removed: the source's libraries and splits "
+          f"again; phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_sweep() -> dict:
+    """Phase 24: config 5 (2^22 x 64 complex128) unswept and with the
+    chunk budget pinned to give 8 chunks: bit-equal results, 8 x the two
+    K12 launches, peak memory against the fudge's bound, device time with
+    the host ahead; the default budget beside the card's memory."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch import plan as planmod
+    print(f"phase 24 card: {card()}")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    total = torch.cuda.mem_get_info(0)[1]
+    print(f"phase 24 default chunk budget {planmod._hbm_chunk_budget(dev)} "
+          f"bytes: a quarter of the card's {total} bytes")
+    n, batch, rows = 1 << 22, 64, [0, 21, 42, 63]
+    plan = pyfft_tpu_torch.Plan((n,), torch.complex128, device="cuda")
+    per_row, fudge = n * 8, plan._fudge()
+    x = make_data((batch, n), 240, torch.complex128)
+    ref = numpy_ref(x[rows], 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    runs = {}
+    for label, pin, chunks in (("unswept", None, 1),
+                               ("swept", 8 * per_row * fudge, 8)):
+        planmod._HBM_CHUNK_BUDGET = pin
+        try:
+            chunk = plan._chunk(batch, dev)
+            if batch // chunk != chunks:
+                raise AssertionError(f"phase 24 {label}: chunk {chunk}")
+            plan.execute(re, im)            # the tables, before the peak
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            yr, yi = plan.execute(re, im)
+            peak = torch.cuda.max_memory_allocated() - base
+            y = plan.execute(x)
+            counts = read_counts()
+            ms, how = queued_ms(
+                lambda: plan.execute(re, im, wait_for_finish=False))
+        finally:
+            planmod._HBM_CHUNK_BUDGET = None
+        want = expect({"local_cols_f64": 4 * chunks})
+        if counts != want:
+            raise AssertionError(f"phase 24 {label}: launches {counts}, "
+                                 f"expected {want}")
+        # the fudge's bound: everything but the input, with the
+        # temporaries of one chunk
+        bound_bytes = batch * per_row * 2 + chunk * per_row * (fudge - 4)
+        if peak > 1.01 * bound_bytes:
+            raise AssertionError(f"phase 24 {label}: peak {peak} bytes "
+                                 f"over the fudge's {bound_bytes}")
+        errs = {"planar": rel_err(cplx(yr[rows], yi[rows]), ref),
+                "complex": rel_err(y[rows], ref)}
+        for k, e in errs.items():
+            check(f"phase 24 {label} {k}", e, TOL64)
+        runs[label] = {"out": (yr, yi, y), "chunk": chunk, "peak": peak,
+                       "bound": bound_bytes, "ms": ms, "timing": how,
+                       "counts": counts, "errs": errs}
+        print(f"phase 24 config 5 {label}: {batch // chunk} chunk(s) of "
+              f"{chunk}, launches "
+              f"{ {k: v for k, v in counts.items() if v} } over a planar "
+              f"and a complex execute; peak {peak} bytes above the input "
+              f"(fudge {fudge}: at most {bound_bytes}); planar execute "
+              f"{ms:.4f} ms ({how}); "
+              + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+              + f" (numpy on rows {rows}, gate {TOL64:.0e})")
+    a, b = runs["unswept"]["out"], runs["swept"]["out"]
+    bits = [torch.equal(u, v) for u, v in zip(a, b)]
+    if not all(bits):
+        raise AssertionError(f"phase 24: swept and unswept differ "
+                             f"(planar re, im, complex: {bits})")
+    out = {"counts": dict(runs["swept"]["counts"]), "seconds": 0.0}
+    for k, v in runs["unswept"]["counts"].items():
+        out["counts"][k] += v
+    out.update({label: {k: r[k] for k in ("chunk", "peak", "bound", "ms",
+                                           "timing")}
+                for label, r in runs.items()})
+    ratio = runs["swept"]["ms"] / runs["unswept"]["ms"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 24 swept bit-equal to unswept (planar and complex); "
+          f"swept / unswept time {ratio:.3f}, peak "
+          f"{runs['swept']['peak'] / runs['unswept']['peak']:.3f}; phase 24 "
+          f"took {out['seconds']:.1f} s")
+    del x, re, im, a, b, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_trace() -> dict:
+    """Phase 25: a config 2 ``Plan.execute`` under
+    ``utils/profiling.trace``: the trace file it writes names K1's ring
+    kernel (a CUPTI kernel record: the kernels launch through ctypes)."""
+    import tempfile
+
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.utils.profiling import trace
+    print(f"phase 25 card: {card()}")
+    t0 = time.perf_counter()
+    x = make_data((BATCH, N), 250)
+    ref = numpy_ref(x, 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    plan = pyfft_tpu_torch.Plan((N,), device="cuda")
+    plan.execute(re, im)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with trace(tmp):
+            yr, yi = plan.execute(re, im)
+        counts, designs = read_counts(), design_counts()
+        files = sorted(Path(tmp).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"phase 25: trace files {files}")
+        size = files[0].stat().st_size
+        events = json.loads(files[0].read_text())["traceEvents"]
+    want = expect({"local_rows": 1})
+    if counts != want or designs["row ring"] != 1:
+        raise AssertionError(f"phase 25: launches {counts} on {designs}")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ring = [e for e in kernels if "local_rows_ring_kernel" in e["name"]]
+    if len(ring) != 1:
+        raise AssertionError(f"phase 25: the trace's kernels "
+                             f"{[e['name'][:100] for e in kernels]}")
+    err = rel_err(cplx(yr, yi), ref)
+    check("phase 25 config 2 traced", err)
+    out = {"counts": counts, "kernel": ring[0]["name"],
+           "kernel_us": ring[0].get("dur"), "events": len(events),
+           "bytes": size, "err": err,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 25 config 2 traced: a trace of {size} bytes, {len(events)} "
+          f"events, {len(kernels)} kernel record(s); K1's is "
+          f"{ring[0]['name'][:120]!r}, {ring[0].get('dur')} us; err "
+          f"{err:.3e}; phase 25 took {out['seconds']:.1f} s")
+    del x, re, im, yr, yi, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -3387,6 +3677,12 @@ def kernel_entry(name, source, replaces, timed, checks, launches, shape):
 
 
 def main() -> int:
+    # the autotune record: a temporary path, empty until phase 23, so that
+    # no record elsewhere sets the kernels' tables
+    import tempfile
+    tune_dir = tempfile.TemporaryDirectory()
+    tune_file = Path(tune_dir.name) / "tuned.json"
+    os.environ["PYFFT_TPU_TORCH_TUNE_FILE"] = str(tune_file)
     phase_device()
     built = phase_build()
     phase_kernel()
@@ -3432,9 +3728,14 @@ def main() -> int:
 
     dist = phase_dist()
 
+    auto = phase_autotune(tune_file)
+    sweep = phase_sweep()
+    traced = phase_trace()
+    tune_dir.cleanup()
+
     launches = dict(counts2)
     for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h,
-              i8il, dist):
+              i8il, dist, auto, sweep, traced):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -3579,7 +3880,13 @@ def main() -> int:
                       "real": rl["timings"],
                       "dist": {"paths": [p["timed"] for p in
                                          dist["paths"].values()],
-                               "long_1d": dist["long_1d"]}}))
+                               "long_1d": dist["long_1d"]},
+                      "autotune": {"record": auto["record"],
+                                   "seconds": auto["seconds"]},
+                      "sweep": {k: sweep[k] for k in ("unswept", "swept",
+                                                      "seconds")},
+                      "trace": {k: traced[k] for k in
+                                ("kernel", "kernel_us", "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,9 +30,11 @@ from pyfft_tpu_torch.real import (rfft, irfft, rfft2,  # noqa: E402
                                   irfft_planar, rfftn_planar, irfftn_planar)
 from pyfft_tpu_torch.utils.cache import (enable_compile_cache,  # noqa: E402
                                          warmup)
+from pyfft_tpu_torch.utils.tune import autotune  # noqa: E402
 
 __all__ = ["Plan", "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
            "rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn",
            "rfft_planar", "irfft_planar", "rfftn_planar", "irfftn_planar",
            "fftshift", "ifftshift", "fftfreq", "rfftfreq", "get_plan",
-           "enable_compile_cache", "warmup", "VERSION", "__version__"]
+           "enable_compile_cache", "warmup", "autotune", "VERSION",
+           "__version__"]

@@ -23,11 +23,13 @@ CUDA tensor every pass launches the column kernel; on a CPU tensor its
 plain torch version.  Only the last pass writes ``out``; the earlier ones
 write temporaries, since a swapped store cannot run in place.
 
-Not carried over from the JAX package: the TPU v5e cost model of the
-splits (``_COL_UNIT_COST``) and its autotune record.  ``choose_split``
-takes the balanced split and ``choose_split3`` the most balanced one,
-under the JAX package's constraints.  For 2^22 that is (2048, 2048), the
-JAX package's own choice.
+An autotune record for this card (``split:{n}``, ``split3:{n}``:
+``utils/tune``) decides a split where it holds one that meets the
+caller's constraints, as in the JAX package.  Not carried over: the TPU
+v5e cost model of the splits (``_COL_UNIT_COST``).  Without a record
+``choose_split`` takes the balanced split and ``choose_split3`` the most
+balanced one, under the JAX package's constraints.  For 2^22 that is
+(2048, 2048), the JAX package's own choice.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from pyfft_tpu_torch.ops import local
 from pyfft_tpu_torch.planner import MAX_LOCAL_N, MIN_TRAIL, max_local_n
+from pyfft_tpu_torch.utils import tune
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["fft_axis_large", "fft_axis_huge", "fft_axis_mid",
@@ -52,10 +55,14 @@ MAX_MID_TW_BYTES = 16 * 1024 * 1024
 
 
 def choose_split(n: int, max_local: int | None = None) -> tuple[int, int]:
-    """(n1, n2) with n1*n2 = n, both in [MIN_TRAIL, max_local], as equal
-    as they can be (n1 the smaller for odd log2 n).  Raises ValueError
-    where no such split exists."""
+    """(n1, n2) with n1*n2 = n, both in [MIN_TRAIL, max_local]: the
+    autotune record's ``split:{n}`` where it meets those constraints, else
+    as equal as they can be (n1 the smaller for odd log2 n).  Raises
+    ValueError where no such split exists."""
     max_local = max_local or MAX_LOCAL_N
+    t = tune.tuned_split("split", n, 2, max_local)
+    if t is not None:
+        return t
     p = ilog2(n)
     best = None
     for p1 in range(1, p):
@@ -76,9 +83,13 @@ def choose_split3(n: int, max_local: int | None = None
                   ) -> tuple[int, int, int]:
     """(n1, m1, m2) for the two-level decomposition n = n1*m1*m2: every
     factor in [MIN_TRAIL, max_local] (fourstep.choose_split3's
-    constraints), the spread of the three exponents as small as it can be.
+    constraints); the autotune record's ``split3:{n}`` where it meets
+    them, else the spread of the three exponents as small as it can be.
     Raises ValueError where none exists."""
     max_local = max_local or MAX_LOCAL_N
+    t = tune.tuned_split("split3", n, 3, max_local)
+    if t is not None:
+        return t
     p = ilog2(n)
     lo = ilog2(MIN_TRAIL)
     best = None

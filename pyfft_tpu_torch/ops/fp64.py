@@ -19,7 +19,7 @@ four-step split ``choose_split_df64``, its gates ``supported`` and
 ``fft_axis_large_df64`` and ``fft_axis_huge_df64``, thin wrappers over the
 dtype-generic ``local.fft_axis`` and ``fourstep`` executors.  Not carried
 over: the (hi, lo) quads and ``ops/df64.py``, the int8-split matrix-unit
-tail, the JAX autotune hook of the split, and the three-pass four-step form
+tail, and the three-pass four-step form
 (``SWAP_MAX_DF64``): the column kernel's swapped store fits shared memory at
 every n <= MAX_LOCAL_N_DF64, so every split runs the two-pass form.
 """
@@ -33,6 +33,7 @@ import torch
 from pyfft_tpu_torch.ops import fourstep, local
 from pyfft_tpu_torch.planner import (HUGE_MAX_F_DF64, MAX_LOCAL_N_DF64,
                                      MIN_LOCAL_N, MIN_TRAIL)
+from pyfft_tpu_torch.utils import tune
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["MAX_LOCAL_N_DF64", "HUGE_MAX_F_DF64", "choose_split_df64",
@@ -42,10 +43,13 @@ __all__ = ["MAX_LOCAL_N_DF64", "HUGE_MAX_F_DF64", "choose_split_df64",
 
 def choose_split_df64(n: int, max_local: int = MAX_LOCAL_N_DF64
                       ) -> tuple[int, int]:
-    """pallas_df64._choose_split_df64 without its autotune record: the
-    balanced (n1, n2), n1 the larger factor for odd log2 n.  ``max_local``
-    is taken for the JAX signature; the split does not depend on it, and
-    the callers check both factors."""
+    """pallas_df64._choose_split_df64: the autotune record's
+    ``dsplit:{n}`` (``utils/tune``) where both its factors lie in
+    [MIN_TRAIL, max_local], else the balanced (n1, n2), n1 the larger
+    factor for odd log2 n, whose factors the callers check."""
+    t = tune.tuned_split("dsplit", n, 2, max_local)
+    if t is not None:
+        return t
     p = ilog2(n)
     p1 = (p + 1) // 2
     return 1 << p1, 1 << (p - p1)

@@ -164,8 +164,10 @@ def default_factors(n: int) -> tuple[int, ...]:
 
 
 def row_factors(n: int) -> tuple[int, ...]:
-    """pallas_local.row_factors from the static table only (the JAX
-    package's per-machine autotune record is not ported)."""
+    """pallas_local.row_factors from the static table only: the JAX
+    package's ``row:{n}`` record tunes these chains, which drive only the
+    plain versions here; the port's ``row:{n}`` record tunes the CUDA row
+    ring's table instead (``utils/tune.py``)."""
     return ROW_FACTORS.get(n) or default_factors(n)
 
 
@@ -579,15 +581,23 @@ def _c_real(dtype: torch.dtype):
     return ctypes.c_double if dtype == torch.float64 else ctypes.c_float
 
 
+def _library(name: str):
+    """``csrc/<name>.cu`` (``local_rows`` or ``local_cols``) as the
+    autotune record sets its shape tables (``utils/tune.defines``: none
+    without a record, so the source's own), built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    from pyfft_tpu_torch.utils import tune
+    return load(name, defines=tune.defines(name))
+
+
 @functools.lru_cache(maxsize=None)
 def _rows_fn(dtype: torch.dtype):
     """The C entry point of csrc/local_rows.cu for planes of ``dtype``
     (``pyfft_local_rows`` for float32, ``pyfft_local_rows_f64`` for
     float64), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
     name = ("pyfft_local_rows_f64" if dtype == torch.float64
             else "pyfft_local_rows")
-    fn = getattr(load("local_rows"), name)
+    fn = getattr(_library("local_rows"), name)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [_c_real(dtype), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -608,8 +618,7 @@ def _check_planes(kind: str, re, planes) -> None:
 def _rows_i8_fn():
     """The C entry point ``pyfft_local_rows_i8`` of csrc/local_rows.cu (K1
     with the int8 stage K10), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows_i8
+    fn = _library("local_rows").pyfft_local_rows_i8
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -632,8 +641,7 @@ def _rows_i8_stage_fn():
     """The C entry point ``pyfft_local_rows_i8_stage`` of csrc/local_rows.cu:
     (log2 n, log2 f) -> 1 for the wgmma stage, 0 for the mma.sync one, -1
     where no int8 row kernel is instantiated."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows_i8_stage
+    fn = _library("local_rows").pyfft_local_rows_i8_stage
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
@@ -724,8 +732,7 @@ def rows_ring_shape(n: int,
     ``slots`` of the ring, a block's ``smem_bytes`` and the
     ``blocks_per_sm`` the current card holds (asked of it); None where the
     length runs the first design (local_rows_kernel).  Builds the library on first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = getattr(load("local_rows"), "pyfft_local_rows_ring_shape"
+    fn = getattr(_library("local_rows"), "pyfft_local_rows_ring_shape"
                  + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -775,8 +782,7 @@ def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
 def _rows_il_fn():
     """The C entry point ``pyfft_local_rows_il`` of csrc/local_rows.cu,
     built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows_il
+    fn = _library("local_rows").pyfft_local_rows_il
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -787,8 +793,7 @@ def _rows_il_fn():
 def _rows_il_i8_fn():
     """The C entry point ``pyfft_local_rows_il_i8`` of csrc/local_rows.cu
     (K2 with the int8 stage K10), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_rows").pyfft_local_rows_il_i8
+    fn = _library("local_rows").pyfft_local_rows_il_i8
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -970,8 +975,7 @@ def fft_rows_swap_plain(re, im, sign, postscale: float = 1.0, factors=None,
 def _rows_swap_fn():
     """The C entry point ``pyfft_local_rows_swap`` of csrc/local_cols.cu
     (K4 is a load policy of the column kernel), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_rows_swap
+    fn = _library("local_cols").pyfft_local_rows_swap
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -985,8 +989,7 @@ def swap_tile(n: int) -> tuple[int, int] | None:
     n/G points of each row a block; None where one block of the column
     kernel's row policy takes ``col_width(n)`` rows (n < 512).  Builds
     the library on first use (no CUDA call)."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_rows_swap_shape
+    fn = _library("local_cols").pyfft_local_rows_swap_shape
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
@@ -998,8 +1001,7 @@ def _rows_swap_i8_fn():
     """The C entry point ``pyfft_local_rows_swap_i8`` of csrc/local_cols.cu
     (K4 with the int8 stage K10: the int8 column kernel with K4's row
     load), built at first use; its arguments are ``pyfft_local_cols_i8``'s."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_rows_swap_i8
+    fn = _library("local_cols").pyfft_local_rows_swap_i8
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -1346,8 +1348,7 @@ def _kernel_col_tables(n: int, T: int, tw_n: int, tw_mode: str,
 def _ctile_fn():
     """The C entry point ``pyfft_local_cols_ctile`` of csrc/local_cols.cu
     (K6, the ring of runs over c tiles a step), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_cols_ctile
+    fn = _library("local_cols").pyfft_local_cols_ctile
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 2
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -1367,8 +1368,7 @@ def ring_shape(n: int) -> dict:
     grid whose blocks of whole runs would together cover 128 bytes of a
     row takes those instead of the cluster tile.  Builds the library on
     first use (no CUDA call)."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_cols_ring_shape
+    fn = _library("local_cols").pyfft_local_cols_ring_shape
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
@@ -1417,8 +1417,7 @@ def _cols_lib(dtype: torch.dtype):
     """(launch, width): the typed C entry points of csrc/local_cols.cu for
     planes of ``dtype`` (``pyfft_local_cols[_width]`` for float32, the
     ``_f64`` ones for float64), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    lib = load("local_cols")
+    lib = _library("local_cols")
     suffix = "_f64" if dtype == torch.float64 else ""
     fn = getattr(lib, "pyfft_local_cols" + suffix)
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -1445,8 +1444,7 @@ def _cols_xshape_fn(dtype: torch.dtype = torch.float64):
     """The C entry point ``pyfft_local_cols_xshape_f64`` (or, for float32,
     ``pyfft_local_cols_xshape``) of csrc/local_cols.cu, built at first
     use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = getattr(load("local_cols"), "pyfft_local_cols_xshape"
+    fn = getattr(_library("local_cols"), "pyfft_local_cols_xshape"
                  + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong)]
@@ -1461,8 +1459,7 @@ def _col_xtile(log2n: int, in_ts: int,
     at length 2^log2n and t stride ``in_ts``, as its launch takes it
     (``pyfft_local_cols_xtile_f64``, ``pyfft_local_cols_xtile``: no CUDA
     call); None where another design takes the length."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = getattr(load("local_cols"), "pyfft_local_cols_xtile"
+    fn = getattr(_library("local_cols"), "pyfft_local_cols_xtile"
                  + ("_f64" if dtype == torch.float64 else ""))
     fn.argtypes = [ctypes.c_int, ctypes.c_longlong,
                    ctypes.POINTER(ctypes.c_int)]
@@ -1511,8 +1508,7 @@ def col_ring_shape(n: int) -> dict | None:
     ``slots`` of the ring, a block's ``smem_bytes`` and the
     ``blocks_per_sm`` the current card holds (asked of it); None where the
     ring takes no such length.  Builds the library on first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("local_cols").pyfft_local_cols_pring_shape
+    fn = _library("local_cols").pyfft_local_cols_pring_shape
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(COL_RING_KEYS))()
@@ -1547,8 +1543,7 @@ def _cols_i8_lib():
     """(launch, width): the C entry points ``pyfft_local_cols_i8`` and
     ``pyfft_local_cols_width_i8`` of csrc/local_cols.cu (K5 with the int8
     stage K10), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    lib = load("local_cols")
+    lib = _library("local_cols")
     fn = lib.pyfft_local_cols_i8
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 3
@@ -1937,3 +1932,20 @@ def _empty_like_planes(re, im, shape):
         return v[..., 0], v[..., 1]
     return (torch.empty(shape, dtype=re.dtype, device=re.device),
             torch.empty(shape, dtype=re.dtype, device=re.device))
+
+
+# The memoised functions that hold an entry point or a shape of a library
+# ``_library`` built; cleared where the autotune record changes which
+# library that is (``utils/tune.reload_tuned``), so that no shape query
+# answers for the old library while the kernel runs the new one.
+_LIBRARY_CACHES = (_rows_fn, _rows_i8_fn, _rows_i8_stage_fn, rows_ring_shape,
+                   _rows_il_fn, _rows_il_i8_fn, _rows_swap_fn, swap_tile,
+                   _rows_swap_i8_fn, _ctile_fn, ring_shape, _cols_lib,
+                   _cols_xshape_fn, _col_xtile, col_ring_shape, _cols_i8_lib)
+
+
+def clear_library_caches() -> None:
+    """Forget every entry point and shape taken from the row and column
+    libraries; the next call loads them again through ``_library``."""
+    for fn in _LIBRARY_CACHES:
+        fn.cache_clear()

@@ -18,10 +18,17 @@ kernels compute in native FP64 (``ops/fp64.py``): that replaces the JAX
 package's ``run_df64`` and its double-float quads, whose only reason was
 a TPU without FP64.  The JAX package's fold-store column kernel has no
 route of its own: on row-major memory its native-layout store is the
-column kernel's plain store.  Not in the port yet, and listed in
-ROADMAP.md: its compile cache and its HBM chunk sweep.  The kernel path
-allocates its output and, in a four-step pass, one or two temporaries of
-the data's size.
+column kernel's plain store.  The kernel path allocates its output and,
+in a four-step pass, one or two temporaries of the data's size.
+
+A batch whose passes would hold more than the chunk budget
+(``_hbm_chunk_budget``: a quarter of the card's memory, or the module
+override ``_HBM_CHUNK_BUDGET``) runs in chunks of whole transforms, one
+after another, each writing its slice of the output: the counterpart of
+the JAX package's HBM chunk sweep (``run_planar``), with the budget from
+``torch.cuda.mem_get_info`` and a liveness fudge of the port's own
+(``Plan._fudge``).  The planar form and the "stream" and "planes" routes
+take it; "fused", one kernel with no temporaries, does not, as in JAX.
 
 The complex form of a complex64 plan takes one of three routes, the
 counterpart of the JAX package's interleaved ("view") routes and of its
@@ -35,11 +42,11 @@ counterpart of the JAX package's interleaved ("view") routes and of its
 * ``"planes"``: every pass on the two stride-2 planes of
   ``torch.view_as_real`` (the JAX package's "complex" split).
 
-The route comes from two constants, ``IL1D_ROUTE`` (the single-pass
-case) and ``IL_MULTI_ROUTE`` (every other complex64 plan), which stand
-where JAX reads its measured ``il1d:{n}`` record; they hold the winners
-``chip_smoke.py`` measured on an H100 (PERF.md) and are read at call
-time.  No measured n disagreed with the others, so the single-pass route
+The route comes from ``_il1d_route(n)`` for the single-pass case (the
+autotune record's ``il1d:{n}``, as in JAX, else the constant
+``IL1D_ROUTE``) and from ``IL_MULTI_ROUTE`` for every other complex64
+plan; the constants hold the winners ``chip_smoke.py`` measured on an
+H100 (PERF.md), and all three are read at call time.  No measured n disagreed with the others, so the single-pass route
 is one value, not a table by n.  Complex128 and ``force_xla`` plans take
 ``"planes"``.  The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
 no counterpart: it exists for a TPU without complex dtypes, and the port
@@ -57,6 +64,7 @@ import torch
 from pyfft_tpu_torch.ops import fourstep, fused2d, interleave, local
 from pyfft_tpu_torch.planner import AxisPass, ExecPlan, build_plan
 from pyfft_tpu_torch.reference import fft_planar
+from pyfft_tpu_torch.utils import tune
 
 __all__ = ["Plan", "IL1D_ROUTE", "IL_MULTI_ROUTE"]
 
@@ -70,6 +78,48 @@ _ROUTES = ("fused", "stream", "planes")
 # planes at full speed.
 IL1D_ROUTE = "fused"
 IL_MULTI_ROUTE = "planes"
+
+# Per-chunk budget of the batch sweep (``Plan._run``), in bytes: a chunk's
+# rows times the bytes its passes hold live a row must fit it.  None: a
+# quarter of the card's memory (``_hbm_chunk_budget``); a module override
+# so that tests can sweep small shapes, on the CPU too.
+_HBM_CHUNK_BUDGET: int | None = None
+_HBM_BUDGET_CACHE: dict = {}
+
+# Planes of the data's size a pass holds live beyond the input and output
+# planes, by executor: a four-step's one temporary (``fourstep`` writes
+# pass 1's swapped store into it), the six-step's two (pass 2 reads one
+# and writes the other), the plain chain's four einsum products and its
+# two result planes.  ``local`` and ``fused2d`` write the output directly.
+_LIVE_PLANES = {"local": 0, "fused2d": 0, "fourstep": 2, "huge": 4,
+                "plain": 6}
+
+
+def _hbm_chunk_budget(device: torch.device) -> int | None:
+    """The sweep's budget for a plan on ``device``: the module override,
+    else on a card a quarter of its memory (``mem_get_info``'s total, the
+    JAX package's ``bytes_limit // 4``), cached per card; None on the CPU,
+    which is swept only under the override."""
+    if _HBM_CHUNK_BUDGET is not None:
+        return _HBM_CHUNK_BUDGET
+    if device.type != "cuda":
+        return None
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _HBM_BUDGET_CACHE:
+        _HBM_BUDGET_CACHE[index] = torch.cuda.mem_get_info(index)[1] // 4
+    return _HBM_BUDGET_CACHE[index]
+
+
+def _il1d_route(n: int) -> str:
+    """The complex form's route of a complex64 1D plan of one local pass:
+    the autotune record's ``il1d:{n}`` (``utils/tune``) where it names one
+    of the three routes, else ``IL1D_ROUTE``."""
+    v = tune.tuned("il1d", n)
+    if v and v[0] in _ROUTES:
+        return v[0]
+    return IL1D_ROUTE
+
 
 _TORCH_DTYPE = {np.dtype(np.complex64): torch.complex64,
                 np.dtype(np.complex128): torch.complex128,
@@ -190,7 +240,48 @@ class Plan:
             norm /= self._exec_plan.total_n
         return norm * self.scale
 
+    def _fudge(self) -> int:
+        """Planes of the data's size one execution holds live a row: the
+        input and output planes and the most any pass adds
+        (``_LIVE_PLANES``)."""
+        return 4 + max(_LIVE_PLANES[p.executor]
+                       for p in self._exec_plan.passes)
+
+    def _chunk(self, batch: int, device: torch.device) -> int:
+        """Transforms a chunk of the sweep takes: the largest divisor of
+        ``batch`` whose rows fit the budget (at least 1), or ``batch``
+        where the whole batch fits or there is no budget."""
+        budget = _hbm_chunk_budget(device)
+        per_row = self._exec_plan.total_n * self._real.itemsize
+        cost = per_row * self._fudge()
+        if budget is None or batch <= 1 or batch * cost <= budget:
+            return batch
+        chunk = max(1, budget // cost)
+        while batch % chunk:
+            chunk -= 1
+        return chunk
+
     def _run(self, re, im, inverse: bool, out):
+        """All passes over planar (batch..., *shape) planes, in chunks of
+        whole transforms where the batch exceeds the budget
+        (``_chunk``)."""
+        ndim = len(self.shape)
+        lead = re.shape[:re.ndim - ndim]
+        batch = math.prod(lead)
+        chunk = self._chunk(batch, re.device)
+        if chunk == batch:
+            return self._run_once(re, im, inverse, out)
+        if out is None:
+            out = (torch.empty_like(re), torch.empty_like(im))
+        flat = (batch,) + self.shape
+        rr, ii = re.view(flat), im.view(flat)
+        orr, oii = out[0].view(flat), out[1].view(flat)
+        for b in range(0, batch, chunk):
+            c = slice(b, b + chunk)
+            self._run_once(rr[c], ii[c], inverse, (orr[c], oii[c]))
+        return out
+
+    def _run_once(self, re, im, inverse: bool, out):
         """All passes over planar (batch..., *shape) planes.  With ``out``
         the result lands in those planes (the kernel writes there
         directly); without, in new ones."""
@@ -251,13 +342,13 @@ class Plan:
 
     def il_route(self) -> str:
         """The complex form's route: "fused", "stream" or "planes" (see the
-        module docstring), from ``IL1D_ROUTE`` and ``IL_MULTI_ROUTE`` as they
-        stand now."""
+        module docstring), from ``_il1d_route`` and ``IL_MULTI_ROUTE`` as
+        they stand now."""
         if self._complex != torch.complex64 or self._force_xla:
             return "planes"
         passes = self._exec_plan.passes
         single = len(passes) == 1 and passes[0].executor == "local"
-        route = IL1D_ROUTE if single else IL_MULTI_ROUTE
+        route = _il1d_route(self.shape[-1]) if single else IL_MULTI_ROUTE
         if route not in (_ROUTES if single else _ROUTES[1:]):
             raise ValueError(f"no interleaved route {route!r} for {self!r}")
         if route == "stream" and not interleave.supported(
@@ -320,6 +411,10 @@ class Plan:
     # ------------------------------------------------------------- niceties
 
     def __repr__(self):
-        kinds = ",".join(p.executor for p in self._exec_plan.passes)
+        passes = self._exec_plan.passes
+        kinds = ",".join(p.executor for p in passes)
+        splits = ",".join("x".join(map(str, p.split)) for p in passes
+                          if p.executor in ("fourstep", "huge"))
         return (f"Plan(shape={self.shape}, dtype={self.dtype.name}, "
-                f"device={self.device}, passes=[{kinds}])")
+                f"device={self.device}, passes=[{kinds}]"
+                + (f", splits=[{splits}]" if splits else "") + ")")

@@ -1,21 +1,43 @@
-"""Timing on the CUDA device.
+"""Timing and tracing on the CUDA device.
 
 Counterpart of ``pyfft_tpu/utils/profiling.py``.  Device time comes from
 CUDA events; the roofline's bandwidth is measured on the card by a
-device-to-device copy, never taken from a data sheet.  There is no CPU
-fallback: every function here raises without a CUDA device.
+device-to-device copy, never taken from a data sheet.  The timers raise
+without a CUDA device; ``trace`` records the CPU alone there.  The JAX
+package's ``force``, ``time_chained`` and ``time_scan_chain`` have no
+counterpart: they work around JAX's asynchronous dispatch, and CUDA events
+and ``time_queued_ms`` time the device directly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
 import time
 
 import torch
 
-__all__ = ["time_ms", "time_queued_ms", "copy_bandwidth_gbs",
+__all__ = ["trace", "time_ms", "time_queued_ms", "copy_bandwidth_gbs",
            "effective_gflops"]
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Record a ``torch.profiler`` trace of the block: the CPU's activity,
+    and the card's (CUPTI's kernel records) where one is present; on exit,
+    write it into ``logdir`` as ``<host>_<pid>.<time>.pt.trace.json``,
+    which TensorBoard's profiler plugin and Perfetto open.  The kernels
+    launch through ``ctypes``, not through a torch op, so they appear as
+    the card's kernel records alone.  Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 def _require_cuda() -> None:
@@ -90,6 +112,8 @@ def copy_bandwidth_gbs(mib: int = 256, iters: int = 20) -> float:
     return 2.0 * src.numel() / (ms * 1e-3) / 1e9
 
 
-def effective_gflops(n: int, batch: int, seconds: float) -> float:
-    """The FFT throughput metric: 5*N*log2(N)*batch / t."""
+def effective_gflops(shape, batch: int, seconds: float) -> float:
+    """The FFT throughput metric: 5*N*log2(N)*batch / t, N the transform's
+    points (``shape`` a shape or an int)."""
+    n = shape if isinstance(shape, int) else math.prod(shape)
     return 5.0 * n * math.log2(n) * batch / seconds / 1e9

@@ -27,6 +27,8 @@ PACKAGE = ROOT / "pyfft_tpu_torch"
     "pyfft_tpu_torch.parallel",
     "pyfft_tpu_torch.parallel.dist",
     "pyfft_tpu_torch.utils.cache",
+    "pyfft_tpu_torch.utils.tune",
+    "pyfft_tpu_torch.utils",
     "pyfft_tpu_torch.cpu",
     "pyfft_tpu_torch.cuda",
 ])
@@ -105,3 +107,35 @@ def test_no_jax_import_in_sources():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "pyfft_tpu"), (f, name)
+
+
+def test_slice_h_entry_points_leave_jax_out(tmp_path):
+    """The autotune record's readers, ``autotune``'s refusal without a
+    card, ``trace`` and the chunk sweep run on the CPU in a fresh
+    interpreter without loading jax."""
+    code = ("import sys, json, os, torch\n"
+            "import pyfft_tpu_torch as pt\n"
+            "from pyfft_tpu_torch import plan as planmod\n"
+            "from pyfft_tpu_torch.utils import profiling, tune\n"
+            f"os.environ['PYFFT_TPU_TORCH_TUNE_FILE'] = "
+            f"{str(tmp_path / 'tuned.json')!r}\n"
+            "tune.reload_tuned()\n"
+            "assert tune.load_tuned() == {} and tune.defines('local_rows') == ()\n"
+            "try:\n"
+            "    pt.autotune([4096])\n"
+            "    raise AssertionError('autotune ran without a card')\n"
+            "except RuntimeError:\n"
+            "    pass\n"
+            "planmod._HBM_CHUNK_BUDGET = 16384 * 4 * 6\n"
+            "p = pt.Plan((16384,), device='cpu')\n"
+            f"with profiling.trace({str(tmp_path / 'trace')!r}):\n"
+            "    y = p.execute(torch.ones(4, 16384, dtype=torch.complex64))\n"
+            "assert float(y[3, 0].real) == 16384.0\n"
+            "assert planmod._il1d_route(4096) == planmod.IL1D_ROUTE\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'pyfft_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert list((tmp_path / "trace").glob("*.pt.trace.json"))
