@@ -25,8 +25,9 @@ once, and the same wrappers run each build in turn:
   row pass K4 at variant B's pass 2 and at its 2^25 points with rows of
   1024 and 4096, the multi-tile column pass K6 at config 4's z pass (c =
   1, 2, 8) and at variant B's pass 1 (`full` twiddle, c = 8), the fused
-  2D kernel K8 at config 4 and the tiled one K9 at config 3 and at 16
-  planes of each of its 28 plane shapes;
+  2D kernel K8 at config 4 and at 2^24 points of each of its 15 plane
+  shapes, planar and on the complex form's stride-2 planes, and the tiled
+  one K9 at config 3 and at 16 planes of each of its 28 plane shapes;
 * the int8 kernels (the stage K10, precision="int8"): K1+K10 at config 2
   and at 2048 x 8192 (f = 128), K2+K10 at config 2i and at 2048 x 8192
   interleaved, K5+K10 at config 3's column pass, K4+K10 at variant B's
@@ -64,6 +65,10 @@ from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
 from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
 SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled")
+# K8's plane shapes: (ny, nx), powers of two from 128 to 2048, 2^18 points
+# at most
+FUSED_SHAPES = [(1 << a, 1 << b) for a in range(7, 12) for b in range(7, 12)
+                if a + b <= 18]
 # K9's plane shapes: (ny, nx), powers of two from 128 to 8192, 2^20 points
 # at most
 TILED_SHAPES = [(1 << a, 1 << b) for a in range(7, 14) for b in range(7, 14)
@@ -218,6 +223,13 @@ def cases() -> list:
         o = empty(shape)
         return lambda: fn(re, im, -1, out=o, precision=precision)
 
+    def fused_complex(shape):                          # stride-2 planes
+        v = torch.view_as_real(torch.complex(*planes(shape)))
+        w = torch.view_as_real(torch.empty(shape, device="cuda",
+                                           dtype=torch.complex64))
+        return lambda: fused2d.fft2_fused(v[..., 0], v[..., 1], -1,
+                                          out=(w[..., 0], w[..., 1]))
+
     full = dict(tw_n=1 << 22, swap_store=True)
     f64 = torch.float64
     return [
@@ -305,7 +317,13 @@ def cases() -> list:
          fused(fused2d.fft2_fused, (16, 512, 512), "int8")),
         ("K9+K10 16 x 512^2 (int8, f=128)",
          fused(fused2d.fft2_fused_tiled, (16, 512, 512), "int8")),
-    ] + [(f"K9 16 x {ny}x{nx}",
+    ] + [case for ny, nx in FUSED_SHAPES for case in (
+        (f"K8 {(1 << 24) // (ny * nx)} x {ny}x{nx}",
+         fused(fused2d.fft2_fused, ((1 << 24) // (ny * nx), ny, nx),
+               "highest")),
+        (f"K8 {(1 << 24) // (ny * nx)} x {ny}x{nx} stride-2 planes",
+         fused_complex(((1 << 24) // (ny * nx), ny, nx))))] + [
+        (f"K9 16 x {ny}x{nx}",
           fused(fused2d.fft2_fused_tiled, (16, ny, nx), "highest"))
          for ny, nx in TILED_SHAPES if (ny, nx) not in ((1024, 1024),
                                                         (512, 512))]

@@ -5,14 +5,14 @@ complex64 column kernel (K5) and the complex128 row kernel (K11) goes:
 pieces removed and shape knobs changed, one build each, on one CUDA card.
 
     python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2] [K5] [K11]
-                                  [P5]
+                                  [P5] [K8]
 
 (the kernels named, all by default; P5 is K5's ring without a load in
 flight, the counterpart of the JAX probe ``_fft_cols_stream``).  Builds,
 from copies of this checkout's ``csrc/`` patched in a temporary directory
 (the checkout is not touched), ``local_cols.cu`` (K12, K6, K4, K5, P5),
-``fused2d_tiled.cu`` (K9) and ``local_rows.cu`` (K1, K2, K11) in these
-variants, one nvcc each, eight at a time:
+``fused2d_tiled.cu`` (K9), ``local_rows.cu`` (K1, K2, K11) and
+``fused2d.cu`` (K8) in these variants, one nvcc each, eight at a time:
 
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
@@ -126,6 +126,19 @@ variants, one nvcc each, eight at a time:
   k11rpb4   k11ring with 4 rows a slot at n = 1024 (one block an SM)
   k11rpb1   k11ring with 1 row a slot at n = 1024 (four blocks an SM)
   k11rs2    k11ring of 2 slots
+  k8old     K8's first design at every shape (the plane ring's table
+            PYFFT_FUSED2D_RING emptied: the design before the ring)
+  k8copy    the ring's box copies and its stores alone: each block's share
+            stored back as the output's rows from registers, no chain and
+            no exchange (the cluster barriers kept)
+  k8xonly   the ring's exchange alone: the share's raw rows sent to the
+            owning blocks' column buffers and stored from there, no chain
+  k8notw    the ring's chains without twiddle multiplies
+  k8r8      the ring's chains on radix 8 (RING2_R16 off)
+  k8pad0    the ring's row chain without chain_index's padding
+  k8twd0    the ring's chains reading every twiddle of a butterfly
+  k8s1      the ring of one slot (the next plane's copy starts after the
+            row chain; 134 KB, still one block an SM)
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
@@ -138,7 +151,10 @@ passes of the mid and huge routes (n = 128, 512); P5 (K5's ring of 3, 2
 and 1 slots and its first design, c5old; the mean of two turns, the
 second in reverse order) at config 4's z pass and at (1, 64, 262144); K11 at the complex128
 2D row pass (16384 x 1024, planar and complex form) and at 2^24 points
-with n = 2048 and 4096; K9 at config
+with n = 2048 and 4096; K8 at config 4 (256 planes of 256 x 256,
+planar and stride-2 planes) and at 2^24 points of 1024 x 128^2, 64 x 512^2
+and 64 x 2048 x 128 (the last two run the first design in every variant
+but the table's); K9 at config
 3 (16 x 1024 x 1024) and 16 x 512 x 512; K6 at config 4's z pass (1 x 256
 x 65536, c = 1, 2, 8), variant B's pass 1 (8 x 2048 x 2048, `full`
 twiddle, c = 1, 8) and 2^24 points at n = 512 and 1024 (c = 1, 8); K4 at variant B's pass 2 (8 x 2048 x 2048) and at the
@@ -226,6 +242,40 @@ PRING_CHAIN = ("    chain<NT, LOGN, C, false, 0, 1, true, true, false, "
 ROWS_RING = re.search(r"#define PYFFT_ROWS_RING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
                       (build.CSRC / "local_rows.cu").read_text()).group(0)
 
+
+# K8: the plane ring's table, its knobs, its phases (fused2d.cu)
+K8 = "fused2d"
+K8_TABLE = re.search(r"#define PYFFT_FUSED2D_RING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
+                     (build.CSRC / "fused2d.cu").read_text()).group(0)
+K8_KNOBS = "constexpr bool RING2_PAD = true, RING2_TWD = true, RING2_R16 = true;"
+K8_SLOTS = "constexpr int RING2_SLOTS = 2;"
+K8_ROWS = ("    rows_head<NT, LX, RB, K::R16X>(sm, fresh(twx), s, load);\n"
+           "    cluster_wait();\n"
+           "    stage<NT, NX, RB, true, PX::R_LAST, PX::NS_LAST, false, true, "
+           "RING2_PAD,\n          RING2_TWD>(sm, fresh(twx), s, load, send);\n")
+K8_COLS = ("    chain<NT, LY, CB, false, 0, 1, false, true, false, RING2_TWD, "
+           "K::R16Y>(\n        cols, fresh(twy), s, none_load, store);\n")
+# k8copy: the share stored back as the output's rows, along x
+K8_COPY_ROWS = (
+    "    cluster_wait();\n"
+    "    for (int e = threadIdx.x; e < PB; e += NT) {\n"
+    "      const float2 v = load(e / NX, e % NX);\n"
+    "      const long long o = (rank * RB + e / NX) * io.out_ys +\n"
+    "                          (e % NX) * io.out_xs;\n"
+    "      out_re[o] = v.x;\n"
+    "      out_im[o] = v.y;\n"
+    "    }\n"
+    "    __syncthreads();\n")
+# k8xonly: the raw rows sent, the column buffer stored
+K8_X_ROWS = (
+    "    cluster_wait();\n"
+    "    for (int e = threadIdx.x; e < PB; e += NT)\n"
+    "      send(e / NX, e % NX, load(e / NX, e % NX));\n"
+    "    __syncthreads();\n")
+K8_X_COLS = (
+    "    for (int e = threadIdx.x; e < PB; e += NT)\n"
+    "      store(e % CB, e / CB, cols[e]);\n"
+    "    __syncthreads();\n")
 
 # rows a slot and slots by log2 n in the source's table
 TABLE = re.findall(r"X\((\d+), (\d+), (\d+)\)", ROWS_RING)
@@ -527,6 +577,19 @@ STEPS = {
     "rs3": [rows_ring(RPB_AT, 3)],
     "r8k": [rows_ring(RPB_8K)],
     "r2k": [rows_ring(RPB_2K)],
+    "k8old": [("fused2d.cu", K8_TABLE, "#define PYFFT_FUSED2D_RING(X)\n")],
+    "k8copy": [("fused2d.cu", K8_ROWS, K8_COPY_ROWS),
+               ("fused2d.cu", K8_COLS, "")],
+    "k8xonly": [("fused2d.cu", K8_ROWS, K8_X_ROWS),
+                ("fused2d.cu", K8_COLS, K8_X_COLS)],
+    "k8notw": [("chain.cuh", "    if (NS > 1) {", "    if (NS < 0) {")],
+    "k8r8": [("fused2d.cu", K8_KNOBS, K8_KNOBS.replace("R16 = true",
+                                                        "R16 = false"))],
+    "k8pad0": [("fused2d.cu", K8_KNOBS, K8_KNOBS.replace("PAD = true",
+                                                          "PAD = false"))],
+    "k8twd0": [("fused2d.cu", K8_KNOBS, K8_KNOBS.replace("TWD = true",
+                                                          "TWD = false"))],
+    "k8s1": [("fused2d.cu", K8_SLOTS, K8_SLOTS.replace("2;", "1;"))],
 }
 
 # name -> (kernels timed, steps taken in order, -D macros)
@@ -602,11 +665,15 @@ VARIANTS = {
     "k11rpb4": (("K11",), ["k11rpb4"], {}),
     "k11rpb1": (("K11",), ["k11rpb1"], {}),
     "k11rs2": (("K11",), ["k11rs2"], {}),
+    **{v: (("K8",), [v], {}) for v in ("k8old", "k8copy", "k8xonly",
+                                        "k8notw", "k8r8", "k8pad0", "k8twd0",
+                                        "k8s1")},
 }
-ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11", "P5")
+VARIANTS["full"] = (VARIANTS["full"][0] + ("K8",), [], {})
+ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11", "P5", "K8")
 # the source each kernel is built from
 SOURCE = {"K12": K12, "K9": K9, "K6": K12, "K4": K12, "K1": K1, "K2": K1,
-          "K5": K12, "K11": K1, "P5": K12}
+          "K5": K12, "K11": K1, "P5": K12, "K8": K8}
 
 
 def patched(variant: str, tmp: Path) -> Path:
@@ -666,7 +733,8 @@ def compile_all(tmp: Path, kernels) -> dict:
 # a kernel's mangled name -> its name <template arguments>
 KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel|"
                     r"local_cols_ring_kernel|local_rows_swap_x_kernel|"
-                    r"local_rows_ring_kernel|local_cols_pring_kernel)"
+                    r"local_rows_ring_kernel|local_cols_pring_kernel|"
+                    r"fused2d_ring_kernel|fused2d_kernel)"
                     r"I(\w+?)E(?:EEv|Ev)")
 
 
@@ -767,6 +835,18 @@ def cases() -> list:
         vo = torch.empty_like(v)
         return lambda: local.fft_rows_interleaved(v, -1, out=vo)
 
+    def fused(shape, complex_form=False):
+        if complex_form:
+            v = torch.view_as_real(torch.complex(*planes(shape,
+                                                         torch.float32)))
+            w = torch.view_as_real(torch.empty(shape, device="cuda",
+                                               dtype=torch.complex64))
+            re, im, o = v[..., 0], v[..., 1], (w[..., 0], w[..., 1])
+        else:
+            re, im = planes(shape, torch.float32)
+            o = (torch.empty_like(re), torch.empty_like(im))
+        return lambda: fused2d.fft2_fused(re, im, -1, out=o)
+
     full = dict(tw_n=1 << 22, swap_store=True)
     five = (64, 2048, 2048)
     return [
@@ -825,7 +905,13 @@ def cases() -> list:
         ("K11", "K11 c128 2D row pass complex form",
          lambda: rows((16384, 1024), True, f64)),
         ("K11", "K11 (8192, 2048)", lambda: rows((8192, 2048), real=f64)),
-        ("K11", "K11 (4096, 4096)", lambda: rows((4096, 4096), real=f64))]
+        ("K11", "K11 (4096, 4096)", lambda: rows((4096, 4096), real=f64)),
+        ("K8", "K8 config 4 (256 x 256^2)", lambda: fused((256, 256, 256))),
+        ("K8", "K8 config 4 stride-2 planes",
+         lambda: fused((256, 256, 256), True)),
+        ("K8", "K8 1024 x 128^2", lambda: fused((1024, 128, 128))),
+        ("K8", "K8 64 x 512^2", lambda: fused((64, 512, 512))),
+        ("K8", "K8 64 x 2048 x 128", lambda: fused((64, 2048, 128)))]
 
 
 # before any use() replaces them
@@ -852,6 +938,9 @@ def use(lib, name: str) -> None:
         il = ab_parent.bind(lib, IL_BINDER)
         local._rows_fn = lambda d: rows[d]
         local._rows_il_fn = lambda: il
+    elif name == K8:
+        typed = fused2d._typed(lib, K8)
+        fused2d._lib = lambda: typed
     else:
         typed = fused2d._typed(lib, K9)
         fused2d._tiled_lib = lambda: typed
@@ -880,6 +969,19 @@ def ring_line(lib) -> str:
     return ", ".join(f"{k} {v}" for k, v in zip(local.ROWS_RING_KEYS, out))
 
 
+def k8_line(lib) -> str:
+    """K8's ring at config 4's planes as the variant builds it."""
+    fn = lib.pyfft_fused2d_ring_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * len(fused2d.RING_SHAPE_KEYS))()
+    got = fn(8, 8, out)
+    if got <= 0:
+        return "first design" if got == 0 else f"query failed ({got})"
+    return ", ".join(f"{k} {v}" for k, v in zip(fused2d.RING_SHAPE_KEYS,
+                                                out))
+
+
 def main(kernels) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
@@ -889,7 +991,8 @@ def main(kernels) -> int:
         check=True).stdout.strip()
     print(f"card: {card}")
     saved = (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
-             local._rows_swap_fn, local._rows_fn, local._rows_il_fn)
+             local._rows_swap_fn, local._rows_fn, local._rows_il_fn,
+             fused2d._lib)
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_all(Path(tmp), kernels)
@@ -907,6 +1010,10 @@ def main(kernels) -> int:
                 if "K9" in names:
                     print(f"K9 {v} at config 3: "
                           f"{shape_line(libs[(v, K9)])}")
+        if "K8" in kernels:
+            for v, (names, _, _) in VARIANTS.items():
+                if "K8" in names:
+                    print(f"K8 {v} at config 4: {k8_line(libs[(v, K8)])}")
         if {"K1", "K2"} & set(kernels):
             for v, (names, _, _) in VARIANTS.items():
                 if "K1" in names:
@@ -933,7 +1040,8 @@ def main(kernels) -> int:
                 torch.cuda.empty_cache()
         finally:
             (local._cols_lib, fused2d._tiled_lib, local._ctile_fn,
-             local._rows_swap_fn, local._rows_fn, local._rows_il_fn) = saved
+             local._rows_swap_fn, local._rows_fn, local._rows_il_fn,
+             fused2d._lib) = saved
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
                       "split": result}))
     return 0

@@ -17,6 +17,15 @@
 // planner's fused2d rule: both axes multiples of 128, at most
 // MAX_FUSED2D_ELEMS points).
 //
+// What bounds it on an H100: bytes, 16 a point (each point read once and
+// written once), 0.0801 ms at 2^24 points at the published 3.35 TB/s.  Two
+// designs, chosen in the C entry by the table at dispatch_design: the
+// plane ring below (fused2d_ring_kernel: a persistent grid of clusters, the
+// next plane's share copied in by TMA while the current one computes,
+// chain.cuh's padded radix-16 chains, the exchange as stores into the
+// owning block's shared memory) for planes of up to 2^17 points on inputs
+// a tensor map reads, and the first design everywhere else:
+//
 //   * one thread-block cluster of G blocks per plane, G = ny*nx / 8192
 //     capped at 16, so that the cluster's shared memory holds the whole
 //     plane: 64 KB a block (128 KB at 2^18 points); clusters above 8
@@ -79,15 +88,19 @@
 // phase 1 loads the rows first.
 //
 // Built by pyfft_tpu_torch/ops/build.py with nvcc for sm_90a into a shared
-// library with the plain C entry points `pyfft_fused2d`, `pyfft_fused2d_i8`
+// library with the plain C entry points `pyfft_fused2d`, `pyfft_fused2d_i8`,
+// the ring's records (`pyfft_fused2d_clusters`, `pyfft_fused2d_ring_shape`)
 // and the int8 kernel's records at the bottom.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "chain.cuh"
 #include "int8_stage.cuh"
+#include "ring_cols.cuh"   // tensor_map_4d, tma_load_4d, mbar_expect, ...
 
 namespace {
 
@@ -194,6 +207,307 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
   return launch_cluster<NT>(fused2d_kernel<LY, LX>, io.L, S::G,
                             S::PB * (int)sizeof(float2), stream, io, twy,
                             twx, s);
+}
+
+// ----------------------------------------------------- K8: the plane ring
+//
+// K8's design for the H100 (fused2d_ring_kernel), at the shapes of
+// PYFFT_FUSED2D_RING on inputs a tensor map reads; the first design above
+// runs everywhere else (pyfft_fused2d's dispatch, below).  Shape2's frame
+// is kept, a cluster of G blocks a plane and a share of RB rows and CB
+// columns a block, but the clusters stay:
+//
+//   * a persistent grid of one wave of clusters (the clusters the card
+//     holds at once, cudaOccupancyMaxActiveClusters, asked once a device);
+//     cluster q walks the planes q, q + clusters, ...;
+//   * a ring of SLOTS slots a block, one mbarrier a slot: thread 0 copies
+//     the block's share of a plane (RB rows of each plane, or of the
+//     complex form's (re, im) pairs) into a slot with one 4D tensor-map box
+//     (TMA) a plane, x split into runs of at most 256 so that the box lands
+//     as [RB][NX], and refills the slot with the plane SLOTS on as soon as
+//     the slot's last reader is past its barrier, so the next plane's share
+//     is in flight while this one computes;
+//   * phase 1: chain.cuh's chain along x over the slot's RB rows, radix 16
+//     where it takes a stage fewer than radix 8 (R16), the padded rows of
+//     chain_index (PAD), five twiddle reads of fifteen a radix-16
+//     butterfly (TWD); its first stage reads the slot's raw rows and, after
+//     a barrier, writes the padded layout into the same slot;
+//   * the exchange: the last stage of phase 1 stores its outputs straight
+//     into the column buffer of the block that owns their column
+//     (st.shared::cluster, consecutive lanes on consecutive columns), so one
+//     cluster barrier (release, then acquire) hands every block its
+//     columns; the first design gathered them value by value with remote
+//     loads between two barriers.  The column buffer is free again when
+//     every block's phase 2 is past its reads: a second barrier, split into
+//     an arrive after phase 2 and a wait before the next plane's exchange,
+//     so the row chain runs in between;
+//   * phase 2: the chain along y over the block's CB columns in the column
+//     buffer's [y][c] layout (R16, TWD), its last stage storing from
+//     registers with threads along x, postscale folded: 128-byte runs a warp
+//     of each plane (CB >= 32), (re, im) pairs as one 8-byte store each on
+//     the complex form.
+//
+// Shared memory: SLOTS slots of the padded share (68 KB at 8192 points) and
+// the 64 KB column buffer, 200 KB a block at two slots, one block an SM.
+// At 2^18 points a plane a share is 128 KB: one slot and the buffer do not
+// fit, so those five shapes keep the first design.  In place: a plane is
+// stored only after every block of its cluster has copied its share in
+// (the exchange's barrier comes between), and no two clusters share a
+// plane.
+
+// (log2 ny, log2 nx): the shapes the ring takes, every plane of at most
+// 2^17 points (a share of 8192 points a block).  The five shapes of 2^18
+// points run the first design.
+#ifndef PYFFT_FUSED2D_RING
+#define PYFFT_FUSED2D_RING(X)                                         \
+  X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(8, 7) X(8, 8) X(8, 9) X(9, 7)    \
+  X(9, 8) X(10, 7)
+#endif
+// slots a block; the chains' options (chain.cuh), radix 16 where it takes a
+// stage fewer than radix 8; the most points a box takes along one axis
+constexpr int RING2_SLOTS = 2;
+constexpr bool RING2_PAD = true, RING2_TWD = true, RING2_R16 = true;
+constexpr int RING2_BOX = 256;
+
+// What pyfft_fused2d returns where the ring ran: 0 where the first design
+// ran, else the launch's cudaError_t.  The wrapper counts the ring's
+// launches from it.
+constexpr int RAN_RING = -1;
+
+template <int LY, int LX>
+struct Ring2 {
+  using S = Shape2<LY, LX>;
+  static constexpr int NY = S::NY, NX = S::NX, G = S::G, RB = S::RB,
+                       CB = S::CB, PB = S::PB, SLOTS = RING2_SLOTS;
+  static constexpr int BX = NX < RING2_BOX ? NX : RING2_BOX;  // a box's run
+  static constexpr bool R16X = RING2_R16 && (LX + 3) / 4 < (LX + 2) / 3;
+  static constexpr bool R16Y = RING2_R16 && (LY + 3) / 4 < (LY + 2) / 3;
+  // a slot: the raw share or the padded rows, rounded to 128 bytes (the box
+  // copies' alignment), in values; the column buffer [y][c]
+  static constexpr int PADDED = RING2_PAD ? RB * (NX + NX / 16) : PB;
+  static constexpr int SLOT = ((PADDED > PB ? PADDED : PB) * 8 + 127) / 128 *
+                              128 / 8;
+  static constexpr int SMEM = (SLOTS * SLOT + PB) * 8 + 128;  // + alignment
+  static_assert(PB == 8192, "a share of 8192 points");
+  static_assert(SLOTS >= 1 && SMEM <= 227 * 1024,
+                "the ring fits a block's shared memory");
+  static_assert(RB <= RING2_BOX && NX / BX <= RING2_BOX, "one box a plane");
+  static_assert(PB * 8 < (1 << 20), "an mbarrier's byte count");
+};
+
+// The radices of chain.cuh's chain over 2^LOGN points: a radix-2, 4 (or 8)
+// head where LOGN is not a multiple of log2 of the main radix, then radix 8
+// (16 with R16).
+template <int LOGN, bool R16>
+struct ChainPlan {
+  static constexpr int RB = R16 ? 4 : 3, REM = LOGN % RB;
+  static constexpr int NSTAGES = LOGN / RB + (REM ? 1 : 0);
+  static constexpr int R_LAST = 1 << RB;     // the head is stage 0
+  static constexpr int NS_LAST = (1 << LOGN) / R_LAST;
+  static_assert(NSTAGES >= 2, "a head and a last stage");
+};
+
+// Every stage but the last of the chain over C padded rows of 2^LOGN
+// points (ROWS, PAD, TWD), from stage STAGE on: stage 0 reads load(c, k)
+// and takes a barrier before it writes the buffer (SYNC0: `load` reads the
+// slot it writes); every result stays in the buffer.
+template <int NT_, int LOGN, int C, bool R16, int STAGE = 0, int NS = 1,
+          class Load>
+__device__ __forceinline__ void rows_head(float2* sm,
+                                          const float2* __restrict__ tw,
+                                          float s, const Load& load) {
+  using P = ChainPlan<LOGN, R16>;
+  if constexpr (STAGE + 1 < P::NSTAGES) {
+    constexpr int R = (STAGE == 0 && P::REM) ? (1 << P::REM) : (1 << P::RB);
+    const auto none = [](int, int, float2) {};
+    stage<NT_, 1 << LOGN, C, true, R, NS, STAGE == 0, false, RING2_PAD,
+          RING2_TWD, STAGE == 0>(sm, tw, s, load, none);
+    rows_head<NT_, LOGN, C, R16, STAGE + 1, NS * R>(sm, tw, s, load);
+  }
+}
+
+// Store v at `local`'s place in the shared memory of cluster block `rank`
+// (distributed shared memory; the buffer lies at the same offset in every
+// block).
+__device__ __forceinline__ void st_cluster(const float2* local, int rank,
+                                           float2 v) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// The ring over io.L planes: plane first + i*every in slot i % SLOTS on
+// barrier bars[i % SLOTS], filled by thread 0 (map_re: the real plane, or
+// the pairs where `pin`; map_im the imaginary plane).  `pout`: the output
+// planes are (re, im) pairs, stored as float2.
+template <int LY, int LX>
+__global__ void __launch_bounds__(NT, 1)
+    fused2d_ring_kernel(Planes2D io, const float2* __restrict__ twy,
+                        const float2* __restrict__ twx, float s, int pin,
+                        int pout, const __grid_constant__ CUtensorMap map_re,
+                        const __grid_constant__ CUtensorMap map_im) {
+  using K = Ring2<LY, LX>;
+  constexpr int NX = K::NX, RB = K::RB, CB = K::CB, PB = K::PB;
+  constexpr int SLOTS = K::SLOTS, SLOT = K::SLOT;
+  using PX = ChainPlan<LX, K::R16X>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bars[SLOTS];
+  float2* slots = align128(smem_raw);
+  float2* cols = slots + SLOTS * SLOT;        // the column buffer, [y][c]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long first = blockIdx.x / K::G, every = gridDim.x / K::G;
+  const int count =
+      first < io.L ? static_cast<int>((io.L - first + every - 1) / every)
+                   : 0;
+  // this block's share of plane i into slot i % SLOTS: one box of each
+  // plane, or of the pairs
+  const auto issue = [&](int i) {
+    uint64_t* bar = &bars[i % SLOTS];
+    float* dst = reinterpret_cast<float*>(slots + (i % SLOTS) * SLOT);
+    const int l = static_cast<int>(first + (long long)i * every);
+    fence_async_smem();
+    mbar_expect(bar, PB * (int)sizeof(float2));
+    tma_load_4d(dst, &map_re, 0, 0, rank * RB, l, bar);
+    if (!pin) tma_load_4d(dst + PB, &map_im, 0, 0, rank * RB, l, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < SLOTS; ++b) mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < SLOTS && j < count; ++j) issue(j);
+  }
+  __syncthreads();                  // the barriers are set up
+  cluster_arrive();                 // this block's column buffer is free
+  for (int i = 0; i < count; ++i) {
+    const long long l = first + (long long)i * every;
+    float2* sm = slots + (i % SLOTS) * SLOT;
+    const float* f = reinterpret_cast<const float*>(sm);
+    float* out_re = io.out_re + l * io.out_ls;
+    float* out_im = io.out_im + l * io.out_ls;
+    const auto load = [&](int c, int k) {        // row c of the share, x = k
+      return pin ? sm[c * NX + k] : make_float2(f[c * NX + k],
+                                                f[PB + c * NX + k]);
+    };
+    // phase 1's outputs, row c at x = k, to the column buffer of the block
+    // that owns column x, at [y][x % CB]
+    const auto send = [&](int c, int k, float2 v) {
+      st_cluster(cols + (rank * RB + c) * CB + k % CB, k / CB, v);
+    };
+    const auto none_load = [](int, int) { return make_float2(0.f, 0.f); };
+    // phase 2's outputs, column c at y = k, postscale folded
+    const auto store = [&](int c, int k, float2 v) {
+      const long long o = k * io.out_ys + (rank * CB + c) * io.out_xs;
+      const float2 y = make_float2(v.x * io.post, v.y * io.post);
+      if (pout) {
+        *reinterpret_cast<float2*>(out_re + o) = y;
+      } else {
+        out_re[o] = y.x;
+        out_im[o] = y.y;
+      }
+    };
+    mbar_wait(&bars[i % SLOTS], (i / SLOTS) & 1);
+    // phase 1: the share's rows along x; the last stage sends, once every
+    // block's column buffer is free
+    rows_head<NT, LX, RB, K::R16X>(sm, fresh(twx), s, load);
+    cluster_wait();
+    stage<NT, NX, RB, true, PX::R_LAST, PX::NS_LAST, false, true, RING2_PAD,
+          RING2_TWD>(sm, fresh(twx), s, load, send);
+    // the slot's readers are past its last barrier: refill it
+    if (threadIdx.x == 0 && i + SLOTS < count) issue(i + SLOTS);
+    cluster_arrive();               // release: this block's sends
+    cluster_wait();                 // acquire: every send to this block
+    // phase 2: the block's columns along y, stored along x
+    chain<NT, LY, CB, false, 0, 1, false, true, false, RING2_TWD, K::R16Y>(
+        cols, fresh(twy), s, none_load, store);
+    cluster_arrive();               // this block's column buffer is free
+  }
+  cluster_wait();
+}
+
+// Whether the ring's tensor maps read the input where it lies (the rule
+// of local._boxable): planar planes (x stride 1) or the complex form's
+// stride-2 planes (the imaginary plane one float after the real one),
+// 16-byte aligned, the y stride (and, for L > 1, the l stride) a multiple
+// of 4 floats; `pairs` says which.
+inline bool ring2_operands(const Planes2D& io, bool& pairs) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(io.in_re);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
+  const bool planar = io.in_xs == 1 && b % 16 == 0;
+  pairs = io.in_xs == 2 && io.in_im == io.in_re + 1;
+  return (planar || pairs) && a % 16 == 0 && io.in_ys % 4 == 0 &&
+         (io.L == 1 || io.in_ls % 4 == 0);
+}
+
+// The clusters of the ring at (LY, LX) the card holds at once, asked once
+// a device (max_clusters sets the kernel's shared memory there).
+template <int LY, int LX>
+cudaError_t ring2_held(int& held) {
+  using K = Ring2<LY, LX>;
+  static std::atomic<int> got[64];           // by device, 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int h = got[dev].load(std::memory_order_relaxed);
+  if (!h) {
+    h = max_clusters<NT>(fused2d_ring_kernel<LY, LX>, K::G, K::SMEM);
+    if (h < 0) return static_cast<cudaError_t>(-h);
+    if (h == 0) return cudaErrorInvalidConfiguration;
+    got[dev].store(h, std::memory_order_relaxed);
+  }
+  held = h;
+  return cudaSuccess;
+}
+
+// The ring's tensor map over one input plane (or the pairs) at `base`:
+// (x in runs of BX, the runs, y, l), boxes of [1][RB][NX / BX][BX].
+template <int LY, int LX>
+cudaError_t ring2_map(CUtensorMap* map, const float* base, bool pairs,
+                      const Planes2D& io) {
+  using K = Ring2<LY, LX>;
+  const long long e = pairs ? 8 : 4;                  // bytes an element
+  const long long ys = io.in_ys * 4;
+  const long long ls = io.L > 1 ? io.in_ls * 4 : K::NY * ys;
+  const cuuint64_t dims[4] = {(cuuint64_t)K::BX, (cuuint64_t)(K::NX / K::BX),
+                              (cuuint64_t)K::NY, (cuuint64_t)io.L};
+  const cuuint64_t strides[3] = {(cuuint64_t)(K::BX * e), (cuuint64_t)ys,
+                                 (cuuint64_t)ls};
+  const cuuint32_t box[4] = {(cuuint32_t)K::BX, (cuuint32_t)(K::NX / K::BX),
+                             (cuuint32_t)K::RB, 1};
+  return tensor_map_4d(map, base, pairs, dims, strides, box);
+}
+
+template <int LY, int LX>
+cudaError_t launch_ring(const Planes2D& io, bool pairs, const float2* twy,
+                        const float2* twx, float s, cudaStream_t stream) {
+  using K = Ring2<LY, LX>;
+  int held = 0;
+  cudaError_t e = ring2_held<LY, LX>(held);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mre{}, mim{};
+  e = ring2_map<LY, LX>(&mre, io.in_re, pairs, io);
+  if (e == cudaSuccess && !pairs)
+    e = ring2_map<LY, LX>(&mim, io.in_im, false, io);
+  if (e != cudaSuccess) return e;
+  const uintptr_t o = reinterpret_cast<uintptr_t>(io.out_re);
+  const int pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&
+                   o % 8 == 0 && io.out_ys % 2 == 0 &&
+                   (io.L == 1 || io.out_ls % 2 == 0);
+  const long long clusters = io.L < held ? io.L : held;
+  return launch_cluster<NT>(fused2d_ring_kernel<LY, LX>, clusters, K::G,
+                            K::SMEM, stream, io, twy, twx, s, (int)pairs,
+                            pout, mre, mim);
+}
+
+// Whether the ring takes (log2 ny, log2 nx) (PYFFT_FUSED2D_RING).
+inline bool ring2_takes(int ly, int lx) {
+#define PYFFT_CASE(a, b) \
+  if (ly == a && lx == b) return true;
+  PYFFT_FUSED2D_RING(PYFFT_CASE)
+#undef PYFFT_CASE
+  return false;
 }
 
 // ------------------------------------------------------ K8 + K10 (int8)
@@ -314,6 +628,32 @@ cudaError_t dispatch(int ly, int lx, const Planes2D& io, const float2* twy,
   return cudaErrorInvalidValue;
 }
 
+// Which design runs where (pyfft_fused2d):
+//
+//   plane (ny, nx)             input                      design
+//   at most 2^17 points        planar or pairs, 16-byte   the ring
+//   (PYFFT_FUSED2D_RING)       aligned, y and l strides   (RAN_RING)
+//                              multiples of 4 floats
+//   at most 2^17 points        any other layout           the first (0)
+//   2^18 points                any                        the first (0)
+//
+// The ring where it takes the shape and the input (RAN_RING), else the
+// first design (0), or a launch's cudaError_t.
+int dispatch_design(int ly, int lx, const Planes2D& io, const float2* twy,
+                    const float2* twx, float s, cudaStream_t st) {
+  bool pairs = false;
+  if (ring2_takes(ly, lx) && ring2_operands(io, pairs)) {
+#define PYFFT_CASE(a, b)                                                \
+  if (ly == a && lx == b) {                                             \
+    const cudaError_t e = launch_ring<a, b>(io, pairs, twy, twx, s, st); \
+    return e == cudaSuccess ? RAN_RING : (int)e;                        \
+  }
+    PYFFT_FUSED2D_RING(PYFFT_CASE)
+#undef PYFFT_CASE
+  }
+  return (int)dispatch(ly, lx, io, twy, twx, s, st);
+}
+
 // (log2 ny, log2 fy, log2 nx, log2 fx) of the int8 kernel: each of K8's
 // shapes with f the last factor of default_factors on each axis.
 #define PYFFT_FUSED2D_I8_CASES(X)                                          \
@@ -348,6 +688,51 @@ int i8_clusters(int ly, int lx) {
   return -1000;
 }
 
+// K8's clusters at (log2 ny, log2 nx) that the card holds at once
+// (cudaOccupancyMaxActiveClusters): the ring's (`ring` 1) or the first
+// design's (`ring` 0); 0 where none places, a negative cudaError_t where
+// the query fails, -1000 where that design does not take the shape.
+int ring_clusters(int log2ny, int log2nx, int ring) {
+  if (ring) {
+#define PYFFT_CASE(a, b)                                                \
+  if (log2ny == a && log2nx == b)                                      \
+    return max_clusters<NT>(fused2d_ring_kernel<a, b>, Ring2<a, b>::G, \
+                            Ring2<a, b>::SMEM);
+    PYFFT_FUSED2D_RING(PYFFT_CASE)
+#undef PYFFT_CASE
+    return -1000;
+  }
+#define PYFFT_CASE(a, b)                                                 \
+  if (log2ny == a && log2nx == b)                                       \
+    return max_clusters<NT>(fused2d_kernel<a, b>, Shape2<a, b>::G,      \
+                            Shape2<a, b>::PB * (int)sizeof(float2));
+  PYFFT_FUSED2D_CASES(PYFFT_CASE)
+#undef PYFFT_CASE
+  return -1000;
+}
+
+// The ring's shape at (log2 ny, log2 nx) into out[0..6]: blocks a cluster,
+// rows and columns a block, slots, shared memory a block in bytes, the
+// clusters the card holds at once and the planes' x runs a box takes (BX).
+// Returns 1, 0 where the shape runs the first design (out untouched), or a
+// negative cudaError_t where the card's query fails.
+int ring_shape(int log2ny, int log2nx, long long* out) {
+#define PYFFT_CASE(a, b)                                                 \
+  if (log2ny == a && log2nx == b) {                                     \
+    using K = Ring2<a, b>;                                              \
+    int held = 0;                                                       \
+    const cudaError_t e = ring2_held<a, b>(held);                       \
+    if (e != cudaSuccess) return -(int)e;                               \
+    const long long v[7] = {K::G, K::RB, K::CB, K::SLOTS, K::SMEM, held, \
+                            K::BX};                                     \
+    for (int i = 0; i < 7; ++i) out[i] = v[i];                          \
+    return 1;                                                           \
+  }
+  PYFFT_FUSED2D_RING(PYFFT_CASE)
+#undef PYFFT_CASE
+  return 0;
+}
+
 }  // namespace
 
 // The stage the int8 kernel runs at (log2 ny, log2 nx): 1 the wgmma stage
@@ -367,6 +752,19 @@ extern "C" int pyfft_fused2d_i8_clusters(int log2ny, int log2nx) {
   return i8_clusters(log2ny, log2nx);
 }
 
+// K8's clusters that the card holds at once (see ring_clusters): the
+// ring's (`ring` 1) or the first design's (`ring` 0).
+extern "C" int pyfft_fused2d_clusters(int log2ny, int log2nx, int ring) {
+  return ring_clusters(log2ny, log2nx, ring);
+}
+
+// The ring's shape at (log2 ny, log2 nx) (see ring_shape): 1, 0 where the
+// shape runs the first design, or a negative cudaError_t.
+extern "C" int pyfft_fused2d_ring_shape(int log2ny, int log2nx,
+                                        long long* out) {
+  return ring_shape(log2ny, log2nx, out);
+}
+
 // The cluster size (blocks a plane) at (log2 ny, log2 nx), 0 outside the
 // kernel's range: for the wrapper's checks and the records.
 extern "C" int pyfft_fused2d_cluster(int log2ny, int log2nx) {
@@ -380,7 +778,9 @@ extern "C" int pyfft_fused2d_cluster(int log2ny, int log2nx) {
 // Launches the 2D DFT on `stream` without synchronising.  `twy` and `twx`
 // hold ny and nx (cos, sin) float pairs of sign*2*pi*k/n.  `dims` holds 7
 // int64 values: L, the input strides (l, y, x) and the output strides
-// (l, y, x), in floats.  Returns the launch's cudaError_t (0 on success).
+// (l, y, x), in floats.  Returns RAN_RING (-1) where the ring ran, 0 where
+// the first design ran (dispatch_design's table), else the launch's
+// cudaError_t.
 extern "C" int pyfft_fused2d(const void* in_re, const void* in_im,
                              void* out_re, void* out_im, const void* twy,
                              const void* twx, const long long* dims,
@@ -389,9 +789,9 @@ extern "C" int pyfft_fused2d(const void* in_re, const void* in_im,
   const Planes2D io = planes_2d(in_re, in_im, out_re, out_im, dims, postscale);
   if (io.L <= 0) return (int)cudaErrorInvalidValue;
   const float s = sign < 0 ? -1.f : 1.f;
-  return (int)dispatch(log2ny, log2nx, io, static_cast<const float2*>(twy),
-                       static_cast<const float2*>(twx), s,
-                       static_cast<cudaStream_t>(stream));
+  return dispatch_design(log2ny, log2nx, io, static_cast<const float2*>(twy),
+                         static_cast<const float2*>(twx), s,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K8 + K10: as pyfft_fused2d with the f-point int8 stage last on each axis,

@@ -5,9 +5,16 @@ Counterpart of ``pyfft_tpu/ops/pallas_local.py``'s ``fft2_fused`` and
 ``_fft2_fused_inner``): both last axes of (..., ny, nx) planes in one
 pass over device memory.  Two implementations:
 
-* the Hopper kernel ``csrc/fused2d.cu`` (one thread-block cluster a plane,
+* the Hopper kernel ``csrc/fused2d.cu`` (a thread-block cluster a plane,
   rows then columns, the plane held in the cluster's distributed shared
-  memory between the two), launched by ``_launch`` for every CUDA tensor;
+  memory between the two), launched by ``_launch`` for every CUDA tensor.
+  Its C entry runs one of two designs by its table (``design``): the plane
+  ring (a persistent grid of clusters walking the planes, each block's
+  share of the next plane copied in by a tensor-map box while the current
+  one computes, padded radix-16 chains, the exchange as stores into the
+  owning block's shared memory) on planes of up to 2^17 points
+  (``RING_SHAPES``) that its tensor maps read, else the first design (one
+  cluster a plane, the exchange gathered value by value);
 * its plain torch version ``fft2_plain``: the JAX kernel's two
   ``tile_fft`` calls, y then x, with ``default_factors`` chains, taken for
   every CPU tensor.
@@ -51,14 +58,24 @@ from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "supported_2d_tiled", "fft2_fused_tiled", "fft2_tiled_plain",
-           "tiled_cluster_size", "tiled_shape", "i8_stage",
-           "MAX_FUSED2D_TILED_ELEMS",
-           "LAUNCHES",
+           "tiled_cluster_size", "tiled_shape", "i8_stage", "design",
+           "ring_shape", "clusters", "MAX_FUSED2D_TILED_ELEMS",
+           "RING_SHAPES", "LAUNCHES", "RING_LAUNCHES",
            "TILED_LAUNCHES", "I8_LAUNCHES", "TILED_I8_LAUNCHES"]
 
 # Kernel launches made by _launch since the last reset (a caller sets it
 # to 0): the proof that a run went through the CUDA kernel.
 LAUNCHES = 0
+# Of those, the launches that ran the plane ring (csrc/fused2d.cu
+# fused2d_ring_kernel) and not the first design, counted where the C entry
+# returns RAN_RING.
+RING_LAUNCHES = 0
+RAN_RING = -1
+# The (ny, nx) planes the ring takes (csrc/fused2d.cu PYFFT_FUSED2D_RING):
+# at most 2^17 points, a share of 8192 points a block; a test holds them to
+# the source's table.
+RING_SHAPES = tuple((1 << a, 1 << b) for a in range(7, 11)
+                    for b in range(7, 11) if a + b <= 17)
 # The same for _launch_tiled (K9).
 TILED_LAUNCHES = 0
 # The same for the int8 kernels: K8 + K10 and K9 + K10.
@@ -242,6 +259,53 @@ def tiled_shape(ny: int, nx: int) -> dict:
     return dict(zip(TILED_SHAPE_KEYS, out))
 
 
+@functools.lru_cache(maxsize=None)
+def _ring_fns():
+    """(clusters, ring_shape): the C entry points
+    ``pyfft_fused2d_clusters`` and ``pyfft_fused2d_ring_shape`` of
+    csrc/fused2d.cu, built at first use."""
+    from pyfft_tpu_torch.ops.build import load
+    lib = load("fused2d")
+    held = lib.pyfft_fused2d_clusters
+    held.argtypes = [ctypes.c_int] * 3
+    held.restype = ctypes.c_int
+    shape = lib.pyfft_fused2d_ring_shape
+    shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_longlong)]
+    shape.restype = ctypes.c_int
+    return held, shape
+
+
+def clusters(ny: int, nx: int, ring: bool) -> int:
+    """K8's clusters on (ny, nx) planes that the card holds at once
+    (cudaOccupancyMaxActiveClusters), of the ring's kernel or the first
+    design's; raises where the query fails or the design does not take
+    the shape."""
+    got = _ring_fns()[0](ilog2(ny), ilog2(nx), int(ring))
+    if got < 0:
+        raise RuntimeError(f"fused 2D cluster query at {ny}x{nx} "
+                           f"(ring={ring}) failed: {got}")
+    return got
+
+
+RING_SHAPE_KEYS = ("cluster", "rows", "columns", "slots", "smem_bytes",
+                   "clusters_held", "box_run")
+
+
+def ring_shape(ny: int, nx: int):
+    """The ring's shape on (ny, nx) planes on the current card: blocks a
+    cluster, rows and columns a block, slots a block, shared memory a
+    block in bytes, the clusters the card holds at once (the grid) and the
+    run of x a box takes; None where the shape runs the first design.
+    Builds the kernel on first use."""
+    out = (ctypes.c_longlong * len(RING_SHAPE_KEYS))()
+    got = _ring_fns()[1](ilog2(ny), ilog2(nx), out)
+    if got < 0:
+        raise RuntimeError(f"pyfft_fused2d_ring_shape failed: cudaError "
+                           f"{-got}")
+    return dict(zip(RING_SHAPE_KEYS, out)) if got else None
+
+
 def i8_stage(ny: int, nx: int, tiled: bool = False) -> str:
     """Which K10 stage the int8 kernel K8 + K10 (or, with ``tiled``, K9 +
     K10) runs on (ny, nx) planes: "wgmma" where both axes' f (the matrix
@@ -280,26 +344,51 @@ def _i8_clusters_fn():
     return fn
 
 
-def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
-                 postscale: float, factors=None) -> bool:
-    """Launch the kernel of library ``name`` over the (L, ny, nx) view of
-    the planes, after the checks; ``libs()`` gives its typed (launch,
-    launch_i8, cluster) entry points.  With ``factors`` (the chains of y
-    and x) the int8 kernel runs, its stages' f the chains' matrix factors.
-    K8 and K9 share this C interface, the checks and the tables.  No
-    synchronise; False when there is nothing to launch."""
-    shape = tuple(re.shape)
-    ny, nx = shape[-2:]
-    L = math.prod(shape[:-2])
+def _check_devices(re, im, out_re, out_im) -> None:
+    """The 2D kernels take float32 planes on one CUDA device."""
     for t in (re, im, out_re, out_im):
         if (not t.is_cuda or t.device != re.device
                 or t.dtype != torch.float32):
             raise ValueError("fused 2D kernel takes float32 planes on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
+
+
+def design(re, im) -> str:
+    """Which design K8 runs on these (..., ny, nx) planes (csrc/fused2d.cu
+    ``dispatch_design``): "ring" where the ring's table takes (ny, nx)
+    (``RING_SHAPES``) and its tensor maps read the planes where they lie
+    (``local._boxable``: planar or the complex form's stride-2 planes,
+    16-byte aligned, the y and l strides multiples of 4 floats), else
+    "first".  No CUDA call."""
+    ny, nx = re.shape[-2:]
+    L = math.prod(re.shape[:-2])
+    if (ny, nx) not in RING_SHAPES or L == 0:
+        return "first"
+    r3 = local._view(re, (L, ny, nx), "re")
+    i3 = local._view(im, (L, ny, nx), "im")
+    return "ring" if local._boxable(r3, i3) else "first"
+
+
+def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
+                 postscale: float, factors=None, ring: bool = False):
+    """Launch the kernel of library ``name`` over the (L, ny, nx) view of
+    the planes, after the checks; ``libs()`` gives its typed (launch,
+    launch_i8, cluster) entry points.  With ``factors`` (the chains of y
+    and x) the int8 kernel runs, its stages' f the chains' matrix factors.
+    K8 and K9 share this C interface, the checks and the tables.  No
+    synchronise.  Returns the design that ran, "ring" where the entry
+    returned RAN_RING (only K8's float entry, ``ring``, may) or "first",
+    and None when there is nothing to launch; any other non-zero return
+    raises."""
+    shape = tuple(re.shape)
+    ny, nx = shape[-2:]
+    L = math.prod(shape[:-2])
+    _check_devices(re, im, out_re, out_im)
+    for t in (re, im, out_re, out_im):
         if tuple(t.shape) != shape:
             raise ValueError("fused 2D kernel planes differ in shape")
     if L == 0:
-        return False
+        return None
     r3, i3, o_r, o_i = (local._view(t, (L, ny, nx), w) for t, w in
                         ((re, "re"), (im, "im"), (out_re, "out_re"),
                          (out_im, "out_im")))
@@ -335,9 +424,11 @@ def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
         else:
             err = fn(*ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
                      float(postscale), stream)
+    if ring and not factors and err == RAN_RING:
+        return "ring"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return True
+    return "first"
 
 
 def _launch(re, im, out_re, out_im, sign: int, postscale: float,
@@ -345,16 +436,17 @@ def _launch(re, im, out_re, out_im, sign: int, postscale: float,
     """Launch csrc/fused2d.cu: K8, or with ``int8`` K8 + K10 (f from
     ``default_factors``); the caller (``fft2_fused``) has checked
     ``supported_2d``."""
-    global LAUNCHES, I8_LAUNCHES
+    global LAUNCHES, RING_LAUNCHES, I8_LAUNCHES
     ny, nx = re.shape[-2:]
     factors = ((local.default_factors(ny), local.default_factors(nx))
                if int8 else None)
-    if _launch_with(_lib, "fused2d", re, im, out_re, out_im, sign,
-                    postscale, factors):
-        if int8:
-            I8_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+    ran = _launch_with(_lib, "fused2d", re, im, out_re, out_im, sign,
+                       postscale, factors, ring=True)
+    if ran and int8:
+        I8_LAUNCHES += 1
+    elif ran:
+        LAUNCHES += 1
+        RING_LAUNCHES += ran == "ring"
     return out_re, out_im
 
 
@@ -380,8 +472,8 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
                factors_x=None, precision: str = "highest", out=None):
     """2D DFT over the last two axes of planar float32 tensors.
 
-    A CUDA tensor goes to the kernel, which runs its own radix-8 chains and
-    ignores the factors; a CPU tensor goes to ``fft2_plain``, which runs
+    A CUDA tensor goes to the kernel, which runs its own chains (the
+    design ``design`` names) and ignores the factors; a CPU tensor goes to ``fft2_plain``, which runs
     them.  ``out=(re, im)`` names the planes to write, of the input's
     shape; they may be the inputs themselves (in place).  Without it, new
     planes are allocated with the input's layout.  Raises where the kernel
