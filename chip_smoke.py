@@ -306,6 +306,7 @@ def reset_counts():
     local.COL_RING_LAUNCHES = 0
     local.COL_X_LAUNCHES = 0
     fused2d.LAUNCHES = 0
+    fused2d.RING_LAUNCHES = 0
     fused2d.TILED_LAUNCHES = 0
     fused2d.I8_LAUNCHES = 0
     fused2d.TILED_I8_LAUNCHES = 0
@@ -337,12 +338,45 @@ def read_counts() -> dict:
 def design_counts() -> dict:
     """Of the launches counted since the last reset, those that ran each
     redesign, as the C entries report it: the row ring (K1 and K2; K11 on
-    double planes) and K5's persistent column ring and cluster tile."""
-    from pyfft_tpu_torch.ops import local
+    double planes), K5's persistent column ring and cluster tile and K8's
+    plane ring."""
+    from pyfft_tpu_torch.ops import fused2d, local
     return {"row ring": local.RING_LAUNCHES,
             "row ring f64": local.RING_LAUNCHES_F64,
             "column ring": local.COL_RING_LAUNCHES,
-            "column cluster tile": local.COL_X_LAUNCHES}
+            "column cluster tile": local.COL_X_LAUNCHES,
+            "plane ring": fused2d.RING_LAUNCHES}
+
+
+# Every float K8 launch of the run, by the design it ran, and those that
+# ran another design than its table names (watch_k8_designs).
+K8_DESIGNS = {"ring": 0, "first": 0, "wrong": []}
+
+
+def watch_k8_designs() -> None:
+    """Hold every float K8 launch of the run, whatever phase makes it,
+    against the design its table names (``fused2d.design``: the plane ring
+    on the shapes of PYFFT_FUSED2D_RING and planes its tensor maps read,
+    else the first design), by the ring's launch count; main() fails at
+    the end on any launch that ran the other."""
+    from pyfft_tpu_torch.ops import fused2d
+    launch = fused2d._launch
+
+    def watched(re, im, out_re, out_im, sign, postscale, int8=False):
+        if int8:
+            return launch(re, im, out_re, out_im, sign, postscale, int8)
+        want = fused2d.design(re, im)
+        ring0, all0 = fused2d.RING_LAUNCHES, fused2d.LAUNCHES
+        got = launch(re, im, out_re, out_im, sign, postscale, int8)
+        if fused2d.LAUNCHES != all0:
+            ran = "ring" if fused2d.RING_LAUNCHES != ring0 else "first"
+            K8_DESIGNS[ran] += 1
+            if ran != want:
+                K8_DESIGNS["wrong"].append(
+                    (tuple(re.shape), re.stride(), want, ran))
+        return got
+
+    fused2d._launch = watched
 
 
 def expect(*parts) -> dict:
@@ -898,11 +932,18 @@ FUSED_SHAPES = [(1 << a, 1 << b) for a in range(7, 12) for b in range(7, 12)
 
 
 def phase_fused_kernel():
+    """K8 at each of its 15 plane shapes, L = 1 and 3, both signs, on
+    planar planes, the complex form's stride-2 planes, in place on them and
+    on planes one float off 16-byte alignment, against its plain version
+    and numpy; each launch held against the design its table names
+    (``fused2d.design``) by the ring's launch count, and each shape's
+    clusters and the ring's shape printed."""
     from pyfft_tpu_torch.ops import fused2d
     rng = np.random.RandomState(7)
     for ny, nx in FUSED_SHAPES:
         worst_plain = worst_np = 0.0
         cases = 0
+        ran = {"ring": 0, "first": 0}
         for L in (1, 3):
             x = (rng.standard_normal((L, ny, nx))
                  + 1j * rng.standard_normal((L, ny, nx))).astype(np.complex64)
@@ -914,18 +955,34 @@ def phase_fused_kernel():
                 ref = torch.from_numpy(X * post).cuda()
                 pr, pi = fused2d.fft2_plain(xc.real.contiguous(),
                                             xc.imag.contiguous(), sign, post)
-                for mode in ("planar", "stride2", "inplace"):
+                for mode in ("planar", "stride2", "inplace", "offset"):
                     out = None
                     if mode == "planar":
                         re, im = xc.real.contiguous(), xc.imag.contiguous()
+                    elif mode == "offset":   # one float off 16 bytes
+                        buf = torch.empty((2, L * ny * nx + 1),
+                                          device="cuda")
+                        re = buf[0, 1:].view(L, ny, nx)
+                        im = buf[1, 1:].view(L, ny, nx)
+                        re.copy_(xc.real)
+                        im.copy_(xc.imag)
                     else:               # the complex form's planes
                         v = torch.view_as_real(xc.clone())
                         re, im = v[..., 0], v[..., 1]
                         if mode == "inplace":
                             out = (re, im)
+                    want = fused2d.design(re, im)
+                    ring0, all0 = fused2d.RING_LAUNCHES, fused2d.LAUNCHES
                     rr, ii = fused2d.fft2_fused(re, im, sign, postscale=post,
                                                 out=out)
                     torch.cuda.synchronize()
+                    got = ("ring" if fused2d.RING_LAUNCHES - ring0 == 1
+                           else "first")
+                    if fused2d.LAUNCHES - all0 != 1 or got != want:
+                        raise AssertionError(
+                            f"fused kernel {ny}x{nx} L={L} {mode}: ran the "
+                            f"{got} design, its table names {want}")
+                    ran[got] += 1
                     if out is not None and rr.data_ptr() != re.data_ptr():
                         raise AssertionError("in-place fused launch wrote "
                                              "elsewhere")
@@ -938,9 +995,22 @@ def phase_fused_kernel():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        print(f"phase 7 fused 2D kernel {ny}x{nx} (a cluster of "
-              f"{fused2d.cluster_size(ny, nx)} blocks a plane): {cases} "
-              f"cases, max rel err vs plain {worst_plain:.3e}, vs numpy "
+        shape = fused2d.ring_shape(ny, nx)
+        if (shape is None) != ((ny, nx) not in fused2d.RING_SHAPES):
+            raise AssertionError(f"fused kernel {ny}x{nx}: ring shape "
+                                 f"{shape} against the table")
+        ring_txt = ("no ring (the first design's shape)" if shape is None
+                    else f"ring: {shape['cluster']} blocks of "
+                    f"{shape['rows']} rows and {shape['columns']} columns, "
+                    f"{shape['threads']} threads, {shape['slots']} slots, "
+                    f"{shape['smem_bytes']} bytes a block, boxes of "
+                    f"{shape['box_run']} points along x, "
+                    f"{shape['clusters_held']} clusters held")
+        print(f"phase 7 fused 2D kernel {ny}x{nx}: {cases} cases, launches "
+              f"{ran} by design, each the one its table names; {ring_txt}; "
+              f"the first design's cluster of {fused2d.cluster_size(ny, nx)}"
+              f" blocks, {fused2d.clusters(ny, nx, False)} clusters held; "
+              f"max rel err vs plain {worst_plain:.3e}, vs numpy "
               f"{worst_np:.3e} (gate {TOL:.0e})")
 
 
@@ -1271,6 +1341,12 @@ def phase_pass_timings(results, copy_gbs):
         lambda: fused2d.fft2_plain(re, im, -1),
         lambda: torch.fft.fft2(x), 2 * L * ny * nx * 8, flops, copy_gbs))
     rows[-1]["kernel"] = "fused2d"
+    k8 = rows[-1]
+    print(f"phase 9 config 4 fused 2D pass on the {fused2d.design(re, im)} "
+          f"design: {k8['ms']:.4f} ms, {k8['bound_ms'] / k8['ms']:.3f} of "
+          f"its bound at the published peaks ({k8['bound_ms']:.4f} ms), "
+          f"{k8['copy_bound_ms'] / k8['ms']:.3f} of the measured copy's "
+          f"({k8['copy_bound_ms']:.4f} ms)")
     two_ms = time_ms(two_pass)
     rows[-1]["two_pass_ms"] = two_ms
     print(f"phase 9 config 4 the same 2D transform as a row-kernel pass and "
@@ -3257,7 +3333,7 @@ DIST_PATHS = {
     "config 4": DistPath("make_dist_fft3", (256, 256, 256),
                          (1, 256, 256, 256), torch.complex64,
                          (256, 256, 256), {"fused2d": 1, "local_cols": 1},
-                         {"column ring": 1}),
+                         {"column ring": 1, "plane ring": 1}),
     "c128 4096 x 4096": DistPath("make_dist_fft_df64", N, (BATCH, N),
                                  torch.complex128, (N,),
                                  {"local_rows_f64": 1}, {"row ring f64": 1}),
@@ -3684,6 +3760,7 @@ def main() -> int:
     tune_file = Path(tune_dir.name) / "tuned.json"
     os.environ["PYFFT_TPU_TORCH_TUNE_FILE"] = str(tune_file)
     phase_device()
+    watch_k8_designs()
     built = phase_build()
     phase_kernel()
     xt, re, im, counts2 = phase_main_path()
@@ -3774,6 +3851,7 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_local.py:1409", fused, checks, launches,
         "config 4, 256^3: the last two axes")
     fused_entry["library_ms"] = fused[0]["library_ms"]
+    fused_entry["design_launches"] = {"plane ring": designs["plane ring"]}
     # complex128: K11 on the 2D path's row pass; K12's two config-5 passes
     # together compute one torch.fft.fft of config 5
     r64 = [c for c in timed64 if c["kernel"] == "local_rows_f64"]
@@ -3868,6 +3946,13 @@ def main() -> int:
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "float_ms")},
             "shape": label})
+    # every float K8 launch of the run ran the design its table names
+    if K8_DESIGNS["wrong"]:
+        raise AssertionError(f"K8 launches on another design than their "
+                             f"table's: {K8_DESIGNS['wrong'][:5]}")
+    print(f"K8 over the whole run: {K8_DESIGNS['ring']} launches on the "
+          f"plane ring, {K8_DESIGNS['first']} on the first design, each the "
+          "design its table names")
     print(json.dumps({"kernels": [rows_entry, cols_entry, fused_entry,
                                   rows64_entry, cols64_entry, *il_entries,
                                   *off_entries],

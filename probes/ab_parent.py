@@ -104,7 +104,7 @@ def load_all(other: Path) -> dict:
 def bind(lib, binder, *args):
     """The typed entry points ``binder`` makes, taken from ``lib``."""
     saved = build.load
-    build.load = lambda name: lib
+    build.load = lambda name, *args, **kw: lib
     try:
         return binder(*args)
     finally:

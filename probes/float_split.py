@@ -130,15 +130,24 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
             PYFFT_FUSED2D_RING emptied: the design before the ring)
   k8copy    the ring's box copies and its stores alone: each block's share
             stored back as the output's rows from registers, no chain and
-            no exchange (the cluster barriers kept)
-  k8xonly   the ring's exchange alone: the share's raw rows sent to the
-            owning blocks' column buffers and stored from there, no chain
+            no exchange (its cluster barrier kept)
+  k8xonly   the ring's exchange alone: the share's raw rows copied to the
+            owning blocks' slots and stored from there, no chain
   k8notw    the ring's chains without twiddle multiplies
   k8r8      the ring's chains on radix 8 (RING2_R16 off)
   k8pad0    the ring's row chain without chain_index's padding
   k8twd0    the ring's chains reading every twiddle of a butterfly
-  k8s1      the ring of one slot (the next plane's copy starts after the
-            row chain; 134 KB, still one block an SM)
+  k8p8k     the ring's shares of 8192 points at every shape (512 threads,
+            one block an SM; 4096 points, 256 threads and two blocks an SM
+            by default up to 2^16 points a plane)
+  k8t8      the ring's chains on radix 8 with 8 points a thread a stage
+            (twice the threads, 64 registers)
+  k8nobar   the ring's copies without waiting for the owners' slots to
+            be free: its time only, the results are wrong
+  k8rel     the exchange's cluster barrier with release semantics (its
+            arrive waits for the thread's stores to device memory)
+  k8local   the exchange's copies all to the block's own slot, not the
+            owners' (no DSMEM): its time only, the results are wrong
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
@@ -249,15 +258,30 @@ K8_TABLE = re.search(r"#define PYFFT_FUSED2D_RING\(X\)(?:[^\n]*\\\n)+[^\n]*\n",
                      (build.CSRC / "fused2d.cu").read_text()).group(0)
 K8_KNOBS = "constexpr bool RING2_PAD = true, RING2_TWD = true, RING2_R16 = true;"
 K8_SLOTS = "constexpr int RING2_SLOTS = 2;"
+K8_SHARE = "constexpr int RING2_SHARE = 4096;"
+K8_THREADS = "constexpr int RING2_THREAD_POINTS = 16;"
+# the exchange's wait for the owners' slots (k8nobar) and its copies to
+# other blocks (k8local): their time only, the results are wrong
+K8_ALL_READ = ("      cluster_arrive_relaxed();\n      cluster_wait();\n")
+
+
 K8_ROWS = ("    rows_head<NT, LX, RB, K::R16X>(sm, fresh(twx), s, load);\n"
-           "    cluster_wait();\n"
            "    stage<NT, NX, RB, true, PX::R_LAST, PX::NS_LAST, false, true, "
-           "RING2_PAD,\n          RING2_TWD>(sm, fresh(twx), s, load, send);\n")
+           "RING2_PAD,\n          RING2_TWD>(sm, fresh(twx), s, load, put, "
+           "all_read);\n")
 K8_COLS = ("    chain<NT, LY, CB, false, 0, 1, false, true, false, RING2_TWD, "
-           "K::R16Y>(\n        cols, fresh(twy), s, none_load, store);\n")
+           "K::R16Y>(\n        sm, fresh(twy), s, none_load, store);\n")
+# the exchange's copies and their wait
+K8_EXCH = ("    if (threadIdx.x == 0) {\n"
+           "      fence_async_smem();\n"
+           "      mbar_expect(&landed, PB * (int)sizeof(float2));\n"
+           "      for (int o = 0; o < K::G; ++o)\n"
+           "        bulk_to_block(sm + rank * RB * CB, sent + o * RB * CB,\n"
+           "                      RB * CB * (int)sizeof(float2), &landed, o);\n"
+           "    }\n"
+           "    mbar_wait(&landed, i & 1);\n")
 # k8copy: the share stored back as the output's rows, along x
 K8_COPY_ROWS = (
-    "    cluster_wait();\n"
     "    for (int e = threadIdx.x; e < PB; e += NT) {\n"
     "      const float2 v = load(e / NX, e % NX);\n"
     "      const long long o = (rank * RB + e / NX) * io.out_ys +\n"
@@ -265,16 +289,22 @@ K8_COPY_ROWS = (
     "      out_re[o] = v.x;\n"
     "      out_im[o] = v.y;\n"
     "    }\n"
-    "    __syncthreads();\n")
-# k8xonly: the raw rows sent, the column buffer stored
+    "    __syncthreads();\n"
+    "    all_read();\n")
+# k8xonly: the raw rows exchanged, the columns stored from the slot
 K8_X_ROWS = (
-    "    cluster_wait();\n"
-    "    for (int e = threadIdx.x; e < PB; e += NT)\n"
-    "      send(e / NX, e % NX, load(e / NX, e % NX));\n"
-    "    __syncthreads();\n")
+    "    float2 v[PB / NT];\n"
+    "#pragma unroll\n"
+    "    for (int q = 0; q < PB / NT; ++q)\n"
+    "      v[q] = load((threadIdx.x + q * NT) / NX, (threadIdx.x + q * NT) % NX);\n"
+    "    __syncthreads();\n"
+    "    all_read();\n"
+    "#pragma unroll\n"
+    "    for (int q = 0; q < PB / NT; ++q)\n"
+    "      put((threadIdx.x + q * NT) / NX, (threadIdx.x + q * NT) % NX, v[q]);\n")
 K8_X_COLS = (
     "    for (int e = threadIdx.x; e < PB; e += NT)\n"
-    "      store(e % CB, e / CB, cols[e]);\n"
+    "      store(e % CB, e / CB, sm[e]);\n"
     "    __syncthreads();\n")
 
 # rows a slot and slots by log2 n in the source's table
@@ -579,7 +609,7 @@ STEPS = {
     "r2k": [rows_ring(RPB_2K)],
     "k8old": [("fused2d.cu", K8_TABLE, "#define PYFFT_FUSED2D_RING(X)\n")],
     "k8copy": [("fused2d.cu", K8_ROWS, K8_COPY_ROWS),
-               ("fused2d.cu", K8_COLS, "")],
+               ("fused2d.cu", K8_EXCH, ""), ("fused2d.cu", K8_COLS, "")],
     "k8xonly": [("fused2d.cu", K8_ROWS, K8_X_ROWS),
                 ("fused2d.cu", K8_COLS, K8_X_COLS)],
     "k8notw": [("chain.cuh", "    if (NS > 1) {", "    if (NS < 0) {")],
@@ -589,7 +619,16 @@ STEPS = {
                                                           "PAD = false"))],
     "k8twd0": [("fused2d.cu", K8_KNOBS, K8_KNOBS.replace("TWD = true",
                                                           "TWD = false"))],
-    "k8s1": [("fused2d.cu", K8_SLOTS, K8_SLOTS.replace("2;", "1;"))],
+    "k8p8k": [("fused2d.cu", K8_SHARE, K8_SHARE.replace("4096", "8192"))],
+    "k8nobar": [("fused2d.cu", K8_ALL_READ, ""),
+                ("fused2d.cu", "  cluster_arrive();                 "
+                 "// every copy out of this block landed\n",
+                 "  cluster_arrive_relaxed();\n")],
+    "k8rel": [("fused2d.cu", K8_ALL_READ,
+               "      cluster_arrive();\n      cluster_wait();\n")],
+    "k8local": [("fused2d.cu", "RB * CB * (int)sizeof(float2), &landed, o);",
+                 "RB * CB * (int)sizeof(float2), &landed, rank);")],
+    "k8t8": [("fused2d.cu", K8_THREADS, K8_THREADS.replace("16", "8"))],
 }
 
 # name -> (kernels timed, steps taken in order, -D macros)
@@ -667,7 +706,8 @@ VARIANTS = {
     "k11rs2": (("K11",), ["k11rs2"], {}),
     **{v: (("K8",), [v], {}) for v in ("k8old", "k8copy", "k8xonly",
                                         "k8notw", "k8r8", "k8pad0", "k8twd0",
-                                        "k8s1")},
+                                        "k8p8k", "k8t8", "k8nobar",
+                                        "k8local", "k8rel")},
 }
 VARIANTS["full"] = (VARIANTS["full"][0] + ("K8",), [], {})
 ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11", "P5", "K8")
@@ -705,8 +745,9 @@ def compile_all(tmp: Path, kernels) -> dict:
 
     def one(v, name, d):
         with slots:
-            flags = [*build.NVCC_FLAGS] + (["-Xptxas", "-v"] if v == "full"
-                                           else [])
+            flags = [*build.NVCC_FLAGS] + (
+                ["-Xptxas", "-v"] if v == "full" or v.startswith("k8")
+                else [])
             flags += [f"-D{k}={x}" for k, x in VARIANTS[v][2].items()]
             lib = d / f"lib{name}.so"
             res = subprocess.run([build._nvcc(), *flags, "-o", str(lib),
@@ -1013,7 +1054,12 @@ def main(kernels) -> int:
         if "K8" in kernels:
             for v, (names, _, _) in VARIANTS.items():
                 if "K8" in names:
-                    print(f"K8 {v} at config 4: {k8_line(libs[(v, K8)])}")
+                    regs = [f"{r} registers, {sp} bytes spilled"
+                            for k, r, sp in ptxas_report(
+                                libs.get((v, K8, "log"), ""))
+                            if k.startswith("fused2d_ring_kernel<Li8ELi8E")]
+                    print(f"K8 {v} at config 4: {k8_line(libs[(v, K8)])}; "
+                          f"{', '.join(regs) or 'no ring kernel'}")
         if {"K1", "K2"} & set(kernels):
             for v, (names, _, _) in VARIANTS.items():
                 if "K1" in names:

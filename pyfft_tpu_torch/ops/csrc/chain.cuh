@@ -48,13 +48,19 @@ __device__ __forceinline__ int chain_index(int c, int k) {
 // radix 16 it reads w^1, w^2, w^3, w^4, w^8 and forms the other ten with
 // one or two products.  SYNC0: a first stage whose load reads the buffer
 // it writes (a slot of the row ring in local_rows.cu) takes that barrier
-// too.
+// too.  `mid` runs after that barrier, before the writes (K8's ring waits
+// there for its cluster before its last stage stores into other blocks).
+struct NoMid {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 template <int NT, int N, int C, bool ROWS, int R, int NS, bool FIRST,
           bool LAST, bool PAD = false, bool TWD = false, bool SYNC0 = false,
-          class V, class Load, class Store>
+          class V, class Load, class Store, class Mid = NoMid>
 __device__ __forceinline__ void stage(V* sm, const V* __restrict__ tw,
                                       typename RealOf<V>::T s,
-                                      const Load& load, const Store& store) {
+                                      const Load& load, const Store& store,
+                                      const Mid& mid = Mid{}) {
   constexpr int NR = N / R;          // butterflies per transform
   constexpr int B = NR * C / NT;     // butterflies per thread
   static_assert(B * R * NT == N * C, "threads must tile the block exactly");
@@ -108,6 +114,7 @@ __device__ __forceinline__ void stage(V* sm, const V* __restrict__ tw,
     dft<R>(v[b], s);
   }
   if (!FIRST || SYNC0) __syncthreads();
+  mid();
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int q = threadIdx.x + b * NT;

@@ -22,9 +22,10 @@
 // designs, chosen in the C entry by the table at dispatch_design: the
 // plane ring below (fused2d_ring_kernel: a persistent grid of clusters, the
 // next plane's share copied in by TMA while the current one computes,
-// chain.cuh's padded radix-16 chains, the exchange as stores into the
-// owning block's shared memory) for planes of up to 2^17 points on inputs
-// a tensor map reads, and the first design everywhere else:
+// chain.cuh's padded radix-16 chains, the exchange as one bulk copy a run
+// into the owning block's shared memory) for the planes of up to 2^17
+// points of its table, on inputs a tensor map reads, and the first design
+// everywhere else:
 //
 //   * one thread-block cluster of G blocks per plane, G = ny*nx / 8192
 //     capped at 16, so that the cluster's shared memory holds the whole
@@ -213,10 +214,15 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 //
 // K8's design for the H100 (fused2d_ring_kernel), at the shapes of
 // PYFFT_FUSED2D_RING on inputs a tensor map reads; the first design above
-// runs everywhere else (pyfft_fused2d's dispatch, below).  Shape2's frame
-// is kept, a cluster of G blocks a plane and a share of RB rows and CB
-// columns a block, but the clusters stay:
+// runs everywhere else (pyfft_fused2d's dispatch, below).  A cluster of G
+// blocks takes a plane, block b a share of RB rows and then of CB columns,
+// as in the first design, but the clusters stay and the shares are smaller:
 //
+//   * a share of 4096 points (256 threads, two blocks an SM) wherever a
+//     cluster of at most 16 blocks covers the plane, so up to 2^16 points;
+//     8192 at 2^17 (512 threads, one block an SM).  More blocks an SM hid
+//     more of each one's barriers and chains than a deeper ring did
+//     (PERF.md section 6: probes/float_split.py K8);
 //   * a persistent grid of one wave of clusters (the clusters the card
 //     holds at once, cudaOccupancyMaxActiveClusters, asked once a device);
 //     cluster q walks the planes q, q + clusters, ...;
@@ -224,48 +230,60 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 //     the block's share of a plane (RB rows of each plane, or of the
 //     complex form's (re, im) pairs) into a slot with one 4D tensor-map box
 //     (TMA) a plane, x split into runs of at most 256 so that the box lands
-//     as [RB][NX], and refills the slot with the plane SLOTS on as soon as
-//     the slot's last reader is past its barrier, so the next plane's share
-//     is in flight while this one computes;
+//     as [RB][NX], and refills the slot with the plane SLOTS on once the
+//     slot's last reader is past its barrier, so the next plane's share is
+//     in flight while this one computes;
 //   * phase 1: chain.cuh's chain along x over the slot's RB rows, radix 16
 //     where it takes a stage fewer than radix 8 (R16), the padded rows of
 //     chain_index (PAD), five twiddle reads of fifteen a radix-16
 //     butterfly (TWD); its first stage reads the slot's raw rows and, after
 //     a barrier, writes the padded layout into the same slot;
-//   * the exchange: the last stage of phase 1 stores its outputs straight
-//     into the column buffer of the block that owns their column
-//     (st.shared::cluster, consecutive lanes on consecutive columns), so one
-//     cluster barrier (release, then acquire) hands every block its
-//     columns; the first design gathered them value by value with remote
-//     loads between two barriers.  The column buffer is free again when
-//     every block's phase 2 is past its reads: a second barrier, split into
-//     an arrive after phase 2 and a wait before the next plane's exchange,
-//     so the row chain runs in between;
-//   * phase 2: the chain along y over the block's CB columns in the column
-//     buffer's [y][c] layout (R16, TWD), its last stage storing from
-//     registers with threads along x, postscale folded: 128-byte runs a warp
-//     of each plane (CB >= 32), (re, im) pairs as one 8-byte store each on
-//     the complex form.
+//   * the exchange in whole runs: the last stage of phase 1 writes its
+//     outputs into the block's `sent` buffer, by owner (the RB x CB run of
+//     each block that owns their columns), and thread 0 hands each run to
+//     the copy engine (cp.async.bulk between shared memories) into the
+//     owner's slot, at the rows of this block, completing on the owner's
+//     mbarrier `landed`; each block waits there for its G runs, so every
+//     slot ends up [y][c] over its CB columns.  Before those writes one
+//     cluster barrier holds every block until all have read their slots and
+//     passed their last plane's `landed` wait (so `sent` is free); its
+//     arrive is relaxed: a release arrive waits for the thread's stores to
+//     device memory, 0.04 ms at config 4 (probes/float_split.py k8rel).  The
+//     first design gathered the columns value by value with remote loads
+//     between two barriers;
+//   * phase 2: the chain along y over the block's CB columns in the slot's
+//     [y][c] layout (R16, TWD), its last stage storing from registers with
+//     threads along x, postscale folded (the planes or, on the complex
+//     form, (re, im) pairs as one 8-byte store each: both layouts are
+//     template parameters).
 //
-// Shared memory: SLOTS slots of the padded share (68 KB at 8192 points) and
-// the 64 KB column buffer, 200 KB a block at two slots, one block an SM.
-// At 2^18 points a plane a share is 128 KB: one slot and the buffer do not
-// fit, so those five shapes keep the first design.  In place: a plane is
-// stored only after every block of its cluster has copied its share in
-// (the exchange's barrier comes between), and no two clusters share a
-// plane.
+// Shared memory: SLOTS = 2 slots of the padded share and `sent`, 100 KB a
+// block of 4096 points, 200 KB of 8192.  At 2^18 points a plane a share is
+// 16384 points: two slots do not fit, so those five shapes keep the first
+// design.  In place: a plane is stored only after every block of its
+// cluster has copied its share in (the exchange's barrier comes between),
+// and no two clusters share a plane.
 
 // (log2 ny, log2 nx): the shapes the ring takes, every plane of at most
-// 2^17 points (a share of 8192 points a block).  The five shapes of 2^18
-// points run the first design.
+// 2^17 points but 256 x 512, where the H100 ran the first design faster
+// (0.2114 against the ring's 0.2438 ms over 2^24 points, planar;
+// probes/ab_parent.py, PERF.md section 6).  The five shapes of 2^18 points
+// run the first design.
 #ifndef PYFFT_FUSED2D_RING
 #define PYFFT_FUSED2D_RING(X)                                         \
-  X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(8, 7) X(8, 8) X(8, 9) X(9, 7)    \
-  X(9, 8) X(10, 7)
+  X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(8, 7) X(8, 8) X(9, 7) X(9, 8)    \
+  X(10, 7)
 #endif
-// slots a block; the chains' options (chain.cuh), radix 16 where it takes a
-// stage fewer than radix 8; the most points a box takes along one axis
+// points a block's share holds where the plane allows (a cluster of at
+// most 16 blocks): 4096, 256 threads and two 100 KB blocks an SM; at 2^17
+// points a plane 8192, 512 threads and one 200 KB block.  Slots a block;
+// the chains' options (chain.cuh), radix 16 where it takes a stage fewer
+// than radix 8; the most points a box takes along one axis
+constexpr int RING2_SHARE = 4096;
 constexpr int RING2_SLOTS = 2;
+// points a thread takes a stage (16: radix-16 stages; 8: radix 8 and twice
+// the threads, slower on the H100: probes/float_split.py k8t8)
+constexpr int RING2_THREAD_POINTS = 16;
 constexpr bool RING2_PAD = true, RING2_TWD = true, RING2_R16 = true;
 constexpr int RING2_BOX = 256;
 
@@ -276,20 +294,29 @@ constexpr int RAN_RING = -1;
 
 template <int LY, int LX>
 struct Ring2 {
-  using S = Shape2<LY, LX>;
-  static constexpr int NY = S::NY, NX = S::NX, G = S::G, RB = S::RB,
-                       CB = S::CB, PB = S::PB, SLOTS = RING2_SLOTS;
+  static constexpr int NY = 1 << LY, NX = 1 << LX, SLOTS = RING2_SLOTS;
+  static constexpr int PB = NY * NX / 16 > RING2_SHARE ? NY * NX / 16
+                                                       : RING2_SHARE;
+  static constexpr int G = NY * NX / PB;        // blocks a cluster
+  static constexpr int RB = NY / G, CB = NX / G;  // rows, columns a block
+  static constexpr int NT = PB / RING2_THREAD_POINTS;   // threads a block
   static constexpr int BX = NX < RING2_BOX ? NX : RING2_BOX;  // a box's run
-  static constexpr bool R16X = RING2_R16 && (LX + 3) / 4 < (LX + 2) / 3;
-  static constexpr bool R16Y = RING2_R16 && (LY + 3) / 4 < (LY + 2) / 3;
-  // a slot: the raw share or the padded rows, rounded to 128 bytes (the box
-  // copies' alignment), in values; the column buffer [y][c]
+  static constexpr bool R16 = RING2_R16 && RING2_THREAD_POINTS == 16;
+  static constexpr bool R16X = R16 && (LX + 3) / 4 < (LX + 2) / 3;
+  static constexpr bool R16Y = R16 && (LY + 3) / 4 < (LY + 2) / 3;
+  // a slot: the raw share, the padded rows or the columns, rounded to 128
+  // bytes (the box copies' alignment), in values
   static constexpr int PADDED = RING2_PAD ? RB * (NX + NX / 16) : PB;
   static constexpr int SLOT = ((PADDED > PB ? PADDED : PB) * 8 + 127) / 128 *
                               128 / 8;
-  static constexpr int SMEM = (SLOTS * SLOT + PB) * 8 + 128;  // + alignment
-  static_assert(PB == 8192, "a share of 8192 points");
-  static_assert(SLOTS >= 1 && SMEM <= 227 * 1024,
+  // the slots, then phase 1's outputs (PB values) + alignment
+  static constexpr int SMEM = (SLOTS * SLOT + PB) * 8 + 128;
+  // the blocks an SM's shared memory (228 KB, 1 KB a block reserved) and
+  // threads allow: the registers are held to that many (launch bounds)
+  static constexpr int PER_SMEM = 228 * 1024 / (SMEM + 1024);
+  static constexpr int PER = PER_SMEM < 2048 / NT ? PER_SMEM : 2048 / NT;
+  static_assert(G >= 2 && G <= 16 && NT % 32 == 0, "a cluster of 2 to 16");
+  static_assert(SLOTS >= 2 && SMEM <= 227 * 1024 && PER >= 1,
                 "the ring fits a block's shared memory");
   static_assert(RB <= RING2_BOX && NX / BX <= RING2_BOX, "one box a plane");
   static_assert(PB * 8 < (1 << 20), "an mbarrier's byte count");
@@ -326,36 +353,58 @@ __device__ __forceinline__ void rows_head(float2* sm,
   }
 }
 
-// Store v at `local`'s place in the shared memory of cluster block `rank`
-// (distributed shared memory; the buffer lies at the same offset in every
-// block).
-__device__ __forceinline__ void st_cluster(const float2* local, int rank,
-                                           float2 v) {
+// The address in cluster block `rank`'s shared memory of what lies at
+// `local` in this block's (distributed shared memory: every block of the
+// kernel lays its shared memory out alike).
+__device__ __forceinline__ uint32_t cluster_addr(const void* local,
+                                                 int rank) {
   uint32_t a;
   asm("mapa.shared::cluster.u32 %0, %1, %2;"
       : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
-               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
+  return a;
+}
+
+// The cluster barrier's arrive without release semantics: it orders none
+// of this thread's memory operations (cluster_cols.cuh's cluster_arrive
+// releases them all, which waits for its stores to device memory too).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from this block's shared `src` to `dst`
+// in cluster block `rank`'s shared memory, both 16-byte aligned, completing
+// on that block's mbarrier at `bar` (cp.async.bulk between shared
+// memories: the copy engine moves the run, no thread does).
+__device__ __forceinline__ void bulk_to_block(void* dst, const void* src,
+                                              int bytes, uint64_t* bar,
+                                              int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(cluster_addr(dst, rank)), "r"(smem_u32(src)), "r"(bytes),
+         "r"(cluster_addr(bar, rank))
+      : "memory");
 }
 
 // The ring over io.L planes: plane first + i*every in slot i % SLOTS on
 // barrier bars[i % SLOTS], filled by thread 0 (map_re: the real plane, or
-// the pairs where `pin`; map_im the imaginary plane).  `pout`: the output
+// the pairs where PIN; map_im the imaginary plane).  POUT: the output
 // planes are (re, im) pairs, stored as float2.
-template <int LY, int LX>
-__global__ void __launch_bounds__(NT, 1)
+template <int LY, int LX, bool PIN, bool POUT>
+__global__ void __launch_bounds__(Ring2<LY, LX>::NT, Ring2<LY, LX>::PER)
     fused2d_ring_kernel(Planes2D io, const float2* __restrict__ twy,
-                        const float2* __restrict__ twx, float s, int pin,
-                        int pout, const __grid_constant__ CUtensorMap map_re,
+                        const float2* __restrict__ twx, float s,
+                        const __grid_constant__ CUtensorMap map_re,
                         const __grid_constant__ CUtensorMap map_im) {
   using K = Ring2<LY, LX>;
-  constexpr int NX = K::NX, RB = K::RB, CB = K::CB, PB = K::PB;
+  constexpr int NX = K::NX, RB = K::RB, CB = K::CB, PB = K::PB, NT = K::NT;
   constexpr int SLOTS = K::SLOTS, SLOT = K::SLOT;
   using PX = ChainPlan<LX, K::R16X>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[SLOTS];
+  __shared__ uint64_t landed;       // the exchange into this block, a plane
   float2* slots = align128(smem_raw);
-  float2* cols = slots + SLOTS * SLOT;        // the column buffer, [y][c]
+  float2* sent = slots + SLOTS * SLOT;   // phase 1's outputs, [owner][c][x]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long first = blockIdx.x / K::G, every = gridDim.x / K::G;
@@ -371,15 +420,16 @@ __global__ void __launch_bounds__(NT, 1)
     fence_async_smem();
     mbar_expect(bar, PB * (int)sizeof(float2));
     tma_load_4d(dst, &map_re, 0, 0, rank * RB, l, bar);
-    if (!pin) tma_load_4d(dst + PB, &map_im, 0, 0, rank * RB, l, bar);
+    if (!PIN) tma_load_4d(dst + PB, &map_im, 0, 0, rank * RB, l, bar);
   };
   if (threadIdx.x == 0) {
     for (int b = 0; b < SLOTS; ++b) mbar_init(&bars[b]);
+    mbar_init(&landed);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int j = 0; j < SLOTS && j < count; ++j) issue(j);
   }
-  __syncthreads();                  // the barriers are set up
-  cluster_arrive();                 // this block's column buffer is free
+  cluster_arrive();                 // every block's barriers are set up
+  cluster_wait();
   for (int i = 0; i < count; ++i) {
     const long long l = first + (long long)i * every;
     float2* sm = slots + (i % SLOTS) * SLOT;
@@ -387,20 +437,29 @@ __global__ void __launch_bounds__(NT, 1)
     float* out_re = io.out_re + l * io.out_ls;
     float* out_im = io.out_im + l * io.out_ls;
     const auto load = [&](int c, int k) {        // row c of the share, x = k
-      return pin ? sm[c * NX + k] : make_float2(f[c * NX + k],
-                                                f[PB + c * NX + k]);
+      if constexpr (PIN) return sm[c * NX + k];
+      else return make_float2(f[c * NX + k], f[PB + c * NX + k]);
     };
-    // phase 1's outputs, row c at x = k, to the column buffer of the block
-    // that owns column x, at [y][x % CB]
-    const auto send = [&](int c, int k, float2 v) {
-      st_cluster(cols + (rank * RB + c) * CB + k % CB, k / CB, v);
+    // phase 1's outputs, row c at x = k, by the block that owns column x:
+    // the run of RB rows x CB columns each owner takes, [c][x % CB]
+    const auto put = [&](int c, int k, float2 v) {
+      sent[(k / CB) * (RB * CB) + c * CB + k % CB] = v;
+    };
+    // between the last row stage's reads and its writes: every block of
+    // the cluster is done reading its slot (its values are in registers:
+    // the barrier need release nothing), and past its last plane's wait
+    // for the copies into it, so `sent` is free too
+    const auto all_read = [] {
+      if (threadIdx.x == 0) fence_async_smem();
+      cluster_arrive_relaxed();
+      cluster_wait();
     };
     const auto none_load = [](int, int) { return make_float2(0.f, 0.f); };
     // phase 2's outputs, column c at y = k, postscale folded
     const auto store = [&](int c, int k, float2 v) {
       const long long o = k * io.out_ys + (rank * CB + c) * io.out_xs;
       const float2 y = make_float2(v.x * io.post, v.y * io.post);
-      if (pout) {
+      if constexpr (POUT) {
         *reinterpret_cast<float2*>(out_re + o) = y;
       } else {
         out_re[o] = y.x;
@@ -408,21 +467,28 @@ __global__ void __launch_bounds__(NT, 1)
       }
     };
     mbar_wait(&bars[i % SLOTS], (i / SLOTS) & 1);
-    // phase 1: the share's rows along x; the last stage sends, once every
-    // block's column buffer is free
+    // phase 1: the share's rows along x, the last stage's outputs by owner
     rows_head<NT, LX, RB, K::R16X>(sm, fresh(twx), s, load);
-    cluster_wait();
     stage<NT, NX, RB, true, PX::R_LAST, PX::NS_LAST, false, true, RING2_PAD,
-          RING2_TWD>(sm, fresh(twx), s, load, send);
+          RING2_TWD>(sm, fresh(twx), s, load, put, all_read);
+    __syncthreads();
+    // the exchange: one copy to each owner's slot, at the rows of this
+    // block, [y][c]; this block's slot takes one from each
+    if (threadIdx.x == 0) {
+      fence_async_smem();
+      mbar_expect(&landed, PB * (int)sizeof(float2));
+      for (int o = 0; o < K::G; ++o)
+        bulk_to_block(sm + rank * RB * CB, sent + o * RB * CB,
+                      RB * CB * (int)sizeof(float2), &landed, o);
+    }
+    mbar_wait(&landed, i & 1);
+    // phase 2: the block's columns along y in the slot, stored along x
+    chain<NT, LY, CB, false, 0, 1, false, true, false, RING2_TWD, K::R16Y>(
+        sm, fresh(twy), s, none_load, store);
     // the slot's readers are past its last barrier: refill it
     if (threadIdx.x == 0 && i + SLOTS < count) issue(i + SLOTS);
-    cluster_arrive();               // release: this block's sends
-    cluster_wait();                 // acquire: every send to this block
-    // phase 2: the block's columns along y, stored along x
-    chain<NT, LY, CB, false, 0, 1, false, true, false, RING2_TWD, K::R16Y>(
-        cols, fresh(twy), s, none_load, store);
-    cluster_arrive();               // this block's column buffer is free
   }
+  cluster_arrive();                 // every copy out of this block landed
   cluster_wait();
 }
 
@@ -442,7 +508,7 @@ inline bool ring2_operands(const Planes2D& io, bool& pairs) {
 
 // The clusters of the ring at (LY, LX) the card holds at once, asked once
 // a device (max_clusters sets the kernel's shared memory there).
-template <int LY, int LX>
+template <int LY, int LX, bool PIN = false, bool POUT = false>
 cudaError_t ring2_held(int& held) {
   using K = Ring2<LY, LX>;
   static std::atomic<int> got[64];           // by device, 0 until asked
@@ -452,7 +518,8 @@ cudaError_t ring2_held(int& held) {
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   int h = got[dev].load(std::memory_order_relaxed);
   if (!h) {
-    h = max_clusters<NT>(fused2d_ring_kernel<LY, LX>, K::G, K::SMEM);
+    h = max_clusters<K::NT>(fused2d_ring_kernel<LY, LX, PIN, POUT>, K::G,
+                            K::SMEM);
     if (h < 0) return static_cast<cudaError_t>(-h);
     if (h == 0) return cudaErrorInvalidConfiguration;
     got[dev].store(h, std::memory_order_relaxed);
@@ -479,26 +546,39 @@ cudaError_t ring2_map(CUtensorMap* map, const float* base, bool pairs,
   return tensor_map_4d(map, base, pairs, dims, strides, box);
 }
 
-template <int LY, int LX>
-cudaError_t launch_ring(const Planes2D& io, bool pairs, const float2* twy,
+template <int LY, int LX, bool PIN, bool POUT>
+cudaError_t launch_ring(const Planes2D& io, const float2* twy,
                         const float2* twx, float s, cudaStream_t stream) {
   using K = Ring2<LY, LX>;
   int held = 0;
-  cudaError_t e = ring2_held<LY, LX>(held);
+  cudaError_t e = ring2_held<LY, LX, PIN, POUT>(held);
   if (e != cudaSuccess) return e;
   CUtensorMap mre{}, mim{};
-  e = ring2_map<LY, LX>(&mre, io.in_re, pairs, io);
-  if (e == cudaSuccess && !pairs)
+  e = ring2_map<LY, LX>(&mre, io.in_re, PIN, io);
+  if (e == cudaSuccess && !PIN)
     e = ring2_map<LY, LX>(&mim, io.in_im, false, io);
   if (e != cudaSuccess) return e;
-  const uintptr_t o = reinterpret_cast<uintptr_t>(io.out_re);
-  const int pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&
-                   o % 8 == 0 && io.out_ys % 2 == 0 &&
-                   (io.L == 1 || io.out_ls % 2 == 0);
   const long long clusters = io.L < held ? io.L : held;
-  return launch_cluster<NT>(fused2d_ring_kernel<LY, LX>, clusters, K::G,
-                            K::SMEM, stream, io, twy, twx, s, (int)pairs,
-                            pout, mre, mim);
+  return launch_cluster<K::NT>(fused2d_ring_kernel<LY, LX, PIN, POUT>,
+                               clusters, K::G, K::SMEM, stream, io, twy, twx,
+                               s, mre, mim);
+}
+
+// The ring at (LY, LX) on the input's layout (planes or pairs) and the
+// output's: pairs stored as float2 where the imaginary plane is one float
+// after the real one, 8-byte aligned at every point.
+template <int LY, int LX>
+cudaError_t launch_ring(const Planes2D& io, bool pairs, const float2* twy,
+                        const float2* twx, float s, cudaStream_t stream) {
+  const uintptr_t o = reinterpret_cast<uintptr_t>(io.out_re);
+  const bool pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&
+                    o % 8 == 0 && io.out_ys % 2 == 0 &&
+                    (io.L == 1 || io.out_ls % 2 == 0);
+  if (pairs && pout)
+    return launch_ring<LY, LX, true, true>(io, twy, twx, s, stream);
+  if (pairs) return launch_ring<LY, LX, true, false>(io, twy, twx, s, stream);
+  if (pout) return launch_ring<LY, LX, false, true>(io, twy, twx, s, stream);
+  return launch_ring<LY, LX, false, false>(io, twy, twx, s, stream);
 }
 
 // Whether the ring takes (log2 ny, log2 nx) (PYFFT_FUSED2D_RING).
@@ -631,11 +711,11 @@ cudaError_t dispatch(int ly, int lx, const Planes2D& io, const float2* twy,
 // Which design runs where (pyfft_fused2d):
 //
 //   plane (ny, nx)             input                      design
-//   at most 2^17 points        planar or pairs, 16-byte   the ring
-//   (PYFFT_FUSED2D_RING)       aligned, y and l strides   (RAN_RING)
-//                              multiples of 4 floats
-//   at most 2^17 points        any other layout           the first (0)
-//   2^18 points                any                        the first (0)
+//   at most 2^17 points, not   planar or pairs, 16-byte   the ring
+//   256 x 512                  aligned, y and l strides   (RAN_RING)
+//   (PYFFT_FUSED2D_RING)       multiples of 4 floats
+//   the same                   any other layout           the first (0)
+//   256 x 512; 2^18 points     any                        the first (0)
 //
 // The ring where it takes the shape and the input (RAN_RING), else the
 // first design (0), or a launch's cudaError_t.
@@ -696,8 +776,9 @@ int ring_clusters(int log2ny, int log2nx, int ring) {
   if (ring) {
 #define PYFFT_CASE(a, b)                                                \
   if (log2ny == a && log2nx == b)                                      \
-    return max_clusters<NT>(fused2d_ring_kernel<a, b>, Ring2<a, b>::G, \
-                            Ring2<a, b>::SMEM);
+    return max_clusters<Ring2<a, b>::NT>(                             \
+        fused2d_ring_kernel<a, b, false, false>, Ring2<a, b>::G,      \
+        Ring2<a, b>::SMEM);
     PYFFT_FUSED2D_RING(PYFFT_CASE)
 #undef PYFFT_CASE
     return -1000;
@@ -711,9 +792,10 @@ int ring_clusters(int log2ny, int log2nx, int ring) {
   return -1000;
 }
 
-// The ring's shape at (log2 ny, log2 nx) into out[0..6]: blocks a cluster,
-// rows and columns a block, slots, shared memory a block in bytes, the
-// clusters the card holds at once and the planes' x runs a box takes (BX).
+// The ring's shape at (log2 ny, log2 nx) into out[0..7]: blocks a cluster,
+// rows and columns a block, threads a block, slots, shared memory a block
+// in bytes, the clusters the card holds at once and the planes' x runs a
+// box takes (BX).
 // Returns 1, 0 where the shape runs the first design (out untouched), or a
 // negative cudaError_t where the card's query fails.
 int ring_shape(int log2ny, int log2nx, long long* out) {
@@ -723,9 +805,9 @@ int ring_shape(int log2ny, int log2nx, long long* out) {
     int held = 0;                                                       \
     const cudaError_t e = ring2_held<a, b>(held);                       \
     if (e != cudaSuccess) return -(int)e;                               \
-    const long long v[7] = {K::G, K::RB, K::CB, K::SLOTS, K::SMEM, held, \
-                            K::BX};                                     \
-    for (int i = 0; i < 7; ++i) out[i] = v[i];                          \
+    const long long v[8] = {K::G,     K::RB,   K::CB, K::NT,            \
+                            K::SLOTS, K::SMEM, held,  K::BX};           \
+    for (int i = 0; i < 8; ++i) out[i] = v[i];                          \
     return 1;                                                           \
   }
   PYFFT_FUSED2D_RING(PYFFT_CASE)

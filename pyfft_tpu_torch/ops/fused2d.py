@@ -11,10 +11,11 @@ pass over device memory.  Two implementations:
   Its C entry runs one of two designs by its table (``design``): the plane
   ring (a persistent grid of clusters walking the planes, each block's
   share of the next plane copied in by a tensor-map box while the current
-  one computes, padded radix-16 chains, the exchange as stores into the
-  owning block's shared memory) on planes of up to 2^17 points
-  (``RING_SHAPES``) that its tensor maps read, else the first design (one
-  cluster a plane, the exchange gathered value by value);
+  one computes, padded radix-16 chains, the exchange as one bulk copy a
+  run into the owning block's shared memory) on the planes of up to 2^17
+  points its table takes (``RING_SHAPES``: all but 256 x 512) where its
+  tensor maps read them, else the first design (one cluster a plane, the
+  exchange gathered value by value);
 * its plain torch version ``fft2_plain``: the JAX kernel's two
   ``tile_fft`` calls, y then x, with ``default_factors`` chains, taken for
   every CPU tensor.
@@ -72,10 +73,10 @@ LAUNCHES = 0
 RING_LAUNCHES = 0
 RAN_RING = -1
 # The (ny, nx) planes the ring takes (csrc/fused2d.cu PYFFT_FUSED2D_RING):
-# at most 2^17 points, a share of 8192 points a block; a test holds them to
-# the source's table.
-RING_SHAPES = tuple((1 << a, 1 << b) for a in range(7, 11)
-                    for b in range(7, 11) if a + b <= 17)
+# at most 2^17 points, but 256 x 512, where the first design ran faster; a
+# test holds them to the source's table.
+RING_SHAPES = ((128, 128), (128, 256), (128, 512), (128, 1024), (256, 128),
+               (256, 256), (512, 128), (512, 256), (1024, 128))
 # The same for _launch_tiled (K9).
 TILED_LAUNCHES = 0
 # The same for the int8 kernels: K8 + K10 and K9 + K10.
@@ -288,16 +289,16 @@ def clusters(ny: int, nx: int, ring: bool) -> int:
     return got
 
 
-RING_SHAPE_KEYS = ("cluster", "rows", "columns", "slots", "smem_bytes",
-                   "clusters_held", "box_run")
+RING_SHAPE_KEYS = ("cluster", "rows", "columns", "threads", "slots",
+                   "smem_bytes", "clusters_held", "box_run")
 
 
 def ring_shape(ny: int, nx: int):
     """The ring's shape on (ny, nx) planes on the current card: blocks a
-    cluster, rows and columns a block, slots a block, shared memory a
-    block in bytes, the clusters the card holds at once (the grid) and the
-    run of x a box takes; None where the shape runs the first design.
-    Builds the kernel on first use."""
+    cluster, rows and columns a block, threads and slots a block, shared
+    memory a block in bytes, the clusters the card holds at once (the
+    grid) and the run of x a box takes; None where the shape runs the
+    first design.  Builds the kernel on first use."""
     out = (ctypes.c_longlong * len(RING_SHAPE_KEYS))()
     got = _ring_fns()[1](ilog2(ny), ilog2(nx), out)
     if got < 0:
@@ -473,9 +474,10 @@ def fft2_fused(re, im, sign, *, postscale: float = 1.0, factors_y=None,
     """2D DFT over the last two axes of planar float32 tensors.
 
     A CUDA tensor goes to the kernel, which runs its own chains (the
-    design ``design`` names) and ignores the factors; a CPU tensor goes to ``fft2_plain``, which runs
-    them.  ``out=(re, im)`` names the planes to write, of the input's
-    shape; they may be the inputs themselves (in place).  Without it, new
+    design ``design`` names) and ignores the factors; a CPU tensor goes
+    to ``fft2_plain``, which runs them.  ``out=(re, im)`` names the planes
+    to write, of the input's shape; they may be the inputs themselves (in
+    place).  Without it, new
     planes are allocated with the input's layout.  Raises where the kernel
     does not apply; nothing falls back.  ``precision="int8"`` runs K8 + K10
     on the card and ``fft2_plain(precision="int8")`` on the CPU (see the
