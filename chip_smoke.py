@@ -935,16 +935,25 @@ def phase_fused_kernel():
     """K8 at each of its 15 plane shapes, L = 1 and 3, both signs, on
     planar planes, the complex form's stride-2 planes, in place on them and
     on planes one float off 16-byte alignment, against its plain version
-    and numpy; each launch held against the design its table names
-    (``fused2d.design``) by the ring's launch count, and each shape's
-    clusters and the ring's shape printed."""
+    and numpy; at the ring's shapes also L = 4 * clusters held + 1 (the
+    first cluster walks five planes, the others four: every slot refilled,
+    its barrier waited at both parities and back, `landed` reused at each
+    plane) on planar and stride-2 planes and in place; each launch
+    held against the design its table names (``fused2d.design``) by the
+    ring's launch count, and each shape's clusters and the ring's shape
+    printed."""
     from pyfft_tpu_torch.ops import fused2d
     rng = np.random.RandomState(7)
     for ny, nx in FUSED_SHAPES:
         worst_plain = worst_np = 0.0
         cases = 0
         ran = {"ring": 0, "first": 0}
-        for L in (1, 3):
+        shape = fused2d.ring_shape(ny, nx)
+        if (shape is None) != ((ny, nx) not in fused2d.RING_SHAPES):
+            raise AssertionError(f"fused kernel {ny}x{nx}: ring shape "
+                                 f"{shape} against the table")
+        walk = () if shape is None else (4 * shape["clusters_held"] + 1,)
+        for L in (1, 3) + walk:
             x = (rng.standard_normal((L, ny, nx))
                  + 1j * rng.standard_normal((L, ny, nx))).astype(np.complex64)
             xc = torch.from_numpy(x).cuda()
@@ -956,6 +965,8 @@ def phase_fused_kernel():
                 pr, pi = fused2d.fft2_plain(xc.real.contiguous(),
                                             xc.imag.contiguous(), sign, post)
                 for mode in ("planar", "stride2", "inplace", "offset"):
+                    if L > 3 and mode == "offset":
+                        continue
                     out = None
                     if mode == "planar":
                         re, im = xc.real.contiguous(), xc.imag.contiguous()
@@ -995,10 +1006,7 @@ def phase_fused_kernel():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        shape = fused2d.ring_shape(ny, nx)
-        if (shape is None) != ((ny, nx) not in fused2d.RING_SHAPES):
-            raise AssertionError(f"fused kernel {ny}x{nx}: ring shape "
-                                 f"{shape} against the table")
+        walk_txt = f", L = {walk[0]}" if walk else ""
         ring_txt = ("no ring (the first design's shape)" if shape is None
                     else f"ring: {shape['cluster']} blocks of "
                     f"{shape['rows']} rows and {shape['columns']} columns, "
@@ -1006,7 +1014,8 @@ def phase_fused_kernel():
                     f"{shape['smem_bytes']} bytes a block, boxes of "
                     f"{shape['box_run']} points along x, "
                     f"{shape['clusters_held']} clusters held")
-        print(f"phase 7 fused 2D kernel {ny}x{nx}: {cases} cases, launches "
+        print(f"phase 7 fused 2D kernel {ny}x{nx} (L = 1, 3{walk_txt}): "
+              f"{cases} cases, launches "
               f"{ran} by design, each the one its table names; {ring_txt}; "
               f"the first design's cluster of {fused2d.cluster_size(ny, nx)}"
               f" blocks, {fused2d.clusters(ny, nx, False)} clusters held; "

@@ -38,9 +38,12 @@ once, and the same wrappers run each build in turn:
 Each is timed by CUDA events (``time_ms``) in four turns, other, this,
 this, other, so that a drift of the card favours neither; then each build
 runs once more on the same inputs and the largest |this - other| of the
-outputs is printed beside the times.  The last line is a JSON record with
-the card, the ratio this / other of the turns' means and that difference
-for every kernel.  A checkout older than the K4 + K10 entry
+outputs is printed beside the times.  The outputs are gated: K8 + K10's
+(``K8+K10`` cases) must be bit-equal to the other build's, and every
+kernel's within 2e-6 of the other build's largest |output| (the port's
+complex64 gate); the script exits 1 if a case misses its gate.  The last
+line is a JSON record with the card, the ratio this / other of the turns'
+means and that difference for every kernel.  A checkout older than the K4 + K10 entry
 (``pyfft_local_rows_swap_i8``) runs K4 + K10 through its column entry,
 which takes the same arguments; one older than K4 + K10's ``group``
 argument takes it without (the block's rows are its group at lanes =
@@ -65,6 +68,9 @@ from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
 from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
 SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled")
+# the largest |this - other| a kernel's outputs may show, over the other
+# build's largest |output| (K8 + K10's: none)
+GATE = 2e-6
 # K8's plane shapes: (ny, nx), powers of two from 128 to 2048, 2^18 points
 # at most
 FUSED_SHAPES = [(1 << a, 1 << b) for a in range(7, 12) for b in range(7, 12)
@@ -357,7 +363,7 @@ def main(other: Path) -> int:
         torch.cuda.synchronize()
         return [t.clone() for t in got]
 
-    rows = {}
+    rows, missed = {}, []
     try:
         for name, run in cases():
             turns = []
@@ -369,6 +375,11 @@ def main(other: Path) -> int:
             use("this")
             got = outputs(run)
             diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            peak = max(float(b.abs().max()) for b in want)
+            gate = 0.0 if name.startswith("K8+K10") else GATE * peak
+            if not diff <= gate:
+                missed.append(f"{name}: max |this - other| {diff:.3e} "
+                              f"above its gate {gate:.3e}")
             mean = {w: sum(t for x, t in turns if x == w) / 2
                     for w in ("this", "other")}
             ratio = mean["this"] / mean["other"]
@@ -381,9 +392,11 @@ def main(other: Path) -> int:
     finally:
         for k, v in saved.items():
             setattr(fused2d if k in ("_lib", "_tiled_lib") else local, k, v)
+    for line in missed:
+        print(f"gate missed: {line}")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
-                      "ab": rows}))
-    return 0
+                      "ab": rows, "gates_missed": len(missed)}))
+    return 1 if missed else 0
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ complex64 column kernel (K5) and the complex128 row kernel (K11) goes:
 pieces removed and shape knobs changed, one build each, on one CUDA card.
 
     python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2] [K5] [K11]
-                                  [P5] [K8]
+                                  [P5] [K8] [--only VARIANT,...]
 
 (the kernels named, all by default; P5 is K5's ring without a load in
-flight, the counterpart of the JAX probe ``_fft_cols_stream``).  Builds,
+flight, the counterpart of the JAX probe ``_fft_cols_stream``; ``--only``
+builds and times the variants named beside ``full``, not all).  Builds,
 from copies of this checkout's ``csrc/`` patched in a temporary directory
 (the checkout is not touched), ``local_cols.cu`` (K12, K6, K4, K5, P5),
 ``fused2d_tiled.cu`` (K9), ``local_rows.cu`` (K1, K2, K11) and
@@ -148,6 +149,8 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
             arrive waits for the thread's stores to device memory)
   k8local   the exchange's copies all to the block's own slot, not the
             owners' (no DSMEM): its time only, the results are wrong
+  k8pout0   the ring's stores to the complex form's stride-2 planes as two
+            4-byte stores a point, not one 8-byte (re, im) store (POUT off)
 
 and times each by CUDA events (``time_ms``, the full variant first and
 last) on its kernel's shapes: K12 at config 5's two passes (2^22 x 64
@@ -260,6 +263,8 @@ K8_KNOBS = "constexpr bool RING2_PAD = true, RING2_TWD = true, RING2_R16 = true;
 K8_SLOTS = "constexpr int RING2_SLOTS = 2;"
 K8_SHARE = "constexpr int RING2_SHARE = 4096;"
 K8_THREADS = "constexpr int RING2_THREAD_POINTS = 16;"
+# the dispatch's choice of the (re, im) pair store (k8pout0)
+K8_POUT = "  const bool pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&"
 # the exchange's wait for the owners' slots (k8nobar) and its copies to
 # other blocks (k8local): their time only, the results are wrong
 K8_ALL_READ = ("      cluster_arrive_relaxed();\n      cluster_wait();\n")
@@ -629,6 +634,8 @@ STEPS = {
     "k8local": [("fused2d.cu", "RB * CB * (int)sizeof(float2), &landed, o);",
                  "RB * CB * (int)sizeof(float2), &landed, rank);")],
     "k8t8": [("fused2d.cu", K8_THREADS, K8_THREADS.replace("16", "8"))],
+    "k8pout0": [("fused2d.cu", K8_POUT, K8_POUT.replace("= io.out_xs",
+                                                        "= false && io.out_xs"))],
 }
 
 # name -> (kernels timed, steps taken in order, -D macros)
@@ -707,7 +714,7 @@ VARIANTS = {
     **{v: (("K8",), [v], {}) for v in ("k8old", "k8copy", "k8xonly",
                                         "k8notw", "k8r8", "k8pad0", "k8twd0",
                                         "k8p8k", "k8t8", "k8nobar",
-                                        "k8local", "k8rel")},
+                                        "k8local", "k8rel", "k8pout0")},
 }
 VARIANTS["full"] = (VARIANTS["full"][0] + ("K8",), [], {})
 ALL = ("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11", "P5", "K8")
@@ -1094,4 +1101,12 @@ def main(kernels) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or list(ALL)))
+    args = sys.argv[1:]
+    if "--only" in args:
+        i = args.index("--only")
+        keep = {"full", *args[i + 1].split(",")}
+        if keep - set(VARIANTS):
+            raise SystemExit(f"unknown variants {sorted(keep - set(VARIANTS))}")
+        VARIANTS = {v: x for v, x in VARIANTS.items() if v in keep}
+        del args[i:i + 2]
+    sys.exit(main(args or list(ALL)))

@@ -247,10 +247,19 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 //     slot ends up [y][c] over its CB columns.  Before those writes one
 //     cluster barrier holds every block until all have read their slots and
 //     passed their last plane's `landed` wait (so `sent` is free); its
-//     arrive is relaxed: a release arrive waits for the thread's stores to
-//     device memory, 0.04 ms at config 4 (probes/float_split.py k8rel).  The
-//     first design gathered the columns value by value with remote loads
-//     between two barriers;
+//     arrive is relaxed, because a release arrive waits for the thread's
+//     stores to device memory, 0.04 ms at config 4 (probes/float_split.py
+//     k8rel).  A relaxed arrive orders no memory operation: the PTX memory
+//     model does not order this block's reads of its slot before the
+//     peers' bulk copies into it, nor the copies out of `sent` before the
+//     next plane's writes there.  The kernel relies on those reads having
+//     retired: their values are in registers, consumed before the stage's
+//     __syncthreads that precedes the arrive, and the bulk reads of `sent`
+//     completed on the owners' `landed` waits, which every block has
+//     passed before it arrives.  That holds on the H100; the memory model
+//     does not promise it (k8rel builds the release arrive).  The first
+//     design gathered the columns value by value with remote loads between
+//     two barriers;
 //   * phase 2: the chain along y over the block's CB columns in the slot's
 //     [y][c] layout (R16, TWD), its last stage storing from registers with
 //     threads along x, postscale folded (the planes or, on the complex
@@ -269,11 +278,9 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 // (0.2114 against the ring's 0.2438 ms over 2^24 points, planar;
 // probes/ab_parent.py, PERF.md section 6).  The five shapes of 2^18 points
 // run the first design.
-#ifndef PYFFT_FUSED2D_RING
 #define PYFFT_FUSED2D_RING(X)                                         \
   X(7, 7) X(7, 8) X(7, 9) X(7, 10) X(8, 7) X(8, 8) X(9, 7) X(9, 8)    \
   X(10, 7)
-#endif
 // points a block's share holds where the plane allows (a cluster of at
 // most 16 blocks): 4096, 256 threads and two 100 KB blocks an SM; at 2^17
 // points a plane 8192, 512 threads and one 200 KB block.  Slots a block;
@@ -446,9 +453,11 @@ __global__ void __launch_bounds__(Ring2<LY, LX>::NT, Ring2<LY, LX>::PER)
       sent[(k / CB) * (RB * CB) + c * CB + k % CB] = v;
     };
     // between the last row stage's reads and its writes: every block of
-    // the cluster is done reading its slot (its values are in registers:
-    // the barrier need release nothing), and past its last plane's wait
-    // for the copies into it, so `sent` is free too
+    // the cluster is done reading its slot and past its last plane's wait
+    // for the copies into it, so `sent` is free too.  The arrive is
+    // relaxed: it relies on those reads having retired (their values are
+    // in registers, used before the stage's __syncthreads), not on the
+    // memory model, which orders nothing across a relaxed arrive
     const auto all_read = [] {
       if (threadIdx.x == 0) fence_async_smem();
       cluster_arrive_relaxed();
