@@ -264,7 +264,8 @@ K8_SLOTS = "constexpr int RING2_SLOTS = 2;"
 K8_SHARE = "constexpr int RING2_SHARE = 4096;"
 K8_THREADS = "constexpr int RING2_THREAD_POINTS = 16;"
 # the dispatch's choice of the (re, im) pair store (k8pout0)
-K8_POUT = "  const bool pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&"
+K8_POUT = ("  const bool pout = pairs && io.out_xs == 2 && "
+           "io.out_im == io.out_re + 1 &&")
 # the exchange's wait for the owners' slots (k8nobar) and its copies to
 # other blocks (k8local): their time only, the results are wrong
 K8_ALL_READ = ("      cluster_arrive_relaxed();\n      cluster_wait();\n")
@@ -634,8 +635,8 @@ STEPS = {
     "k8local": [("fused2d.cu", "RB * CB * (int)sizeof(float2), &landed, o);",
                  "RB * CB * (int)sizeof(float2), &landed, rank);")],
     "k8t8": [("fused2d.cu", K8_THREADS, K8_THREADS.replace("16", "8"))],
-    "k8pout0": [("fused2d.cu", K8_POUT, K8_POUT.replace("= io.out_xs",
-                                                        "= false && io.out_xs"))],
+    "k8pout0": [("fused2d.cu", K8_POUT, K8_POUT.replace("= pairs &&",
+                                                        "= false &&"))],
 }
 
 # name -> (kernels timed, steps taken in order, -D macros)

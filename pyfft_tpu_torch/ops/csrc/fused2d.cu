@@ -262,9 +262,9 @@ cudaError_t launch(const Planes2D& io, const float2* twy, const float2* twx,
 //     two barriers;
 //   * phase 2: the chain along y over the block's CB columns in the slot's
 //     [y][c] layout (R16, TWD), its last stage storing from registers with
-//     threads along x, postscale folded (the planes or, on the complex
-//     form, (re, im) pairs as one 8-byte store each: both layouts are
-//     template parameters).
+//     threads along x, postscale folded (two floats, or on the complex
+//     form's planes in and out, (re, im) pairs as one 8-byte store each:
+//     the layouts are template parameters).
 //
 // Shared memory: SLOTS = 2 slots of the padded share and `sent`, 100 KB a
 // block of 4096 points, 200 KB of 8192.  At 2^18 points a plane a share is
@@ -395,8 +395,8 @@ __device__ __forceinline__ void bulk_to_block(void* dst, const void* src,
 
 // The ring over io.L planes: plane first + i*every in slot i % SLOTS on
 // barrier bars[i % SLOTS], filled by thread 0 (map_re: the real plane, or
-// the pairs where PIN; map_im the imaginary plane).  POUT: the output
-// planes are (re, im) pairs, stored as float2.
+// the pairs where PIN; map_im the imaginary plane).  POUT (with PIN
+// only): the output planes are (re, im) pairs, stored as float2.
 template <int LY, int LX, bool PIN, bool POUT>
 __global__ void __launch_bounds__(Ring2<LY, LX>::NT, Ring2<LY, LX>::PER)
     fused2d_ring_kernel(Planes2D io, const float2* __restrict__ twy,
@@ -404,6 +404,7 @@ __global__ void __launch_bounds__(Ring2<LY, LX>::NT, Ring2<LY, LX>::PER)
                         const __grid_constant__ CUtensorMap map_re,
                         const __grid_constant__ CUtensorMap map_im) {
   using K = Ring2<LY, LX>;
+  static_assert(PIN || !POUT, "pairs out only from pairs in");
   constexpr int NX = K::NX, RB = K::RB, CB = K::CB, PB = K::PB, NT = K::NT;
   constexpr int SLOTS = K::SLOTS, SLOT = K::SLOT;
   using PX = ChainPlan<LX, K::R16X>;
@@ -573,20 +574,21 @@ cudaError_t launch_ring(const Planes2D& io, const float2* twy,
                                s, mre, mim);
 }
 
-// The ring at (LY, LX) on the input's layout (planes or pairs) and the
-// output's: pairs stored as float2 where the imaginary plane is one float
-// after the real one, 8-byte aligned at every point.
+// The ring at (LY, LX) on the input's layout (planes or pairs).  Where the
+// input is pairs and so is the output (the imaginary plane one float after
+// the real one, 8-byte aligned at every point), each output is one 8-byte
+// store: 0.1192 against 0.1232 ms at config 4's stride-2 planes
+// (probes/float_split.py k8pout0, PERF.md section 6).  Every other output,
+// a planar input's included, is stored as two floats.
 template <int LY, int LX>
 cudaError_t launch_ring(const Planes2D& io, bool pairs, const float2* twy,
                         const float2* twx, float s, cudaStream_t stream) {
   const uintptr_t o = reinterpret_cast<uintptr_t>(io.out_re);
-  const bool pout = io.out_xs == 2 && io.out_im == io.out_re + 1 &&
+  const bool pout = pairs && io.out_xs == 2 && io.out_im == io.out_re + 1 &&
                     o % 8 == 0 && io.out_ys % 2 == 0 &&
                     (io.L == 1 || io.out_ls % 2 == 0);
-  if (pairs && pout)
-    return launch_ring<LY, LX, true, true>(io, twy, twx, s, stream);
+  if (pout) return launch_ring<LY, LX, true, true>(io, twy, twx, s, stream);
   if (pairs) return launch_ring<LY, LX, true, false>(io, twy, twx, s, stream);
-  if (pout) return launch_ring<LY, LX, false, true>(io, twy, twx, s, stream);
   return launch_ring<LY, LX, false, false>(io, twy, twx, s, stream);
 }
 

@@ -606,6 +606,60 @@ def test_design_rule_is_the_sources(ly, lx):
                 else "first"), name
 
 
+# the ring's store layout: the (re, im) pair store's rule and the
+# instantiations the dispatch picks, in order, as (condition, PIN, POUT)
+POUT_RULE = src_text(r"  const bool pout = ([^;]+);")[0]
+STORE_DISPATCH = re.findall(
+    r"  (?:if \((\w+)\) )?return launch_ring<LY, LX, (\w+), (\w+)>"
+    r"\(io, twy, twx, s, stream\);", SRC)
+
+
+def ring_instance(pairs: bool, out: dict) -> tuple:
+    """(PIN, POUT) of the ring's kernel the dispatch launches on an input
+    of pairs (or planes) and an output with ``out``'s fields (``o`` its
+    real plane's byte address, ``out_re``/``out_im`` in floats)."""
+    pout = c_bool(POUT_RULE, pairs=pairs, **out)
+    env = {"pairs": pairs, "pout": pout}
+    for cond, pin, po in STORE_DISPATCH:
+        if cond == "" or env[cond]:
+            return pin == "true", po == "true"
+    raise AssertionError("no instance")
+
+
+@pytest.mark.parametrize("name,pairs,want", [
+    ("planes in, planes out", False, (False, False)),
+    ("planes in, pairs out", False, (False, False)),
+    ("pairs in, pairs out", True, (True, True)),
+    ("pairs in, planes out", True, (True, False)),
+    ("pairs in, pairs out 4 bytes off", True, (True, False)),
+    ("pairs in, pairs out rows odd", True, (True, False)),
+    ("pairs in, pairs out one plane", True, (True, True)),
+])
+def test_pair_store_rule(name, pairs, want):
+    """The ring stores a point as one 8-byte (re, im) pair only where the
+    input is pairs and the output is too, 8-byte aligned at every point
+    (the pair store gained 3 % at config 4's stride-2 planes: PERF.md
+    section 6, probes/float_split.py k8pout0); every other output is two
+    float stores, a planar input's included (no kernel takes planes in and
+    pairs out)."""
+    base = 1 << 20                       # bytes, 16-byte aligned
+    out = {"out_xs": 2, "out_re": base // 4, "out_im": base // 4 + 1,
+           "o": base, "out_ys": 2 * 256, "out_ls": 2 * 256 * 256, "L": 3}
+    if "planes out" in name:
+        out.update(out_xs=1, out_im=base // 4 + 3 * 256 * 256,
+                   out_ys=256, out_ls=256 * 256)
+    if "4 bytes off" in name:
+        out.update(o=base + 4, out_re=base // 4 + 1, out_im=base // 4 + 2)
+    if "rows odd" in name:
+        out.update(out_ys=2 * 256 + 1)
+    if "one plane" in name:
+        out.update(L=1, out_ls=1)
+    assert len(STORE_DISPATCH) == 3 and STORE_DISPATCH[-1][0] == ""
+    assert ring_instance(pairs, out) == want
+    instances = {(pin, po) for _, pin, po in STORE_DISPATCH}
+    assert ("false", "true") not in instances
+
+
 # ------------------------------------------------- the launches counted
 
 
