@@ -243,12 +243,17 @@ PEAK_INT8_S = 1979e12
 
 SOURCES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled",
            "interleave")
-# the kernels, by the name of the count their wrapper keeps
-KERNELS = ("local_rows", "local_cols", "fused2d", "local_rows_f64",
-           "local_cols_f64", "local_rows_il", "deinterleave", "interleave",
-           "local_rows_swap", "local_cols_ctile", "fused2d_tiled",
-           "local_rows_i8", "local_cols_i8", "local_rows_swap_i8",
-           "fused2d_i8", "fused2d_tiled_i8", "local_rows_il_i8")
+# the kernels, by their C entry's name, and the key of the registry
+# (utils/profiling) their launches count under
+ENTRY_KERNELS = {"local_rows": "K1", "local_cols": "K5", "fused2d": "K8",
+                 "local_rows_f64": "K11", "local_cols_f64": "K12",
+                 "local_rows_il": "K2", "deinterleave": "K13",
+                 "interleave": "K14", "local_rows_swap": "K4",
+                 "local_cols_ctile": "K6", "fused2d_tiled": "K9",
+                 "local_rows_i8": "K1+K10", "local_cols_i8": "K5+K10",
+                 "local_rows_swap_i8": "K4+K10", "fused2d_i8": "K8+K10",
+                 "fused2d_tiled_i8": "K9+K10", "local_rows_il_i8": "K2+K10"}
+KERNELS = tuple(ENTRY_KERNELS)
 
 # Launches of one complex-form execute of a 1D plan of one local pass, by
 # its interleaved route; the stream route adds K13 and K14 around any plan.
@@ -288,64 +293,36 @@ def cplx(re, im):
     return torch.complex(re, im)
 
 
+def count_of(*keys) -> int:
+    """The launches the registry (``utils/profiling``) holds under
+    ``keys`` since the last reset: ``launch.K1`` is every K1 launch,
+    ``launch.K1.ring`` those whose C entry reported the ring."""
+    from pyfft_tpu_torch.utils import profiling
+    return sum(profiling.total(k) for k in keys)
+
+
 def reset_counts():
-    from pyfft_tpu_torch.ops import fused2d, interleave, local
-    local.LAUNCHES = 0
-    local.COL_LAUNCHES = 0
-    local.LAUNCHES_F64 = 0
-    local.COL_LAUNCHES_F64 = 0
-    local.IL_LAUNCHES = 0
-    local.SWAP_LAUNCHES = 0
-    local.CTILE_LAUNCHES = 0
-    local.I8_LAUNCHES = 0
-    local.COL_I8_LAUNCHES = 0
-    local.SWAP_I8_LAUNCHES = 0
-    local.IL_I8_LAUNCHES = 0
-    local.RING_LAUNCHES = 0
-    local.RING_LAUNCHES_F64 = 0
-    local.COL_RING_LAUNCHES = 0
-    local.COL_X_LAUNCHES = 0
-    fused2d.LAUNCHES = 0
-    fused2d.RING_LAUNCHES = 0
-    fused2d.TILED_LAUNCHES = 0
-    fused2d.I8_LAUNCHES = 0
-    fused2d.TILED_I8_LAUNCHES = 0
-    interleave.DEINT_LAUNCHES = 0
-    interleave.INT_LAUNCHES = 0
+    from pyfft_tpu_torch.utils import profiling
+    profiling.reset()
 
 
 def read_counts() -> dict:
-    from pyfft_tpu_torch.ops import fused2d, interleave, local
     torch.cuda.synchronize()
-    return {"local_rows": local.LAUNCHES, "local_cols": local.COL_LAUNCHES,
-            "fused2d": fused2d.LAUNCHES,
-            "local_rows_f64": local.LAUNCHES_F64,
-            "local_cols_f64": local.COL_LAUNCHES_F64,
-            "local_rows_il": local.IL_LAUNCHES,
-            "deinterleave": interleave.DEINT_LAUNCHES,
-            "interleave": interleave.INT_LAUNCHES,
-            "local_rows_swap": local.SWAP_LAUNCHES,
-            "local_cols_ctile": local.CTILE_LAUNCHES,
-            "fused2d_tiled": fused2d.TILED_LAUNCHES,
-            "local_rows_i8": local.I8_LAUNCHES,
-            "local_cols_i8": local.COL_I8_LAUNCHES,
-            "local_rows_swap_i8": local.SWAP_I8_LAUNCHES,
-            "fused2d_i8": fused2d.I8_LAUNCHES,
-            "fused2d_tiled_i8": fused2d.TILED_I8_LAUNCHES,
-            "local_rows_il_i8": local.IL_I8_LAUNCHES}
+    return {entry: count_of(f"launch.{k}")
+            for entry, k in ENTRY_KERNELS.items()}
 
 
 def design_counts() -> dict:
     """Of the launches counted since the last reset, those that ran each
     redesign, as the C entries report it: the row ring (K1 and K2; K11 on
-    double planes), K5's persistent column ring and cluster tile and K8's
-    plane ring."""
-    from pyfft_tpu_torch.ops import fused2d, local
-    return {"row ring": local.RING_LAUNCHES,
-            "row ring f64": local.RING_LAUNCHES_F64,
-            "column ring": local.COL_RING_LAUNCHES,
-            "column cluster tile": local.COL_X_LAUNCHES,
-            "plane ring": fused2d.RING_LAUNCHES}
+    double planes), K5's persistent column ring and cluster tile, K12's
+    cluster tile and K8's plane ring."""
+    return {"row ring": count_of("launch.K1.ring", "launch.K2.ring"),
+            "row ring f64": count_of("launch.K11.ring"),
+            "column ring": count_of("launch.K5.pring"),
+            "column cluster tile": count_of("launch.K5.x"),
+            "column cluster tile f64": count_of("launch.K12.x"),
+            "plane ring": count_of("launch.K8.ring")}
 
 
 # Every float K8 launch of the run, by the design it ran, and those that
@@ -366,10 +343,10 @@ def watch_k8_designs() -> None:
         if int8:
             return launch(re, im, out_re, out_im, sign, postscale, int8)
         want = fused2d.design(re, im)
-        ring0, all0 = fused2d.RING_LAUNCHES, fused2d.LAUNCHES
+        ring0, all0 = count_of("launch.K8.ring"), count_of("launch.K8")
         got = launch(re, im, out_re, out_im, sign, postscale, int8)
-        if fused2d.LAUNCHES != all0:
-            ran = "ring" if fused2d.RING_LAUNCHES != ring0 else "first"
+        if count_of("launch.K8") != all0:
+            ran = "ring" if count_of("launch.K8.ring") != ring0 else "first"
             K8_DESIGNS[ran] += 1
             if ran != want:
                 K8_DESIGNS["wrong"].append(
@@ -594,8 +571,8 @@ def ring_rows_cases(n: int, rng, prec: str = "complex64"):
     took = []
     elem = 8 if f64 else 4              # bytes of a real
     one = f"{elem}"
-    count = ("LAUNCHES_F64", "RING_LAUNCHES_F64") if f64 else (
-        "LAUNCHES", "RING_LAUNCHES")
+    count = (("launch.K11", "launch.K11.ring") if f64 else
+             ("launch.K1", "launch.K1.ring"))
     for sign, post in posts(prec, n):
         ref = torch.from_numpy(
             (np.fft.fft(x.astype(np.complex128)) if sign < 0
@@ -618,10 +595,10 @@ def ring_rows_cases(n: int, rng, prec: str = "complex64"):
                 re, im = (padded_rows(t.contiguous(), pad, lead)
                           for t in (xc.real, xc.imag))
             takes = ring_expected(n, mode, real)
-            before = tuple(getattr(local, c) for c in count)
+            before = tuple(count_of(c) for c in count)
             rr, ii = local.fft_axis(re, im, sign, postscale=post, out=out)
             torch.cuda.synchronize()
-            got = tuple(getattr(local, c) - b for c, b in zip(count, before))
+            got = tuple(count_of(c) - b for c, b in zip(count, before))
             if got != (1, int(takes)):
                 raise AssertionError(f"{prec} n={n} {mode}: (kernel, ring) "
                                      f"launches {got}, expected "
@@ -667,8 +644,7 @@ def phase_main_path():
     yf = pyfft_tpu_torch.fft(xt)
     yb = pyfft_tpu_torch.ifft(yf)
     counts = read_counts()
-    from pyfft_tpu_torch.ops import local
-    ring = local.RING_LAUNCHES
+    ring = count_of("launch.K1.ring", "launch.K2.ring")
 
     errs = {"complex": rel_err(to_np(y), ref),
             "planar": rel_err(to_np(rr, ii), ref),
@@ -811,8 +787,9 @@ def offset_plane(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-# the complex64 column pass's designs, by the count of their launches
-COL_DESIGN_COUNTS = {"ring": "COL_RING_LAUNCHES", "x": "COL_X_LAUNCHES"}
+# the column pass's designs, by the registry's keys of their launches
+COL_DESIGN_COUNTS = {"ring": ("launch.K5.pring",),
+                     "x": ("launch.K5.x", "launch.K12.x")}
 
 
 def phase_cols_kernel(prec: str = "complex64"):
@@ -868,14 +845,14 @@ def phase_cols_kernel(prec: str = "complex64"):
                             tw_n=kw.get("tw_n", 0),
                             swap_store=kw.get("swap_store", False),
                             swap_mid=kw.get("swap_mid", 0))
-                        before = {d: getattr(local, c)
+                        before = {d: count_of(*c)
                                   for d, c in COL_DESIGN_COUNTS.items()}
                         rr, ii = local.fft_axis(re, im, sign, axis=1,
                                                 postscale=post, out=out,
                                                 **kw)
                         torch.cuda.synchronize()
                         ran = [d for d, c in COL_DESIGN_COUNTS.items()
-                               if getattr(local, c) != before[d]]
+                               if count_of(*c) != before[d]]
                         ran = ran[0] if ran else "first"
                         if prec == "complex64" and ran != want:
                             raise AssertionError(
@@ -983,13 +960,14 @@ def phase_fused_kernel():
                         if mode == "inplace":
                             out = (re, im)
                     want = fused2d.design(re, im)
-                    ring0, all0 = fused2d.RING_LAUNCHES, fused2d.LAUNCHES
+                    ring0 = count_of("launch.K8.ring")
+                    all0 = count_of("launch.K8")
                     rr, ii = fused2d.fft2_fused(re, im, sign, postscale=post,
                                                 out=out)
                     torch.cuda.synchronize()
-                    got = ("ring" if fused2d.RING_LAUNCHES - ring0 == 1
+                    got = ("ring" if count_of("launch.K8.ring") - ring0 == 1
                            else "first")
-                    if fused2d.LAUNCHES - all0 != 1 or got != want:
+                    if count_of("launch.K8") - all0 != 1 or got != want:
                         raise AssertionError(
                             f"fused kernel {ny}x{nx} L={L} {mode}: ran the "
                             f"{got} design, its table names {want}")
@@ -1262,22 +1240,22 @@ def time_complex_form(row, xs, oshape, run):
 
 
 def ran_design(run, f64: bool = False, rows: bool = False) -> str:
-    """The design one launch of ``run`` ran, by the counts its C entry
-    reports: the row ring or the first design (rows; K11 on float64), the
+    """The design one launch of ``run`` ran, by what its C entry reports:
+    the row ring or the first design (rows; K11 on float64), the
     persistent ring, the cluster tile or the first design (complex64
-    columns; complex128 columns: the rule, K12 reports nothing)."""
-    from pyfft_tpu_torch.ops import local
-    counts = (("RING_LAUNCHES_F64" if f64 else "RING_LAUNCHES",) if rows
-              else () if f64 else ("COL_RING_LAUNCHES", "COL_X_LAUNCHES"))
-    before = [getattr(local, c) for c in counts]
+    columns; complex128 columns, K12: the cluster tile or the first
+    design)."""
+    counts = ({"launch.K11.ring" if f64 else "launch.K1.ring": "row ring"}
+              if rows else {"launch.K12.x": "cluster tile"} if f64 else
+              {"launch.K5.pring": "persistent ring",
+               "launch.K5.x": "cluster tile"})
+    before = {c: count_of(c) for c in counts}
     run()
     torch.cuda.synchronize()
-    for c, b in zip(counts, before):
-        if getattr(local, c) != b:
-            return {"RING_LAUNCHES": "row ring", "RING_LAUNCHES_F64":
-                    "row ring", "COL_RING_LAUNCHES": "persistent ring",
-                    "COL_X_LAUNCHES": "cluster tile"}[c]
-    return "first design" if counts else "not reported (K12 reports none)"
+    for c, b in before.items():
+        if count_of(c) != b:
+            return counts[c]
+    return "first design"
 
 
 def time_col_passes(results, copy_gbs, cases, phase, f64=False):
@@ -1524,7 +1502,7 @@ def phase_il_kernels():
     rng = np.random.RandomState(14)
     for n in IL_NS:
         worst_plain = worst_np = 0.0
-        before = local.IL_LAUNCHES
+        before = count_of("launch.K2")
         cases = 0
         for rows in (1, 130):
             x = (rng.standard_normal((rows, n))
@@ -1558,8 +1536,8 @@ def phase_il_kernels():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        if local.IL_LAUNCHES - before != cases:
-            raise AssertionError(f"K2 n={n}: {local.IL_LAUNCHES - before} "
+        if count_of("launch.K2") - before != cases:
+            raise AssertionError(f"K2 n={n}: {count_of('launch.K2') - before} "
                                  f"launches for {cases} calls")
         print(f"phase 14 K2 n={n}: {cases} cases (out of place, in place, "
               f"packed), max rel err vs plain {worst_plain:.3e}, vs numpy "
@@ -1639,11 +1617,12 @@ def ring_il_cases(n: int, rng):
                              "offset 8": (0, 2)}[mode]
                 v = padded_rows(xf, pad, lead)
             takes = ring_expected(n, mode)
-            before = (local.IL_LAUNCHES, local.RING_LAUNCHES)
+            before = (count_of("launch.K2"),
+                      count_of("launch.K1.ring", "launch.K2.ring"))
             y = local.fft_rows_interleaved(v, sign, postscale=post, out=out)
             torch.cuda.synchronize()
-            got = (local.IL_LAUNCHES - before[0],
-                   local.RING_LAUNCHES - before[1])
+            got = (count_of("launch.K2") - before[0],
+                   count_of("launch.K1.ring", "launch.K2.ring") - before[1])
             if got != (1, int(takes)):
                 raise AssertionError(f"K2 n={n} {mode}: (K2, ring) launches "
                                      f"{got}, expected (1, {int(takes)})")
@@ -2031,7 +2010,7 @@ def phase_swap_kernel():
     rng = np.random.RandomState(17)
     for n in IL_NS:
         worst_plain = worst_np = 0.0
-        before, cases = local.SWAP_LAUNCHES, 0
+        before, cases = count_of("launch.K4"), 0
         # one plane only at the largest n; elsewhere l = 0 of three
         for L in ((1, 3) if n == IL_NS[-1] else (3,)):
             for n1 in (128, 200, 384):
@@ -2063,8 +2042,8 @@ def phase_swap_kernel():
                         worst_np = max(worst_np, held("K4 vs numpy", got,
                                                       ref, tag))
                         cases += 1
-        if local.SWAP_LAUNCHES - before != cases:
-            raise AssertionError(f"K4 n={n}: {local.SWAP_LAUNCHES - before} "
+        if count_of("launch.K4") - before != cases:
+            raise AssertionError(f"K4 n={n}: {count_of('launch.K4') - before} "
                                  f"launches for {cases} calls")
         tile = local.swap_tile(n)
         shape = (f"a cluster of {tile[0]} blocks a tile of {tile[1]} rows"
@@ -2086,7 +2065,7 @@ def phase_ctile_kernel():
         # c = 2 and 8 whole runs
         L = 5 if n == 1024 else 2 if n < 1024 else 1
         worst_plain = worst_np = 0.0
-        before, cases = local.CTILE_LAUNCHES, 0
+        before, cases = count_of("launch.K6"), 0
         x = (rng.standard_normal((L, n, T))
              + 1j * rng.standard_normal((L, n, T))).astype(np.complex64)
         xc = torch.from_numpy(x).cuda()
@@ -2117,8 +2096,8 @@ def phase_ctile_kernel():
                     worst_np = max(worst_np, held("K6 vs numpy", got, ref,
                                                   tag))
                     cases += 1
-        if local.CTILE_LAUNCHES - before != cases:
-            raise AssertionError(f"K6 n={n}: {local.CTILE_LAUNCHES - before} "
+        if count_of("launch.K6") - before != cases:
+            raise AssertionError(f"K6 n={n}: {count_of('launch.K6') - before} "
                                  f"launches for {cases} calls")
         ring = local.ring_shape(n)
         print(f"phase 17 K6 n={n} ({L} x {n} x {T}, c in 1, 2, 8; runs of "
@@ -2139,7 +2118,7 @@ def phase_tiled_kernel():
     rng = np.random.RandomState(19)
     for ny, nx in TILED_SHAPES:
         worst_plain = worst_np = 0.0
-        before, cases = fused2d.TILED_LAUNCHES, 0
+        before, cases = count_of("launch.K9"), 0
         for L in (1, 3):
             x = (rng.standard_normal((L, ny, nx))
                  + 1j * rng.standard_normal((L, ny, nx))).astype(np.complex64)
@@ -2164,9 +2143,9 @@ def phase_tiled_kernel():
                     worst_np = max(worst_np, held("K9 vs numpy", got, ref,
                                                   tag))
                     cases += 1
-        if fused2d.TILED_LAUNCHES - before != cases:
+        if count_of("launch.K9") - before != cases:
             raise AssertionError(f"K9 {ny}x{nx}: "
-                                 f"{fused2d.TILED_LAUNCHES - before} launches "
+                                 f"{count_of('launch.K9') - before} launches "
                                  f"for {cases} calls")
         sh = fused2d.tiled_shape(ny, nx)
         print(f"phase 17 K9 {ny}x{nx} (a cluster of {sh['cluster']} blocks "
@@ -2507,7 +2486,7 @@ def phase_int8_rows():
     for n in IL_NS:
         f = local.matrix_factor(local.row_factors(n))
         worst_plain = worst_np = 0.0
-        before = (local.I8_LAUNCHES, local.LAUNCHES)
+        before = (count_of("launch.K1+K10"), count_of("launch.K1"))
         cases = 0
         for rows in (1, 130, 384):
             x = (rng.standard_normal((rows, n))
@@ -2539,7 +2518,8 @@ def phase_int8_rows():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        made = (local.I8_LAUNCHES - before[0], local.LAUNCHES - before[1])
+        made = (count_of("launch.K1+K10") - before[0],
+                count_of("launch.K1") - before[1])
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 rows n={n}: launches (int8, float) "
                                  f"{made} for {cases} calls")
@@ -2563,7 +2543,7 @@ def phase_int8_cols():
     for n in IL_NS:
         f = local.matrix_factor(local.col_factors(n))
         worst_plain = worst_np = 0.0
-        before = (local.COL_I8_LAUNCHES, local.COL_LAUNCHES)
+        before = (count_of("launch.K5+K10"), count_of("launch.K5"))
         cases = 0
         for T in (128, 384, 200):
             L = 3
@@ -2605,8 +2585,8 @@ def phase_int8_cols():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        made = (local.COL_I8_LAUNCHES - before[0],
-                local.COL_LAUNCHES - before[1])
+        made = (count_of("launch.K5+K10") - before[0],
+                count_of("launch.K5") - before[1])
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 columns n={n}: launches (int8, "
                                  f"float) {made} for {cases} calls")
@@ -2777,7 +2757,7 @@ def phase_int8_swap():
     for n in IL_NS:
         f = local.matrix_factor(local.default_factors(n))
         worst_plain = worst_np = 0.0
-        before = (local.SWAP_I8_LAUNCHES, local.SWAP_LAUNCHES)
+        before = (count_of("launch.K4+K10"), count_of("launch.K4"))
         cases = 0
         for n1 in (128, 384):
             x = rand_c64(rng, (1, n1, n))
@@ -2808,8 +2788,8 @@ def phase_int8_swap():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        made = (local.SWAP_I8_LAUNCHES - before[0],
-                local.SWAP_LAUNCHES - before[1])
+        made = (count_of("launch.K4+K10") - before[0],
+                count_of("launch.K4") - before[1])
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 K4 n={n}: launches (int8, float) "
                                  f"{made} for {cases} calls")
@@ -2828,7 +2808,7 @@ def phase_int8_swap_lanes(rng):
     from pyfft_tpu_torch.ops import local
     lanes = 64
     for n in (16, 32):
-        before = local.SWAP_I8_LAUNCHES
+        before = count_of("launch.K4+K10")
         worst_plain = worst_np = 0.0
         cases = 0
         x = rand_c64(rng, (2, 384, n))
@@ -2856,9 +2836,9 @@ def phase_int8_swap_lanes(rng):
             worst_plain = max(worst_plain, e_plain)
             worst_np = max(worst_np, e_np)
             cases += 1
-        if local.SWAP_I8_LAUNCHES - before != cases:
+        if count_of("launch.K4+K10") - before != cases:
             raise AssertionError(f"K4+K10 lanes={lanes} n={n}: "
-                                 f"{local.SWAP_I8_LAUNCHES - before} "
+                                 f"{count_of('launch.K4+K10') - before} "
                                  f"launches for {cases} calls")
         print(f"phase 20 K4+K10 n={n} lanes={lanes} (C="
               f"{local.col_width_i8(n)} rows a block, groups of "
@@ -2877,12 +2857,13 @@ def phase_int8_2d(tiled: bool):
         name, shapes, fn, plain_fn = ("K9+K10", TILED_SHAPES,
                                       fused2d.fft2_fused_tiled,
                                       fused2d.fft2_tiled_plain)
-        count, cluster = (lambda: fused2d.TILED_I8_LAUNCHES,
+        count, cluster = (lambda: count_of("launch.K9+K10"),
                           fused2d.tiled_cluster_size)
     else:
         name, shapes, fn, plain_fn = ("K8+K10", FUSED_SHAPES,
                                       fused2d.fft2_fused, fused2d.fft2_plain)
-        count, cluster = lambda: fused2d.I8_LAUNCHES, fused2d.cluster_size
+        count, cluster = (lambda: count_of("launch.K8+K10"),
+                          fused2d.cluster_size)
     rng = np.random.RandomState(23 if tiled else 22)
     stage_fn = fused2d._i8_stage_fn(tiled)
     for ny, nx in shapes:
@@ -2962,7 +2943,7 @@ def phase_int8_fold():
         xc = torch.from_numpy(x).cuda()
         x128 = x.astype(np.complex128)
         worst_plain = worst_np = 0.0
-        before = (local.COL_I8_LAUNCHES, local.COL_LAUNCHES)
+        before = (count_of("launch.K5+K10"), count_of("launch.K5"))
         cases = 0
         for sign in (-1, +1):
             post = 0.3
@@ -2991,8 +2972,8 @@ def phase_int8_fold():
                 worst_plain = max(worst_plain, e_plain)
                 worst_np = max(worst_np, e_np)
                 cases += 1
-        made = (local.COL_I8_LAUNCHES - before[0],
-                local.COL_LAUNCHES - before[1])
+        made = (count_of("launch.K5+K10") - before[0],
+                count_of("launch.K5") - before[1])
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 fold {shape}: launches (int8, "
                                  f"float) {made} for {cases} calls")
@@ -3201,7 +3182,7 @@ def phase_int8_il():
     for n in IL_NS:
         f = local.matrix_factor(local.default_factors(n))
         worst_plain = worst_np = 0.0
-        before = (local.IL_I8_LAUNCHES, local.IL_LAUNCHES)
+        before = (count_of("launch.K2+K10"), count_of("launch.K2"))
         cases = 0
         for rows in (1, 130, 384):
             x = (rng.standard_normal((rows, n))
@@ -3233,8 +3214,8 @@ def phase_int8_il():
                     worst_plain = max(worst_plain, e_plain)
                     worst_np = max(worst_np, e_np)
                     cases += 1
-        made = (local.IL_I8_LAUNCHES - before[0],
-                local.IL_LAUNCHES - before[1])
+        made = (count_of("launch.K2+K10") - before[0],
+                count_of("launch.K2") - before[1])
         if made != ((cases, 0) if f else (0, cases)):
             raise AssertionError(f"int8 interleaved rows n={n}: launches "
                                  f"(int8, float) {made} for {cases} calls")
@@ -3698,7 +3679,9 @@ def phase_sweep() -> dict:
 def phase_trace() -> dict:
     """Phase 25: a config 2 ``Plan.execute`` under
     ``utils/profiling.trace``: the trace file it writes names K1's ring
-    kernel (a CUPTI kernel record: the kernels launch through ctypes)."""
+    kernel (a CUPTI kernel record: the kernels launch through ctypes) and
+    holds the program's spans, each inside the one before: the execute,
+    its pass, K1's C entry; the wait follows the pass."""
     import tempfile
 
     import pyfft_tpu_torch
@@ -3728,6 +3711,15 @@ def phase_trace() -> dict:
     if len(ring) != 1:
         raise AssertionError(f"phase 25: the trace's kernels "
                              f"{[e['name'][:100] for e in kernels]}")
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("pyfft.")}
+    nest = ("pyfft.execute", "pyfft.pass.local", "pyfft.entry.K1")
+    if (set(spans) != {*nest, "pyfft.wait"}
+            or any(not (spans[a][0] <= spans[b][0] <= spans[b][1]
+                        <= spans[a][1]) for a, b in zip(nest, nest[1:]))
+            or spans["pyfft.wait"][0] < spans["pyfft.pass.local"][1]):
+        raise AssertionError(f"phase 25: the program's spans {spans}")
     err = rel_err(cplx(yr, yi), ref)
     check("phase 25 config 2 traced", err)
     out = {"counts": counts, "kernel": ring[0]["name"],
@@ -3736,7 +3728,8 @@ def phase_trace() -> dict:
            "seconds": time.perf_counter() - t0}
     print(f"phase 25 config 2 traced: a trace of {size} bytes, {len(events)} "
           f"events, {len(kernels)} kernel record(s); K1's is "
-          f"{ring[0]['name'][:120]!r}, {ring[0].get('dur')} us; err "
+          f"{ring[0]['name'][:120]!r}, {ring[0].get('dur')} us; spans "
+          f"{ {k: b - a for k, (a, b) in spans.items()} } us; err "
           f"{err:.3e}; phase 25 took {out['seconds']:.1f} s")
     del x, re, im, yr, yi, ref
     torch.cuda.empty_cache()
@@ -3876,6 +3869,8 @@ def main() -> int:
         "pyfft_tpu/ops/pallas_df64.py:761", five, checks, launches,
         "config 5, 2^22 x 64 complex128: both four-step passes")
     cols64_entry["library_ms"] = e2e["config 5"]["library_ms"]
+    cols64_entry["design_launches"] = {
+        "cluster tile": designs["column cluster tile f64"]}
     # K2, K13 and K14 timed at config 2i's shape (4096 x 4096 complex64),
     # their errors over config 2i and every call held against the plain
     # version in phases 15 and 16

@@ -1,0 +1,25 @@
+"""Mean milliseconds of a call in the facade, from the program's own
+spans in the traced slice: each ``pyfft.execute`` less the part of it
+that its ``pyfft.pass.*`` and ``pyfft.wait`` spans cover (the input's
+handling, the output's allocation, the route, the chunking), summed and
+divided by the slice's calls (the benchmark's ``execute.fwd`` and
+``execute.inv``).  None where the slice holds no ``pyfft.execute``, as
+with a program that records no spans.  Reads
+``facade_ms_per_call.<mix>`` and ``facade_ms_per_call.<config>.<mix>``."""
+
+from portbench import devtrace
+
+
+def value(run):
+    sl = run.slice
+    if sl is None or not sl.calls:
+        return None
+    outer = [(a, b) for n, a, b in sl.spans if n == "pyfft.execute"]
+    if not outer:
+        return None
+    inner = [(a, b) for n, a, b in sl.spans
+             if n.startswith("pyfft.pass.") or n == "pyfft.wait"]
+    s = sum((b - a) - devtrace.union_s(
+        (max(a, c), min(b, d)) for c, d in inner if c < b and d > a)
+        for a, b in outer)
+    return s * 1e3 / len(sl.calls)

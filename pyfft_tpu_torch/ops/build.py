@@ -16,7 +16,8 @@ the source with macro definitions ahead of it (the kernels' shape tables,
 each under ``#ifndef``, as ``utils/tune.py`` sets them from its record);
 they are written to a header that ``nvcc`` includes first, since ``-D``
 splits its value at commas, and they take part in the library's hash, so
-no definitions give the same library as before.
+no definitions give the same library as before.  Each build-or-load adds
+its seconds to ``load_s.<name>`` in the registry of ``utils/profiling``.
 
 Nothing here runs at import time: the host may have no ``nvcc`` and no
 GPU, and the CPU tests import every module.
@@ -30,7 +31,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from pyfft_tpu_torch.utils.profiling import COUNTS
 
 __all__ = ["load", "BUILD_DIR", "NVCC_FLAGS"]
 
@@ -108,6 +112,7 @@ def load(name: str, csrc: Path | None = None,
         lib = _LOADED.get(key)
         if lib is not None:
             return lib
+        start = time.perf_counter()
         path = library_path(name, csrc, defines)
         if not path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,4 +133,6 @@ def load(name: str, csrc: Path | None = None,
             # atomic: concurrent builders each write their own temp file
             os.replace(tmp, path)
         lib = _LOADED[key] = ctypes.CDLL(str(path))
+        with _LOCKS_LOCK:
+            COUNTS[f"load_s.{name}"] += time.perf_counter() - start
         return lib

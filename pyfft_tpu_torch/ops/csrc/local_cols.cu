@@ -1550,10 +1550,10 @@ cudaError_t launch_pring(const Cols<float>& io, const float2* tw, float s,
   return cudaGetLastError();
 }
 
-// What the complex64 column entry returns where the persistent ring
-// (RAN_RING) or the cluster tile (RAN_X) ran: 0 where local_cols_kernel
-// ran, else the launch's cudaError_t.  The wrapper counts each design's
-// launches from it.
+// What a column entry returns where the persistent ring (RAN_RING,
+// complex64 only) or the cluster tile (RAN_X, complex64 and complex128)
+// ran: 0 where local_cols_kernel ran, else the launch's cudaError_t.  The
+// wrapper counts each design's launches from it.
 constexpr int RAN_RING = -1, RAN_X = -2;
 
 // Whether the persistent ring takes the pass: a plain store (no swap, no
@@ -1599,12 +1599,16 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     }
     return (int)cudaErrorInvalidValue;
   }
+  // the cluster tile where its table has n (RAN_X)
 #define PYFFT_XCOL(LN, G, C, B)                                             \
-  if (log2n == LN)                                                          \
-    return swap_store                                                       \
-               ? (int)launch_x<Real, LN, G, C, B, true>(io, t, s, st)      \
-               : (int)launch_x<Real, LN, G, C, B, false>(io, t, s, st);
+  if (log2n == LN) {                                                        \
+    const int e =                                                           \
+        swap_store ? (int)launch_x<Real, LN, G, C, B, true>(io, t, s, st)  \
+                   : (int)launch_x<Real, LN, G, C, B, false>(io, t, s, st); \
+    return e == 0 ? RAN_X : e;                                              \
+  }
   if constexpr (sizeof(Real) == sizeof(double)) {
+    // K12: the cluster tile from n = 1024
     if (xcols_strided(io.in_ts)) {
       PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
     }
@@ -1612,18 +1616,10 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
   } else {
     // K5: the cluster tile from n = 1024 (RAN_X), the persistent ring up to
     // 512 where it takes the pass (RAN_RING)
-#define PYFFT_XCOL32(LN, G, C, B)                                           \
-  if (log2n == LN) {                                                        \
-    const int e =                                                           \
-        swap_store ? (int)launch_x<Real, LN, G, C, B, true>(io, t, s, st)  \
-                   : (int)launch_x<Real, LN, G, C, B, false>(io, t, s, st); \
-    return e == 0 ? RAN_X : e;                                              \
-  }
     if (xcols_strided(io.in_ts)) {
-      PYFFT_XCOLS_F32_S2(PYFFT_XCOL32)
+      PYFFT_XCOLS_F32_S2(PYFFT_XCOL)
     }
-    PYFFT_XCOLS_F32(PYFFT_XCOL32)
-#undef PYFFT_XCOL32
+    PYFFT_XCOLS_F32(PYFFT_XCOL)
     if (pring_takes(io, swap_store)) {
 #define PYFFT_PRING(LN, C, S)                                          \
   if (log2n == LN) {                                                   \
@@ -1800,8 +1796,8 @@ extern "C" int pyfft_local_cols_ring_shape(int log2n, int* out) {
 // (l, k, t / P, t % P), P, the table strides ak, aq, adiv, bk, bq, and the
 // twiddle mode (0 none, 1 table, 2 factored).  Strides are in elements
 // (table strides in pairs).  Return the launch's cudaError_t (0 on
-// success; complex64: RAN_RING (-1) where the persistent ring ran, RAN_X
-// (-2) where the cluster tile did).  complex64: float planes, 8 <= n <=
+// success; RAN_X (-2) where the cluster tile ran; complex64: RAN_RING (-1)
+// where the persistent ring ran).  complex64: float planes, 8 <= n <=
 // 8192.
 extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,

@@ -41,7 +41,10 @@ slices for x, per plane).
 
 ``fft2_fused`` and ``fft2_fused_tiled`` decide by the tensor's device alone.
 For a CUDA tensor they launch the kernel or raise; nothing falls back to
-the plain version.
+the plain version.  Each launch's C call is the span
+``pyfft.entry.<kernel>`` and adds one to the registry
+(``utils/profiling``): ``launch.K8.ring`` or ``launch.K8.first`` by what
+K8's entry returned, ``launch.K9``, ``launch.K8+K10``, ``launch.K9+K10``.
 """
 
 from __future__ import annotations
@@ -55,33 +58,23 @@ import torch
 from pyfft_tpu_torch.ops import local
 from pyfft_tpu_torch.ops.int8 import w_tables
 from pyfft_tpu_torch.planner import MAX_FUSED2D_ELEMS, MIN_TRAIL
+from pyfft_tpu_torch.utils.profiling import COUNTS, span
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "supported_2d_tiled", "fft2_fused_tiled", "fft2_tiled_plain",
            "tiled_cluster_size", "tiled_shape", "i8_stage", "design",
            "ring_shape", "clusters", "MAX_FUSED2D_TILED_ELEMS",
-           "RING_SHAPES", "LAUNCHES", "RING_LAUNCHES",
-           "TILED_LAUNCHES", "I8_LAUNCHES", "TILED_I8_LAUNCHES"]
+           "RING_SHAPES"]
 
-# Kernel launches made by _launch since the last reset (a caller sets it
-# to 0): the proof that a run went through the CUDA kernel.
-LAUNCHES = 0
-# Of those, the launches that ran the plane ring (csrc/fused2d.cu
-# fused2d_ring_kernel) and not the first design, counted where the C entry
-# returns RAN_RING.
-RING_LAUNCHES = 0
+# What K8's C entry returns where the plane ring (csrc/fused2d.cu
+# fused2d_ring_kernel) ran and not the first design.
 RAN_RING = -1
 # The (ny, nx) planes the ring takes (csrc/fused2d.cu PYFFT_FUSED2D_RING):
 # at most 2^17 points, but 256 x 512, where the first design ran faster; a
 # test holds them to the source's table.
 RING_SHAPES = ((128, 128), (128, 256), (128, 512), (128, 1024), (256, 128),
                (256, 256), (512, 128), (512, 256), (1024, 128))
-# The same for _launch_tiled (K9).
-TILED_LAUNCHES = 0
-# The same for the int8 kernels: K8 + K10 and K9 + K10.
-I8_LAUNCHES = 0
-TILED_I8_LAUNCHES = 0
 
 # The tiled kernel's largest plane (pallas_local.MAX_FUSED2D_TILED_ELEMS).
 MAX_FUSED2D_TILED_ELEMS = 1 << 20
@@ -412,19 +405,22 @@ def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
     twx = local._kernel_twiddles(nx, sign, re.device)
     ptrs = (r3.data_ptr(), i3.data_ptr(), o_r.data_ptr(), o_i.data_ptr(),
             twy.data_ptr(), twx.data_ptr())
+    k8 = name == "fused2d"
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if factors:
             fy, fx = (local.matrix_factor(f) for f in factors)
             wy = w_tables(fy, sign, re.device)
             wx = w_tables(fx, sign, re.device)
-            err = fn_i8(*ptrs, wy.data_ptr(), wx.data_ptr(), dims, ilog2(ny),
-                        ilog2(fy), ilog2(nx), ilog2(fx), int(sign),
-                        float(postscale), stream)
+            err = span("pyfft.entry.K8+K10" if k8 else "pyfft.entry.K9+K10",
+                       fn_i8, *ptrs, wy.data_ptr(), wx.data_ptr(), dims,
+                       ilog2(ny), ilog2(fy), ilog2(nx), ilog2(fx), int(sign),
+                       float(postscale), stream)
             name += "_i8"
         else:
-            err = fn(*ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
-                     float(postscale), stream)
+            err = span("pyfft.entry.K8" if k8 else "pyfft.entry.K9", fn,
+                       *ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
+                       float(postscale), stream)
     if ring and not factors and err == RAN_RING:
         return "ring"
     if err != 0:
@@ -437,17 +433,14 @@ def _launch(re, im, out_re, out_im, sign: int, postscale: float,
     """Launch csrc/fused2d.cu: K8, or with ``int8`` K8 + K10 (f from
     ``default_factors``); the caller (``fft2_fused``) has checked
     ``supported_2d``."""
-    global LAUNCHES, RING_LAUNCHES, I8_LAUNCHES
     ny, nx = re.shape[-2:]
     factors = ((local.default_factors(ny), local.default_factors(nx))
                if int8 else None)
     ran = _launch_with(_lib, "fused2d", re, im, out_re, out_im, sign,
                        postscale, factors, ring=True)
-    if ran and int8:
-        I8_LAUNCHES += 1
-    elif ran:
-        LAUNCHES += 1
-        RING_LAUNCHES += ran == "ring"
+    if ran:
+        COUNTS["launch.K8+K10" if int8 else "launch.K8.ring"
+               if ran == "ring" else "launch.K8.first"] += 1
     return out_re, out_im
 
 
@@ -456,16 +449,12 @@ def _launch_tiled(re, im, out_re, out_im, sign: int, postscale: float,
     """Launch csrc/fused2d_tiled.cu: K9, or with ``int8`` K9 + K10 (f
     from ``col_factors``); the caller (``fft2_fused_tiled``) has checked
     ``supported_2d_tiled``."""
-    global TILED_LAUNCHES, TILED_I8_LAUNCHES
     ny, nx = re.shape[-2:]
     factors = ((local.col_factors(ny), local.col_factors(nx))
                if int8 else None)
     if _launch_with(_tiled_lib, "fused2d_tiled", re, im, out_re, out_im,
                     sign, postscale, factors):
-        if int8:
-            TILED_I8_LAUNCHES += 1
-        else:
-            TILED_LAUNCHES += 1
+        COUNTS["launch.K9+K10" if int8 else "launch.K9"] += 1
     return out_re, out_im
 
 

@@ -17,25 +17,23 @@ For a CUDA tensor a conversion launches its kernel or raises; nothing
 falls back to the plain version.  The JAX kernels are 0/1 selection
 contractions over 256-lane chunks, a TPU tile; the kernels here take any
 n >= 1, and ``supported`` keeps the 256-lane rule only as the route's gate,
-so that both packages route alike.
+so that both packages route alike.  A launch's C call is the span
+``pyfft.entry.K13`` or ``pyfft.entry.K14`` and adds one to ``launch.K13``
+or ``launch.K14`` of the registry (``utils/profiling``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import numpy as np
 import torch
 
-__all__ = ["deinterleave", "interleave", "supported", "deinterleave_plain",
-           "interleave_plain", "DEINT_LAUNCHES", "INT_LAUNCHES"]
+from pyfft_tpu_torch.utils.profiling import COUNTS, span
 
-# Kernel launches of K13 (deinterleave) and K14 (interleave) since the last
-# reset (a caller sets them to 0): the proof that a run went through them.
-DEINT_LAUNCHES = 0
-INT_LAUNCHES = 0
+__all__ = ["deinterleave", "interleave", "supported", "deinterleave_plain",
+           "interleave_plain"]
 
 _PACK = 256            # the JAX kernel's lanes a selection chunk
 
@@ -128,14 +126,17 @@ def _launch(name: str, v: torch.Tensor, re: torch.Tensor, im: torch.Tensor):
         rows, n, v_rs, p_rs = 1, rows * n, 2 * rows * n, rows * n
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
+        fn = _fn(name)
         if name == "pyfft_deinterleave":
-            err = _fn(name)(v2.data_ptr(), r2.data_ptr(), i2.data_ptr(),
-                            rows, n, v_rs, p_rs, stream)
+            err = span("pyfft.entry.K13", fn, v2.data_ptr(), r2.data_ptr(),
+                       i2.data_ptr(), rows, n, v_rs, p_rs, stream)
         else:
-            err = _fn(name)(r2.data_ptr(), i2.data_ptr(), v2.data_ptr(),
-                            rows, n, v_rs, p_rs, stream)
+            err = span("pyfft.entry.K14", fn, r2.data_ptr(), i2.data_ptr(),
+                       v2.data_ptr(), rows, n, v_rs, p_rs, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    COUNTS["launch.K13" if name == "pyfft_deinterleave"
+           else "launch.K14"] += 1
 
 
 def deinterleave(v: torch.Tensor, *, out=None):
@@ -145,7 +146,6 @@ def deinterleave(v: torch.Tensor, *, out=None):
     the plain version for a CPU tensor.  ``out=(re, im)`` names the planes
     to write, which must not overlap ``v``.
     """
-    global DEINT_LAUNCHES
     if v.shape[-1] % 2:
         raise ValueError(f"an interleaved view has an even last axis, got "
                          f"{tuple(v.shape)}")
@@ -161,8 +161,6 @@ def deinterleave(v: torch.Tensor, *, out=None):
         out = (torch.empty(shape, dtype=v.dtype, device=v.device),
                torch.empty(shape, dtype=v.dtype, device=v.device))
     _launch("pyfft_deinterleave", v, *out)
-    if math.prod(shape):
-        DEINT_LAUNCHES += 1
     return out
 
 
@@ -173,7 +171,6 @@ def interleave(re: torch.Tensor, im: torch.Tensor, *, out=None):
     ``out`` names the (..., 2n) tensor to write, which must not overlap the
     planes.
     """
-    global INT_LAUNCHES
     if not re.is_cuda:
         v = interleave_plain(re, im)
         if out is None:
@@ -184,6 +181,4 @@ def interleave(re: torch.Tensor, im: torch.Tensor, *, out=None):
         out = torch.empty((*re.shape[:-1], 2 * re.shape[-1]), dtype=re.dtype,
                           device=re.device)
     _launch("pyfft_interleave", out, re, im)
-    if re.numel():
-        INT_LAUNCHES += 1
     return out

@@ -46,6 +46,11 @@ Two implementations of each function live here:
 
 ``fft_axis`` decides by the tensor's device alone.  For a CUDA tensor it
 launches a kernel or raises; nothing falls back to the plain version.
+Each launch's C call is the span ``pyfft.entry.<kernel>`` and adds one to
+``launch.<kernel>.<design>`` of the registry (``utils/profiling``), the
+design as the entry returned it: ``ring`` (RAN_RING), ``x`` (RAN_X, the
+cluster tile), ``pring`` (K5's persistent ring) or ``first``; an entry
+that reports none counts under ``launch.<kernel>``.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
 from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
                                      max_local_n)
 from pyfft_tpu_torch.reference import fft_planar
+from pyfft_tpu_torch.utils.profiling import COUNTS, span
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
@@ -73,50 +79,18 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "needed_tables_packed", "tables_from_numpy",
            "default_factors", "row_factors", "col_factors",
            "butterfly_factors", "precise_factors", "MAX_LOCAL_N",
-           "PACKED_INTERLEAVED", "LAUNCHES", "COL_LAUNCHES", "LAUNCHES_F64",
-           "COL_LAUNCHES_F64", "IL_LAUNCHES", "SWAP_LAUNCHES",
-           "CTILE_LAUNCHES", "I8_LAUNCHES", "COL_I8_LAUNCHES",
-           "SWAP_I8_LAUNCHES", "IL_I8_LAUNCHES", "matrix_factor",
+           "PACKED_INTERLEAVED", "matrix_factor",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
            "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
-           "RING_LAUNCHES", "RING_LAUNCHES_F64", "COL_RING_LAUNCHES",
-           "COL_X_LAUNCHES", "col_ring_shape", "col_xshape",
-           "fft_axis_fold", "fold_lanes"]
+           "col_ring_shape", "col_xshape", "fft_axis_fold", "fold_lanes"]
 
-# Kernel launches made by _launch_rows on float32 planes (K1) since the
-# last reset (a caller sets it to 0): the proof that a run went through the
-# CUDA kernel.
-LAUNCHES = 0
-# The same for _launch_cols on float32 planes (K5).
-COL_LAUNCHES = 0
-# The same for the float64 (complex128) kernels: rows K11, columns K12.
-LAUNCHES_F64 = 0
-COL_LAUNCHES_F64 = 0
-# The same for _launch_rows_il (K2, interleaved complex64 rows).
-IL_LAUNCHES = 0
-# Of the K1 and K2 launches, those that ran the row ring
-# (csrc/local_rows.cu local_rows_ring_kernel) and not the first design,
-# counted where their C entry returns RAN_RING (that source's constant).
-RING_LAUNCHES = 0
+# What a C entry returns where a redesign ran and not the first design
+# (the sources' constants): the row ring (csrc/local_rows.cu
+# local_rows_ring_kernel: K1, K2 and K11) or K5's persistent column ring
+# (csrc/local_cols.cu local_cols_pring_kernel), and the cluster tile
+# (local_cols_x_kernel: K5 in float, K12 in double).
 RAN_RING = -1
-# The same for K11 (the ring on double planes).
-RING_LAUNCHES_F64 = 0
-# Of the K5 launches, those that ran the persistent column ring
-# (csrc/local_cols.cu local_cols_pring_kernel: its C entry returns
-# RAN_RING) and the cluster tile (local_cols_x_kernel in float: RAN_X), not
-# the first design.
-COL_RING_LAUNCHES = 0
-COL_X_LAUNCHES = 0
 RAN_X = -2
-# The same for _launch_rows_swap (K4) and for _launch_cols with ctile (K6).
-SWAP_LAUNCHES = 0
-CTILE_LAUNCHES = 0
-# The same for the int8 instantiations (the stage K10): rows in K1, columns
-# in K5, the digit-swapped rows in K4, the interleaved rows in K2.
-I8_LAUNCHES = 0
-COL_I8_LAUNCHES = 0
-SWAP_I8_LAUNCHES = 0
-IL_I8_LAUNCHES = 0
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -662,7 +636,6 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
     K1 (K11 on float64 planes), or with ``i8_f`` K1 whose last stage is the
     f-point int8 stage K10.  The range of n is ``supported``'s check, made
     by ``fft_axis``."""
-    global LAUNCHES, LAUNCHES_F64, I8_LAUNCHES
     n = re.shape[-1]
     planes = (re, im, out_re, out_im)
     _check_planes("row", re, planes)
@@ -692,31 +665,34 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if i8_f:
             w = w_tables(i8_f, sign, re.device)
-            err = _rows_i8_fn()(*ptrs, w.data_ptr(), *args[:2], ilog2(i8_f),
-                                *args[2:], stream)
+            fn = _rows_i8_fn()
+            err = span("pyfft.entry.K1+K10", fn, *ptrs, w.data_ptr(),
+                       *args[:2], ilog2(i8_f), *args[2:], stream)
         else:
-            err = _rows_fn(re.dtype)(*ptrs, *args, stream)
+            fn = _rows_fn(re.dtype)
+            err = span("pyfft.entry.K11" if re.dtype == torch.float64
+                       else "pyfft.entry.K1", fn, *ptrs, *args, stream)
     if i8_f:
         _launched("local_rows_i8", err, False)
-        I8_LAUNCHES += 1
+        COUNTS["launch.K1+K10"] += 1
     elif re.dtype == torch.float64:
-        _launched("local_rows", err, True, "RING_LAUNCHES_F64")
-        LAUNCHES_F64 += 1
+        COUNTS["launch.K11.ring" if _launched("local_rows", err, True)
+               else "launch.K11.first"] += 1
     else:
-        _launched("local_rows", err, True)
-        LAUNCHES += 1
+        COUNTS["launch.K1.ring" if _launched("local_rows", err, True)
+               else "launch.K1.first"] += 1
     return out_re, out_im
 
 
-def _launched(name: str, err: int, ring: bool,
-              counter: str = "RING_LAUNCHES") -> None:
-    """Raise where the C entry ``name`` returned a failed launch; count a
-    launch of the row ring in ``counter`` where it returned RAN_RING (only
-    the entries of K1, K2 and K11, ``ring``, may)."""
+def _launched(name: str, err: int, ring: bool) -> bool:
+    """Whether the C entry ``name`` ran the row ring: it returned RAN_RING
+    (only the entries of K1, K2 and K11, ``ring``, may); raise where it
+    returned a failed launch."""
     if ring and err == RAN_RING:
-        globals()[counter] += 1
-    elif err != 0:
+        return True
+    if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return False
 
 
 ROWS_RING_KEYS = ("rows", "threads", "slots", "smem_bytes", "blocks_per_sm")
@@ -849,7 +825,6 @@ def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
     into ``out``, or with ``i8_f`` K2 whose last stage is the f-point int8
     stage K10 (``pyfft_local_rows_il_i8``); no synchronise.  Every check
     raises before the launch."""
-    global IL_LAUNCHES, IL_I8_LAUNCHES
     n = _il_n(v)
     if tuple(out.shape) != tuple(v.shape):
         raise ValueError(f"K2 output of shape {tuple(out.shape)}, expected "
@@ -874,18 +849,20 @@ def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         if i8_f:
             w = w_tables(i8_f, sign, v.device)
-            err = _rows_il_i8_fn()(v2.data_ptr(), o2.data_ptr(),
-                                   tw.data_ptr(), w.data_ptr(), *args[:2],
-                                   ilog2(i8_f), *args[2:], stream)
+            fn = _rows_il_i8_fn()
+            err = span("pyfft.entry.K2+K10", fn, v2.data_ptr(),
+                       o2.data_ptr(), tw.data_ptr(), w.data_ptr(), *args[:2],
+                       ilog2(i8_f), *args[2:], stream)
         else:
-            err = _rows_il_fn()(v2.data_ptr(), o2.data_ptr(), tw.data_ptr(),
-                                *args, stream)
+            fn = _rows_il_fn()
+            err = span("pyfft.entry.K2", fn, v2.data_ptr(), o2.data_ptr(),
+                       tw.data_ptr(), *args, stream)
     if i8_f:
         _launched("local_rows_il_i8", err, False)
-        IL_I8_LAUNCHES += 1
+        COUNTS["launch.K2+K10"] += 1
     else:
-        _launched("local_rows_il", err, True)
-        IL_LAUNCHES += 1
+        COUNTS["launch.K2.ring" if _launched("local_rows_il", err, True)
+               else "launch.K2.first"] += 1
     return out
 
 
@@ -1025,7 +1002,6 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
     is the f-point int8 stage K10, its alignment groups of
     ``swap_i8_group(n, lanes)`` rows; no synchronise.  The caller
     (``fft_rows_swap``) has checked n and n1."""
-    global SWAP_LAUNCHES, SWAP_I8_LAUNCHES
     shape = tuple(re.shape)
     n1, n = shape[-2:]
     L = math.prod(shape[:-2])
@@ -1073,20 +1049,19 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
         if i8_f:
             # K4 + K10: the int8 column kernel with K4's row load
             w = w_tables(i8_f, sign, re.device)
-            err = _rows_swap_i8_fn()(*ptrs, None, None, w.data_ptr(), dims,
-                                     ilog2(n), ilog2(i8_f), int(sign),
-                                     float(postscale), 0,
-                                     swap_i8_group(n, lanes), stream)
+            group = swap_i8_group(n, lanes)
+            fn = _rows_swap_i8_fn()
+            err = span("pyfft.entry.K4+K10", fn, *ptrs, None, None,
+                       w.data_ptr(), dims, ilog2(n), ilog2(i8_f), int(sign),
+                       float(postscale), 0, group, stream)
         else:
-            err = _rows_swap_fn()(*ptrs, dims, ilog2(n), int(sign),
-                                  float(postscale), stream)
+            fn = _rows_swap_fn()
+            err = span("pyfft.entry.K4", fn, *ptrs, dims, ilog2(n),
+                       int(sign), float(postscale), stream)
     if err != 0:
         name = "local_rows_swap_i8" if i8_f else "local_rows_swap"
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    if i8_f:
-        SWAP_I8_LAUNCHES += 1
-    else:
-        SWAP_LAUNCHES += 1
+    COUNTS["launch.K4+K10" if i8_f else "launch.K4"] += 1
     return out_re, out_im
 
 
@@ -1377,9 +1352,12 @@ def ring_shape(n: int) -> dict:
     return dict(zip(RING_SHAPE_KEYS, out))
 
 
-# What the complex64 column entry returns where a new design ran, and the
-# count of that design's launches.
-_COL_DESIGNS = {RAN_RING: "COL_RING_LAUNCHES", RAN_X: "COL_X_LAUNCHES"}
+# The registry's key of a K5 or K12 launch by what its C entry returned:
+# K5's persistent ring (RAN_RING), the cluster tile (RAN_X), the first
+# design (0).
+_K5_KEYS = {RAN_RING: "launch.K5.pring", RAN_X: "launch.K5.x",
+            0: "launch.K5.first"}
+_K12_KEYS = {RAN_X: "launch.K12.x", 0: "launch.K12.first"}
 # The lengths K5's persistent ring takes (csrc/local_cols.cu
 # PYFFT_COLS_PRING); a test holds them to the source's table.
 COL_RING_LENGTHS = (16, 32, 64, 128, 256)
@@ -1646,7 +1624,6 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
     (already clamped), or with ``i8_f`` the column kernel whose last stage
     is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
     ``supported`` and the modes."""
-    global COL_LAUNCHES, COL_LAUNCHES_F64, CTILE_LAUNCHES, COL_I8_LAUNCHES
     _check_planes("column", re, (re, im, out_re, out_im))
     ops = _col_operands(re, im, out_re, out_im, sign, axis=axis, tw_n=tw_n,
                         tw_mode=tw_mode, tw_period=tw_period,
@@ -1684,29 +1661,26 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         if ctile:
-            err = _ctile_fn()(*ptrs, int(ctile), stream)
+            fn = _ctile_fn()
+            err = span("pyfft.entry.K6", fn, *ptrs, int(ctile), stream)
         elif i8_f:
             w = w_tables(i8_f, sign, re.device)
-            err = fn(*ptrs[:7], w.data_ptr(), *ptrs[7:9], ilog2(i8_f),
-                     *ptrs[9:], int(bool(swap_store)), stream)
+            err = span("pyfft.entry.K5+K10", fn, *ptrs[:7], w.data_ptr(),
+                       *ptrs[7:9], ilog2(i8_f), *ptrs[9:],
+                       int(bool(swap_store)), stream)
         else:
-            err = fn(*ptrs, int(bool(swap_store)), stream)
-    design = _COL_DESIGNS.get(err) if re.dtype == torch.float32 and not (
-        ctile or i8_f) else None
-    if err != 0 and design is None:
+            err = span("pyfft.entry.K12" if re.dtype == torch.float64
+                       else "pyfft.entry.K5", fn, *ptrs,
+                       int(bool(swap_store)), stream)
+    if ctile or i8_f:
+        key = None if err else "launch.K6" if ctile else "launch.K5+K10"
+    else:
+        key = (_K12_KEYS if re.dtype == torch.float64 else _K5_KEYS).get(err)
+    if key is None:
         name = ("local_cols_ctile" if ctile else
                 "local_cols_i8" if i8_f else "local_cols")
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    if design:
-        globals()[design] += 1
-    if ctile:
-        CTILE_LAUNCHES += 1
-    elif i8_f:
-        COL_I8_LAUNCHES += 1
-    elif re.dtype == torch.float64:
-        COL_LAUNCHES_F64 += 1
-    else:
-        COL_LAUNCHES += 1
+    COUNTS[key] += 1
     return out_re, out_im
 
 

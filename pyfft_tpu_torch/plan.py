@@ -48,7 +48,16 @@ autotune record's ``il1d:{n}``, as in JAX, else the constant
 plan; the constants hold the winners ``chip_smoke.py`` measured on an
 H100 (PERF.md), and all three are read at call time.  No measured n disagreed with the others, so the single-pass route
 is one value, not a table by n.  Complex128 and ``force_xla`` plans take
-``"planes"``.  The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
+``"planes"``.
+
+``execute`` marks its host time in spans (``utils/profiling.span``), seen
+only while a torch profiler records: ``pyfft.execute`` around the whole
+call, ``pyfft.pass.<executor>`` around each step that runs kernels (an
+axis pass by its executor; the "fused" route's K2 call as
+``pyfft.pass.local``, the "stream" route's K13 and K14 calls as
+``pyfft.pass.deinterleave`` and ``pyfft.pass.interleave``) and
+``pyfft.wait`` around the closing synchronise; the kernels' C calls inside
+are ``pyfft.entry.<kernel>``.  The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
 no counterpart: it exists for a TPU without complex dtypes, and the port
 keeps complex tensors on the card.
 """
@@ -65,6 +74,7 @@ from pyfft_tpu_torch.ops import fourstep, fused2d, interleave, local
 from pyfft_tpu_torch.planner import AxisPass, ExecPlan, build_plan
 from pyfft_tpu_torch.reference import fft_planar
 from pyfft_tpu_torch.utils import tune
+from pyfft_tpu_torch.utils.profiling import span
 
 __all__ = ["Plan", "IL1D_ROUTE", "IL_MULTI_ROUTE"]
 
@@ -93,6 +103,9 @@ _HBM_BUDGET_CACHE: dict = {}
 # two result planes.  ``local`` and ``fused2d`` write the output directly.
 _LIVE_PLANES = {"local": 0, "fused2d": 0, "fourstep": 2, "huge": 4,
                 "plain": 6}
+
+# The span of an axis pass, by executor.
+_PASS_SPANS = {e: f"pyfft.pass.{e}" for e in _LIVE_PLANES}
 
 
 def _hbm_chunk_budget(device: torch.device) -> int | None:
@@ -292,8 +305,9 @@ class Plan:
         for idx, p in enumerate(passes):
             is_final = idx == len(passes) - 1
             post = scale_left if is_final else 1.0
-            re, im, scaled = self._run_axis_pass(re, im, p, sign, ndim, post,
-                                                 out)
+            re, im, scaled = span(_PASS_SPANS[p.executor],
+                                  self._run_axis_pass, re, im, p, sign, ndim,
+                                  post, out)
             # Only the final pass is handed the real scale; a non-final
             # pass reporting scaled=True merely folded postscale=1.0, so
             # clearing scale_left there would drop the 1/N normalization
@@ -370,13 +384,13 @@ class Plan:
             # the chain only picks the CPU plain version's stages
             factors = (None if self.fast_math or x.is_cuda
                        else local.precise_factors(self.shape[-1]))
-            local.fft_rows_interleaved(xf, +1 if inverse else -1,
-                                       postscale=self._norm(inverse),
-                                       factors=factors, out=yf)
+            span("pyfft.pass.local", local.fft_rows_interleaved, xf,
+                 +1 if inverse else -1, postscale=self._norm(inverse),
+                 factors=factors, out=yf)
             return
-        re, im = interleave.deinterleave(xf)
+        re, im = span("pyfft.pass.deinterleave", interleave.deinterleave, xf)
         re, im = self._run(re, im, inverse, (re, im))
-        interleave.interleave(re, im, out=yf)
+        span("pyfft.pass.interleave", interleave.interleave, re, im, out=yf)
 
     # -------------------------------------------------------------- execute
 
@@ -389,6 +403,10 @@ class Plan:
         Split form: ``execute(re, im)`` -> ``(re, im)`` (dispatch by arity).
         ``batch=k`` accepts a flat buffer holding k contiguous transforms.
         """
+        return span("pyfft.execute", self._execute, data, data_imag,
+                    inverse, batch, wait_for_finish)
+
+    def _execute(self, data, data_imag, inverse, batch, wait_for_finish):
         if data_imag is not None:
             re, re_shape = self._canonicalize(data, batch, planar=True)
             im, _ = self._canonicalize(data_imag, batch, planar=True)
@@ -405,7 +423,7 @@ class Plan:
         wait = (self.wait_for_finish if wait_for_finish is None
                 else wait_for_finish)
         if wait and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            span("pyfft.wait", torch.cuda.synchronize, self.device)
         return out
 
     # ------------------------------------------------------------- niceties

@@ -1,4 +1,4 @@
-"""Timing and tracing on the CUDA device.
+"""Timing, tracing and counting on the CUDA device.
 
 Counterpart of ``pyfft_tpu/utils/profiling.py``.  Device time comes from
 CUDA events; the roofline's bandwidth is measured on the card by a
@@ -7,19 +7,72 @@ without a CUDA device; ``trace`` records the CPU alone there.  The JAX
 package's ``force``, ``time_chained`` and ``time_scan_chain`` have no
 counterpart: they work around JAX's asynchronous dispatch, and CUDA events
 and ``time_queued_ms`` time the device directly.
+
+The program's own spans and counts live here too.  ``span(name, fn,
+*args)`` calls ``fn(*args)`` as a host interval of the program
+(``pyfft.execute``, ``pyfft.pass.<executor>``, ``pyfft.entry.<kernel>``,
+``pyfft.wait``) in whatever ``torch.profiler`` trace is recording, on the
+clock of the card's kernel records, and costs one flag check otherwise.
+``COUNTS`` is the one registry of counts, always on:
+``launch.<kernel>.<design>`` a launch whose C entry reported that design
+(``launch.<kernel>`` where the entry reports none; an int8 host is
+``<kernel>+K10``), and ``load_s.<library>`` the seconds ``ops/build.load``
+took to load a library, ``nvcc``'s build included.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import statistics
 import time
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["trace", "time_ms", "time_queued_ms", "copy_bandwidth_gbs",
-           "effective_gflops"]
+__all__ = ["trace", "span", "counts", "total", "reset", "COUNTS", "time_ms",
+           "time_queued_ms", "copy_bandwidth_gbs", "effective_gflops"]
+
+# The registry: every count and load time of the process since the last
+# ``reset``.  A site adds to it in place (``COUNTS[key] += 1``), as cheap
+# as a module global's increment.
+COUNTS: collections.defaultdict = collections.defaultdict(int)
+
+# Whether a torch profiler is recording: a C call, no Python state.
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` inside the program's span ``name``: a
+    ``record_function`` while a torch profiler records, so that it lands as
+    a ``user_annotation`` beside CUPTI's kernel records; else the bare
+    call, with no context entered, no name formed and nothing
+    allocated."""
+    if _recording():
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def counts() -> dict:
+    """A copy of the registry: each key that was added to, with its
+    value."""
+    return dict(COUNTS)
+
+
+def total(key: str):
+    """The sum of the registry's values under ``key``: its own and those of
+    the keys that extend it by a dot (``total("launch.K8")`` is
+    ``launch.K8.ring`` plus ``launch.K8.first``, not ``launch.K8+K10``)."""
+    below = key + "."
+    return sum(v for k, v in list(COUNTS.items())
+               if k == key or k.startswith(below))
+
+
+def reset() -> None:
+    """Empty the registry."""
+    COUNTS.clear()
 
 
 @contextlib.contextmanager

@@ -16,6 +16,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -211,7 +212,7 @@ def test_col_launch_checks_raise_before_any_launch():
     """The column kernel's wrapper validates its operands in Python; CPU
     planes handed to it directly are refused before the library is
     touched."""
-    before = local.COL_LAUNCHES
+    before = profiling.counts()
     z = torch.zeros(2, 64, 128)
     for dtype in (torch.float32, torch.float64):
         zz = z.to(dtype)
@@ -219,4 +220,4 @@ def test_col_launch_checks_raise_before_any_launch():
             local._launch_cols(zz, zz, zz, zz, -1, axis=1, postscale=1.0,
                                tw_n=0, tw_mode="full", tw_period=0,
                                swap_store=False, swap_mid=0)
-    assert local.COL_LAUNCHES == before
+    assert profiling.counts() == before

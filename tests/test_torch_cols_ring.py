@@ -32,6 +32,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
 
 from test_torch_cluster_cols import (CSRC, c_eval, col_modes, col_reference,
                                      k12_model, macro_cases)
@@ -550,13 +551,18 @@ def test_design_rule(n, layout, mode, monkeypatch):
 def test_dispatch_order_in_the_source():
     """The complex64 column entry tries the cluster table (planar, then
     stride-2 by the t stride), then the ring where pring_takes, and
-    returns RAN_X and RAN_RING from those launches only; the codes are the
-    wrapper's."""
+    returns RAN_X and RAN_RING from those launches only; the complex128
+    entry (K12) returns RAN_X from its cluster table through the same
+    macro; the codes are the wrapper's."""
     assert (RAN["ring"], RAN["x"]) == (local.RAN_RING, local.RAN_X)
+    f64 = COLS_SRC[COLS_SRC.index("    // K12: the cluster tile from n = "
+                                  "1024"):]
+    assert f64.index("PYFFT_XCOLS_F64_S2(PYFFT_XCOL)") < f64.index(
+        "PYFFT_XCOLS_F64(PYFFT_XCOL)")
     body = COLS_SRC[COLS_SRC.index("    // K5: the cluster tile from n = "
                                    "1024 (RAN_X)"):]
     marks = [body.index(m) for m in (
-        "PYFFT_XCOLS_F32_S2(PYFFT_XCOL32)", "PYFFT_XCOLS_F32(PYFFT_XCOL32)",
+        "PYFFT_XCOLS_F32_S2(PYFFT_XCOL)", "PYFFT_XCOLS_F32(PYFFT_XCOL)",
         "if (pring_takes(io, swap_store)) {", "PYFFT_COLS_PRING(PYFFT_PRING)",
         "return swap_store ? (int)dispatch<Real, MAXLOG, true>")]
     assert marks == sorted(marks)
@@ -586,38 +592,54 @@ def fake_launch(monkeypatch, err: int):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    for name in ("COL_LAUNCHES", "COL_RING_LAUNCHES", "COL_X_LAUNCHES",
-                 "COL_LAUNCHES_F64"):
-        monkeypatch.setattr(local, name, 0)
+    profiling.reset()
     return called
 
 
 @pytest.mark.parametrize("err,ring,x", [(-1, 1, 0), (-2, 0, 1), (0, 0, 0)])
 def test_design_launches_counted(monkeypatch, err, ring, x):
-    """COL_RING_LAUNCHES and COL_X_LAUNCHES count the K5 launches whose C
-    entry returned RAN_RING and RAN_X; COL_LAUNCHES counts every one."""
+    """``launch.K5.pring`` and ``launch.K5.x`` count the K5 launches whose
+    C entry returned RAN_RING and RAN_X, ``launch.K5.first`` the others;
+    ``total("launch.K5")`` counts every one."""
     called = fake_launch(monkeypatch, err)
     re_, im_ = dispatch_planes("planar", 256, 128)
     local._launch_cols(re_, im_, re_.clone(), im_.clone(), -1, axis=1,
                        postscale=1.0, tw_n=0, tw_mode="full", tw_period=0,
                        swap_store=False, swap_mid=0)
     assert len(called) == 1
-    assert (local.COL_LAUNCHES, local.COL_RING_LAUNCHES,
-            local.COL_X_LAUNCHES) == (1, ring, x)
+    assert (profiling.total("launch.K5"), profiling.total("launch.K5.pring"),
+            profiling.total("launch.K5.x")) == (1, ring, x)
+    assert profiling.total("launch.K5.first") == 1 - ring - x
 
 
 @pytest.mark.parametrize("err,dtype", [(700, torch.float32),
                                        (1, torch.float32),
                                        (-1, torch.float64),
-                                       (-2, torch.float64)])
+                                       (700, torch.float64)])
 def test_failed_launch_raises(monkeypatch, err, dtype):
-    """A failed launch raises and counts nothing; RAN_RING or RAN_X from
-    the complex128 entry (whose designs return 0) is a failure too."""
+    """A failed launch raises and counts nothing; RAN_RING from the
+    complex128 entry (K12 has no ring) is a failure too."""
     fake_launch(monkeypatch, err)
     re_, im_ = (t.to(dtype) for t in dispatch_planes("planar", 256, 128))
     with pytest.raises(RuntimeError, match="local_cols launch failed"):
         local._launch_cols(re_, im_, re_.clone(), im_.clone(), -1, axis=1,
                            postscale=1.0, tw_n=0, tw_mode="full",
                            tw_period=0, swap_store=False, swap_mid=0)
-    assert (local.COL_LAUNCHES, local.COL_RING_LAUNCHES, local.COL_X_LAUNCHES,
-            local.COL_LAUNCHES_F64) == (0, 0, 0, 0)
+    assert profiling.counts() == {}
+
+
+@pytest.mark.parametrize("err,x", [(-2, 1), (0, 0)])
+def test_k12_design_launches_counted(monkeypatch, err, x):
+    """``launch.K12.x`` counts the K12 launches whose C entry returned
+    RAN_X (the cluster tile), ``launch.K12.first`` the others; K5's counts
+    stay."""
+    called = fake_launch(monkeypatch, err)
+    re_, im_ = (t.to(torch.float64)
+                for t in dispatch_planes("planar", 256, 128))
+    local._launch_cols(re_, im_, re_.clone(), im_.clone(), -1, axis=1,
+                       postscale=1.0, tw_n=0, tw_mode="full", tw_period=0,
+                       swap_store=False, swap_mid=0)
+    assert len(called) == 1
+    assert (profiling.total("launch.K12"),
+            profiling.total("launch.K12.x")) == (1, x)
+    assert profiling.total("launch.K5") == 0

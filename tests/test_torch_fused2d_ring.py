@@ -33,6 +33,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import fused2d, local
+from pyfft_tpu_torch.utils import profiling
 
 from test_torch_cluster_cols import CSRC, c_eval, macro_cases
 from test_torch_rows_ring import butterfly_twiddles, c_bool, radices
@@ -689,22 +690,22 @@ def stub_entry(monkeypatch, err):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(fused2d, "RING_LAUNCHES", 0)
-    monkeypatch.setattr(fused2d, "LAUNCHES", 0)
-    monkeypatch.setattr(fused2d, "I8_LAUNCHES", 0)
+    profiling.reset()
     return called
 
 
 @pytest.mark.parametrize("err,ring", [(RAN_RING, 1), (0, 0)])
 def test_ring_launches_counted(monkeypatch, err, ring):
-    """RING_LAUNCHES counts a K8 launch whose C entry returned RAN_RING
-    (the ring ran), and only that; LAUNCHES counts it either way."""
+    """``launch.K8.ring`` counts a K8 launch whose C entry returned
+    RAN_RING (the ring ran), and only that; ``total("launch.K8")`` counts
+    it either way."""
     called = stub_entry(monkeypatch, err)
     re_t = torch.zeros(2, 256, 256)
     im_t = torch.zeros(2, 256, 256)
     fused2d._launch(re_t, im_t, re_t.clone(), im_t.clone(), -1, 1.0)
     assert len(called) == 1
-    assert (fused2d.LAUNCHES, fused2d.RING_LAUNCHES) == (1, ring)
+    assert (profiling.total("launch.K8"),
+            profiling.total("launch.K8.ring")) == (1, ring)
 
 
 @pytest.mark.parametrize("err,int8", [(7, False), (700, False),
@@ -721,8 +722,7 @@ def test_failed_launch_raises(monkeypatch, err, int8):
     with pytest.raises(RuntimeError, match=f"{name} launch failed"):
         fused2d._launch(re_t, im_t, re_t.clone(), im_t.clone(), -1, 1.0,
                         int8=int8)
-    assert (fused2d.LAUNCHES, fused2d.RING_LAUNCHES,
-            fused2d.I8_LAUNCHES) == (0, 0, 0)
+    assert profiling.counts() == {}
 
 
 def test_tiled_entry_has_no_ring(monkeypatch):
@@ -741,9 +741,9 @@ def test_tiled_entry_has_no_ring(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(fused2d, "TILED_LAUNCHES", 0)
+    profiling.reset()
     re_t = torch.zeros(1, 1024, 1024)
     with pytest.raises(RuntimeError, match="fused2d_tiled launch failed"):
         fused2d._launch_tiled(re_t, re_t.clone(), re_t.clone(),
                               re_t.clone(), -1, 1.0)
-    assert len(called) == 1 and fused2d.TILED_LAUNCHES == 0
+    assert len(called) == 1 and profiling.counts() == {}

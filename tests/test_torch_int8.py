@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import fused2d, int8, local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -301,7 +302,7 @@ def test_every_host_takes_int8():
 def test_int8_launch_checks_raise_before_any_launch():
     """The int8 launch wrappers refuse CPU planes before the library is
     touched."""
-    before = (local.I8_LAUNCHES, local.COL_I8_LAUNCHES)
+    before = profiling.counts()
     z = torch.zeros(2, 64, 256)
     with pytest.raises(ValueError):
         local._launch_rows(z, z, z, z, -1, 1.0, i8_f=64)
@@ -309,7 +310,7 @@ def test_int8_launch_checks_raise_before_any_launch():
         local._launch_cols(z, z, z, z, -1, axis=1, postscale=1.0, tw_n=0,
                            tw_mode="full", tw_period=0, swap_store=False,
                            swap_mid=0, i8_f=64)
-    assert (local.I8_LAUNCHES, local.COL_I8_LAUNCHES) == before
+    assert profiling.counts() == before
 
 
 @pytest.mark.parametrize("n,chain,f", [
@@ -392,10 +393,11 @@ def test_int8_kernels_on_the_card():
     x = rand_complex((3, 256, 384), seed=30)
     re, im = (t.cuda() for t in torch_planes(x))
     for axis in (-1, 1):
-        b = (local.I8_LAUNCHES, local.COL_I8_LAUNCHES)
+        key = "launch.K1+K10" if axis == -1 else "launch.K5+K10"
+        b = profiling.total(key)
         got = local.fft_axis(re, im, -1, axis=axis, precision="int8")
         torch.cuda.synchronize()
-        assert (local.I8_LAUNCHES + local.COL_I8_LAUNCHES) == sum(b) + 1
+        assert profiling.total(key) == b + 1
         if axis == -1:
             want = local.fft_rows_plain(re, im, -1, precision="int8")
         else:

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import fused2d, local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -278,10 +279,7 @@ def test_fold_refusals():
 def test_int8_host_launch_checks_raise_before_any_launch():
     """The new int8 launch wrappers refuse CPU planes before the library
     is touched."""
-    counts = lambda: (local.SWAP_I8_LAUNCHES, fused2d.I8_LAUNCHES,
-                      fused2d.TILED_I8_LAUNCHES, local.SWAP_LAUNCHES,
-                      fused2d.LAUNCHES, fused2d.TILED_LAUNCHES)
-    before = counts()
+    before = profiling.counts()
     z = torch.zeros(2, 128, 128)
     with pytest.raises(ValueError, match="CUDA"):
         local._launch_rows_swap(z, z, z.clone(), z.clone(), -1, 1.0,
@@ -290,7 +288,7 @@ def test_int8_host_launch_checks_raise_before_any_launch():
         fused2d._launch(z, z, z, z, -1, 1.0, int8=True)
     with pytest.raises(ValueError, match="CUDA"):
         fused2d._launch_tiled(z, z, z, z, -1, 1.0, int8=True)
-    assert counts() == before
+    assert profiling.counts() == before
 
 
 @pytest.mark.cuda
@@ -301,26 +299,25 @@ def test_int8_hosts_on_the_card():
         pytest.skip("needs a CUDA card")
     x = rand_complex((2, 128, 256), seed=46)
     re, im = (t.cuda() for t in torch_planes(x))
-    for fn, plain, count in (
+    for fn, plain, key in (
             (local.fft_rows_swap, local.fft_rows_swap_plain,
-             lambda: local.SWAP_I8_LAUNCHES),
-            (fused2d.fft2_fused, fused2d.fft2_plain,
-             lambda: fused2d.I8_LAUNCHES),
+             "launch.K4+K10"),
+            (fused2d.fft2_fused, fused2d.fft2_plain, "launch.K8+K10"),
             (fused2d.fft2_fused_tiled, fused2d.fft2_tiled_plain,
-             lambda: fused2d.TILED_I8_LAUNCHES)):
-        before = count()
+             "launch.K9+K10")):
+        before = profiling.total(key)
         got = fn(re, im, -1, precision="int8")
         torch.cuda.synchronize()
-        assert count() == before + 1
+        assert profiling.total(key) == before + 1
         want = plain(re, im, -1, precision="int8")
         assert rel_err(cplx([t.cpu() for t in got]),
                        cplx([t.cpu() for t in want])) < C64
     x = rand_complex((2, 128, 8, 128), seed=47)
     re, im = (t.cuda() for t in torch_planes(x))
-    before = local.COL_I8_LAUNCHES
+    before = profiling.total("launch.K5+K10")
     got = local.fft_axis_fold(re, im, -1, axis=1, precision="int8", by=2)
     torch.cuda.synchronize()
-    assert local.COL_I8_LAUNCHES == before + 1
+    assert profiling.total("launch.K5+K10") == before + 1
     want = local.fft_cols_plain(re.view(2, 128, 1024), im.view(2, 128, 1024),
                                 -1, precision="int8", lanes=128)
     assert rel_err(cplx([t.cpu().reshape(2, 128, 1024) for t in got]),

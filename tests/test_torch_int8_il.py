@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -114,13 +115,13 @@ def test_il_int8_out_and_leading_axes():
     n = 512
     x = rand_complex((2, 64, n), seed=52)
     want = port(x.reshape(128, n), -1, 0.3, precision="int8")
-    before = (local.IL_I8_LAUNCHES, local.IL_LAUNCHES)
+    before = profiling.counts()
     v = torch.from_numpy(pairs(x).copy())
     got = local.fft_rows_interleaved(v, -1, postscale=0.3, precision="int8",
                                      out=v)
     assert got is v and tuple(v.shape) == (2, 64, 2 * n)
     assert np.array_equal(v.numpy().view(np.complex64).reshape(128, n), want)
-    assert (local.IL_I8_LAUNCHES, local.IL_LAUNCHES) == before
+    assert profiling.counts() == before
 
 
 def test_il_int8_packed_refused_by_both():
@@ -167,10 +168,10 @@ def test_il_int8_kernel_on_the_card():
         pytest.skip("needs a CUDA card")
     x = rand_complex((384, 2048), seed=55)
     v = torch.from_numpy(pairs(x)).cuda()
-    before = local.IL_I8_LAUNCHES
+    before = profiling.total("launch.K2+K10")
     got = local.fft_rows_interleaved(v, -1, postscale=0.3, precision="int8")
     torch.cuda.synchronize()
-    assert local.IL_I8_LAUNCHES == before + 1
+    assert profiling.total("launch.K2+K10") == before + 1
     want = local.fft_rows_interleaved_plain(v, -1, 0.3, precision="int8")
     g, w = (t.cpu().numpy().view(np.complex64) for t in (got, want))
     assert tiles_err(g, w) < C64

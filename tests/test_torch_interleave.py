@@ -22,6 +22,7 @@ import torch
 from pyfft_tpu.ops import interleave as jax_il
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import interleave, local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -102,11 +103,11 @@ def test_interleave_launch_checks_raise(case):
         re = torch.zeros(4, 512)[:, ::2]
     elif case == "float64":
         v = v.double()
-    before = (interleave.DEINT_LAUNCHES, interleave.INT_LAUNCHES)
+    before = profiling.counts()
     for name in ("pyfft_deinterleave", "pyfft_interleave"):
         with pytest.raises(ValueError):
             interleave._launch(name, v, re, im)
-    assert (interleave.DEINT_LAUNCHES, interleave.INT_LAUNCHES) == before
+    assert profiling.counts() == before
 
 
 # ------------------------------------------------------------------- K2
@@ -229,7 +230,7 @@ def test_il_launch_checks_raise_before_any_launch(case):
         v, out = buf[:4], buf[1:]
     elif case == "float64":
         v, out = v.double(), out.double()
-    before = local.IL_LAUNCHES
+    before = profiling.counts()
     with pytest.raises(ValueError) as err:
         local._launch_rows_il(v, out, -1, 1.0)
     if case == "misaligned":
@@ -238,4 +239,4 @@ def test_il_launch_checks_raise_before_any_launch(case):
         assert "K2 takes n" in str(err.value)
     elif case == "cpu":
         assert "CUDA" in str(err.value)
-    assert local.IL_LAUNCHES == before
+    assert profiling.counts() == before

@@ -19,6 +19,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -188,9 +189,9 @@ def test_fft_axis_raises_outside_kernel(shape, axis, dtype):
 def test_launch_checks_raise_before_any_launch():
     """The kernel wrapper validates its operands in Python; a CPU tensor
     handed to it directly is refused before the library is touched."""
-    before = local.LAUNCHES
+    before = profiling.counts()
     for dtype in (torch.float32, torch.float64):
         z = torch.zeros(2, 64, dtype=dtype)
         with pytest.raises(ValueError):
             local._launch_rows(z, z, z, z, -1, 1.0)
-    assert local.LAUNCHES == before
+    assert profiling.counts() == before

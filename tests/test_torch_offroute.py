@@ -18,6 +18,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import fused2d, local
+from pyfft_tpu_torch.utils import profiling
 
 from helpers import TOL, rand_complex, rel_err
 
@@ -138,11 +139,11 @@ def test_rows_swap_refuses_float64_and_in_place():
 
 def test_rows_swap_launch_checks_raise_before_any_launch():
     """K4's wrapper refuses CPU planes before the library is touched."""
-    before = local.SWAP_LAUNCHES
+    before = profiling.counts()
     z, o = torch.zeros(2, 128, 64), torch.zeros(2, 64, 128)
     with pytest.raises(ValueError):
         local._launch_rows_swap(z, z, o, o, -1, 1.0)
-    assert local.SWAP_LAUNCHES == before
+    assert profiling.counts() == before
 
 
 # ------------------------------------------------------------------ K6
@@ -223,13 +224,13 @@ def test_cols_ctile_refuses_operands(shape, axis, dtype):
 
 
 def test_ctile_launch_checks_raise_before_any_launch():
-    before = local.CTILE_LAUNCHES
+    before = profiling.counts()
     z = torch.zeros(2, 64, 256)
     with pytest.raises(ValueError):
         local._launch_cols(z, z, z, z, -1, axis=1, postscale=1.0, tw_n=0,
                            tw_mode="full", tw_period=0, swap_store=False,
                            swap_mid=0, ctile=2)
-    assert local.CTILE_LAUNCHES == before
+    assert profiling.counts() == before
 
 
 # ------------------------------------------------------------------ K9
@@ -305,8 +306,8 @@ def test_fused2d_tiled_refuses_and_checks_before_launch():
     with pytest.raises(ValueError):
         fused2d.fft2_fused_tiled(torch.zeros(128, 128, device="meta"),
                                  torch.zeros(128, 128, device="meta"), -1)
-    before = fused2d.TILED_LAUNCHES
+    before = profiling.counts()
     z = torch.zeros(128, 128)
     with pytest.raises(ValueError):
         fused2d._launch_tiled(z, z, z, z, -1, 1.0)
-    assert fused2d.TILED_LAUNCHES == before
+    assert profiling.counts() == before

@@ -31,6 +31,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
 
 from test_torch_cluster_cols import CSRC, c_eval, macro_cases
 
@@ -537,8 +538,9 @@ def test_ran_ring_is_the_sources():
 
 @pytest.mark.parametrize("err,ring", [(local.RAN_RING, 1), (0, 0)])
 def test_ring_launches_counted(monkeypatch, err, ring):
-    """RING_LAUNCHES counts a K1 launch whose C entry returned RAN_RING
-    (the ring ran), and only that; LAUNCHES counts it either way.  The
+    """``launch.K1.ring`` counts a K1 launch whose C entry returned
+    RAN_RING (the ring ran), and only that; ``total("launch.K1")`` counts
+    it either way.  The
     launch itself is replaced here (no card), the wrapper is K1's own."""
     called = []
 
@@ -552,12 +554,12 @@ def test_ring_launches_counted(monkeypatch, err, ring):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(local, "RING_LAUNCHES", 0)
-    monkeypatch.setattr(local, "LAUNCHES", 0)
+    profiling.reset()
     re, im = ring_planes("planar")
     local._launch_rows(re, im, re.clone(), im.clone(), -1, 1.0)
     assert len(called) == 1
-    assert (local.LAUNCHES, local.RING_LAUNCHES) == (1, ring)
+    assert (profiling.total("launch.K1"),
+            profiling.total("launch.K1.ring")) == (1, ring)
 
 
 @pytest.mark.parametrize("name,err,ring", [
@@ -567,10 +569,10 @@ def test_ring_launches_counted(monkeypatch, err, ring):
 def test_failed_launch_raises(monkeypatch, name, err, ring):
     """A failed launch raises and counts nothing; RAN_RING from an entry
     that has no ring (K11, the int8 kernels) is a failure too."""
-    monkeypatch.setattr(local, "RING_LAUNCHES", 0)
+    profiling.reset()
     with pytest.raises(RuntimeError, match=f"{name} launch failed"):
         local._launched(name, err, ring)
-    assert local.RING_LAUNCHES == 0
+    assert profiling.counts() == {}
 
 
 # ------------------------------------------- K11: the ring on double planes
@@ -711,21 +713,21 @@ def test_ring_f64_dispatch_rule(log2n, ring):
 
 @pytest.mark.parametrize("err,ring", [(local.RAN_RING, 1), (0, 0)])
 def test_ring_f64_launches_counted(monkeypatch, err, ring):
-    """RING_LAUNCHES_F64 counts a K11 launch whose C entry returned
-    RAN_RING, LAUNCHES_F64 every K11 launch; K1's counts stay."""
+    """``launch.K11.ring`` counts a K11 launch whose C entry returned
+    RAN_RING, ``total("launch.K11")`` every K11 launch; K1's counts
+    stay."""
     monkeypatch.setattr(local, "_rows_fn", lambda dtype: lambda *a: err)
     monkeypatch.setattr(local, "_check_planes", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    for name in ("RING_LAUNCHES", "RING_LAUNCHES_F64", "LAUNCHES",
-                 "LAUNCHES_F64"):
-        monkeypatch.setattr(local, name, 0)
+    profiling.reset()
     re, im = ring_planes("planar", torch.float64)
     local._launch_rows(re, im, re.clone(), im.clone(), -1, 1.0)
-    assert (local.LAUNCHES_F64, local.RING_LAUNCHES_F64) == (1, ring)
-    assert (local.LAUNCHES, local.RING_LAUNCHES) == (0, 0)
+    assert (profiling.total("launch.K11"),
+            profiling.total("launch.K11.ring")) == (1, ring)
+    assert profiling.total("launch.K1") == 0
 
 
 def test_ring_f64_failed_launch_raises(monkeypatch):
@@ -736,12 +738,11 @@ def test_ring_f64_failed_launch_raises(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(local, "RING_LAUNCHES_F64", 0)
-    monkeypatch.setattr(local, "LAUNCHES_F64", 0)
+    profiling.reset()
     re, im = ring_planes("planar", torch.float64)
     with pytest.raises(RuntimeError, match="local_rows launch failed"):
         local._launch_rows(re, im, re.clone(), im.clone(), -1, 1.0)
-    assert (local.LAUNCHES_F64, local.RING_LAUNCHES_F64) == (0, 0)
+    assert profiling.counts() == {}
 
 
 @pytest.mark.parametrize("log2n", [6, 10, 11])
