@@ -4,7 +4,7 @@
 
 Drives the package's main paths through ``Plan`` and the functional API on
 the card and holds every kernel against its plain torch version and
-numpy.fft, in twenty-five phases, one or more lines each:
+numpy.fft, in twenty-six phases, one or more lines each:
 
   1. device: requires CUDA (there is no CPU path) and prints the card's
      name and power limit as nvidia-smi reports them;
@@ -203,7 +203,13 @@ numpy.fft, in twenty-five phases, one or more lines each:
  25. ``utils/profiling.trace`` around a config 2 ``Plan.execute``: the
      trace file it writes holds K1's ring kernel
      (``local_rows_ring_kernel``) as a CUPTI kernel record, and the
-     result holds numpy's.  Phases 23-25 each print their seconds.
+     result holds numpy's.  Phases 23-25 each print their seconds;
+ 26. config 4's call record (``Plan``'s replay of its recorded launches):
+     on two inputs of one layout, both directions, the replayed output
+     equals the generic path's (a new plan's first call) bit for bit, on
+     the default stream and on a side stream, with the same launches, and
+     the registry counts the misses and hits; the host's milliseconds a
+     waited call, generic against replayed, for context.
 
 The complex64 checks gate at 2e-6 and the complex128 ones at 1e-11, the
 max error over the reference's peak magnitude.  Any failure raises and the
@@ -217,6 +223,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -331,8 +338,10 @@ K8_DESIGNS = {"ring": 0, "first": 0, "wrong": []}
 
 
 def watch_k8_designs() -> None:
-    """Hold every float K8 launch of the run, whatever phase makes it,
-    against the design its table names (``fused2d.design``: the plane ring
+    """Hold every float K8 launch of the run's generic path, whatever
+    phase makes it (a plan's replay calls the same entry with the same
+    arguments as the call it recorded), against the design its table
+    names (``fused2d.design``: the plane ring
     on the shapes of PYFFT_FUSED2D_RING and planes its tensor maps read,
     else the first design), by the ring's launch count; main() fails at
     the end on any launch that ran the other."""
@@ -3736,6 +3745,76 @@ def phase_trace() -> dict:
     return out
 
 
+def phase_record() -> dict:
+    """Phase 26: config 4's call record.  A plan's first call with a
+    layout runs the generic path and records its launches; a later call
+    with that layout replays them.  On two inputs, both directions, the
+    replayed output equals a new plan's first call, the generic path, bit
+    for bit, on the default stream and on a side stream; the launches are
+    the generic path's, and the registry counts the records' misses and
+    hits.  Also printed: the host time of a waited call, generic (a new
+    plan each call) and replayed, the median of 20 each."""
+    import pyfft_tpu_torch
+    from pyfft_tpu_torch.utils import profiling
+    print(f"phase 26 card: {card()}")
+    t0 = time.perf_counter()
+    shape = (256, 256, 256)
+    xs = [make_data(shape, 260 + i) for i in range(2)]
+    plan = pyfft_tpu_torch.Plan(shape, device="cuda")
+    side = torch.cuda.Stream()
+    reset_counts()
+    plan.execute(plan.execute(xs[0]), inverse=True)     # the two misses
+    errs = []
+    for x in xs:
+        for stream in (torch.cuda.current_stream(), side):
+            with torch.cuda.stream(stream):
+                y = plan.execute(x)
+                back = plan.execute(y, inverse=True)
+                fresh = pyfft_tpu_torch.Plan(shape, device="cuda")
+                gy = fresh.execute(x)
+                gb = fresh.execute(y, inverse=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, gy) and torch.equal(back, gb)):
+                raise AssertionError("phase 26: a replayed call differs "
+                                     "from the generic path")
+        errs.append(rel_err(back, x))
+    check("phase 26 config 4 replayed roundtrip", max(errs))
+    counts = read_counts()
+    records = {k: v for k, v in profiling.counts().items()
+               if k.startswith("record.")}
+    # 2 misses, then on each input and stream 2 hits and a new plan's 2
+    want = {"record.miss": 2 + 8, "record.hit": 8}
+    if counts != expect({"fused2d": 18, "local_cols": 18}) or \
+            records != want:
+        raise AssertionError(f"phase 26: launches {counts}, records "
+                             f"{records}, expected {want}")
+
+    def host_ms(make):
+        out = []
+        for _ in range(20):
+            p = make()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p.execute(xs[0])
+            out.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(out)
+
+    generic = host_ms(lambda: pyfft_tpu_torch.Plan(shape, device="cuda"))
+    replayed = host_ms(lambda: plan)
+    out = {"counts": counts, "records": records, "err": max(errs),
+           "generic_ms": generic, "replayed_ms": replayed,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 26 config 4 call record: replayed == generic bit for bit "
+          f"on 2 inputs x 2 directions x 2 streams; launches "
+          f"{ {k: v for k, v in counts.items() if v} }, records {records}; "
+          f"roundtrip err {max(errs):.3e}; a waited call {generic:.4f} ms "
+          f"generic, {replayed:.4f} ms replayed (host clock, median of 20); "
+          f"phase 26 took {out['seconds']:.1f} s")
+    del xs, y, back, gy, gb
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, timed, checks, launches, shape):
     """One kernel's record for the kernels line: its timed passes summed
     (they compute one function together), its errors over every pass check
@@ -3810,11 +3889,12 @@ def main() -> int:
     auto = phase_autotune(tune_file)
     sweep = phase_sweep()
     traced = phase_trace()
+    recorded = phase_record()
     tune_dir.cleanup()
 
     launches = dict(counts2)
     for r in (*results.values(), *results64.values(), il, rl, off, i8, i8h,
-              i8il, dist, auto, sweep, traced):
+              i8il, dist, auto, sweep, traced, recorded):
         for k, v in r["counts"].items():
             launches[k] += v
     checks = [c for r in (*results.values(), *results64.values())
@@ -3975,7 +4055,10 @@ def main() -> int:
                       "sweep": {k: sweep[k] for k in ("unswept", "swept",
                                                       "seconds")},
                       "trace": {k: traced[k] for k in
-                                ("kernel", "kernel_us", "seconds")}}))
+                                ("kernel", "kernel_us", "seconds")},
+                      "record": {k: recorded[k] for k in
+                                 ("generic_ms", "replayed_ms", "err",
+                                  "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

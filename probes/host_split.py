@@ -24,7 +24,9 @@ in turn (3 windows each), so the clocked spans' own cost shows as the
 difference in calls a second.
 
 Also measured: one span site's cost with no profiler running (a 7-argument
-function through ``span`` against the bare call) and with one recording.
+function through ``span`` against the bare call) and with one recording;
+and counted: the calls that replayed ``Plan``'s call record, recorded one
+or ran the generic path (the registry's ``record.*``).
 
 Prints the card's name and power limit first and one JSON object of every
 number last.  Needs a CUDA device; raises without one.
@@ -46,10 +48,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from pyfft_tpu_torch import Plan, plan as plan_mod     # noqa: E402
-from pyfft_tpu_torch.ops import fused2d, interleave, local   # noqa: E402
+from pyfft_tpu_torch.ops import launch                  # noqa: E402
 from pyfft_tpu_torch.utils import profiling            # noqa: E402
 
-SITES = (plan_mod, fused2d, interleave, local)
+SITES = (plan_mod, launch)
 LAYERS = (("facade", "pyfft.execute"), ("executor", "pyfft.pass."),
           ("entry", "pyfft.entry."), ("wait", "pyfft.wait"))
 
@@ -166,6 +168,9 @@ def main():
                                               for k, v in med.items()},
               "plain calls/s:", [round(r["calls_per_s"], 1)
                                  for r in rows["plain"]], flush=True)
+    # the calls that replayed a call record, recorded one or ran generic
+    out["records"] = {k: v for k, v in profiling.counts().items()
+                      if k.startswith("record.")}
     out["site_off_us"] = [site_cost_us() for _ in range(3)]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):

@@ -56,9 +56,9 @@ import math
 import torch
 
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.ops.launch import Launch, run
 from pyfft_tpu_torch.ops.int8 import w_tables
 from pyfft_tpu_torch.planner import MAX_FUSED2D_ELEMS, MIN_TRAIL
-from pyfft_tpu_torch.utils.profiling import COUNTS, span
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
@@ -363,17 +363,17 @@ def design(re, im) -> str:
     return "ring" if local._boxable(r3, i3) else "first"
 
 
-def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
-                 postscale: float, factors=None, ring: bool = False):
-    """Launch the kernel of library ``name`` over the (L, ny, nx) view of
+def _prepare(libs, name: str, re, im, out_re, out_im, sign: int,
+             postscale: float, factors=None, ring: bool = False):
+    """The launch of library ``name``'s kernel over the (L, ny, nx) view of
     the planes, after the checks; ``libs()`` gives its typed (launch,
     launch_i8, cluster) entry points.  With ``factors`` (the chains of y
     and x) the int8 kernel runs, its stages' f the chains' matrix factors.
-    K8 and K9 share this C interface, the checks and the tables.  No
-    synchronise.  Returns the design that ran, "ring" where the entry
-    returned RAN_RING (only K8's float entry, ``ring``, may) or "first",
-    and None when there is nothing to launch; any other non-zero return
-    raises."""
+    K8 and K9 share this C interface, the checks and the tables.  The
+    launch counts ``launch.K8.ring`` where the entry returns RAN_RING (only
+    K8's float entry, ``ring``, may), else ``launch.K8.first``,
+    ``launch.K9``, ``launch.K8+K10`` or ``launch.K9+K10``; any other
+    non-zero return raises.  None when there is nothing to launch."""
     shape = tuple(re.shape)
     ny, nx = shape[-2:]
     L = math.prod(shape[:-2])
@@ -405,42 +405,35 @@ def _launch_with(libs, name: str, re, im, out_re, out_im, sign: int,
     twx = local._kernel_twiddles(nx, sign, re.device)
     ptrs = (r3.data_ptr(), i3.data_ptr(), o_r.data_ptr(), o_i.data_ptr(),
             twy.data_ptr(), twx.data_ptr())
-    k8 = name == "fused2d"
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        if factors:
-            fy, fx = (local.matrix_factor(f) for f in factors)
-            wy = w_tables(fy, sign, re.device)
-            wx = w_tables(fx, sign, re.device)
-            err = span("pyfft.entry.K8+K10" if k8 else "pyfft.entry.K9+K10",
-                       fn_i8, *ptrs, wy.data_ptr(), wx.data_ptr(), dims,
-                       ilog2(ny), ilog2(fy), ilog2(nx), ilog2(fx), int(sign),
-                       float(postscale), stream)
-            name += "_i8"
-        else:
-            err = span("pyfft.entry.K8" if k8 else "pyfft.entry.K9", fn,
-                       *ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
-                       float(postscale), stream)
-    if ring and not factors and err == RAN_RING:
-        return "ring"
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return "first"
+    kernel = "K8" if name == "fused2d" else "K9"
+    if factors:
+        fy, fx = (local.matrix_factor(f) for f in factors)
+        wy = w_tables(fy, sign, re.device)
+        wx = w_tables(fx, sign, re.device)
+        return Launch(fn_i8, (*ptrs, wy.data_ptr(), wx.data_ptr(), dims,
+                              ilog2(ny), ilog2(fy), ilog2(nx), ilog2(fx),
+                              int(sign), float(postscale)),
+                      (0, 1, 2, 3), f"pyfft.entry.{kernel}+K10",
+                      {0: f"launch.{kernel}+K10"}, name + "_i8",
+                      (twy, twx, wy, wx))
+    keys = ({RAN_RING: "launch.K8.ring", 0: "launch.K8.first"} if ring
+            else {0: f"launch.{kernel}"})
+    return Launch(fn, (*ptrs, dims, ilog2(ny), ilog2(nx), int(sign),
+                       float(postscale)),
+                  (0, 1, 2, 3), f"pyfft.entry.{kernel}", keys, name,
+                  (twy, twx))
 
 
 def _launch(re, im, out_re, out_im, sign: int, postscale: float,
             int8: bool = False):
     """Launch csrc/fused2d.cu: K8, or with ``int8`` K8 + K10 (f from
     ``default_factors``); the caller (``fft2_fused``) has checked
-    ``supported_2d``."""
+    ``supported_2d``.  No synchronise."""
     ny, nx = re.shape[-2:]
     factors = ((local.default_factors(ny), local.default_factors(nx))
                if int8 else None)
-    ran = _launch_with(_lib, "fused2d", re, im, out_re, out_im, sign,
-                       postscale, factors, ring=True)
-    if ran:
-        COUNTS["launch.K8+K10" if int8 else "launch.K8.ring"
-               if ran == "ring" else "launch.K8.first"] += 1
+    run(_prepare(_lib, "fused2d", re, im, out_re, out_im, sign, postscale,
+                 factors, ring=True), re.device)
     return out_re, out_im
 
 
@@ -448,13 +441,12 @@ def _launch_tiled(re, im, out_re, out_im, sign: int, postscale: float,
                   int8: bool = False):
     """Launch csrc/fused2d_tiled.cu: K9, or with ``int8`` K9 + K10 (f
     from ``col_factors``); the caller (``fft2_fused_tiled``) has checked
-    ``supported_2d_tiled``."""
+    ``supported_2d_tiled``.  No synchronise."""
     ny, nx = re.shape[-2:]
     factors = ((local.col_factors(ny), local.col_factors(nx))
                if int8 else None)
-    if _launch_with(_tiled_lib, "fused2d_tiled", re, im, out_re, out_im,
-                    sign, postscale, factors):
-        COUNTS["launch.K9+K10" if int8 else "launch.K9"] += 1
+    run(_prepare(_tiled_lib, "fused2d_tiled", re, im, out_re, out_im, sign,
+                 postscale, factors), re.device)
     return out_re, out_im
 
 

@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from pyfft_tpu_torch.utils.profiling import COUNTS, span
+from pyfft_tpu_torch.ops.launch import Launch, run
 
 __all__ = ["deinterleave", "interleave", "supported", "deinterleave_plain",
            "interleave_plain"]
@@ -99,9 +99,10 @@ def _rows(t: torch.Tensor, width: int, what: str) -> torch.Tensor:
     return t2
 
 
-def _launch(name: str, v: torch.Tensor, re: torch.Tensor, im: torch.Tensor):
-    """Launch K13 or K14 between a (..., 2n) view and two (..., n) planes;
-    no synchronise."""
+def _prepare(name: str, v: torch.Tensor, re: torch.Tensor, im: torch.Tensor):
+    """The launch of K13 (``pyfft_deinterleave``) or K14
+    (``pyfft_interleave``) between a (..., 2n) view and two (..., n)
+    planes; None where they are empty."""
     n = re.shape[-1]
     if (tuple(im.shape) != tuple(re.shape)
             or tuple(v.shape) != (*re.shape[:-1], 2 * n)):
@@ -120,23 +121,22 @@ def _launch(name: str, v: torch.Tensor, re: torch.Tensor, im: torch.Tensor):
                          f"device, got {v.device}, {re.device}, {im.device}")
     rows = v2.shape[0]
     if rows * n == 0:
-        return
+        return None
     v_rs, p_rs = v2.stride(0), r2.stride(0)
     if rows == 1 or (v_rs == 2 * n and p_rs == n):
         rows, n, v_rs, p_rs = 1, rows * n, 2 * rows * n, rows * n
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        fn = _fn(name)
-        if name == "pyfft_deinterleave":
-            err = span("pyfft.entry.K13", fn, v2.data_ptr(), r2.data_ptr(),
-                       i2.data_ptr(), rows, n, v_rs, p_rs, stream)
-        else:
-            err = span("pyfft.entry.K14", fn, r2.data_ptr(), i2.data_ptr(),
-                       v2.data_ptr(), rows, n, v_rs, p_rs, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    COUNTS["launch.K13" if name == "pyfft_deinterleave"
-           else "launch.K14"] += 1
+    if name == "pyfft_deinterleave":
+        return Launch(_fn(name), (v2.data_ptr(), r2.data_ptr(),
+                                  i2.data_ptr(), rows, n, v_rs, p_rs),
+                      (0, 1, 2), "pyfft.entry.K13", {0: "launch.K13"}, name)
+    return Launch(_fn(name), (r2.data_ptr(), i2.data_ptr(), v2.data_ptr(),
+                              rows, n, v_rs, p_rs),
+                  (0, 1, 2), "pyfft.entry.K14", {0: "launch.K14"}, name)
+
+
+def _launch(name: str, v: torch.Tensor, re: torch.Tensor, im: torch.Tensor):
+    """Launch ``_prepare``'s kernel; no synchronise."""
+    run(_prepare(name, v, re, im), v.device)
 
 
 def deinterleave(v: torch.Tensor, *, out=None):

@@ -69,7 +69,7 @@ from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
 from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
                                      max_local_n)
 from pyfft_tpu_torch.reference import fft_planar
-from pyfft_tpu_torch.utils.profiling import COUNTS, span
+from pyfft_tpu_torch.ops.launch import Launch, retire, run
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
@@ -630,12 +630,14 @@ def matrix_factor(factors) -> int:
     return 0 if factors[-1] in VPU_RADICES else factors[-1]
 
 
-def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
-                 i8_f: int = 0):
-    """Launch csrc/local_rows.cu over (..., n) planes; no synchronise:
-    K1 (K11 on float64 planes), or with ``i8_f`` K1 whose last stage is the
-    f-point int8 stage K10.  The range of n is ``supported``'s check, made
-    by ``fft_axis``."""
+def _prepare_rows(re, im, out_re, out_im, sign: int, postscale: float,
+                  i8_f: int = 0):
+    """The launch of csrc/local_rows.cu over (..., n) planes: K1 (K11 on
+    float64 planes), or with ``i8_f`` K1 whose last stage is the f-point
+    int8 stage K10; None where there are no rows.  It counts
+    ``launch.K1.ring`` (``K11``) where the entry returns RAN_RING, else
+    ``.first``, or ``launch.K1+K10``.  The range of n is ``supported``'s
+    check, made by ``fft_axis``."""
     n = re.shape[-1]
     planes = (re, im, out_re, out_im)
     _check_planes("row", re, planes)
@@ -647,7 +649,7 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
                              f"(element stride 1 or 2), got {t.stride(-1)}")
     rows = re.numel() // n
     if rows == 0:
-        return out_re, out_im
+        return None
     r2, i2, or2, oi2 = (_rows_view(t, n, w) for t, w in
                         zip(planes, ("re", "im", "out_re", "out_im")))
     if r2.stride() != i2.stride() or or2.stride() != oi2.stride():
@@ -661,38 +663,25 @@ def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
             tw.data_ptr())
     args = (rows, ilog2(n), r2.stride(1), r2.stride(0), or2.stride(1),
             or2.stride(0), int(sign), float(postscale))
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        if i8_f:
-            w = w_tables(i8_f, sign, re.device)
-            fn = _rows_i8_fn()
-            err = span("pyfft.entry.K1+K10", fn, *ptrs, w.data_ptr(),
-                       *args[:2], ilog2(i8_f), *args[2:], stream)
-        else:
-            fn = _rows_fn(re.dtype)
-            err = span("pyfft.entry.K11" if re.dtype == torch.float64
-                       else "pyfft.entry.K1", fn, *ptrs, *args, stream)
     if i8_f:
-        _launched("local_rows_i8", err, False)
-        COUNTS["launch.K1+K10"] += 1
-    elif re.dtype == torch.float64:
-        COUNTS["launch.K11.ring" if _launched("local_rows", err, True)
-               else "launch.K11.first"] += 1
-    else:
-        COUNTS["launch.K1.ring" if _launched("local_rows", err, True)
-               else "launch.K1.first"] += 1
+        w = w_tables(i8_f, sign, re.device)
+        return Launch(_rows_i8_fn(), (*ptrs, w.data_ptr(), *args[:2],
+                                      ilog2(i8_f), *args[2:]),
+                      (0, 1, 2, 3), "pyfft.entry.K1+K10",
+                      {0: "launch.K1+K10"}, "local_rows_i8", (tw, w))
+    k = "K11" if re.dtype == torch.float64 else "K1"
+    return Launch(_rows_fn(re.dtype), (*ptrs, *args), (0, 1, 2, 3),
+                  f"pyfft.entry.{k}", {RAN_RING: f"launch.{k}.ring",
+                                       0: f"launch.{k}.first"},
+                  "local_rows", (tw,))
+
+
+def _launch_rows(re, im, out_re, out_im, sign: int, postscale: float,
+                 i8_f: int = 0):
+    """Launch ``_prepare_rows``'s kernel; no synchronise."""
+    run(_prepare_rows(re, im, out_re, out_im, sign, postscale, i8_f),
+        re.device)
     return out_re, out_im
-
-
-def _launched(name: str, err: int, ring: bool) -> bool:
-    """Whether the C entry ``name`` ran the row ring: it returned RAN_RING
-    (only the entries of K1, K2 and K11, ``ring``, may); raise where it
-    returned a failed launch."""
-    if ring and err == RAN_RING:
-        return True
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return False
 
 
 ROWS_RING_KEYS = ("rows", "threads", "slots", "smem_bytes", "blocks_per_sm")
@@ -820,11 +809,11 @@ def _il_int8(precision: str, dtype: torch.dtype, packed: bool) -> bool:
     return int8
 
 
-def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
-    """Launch K2 (``pyfft_local_rows_il``) from the (..., 2n) view ``v``
-    into ``out``, or with ``i8_f`` K2 whose last stage is the f-point int8
-    stage K10 (``pyfft_local_rows_il_i8``); no synchronise.  Every check
-    raises before the launch."""
+def _prepare_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
+    """The launch of K2 (``pyfft_local_rows_il``) from the (..., 2n) view
+    ``v`` into ``out``, or with ``i8_f`` of K2 whose last stage is the
+    f-point int8 stage K10 (``pyfft_local_rows_il_i8``); None where there
+    are no rows.  Every check raises here, before the launch."""
     n = _il_n(v)
     if tuple(out.shape) != tuple(v.shape):
         raise ValueError(f"K2 output of shape {tuple(out.shape)}, expected "
@@ -841,28 +830,27 @@ def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
         raise ValueError(f"K2 takes views on one CUDA device, got {v.device} "
                          f"and {out.device}")
     if rows == 0:
-        return out
+        return None
     tw = _kernel_twiddles(n, sign, v.device)
     args = (rows, ilog2(n), v2.stride(0) // 2, o2.stride(0) // 2, int(sign),
             float(postscale))
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        if i8_f:
-            w = w_tables(i8_f, sign, v.device)
-            fn = _rows_il_i8_fn()
-            err = span("pyfft.entry.K2+K10", fn, v2.data_ptr(),
-                       o2.data_ptr(), tw.data_ptr(), w.data_ptr(), *args[:2],
-                       ilog2(i8_f), *args[2:], stream)
-        else:
-            fn = _rows_il_fn()
-            err = span("pyfft.entry.K2", fn, v2.data_ptr(), o2.data_ptr(),
-                       tw.data_ptr(), *args, stream)
     if i8_f:
-        _launched("local_rows_il_i8", err, False)
-        COUNTS["launch.K2+K10"] += 1
-    else:
-        COUNTS["launch.K2.ring" if _launched("local_rows_il", err, True)
-               else "launch.K2.first"] += 1
+        w = w_tables(i8_f, sign, v.device)
+        return Launch(_rows_il_i8_fn(), (v2.data_ptr(), o2.data_ptr(),
+                                         tw.data_ptr(), w.data_ptr(),
+                                         *args[:2], ilog2(i8_f), *args[2:]),
+                      (0, 1), "pyfft.entry.K2+K10", {0: "launch.K2+K10"},
+                      "local_rows_il_i8", (tw, w))
+    return Launch(_rows_il_fn(), (v2.data_ptr(), o2.data_ptr(),
+                                  tw.data_ptr(), *args),
+                  (0, 1), "pyfft.entry.K2", {RAN_RING: "launch.K2.ring",
+                                             0: "launch.K2.first"},
+                  "local_rows_il", (tw,))
+
+
+def _launch_rows_il(v, out, sign: int, postscale: float, i8_f: int = 0):
+    """Launch ``_prepare_rows_il``'s kernel; no synchronise."""
+    run(_prepare_rows_il(v, out, sign, postscale, i8_f), v.device)
     return out
 
 
@@ -995,13 +983,15 @@ def swap_i8_group(n: int, lanes: int) -> int:
     return math.gcd(col_width_i8(n), lanes)
 
 
-def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
-                      i8_f: int = 0, lanes: int = MIN_TRAIL):
-    """Launch K4 from the (L, n1, n) view of the planes into the
-    (L, n, n1) view of the outputs, or with ``i8_f`` K4 whose last stage
-    is the f-point int8 stage K10, its alignment groups of
-    ``swap_i8_group(n, lanes)`` rows; no synchronise.  The caller
-    (``fft_rows_swap``) has checked n and n1."""
+def _prepare_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
+                       i8_f: int = 0, lanes: int = MIN_TRAIL):
+    """The launch of K4 from the (L, n1, n) view of the planes into the
+    (L, n, n1) view of the outputs, or with ``i8_f`` of K4 whose last
+    stage is the f-point int8 stage K10, its alignment groups of
+    ``swap_i8_group(n, lanes)`` rows; None where there are no rows.  From
+    n = 512 the input planes are ``_box_operands``'s, a contiguous copy of
+    a layout the tensor maps do not read.  The caller (``fft_rows_swap``)
+    has checked n and n1."""
     shape = tuple(re.shape)
     n1, n = shape[-2:]
     L = math.prod(shape[:-2])
@@ -1021,15 +1011,18 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
                 raise ValueError("K4 runs out of place only: its output "
                                  "shares memory with its input")
     if L * n1 == 0:
-        return out_re, out_im
+        return None
     r3, i3 = _view(re, (L, n1, n), "re"), _view(im, (L, n1, n), "im")
     o3 = [_view(t, (L, n, n1), w) for t, w in ((out_re, "out_re"),
                                                (out_im, "out_im"))]
     if r3.stride() != i3.stride() or o3[0].stride() != o3[1].stride():
         raise ValueError("K4 needs equal strides for re and im")
     xtile = None if i8_f else swap_tile(n)
+    copies = ()
     if xtile:                       # a cluster of G blocks a tile of R rows
-        r3, i3 = _box_operands(r3, i3)
+        boxed = _box_operands(r3, i3)
+        copies = () if boxed[0] is r3 else boxed
+        r3, i3 = boxed
         blocks = -(-n1 // xtile[1]) * L * xtile[0]
     else:
         blocks = -(-n1 // (col_width_i8(n) if i8_f else col_width(n))) * L
@@ -1044,24 +1037,26 @@ def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
     tw = _kernel_twiddles(n, sign, re.device)
     ptrs = (r3.data_ptr(), i3.data_ptr(), o3[0].data_ptr(), o3[1].data_ptr(),
             tw.data_ptr())
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        if i8_f:
-            # K4 + K10: the int8 column kernel with K4's row load
-            w = w_tables(i8_f, sign, re.device)
-            group = swap_i8_group(n, lanes)
-            fn = _rows_swap_i8_fn()
-            err = span("pyfft.entry.K4+K10", fn, *ptrs, None, None,
-                       w.data_ptr(), dims, ilog2(n), ilog2(i8_f), int(sign),
-                       float(postscale), 0, group, stream)
-        else:
-            fn = _rows_swap_fn()
-            err = span("pyfft.entry.K4", fn, *ptrs, dims, ilog2(n),
-                       int(sign), float(postscale), stream)
-    if err != 0:
-        name = "local_rows_swap_i8" if i8_f else "local_rows_swap"
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    COUNTS["launch.K4+K10" if i8_f else "launch.K4"] += 1
+    if i8_f:
+        # K4 + K10: the int8 column kernel with K4's row load
+        w = w_tables(i8_f, sign, re.device)
+        return Launch(_rows_swap_i8_fn(), (*ptrs, None, None, w.data_ptr(),
+                                           dims, ilog2(n), ilog2(i8_f),
+                                           int(sign), float(postscale), 0,
+                                           swap_i8_group(n, lanes)),
+                      (0, 1, 2, 3), "pyfft.entry.K4+K10",
+                      {0: "launch.K4+K10"}, "local_rows_swap_i8", (tw, w))
+    return Launch(_rows_swap_fn(), (*ptrs, dims, ilog2(n), int(sign),
+                                    float(postscale)),
+                  (0, 1, 2, 3), "pyfft.entry.K4", {0: "launch.K4"},
+                  "local_rows_swap", (tw, *copies))
+
+
+def _launch_rows_swap(re, im, out_re, out_im, sign: int, postscale: float,
+                      i8_f: int = 0, lanes: int = MIN_TRAIL):
+    """Launch ``_prepare_rows_swap``'s kernel; no synchronise."""
+    run(_prepare_rows_swap(re, im, out_re, out_im, sign, postscale, i8_f,
+                           lanes), re.device)
     return out_re, out_im
 
 
@@ -1615,21 +1610,24 @@ def _col_operands(re, im, out_re, out_im, sign: int, *, axis: int,
     return r3, i3, o, dims, ta, tb
 
 
-def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
-                 postscale: float, tw_n: int, tw_mode: str, tw_period: int,
-                 swap_store: bool, swap_mid: int, ctile: int = 0,
-                 i8_f: int = 0):
-    """Launch csrc/local_cols.cu over the (L, n, T) view of the planes;
-    no synchronise: the column kernel, K6 with ``ctile`` tiles a step
-    (already clamped), or with ``i8_f`` the column kernel whose last stage
-    is the f-point int8 stage K10.  The caller (``fft_axis``) has checked
+def _prepare_cols(re, im, out_re, out_im, sign: int, *, axis: int,
+                  postscale: float, tw_n: int, tw_mode: str, tw_period: int,
+                  swap_store: bool, swap_mid: int, ctile: int = 0,
+                  i8_f: int = 0):
+    """The launch of csrc/local_cols.cu over the (L, n, T) view of the
+    planes: the column kernel, K6 with ``ctile`` tiles a step (already
+    clamped, its inputs ``_box_operands``'s), or with ``i8_f`` the column
+    kernel whose last stage is the f-point int8 stage K10; None where
+    there is nothing to launch.  It counts ``_K5_KEYS``'s or
+    ``_K12_KEYS``'s key of the entry's return, ``launch.K6`` or
+    ``launch.K5+K10``.  The caller (``fft_axis``) has checked
     ``supported`` and the modes."""
     _check_planes("column", re, (re, im, out_re, out_im))
     ops = _col_operands(re, im, out_re, out_im, sign, axis=axis, tw_n=tw_n,
                         tw_mode=tw_mode, tw_period=tw_period,
                         swap_store=swap_store, swap_mid=swap_mid)
     if ops is None:
-        return out_re, out_im
+        return None
     r3, i3, o, dims, ta, tb = ops
     L, T = dims[:2]
     n = r3.shape[1]
@@ -1647,7 +1645,9 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
         if T % (MIN_TRAIL * ctile):
             raise ValueError(f"K6 needs a trail that is a multiple of "
                              f"{MIN_TRAIL * ctile}, got {T}")
-        r3, i3 = _box_operands(r3, i3)
+        boxed = _box_operands(r3, i3)
+        copies = () if boxed[0] is r3 else boxed
+        r3, i3 = boxed
         dims = (L, T, *r3.stride(), *dims[5:])
         blocks = -(-T // 4) * L     # at most a block a run of 4 columns
     if max(T, blocks) >= 2 ** 31:
@@ -1658,29 +1658,32 @@ def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
             tw.data_ptr(), None if ta is None else ta.data_ptr(),
             None if tb is None else tb.data_ptr(), dims, ilog2(n), int(sign),
             float(postscale))
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        if ctile:
-            fn = _ctile_fn()
-            err = span("pyfft.entry.K6", fn, *ptrs, int(ctile), stream)
-        elif i8_f:
-            w = w_tables(i8_f, sign, re.device)
-            err = span("pyfft.entry.K5+K10", fn, *ptrs[:7], w.data_ptr(),
-                       *ptrs[7:9], ilog2(i8_f), *ptrs[9:],
-                       int(bool(swap_store)), stream)
-        else:
-            err = span("pyfft.entry.K12" if re.dtype == torch.float64
-                       else "pyfft.entry.K5", fn, *ptrs,
-                       int(bool(swap_store)), stream)
-    if ctile or i8_f:
-        key = None if err else "launch.K6" if ctile else "launch.K5+K10"
-    else:
-        key = (_K12_KEYS if re.dtype == torch.float64 else _K5_KEYS).get(err)
-    if key is None:
-        name = ("local_cols_ctile" if ctile else
-                "local_cols_i8" if i8_f else "local_cols")
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    COUNTS[key] += 1
+    tables = tuple(t for t in (tw, ta, tb) if t is not None)
+    if ctile:
+        return Launch(_ctile_fn(), (*ptrs, int(ctile)), (0, 1, 2, 3),
+                      "pyfft.entry.K6", {0: "launch.K6"}, "local_cols_ctile",
+                      tables + copies)
+    if i8_f:
+        w = w_tables(i8_f, sign, re.device)
+        return Launch(fn, (*ptrs[:7], w.data_ptr(), *ptrs[7:9], ilog2(i8_f),
+                           *ptrs[9:], int(bool(swap_store))),
+                      (0, 1, 2, 3), "pyfft.entry.K5+K10",
+                      {0: "launch.K5+K10"}, "local_cols_i8", tables + (w,))
+    f64 = re.dtype == torch.float64
+    return Launch(fn, (*ptrs, int(bool(swap_store))), (0, 1, 2, 3),
+                  "pyfft.entry.K12" if f64 else "pyfft.entry.K5",
+                  _K12_KEYS if f64 else _K5_KEYS, "local_cols", tables)
+
+
+def _launch_cols(re, im, out_re, out_im, sign: int, *, axis: int,
+                 postscale: float, tw_n: int, tw_mode: str, tw_period: int,
+                 swap_store: bool, swap_mid: int, ctile: int = 0,
+                 i8_f: int = 0):
+    """Launch ``_prepare_cols``'s kernel; no synchronise."""
+    run(_prepare_cols(re, im, out_re, out_im, sign, axis=axis,
+                      postscale=postscale, tw_n=tw_n, tw_mode=tw_mode,
+                      tw_period=tw_period, swap_store=swap_store,
+                      swap_mid=swap_mid, ctile=ctile, i8_f=i8_f), re.device)
     return out_re, out_im
 
 
@@ -1923,3 +1926,4 @@ def clear_library_caches() -> None:
     libraries; the next call loads them again through ``_library``."""
     for fn in _LIBRARY_CACHES:
         fn.cache_clear()
+    retire()

@@ -57,7 +57,32 @@ axis pass by its executor; the "fused" route's K2 call as
 ``pyfft.pass.local``, the "stream" route's K13 and K14 calls as
 ``pyfft.pass.deinterleave`` and ``pyfft.pass.interleave``) and
 ``pyfft.wait`` around the closing synchronise; the kernels' C calls inside
-are ``pyfft.entry.<kernel>``.  The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
+are ``pyfft.entry.<kernel>``.
+
+On the card a call is replayed from a call record where it can be
+(``Plan._recorded``).  The record's key is the form (the complex form's
+route, or "planar"), the direction, ``donate``, the output scale, the
+chunk budget's override, the C entries' ``ops/launch.epoch`` (bumped where
+an autotune record swaps the libraries) and, for each tensor given and
+returned, its shape, strides, dtype, card, address modulo 16 and where it
+overlaps another.  The first call with a key runs the generic path, whose
+launch sites prepare each launch (every check and lookup) and record it;
+the record is kept where every data pointer of every launch lies in the
+call's input or output and the call did no other device work: the
+"planes" and "fused" routes and planar ``local`` and ``fused2d`` chains.
+Otherwise the key runs the generic path from then on: a "fourstep" or
+"huge" temporary, the "stream" route's planes, a batch the chunk sweep
+splits, a ``plain`` pass.  A later call with the key calls the recorded C
+entries with its own data pointers, under the same spans, with the same
+counts and errors.  Still done on every call: the input's
+canonicalisation, the output's allocation, the route (so the constants
+and the autotune record's ``il1d:{n}`` apply at once) and the card's
+current stream.  A plan keeps ``_RECORDS_PER_PLAN`` keys, the oldest
+dropped first; a record holds no tensor of a call.  The planar form
+allocates its output planes before the first pass where every pass
+writes its output directly (``local``, ``fused2d``).
+
+The JAX package's host-view path (``_canonicalize_host``, ``_view_kernel_ok``) has
 no counterpart: it exists for a TPU without complex dtypes, and the port
 keeps complex tensors on the card.
 """
@@ -65,16 +90,17 @@ keeps complex tensors on the card.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any
 
 import numpy as np
 import torch
 
-from pyfft_tpu_torch.ops import fourstep, fused2d, interleave, local
+from pyfft_tpu_torch.ops import fourstep, fused2d, interleave, launch, local
 from pyfft_tpu_torch.planner import AxisPass, ExecPlan, build_plan
 from pyfft_tpu_torch.reference import fft_planar
 from pyfft_tpu_torch.utils import tune
-from pyfft_tpu_torch.utils.profiling import span
+from pyfft_tpu_torch.utils.profiling import COUNTS, span
 
 __all__ = ["Plan", "IL1D_ROUTE", "IL_MULTI_ROUTE"]
 
@@ -106,6 +132,72 @@ _LIVE_PLANES = {"local": 0, "fused2d": 0, "fourstep": 2, "huge": 4,
 
 # The span of an axis pass, by executor.
 _PASS_SPANS = {e: f"pyfft.pass.{e}" for e in _LIVE_PLANES}
+
+# Call records a plan keeps (``Plan._recorded``), the oldest dropped first,
+# and the mark of a key whose calls take the generic path.
+_RECORDS_PER_PLAN = 8
+_GENERIC = "generic"
+
+
+def _pass(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as the pass ``name``: its span, opened on
+    the tape too where one records (``ops/launch``)."""
+    launch.mark(name)
+    return span(name, fn, *args, **kwargs)
+
+
+def _layout(ops) -> tuple:
+    """The operands' part of a call record's key: each one's shape,
+    strides, dtype, card and address modulo 16, and, where its bytes meet
+    an earlier operand's, that one's index and their distance in bytes
+    (None where they meet none).  The operands are contiguous."""
+    out, spans = [], []
+    for t in ops:
+        a = t.data_ptr()
+        b = a + t.numel() * t.element_size()
+        meets = next(((j, a - s) for j, (s, e) in enumerate(spans)
+                      if a < e and s < b), None)
+        spans.append((a, b))
+        out.append((t.shape, t.stride(), t.dtype, t.get_device(), a % 16,
+                    meets))
+    return tuple(out)
+
+
+def _record(tape, ops):
+    """The call record of a recorded call: per pass, its span's name and
+    its launches, each with its slots, (argument index, operand index,
+    byte offset from that operand's ``data_ptr()``), one a data pointer;
+    None where the call launched nothing, did other device work
+    (``tape.whole``) or wrote where none of ``ops`` lies (a temporary, a
+    copy, an output the generic path allocates)."""
+    if not tape.whole or not any(la for _, la in tape.passes):
+        return None
+    spans = [(t.data_ptr(), t.numel() * t.element_size()) for t in ops]
+    passes = []
+    for name, launches in tape.passes:
+        rows = []
+        for la in launches:
+            slots = []
+            for i in la.ptrs:
+                p = la.args[i]
+                k = next((k for k, (a, n) in enumerate(spans)
+                          if a <= p < a + n), None)
+                if k is None:
+                    return None
+                slots.append((i, k, p - spans[k][0]))
+            rows.append((la, tuple(slots)))
+        passes.append((name, tuple(rows)))
+    return tuple(passes)
+
+
+def _replay_pass(launches, bases, stream) -> None:
+    """A recorded pass's launches with the call's operand addresses
+    ``bases`` in their slots."""
+    for la, slots in launches:
+        args = list(la.args)
+        for i, k, off in slots:
+            args[i] = bases[k] + off
+        la(stream, args)
 
 
 def _hbm_chunk_budget(device: torch.device) -> int | None:
@@ -203,6 +295,12 @@ class Plan:
         self._force_xla = bool(force_xla)
         self.donate = bool(donate)
         self.device = torch.device(device)
+        # every pass writes its output directly: the planar form's output
+        # planes are allocated once, before the first pass
+        self._direct = all(_LIVE_PLANES[p.executor] == 0
+                           for p in self._exec_plan.passes)
+        self._records: dict = {}
+        self._records_lock = threading.Lock()
 
     # ------------------------------------------------------------- executors
 
@@ -243,6 +341,7 @@ class Plan:
             rr, ii = fourstep.fft_axis_huge(re, im, sign, split3=p.split,
                                             **kw)
             return rr, ii, True
+        launch.untracked()
         rr, ii = fft_planar(re, im, sign, axis=axis)
         return rr, ii, False
 
@@ -284,6 +383,7 @@ class Plan:
         chunk = self._chunk(batch, re.device)
         if chunk == batch:
             return self._run_once(re, im, inverse, out)
+        launch.untracked()
         if out is None:
             out = (torch.empty_like(re), torch.empty_like(im))
         flat = (batch,) + self.shape
@@ -305,9 +405,9 @@ class Plan:
         for idx, p in enumerate(passes):
             is_final = idx == len(passes) - 1
             post = scale_left if is_final else 1.0
-            re, im, scaled = span(_PASS_SPANS[p.executor],
-                                  self._run_axis_pass, re, im, p, sign, ndim,
-                                  post, out)
+            re, im, scaled = _pass(_PASS_SPANS[p.executor],
+                                   self._run_axis_pass, re, im, p, sign,
+                                   ndim, post, out)
             # Only the final pass is handed the real scale; a non-final
             # pass reporting scaled=True merely folded postscale=1.0, so
             # clearing scale_left there would drop the 1/N normalization
@@ -315,10 +415,12 @@ class Plan:
             if scaled and is_final:
                 scale_left = 1.0
         if scale_left != 1.0:
+            launch.untracked()
             re, im = re * scale_left, im * scale_left
         if out is None:
             return re, im
         if re is not out[0]:
+            launch.untracked()
             out[0].copy_(re)
             out[1].copy_(im)
         return out
@@ -370,10 +472,9 @@ class Plan:
             return "planes"
         return route
 
-    def _run_complex(self, x, y, inverse: bool) -> None:
+    def _run_complex(self, x, y, inverse: bool, route: str) -> None:
         """The complex form: the transform of contiguous complex ``x``
-        written into ``y`` (which may be ``x``) by the plan's route."""
-        route = self.il_route()
+        written into ``y`` (which may be ``x``) by ``route``."""
         if route == "planes":
             xv, yv = torch.view_as_real(x), torch.view_as_real(y)
             self._run(xv[..., 0], xv[..., 1], inverse,
@@ -384,13 +485,56 @@ class Plan:
             # the chain only picks the CPU plain version's stages
             factors = (None if self.fast_math or x.is_cuda
                        else local.precise_factors(self.shape[-1]))
-            span("pyfft.pass.local", local.fft_rows_interleaved, xf,
-                 +1 if inverse else -1, postscale=self._norm(inverse),
-                 factors=factors, out=yf)
+            _pass("pyfft.pass.local", local.fft_rows_interleaved, xf,
+                  +1 if inverse else -1, postscale=self._norm(inverse),
+                  factors=factors, out=yf)
             return
-        re, im = span("pyfft.pass.deinterleave", interleave.deinterleave, xf)
+        re, im = _pass("pyfft.pass.deinterleave", interleave.deinterleave,
+                       xf)
         re, im = self._run(re, im, inverse, (re, im))
-        span("pyfft.pass.interleave", interleave.interleave, re, im, out=yf)
+        _pass("pyfft.pass.interleave", interleave.interleave, re, im, out=yf)
+
+    # ---------------------------------------------------------- call record
+
+    def _recorded(self, form: str, inverse: bool, ops: tuple, run, *args):
+        """``run(*args)``, the generic path of a call whose input and
+        output tensors are ``ops``, and its result; or the replay of its
+        call record, and None.
+
+        On the card the call's key (``form``, the direction, ``donate``,
+        the output scale, the chunk budget's override, the entries'
+        ``launch.epoch`` and the operands' ``_layout``) picks its record.
+        A miss runs the generic path on a tape and keeps what the tape
+        recorded where every launch's data pointers lie in ``ops``, else
+        marks the key generic; a hit calls the recorded launches with the
+        pointers of this call's ``ops``, under the same spans, on the
+        device's current stream."""
+        if not ops[0].is_cuda:
+            return run(*args)
+        key = (form, inverse, self.donate, self._norm(inverse),
+               _HBM_CHUNK_BUDGET, launch.epoch, _layout(ops))
+        rec = self._records.get(key)
+        if rec is None:
+            COUNTS["record.miss"] += 1
+            with launch.recording() as tape:
+                got = run(*args)
+            rec = _record(tape, ops)
+            with self._records_lock:
+                if len(self._records) >= _RECORDS_PER_PLAN:
+                    del self._records[next(iter(self._records))]
+                self._records[key] = _GENERIC if rec is None else rec
+            return got
+        if rec is _GENERIC:
+            COUNTS["record.generic"] += 1
+            return run(*args)
+        COUNTS["record.hit"] += 1
+        bases = [t.data_ptr() for t in ops]
+        device = ops[0].device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for name, launches in rec:
+                span(name, _replay_pass, launches, bases, stream)
+        return None
 
     # -------------------------------------------------------------- execute
 
@@ -412,13 +556,23 @@ class Plan:
             im, _ = self._canonicalize(data_imag, batch, planar=True)
             if re.shape != im.shape:
                 raise ValueError("real/imag planes must have the same shape")
-            rr, ii = self._run(re, im, inverse,
-                               (re, im) if self.donate else None)
+            if self.donate:
+                out = (re, im)
+            elif self._direct:
+                out = (torch.empty_like(re), torch.empty_like(im))
+            else:
+                out = None
+            # a replay writes ``out``; without one the generic path
+            # allocates the output, which no record can hold
+            rr, ii = self._recorded("planar", inverse, (re, im) + (out or ()),
+                                    self._run, re, im, inverse, out) or out
             out = (rr.reshape(re_shape), ii.reshape(re_shape))
         else:
             x, x_shape = self._canonicalize(data, batch, planar=False)
             y = x if self.donate else torch.empty_like(x)
-            self._run_complex(x, y, inverse)
+            route = self.il_route()
+            self._recorded(route, inverse, (x, y), self._run_complex, x, y,
+                           inverse, route)
             out = y.reshape(x_shape)
         wait = (self.wait_for_finish if wait_for_finish is None
                 else wait_for_finish)

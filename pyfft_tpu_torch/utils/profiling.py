@@ -16,8 +16,11 @@ clock of the card's kernel records, and costs one flag check otherwise.
 ``COUNTS`` is the one registry of counts, always on:
 ``launch.<kernel>.<design>`` a launch whose C entry reported that design
 (``launch.<kernel>`` where the entry reports none; an int8 host is
-``<kernel>+K10``), and ``load_s.<library>`` the seconds ``ops/build.load``
-took to load a library, ``nvcc``'s build included.
+``<kernel>+K10``), ``load_s.<library>`` the seconds ``ops/build.load``
+took to load a library, ``nvcc``'s build included, and ``record.hit``,
+``record.miss`` and ``record.generic`` the card's ``Plan.execute`` calls
+that replayed a call record, recorded one, or took the generic path for
+a key that keeps none (``plan.py``).
 """
 
 from __future__ import annotations

@@ -241,7 +241,7 @@ def test_entry_spans_nest_and_launches_count(tmp_path, monkeypatch, entries,
     registry counts ``launch.<kernel>.<design>`` from what the entry
     returned: K8's ring, K5's persistent ring and cluster tile, K11's and
     K2's ring, K12's cluster tile (RAN_X), else the first design; K13 and
-    K14 report none."""
+    K14 report none.  The call is the plan's first: ``record.miss``."""
     entries.update(returns)
     entries.update(pyfft_deinterleave=0, pyfft_interleave=0)
     monkeypatch.setattr(plan_mod, "IL_MULTI_ROUTE",
@@ -262,7 +262,9 @@ def test_entry_spans_nest_and_launches_count(tmp_path, monkeypatch, entries,
     for p, e in zip(passes, got):
         assert inside(e, p) and inside(p, execute)
     keys = [key for _, _, key in want]
-    assert profiling.counts() == {k: keys.count(k) for k in keys}
+    # the plan's first call with this layout: a miss of its call record
+    assert profiling.counts() == {"record.miss": 1,
+                                  **{k: keys.count(k) for k in keys}}
 
 
 @pytest.mark.parametrize("err,key", [(0, "launch.K12.first"),

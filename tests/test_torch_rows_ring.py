@@ -31,6 +31,7 @@ import torch
 
 from pyfft_tpu.ops import pallas_local as jax_local
 from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.ops.launch import Launch
 from pyfft_tpu_torch.utils import profiling
 
 from test_torch_cluster_cols import CSRC, c_eval, macro_cases
@@ -568,10 +569,14 @@ def test_ring_launches_counted(monkeypatch, err, ring):
     ("local_rows_il_i8", local.RAN_RING, False)])
 def test_failed_launch_raises(monkeypatch, name, err, ring):
     """A failed launch raises and counts nothing; RAN_RING from an entry
-    that has no ring (K11, the int8 kernels) is a failure too."""
+    whose launch maps no ring (the int8 kernels) is a failure too."""
     profiling.reset()
+    keys = {0: "launch.K1.first"}
+    if ring:
+        keys[local.RAN_RING] = "launch.K1.ring"
+    entry = Launch(lambda *args: err, (), (), "pyfft.entry.K1", keys, name)
     with pytest.raises(RuntimeError, match=f"{name} launch failed"):
-        local._launched(name, err, ring)
+        entry(0)
     assert profiling.counts() == {}
 
 
