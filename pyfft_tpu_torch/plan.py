@@ -54,7 +54,7 @@ is one value, not a table by n.  Complex128 and ``force_xla`` plans take
 only while a torch profiler records: ``pyfft.execute`` around the whole
 call, ``pyfft.pass.<executor>`` around each step that runs kernels (an
 axis pass by its executor; the "fused" route's K2 call as
-``pyfft.pass.local``, the "stream" route's K13 and K14 calls as
+``pyfft.pass.fused``, the "stream" route's K13 and K14 calls as
 ``pyfft.pass.deinterleave`` and ``pyfft.pass.interleave``) and
 ``pyfft.wait`` around the closing synchronise; the kernels' C calls inside
 are ``pyfft.entry.<kernel>``.
@@ -485,7 +485,7 @@ class Plan:
             # the chain only picks the CPU plain version's stages
             factors = (None if self.fast_math or x.is_cuda
                        else local.precise_factors(self.shape[-1]))
-            _pass("pyfft.pass.local", local.fft_rows_interleaved, xf,
+            _pass("pyfft.pass.fused", local.fft_rows_interleaved, xf,
                   +1 if inverse else -1, postscale=self._norm(inverse),
                   factors=factors, out=yf)
             return

@@ -179,6 +179,20 @@ def test_replay_keeps_the_spans(tmp_path, entries):
     assert inside(p8, execute_) and inside(p5, execute_)
 
 
+def test_replay_keeps_the_fused_span(tmp_path, entries):
+    """The "fused" route's replay emits ``pyfft.pass.fused`` around K2's
+    entry, as its generic path did."""
+    plan = pyfft_tpu_torch.Plan((256,), device="cpu")
+    x = cplx((4, 256))
+    first = span_events(tmp_path, lambda: plan.execute(x))
+    again = span_events(tmp_path, lambda: plan.execute(x))
+    assert counts("record.") == {"record.miss": 1, "record.hit": 1}
+    assert [s[0] for s in again] == [s[0] for s in first] == [
+        "pyfft.execute", "pyfft.pass.fused", "pyfft.entry.K2"]
+    execute_, fused, k2 = again
+    assert inside(k2, fused) and inside(fused, execute_)
+
+
 def test_replay_raises_the_generic_error(entries):
     """A failed entry raises on a replay what it raises on the generic
     path, and counts no launch."""

@@ -156,11 +156,12 @@ def test_no_record_function_without_a_profiler(monkeypatch, shape):
 @pytest.mark.parametrize("shape,passes", [
     ((128, 128), ["fused2d"]), ((64, 128), ["local", "local"]),
     ((16, 128, 128), ["fused2d", "local"]),
-    ((64, 64, 64), ["local", "plain", "local"]), ((4096,), ["local"])])
+    ((64, 64, 64), ["local", "plain", "local"]), ((4096,), ["fused"])])
 def test_execute_spans_nest(tmp_path, shape, passes):
     """Under ``torch.profiler`` a CPU ``Plan.execute`` of a 2D and a 3D
-    plan (and the "fused" route of a 1D one) yields ``pyfft.execute`` with
-    one ``pyfft.pass.<executor>`` a pass nested inside, in order."""
+    plan yields ``pyfft.execute`` with one ``pyfft.pass.<executor>`` a
+    pass nested inside, in order; the "fused" route of a 1D one, its K2
+    call as ``pyfft.pass.fused``."""
     x = torch.from_numpy(rand_complex((2,) + shape, seed=4))
     plan = pyfft_tpu_torch.Plan(shape, device="cpu")
     spans = span_events(tmp_path, lambda: plan.execute(x))
@@ -170,6 +171,20 @@ def test_execute_spans_nest(tmp_path, shape, passes):
     assert all(inside(s, execute) for s in got)
     assert all(a[2] <= b[1] for a, b in zip(got, got[1:]))
     assert {s[0] for s in spans} == {"pyfft.execute"} | {s[0] for s in got}
+
+
+def test_fused_and_planar_passes_of_one_plan(tmp_path):
+    """One 1D plan: the complex form's "fused" route runs its K2 call as
+    ``pyfft.pass.fused``, the split form its row pass as
+    ``pyfft.pass.local``."""
+    x = torch.from_numpy(rand_complex((4, 512), seed=9))
+    plan = pyfft_tpu_torch.Plan((512,), device="cpu")
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for fn, name in ((lambda: plan.execute(x), "pyfft.pass.fused"),
+                     (lambda: plan.execute(re, im), "pyfft.pass.local")):
+        spans = span_events(tmp_path, fn)
+        assert [s[0] for s in spans] == ["pyfft.execute", name]
+        assert inside(spans[1], spans[0])
 
 
 class _OnCard(torch.Tensor):
@@ -227,7 +242,7 @@ def entries(monkeypatch):
      [("local", "K11", "launch.K11.first"),
       ("local", "K12", "launch.K12.first")]),
     ((4096,), torch.complex64, "fused", {"K2": local.RAN_RING},
-     [("local", "K2", "launch.K2.ring")]),
+     [("fused", "K2", "launch.K2.ring")]),
     ((16, 128, 128), torch.complex64, "stream", {},
      [("deinterleave", "K13", "launch.K13"),
       ("fused2d", "K8", "launch.K8.first"),
