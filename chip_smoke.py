@@ -65,7 +65,12 @@ numpy.fft, in twenty-six phases, one or more lines each:
      = 1024, else the first design);
  11. complex128 column kernel K12: as phase 6, for every n from 8 to 4096,
      and where the cluster kernel takes n (1024 to 4096) the twiddled and
-     swapped modes on planar planes too;
+     swapped modes and the plain store in place on planar planes too, each
+     launch checked against the design it must run (``local.col_design``:
+     the persistent cluster ring at the lengths of PYFFT_XRING_F64 on
+     planar planes its tensor maps read, in every mode, else the cluster
+     tile from n = 1024, else the first design); the ring's shape and the
+     clusters the card holds printed;
  12. the complex128 paths through Plan (complex and planar forms, inverse
      round trip) and the functional API, with an exact launch count per
      kernel: config 5 (2^22 x 64, four-step: 2 K12; against numpy on rows
@@ -323,12 +328,13 @@ def design_counts() -> dict:
     """Of the launches counted since the last reset, those that ran each
     redesign, as the C entries report it: the row ring (K1 and K2; K11 on
     double planes), K5's persistent column ring and cluster tile, K12's
-    cluster tile and K8's plane ring."""
+    cluster tile and persistent cluster ring and K8's plane ring."""
     return {"row ring": count_of("launch.K1.ring", "launch.K2.ring"),
             "row ring f64": count_of("launch.K11.ring"),
             "column ring": count_of("launch.K5.pring"),
             "column cluster tile": count_of("launch.K5.x"),
             "column cluster tile f64": count_of("launch.K12.x"),
+            "column cluster ring f64": count_of("launch.K12.ring"),
             "plane ring": count_of("launch.K8.ring")}
 
 
@@ -752,7 +758,8 @@ COL_MODES = ("plain planar", "plain stride2", "plain inplace",
 # cluster kernel takes n: its planar table is another instance than the
 # stride-2 planes' one
 COL_MODES_PLANAR = ("full swap_store planar", "strided swap_mid planar",
-                    "factored swap_store planar")
+                    "factored swap_store planar", "full plain planar",
+                    "plain inplace planar")
 
 
 def col_reference(X, n, T, mode, sign, post):
@@ -797,7 +804,7 @@ def offset_plane(t: torch.Tensor) -> torch.Tensor:
 
 
 # the column pass's designs, by the registry's keys of their launches
-COL_DESIGN_COUNTS = {"ring": ("launch.K5.pring",),
+COL_DESIGN_COUNTS = {"ring": ("launch.K5.pring", "launch.K12.ring"),
                      "x": ("launch.K5.x", "launch.K12.x")}
 
 
@@ -805,11 +812,13 @@ def phase_cols_kernel(prec: str = "complex64"):
     """The column kernel at every n and mode (COL_MODES: planar, stride-2,
     in place and one element off alignment with a plain store, the `full`
     twiddle with a plain and a swapped store, the mid and huge routes'
-    modes) against its plain version and numpy; for complex64 each launch
-    checked against the design it must run (``local.col_design``: the
-    cluster tile from n = 1024, the persistent ring from 16 to 256 on a
-    plain store of planes its tensor maps read, else the first design) by
-    the designs' counts."""
+    modes) against its plain version and numpy; each launch checked
+    against the design it must run (``local.col_design``: for complex64
+    the cluster tile from n = 1024, the persistent ring from 16 to 256 on
+    a plain store of planes its tensor maps read, else the first design;
+    for complex128 K12's persistent cluster ring at its table's lengths on
+    planar planes its tensor maps read, else the cluster tile from n =
+    1024, else the first design) by the designs' counts."""
     from pyfft_tpu_torch.ops import local
     spec = PRECISIONS[prec]
     tol, phase = spec["tol"], spec["phases"][1]
@@ -839,6 +848,8 @@ def phase_cols_kernel(prec: str = "complex64"):
                         if mode.endswith("planar"):
                             re, im = (xc.real.contiguous(),
                                       xc.imag.contiguous())
+                            if mode == "plain inplace planar":
+                                out = (re, im)
                         elif mode == "plain offset":
                             re, im = (offset_plane(xc.real.contiguous()),
                                       offset_plane(xc.imag.contiguous()))
@@ -863,7 +874,7 @@ def phase_cols_kernel(prec: str = "complex64"):
                         ran = [d for d, c in COL_DESIGN_COUNTS.items()
                                if count_of(*c) != before[d]]
                         ran = ran[0] if ran else "first"
-                        if prec == "complex64" and ran != want:
+                        if ran != want:
                             raise AssertionError(
                                 f"column pass n={n} T={T} {mode}: ran the "
                                 f"{ran} design, expected {want}")
@@ -887,8 +898,7 @@ def phase_cols_kernel(prec: str = "complex64"):
         width = local.col_width(n, xc.real.dtype)
         print(f"phase {phase} {prec} column kernel n={n} (C={width} columns "
               f"a tile on planar planes with a plain store): {cases} cases, "
-              f"designs (by "
-              f"{'their counts' if prec == 'complex64' else 'the rule'}): "
+              f"designs (by their counts): "
               f"{', '.join(designs)}; max rel err vs plain "
               f"{worst_plain:.3e}, vs numpy {worst_np:.3e} (gate {tol:.0e})")
         ring = (local.col_ring_shape(n) if prec == "complex64"
@@ -898,6 +908,15 @@ def phase_cols_kernel(prec: str = "complex64"):
                   f"tiles of {ring['columns']} columns, {ring['threads']} "
                   f"threads, {ring['slots']} slots, {ring['smem_bytes']} "
                   f"bytes a block, {ring['blocks_per_sm']} blocks an SM")
+        xring = (local.col_xring_shape_f64(n) if prec == "complex128"
+                 and n in local.COL_XRING_F64_LENGTHS else None)
+        if xring:
+            print(f"phase {phase} complex128 persistent cluster ring n={n} "
+                  f"on planar planes: a cluster of {xring['cluster']} "
+                  f"blocks a tile of {xring['columns']} columns, "
+                  f"{xring['slots']} slots, {xring['threads']} threads, "
+                  f"{xring['smem_bytes']} bytes a block; clusters the card "
+                  f"holds at once (the grid): {xring['clusters_held']}")
         for strided in (False, True):
             xs = local.col_xshape_f64(n, strided, xc.real.dtype)
             if xs:
@@ -1252,10 +1271,11 @@ def ran_design(run, f64: bool = False, rows: bool = False) -> str:
     """The design one launch of ``run`` ran, by what its C entry reports:
     the row ring or the first design (rows; K11 on float64), the
     persistent ring, the cluster tile or the first design (complex64
-    columns; complex128 columns, K12: the cluster tile or the first
-    design)."""
+    columns; complex128 columns, K12: the persistent cluster ring, the
+    cluster tile or the first design)."""
     counts = ({"launch.K11.ring" if f64 else "launch.K1.ring": "row ring"}
-              if rows else {"launch.K12.x": "cluster tile"} if f64 else
+              if rows else {"launch.K12.ring": "persistent cluster ring",
+                            "launch.K12.x": "cluster tile"} if f64 else
               {"launch.K5.pring": "persistent ring",
                "launch.K5.x": "cluster tile"})
     before = {c: count_of(c) for c in counts}
@@ -3950,7 +3970,8 @@ def main() -> int:
         "config 5, 2^22 x 64 complex128: both four-step passes")
     cols64_entry["library_ms"] = e2e["config 5"]["library_ms"]
     cols64_entry["design_launches"] = {
-        "cluster tile": designs["column cluster tile f64"]}
+        "cluster tile": designs["column cluster tile f64"],
+        "persistent cluster ring": designs["column cluster ring f64"]}
     # K2, K13 and K14 timed at config 2i's shape (4096 x 4096 complex64),
     # their errors over config 2i and every call held against the plain
     # version in phases 15 and 16

@@ -1,5 +1,6 @@
 """Where the time of the complex128 cluster column kernel (K12 from n =
-1024), the tiled 2D kernel (K9), the multi-tile column kernel (K6), the
+1024, and its persistent cluster ring at n = 2048), the tiled 2D kernel
+(K9), the multi-tile column kernel (K6), the
 digit-swapped row kernel (K4), the complex64 row kernels (K1, K2), the
 complex64 column kernel (K5) and the complex128 row kernel (K11) goes:
 pieces removed and shape knobs changed, one build each, on one CUDA card.
@@ -18,11 +19,22 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
   notw      no twiddle multiplies (the chains', the exchange's w_n^(b*k')
-            and K12's table in the store pass)
+            and K12's table in the store pass; in K12's ring too)
   copy      nor the DFTs' arithmetic, nor K12's chain, and every exchange
             reads its own block's buffer instead of DSMEM: K12 is its
-            loads, one shared-memory pass and its stores; K9 keeps its
-            stages' shared-memory shuffles
+            loads, one shared-memory pass and its stores (the ring: its
+            box copies, the first stage's pass over the slot, the chunks
+            copied to the block's own receive buffer, its stores); K9
+            keeps its stages' shared-memory shuffles
+  xold      K12's x tile at every pass (the ring's table PYFFT_XRING_F64
+            emptied: the design before the ring), P4's counterpart;
+            xoldnotw and xoldcopy as notw and copy on it
+  xrarith   K12's ring without twiddles nor DFT arithmetic, its chain and
+            its chunks' copies kept: their time
+  xrlocal   xrarith with every chunk copied to the block's own receive
+            buffer (no DSMEM): the copies' cost across the cluster
+  xr8       K12's ring at n = 2048 on a cluster of 8 blocks, one an SM
+            (66 KB slots; 16 blocks, two an SM, by default)
   g4        K12's first design, (G, C) = (2, 16), (4, 16), (8, 16) at n =
             1024, 2048, 4096 on every layout, 128 KB blocks, one an SM
   m1        K12's (G, C) with registers for one block an SM
@@ -207,6 +219,10 @@ XCOLS = ("#define PYFFT_XCOLS_F64(X) X(10, 4, 16, 2) X(11, 8, 16, 2) "
 XCOLS_S2 = ("#define PYFFT_XCOLS_F64_S2(X) X(10, 2, 8, 2) X(11, 4, 8, 2) "
             "X(12, 8, 8, 2)")
 
+# K12's ring table (local_cols.cu)
+XRING = re.search(r"#define PYFFT_XRING_F64\(X\)[^\n]*\n",
+                  (build.CSRC / "local_cols.cu").read_text()).group(0)
+
 # K9's constant chain options (fused2d_tiled.cu's ShapeF)
 KNOBS = "static constexpr bool PAD = true, TWD = true, R16 = true;"
 
@@ -356,6 +372,29 @@ STEPS = {
         ("cluster_cols.cuh",
          "    const V* src = cluster.map_shared_rank(sm, g0 + b);",
          "    const V* src = sm;")],
+    # K12's ring: no twiddles (its last stage's, its exchange's, its
+    # store's), no DFT arithmetic, its chunks copied to the block's own
+    # receive buffer, its chain cut to the first stage
+    "xrnotw": [
+        ("ring_cols.cuh",
+         "    xt_twiddle<R>(y[b], tw, (j % NS) * (X::N / (NS * R)));\n", ""),
+        ("ring_cols.cuh",
+         "    xt_twiddle<G>(u, tw, kp);   // w_N^(b*k'), from fewer reads\n",
+         ""),
+        ("local_cols.cu", "  const bool twiddled = io.tw_mode != TW_NONE;",
+         "  const bool twiddled = false;")],
+    "xrarith": [("ring_cols.cuh", "    dft<R>(v[b], s);\n", ""),
+                ("ring_cols.cuh", "    dft<R>(y[b], s);\n", ""),
+                ("ring_cols.cuh", "    dft<G>(u, s);\n", "")],
+    "xrlocal": [("ring_cols.cuh",
+                 "CH * (int)sizeof(V),\n                    landed, o);",
+                 "CH * (int)sizeof(V),\n                    landed, "
+                 "rank);")],
+    "xrcopy": [("ring_cols.cuh",
+                "  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tw, s);\n", "")],
+    "xold": [("local_cols.cu", XRING, "#define PYFFT_XRING_F64(X)\n")],
+    "xr8": [("local_cols.cu", XRING,
+             "#define PYFFT_XRING_F64(X) X(11, 8, 16, 2, 1)\n")],
     "g4": [("local_cols.cu", XCOLS, "#define PYFFT_XCOLS_F64(X) "
             "X(10, 2, 16, 1) X(11, 4, 16, 1) X(12, 8, 16, 1)"),
            ("local_cols.cu", XCOLS_S2, "#define PYFFT_XCOLS_F64_S2(X) "
@@ -643,8 +682,17 @@ STEPS = {
 VARIANTS = {
     "full": (("K12", "K9", "K6", "K4", "K1", "K2", "K5", "K11",
              "P5"), [], {}),
-    "notw": (("K12", "K9", "K5"), ["notw"], {}),
-    "copy": (("K12", "K9", "K5"), ["notw", "noarith", "copy"], {}),
+    "notw": (("K12", "K9", "K5"), ["notw", "xrnotw"], {}),
+    "copy": (("K12", "K9", "K5"),
+             ["notw", "xrnotw", "noarith", "xrarith", "copy", "xrlocal",
+              "xrcopy"], {}),
+    "xold": (("K12",), ["xold"], {}),
+    "xoldnotw": (("K12",), ["xold", "notw"], {}),
+    "xoldcopy": (("K12",), ["xold", "notw", "noarith", "copy"], {}),
+    "xrarith": (("K12",), ["notw", "xrnotw", "noarith", "xrarith"], {}),
+    "xrlocal": (("K12",),
+                ["notw", "xrnotw", "noarith", "xrarith", "xrlocal"], {}),
+    "xr8": (("K12",), ["xr8"], {}),
     "g4": (("K12",), ["g4"], {}),
     "m1": (("K12",), ["m1"], {}),
     "s2c16": (("K12",), ["s2c16"], {}),
@@ -780,7 +828,8 @@ def compile_all(tmp: Path, kernels) -> dict:
 
 
 # a kernel's mangled name -> its name <template arguments>
-KERNEL = re.compile(r"(local_cols_x_kernel|fused2d_tiled_kernel|"
+KERNEL = re.compile(r"(local_cols_x_kernel|local_cols_xring_kernel|"
+                    r"fused2d_tiled_kernel|"
                     r"local_cols_ring_kernel|local_rows_swap_x_kernel|"
                     r"local_rows_ring_kernel|local_cols_pring_kernel|"
                     r"fused2d_ring_kernel|fused2d_kernel)"

@@ -360,39 +360,6 @@ __device__ __forceinline__ void rows_head(float2* sm,
   }
 }
 
-// The address in cluster block `rank`'s shared memory of what lies at
-// `local` in this block's (distributed shared memory: every block of the
-// kernel lays its shared memory out alike).
-__device__ __forceinline__ uint32_t cluster_addr(const void* local,
-                                                 int rank) {
-  uint32_t a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
-  return a;
-}
-
-// The cluster barrier's arrive without release semantics: it orders none
-// of this thread's memory operations (cluster_cols.cuh's cluster_arrive
-// releases them all, which waits for its stores to device memory too).
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-// Copy `bytes` (a multiple of 16) from this block's shared `src` to `dst`
-// in cluster block `rank`'s shared memory, both 16-byte aligned, completing
-// on that block's mbarrier at `bar` (cp.async.bulk between shared
-// memories: the copy engine moves the run, no thread does).
-__device__ __forceinline__ void bulk_to_block(void* dst, const void* src,
-                                              int bytes, uint64_t* bar,
-                                              int rank) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(cluster_addr(dst, rank)), "r"(smem_u32(src)), "r"(bytes),
-         "r"(cluster_addr(bar, rank))
-      : "memory");
-}
-
 // The ring over io.L planes: plane first + i*every in slot i % SLOTS on
 // barrier bars[i % SLOTS], filled by thread 0 (map_re: the real plane, or
 // the pairs where PIN; map_im the imaginary plane).  POUT (with PIN

@@ -64,7 +64,10 @@
 //     planes), 128-byte runs of each row, n/G rows a block (64 KB at n =
 //     1024 and 2048, two blocks an SM), exchanging through DSMEM
 //     (local_cols_x_kernel, csrc/cluster_cols.cuh; the tables
-//     PYFFT_XCOLS_F64 and PYFFT_XCOLS_F64_S2 below);
+//     PYFFT_XCOLS_F64 and PYFFT_XCOLS_F64_S2 below), and at the lengths of
+//     PYFFT_XRING_F64 (n = 2048) on planar planes a tensor map reads, a
+//     persistent grid of such clusters walking the tiles through a ring of
+//     slots fed by tensor-map copies (local_cols_xring_kernel);
 //   * blocks are numbered with l fastest, so neighbouring blocks read the
 //     same rows of a `full` twiddle table and share them in the L2;
 //   * the first stage reads the tile straight from global memory, threads
@@ -205,8 +208,9 @@
 // `pyfft_local_cols_ctile` (K6), `pyfft_local_cols_i8` (float, int8
 // stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths,
 // the cluster kernel's shape (`pyfft_local_cols_xshape_f64`,
-// `pyfft_local_cols_xshape`), the persistent ring's
-// (`pyfft_local_cols_pring_shape`) and K4's and K6's
+// `pyfft_local_cols_xshape`), the persistent rings'
+// (`pyfft_local_cols_pring_shape`, `pyfft_local_cols_xring_shape_f64`) and
+// K4's and K6's
 // (`pyfft_local_rows_swap_shape`, `pyfft_local_cols_ring_shape`), at the
 // bottom.
 
@@ -1172,6 +1176,285 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
   }
 }
 
+// ------------------ K12 from n = 2048: a persistent cluster ring of tiles
+//
+// The complex128 column pass on planar planes a tensor map reads where
+// they lie (xring_operands: t stride 1, both planes and their (l, n)
+// strides in whole 16-byte units), at the lengths of PYFFT_XRING_F64;
+// every other K12 pass runs local_cols_x_kernel.  The x tile's function
+// and its tile, (l, run of C consecutive t) split over a cluster of G
+// blocks, n/G rows a block, but a persistent grid: as many clusters as the
+// card holds at once (asked of it once a device) walk every tile of the
+// pass, cluster c taking tiles c, c + clusters, ... (l fastest, so that the
+// clusters in flight read the same rows of a `full` table; the grid cut to
+// whole rounds).  A block's shared memory is a ring of S slots of one tile
+// each, one mbarrier a slot, and a receive buffer:
+//
+//   * loads: thread 0 fills each slot with tensor-map boxes of rows rank +
+//     G*j' (C doubles, MB <= 256 rows a box, a box a plane), tile i + S
+//     into tile i's slot once its chunks have left (below), so the next
+//     tiles are in flight while the block computes;
+//   * the chain: its first stage reads the slot's two planes and writes
+//     the [k][c] values into the same slot (xt_first); its last stage
+//     writes its outputs into the slot by owner, the block that takes
+//     them (ring_cols.cuh, xt_chain_from_chunks);
+//   * the exchange in whole chunks, as K8's plane ring does (fused2d.cu):
+//     thread 0 hands each owner's chunk to the copy engine, into the
+//     owner's receive buffer, completing on the owner's mbarrier; the
+//     pull of the x tile (a remote load a value, behind cluster barriers
+//     whose release waits for the last tile's stores to device memory)
+//     cost this design a tenth of a pass on the H100 (PERF.md section 6);
+//     the later stages and the exchange take their twiddles from fewer
+//     table reads (ring_cols.cuh's xt_twiddle);
+//   * pipelined: tile i + 1's chain runs while tile i's chunks fly, then
+//     tile i's pairs are read from the receive buffer, twiddled, the
+//     G-point DFTs run and both stores go out from registers as the x
+//     tile's; a relaxed cluster barrier (K8's rule: every read of the
+//     receive buffer retired, every block past its wait for the chunks)
+//     frees tile i's slot and every receive buffer, and tile i + 1's
+//     chunks go out.
+//
+// Each tile's store twiddles are read before its chain, w(k') and w(M)
+// of each (k', c) pair of the thread, and the store takes w(k' + M*k2) =
+// w(k') * w(M)^k2 as the x tile does, in every twiddle mode.  Every
+// load of a tile comes before that tile's stores and tiles are disjoint,
+// so a plain store may alias the input (in place).
+
+// (log2 n, G, C, S, B): the ring's cluster of G blocks, its tile of C
+// columns (128-byte runs), the slots of a block's ring and the blocks an
+// SM its launch bounds leave registers for, by length.  At n = 2048 the
+// H100 ran config 5's passes on (16, 16, 2, 2) in 3.95 and 4.01 ms, the x
+// tile in 4.34 and 4.13, the ring on a cluster of 8 blocks, one an SM, in
+// 4.51 and 4.44 (probes/float_split.py K12, PERF.md section 6).
+#ifndef PYFFT_XRING_F64
+#define PYFFT_XRING_F64(X) X(11, 16, 16, 2, 2)
+#endif
+
+template <int LOGN, int G, int C, int S_, int B = 1>
+struct XRing {
+  static constexpr int S = S_;
+  static constexpr int M = (1 << LOGN) / G;                  // rows a block
+  static constexpr int MB = M < BOX ? M : BOX;               // rows a box
+  // at most 512, one butterfly of every stage and one (k', c) of the
+  // exchange a thread
+  static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);
+  using X = XTile<double, LOGN - ilog2c(G), G, C, NT>;
+  // a slot in bytes: the tile's two planes as copied (P doubles each),
+  // then its [k][c] values, then its outputs by owner (the swapped store's
+  // chunks padded); whole 128-byte units, where the copies write.  The
+  // receive buffer after the S slots is one more
+  static constexpr int SLOT =
+      (cmax(X::P, X::G_ * xt_chunk<X, true>()) * 16 + 127) / 128 * 128;
+  static constexpr int SMEM = (S + 1) * SLOT + 128;          // + alignment
+  static_assert(S >= 2 && SMEM <= 227 * 1024 && B >= 1 && B * NT <= 2048 &&
+                    B * (SMEM + 1024) <= 228 * 1024,
+                "the ring fits a block's shared memory, B blocks an SM");
+  static_assert(C % 2 == 0 && 128 % C == 0 && M % MB == 0 &&
+                    X::P * 16 < (1 << 20),
+                "a box's row is whole 16-byte units of one tile; an "
+                "mbarrier's count");
+};
+
+// K12's ring's operands: planar double planes (t stride 1), 16-byte
+// aligned, their (l, n) strides multiples of 16 bytes (the tensor maps').
+inline bool xring_operands(const Cols<double>& io) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(io.in_re);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(io.in_im);
+  return io.in_ts == 1 && a % 16 == 0 && b % 16 == 0 && io.in_ns % 2 == 0 &&
+         (io.L == 1 || io.in_ls % 2 == 0);
+}
+
+// The ring's tensor map of the plane at `base`: {T, G, n/G, L}, its box
+// the C columns of MB rows rank + G*j', 8-byte elements.
+template <int LOGN, int G, int C, int S, int B>
+cudaError_t xring_map(CUtensorMap* map, const double* base,
+                      const Cols<double>& io) {
+  using K = XRing<LOGN, G, C, S, B>;
+  const cuuint64_t row = (cuuint64_t)io.in_ns * 8;
+  const cuuint64_t dims[4] = {(cuuint64_t)io.T, (cuuint64_t)G,
+                              (cuuint64_t)K::M, (cuuint64_t)io.L};
+  const cuuint64_t strides[3] = {
+      row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * 8 : row * (1 << LOGN)};
+  const cuuint32_t box[4] = {(cuuint32_t)C, 1, (cuuint32_t)K::MB, 1};
+  return tensor_map_4d(map, base, true, dims, strides, box);
+}
+
+// The ring over `tiles` tiles: this cluster's tile i in slot i % S on
+// barrier filled[i % S], filled by thread 0 of each block with its rows.
+template <int LOGN, int G, int C, int S, int B, bool SWAP,
+          int NT = XRing<LOGN, G, C, S, B>::NT>
+__global__ void __launch_bounds__(NT, B)
+    local_cols_xring_kernel(Cols<double> io, const double2* __restrict__ tw,
+                            double s, long long tiles,
+                            const __grid_constant__ CUtensorMap map_re,
+                            const __grid_constant__ CUtensorMap map_im) {
+  using K = XRing<LOGN, G, C, S, B>;
+  using X = typename K::X;
+  using V = double2;
+  constexpr int P = X::P, M = X::M, MB = K::MB, KR = X::KR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t filled[S];
+  __shared__ uint64_t landed;       // the chunks into this block, a tile
+  V* slots = reinterpret_cast<V*>(align128(smem_raw));
+  V* recv = slots + S * (K::SLOT / 16);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long first = blockIdx.x / G, every = gridDim.x / G;
+  const int count =
+      first < tiles ? static_cast<int>((tiles - first + every - 1) / every)
+                    : 0;
+  // this block's rows of the cluster's tile i into slot i % S: the real
+  // rows, then the imaginary rows
+  const auto fill = [&](int i) {
+    const long long tile = first + (long long)i * every;
+    uint64_t* bar = &filled[i % S];
+    double* dst = reinterpret_cast<double*>(slots + (i % S) * (K::SLOT / 16));
+    const int l = static_cast<int>(tile % io.L);
+    const int t0 = static_cast<int>((tile / io.L) * C);
+    fence_async_smem();
+    mbar_expect(bar, P * (int)sizeof(V));
+    for (int part = 0; part < 2; ++part)
+      for (int h = 0; h < M / MB; ++h)
+        tma_load_4d(dst + part * P + h * MB * C, part ? &map_im : &map_re, t0,
+                    rank, h * MB, l, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < S; ++b) mbar_init(&filled[b]);
+    mbar_init(&landed);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < S && j < count; ++j) fill(j);
+  }
+  cluster_arrive();                 // every block's barriers are set up
+  cluster_wait();
+  const bool twiddled = io.tw_mode != TW_NONE;
+  // the twiddle w^(k*q) of output k of tile i's column c, read before the
+  // tile's chain so that its latency hides behind it: w(k') and w(M) of
+  // each pair (k', c) of the thread, in the exchange's order
+  const auto twiddles = [&](int i, V (&wk)[X::PAIRS], V (&wm)[X::PAIRS]) {
+    if (!twiddled) return;
+    const long long tile = first + (long long)i * every;
+    const long long t0 = (tile / io.L) * C;
+    const long long q0 = io.adiv > 1 ? t0 / io.adiv : 0;
+    const int r0 = static_cast<int>(t0 & 127);
+#pragma unroll
+    for (int q = 0; q < X::PAIRS; ++q) {
+      const int p = threadIdx.x + q * NT;
+      const int c = SWAP ? p / KR : p % C;
+      const int kp = rank * KR + (SWAP ? p % KR : p / C);
+      const long long t = t0 + c;
+      const long long at = (io.adiv > 1 ? q0 : t) * io.aq;
+      const bool in = t < io.T;
+      const V one = Complex<double>::make(1, 0);
+      wk[q] = in ? __ldg(&io.ta[kp * io.ak + at]) : one;
+      wm[q] = in ? __ldg(&io.ta[M * io.ak + at]) : one;
+      if (io.tw_mode == TW_FACTORED && in) {
+        const long long bt = (r0 + c) * io.bq;
+        wk[q] = cmul(wk[q], __ldg(&io.tb[kp * io.bk + bt]));
+        wm[q] = cmul(wm[q], __ldg(&io.tb[M * io.bk + bt]));
+      }
+    }
+  };
+  // tile i's chain in its slot, its outputs by owner
+  const auto chain = [&](int i) {
+    V* sm = slots + (i % S) * (K::SLOT / 16);
+    const double* f = reinterpret_cast<const double*>(sm);
+    mbar_wait(&filled[i % S], (i / S) & 1);
+    xt_chain_from_chunks<X, SWAP>(sm, fresh(tw), s, [&](int k, int c) {
+      return Complex<double>::make(f[k * C + c], f[P + k * C + c]);
+    });
+  };
+  V wk[X::PAIRS], wm[X::PAIRS], wk1[X::PAIRS], wm1[X::PAIRS];
+  twiddles(0, wk, wm);
+  chain(0);
+  xt_send_chunks<X, SWAP>(slots, recv, &landed, rank);
+  for (int i = 0; i < count; ++i) {
+    // the next tile's chain while tile i's chunks fly
+    if (i + 1 < count) {
+      twiddles(i + 1, wk1, wm1);
+      chain(i + 1);
+    }
+    const long long tile = first + (long long)i * every;
+    const long long l = tile % io.L, t0 = (tile / io.L) * C;
+    // as the x tile: t / P is the same for the tile
+    const long long a0 = t0 / io.P, b0 = t0 - a0 * io.P;
+    // outputs k' + M*k2 of column c, pair q of the thread
+    const auto put = [&](int c, int kp, const V* y, int q) {
+      const long long t = t0 + c;
+      if (t >= io.T) return;
+      V w = wk[q];
+      const long long o = l * io.out_ls + a0 * io.out_as + (b0 + c) * io.out_bs;
+#pragma unroll
+      for (int k2 = 0; k2 < G; ++k2) {
+        V v = y[k2];
+        if (twiddled) {
+          v = cmul(v, w);
+          w = cmul(w, wm[q]);
+        }
+        const long long ok = o + (kp + M * k2) * io.out_ns;
+        io.out_re[ok] = v.x * io.post;
+        io.out_im[ok] = v.y * io.post;
+      }
+    };
+    xt_receive_chunks<X, SWAP>(recv, &landed, i & 1, fresh(tw), s, rank, put);
+    // past the receive's barrier every copy out of tile i's slot has
+    // landed and every block has read its receive buffer: refill the slot
+    // with tile i + S, send tile i + 1's chunks
+    if (threadIdx.x == 0 && i + S < count) fill(i + S);
+    if (i + 1 < count) {
+      xt_send_chunks<X, SWAP>(slots + ((i + 1) % S) * (K::SLOT / 16), recv,
+                              &landed, rank);
+#pragma unroll
+      for (int q = 0; q < X::PAIRS; ++q) {
+        wk[q] = wk1[q];
+        wm[q] = wm1[q];
+      }
+    }
+  }
+}
+
+// The clusters of the ring the card holds at once, into `held`: asked of
+// the card once a device (cudaOccupancyMaxActiveClusters, which sets the
+// kernel's shared memory there for its launches).
+template <int LOGN, int G, int C, int S, int B, bool SWAP>
+cudaError_t xring_held(int& held) {
+  using K = XRing<LOGN, G, C, S, B>;
+  static std::atomic<int> got[64];             // by device, 0 until asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  held = got[dev].load(std::memory_order_relaxed);
+  if (!held) {
+    held = max_clusters<K::NT>(local_cols_xring_kernel<LOGN, G, C, S, B, SWAP>,
+                               G, K::SMEM);
+    if (held < 0) return static_cast<cudaError_t>(-held);
+    if (held == 0) return cudaErrorInvalidConfiguration;
+    got[dev].store(held, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+template <int LOGN, int G, int C, int S, int B, bool SWAP>
+cudaError_t launch_xring(const Cols<double>& io, const double2* tw, double s,
+                         cudaStream_t stream) {
+  using K = XRing<LOGN, G, C, S, B>;
+  int held = 0;
+  cudaError_t e = xring_held<LOGN, G, C, S, B, SWAP>(held);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mre, mim;
+  e = xring_map<LOGN, G, C, S, B>(&mre, io.in_re, io);
+  if (e == cudaSuccess) e = xring_map<LOGN, G, C, S, B>(&mim, io.in_im, io);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (io.T + C - 1) / C * io.L;
+  // whole rounds: the fewest clusters that take the tiles a cluster the
+  // held ones need
+  const long long each = (tiles + held - 1) / held;
+  const long long clusters = (tiles + each - 1) / each;
+  return launch_cluster<K::NT>(local_cols_xring_kernel<LOGN, G, C, S, B, SWAP>,
+                               clusters, G, K::SMEM, stream, io, tw, s, tiles,
+                               mre, mim);
+}
+
 // ------------------------------------- K4 from n = 512: a cluster's tile
 
 // (log2 n, G, R) of K4's cluster tile: R consecutive rows split over a
@@ -1550,10 +1833,10 @@ cudaError_t launch_pring(const Cols<float>& io, const float2* tw, float s,
   return cudaGetLastError();
 }
 
-// What a column entry returns where the persistent ring (RAN_RING,
-// complex64 only) or the cluster tile (RAN_X, complex64 and complex128)
-// ran: 0 where local_cols_kernel ran, else the launch's cudaError_t.  The
-// wrapper counts each design's launches from it.
+// What a column entry returns where a persistent ring (RAN_RING: K5's
+// column ring, K12's cluster ring) or the cluster tile (RAN_X, complex64
+// and complex128) ran: 0 where local_cols_kernel ran, else the launch's
+// cudaError_t.  The wrapper counts each design's launches from it.
 constexpr int RAN_RING = -1, RAN_X = -2;
 
 // Whether the persistent ring takes the pass: a plain store (no swap, no
@@ -1608,6 +1891,20 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     return e == 0 ? RAN_X : e;                                              \
   }
   if constexpr (sizeof(Real) == sizeof(double)) {
+    // K12's persistent cluster ring where its table has n, on planar planes
+    // its tensor maps read (RAN_RING)
+    if (xring_operands(io)) {
+#define PYFFT_XRING(LN, G, C, S, B)                                       \
+  if (log2n == LN) {                                                      \
+    const cudaError_t e =                                                 \
+        swap_store ? launch_xring<LN, G, C, S, B, true>(io, t, s, st)     \
+                   : launch_xring<LN, G, C, S, B, false>(io, t, s, st);   \
+    if (e != cudaSuccess) return (int)e;                                  \
+    return RAN_RING;                                                      \
+  }
+      PYFFT_XRING_F64(PYFFT_XRING)
+#undef PYFFT_XRING
+    }
     // K12: the cluster tile from n = 1024
     if (xcols_strided(io.in_ts)) {
       PYFFT_XCOLS_F64_S2(PYFFT_XCOL)
@@ -1732,6 +2029,27 @@ extern "C" int pyfft_local_cols_xshape(int log2n, int strided,
 }
 #undef PYFFT_XCOL
 
+// K12's persistent cluster ring at log2n (PYFFT_XRING_F64) into out[0..5]:
+// G, C, S, its threads, a block's bytes of shared memory and the clusters
+// the card holds at once (asked of the card, which sets the kernel's
+// shared memory there).  Returns 1, 0 where the ring takes no such length,
+// or minus a cudaError_t.
+extern "C" int pyfft_local_cols_xring_shape_f64(int log2n, int* out) {
+#define PYFFT_XRING(LN, G, C, S, B)                                \
+  if (log2n == LN) {                                               \
+    using K = XRing<LN, G, C, S, B>;                               \
+    int held = 0;                                                  \
+    const cudaError_t e = xring_held<LN, G, C, S, B, true>(held);  \
+    if (e != cudaSuccess) return -(int)e;                          \
+    const int v[7] = {G, C, S, B, K::NT, K::SMEM, held};           \
+    for (int i = 0; i < 7; ++i) out[i] = v[i];                     \
+    return 1;                                                      \
+  }
+  PYFFT_XRING_F64(PYFFT_XRING)
+#undef PYFFT_XRING
+  return 0;
+}
+
 // The persistent column ring's shape at log2n (PYFFT_COLS_PRING) into
 // out[0..4]: the columns of a tile, its threads, slots, a block's shared
 // memory in bytes and the blocks an SM holds on the current device (asked
@@ -1796,9 +2114,9 @@ extern "C" int pyfft_local_cols_ring_shape(int log2n, int* out) {
 // (l, k, t / P, t % P), P, the table strides ak, aq, adiv, bk, bq, and the
 // twiddle mode (0 none, 1 table, 2 factored).  Strides are in elements
 // (table strides in pairs).  Return the launch's cudaError_t (0 on
-// success; RAN_X (-2) where the cluster tile ran; complex64: RAN_RING (-1)
-// where the persistent ring ran).  complex64: float planes, 8 <= n <=
-// 8192.
+// success; RAN_X (-2) where the cluster tile ran; RAN_RING (-1) where a
+// persistent ring ran, K5's column ring or K12's cluster ring).
+// complex64: float planes, 8 <= n <= 8192.
 extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,
                                 const void* ta, const void* tb,

@@ -1,14 +1,17 @@
 // The pieces that the multi-tile column kernel K6 (a ring of runs fed by
-// tensor copies) and the digit-swapped row kernel K4 from n = 512 (a row
-// tile split over a cluster, loaded by a tensor copy) add to the cluster
-// column tile of cluster_cols.cuh; both kernels are in local_cols.cu.  The
+// tensor copies), the complex128 column kernel K12's persistent cluster
+// ring and the digit-swapped row kernel K4 from n = 512 (a row tile split
+// over a cluster, loaded by a tensor copy) add to the cluster column tile
+// of cluster_cols.cuh; the kernels are in local_cols.cu.  The
 // row ring of local_rows.cu (K1 and K2) takes the tensor-map encoder, the
-// barrier and fence helpers and align128 from here.
+// barrier and fence helpers and align128 from here, K8's plane ring
+// (fused2d.cu) the tensor maps and the copies between shared memories.
 //
 //   * Tensor maps (TMA): a host helper that encodes a 4D map of a float
-//     plane or of the complex form's pairs, and the box copy into shared
-//     memory on an mbarrier.  One thread asks for a whole run or tile of a
-//     plane in one instruction; the copy engine makes the addresses.
+//     or double plane or of the complex form's pairs, and the box copy
+//     into shared memory on an mbarrier.  One thread asks for a whole run
+//     or tile of a plane in one instruction; the copy engine makes the
+//     addresses.
 //   * The ring.  A block walks many runs of columns.  Its shared memory
 //     holds S slots of one run each, and each slot has an mbarrier.  One
 //     thread issues the box copies of the next runs while the block runs
@@ -19,9 +22,10 @@
 //   * xt_chain_from: the tile's chain (cluster_cols.cuh's xt_chain) with a
 //     first stage that reads the block's data through the caller's
 //     function instead of the [k][c] buffer: K6 reads a slot's two planes
-//     (or its pairs) there.  Like every stage it reads all its values
-//     before a barrier and writes the [k][c] buffer after it, so the
-//     buffer may be the one it reads.
+//     (or its pairs) there, and K12's ring too (xt_chain_from_chunks,
+//     below).  Like every stage it reads all its values before a barrier
+//     and writes the [k][c] buffer after it, so the buffer may be the one
+//     it reads.
 
 #pragma once
 
@@ -64,9 +68,10 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 4D tensor map over `base`: elements of 4 bytes (a float plane) or of 8
-// (`pairs`: the complex form's (re, im) pairs, copied as one 64-bit value),
-// dims[0] contiguous, the other three `strides` bytes apart; boxes of
-// `box` elements, zeros where a box reaches past the tensor.
+// (`pairs`: the complex form's (re, im) pairs, copied as one 64-bit value,
+// or a double plane), dims[0] contiguous, the other three `strides` bytes
+// apart; boxes of `box` elements, zeros where a box reaches past the
+// tensor.
 inline cudaError_t tensor_map_4d(CUtensorMap* map, const void* base,
                                  bool pairs, const cuuint64_t (&dims)[4],
                                  const cuuint64_t (&strides)[3],
@@ -157,6 +162,228 @@ __device__ __forceinline__ void xt_chain_from(
   constexpr int R = X::REM ? (1 << X::REM) : 8;
   xt_first<X, R>(sm, s, load, [] { __syncthreads(); });
   if constexpr (X::NSTAGES > 1) xt_chain<X, false, 1, R>(sm, tw, s);
+}
+
+// The address in cluster block `rank`'s shared memory of what lies at
+// `local` in this block's (distributed shared memory: every block of the
+// kernel lays its shared memory out alike).
+__device__ __forceinline__ uint32_t cluster_addr(const void* local,
+                                                 int rank) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
+  return a;
+}
+
+// The cluster barrier's arrive without release semantics: it orders none
+// of this thread's memory operations (cluster_cols.cuh's cluster_arrive
+// releases them all, which waits for its stores to device memory too: in
+// a block that walks many tiles, the stores of its last tile).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from this block's shared `src` to `dst`
+// in cluster block `rank`'s shared memory, both 16-byte aligned, completing
+// on that block's mbarrier at `bar` (cp.async.bulk between shared
+// memories: the copy engine moves the run, no thread does).
+__device__ __forceinline__ void bulk_to_block(void* dst, const void* src,
+                                              int bytes, uint64_t* bar,
+                                              int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(cluster_addr(dst, rank)), "r"(smem_u32(src)), "r"(bytes),
+         "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+
+// K12's ring exchanges in whole chunks, as K8's plane ring does: the last
+// stage of each block's M-point chain writes its outputs into its buffer
+// by owner (the block that takes them, k / KR), and one thread hands each
+// owner's chunk to the copy engine (cp.async.bulk between shared
+// memories) into the owner's receive buffer, at the place of this block,
+// completing on the owner's mbarrier (bulk_to_block, above).  No thread
+// loads across the cluster, and no release waits for the stores to device
+// memory of the tile before.
+// Where value k' = o*KR + kl of column c lies in a chunked buffer, o the
+// owner (in the sender's buffer) or the sender (in the receive buffer):
+// runs of c, or (KMAJOR, for the swapped store's pairs, which take
+// neighbouring k' of one column) runs of k' padded by one element.
+template <class X, bool KMAJOR>
+__device__ __forceinline__ int xt_chunk_index(int o, int kl, int c) {
+  constexpr int C = X::C_, KR = X::KR;
+  return KMAJOR ? (o * C + c) * (KR + 1) + kl : (o * KR + kl) * C + c;
+}
+
+// The values of one chunk.
+template <class X, bool KMAJOR>
+__host__ __device__ constexpr int xt_chunk() {
+  return KMAJOR ? X::C_ * (X::KR + 1) : X::KR * X::C_;
+}
+
+// v[r] *= w^r for 0 < r < R, w^r at tw[r*e], from fewer table reads
+// (chain.cuh's TWD): radix 4 reads w^1, w^2; radix 8 w^1, w^2, w^4, w^7;
+// radix 16 w^1, w^2, w^3, w^4, w^8; each other twiddle is one or two
+// products of those.
+template <int R, class V>
+__device__ __forceinline__ void xt_twiddle(V* v, const V* __restrict__ tw,
+                                           int e) {
+  if constexpr (R == 2) {
+    v[1] = cmul(v[1], __ldg(&tw[e]));
+  } else if constexpr (R == 4) {
+    const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+    v[1] = cmul(v[1], w1);
+    v[2] = cmul(v[2], w2);
+    v[3] = cmul(v[3], cmul(w1, w2));
+  } else if constexpr (R == 8) {
+    const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+    const V w4 = __ldg(&tw[4 * e]);
+    v[1] = cmul(v[1], w1);
+    v[2] = cmul(v[2], w2);
+    v[3] = cmul(v[3], cmul(w1, w2));
+    v[4] = cmul(v[4], w4);
+    v[5] = cmul(v[5], cmul(w1, w4));
+    v[6] = cmul(v[6], cmul(w2, w4));
+    v[7] = cmul(v[7], __ldg(&tw[7 * e]));
+  } else {
+    static_assert(R == 16, "radix 2, 4, 8 or 16");
+    V w[R];
+    w[1] = __ldg(&tw[e]);
+    w[2] = __ldg(&tw[2 * e]);
+    w[3] = __ldg(&tw[3 * e]);
+    w[4] = __ldg(&tw[4 * e]);
+    w[8] = __ldg(&tw[8 * e]);
+    w[5] = cmul(w[1], w[4]);
+    w[6] = cmul(w[2], w[4]);
+    w[7] = cmul(w[3], w[4]);
+#pragma unroll
+    for (int r = 9; r < R; ++r) w[r] = cmul(w[r - 8], w[8]);
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], w[r]);
+  }
+}
+
+// One radix-R stage of X's M-point chain after the first (NS the product
+// of the radices before it), as cluster_cols.cuh's xt_stage with its
+// twiddles from fewer reads (xt_twiddle): all reads, a barrier, all
+// writes, a barrier; the last stage (LAST) writes by owner
+// (xt_chunk_index).
+template <class X, int R, int NS, bool LAST, bool KMAJOR>
+__device__ __forceinline__ void xt_stage_ring(
+    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::Real_ s) {
+  using V = typename X::V;
+  constexpr int M = X::M, C = X::C_, NT = X::NT_, NR = M / R, KR = X::KR;
+  constexpr int B = NR * C / NT;
+  static_assert(B * R * NT == M * C, "threads must tile the block exactly");
+  static_assert(NS > 1 && (!LAST || NS * R == M),
+                "a stage after the first; the last covers M");
+  V y[B][R];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int q = threadIdx.x + b * NT;
+    const int c = q % C, j = q / C;
+#pragma unroll
+    for (int r = 0; r < R; ++r) y[b][r] = sm[(j + r * NR) * C + c];
+    xt_twiddle<R>(y[b], tw, (j % NS) * (X::N / (NS * R)));
+    dft<R>(y[b], s);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int q = threadIdx.x + b * NT;
+    const int c = q % C, j = q / C;
+    const int base = (j / NS) * NS * R + j % NS;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = base + r * NS;
+      sm[LAST ? xt_chunk_index<X, KMAJOR>(k / KR, k % KR, c) : k * C + c] =
+          y[b][r];
+    }
+  }
+  __syncthreads();
+}
+
+// X's chain from stage STAGE on (STAGE >= 1), its last stage writing by
+// owner.
+template <class X, bool KMAJOR, int STAGE, int NS>
+__device__ __forceinline__ void xt_chain_chunks(
+    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::Real_ s) {
+  constexpr bool LAST = STAGE + 1 == X::NSTAGES;
+  xt_stage_ring<X, 8, NS, LAST, KMAJOR>(sm, tw, s);
+  if constexpr (!LAST)
+    xt_chain_chunks<X, KMAJOR, STAGE + 1, NS * 8>(sm, tw, s);
+}
+
+// X's whole M-point chain, its first stage reading load(k, c)
+// (xt_first), its result in the buffer by owner.
+template <class X, bool KMAJOR, class Load>
+__device__ __forceinline__ void xt_chain_from_chunks(
+    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::Real_ s, const Load& load) {
+  constexpr int R = X::REM ? (1 << X::REM) : 8;
+  static_assert(X::NSTAGES > 1, "a stage after the first writes by owner");
+  xt_first<X, R>(sm, s, load, [] { __syncthreads(); });
+  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tw, s);
+}
+
+// The exchange of a tile whose chain left `sm` by owner, in two halves so
+// that the copies fly while the block runs the next tile's chain.  Send:
+// thread 0 copies each owner's chunk into the owner's receive buffer
+// `recv`, at this block's place, completing on the owner's `landed` (this
+// block's takes G chunks a tile).  The caller sends only where every
+// block has read its `recv` since the last send (the relaxed barrier of
+// xt_receive_chunks).
+template <class X, bool KMAJOR>
+__device__ __forceinline__ void xt_send_chunks(const typename X::V* sm,
+                                               typename X::V* recv,
+                                               uint64_t* landed, int rank) {
+  using V = typename X::V;
+  constexpr int G = X::G_, CH = xt_chunk<X, KMAJOR>();
+  if (threadIdx.x == 0) {
+    fence_async_smem();           // the chain's writes, before the copies
+    mbar_expect(landed, G * CH * (int)sizeof(V));
+    for (int o = 0; o < G; ++o)
+      bulk_to_block(recv + rank * CH, sm + o * CH, CH * (int)sizeof(V),
+                    landed, o);
+  }
+}
+
+// Receive: the wait for the G chunks into this block (phase `phase` of
+// `landed`), each pair's G values read from `recv`, the twiddles w_N^(b*k')
+// (xt_twiddle), the G-point DFTs and put(c, k', y, i) as xt_exchange's;
+// then a relaxed
+// cluster barrier, past which every block has read its `recv` and passed
+// its `landed` wait, so every copy out of the sent buffer has landed.  The
+// arrive is relaxed: it orders no memory operation, and relies on the
+// reads of `recv` having retired, their values consumed by put's stores
+// before it (K8's rule, fused2d.cu; the memory model does not promise it).
+// A release arrive would wait for those stores to reach device memory.
+template <class X, bool KMAJOR, class Put>
+__device__ __forceinline__ void xt_receive_chunks(
+    const typename X::V* recv, uint64_t* landed, int phase,
+    const typename X::V* __restrict__ tw, typename X::Real_ s, int rank,
+    const Put& put) {
+  using V = typename X::V;
+  constexpr int G = X::G_, C = X::C_, NT = X::NT_, KR = X::KR;
+  mbar_wait(landed, phase);
+#pragma unroll
+  for (int i = 0; i < X::PAIRS; ++i) {
+    const int p = threadIdx.x + i * NT;
+    const int c = KMAJOR ? p / KR : p % C, kl = KMAJOR ? p % KR : p / C;
+    const int kp = rank * KR + kl;
+    V u[G];
+#pragma unroll
+    for (int b = 0; b < G; ++b)
+      u[b] = recv[xt_chunk_index<X, KMAJOR>(b, kl, c)];
+    xt_twiddle<G>(u, tw, kp);   // w_N^(b*k'), from fewer reads
+    dft<G>(u, s);
+    put(c, kp, u, i);
+  }
+  cluster_arrive_relaxed();       // this block's `recv` is read
+  cluster_wait();                 // and every block's
 }
 
 // One radix-R stage of X's chain (cluster_cols.cuh's xt_stage) whose

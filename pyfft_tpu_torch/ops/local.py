@@ -25,7 +25,10 @@ Two implementations of each function live here:
   tile split over a thread-block cluster, ``col_xshape_f64``; K5 runs the
   same cluster tile in float from n = 1024, ``col_xshape``, and from n =
   16 to 256, on a plain store with no twiddle or the ``full`` one, a
-  persistent ring of tiles fed by tensor copies, ``col_ring_shape``; K1,
+  persistent ring of tiles fed by tensor copies, ``col_ring_shape``; K12
+  at n = 2048 on planar planes a tensor map reads a persistent grid of
+  clusters walking the tiles through such a ring,
+  ``col_xring_shape_f64``; K1,
   K2 and K11 run a persistent row ring where their table takes n,
   ``rows_ring_shape``), and on
   interleaved complex64 K1's interleaved I/O
@@ -48,9 +51,10 @@ Two implementations of each function live here:
 launches a kernel or raises; nothing falls back to the plain version.
 Each launch's C call is the span ``pyfft.entry.<kernel>`` and adds one to
 ``launch.<kernel>.<design>`` of the registry (``utils/profiling``), the
-design as the entry returned it: ``ring`` (RAN_RING), ``x`` (RAN_X, the
-cluster tile), ``pring`` (K5's persistent ring) or ``first``; an entry
-that reports none counts under ``launch.<kernel>``.
+design as the entry returned it: ``ring`` (RAN_RING; K12's cluster
+ring), ``x`` (RAN_X, the cluster tile), ``pring`` (K5's persistent ring)
+or ``first``; an entry that reports none counts under
+``launch.<kernel>``.
 """
 
 from __future__ import annotations
@@ -82,12 +86,14 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "PACKED_INTERLEAVED", "matrix_factor",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
            "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
-           "col_ring_shape", "col_xshape", "fft_axis_fold", "fold_lanes"]
+           "col_ring_shape", "col_xshape", "col_xring_shape_f64",
+           "fft_axis_fold", "fold_lanes"]
 
 # What a C entry returns where a redesign ran and not the first design
 # (the sources' constants): the row ring (csrc/local_rows.cu
-# local_rows_ring_kernel: K1, K2 and K11) or K5's persistent column ring
-# (csrc/local_cols.cu local_cols_pring_kernel), and the cluster tile
+# local_rows_ring_kernel: K1, K2 and K11), K5's persistent column ring
+# (csrc/local_cols.cu local_cols_pring_kernel) or K12's persistent cluster
+# ring (local_cols_xring_kernel), and the cluster tile
 # (local_cols_x_kernel: K5 in float, K12 in double).
 RAN_RING = -1
 RAN_X = -2
@@ -1348,29 +1354,35 @@ def ring_shape(n: int) -> dict:
 
 
 # The registry's key of a K5 or K12 launch by what its C entry returned:
-# K5's persistent ring (RAN_RING), the cluster tile (RAN_X), the first
-# design (0).
+# K5's persistent ring or K12's persistent cluster ring (RAN_RING), the
+# cluster tile (RAN_X), the first design (0).
 _K5_KEYS = {RAN_RING: "launch.K5.pring", RAN_X: "launch.K5.x",
             0: "launch.K5.first"}
-_K12_KEYS = {RAN_X: "launch.K12.x", 0: "launch.K12.first"}
+_K12_KEYS = {RAN_RING: "launch.K12.ring", RAN_X: "launch.K12.x",
+             0: "launch.K12.first"}
 # The lengths K5's persistent ring takes (csrc/local_cols.cu
 # PYFFT_COLS_PRING); a test holds them to the source's table.
 COL_RING_LENGTHS = (16, 32, 64, 128, 256)
+# The lengths K12's persistent cluster ring takes (PYFFT_XRING_F64); a
+# test holds them to the source's table.
+COL_XRING_F64_LENGTHS = (2048,)
 
 
 def _boxable(r3: torch.Tensor, i3: torch.Tensor) -> bool:
     """Whether the kernel's tensor maps copy boxes of the (L, m, f) planes
     where they lie: planar (f stride 1) or the complex form's stride-2
-    planes (the imaginary plane one float after the real one), 16-byte
-    aligned, the m stride (and, for L > 1, the l stride) a multiple of 4
-    elements (csrc/local_cols.cu ``ring_operands``, ``swap_operands``)."""
+    float planes (the imaginary plane one float after the real one),
+    16-byte aligned, the m stride (and, for L > 1, the l stride) whole
+    16-byte units: a multiple of 4 floats or 2 doubles (csrc/local_cols.cu
+    ``ring_operands``, ``swap_operands``, ``xring_operands``)."""
     L = r3.shape[0]
     ls, ms, fs = r3.stride()
     a, b = r3.data_ptr(), i3.data_ptr()
+    unit = 16 // r3.element_size()
     planar = fs == 1 and b % 16 == 0
     pairs = fs == 2 and b == a + 4
-    return ((planar or pairs) and a % 16 == 0 and ms % 4 == 0
-            and (L == 1 or ls % 4 == 0))
+    return ((planar or pairs) and a % 16 == 0 and ms % unit == 0
+            and (L == 1 or ls % unit == 0))
 
 
 def _box_operands(r3: torch.Tensor, i3: torch.Tensor):
@@ -1462,6 +1474,30 @@ def col_xshape_f64(n: int, strided: bool = False,
                      "clusters_swap"), out))
 
 
+COL_XRING_KEYS = ("cluster", "columns", "slots", "blocks_an_sm", "threads",
+                  "smem_bytes", "clusters_held")
+
+
+@functools.lru_cache(maxsize=None)
+def col_xring_shape_f64(n: int) -> dict | None:
+    """K12's persistent cluster ring at length n (csrc/local_cols.cu
+    ``PYFFT_XRING_F64``), which complex128 column passes run on planar
+    planes its tensor maps read (``_boxable``): the blocks of its
+    ``cluster``, the ``columns`` of a tile, the ``slots`` of a block's
+    ring, the ``blocks_an_sm`` its launch bounds leave registers for,
+    ``threads`` and ``smem_bytes`` a block and the clusters the current
+    card holds at once (asked of it), the ring's grid; None where the
+    ring takes no such length.  Builds the library on first use."""
+    fn = _library("local_cols").pyfft_local_cols_xring_shape_f64
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(COL_XRING_KEYS))()
+    got = fn(ilog2(n), out)
+    if got < 0:
+        raise RuntimeError(f"K12 ring shape query failed: cudaError {-got}")
+    return dict(zip(COL_XRING_KEYS, out)) if got else None
+
+
 def col_xshape(n: int, strided: bool = False) -> dict | None:
     """K5's cluster tile from n = 1024 (csrc/local_cols.cu
     ``PYFFT_XCOLS_F32``, ``_S2``), as ``col_xshape_f64`` gives K12's."""
@@ -1496,12 +1532,18 @@ def col_design(n: int, dtype: torch.dtype, *, boxable: bool, in_ts: int,
                tw_mode: str = "", tw_n: int = 0, swap_store: bool = False,
                swap_mid: int = 0, T: int = 0) -> str:
     """Which design the column pass runs (csrc/local_cols.cu
-    ``launch_cols``): "x", the cluster tile, where its table takes n (K12
-    from n = 1024 in float64, K5 from n = 1024 in float32); "ring", K5's
+    ``launch_cols``): "ring", K12's persistent cluster ring (float64, the
+    lengths of ``COL_XRING_F64_LENGTHS``) on planar planes its tensor maps
+    read (``boxable``, t stride ``in_ts`` 1), in every twiddle and store
+    mode; "x", the cluster tile, where its table takes n (K12 from n =
+    1024 in float64, K5 from n = 1024 in float32); "ring", K5's
     persistent ring (float32, n = 16 to 256), on a plain store (no swap,
     no mid swap shorter than the trail ``T``) with no twiddle or the
     ``full`` one, on planes its tensor maps read (``boxable``); else
     "first", the first design (local_cols_kernel).  No CUDA call."""
+    if (dtype == torch.float64 and n in COL_XRING_F64_LENGTHS
+            and in_ts == 1 and boxable):
+        return "ring"
     if _col_xtile(ilog2(n), in_ts, dtype):
         return "x"
     plain = not swap_store and (not swap_mid or swap_mid >= T)
@@ -1918,7 +1960,8 @@ def _empty_like_planes(re, im, shape):
 _LIBRARY_CACHES = (_rows_fn, _rows_i8_fn, _rows_i8_stage_fn, rows_ring_shape,
                    _rows_il_fn, _rows_il_i8_fn, _rows_swap_fn, swap_tile,
                    _rows_swap_i8_fn, _ctile_fn, ring_shape, _cols_lib,
-                   _cols_xshape_fn, _col_xtile, col_ring_shape, _cols_i8_lib)
+                   _cols_xshape_fn, _col_xtile, col_ring_shape,
+                   col_xring_shape_f64, _cols_i8_lib)
 
 
 def clear_library_caches() -> None:

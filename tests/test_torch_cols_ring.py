@@ -614,11 +614,12 @@ def test_design_launches_counted(monkeypatch, err, ring, x):
 
 @pytest.mark.parametrize("err,dtype", [(700, torch.float32),
                                        (1, torch.float32),
-                                       (-1, torch.float64),
+                                       (-3, torch.float64),
                                        (700, torch.float64)])
 def test_failed_launch_raises(monkeypatch, err, dtype):
-    """A failed launch raises and counts nothing; RAN_RING from the
-    complex128 entry (K12 has no ring) is a failure too."""
+    """A failed launch raises and counts nothing; a code no design returns
+    (-3) from the complex128 entry is a failure too (RAN_RING is K12's
+    cluster ring there, tests/test_torch_cols_xring_f64.py)."""
     fake_launch(monkeypatch, err)
     re_, im_ = (t.to(dtype) for t in dispatch_planes("planar", 256, 128))
     with pytest.raises(RuntimeError, match="local_cols launch failed"):

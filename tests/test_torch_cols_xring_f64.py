@@ -1,0 +1,838 @@
+"""K12's persistent cluster ring on the CPU (csrc/local_cols.cu
+``local_cols_xring_kernel``): the complex128 column pass at the lengths of
+``PYFFT_XRING_F64`` on planar planes a tensor map reads, a persistent grid
+of clusters walking every (l, run of C columns) tile through a ring of
+slots fed by tensor-map boxes.
+
+Read from the source, as tests/test_torch_swap_ctile.py reads K6's: the
+table, the ring's constants (``XRing``), the walk (a cluster's first
+tile, its stride and count, the tile of iteration i, the ring's first
+fills, its refill at the top of iteration i, the slot and barrier parity
+of each wait), the grid (whole rounds of the clusters the card holds), the
+boxes a fill copies and the operand rule (``xring_operands``).  The models
+built on them: every tile filled once and stored once over config 5's
+64 x 128 tiles and ragged counts for a range of clusters held; no slot
+filled before the cluster barrier that frees it; each wait on its own
+fill at that fill's parity.  The ring's function: the tiles in its order,
+loaded through each block's slot as the boxes lay it out, the x tile's
+chain and exchange (tests/test_torch_cluster_cols.py's model), the
+twiddles w(k') and w(M) read per pair and stepped w(k') * w(M)^k2, the
+chain's and the exchange's twiddles from fewer reads (xt_twiddle), both
+stores, against numpy (1e-11) and, on the same (G, C), the x tile's model
+(1e-14).  The
+dispatch rule (``local.col_design`` against the C rule on the wrapper's
+operands) and the launch counts (``launch.K12.ring`` from the entry's
+RAN_RING; every other K12 and K5 pass counting the keys it did).  The
+CUDA kernel runs on the card (chip_smoke.py phases 11-13,
+probes/ab_parent.py, probes/float_split.py K12).
+"""
+
+import contextlib
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from pyfft_tpu_torch.ops import local
+from pyfft_tpu_torch.utils import profiling
+
+from test_torch_cluster_cols import (CSRC, c_eval, col_reference, k12_model,
+                                     macro_cases, storage)
+from test_torch_rows_ring import c_bool
+
+torch.set_num_threads(2)
+
+TOL64 = 1e-11
+SMEM = 227 * 1024               # shared memory a block may take (H100)
+SM_SMEM = 228 * 1024            # an SM's, with 1 KB a block reserved
+BOX = 256                       # the most rows a tensor copy's box takes
+
+COLS_SRC = (CSRC / "local_cols.cu").read_text()
+# the ring's kernel, from its declaration to the query of its clusters
+XRING_SRC = COLS_SRC[COLS_SRC.index("    local_cols_xring_kernel(Cols<double>"
+                                    " io,"):
+                     COLS_SRC.index("// The clusters of the ring the card "
+                                    "holds at once")]
+LAUNCH_SRC = COLS_SRC[COLS_SRC.index("cudaError_t launch_xring("):]
+LAUNCH_SRC = LAUNCH_SRC[:LAUNCH_SRC.index("\n}\n")]
+XRING = macro_cases("local_cols.cu", "PYFFT_XRING_F64")
+XCOLS = {c[0]: c for c in macro_cases("local_cols.cu", "PYFFT_XCOLS_F64")}
+
+
+def src_text(pattern: str, src: str = XRING_SRC) -> tuple:
+    """The groups of ``pattern``'s one match in ``src``."""
+    m = re.findall(pattern, src)
+    assert len(m) == 1, f"{pattern!r} not in the source once"
+    return m[0] if isinstance(m[0], tuple) else (m[0],)
+
+
+# ------------------------------------------------- the table, the shape
+
+RING_SRC = (CSRC / "ring_cols.cuh").read_text()
+# where value k' = o*KR + kl of column c lies in a chunked buffer, and the
+# values of a chunk, as ring_cols.cuh states them
+CHUNK_INDEX = src_text(
+    r"__device__ __forceinline__ int xt_chunk_index\(int o, int kl, int c\) "
+    r"\{\n  constexpr int C = X::C_, KR = X::KR;\n  return ([^;]+);",
+    RING_SRC)[0]
+CHUNK = src_text(r"constexpr int xt_chunk\(\) \{\n  return ([^;]+);",
+                 RING_SRC)[0]
+
+
+def chunk_index(o, kl, c, C: int, KR: int, kmajor: bool):
+    """xt_chunk_index evaluated (numpy arrays allowed)."""
+    km, plain = (v.strip() for v in CHUNK_INDEX.split("?")[1].split(":"))
+    return eval(km if kmajor else plain, {"__builtins__": {}},
+                dict(o=o, kl=kl, c=c, C=C, KR=KR))
+
+
+def chunk(C: int, KR: int, kmajor: bool) -> int:
+    """xt_chunk evaluated."""
+    expr = CHUNK.replace("X::C_", "C").replace("X::KR", "KR")
+    return c_eval(expr.replace("KMAJOR", str(int(kmajor))), C=C, KR=KR)
+
+
+
+def xring_shape(log2n: int, G: int, C: int, S: int, B: int = 1) -> dict:
+    """XRing's constants (csrc/local_cols.cu) at (log2 n, G, C, S, B):
+    a slot holds the tile's planes, its [k][c] values and its outputs by
+    owner (the swapped store's padded chunks); the receive buffer is one
+    slot more."""
+    n = 1 << log2n
+    M = n // G
+    KR = M // G
+    nt = min(M * C // 8, KR * C, 512)
+    slot = (max(M * C, G * chunk(C, KR, True)) * 16 + 127) // 128 * 128
+    smem = (S + 1) * slot + 128
+    return dict(M=M, MB=min(M, BOX), NT=nt, P=M * C, KR=KR, slot=slot,
+                smem=smem, B=B)
+
+
+def test_xring_constants_are_the_sources():
+    """The model's XRing is the source's: threads, the slot (the swapped
+    store's padded buffer in whole 128-byte units), shared memory and the
+    blocks an SM of its launch bounds."""
+    for text in (
+            "static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);",
+            "static constexpr int SLOT =\n      (cmax(X::P, X::G_ * "
+            "xt_chunk<X, true>()) * 16 + 127) / 128 * 128;",
+            "static constexpr int SMEM = (S + 1) * SLOT + 128;",
+            "static constexpr int MB = M < BOX ? M : BOX;"):
+        assert text in COLS_SRC, text
+    assert "__global__ void __launch_bounds__(NT, B)\n    " \
+        "local_cols_xring_kernel(" in COLS_SRC
+    assert "constexpr int BOX = 256;" in COLS_SRC
+
+
+def test_xring_table_rules():
+    """The ring's lengths are the wrapper's (``COL_XRING_F64_LENGTHS``) and
+    lengths the x tile takes too (it runs every pass the ring cannot
+    read); each shape a power-of-two cluster of at most 16 blocks, runs of
+    at least 128 bytes of each plane that stay inside 128 columns, one
+    butterfly of every stage and one (k', c) pair of the exchange a
+    thread, a slot that holds the tile's two planes and the swapped
+    store's padded buffer, and a ring that fits a block's shared memory
+    with room for the B blocks an SM its launch bounds promise."""
+    assert tuple(1 << c[0] for c in XRING) == local.COL_XRING_F64_LENGTHS
+    for log2n, G, C, S, B in XRING:
+        k = xring_shape(log2n, G, C, S, B)
+        assert log2n in XCOLS
+        assert G in (2, 4, 8, 16) and C * 8 >= 128 and 128 % C == 0
+        assert S >= 1 and k["M"] % k["MB"] == 0
+        assert k["P"] % k["NT"] == 0 and k["P"] // 8 >= k["NT"]
+        assert k["KR"] * C % k["NT"] == 0 and k["KR"] * C >= k["NT"]
+        assert k["slot"] >= k["P"] * 16 and k["slot"] % 128 == 0
+        assert k["slot"] >= G * chunk(C, k["KR"], True) * 16
+        assert G * chunk(C, k["KR"], True) * 16 < 1 << 20
+        assert k["smem"] <= SMEM and B >= 1 and B * k["NT"] <= 2048
+        assert B * (k["smem"] + 1024) <= SM_SMEM
+        assert k["P"] * 16 < 1 << 20          # an mbarrier's byte count
+
+
+# ------------------------------------------------------------- the walk
+
+# the walk as local_cols_xring_kernel states it: a cluster's first tile,
+# its stride and count, the tile of iteration i and its (l, t0), the ring's
+# first fills, its refill at the top of iteration i, the slot and barrier
+# parity of each wait; the grid, whole rounds of the clusters held
+WALK = dict(zip(("first", "every"), src_text(
+    r"const long long first = ([^,]+), every = ([^;]+);")))
+WALK["count"] = src_text(
+    r"const int count =\s+first < tiles \? static_cast<int>\(([^;]+)\)\s+"
+    r": 0;")[0]
+TILES = set(re.findall(r"const long long tile = ([^;]+);", XRING_SRC))
+assert len(TILES) == 1, TILES
+WALK["tile"] = TILES.pop()
+WALK["l"], WALK["t0"] = src_text(
+    r"const long long l = ([^,]+), t0 = ([^;]+);")
+WALK["fill_l"] = src_text(r"const int l = static_cast<int>\(([^;]+)\);")[0]
+WALK["fill_t0"] = src_text(r"const int t0 = static_cast<int>\(([^;]+)\);")[0]
+WALK["fill_slot"] = src_text(r"uint64_t\* bar = &filled\[([^\]]+)\];")[0]
+WALK["initial"] = src_text(
+    r"for \(int j = 0; ([^;]+); \+\+j\) fill\(j\);")[0]
+WALK["refill"], WALK["refill_tile"] = src_text(
+    r"if \(threadIdx\.x == 0 && ([^)]+)\) fill\(([^)]+)\);")
+WALK["wait_slot"], WALK["parity"] = src_text(
+    r"mbar_wait\(&filled\[([^\]]+)\], ([^;]+)\);")
+WALK["each"] = src_text(r"const long long each = ([^;]+);", LAUNCH_SRC)[0]
+WALK["clusters"] = src_text(r"const long long clusters = ([^;]+);",
+                            LAUNCH_SRC)[0]
+
+
+def walk_eval(key: str, **env) -> int:
+    """WALK[key] evaluated in Python (``&&`` read as ``and``, ``io.`` the
+    operands' fields)."""
+    expr = WALK[key].replace("&&", " and ").replace("io.", "")
+    return c_eval(expr, **env)
+
+
+def grid(tiles: int, held: int) -> int:
+    """The ring's clusters over ``tiles`` tiles with ``held`` clusters on
+    the card at once (launch_xring)."""
+    each = walk_eval("each", tiles=tiles, held=held)
+    return walk_eval("clusters", tiles=tiles, each=each)
+
+
+def xring_walk(L: int, T: int, C: int, S: int, G: int, held: int):
+    """Every cluster's program order over (L, n, T), from the kernel's own
+    expressions (every block of a cluster walks the same tiles, each its
+    own rows): [(cluster, [(event, i, slot, (l, t0), parity)])], events
+    "fill", "wait" (the tile's chain: tile 0's before the loop, tile i +
+    1's in iteration i) and "free" (past tile i's receive barrier, where
+    the slot's refill follows)."""
+    tiles = -(-T // C) * L
+    clusters = grid(tiles, held)
+    out = []
+    for cl in range(clusters):
+        ranks = []
+        for rank in range(G):
+            env = dict(S=S, C=C, L=L, G=G, tiles=tiles, bx=cl * G + rank,
+                       gx=clusters * G)
+            env.update(first=walk_eval("first", **env))
+            env.update(every=walk_eval("every", **env))
+            ranks.append((env["first"], env["every"]))
+        assert len(set(ranks)) == 1, "the blocks of a cluster walk apart"
+        count = (walk_eval("count", **env) if env["first"] < tiles else 0)
+
+        def where(i, fill=False):
+            tile = walk_eval("tile", i=i, **env)
+            if fill:
+                return (walk_eval("fill_l", tile=tile, **env),
+                        walk_eval("fill_t0", tile=tile, **env))
+            return (walk_eval("l", tile=tile, **env),
+                    walk_eval("t0", tile=tile, **env))
+
+        def wait(i):
+            return ("wait", i, walk_eval("wait_slot", i=i, **env), where(i),
+                    walk_eval("parity", i=i, **env))
+
+        ev = []
+        j = 0
+        while walk_eval("initial", j=j, count=count, **env):
+            ev.append(("fill", j, walk_eval("fill_slot", i=j, **env),
+                       where(j, True), None))
+            j += 1
+        ev.append(wait(0))              # tile 0's chain, before the loop
+        for i in range(count):
+            if i + 1 < count:           # the next tile's chain
+                ev.append(wait(i + 1))
+            ev.append(("free", i, walk_eval("wait_slot", i=i, **env),
+                       where(i), None))
+            if walk_eval("refill", i=i, count=count, **env):
+                r = walk_eval("refill_tile", i=i, **env)
+                ev.append(("fill", r, walk_eval("fill_slot", i=r, **env),
+                           where(r, True), None))
+        out.append((cl, ev))
+    return clusters, out
+
+
+WALK_CASES = {"config 5": (64, 2048), "ragged": (3, 16 * 37 + 5),
+              "one tile": (1, 5), "under a round": (7, 16 * 9)}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+@pytest.mark.parametrize("held", [1, 3, 7, 16, 33])
+def test_xring_walk_visits_every_tile_once(case, held):
+    """Every (l, t-run) tile is filled by exactly one cluster and stored
+    where it was filled, a slot is filled again only after the tile it held
+    is freed (the exchange's second cluster barrier), each wait is on its own
+    tile's fill at that fill's parity, the clusters are at most those held
+    and no two clusters' counts differ by more than one: config 5's 64 x
+    128 tiles, a ragged trail over three l, one tile and fewer tiles than
+    a round, over a range of clusters held."""
+    for log2n, G, C, S, _ in XRING:
+        L, T = WALK_CASES[case]
+        tiles = -(-T // C) * L
+        clusters, walks = xring_walk(L, T, C, S, G, held)
+        assert clusters <= min(held, tiles)
+        seen, counts = {}, []
+        for cl, ev in walks:
+            held_slots, fills = {}, {}
+            counts.append(sum(1 for e in ev if e[0] == "wait"))
+            for kind, i, slot, tile, parity in ev:
+                assert 0 <= slot < S
+                if kind == "fill":
+                    assert slot not in held_slots, "a slot filled while held"
+                    held_slots[slot] = (i, tile)
+                    fills[slot] = fills.get(slot, 0) + 1
+                    seen[tile] = seen.get(tile, 0) + 1
+                elif kind == "wait":
+                    assert held_slots.get(slot) == (i, tile), "another tile"
+                    assert parity == (fills[slot] - 1) & 1, "a wrong phase"
+                else:
+                    assert held_slots.pop(slot) == (i, tile)
+            assert not held_slots
+        want = {(l, t0) for l in range(L) for t0 in range(0, T, C)}
+        assert set(seen) == want and set(seen.values()) == {1}
+        assert max(counts) - min(counts) <= 1
+
+
+def test_xring_loop_order():
+    """Tile 0's chain and the send of its chunks come before the loop; in
+    iteration i the next tile's chain (its fill's wait first) runs while
+    tile i's chunks fly, then tile i's receive (the wait for the chunks
+    into this block, the pairs read and stored, a relaxed cluster
+    barrier), and only past it the refill of tile i's slot with the tile S
+    on and the send of tile i + 1's chunks; a send is the proxy fence, the
+    receive barrier's expected bytes and the copies; the chain's last stage
+    writes by owner between two block barriers; every block's receive
+    barrier is set up before any chunk is copied; a fill orders the
+    block's earlier accesses before its copies and expects a whole
+    slot."""
+    loop = XRING_SRC.index("  for (int i = 0; i < count; ++i) {")
+    head, body = XRING_SRC[:loop], XRING_SRC[loop:]
+    assert head.index("chain(0);") < head.index(
+        "xt_send_chunks<X, SWAP>(slots, recv, &landed, rank);")
+    chain = XRING_SRC[XRING_SRC.index("const auto chain = [&](int i) {"):]
+    chain = chain[:chain.index("  };")]
+    assert chain.index("mbar_wait(") < chain.index(
+        "xt_chain_from_chunks<X, SWAP>(")
+    marks = [body.index(m) for m in (
+        "chain(i + 1);", "xt_receive_chunks<X, SWAP>(recv, &landed, i & 1,",
+        "fill(" + WALK["refill_tile"] + ")",
+        "xt_send_chunks<X, SWAP>(slots + ((i + 1) % S)")]
+    assert marks == sorted(marks)
+    send = RING_SRC[RING_SRC.index("__device__ __forceinline__ void "
+                                   "xt_send_chunks("):]
+    send = send[:send.index("\n}\n")]
+    marks = [send.index(m) for m in (
+        "fence_async_smem();", "mbar_expect(landed, G * CH * (int)sizeof(V));",
+        "bulk_to_block(recv + rank * CH, sm + o * CH, CH * (int)sizeof(V),")]
+    assert marks == sorted(marks)
+    recv = RING_SRC[RING_SRC.index("__device__ __forceinline__ void "
+                                   "xt_receive_chunks("):]
+    recv = recv[:recv.index("\n}\n")]
+    marks = [recv.index(m) for m in (
+        "mbar_wait(landed, phase);", "u[b] = recv[xt_chunk_index",
+        "put(c, kp, u, i);", "cluster_arrive_relaxed();",
+        "cluster_wait();")]
+    assert marks == sorted(marks)
+    last = RING_SRC[RING_SRC.index("__device__ __forceinline__ void "
+                                   "xt_stage_ring("):]
+    last = last[:last.index("\n}\n")]
+    assert last.index("dft<R>(y[b], s);") < last.index("__syncthreads();") \
+        < last.index("sm[LAST ? xt_chunk_index<X, KMAJOR>(k / KR, k % KR, c) "
+                     ": k * C + c]") < last.rindex("__syncthreads();")
+    assert XRING_SRC.index("mbar_init(&landed);") < XRING_SRC.index(
+        "cluster_arrive();                 // every block's barriers") \
+        < XRING_SRC.index("chain(0);")
+    fill = XRING_SRC[XRING_SRC.index("const auto fill = [&](int i) {"):]
+    fill = fill[:fill.index("  };")]
+    assert fill.index("fence_async_smem();") < fill.index("mbar_expect(")
+    assert fill.index("mbar_expect(") < fill.index("tma_load_4d(")
+
+
+@pytest.mark.parametrize("kmajor", [False, True])
+def test_xring_chunks_partition_the_buffers(kmajor):
+    """The chunked layout (xt_chunk_index, xt_chunk): a block's outputs by
+    owner fill disjoint chunks of CH values, chunk o holding exactly the k'
+    of owner o, inside the slot; the receive buffer takes one chunk from
+    each block; each pair of the exchange reads, from sender b, the value
+    it sent for (k' = rank*KR + kl, c)."""
+    for log2n, G, C, S, B in XRING:
+        k = xring_shape(log2n, G, C, S, B)
+        M, KR = k["M"], k["KR"]
+        CH = chunk(C, KR, kmajor)
+        kk, cc = np.meshgrid(np.arange(M), np.arange(C), indexing="ij")
+        idx = chunk_index(kk // KR, kk % KR, cc, C, KR, kmajor)
+        assert len(np.unique(idx)) == idx.size          # no two collide
+        assert idx.max() < G * CH <= k["slot"] // 16
+        assert (idx // CH == kk // KR).all()           # chunk o, owner o
+        # a value's place inside its chunk is the same whichever chunk:
+        # sender b's chunk o lands at b*CH in owner o's receive buffer, and
+        # pair p of the owner reads (k', c) of sender b at
+        # xt_chunk_index(b, kl, c), where b sent it
+        p = np.arange(KR * C)
+        c = p // KR if kmajor else p % C
+        kl = p % KR if kmajor else p // C
+        local = chunk_index(0, kl, c, C, KR, kmajor)
+        assert len(np.unique(local)) == local.size and local.max() < CH
+        for o in range(G):
+            assert (chunk_index(o, kl, c, C, KR, kmajor) == o * CH
+                    + local).all()
+
+
+# ------------------------------------------------------------- the boxes
+
+FILL = src_text(
+    r"tma_load_4d\(dst \+ ([^,]+), part \? &map_im : &map_re, ([^,]+),\s+"
+    r"([^,]+), ([^,]+), ([^,]+), bar\);")
+MAP = src_text(
+    r"const cuuint64_t dims\[4\] = \{([^}]+)\};\n"
+    r"  const cuuint64_t strides\[3\] = \{\s*([^}]+)\};\n"
+    r"  const cuuint32_t box\[4\] = \{([^}]+)\};\n"
+    r"  return tensor_map_4d\(map, base, true, dims, strides, box\);",
+    COLS_SRC[COLS_SRC.index("cudaError_t xring_map("):])
+
+
+def fill_model(planes, l, t0, rank, G, C, S, log2n, in_ls, in_ns):
+    """One block's fill of a slot, box by box as the tensor maps lay it
+    out (dims {T, G, M, L}, strides in bytes, boxes {C, 1, MB, 1}; zeros
+    past T): the slot's doubles and the count of writes to each."""
+    k = xring_shape(log2n, G, C, S)
+    P, M, MB = k["P"], k["M"], k["MB"]
+    T = planes[0].shape[-1]
+    assert [v.strip() for v in MAP[0].split(",")] == [
+        "(cuuint64_t)io.T", "(cuuint64_t)G", "(cuuint64_t)K::M",
+        "(cuuint64_t)io.L"]
+    assert " ".join(MAP[1].split()) == (
+        "row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * 8 : row * "
+        "(1 << LOGN)")
+    assert MAP[2].split(", ") == ["(cuuint32_t)C", "1", "(cuuint32_t)K::MB",
+                                  "1"]
+    assert (FILL[0], FILL[1:]) == ("part * P + h * MB * C",
+                                   ("t0", "rank", "h * MB", "l"))
+    slot = np.zeros(2 * P)
+    writes = np.zeros(2 * P, np.int64)
+    jj = np.arange(MB)[:, None]
+    t = t0 + np.arange(C)[None, :]
+    for part in range(2):
+        flat = planes[part].reshape(-1)
+        for h in range(M // MB):
+            dst = part * P + h * MB * C
+            # box {C, 1, MB, 1} at (t0, rank, h*MB, l): row j = rank +
+            # G*j' at byte offset t*8 + rank*row + j'*row*G + l*ls
+            j = rank + G * (h * MB + jj)
+            v = flat[l * in_ls + j * in_ns + np.minimum(t, T - 1)]
+            slot[dst:dst + MB * C] = np.where(t < T, v, 0.0).reshape(-1)
+            writes[dst:dst + MB * C] += 1
+    return slot, writes
+
+
+def test_xring_fill_covers_the_slot():
+    """A fill's boxes write every double of the slot's two planes once, in
+    the [j'][c] layout the chain's first stage reads (f[k*C + c], f[P +
+    k*C + c]): rows rank + G*j' of the tile's C columns, zeros past T;
+    the barrier expects those bytes."""
+    assert "mbar_expect(bar, P * (int)sizeof(V));" in XRING_SRC
+    assert ("return Complex<double>::make(f[k * C + c], f[P + k * C + c]);"
+            in XRING_SRC)
+    log2n, G, C, S, _ = XRING[0]
+    n = 1 << log2n
+    rng = np.random.default_rng(3)
+    L, T = 2, 3 * C - 5
+    planes = [rng.standard_normal((L, n, T)) for _ in range(2)]
+    M = n // G
+    for l, t0, rank in ((0, 0, 0), (1, 2 * C, G - 1)):
+        slot, writes = fill_model(planes, l, t0, rank, G, C, S, log2n,
+                                  n * T, T)
+        assert (writes == 1).all()
+        P = M * C
+        for part in range(2):
+            got = slot[part * P:(part + 1) * P].reshape(M, C)
+            t = t0 + np.arange(C)
+            want = np.zeros((M, C))
+            keep = t < T
+            want[:, keep] = planes[part][l][rank::G][:, t[keep]]
+            assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------- the function
+
+
+def twd(R: int, tw: np.ndarray, e) -> list:
+    """xt_twiddle's w^r, r < R (w^r at tw[r*e]), from its reads and
+    products: radix 4 reads w^1, w^2; 8 w^1, w^2, w^4, w^7; 16 w^1, w^2,
+    w^3, w^4, w^8."""
+    e = np.asarray(e)
+    w = [np.ones(e.shape, complex)] + [None] * (R - 1)
+    if R == 2:
+        w[1] = tw[e]
+    elif R == 4:
+        w[1], w[2] = tw[e], tw[2 * e]
+        w[3] = w[1] * w[2]
+    elif R == 8:
+        w[1], w[2], w[4], w[7] = tw[e], tw[2 * e], tw[4 * e], tw[7 * e]
+        w[3], w[5], w[6] = w[1] * w[2], w[1] * w[4], w[2] * w[4]
+    else:
+        for r in (1, 2, 3, 4, 8):
+            w[r] = tw[r * e]
+        w[5], w[6], w[7] = w[1] * w[4], w[2] * w[4], w[3] * w[4]
+        for r in range(9, 16):
+            w[r] = w[r - 8] * w[8]
+    return w
+
+
+def stockham_ring(buf: np.ndarray, tw: np.ndarray, N: int, sign: int):
+    """The ring's M-point chain on the [k][c] buffer (M, C): the first
+    stage (radix 2 or 4 where log2 M is not a multiple of 3, no
+    twiddles), then radix 8 with xt_twiddle's twiddles; natural order
+    out."""
+    M = buf.shape[0]
+    logm = M.bit_length() - 1
+    radices = ([1 << (logm % 3)] if logm % 3 else []) + [8] * (logm // 3)
+    ns = 1
+    for R in radices:
+        nr = M // R
+        j = np.arange(nr)
+        v = np.stack([buf[j + r * nr] for r in range(R)])       # (R, nr, C)
+        if ns > 1:
+            w = twd(R, tw, (j % ns) * (N // (ns * R)))
+            for r in range(1, R):
+                v[r] *= w[r][:, None]
+        f = np.exp(sign * 2j * np.pi * np.outer(np.arange(R),
+                                                np.arange(R)) / R)
+        y = np.tensordot(f, v, axes=(1, 0))
+        base = (j // ns) * ns * R + j % ns
+        out = np.empty_like(buf)
+        for r in range(R):
+            out[base + r * ns] = y[r]
+        buf, ns = out, ns * R
+    return buf
+
+
+def chunk_tile(load, G: int, C: int, N: int, sign: int, tw, kmajor: bool):
+    """The G blocks of one tile through the ring's chunked exchange: each
+    block's chain of its rows b + G*j' (loaded through its slot), its
+    outputs written by owner at xt_chunk_index, each owner's chunk copied
+    into the owner's receive buffer at the sender's place, and each pair's
+    G values read there, twiddled by w_N^(b*k') and transformed; [(c, k',
+    y)] by rank, as tests/test_torch_cluster_cols.py's exchange gives."""
+    M = N // G
+    KR = M // G
+    CH = chunk(C, KR, kmajor)
+    e = np.arange(M * C)
+    kk, cc = np.meshgrid(np.arange(M), np.arange(C), indexing="ij")
+    sent = []
+    for b in range(G):
+        y = stockham_ring(load(e % C, b + G * (e // C)).reshape(M, C), tw,
+                          N, sign)
+        buf = np.full(G * CH, np.nan, complex)
+        buf[chunk_index(kk // KR, kk % KR, cc, C, KR, kmajor)] = y
+        sent.append(buf)
+    w = np.exp(sign * 2j * np.pi * np.outer(np.arange(G), np.arange(G)) / G)
+    out = []
+    for r in range(G):
+        recv = np.concatenate([sent[b][r * CH:(r + 1) * CH]
+                               for b in range(G)])
+        p = np.arange(KR * C)
+        c = p // KR if kmajor else p % C
+        kl = p % KR if kmajor else p // C
+        kp = r * KR + kl
+        u = np.stack([recv[chunk_index(b, kl, c, C, KR, kmajor)]
+                      for b in range(G)])
+        assert not np.isnan(u).any()
+        u = u * np.stack(twd(G, tw, kp))
+        out.append((c, kp, w @ u))
+    return out
+
+
+def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
+    """local_cols_xring_kernel on the wrapper's operands: the clusters'
+    tiles in the walk's order, each block's rows through its slot as the
+    boxes lay them out, the ring's chain, the chunked exchange, the twiddles
+    w(k') and w(M) of each pair read before the chain, the stores from
+    registers; returns the count of writes to each element of the output
+    storage."""
+    r3, i3, o, dims, ta, tb = local._col_operands(
+        re, im, out_re, out_im, sign, axis=1, tw_n=kw.get("tw_n", 0),
+        tw_mode=kw.get("tw_mode", "full"), tw_period=kw.get("tw_period", 0),
+        swap_store=kw.get("swap_store", False),
+        swap_mid=kw.get("swap_mid", 0))
+    (L, T, in_ls, in_ns, in_ts, out_ls, out_ns, out_as, out_bs, P, ak, aq,
+     adiv, bk, bq, mode) = dims
+    assert in_ts == 1 and r3.is_contiguous() and i3.is_contiguous()
+    n = r3.shape[1]
+    log2n = n.bit_length() - 1
+    M = n // G
+    swap = kw.get("swap_store", False)
+    tw = local._kernel_twiddles(n, sign, torch.device("cpu"),
+                                torch.float64).numpy()
+    tw = tw[:, 0] + 1j * tw[:, 1]
+    pairs = [None if t is None else (lambda a: a[:, 0] + 1j * a[:, 1])(
+        t.reshape(-1, 2).numpy()) for t in (ta, tb)]
+    planes = [r3.numpy().copy(), i3.numpy().copy()]
+    dst = [(storage(x), x.storage_offset()) for x in o]
+    writes = np.zeros(dst[0][0].shape, np.int64)
+    _, walks = xring_walk(L, T, C, S, G, held)
+    for _, ev in walks:
+        for kind, i, slot_i, (l, t0), _ in ev:
+            if kind != "wait":
+                continue
+            slots = [fill_model(planes, l, t0, b, G, C, S, log2n, in_ls,
+                                in_ns)[0] for b in range(G)]
+
+            def load(c, j):
+                s = slots[int(np.ravel(j)[0]) % G]     # one block's rows
+                k = j // G
+                return s[k * C + c] + 1j * s[M * C + k * C + c]
+
+            outs = chunk_tile(load, G, C, n, sign, tw, swap)
+            a0, b0 = t0 // P, t0 - (t0 // P) * P
+            q0 = t0 // adiv if adiv > 1 else 0
+            r0 = t0 & 127
+            for c, kp, y in outs:
+                t = t0 + c
+                keep = t < T
+                c, kp, t, y = c[keep], kp[keep], t[keep], y[:, keep]
+                at = (q0 if adiv > 1 else t) * aq
+                if mode:
+                    wk = pairs[0][kp * ak + at]
+                    wm = pairs[0][M * ak + at]
+                    if mode == 2:
+                        bt = (r0 + c) * bq
+                        wk = wk * pairs[1][kp * bk + bt]
+                        wm = wm * pairs[1][M * bk + bt]
+                w = wk if mode else 1
+                for k2 in range(G):
+                    v = y[k2] * w
+                    if mode:
+                        w = w * wm
+                    k = kp + M * k2
+                    off = (l * out_ls + k * out_ns + a0 * out_as
+                           + (b0 + c) * out_bs)
+                    for (arr, base), part in zip(dst, (v.real, v.imag)):
+                        arr[base + off] = part * post
+                    np.add.at(writes, dst[0][1] + off, 1)
+    return writes, o
+
+
+def ring_modes(n):
+    """(name, trail, kwargs): both stores with no twiddle and the `full`
+    one, the mid route's strided twiddle with the mid swap and the huge
+    route's factored one with the swapped store; ragged trails where the
+    mode allows."""
+    return [("plain", 40, {}),
+            ("full plain", 40, dict(tw_n=n * 40)),
+            ("swap", 40, dict(swap_store=True)),
+            ("full swap", 40, dict(tw_n=n * 40, swap_store=True)),
+            ("strided swap_mid", 256,
+             dict(tw_n=n * 2, tw_mode="strided", tw_period=128,
+                  swap_mid=128)),
+            ("factored swap", 128,
+             dict(tw_n=n * 128, tw_mode="factored", swap_store=True)),
+            ("plain inplace", 40, {})]
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("mode", range(7))
+@pytest.mark.parametrize("table", XRING)
+def test_xring_model_matches_numpy(table, mode, sign):
+    """The ring's function at each length of its table, its twiddles
+    from xt_twiddle's reads and products: numpy within 1e-11, every
+    output element written once and nothing else in its storage, and the
+    cluster tile's model on the same operands and (G, C) within 1e-14."""
+    log2n, G, C, S, _ = table
+    n = 1 << log2n
+    name, T, kw = ring_modes(n)[mode]
+    L = 2
+    rng = np.random.default_rng(log2n * 10 + mode)
+    x = rng.standard_normal((L, n, T)) + 1j * rng.standard_normal((L, n, T))
+    xt = torch.from_numpy(x)
+    post = 0.5 if sign < 0 else 1.0 / n
+    oshape = local._col_out_shape((L, n, T), 1, kw.get("swap_store", False),
+                                  kw.get("swap_mid", 0))
+    re, im = xt.real.contiguous(), xt.imag.contiguous()
+    if name == "plain inplace":
+        out = (re, im)
+    else:
+        out = (torch.full(oshape, np.nan, dtype=torch.float64),
+               torch.full(oshape, np.nan, dtype=torch.float64))
+    held = 5
+    writes, o = xring_model(re, im, *out, sign, post, G, C, S, held, kw)
+    got = out[0].numpy() + 1j * out[1].numpy()
+    want = col_reference(x, sign, post, kw)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < TOL64, f"{name}: {err:.3e}"
+    flat = torch.zeros(writes.shape, dtype=torch.int64)
+    mask = torch.zeros_like(flat, dtype=torch.bool)
+    mask.as_strided(o[0].shape, o[0].stride(),
+                    o[0].storage_offset()).fill_(True)
+    w = torch.from_numpy(writes)
+    assert (w[mask] == 1).all() and (w[~mask] == 0).all(), name
+    if name == "plain inplace":
+        return
+    # the cluster tile's model on the same operands and (G, C): the same
+    # function, its twiddles read whole (the ring forms some as products)
+    xo = (torch.full(oshape, np.nan, dtype=torch.float64),
+          torch.full(oshape, np.nan, dtype=torch.float64))
+    k12_model(re, im, *xo, sign, post, G, C, kw)
+    xg = xo[0].numpy() + 1j * xo[1].numpy()
+    assert np.abs(got - xg).max() / np.abs(xg).max() < 1e-14, name
+
+
+# --------------------------------------------------------- the dispatch
+
+XRING_OPERANDS = src_text(
+    r"inline bool xring_operands\(const Cols<double>& io\) \{\n"
+    r"  const uintptr_t a = reinterpret_cast<uintptr_t>\(io\.in_re\);\n"
+    r"  const uintptr_t b = reinterpret_cast<uintptr_t>\(io\.in_im\);\n"
+    r"  return ([^;]+);\n\}", COLS_SRC)[0]
+
+
+def c_xring_takes(r3, i3, dims, log2n: int) -> bool:
+    """The C entry's rule for K12's ring: xring_operands on the wrapper's
+    operands (pointers in bytes, strides in doubles) and the table."""
+    L, T, in_ls, in_ns, in_ts = dims[:5]
+    ops = c_bool(XRING_OPERANDS, a=r3.data_ptr(), b=i3.data_ptr(),
+                 in_ts=in_ts, in_ns=in_ns, in_ls=in_ls, L=L)
+    return ops and log2n in {c[0] for c in XRING}
+
+
+def layout_planes(layout: str, n: int, T: int, dtype):
+    """(3, n, T) planes of ``dtype`` in a layout the rule sees."""
+    g = torch.Generator().manual_seed(n + T)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    if layout == "planar":
+        return rand(3, n, T), rand(3, n, T)
+    if layout == "stride2":            # the complex form's planes
+        v = torch.view_as_real(torch.complex(rand(3, n, T), rand(3, n, T)))
+        return v[..., 0], v[..., 1]
+    if layout == "offset":             # one element off 16-byte alignment
+        flat = rand(3 * n * T + 1)
+        return flat[1:].view(3, n, T), rand(3, n, T)
+    if layout == "odd rows":           # an n stride of odd elements
+        return rand(3, n, T + 1)[..., :T], rand(3, n, T + 1)[..., :T]
+    raise AssertionError(layout)
+
+
+MODES = {"plain": {}, "full swap": dict(tw_n=1, swap_store=True),
+         "strided mid": dict(tw_n=1, tw_mode="strided", tw_period=128,
+                             swap_mid=128),
+         "factored swap": dict(tw_n=1, tw_mode="factored", swap_store=True)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("layout", ["planar", "stride2", "offset",
+                                    "odd rows"])
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_xring_design_rule(dtype, n, layout, mode, monkeypatch):
+    """Which design each pass runs: the C rule (xring_operands on the
+    wrapper's operands and the table) against ``col_design``: the ring on
+    planar float64 planes its tensor maps read at the table's lengths in
+    every twiddle and store mode; the complex form's stride-2 planes,
+    unboxable views, other lengths and every float pass the cluster tile,
+    as before."""
+    monkeypatch.setattr(local, "_col_xtile", lambda log2n, ts, dt: (
+        (8, 16) if log2n >= 10 else None))
+    T = 256
+    kw = dict(MODES[mode])
+    if kw.get("tw_n"):
+        kw["tw_n"] = n * T
+    re_, im_ = layout_planes(layout, n, T, dtype)
+    oshape = local._col_out_shape((3, n, T), 1, kw.get("swap_store", False),
+                                  kw.get("swap_mid", 0))
+    r3, i3, o, dims, ta, tb = local._col_operands(
+        re_, im_, torch.empty(oshape, dtype=dtype),
+        torch.empty(oshape, dtype=dtype), -1, axis=1,
+        tw_n=kw.get("tw_n", 0), tw_mode=kw.get("tw_mode", "full"),
+        tw_period=kw.get("tw_period", 0),
+        swap_store=kw.get("swap_store", False), swap_mid=kw.get("swap_mid", 0))
+    log2n = n.bit_length() - 1
+    want = ("ring" if dtype == torch.float64
+            and c_xring_takes(r3, i3, dims, log2n) else "x")
+    got = local.col_design(n, dtype, boxable=local._boxable(r3, i3),
+                           in_ts=dims[4], tw_mode=kw.get("tw_mode", "full"),
+                           tw_n=kw.get("tw_n", 0),
+                           swap_store=kw.get("swap_store", False),
+                           swap_mid=kw.get("swap_mid", 0), T=T)
+    assert got == want
+    expect = (dtype == torch.float64 and n in local.COL_XRING_F64_LENGTHS
+              and layout == "planar")
+    assert (want == "ring") == expect
+
+
+def test_xring_dispatch_in_the_source():
+    """The complex128 entry tries the ring first, where xring_operands
+    holds and its table has n, returning RAN_RING from its launch only,
+    then the x tile's two tables as before; the complex64 entry has no
+    such branch."""
+    f64 = COLS_SRC[COLS_SRC.index("  if constexpr (sizeof(Real) == "
+                                  "sizeof(double)) {\n    // K12's "
+                                  "persistent cluster ring"):]
+    marks = [f64.index(m) for m in (
+        "if (xring_operands(io)) {", "PYFFT_XRING_F64(PYFFT_XRING)",
+        "PYFFT_XCOLS_F64_S2(PYFFT_XCOL)", "PYFFT_XCOLS_F64(PYFFT_XCOL)",
+        "    // K5: the cluster tile from n = 1024")]
+    assert marks == sorted(marks)
+    assert COLS_SRC.count("launch_xring<LN, G, C, S, B, true>(io, t, s, st)") \
+        == 1
+    assert COLS_SRC.count("    return RAN_RING;") == 1
+    assert COLS_SRC.count("xring_operands(io)") == 1
+
+
+# ------------------------------------------------------ the launches
+
+
+def fake_launch(monkeypatch, err: int):
+    """Replace the column entry (returning ``err``) and the card's calls,
+    and zero the counts; returns the list of the entry's calls."""
+    called = []
+
+    def entry(*args):
+        called.append(args)
+        return err
+
+    monkeypatch.setattr(local, "_cols_lib",
+                        lambda d: (entry, lambda log2n: 16))
+    monkeypatch.setattr(local, "_col_xtile", lambda *a: (8, 16))
+    monkeypatch.setattr(local, "_check_planes", lambda *a: None)
+    monkeypatch.setattr(local, "_kernel_twiddles",
+                        lambda *a: torch.zeros(2))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    profiling.reset()
+    return called
+
+
+@pytest.mark.parametrize("dtype,err,key", [
+    (torch.float64, -1, "launch.K12.ring"),
+    (torch.float64, -2, "launch.K12.x"),
+    (torch.float64, 0, "launch.K12.first"),
+    (torch.float32, -2, "launch.K5.x"),
+    (torch.float32, -1, "launch.K5.pring"),
+    (torch.float32, 0, "launch.K5.first")])
+def test_xring_launches_counted(monkeypatch, dtype, err, key):
+    """``launch.K12.ring`` counts the K12 launches whose C entry returned
+    RAN_RING; the x tile's and the first design's K12 launches and every
+    K5 launch count the keys they counted before; the pass's one launch
+    counts under exactly one key."""
+    called = fake_launch(monkeypatch, err)
+    g = torch.Generator().manual_seed(1)
+    re_, im_ = (torch.randn(2, 2048, 128, generator=g, dtype=dtype)
+                for _ in range(2))
+    local._launch_cols(re_, im_, re_.clone(), im_.clone(), -1, axis=1,
+                       postscale=1.0, tw_n=0, tw_mode="full", tw_period=0,
+                       swap_store=False, swap_mid=0)
+    assert len(called) == 1
+    assert profiling.counts() == {key: 1}
+    assert local._K12_KEYS[local.RAN_RING] == "launch.K12.ring"
+
+
+def test_xring_shape_query_names():
+    """``col_xring_shape_f64`` reads the seven values the C query writes,
+    in its order."""
+    query = COLS_SRC[COLS_SRC.index(
+        'extern "C" int pyfft_local_cols_xring_shape_f64('):]
+    assert "const int v[7] = {G, C, S, B, K::NT, K::SMEM, held};" in query
+    assert local.COL_XRING_KEYS == ("cluster", "columns", "slots",
+                                    "blocks_an_sm", "threads", "smem_bytes",
+                                    "clusters_held")
