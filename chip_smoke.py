@@ -185,19 +185,16 @@ numpy.fft, in twenty-six phases, one or more lines each:
      holds one NCCL rank;
  23. autotune (``pyfft_tpu_torch.autotune``) into a temporary record
      (``PYFFT_TPU_TORCH_TUNE_FILE``, which points at an empty temporary
-     path from the start of the run, so that no other record sets the
-     kernels' tables): the four-step split at 2^22 (config 6+, 2^25
-     points a call), the complex128 split at 2^22 (config 5, 2^28), the
-     single-pass complex route at 4096 (config 2i) and the row ring's
-     table at 4096 (config 2), and K5's persistent ring's table at 256
-     (config 4's z pass), each candidate's time and the winner printed;
-     the row and column candidates' libraries build in threads, all at
-     once, while the splits are timed; the rings' shapes the tuned
-     libraries report against the record; config 6+, config 5, config 2
-     and config 4 through Plans built under the record (each repr
-     showing its split), planar and complex, against numpy with exact
-     launch counts; then the record removed and reloaded, the libraries'
-     names and the splits the source's again;
+     path from the start of the run, so that no other record steers the
+     plans): the four-step split at 2^22 (config 6+, 2^25 points a call),
+     the complex128 split at 2^22 (config 5, 2^28) and the single-pass
+     complex route at 4096 (config 2i), each candidate's time and the
+     winner printed; config 6+, config 5, config 2 and config 4 through
+     Plans built under the record (each repr showing its split), planar
+     and complex, against numpy with exact launch counts; then the record
+     removed and reloaded, the splits and route the source's again, and
+     each of the five libraries loaded the file its source names
+     (``build.library_path``, printed);
  24. the HBM chunk sweep at config 5 (2^22 x 64 complex128): the default
      budget beside the card's memory; unswept, and with the budget pinned
      to give 8 chunks of 8 rows, planar and complex, against numpy on
@@ -3491,12 +3488,13 @@ def phase_dist() -> dict:
 
 
 # Phase 23's autotune calls: (ns, kinds, volume), at config 6+ (split),
-# config 5 (dsplit), config 2i (il1d) and config 2 (row), and config 4's z
-# pass (col).
+# config 5 (dsplit) and config 2i (il1d).
 TUNE_RUNS = (([1 << 22], ("split",), 1 << 25),
              ([1 << 22], ("dsplit",), 1 << 28),
-             ([N], ("il1d", "row"), 1 << 24),
-             ([256], ("col",), 1 << 24))
+             ([N], ("il1d",), 1 << 24))
+# The kernel libraries, one build of each a process.
+LIBRARIES = ("local_rows", "local_cols", "fused2d", "fused2d_tiled",
+             "interleave")
 # The plans phase 23 runs under the record: (label, shape, batch, dtype,
 # numpy rows, launches of a planar execute).
 TUNED_PLANS = (
@@ -3559,20 +3557,19 @@ def tuned_plan(label, shape, batch, dtype, rows, per, record, seed) -> dict:
 
 def phase_autotune(tune_file: Path) -> dict:
     """Phase 23: ``autotune`` (TUNE_RUNS) into ``tune_file``, the record's
-    temporary path (PYFFT_TPU_TORCH_TUNE_FILE); the kernels' tables it
-    sets; the plans of TUNED_PLANS under it against numpy; then the record
-    removed, so that the libraries are the source's again."""
+    temporary path (PYFFT_TPU_TORCH_TUNE_FILE); the plans of TUNED_PLANS
+    under it against numpy; then the record removed.  The libraries are
+    the sources' builds throughout: each one loaded is the file its
+    source's ``build.library_path`` names, printed."""
     import pyfft_tpu_torch
     from pyfft_tpu_torch import plan as planmod
-    from pyfft_tpu_torch.ops import build, fourstep, local
+    from pyfft_tpu_torch.ops import build, fourstep
     from pyfft_tpu_torch.utils import tune
     print(f"phase 23 card: {card()}")
     t0 = time.perf_counter()
-    libs = ("local_rows", "local_cols")
-    today = {name: build.library_path(name) for name in libs}
+    paths = {name: build.library_path(name) for name in LIBRARIES}
     if tune.tuned_path() != str(tune_file) or tune_file.exists():
         raise AssertionError(f"phase 23: the record is {tune.tuned_path()}")
-    waits = [tune.prebuild(ns, kinds) for ns, kinds, _ in TUNE_RUNS]
     for ns, kinds, volume in TUNE_RUNS:
         t1 = time.perf_counter()
         print(f"phase 23 autotune({ns}, kinds={kinds}, volume=2^"
@@ -3580,23 +3577,12 @@ def phase_autotune(tune_file: Path) -> dict:
         pyfft_tpu_torch.autotune(ns, kinds=kinds, volume=volume)
         print(f"phase 23 autotune({ns}, {kinds}) took "
               f"{time.perf_counter() - t1:.1f} s")
-    for wait in waits:
-        wait()
     record = json.loads(tune_file.read_text())
-    keys = {"device", f"split:{1 << 22}", f"dsplit:{1 << 22}", f"il1d:{N}",
-            f"row:{N}", "col:256"}
+    keys = {"device", f"split:{1 << 22}", f"dsplit:{1 << 22}", f"il1d:{N}"}
     if set(record) != keys or record["device"] != \
             torch.cuda.get_device_name(0):
         raise AssertionError(f"phase 23: record {record}")
-    ring, pring = local.rows_ring_shape(N), local.col_ring_shape(256)
-    if ([ring["rows"], ring["slots"]] != record[f"row:{N}"]
-            or [pring["columns"], pring["slots"]] != record["col:256"]):
-        raise AssertionError(f"phase 23: the row ring {ring} and column "
-                             f"ring {pring} do not run the record {record}")
-    print(f"phase 23 record {record}; the libraries it sets: "
-          + ", ".join(f"{name} {build.library_path(name, defines=tune.defines(name)).name}"
-                      for name in libs)
-          + f"; row ring at {N} {ring}, column ring at 256 {pring}")
+    print(f"phase 23 record {record}")
     out = {"record": record, "counts": dict.fromkeys(KERNELS, 0),
            "plans": {}}
     for seed, (label, *spec) in enumerate(TUNED_PLANS, 230):
@@ -3606,15 +3592,20 @@ def phase_autotune(tune_file: Path) -> dict:
             out["counts"][k] += v
     tune_file.unlink()
     tune.reload_tuned()
-    back = {name: build.library_path(name, defines=tune.defines(name))
-            for name in libs}
-    if (back != today or planmod._il1d_route(N) != planmod.IL1D_ROUTE
+    if (planmod._il1d_route(N) != planmod.IL1D_ROUTE
             or fourstep.choose_split(1 << 22) != (2048, 2048)):
-        raise AssertionError(f"phase 23: with the record removed the "
-                             f"libraries are {back}, not {today}")
+        raise AssertionError("phase 23: the record removed, the route or "
+                             "the split stays")
+    loaded = {name: Path(build.load(name)._name) for name in LIBRARIES}
+    if loaded != paths:
+        raise AssertionError(f"phase 23: the libraries loaded are {loaded}, "
+                             f"not the sources' {paths}")
+    out["libraries"] = {name: p.name for name, p in paths.items()}
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 23 record removed: the source's libraries and splits "
-          f"again; phase 23 took {out['seconds']:.1f} s")
+    print("phase 23 libraries (the sources' builds): " + ", ".join(
+        f"{name} {p.name}" for name, p in paths.items()))
+    print(f"phase 23 record removed: the source's splits and route again; "
+          f"phase 23 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3855,7 +3846,7 @@ def kernel_entry(name, source, replaces, timed, checks, launches, shape):
 
 def main() -> int:
     # the autotune record: a temporary path, empty until phase 23, so that
-    # no record elsewhere sets the kernels' tables
+    # no record elsewhere steers the plans
     import tempfile
     tune_dir = tempfile.TemporaryDirectory()
     tune_file = Path(tune_dir.name) / "tuned.json"
@@ -4072,6 +4063,7 @@ def main() -> int:
                                          dist["paths"].values()],
                                "long_1d": dist["long_1d"]},
                       "autotune": {"record": auto["record"],
+                                   "libraries": auto["libraries"],
                                    "seconds": auto["seconds"]},
                       "sweep": {k: sweep[k] for k in ("unswept", "swept",
                                                       "seconds")},

@@ -157,8 +157,9 @@ def bindings(libs: dict, csrc: Path | None = None) -> dict:
         "_rows_swap_fn": bind(cols, local._rows_swap_fn.__wrapped__),
         "_ctile_fn": bind(cols, local._ctile_fn.__wrapped__),
         "_rows_swap_i8_fn": bind(cols, swap_i8),
-        "_lib": fused2d._typed(libs["fused2d"], "fused2d"),
-        "_tiled_lib": fused2d._typed(libs["fused2d_tiled"], "fused2d_tiled"),
+        "_lib": bind(libs["fused2d"], fused2d._lib.__wrapped__),
+        "_tiled_lib": bind(libs["fused2d_tiled"],
+                           fused2d._tiled_lib.__wrapped__),
     }
 
 

@@ -1018,6 +1018,8 @@ CTILE_BINDER = local._ctile_fn.__wrapped__
 SWAP_BINDER = local._rows_swap_fn.__wrapped__
 ROWS_BINDER = local._rows_fn.__wrapped__
 IL_BINDER = local._rows_il_fn.__wrapped__
+FUSED_BINDER = fused2d._lib.__wrapped__
+TILED_BINDER = fused2d._tiled_lib.__wrapped__
 
 
 def use(lib, name: str) -> None:
@@ -1037,10 +1039,10 @@ def use(lib, name: str) -> None:
         local._rows_fn = lambda d: rows[d]
         local._rows_il_fn = lambda: il
     elif name == K8:
-        typed = fused2d._typed(lib, K8)
+        typed = ab_parent.bind(lib, FUSED_BINDER)
         fused2d._lib = lambda: typed
     else:
-        typed = fused2d._typed(lib, K9)
+        typed = ab_parent.bind(lib, TILED_BINDER)
         fused2d._tiled_lib = lambda: typed
 
 

@@ -55,8 +55,8 @@ import math
 
 import torch
 
-from pyfft_tpu_torch.ops import local
-from pyfft_tpu_torch.ops.launch import Launch, run
+from pyfft_tpu_torch.ops import build, local
+from pyfft_tpu_torch.ops.launch import RAN_RING, Launch, run
 from pyfft_tpu_torch.ops.int8 import w_tables
 from pyfft_tpu_torch.planner import MAX_FUSED2D_ELEMS, MIN_TRAIL
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
@@ -67,9 +67,6 @@ __all__ = ["supported_2d", "fft2_fused", "fft2_plain", "cluster_size",
            "ring_shape", "clusters", "MAX_FUSED2D_TILED_ELEMS",
            "RING_SHAPES"]
 
-# What K8's C entry returns where the plane ring (csrc/fused2d.cu
-# fused2d_ring_kernel) ran and not the first design.
-RAN_RING = -1
 # The (ny, nx) planes the ring takes (csrc/fused2d.cu PYFFT_FUSED2D_RING):
 # at most 2^17 points, but 256 x 512, where the first design ran faster; a
 # test holds them to the source's table.
@@ -175,31 +172,24 @@ def fft2_tiled_plain(re, im, sign, postscale: float = 1.0, factors_y=None,
                        MIN_TRAIL, MIN_TRAIL)
 
 
-def _typed(lib, name: str):
+def _typed(name: str):
     """(launch, launch_i8, cluster): the typed C entry points
-    ``pyfft_<name>``, ``pyfft_<name>_i8`` and ``pyfft_<name>_cluster`` of a
-    2D kernel's library (K8's and K9's share their C interface)."""
-    fn = getattr(lib, f"pyfft_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn_i8 = getattr(lib, f"pyfft_{name}_i8")
-    fn_i8.argtypes = ([ctypes.c_void_p] * 8
-                      + [ctypes.POINTER(ctypes.c_longlong)]
-                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    fn_i8.restype = ctypes.c_int
-    cluster = getattr(lib, f"pyfft_{name}_cluster")
-    cluster.argtypes = [ctypes.c_int, ctypes.c_int]
-    cluster.restype = ctypes.c_int
-    return fn, fn_i8, cluster
+    ``pyfft_<name>``, ``pyfft_<name>_i8`` and ``pyfft_<name>_cluster`` of
+    ``csrc/<name>.cu`` (K8's and K9's share their C interface)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dims = ctypes.POINTER(ctypes.c_longlong)
+    return (build.entry(name, f"pyfft_{name}",
+                        [p] * 6 + [dims] + [i] * 3 + [ctypes.c_float, p]),
+            build.entry(name, f"pyfft_{name}_i8",
+                        [p] * 8 + [dims] + [i] * 5 + [ctypes.c_float, p]),
+            build.entry(name, f"pyfft_{name}_cluster", [i] * 2))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     """(launch, launch_i8, cluster): the typed C entry points of
     csrc/fused2d.cu, built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    return _typed(load("fused2d"), "fused2d")
+    return _typed("fused2d")
 
 
 def cluster_size(ny: int, nx: int) -> int:
@@ -212,26 +202,13 @@ def cluster_size(ny: int, nx: int) -> int:
 def _tiled_lib():
     """(launch, launch_i8, cluster): the typed C entry points of
     csrc/fused2d_tiled.cu, built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    return _typed(load("fused2d_tiled"), "fused2d_tiled")
+    return _typed("fused2d_tiled")
 
 
 def tiled_cluster_size(ny: int, nx: int) -> int:
     """The blocks of the cluster that takes one (ny, nx) plane in K9;
     builds the kernel on first use."""
     return _tiled_lib()[2](ilog2(ny), ilog2(nx))
-
-
-@functools.lru_cache(maxsize=None)
-def _tiled_shape_fn():
-    """The C entry point ``pyfft_fused2d_tiled_shape`` of
-    csrc/fused2d_tiled.cu, built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("fused2d_tiled").pyfft_fused2d_tiled_shape
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 TILED_SHAPE_KEYS = ("cluster", "rows_a_chunk", "group", "run", "planes",
@@ -245,29 +222,16 @@ def tiled_shape(ny: int, nx: int) -> dict:
     reads and writes, in floats), the planes in flight (its share of the
     card's L2), the clusters the card holds at once and the chunk's
     points; builds the kernel on first use."""
-    out = (ctypes.c_longlong * len(TILED_SHAPE_KEYS))()
-    err = _tiled_shape_fn()(ilog2(ny), ilog2(nx), out)
-    if err != 0:
-        raise RuntimeError(f"pyfft_fused2d_tiled_shape failed: cudaError "
-                           f"{err}")
-    return dict(zip(TILED_SHAPE_KEYS, out))
+    return build.query("fused2d_tiled", "pyfft_fused2d_tiled_shape",
+                       TILED_SHAPE_KEYS, ilog2(ny), ilog2(nx),
+                       out=ctypes.c_longlong, status=True)
 
 
 @functools.lru_cache(maxsize=None)
-def _ring_fns():
-    """(clusters, ring_shape): the C entry points
-    ``pyfft_fused2d_clusters`` and ``pyfft_fused2d_ring_shape`` of
-    csrc/fused2d.cu, built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    lib = load("fused2d")
-    held = lib.pyfft_fused2d_clusters
-    held.argtypes = [ctypes.c_int] * 3
-    held.restype = ctypes.c_int
-    shape = lib.pyfft_fused2d_ring_shape
-    shape.argtypes = [ctypes.c_int, ctypes.c_int,
-                      ctypes.POINTER(ctypes.c_longlong)]
-    shape.restype = ctypes.c_int
-    return held, shape
+def _clusters_fn():
+    """The C entry point ``pyfft_fused2d_clusters`` of csrc/fused2d.cu,
+    built at first use."""
+    return build.entry("fused2d", "pyfft_fused2d_clusters", [ctypes.c_int] * 3)
 
 
 def clusters(ny: int, nx: int, ring: bool) -> int:
@@ -275,7 +239,7 @@ def clusters(ny: int, nx: int, ring: bool) -> int:
     (cudaOccupancyMaxActiveClusters), of the ring's kernel or the first
     design's; raises where the query fails or the design does not take
     the shape."""
-    got = _ring_fns()[0](ilog2(ny), ilog2(nx), int(ring))
+    got = _clusters_fn()(ilog2(ny), ilog2(nx), int(ring))
     if got < 0:
         raise RuntimeError(f"fused 2D cluster query at {ny}x{nx} "
                            f"(ring={ring}) failed: {got}")
@@ -292,12 +256,9 @@ def ring_shape(ny: int, nx: int):
     memory a block in bytes, the clusters the card holds at once (the
     grid) and the run of x a box takes; None where the shape runs the
     first design.  Builds the kernel on first use."""
-    out = (ctypes.c_longlong * len(RING_SHAPE_KEYS))()
-    got = _ring_fns()[1](ilog2(ny), ilog2(nx), out)
-    if got < 0:
-        raise RuntimeError(f"pyfft_fused2d_ring_shape failed: cudaError "
-                           f"{-got}")
-    return dict(zip(RING_SHAPE_KEYS, out)) if got else None
+    return build.query("fused2d", "pyfft_fused2d_ring_shape",
+                       RING_SHAPE_KEYS, ilog2(ny), ilog2(nx),
+                       out=ctypes.c_longlong)
 
 
 def i8_stage(ny: int, nx: int, tiled: bool = False) -> str:
@@ -318,12 +279,8 @@ def _i8_stage_fn(tiled: bool = False):
     ``pyfft_fused2d_tiled_i8_stage`` of csrc/fused2d_tiled.cu): (log2 ny,
     log2 nx) -> 1 for the wgmma stage, 0 for the mma.sync one, -1 where no
     int8 kernel is instantiated."""
-    from pyfft_tpu_torch.ops.build import load
     name = "fused2d_tiled" if tiled else "fused2d"
-    fn = getattr(load(name), f"pyfft_{name}_i8_stage")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry(name, f"pyfft_{name}_i8_stage", [ctypes.c_int] * 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,11 +288,8 @@ def _i8_clusters_fn():
     """The C entry point ``pyfft_fused2d_i8_clusters`` of csrc/fused2d.cu:
     (log2 ny, log2 nx) -> the K8 + K10 clusters the card holds at once
     (cudaOccupancyMaxActiveClusters), 0 where none places."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = load("fused2d").pyfft_fused2d_i8_clusters
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("fused2d", "pyfft_fused2d_i8_clusters",
+                       [ctypes.c_int] * 2)
 
 
 def _check_devices(re, im, out_re, out_im) -> None:

@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from pyfft_tpu_torch.ops import build
 from pyfft_tpu_torch.ops.launch import Launch, run
 
 __all__ = ["deinterleave", "interleave", "supported", "deinterleave_plain",
@@ -64,12 +65,8 @@ def interleave_plain(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 def _fn(name: str):
     """The C entry point ``name`` of csrc/interleave.cu, built at first
     use."""
-    from pyfft_tpu_torch.ops.build import load
-    fn = getattr(load("interleave"), name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("interleave", name, [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:

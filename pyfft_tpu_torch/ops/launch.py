@@ -27,12 +27,18 @@ import torch
 
 from pyfft_tpu_torch.utils.profiling import COUNTS, span
 
-__all__ = ["Launch", "run", "recording", "mark", "untracked", "retire"]
+__all__ = ["Launch", "run", "recording", "mark", "untracked", "RAN_RING",
+           "RAN_X"]
 
-# Bumped where the row and column libraries are swapped for others
-# (``local.clear_library_caches``): a record made before holds the old
-# entries, and a ``Plan`` keys its records on this.
-epoch = 0
+# What a C entry returns where a redesign ran and not the first design
+# (the sources' constants): a persistent ring (csrc/local_rows.cu
+# local_rows_ring_kernel: K1, K2 and K11; csrc/local_cols.cu
+# local_cols_pring_kernel, K5's column ring, and local_cols_xring_kernel,
+# K12's cluster ring; csrc/fused2d.cu fused2d_ring_kernel, K8's plane
+# ring), and the cluster tile (local_cols_x_kernel: K5 in float, K12 in
+# double).
+RAN_RING = -1
+RAN_X = -2
 
 _LOCAL = threading.local()
 
@@ -115,9 +121,3 @@ def untracked() -> None:
     tape = getattr(_LOCAL, "tape", None)
     if tape is not None:
         tape.whole = False
-
-
-def retire() -> None:
-    """Make every record made so far stale (``epoch``)."""
-    global epoch
-    epoch += 1

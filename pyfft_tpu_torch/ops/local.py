@@ -73,7 +73,8 @@ from pyfft_tpu_torch.ops.twiddle import (dft_matrix, twiddle_table,
 from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
                                      max_local_n)
 from pyfft_tpu_torch.reference import fft_planar
-from pyfft_tpu_torch.ops.launch import Launch, retire, run
+from pyfft_tpu_torch.ops import build
+from pyfft_tpu_torch.ops.launch import RAN_RING, RAN_X, Launch, run
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
@@ -88,15 +89,6 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
            "col_ring_shape", "col_xshape", "col_xring_shape_f64",
            "fft_axis_fold", "fold_lanes"]
-
-# What a C entry returns where a redesign ran and not the first design
-# (the sources' constants): the row ring (csrc/local_rows.cu
-# local_rows_ring_kernel: K1, K2 and K11), K5's persistent column ring
-# (csrc/local_cols.cu local_cols_pring_kernel) or K12's persistent cluster
-# ring (local_cols_xring_kernel), and the cluster tile
-# (local_cols_x_kernel: K5 in float, K12 in double).
-RAN_RING = -1
-RAN_X = -2
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -146,8 +138,8 @@ def default_factors(n: int) -> tuple[int, ...]:
 def row_factors(n: int) -> tuple[int, ...]:
     """pallas_local.row_factors from the static table only: the JAX
     package's ``row:{n}`` record tunes these chains, which drive only the
-    plain versions here; the port's ``row:{n}`` record tunes the CUDA row
-    ring's table instead (``utils/tune.py``)."""
+    plain versions here; the port's record has no such entry (the CUDA
+    kernels take their tables from their sources, ``utils/tune.py``)."""
     return ROW_FACTORS.get(n) or default_factors(n)
 
 
@@ -561,13 +553,10 @@ def _c_real(dtype: torch.dtype):
     return ctypes.c_double if dtype == torch.float64 else ctypes.c_float
 
 
-def _library(name: str):
-    """``csrc/<name>.cu`` (``local_rows`` or ``local_cols``) as the
-    autotune record sets its shape tables (``utils/tune.defines``: none
-    without a record, so the source's own), built at first use."""
-    from pyfft_tpu_torch.ops.build import load
-    from pyfft_tpu_torch.utils import tune
-    return load(name, defines=tune.defines(name))
+# The argument types of the C entries, by kind: data pointers, ints, the
+# int64 ``dims`` array of the column and 2D entries.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DIMS = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.lru_cache(maxsize=None)
@@ -577,11 +566,8 @@ def _rows_fn(dtype: torch.dtype):
     float64), built at first use."""
     name = ("pyfft_local_rows_f64" if dtype == torch.float64
             else "pyfft_local_rows")
-    fn = getattr(_library("local_rows"), name)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [_c_real(dtype), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_rows", name,
+                       [_P] * 5 + [_I] * 7 + [_c_real(dtype), _P])
 
 
 def _check_planes(kind: str, re, planes) -> None:
@@ -598,11 +584,8 @@ def _check_planes(kind: str, re, planes) -> None:
 def _rows_i8_fn():
     """The C entry point ``pyfft_local_rows_i8`` of csrc/local_rows.cu (K1
     with the int8 stage K10), built at first use."""
-    fn = _library("local_rows").pyfft_local_rows_i8
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_rows", "pyfft_local_rows_i8",
+                       [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P])
 
 
 def rows_i8_stage(n: int, f: int) -> str:
@@ -621,10 +604,7 @@ def _rows_i8_stage_fn():
     """The C entry point ``pyfft_local_rows_i8_stage`` of csrc/local_rows.cu:
     (log2 n, log2 f) -> 1 for the wgmma stage, 0 for the mma.sync one, -1
     where no int8 row kernel is instantiated."""
-    fn = _library("local_rows").pyfft_local_rows_i8_stage
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_rows", "pyfft_local_rows_i8_stage", [_I] * 2)
 
 
 def matrix_factor(factors) -> int:
@@ -703,15 +683,9 @@ def rows_ring_shape(n: int,
     ``slots`` of the ring, a block's ``smem_bytes`` and the
     ``blocks_per_sm`` the current card holds (asked of it); None where the
     length runs the first design (local_rows_kernel).  Builds the library on first use."""
-    fn = getattr(_library("local_rows"), "pyfft_local_rows_ring_shape"
-                 + ("_f64" if dtype == torch.float64 else ""))
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(ROWS_RING_KEYS))()
-    got = fn(ilog2(n), out)
-    if got < 0:
-        raise RuntimeError(f"row ring shape query failed: cudaError {-got}")
-    return dict(zip(ROWS_RING_KEYS, out)) if got else None
+    return build.query("local_rows", "pyfft_local_rows_ring_shape"
+                       + ("_f64" if dtype == torch.float64 else ""),
+                       ROWS_RING_KEYS, ilog2(n))
 
 
 # ------------------------------------------------- interleaved row path
@@ -753,22 +727,16 @@ def fft_rows_interleaved_plain(v, sign, postscale: float = 1.0,
 def _rows_il_fn():
     """The C entry point ``pyfft_local_rows_il`` of csrc/local_rows.cu,
     built at first use."""
-    fn = _library("local_rows").pyfft_local_rows_il
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_rows", "pyfft_local_rows_il",
+                       [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P])
 
 
 @functools.lru_cache(maxsize=None)
 def _rows_il_i8_fn():
     """The C entry point ``pyfft_local_rows_il_i8`` of csrc/local_rows.cu
     (K2 with the int8 stage K10), built at first use."""
-    fn = _library("local_rows").pyfft_local_rows_il_i8
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_rows", "pyfft_local_rows_il_i8",
+                       [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P])
 
 
 def _il_rows(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
@@ -946,11 +914,8 @@ def fft_rows_swap_plain(re, im, sign, postscale: float = 1.0, factors=None,
 def _rows_swap_fn():
     """The C entry point ``pyfft_local_rows_swap`` of csrc/local_cols.cu
     (K4 is a load policy of the column kernel), built at first use."""
-    fn = _library("local_cols").pyfft_local_rows_swap
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_cols", "pyfft_local_rows_swap",
+                       [_P] * 5 + [_DIMS] + [_I] * 2 + [ctypes.c_float, _P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -960,11 +925,9 @@ def swap_tile(n: int) -> tuple[int, int] | None:
     n/G points of each row a block; None where one block of the column
     kernel's row policy takes ``col_width(n)`` rows (n < 512).  Builds
     the library on first use (no CUDA call)."""
-    fn = _library("local_cols").pyfft_local_rows_swap_shape
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 2)()
-    return (out[0], out[1]) if fn(ilog2(n), out) else None
+    got = build.query("local_cols", "pyfft_local_rows_swap_shape",
+                      ("G", "R"), ilog2(n))
+    return None if got is None else tuple(got.values())
 
 
 @functools.lru_cache(maxsize=None)
@@ -972,13 +935,9 @@ def _rows_swap_i8_fn():
     """The C entry point ``pyfft_local_rows_swap_i8`` of csrc/local_cols.cu
     (K4 with the int8 stage K10: the int8 column kernel with K4's row
     load), built at first use; its arguments are ``pyfft_local_cols_i8``'s."""
-    fn = _library("local_cols").pyfft_local_rows_swap_i8
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_cols", "pyfft_local_rows_swap_i8",
+                       [_P] * 8 + [_DIMS] + [_I] * 3
+                       + [ctypes.c_float, _I, _I, _P])
 
 
 def swap_i8_group(n: int, lanes: int) -> int:
@@ -1324,12 +1283,9 @@ def _kernel_col_tables(n: int, T: int, tw_n: int, tw_mode: str,
 def _ctile_fn():
     """The C entry point ``pyfft_local_cols_ctile`` of csrc/local_cols.cu
     (K6, the ring of runs over c tiles a step), built at first use."""
-    fn = _library("local_cols").pyfft_local_cols_ctile
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry("local_cols", "pyfft_local_cols_ctile",
+                       [_P] * 7 + [_DIMS] + [_I] * 2
+                       + [ctypes.c_float, _I, _P])
 
 
 RING_SHAPE_KEYS = ("cluster", "columns", "slots", "smem_bytes")
@@ -1344,13 +1300,11 @@ def ring_shape(n: int) -> dict:
     grid whose blocks of whole runs would together cover 128 bytes of a
     row takes those instead of the cluster tile.  Builds the library on
     first use (no CUDA call)."""
-    fn = _library("local_cols").pyfft_local_cols_ring_shape
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    if not fn(ilog2(n), out):
+    got = build.query("local_cols", "pyfft_local_cols_ring_shape",
+                      RING_SHAPE_KEYS, ilog2(n))
+    if got is None:
         raise ValueError(f"K6 takes no length {n}")
-    return dict(zip(RING_SHAPE_KEYS, out))
+    return got
 
 
 # The registry's key of a K5 or K12 launch by what its C entry returned:
@@ -1402,17 +1356,11 @@ def _cols_lib(dtype: torch.dtype):
     """(launch, width): the typed C entry points of csrc/local_cols.cu for
     planes of ``dtype`` (``pyfft_local_cols[_width]`` for float32, the
     ``_f64`` ones for float64), built at first use."""
-    lib = _library("local_cols")
     suffix = "_f64" if dtype == torch.float64 else ""
-    fn = getattr(lib, "pyfft_local_cols" + suffix)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 2
-                   + [_c_real(dtype), ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    width = getattr(lib, "pyfft_local_cols_width" + suffix)
-    width.argtypes = [ctypes.c_int]
-    width.restype = ctypes.c_int
-    return fn, width
+    return (build.entry("local_cols", "pyfft_local_cols" + suffix,
+                        [_P] * 7 + [_DIMS] + [_I] * 2
+                        + [_c_real(dtype), _I, _P]),
+            build.entry("local_cols", "pyfft_local_cols_width" + suffix, [_I]))
 
 
 def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
@@ -1425,32 +1373,21 @@ def col_width(n: int, dtype: torch.dtype = torch.float32) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _cols_xshape_fn(dtype: torch.dtype = torch.float64):
-    """The C entry point ``pyfft_local_cols_xshape_f64`` (or, for float32,
-    ``pyfft_local_cols_xshape``) of csrc/local_cols.cu, built at first
-    use."""
-    fn = getattr(_library("local_cols"), "pyfft_local_cols_xshape"
-                 + ("_f64" if dtype == torch.float64 else ""))
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _col_xtile(log2n: int, in_ts: int,
                dtype: torch.dtype = torch.float64) -> tuple[int, int] | None:
     """(G, C) of the cluster column kernel's tile for planes of ``dtype``
     at length 2^log2n and t stride ``in_ts``, as its launch takes it
     (``pyfft_local_cols_xtile_f64``, ``pyfft_local_cols_xtile``: no CUDA
     call); None where another design takes the length."""
-    fn = getattr(_library("local_cols"), "pyfft_local_cols_xtile"
-                 + ("_f64" if dtype == torch.float64 else ""))
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong,
-                   ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 2)()
-    return (out[0], out[1]) if fn(log2n, in_ts, out) else None
+    got = build.query("local_cols", "pyfft_local_cols_xtile"
+                      + ("_f64" if dtype == torch.float64 else ""),
+                      ("G", "C"), log2n, in_ts,
+                      argtypes=[_I, ctypes.c_longlong])
+    return None if got is None else tuple(got.values())
+
+
+COL_XSHAPE_KEYS = ("cluster", "columns", "blocks_an_sm", "clusters_plain",
+                   "clusters_swap")
 
 
 def col_xshape_f64(n: int, strided: bool = False,
@@ -1463,15 +1400,10 @@ def col_xshape_f64(n: int, strided: bool = False,
     holds at once with the plain and with the swapped store; None where
     another design takes the length (n <= 512).  Builds the kernel on first
     use."""
-    out = (ctypes.c_longlong * 5)()
-    err = _cols_xshape_fn(dtype)(ilog2(n), int(bool(strided)), out)
-    if err == -1000:
-        return None
-    if err != 0:
-        raise RuntimeError(f"cluster column shape query failed: cudaError "
-                           f"{err}")
-    return dict(zip(("cluster", "columns", "blocks_an_sm", "clusters_plain",
-                     "clusters_swap"), out))
+    return build.query("local_cols", "pyfft_local_cols_xshape"
+                       + ("_f64" if dtype == torch.float64 else ""),
+                       COL_XSHAPE_KEYS, ilog2(n), int(bool(strided)),
+                       out=ctypes.c_longlong, status=True)
 
 
 COL_XRING_KEYS = ("cluster", "columns", "slots", "blocks_an_sm", "threads",
@@ -1488,14 +1420,8 @@ def col_xring_shape_f64(n: int) -> dict | None:
     ``threads`` and ``smem_bytes`` a block and the clusters the current
     card holds at once (asked of it), the ring's grid; None where the
     ring takes no such length.  Builds the library on first use."""
-    fn = _library("local_cols").pyfft_local_cols_xring_shape_f64
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(COL_XRING_KEYS))()
-    got = fn(ilog2(n), out)
-    if got < 0:
-        raise RuntimeError(f"K12 ring shape query failed: cudaError {-got}")
-    return dict(zip(COL_XRING_KEYS, out)) if got else None
+    return build.query("local_cols", "pyfft_local_cols_xring_shape_f64",
+                       COL_XRING_KEYS, ilog2(n))
 
 
 def col_xshape(n: int, strided: bool = False) -> dict | None:
@@ -1517,15 +1443,8 @@ def col_ring_shape(n: int) -> dict | None:
     ``slots`` of the ring, a block's ``smem_bytes`` and the
     ``blocks_per_sm`` the current card holds (asked of it); None where the
     ring takes no such length.  Builds the library on first use."""
-    fn = _library("local_cols").pyfft_local_cols_pring_shape
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(COL_RING_KEYS))()
-    got = fn(ilog2(n), out)
-    if got < 0:
-        raise RuntimeError(f"column ring shape query failed: cudaError "
-                           f"{-got}")
-    return dict(zip(COL_RING_KEYS, out)) if got else None
+    return build.query("local_cols", "pyfft_local_cols_pring_shape",
+                       COL_RING_KEYS, ilog2(n))
 
 
 def col_design(n: int, dtype: torch.dtype, *, boxable: bool, in_ts: int,
@@ -1558,16 +1477,10 @@ def _cols_i8_lib():
     """(launch, width): the C entry points ``pyfft_local_cols_i8`` and
     ``pyfft_local_cols_width_i8`` of csrc/local_cols.cu (K5 with the int8
     stage K10), built at first use."""
-    lib = _library("local_cols")
-    fn = lib.pyfft_local_cols_i8
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    width = lib.pyfft_local_cols_width_i8
-    width.argtypes = [ctypes.c_int]
-    width.restype = ctypes.c_int
-    return fn, width
+    return (build.entry("local_cols", "pyfft_local_cols_i8",
+                        [_P] * 8 + [_DIMS] + [_I] * 3
+                        + [ctypes.c_float, _I, _P]),
+            build.entry("local_cols", "pyfft_local_cols_width_i8", [_I]))
 
 
 def col_width_i8(n: int) -> int:
@@ -1951,22 +1864,3 @@ def _empty_like_planes(re, im, shape):
         return v[..., 0], v[..., 1]
     return (torch.empty(shape, dtype=re.dtype, device=re.device),
             torch.empty(shape, dtype=re.dtype, device=re.device))
-
-
-# The memoised functions that hold an entry point or a shape of a library
-# ``_library`` built; cleared where the autotune record changes which
-# library that is (``utils/tune.reload_tuned``), so that no shape query
-# answers for the old library while the kernel runs the new one.
-_LIBRARY_CACHES = (_rows_fn, _rows_i8_fn, _rows_i8_stage_fn, rows_ring_shape,
-                   _rows_il_fn, _rows_il_i8_fn, _rows_swap_fn, swap_tile,
-                   _rows_swap_i8_fn, _ctile_fn, ring_shape, _cols_lib,
-                   _cols_xshape_fn, _col_xtile, col_ring_shape,
-                   col_xring_shape_f64, _cols_i8_lib)
-
-
-def clear_library_caches() -> None:
-    """Forget every entry point and shape taken from the row and column
-    libraries; the next call loads them again through ``_library``."""
-    for fn in _LIBRARY_CACHES:
-        fn.cache_clear()
-    retire()

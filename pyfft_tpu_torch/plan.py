@@ -62,14 +62,16 @@ are ``pyfft.entry.<kernel>``.
 On the card a call is replayed from a call record where it can be
 (``Plan._recorded``).  The record's key is the form (the complex form's
 route, or "planar"), the direction, ``donate``, the output scale, the
-chunk budget's override, the C entries' ``ops/launch.epoch`` (bumped where
-an autotune record swaps the libraries) and, for each tensor given and
-returned, its shape, strides, dtype, card, address modulo 16 and where it
-overlaps another.  The first call with a key runs the generic path, whose
-launch sites prepare each launch (every check and lookup) and record it;
-the record is kept where every data pointer of every launch lies in the
-call's input or output and the call did no other device work: the
-"planes" and "fused" routes and planar ``local`` and ``fused2d`` chains.
+chunk budget's override and, for each tensor given and returned, its
+shape, strides, dtype, card, address modulo 16 and where it overlaps
+another.  Each kernel library has one build a process (``ops/build``),
+so a record outlives ``reload_tuned()``: a plan's split is fixed when it
+is built, and the route is part of the key.  The first call with a key
+runs the generic path, whose launch sites prepare each launch (every
+check and lookup) and record it; the record is kept where every data
+pointer of every launch lies in the call's input or output and the call
+did no other device work: the "planes" and "fused" routes and planar
+``local`` and ``fused2d`` chains.
 Otherwise the key runs the generic path from then on: a "fourstep" or
 "huge" temporary, the "stream" route's planes, a batch the chunk sweep
 splits, a ``plain`` pass.  A later call with the key calls the recorded C
@@ -502,8 +504,8 @@ class Plan:
         call record, and None.
 
         On the card the call's key (``form``, the direction, ``donate``,
-        the output scale, the chunk budget's override, the entries'
-        ``launch.epoch`` and the operands' ``_layout``) picks its record.
+        the output scale, the chunk budget's override and the operands'
+        ``_layout``) picks its record.
         A miss runs the generic path on a tape and keeps what the tape
         recorded where every launch's data pointers lie in ``ops``, else
         marks the key generic; a hit calls the recorded launches with the
@@ -512,7 +514,7 @@ class Plan:
         if not ops[0].is_cuda:
             return run(*args)
         key = (form, inverse, self.donate, self._norm(inverse),
-               _HBM_CHUNK_BUDGET, launch.epoch, _layout(ops))
+               _HBM_CHUNK_BUDGET, _layout(ops))
         rec = self._records.get(key)
         if rec is None:
             COUNTS["record.miss"] += 1

@@ -14,6 +14,7 @@ sweep splits, stays on the generic path.
 import contextlib
 import ctypes
 import gc
+import json
 import types
 import weakref
 
@@ -22,8 +23,8 @@ import torch
 
 import pyfft_tpu_torch
 from pyfft_tpu_torch import plan as plan_mod
-from pyfft_tpu_torch.ops import fused2d, interleave, launch, local
-from pyfft_tpu_torch.utils import profiling
+from pyfft_tpu_torch.ops import fused2d, interleave, local
+from pyfft_tpu_torch.utils import profiling, tune
 
 from test_torch_profiling import _OnCard, inside, span_events
 
@@ -331,18 +332,33 @@ def test_record_holds_no_call_tensor(entries):
     assert len(plan._records) == 1
 
 
-def test_library_swap_retires_records(entries):
-    """Swapping the row and column libraries (``clear_library_caches``,
-    as a new autotune record does) makes the records stale: the next call
-    misses."""
-    plan = pyfft_tpu_torch.Plan((8, 128, 128), device="cpu")
-    x = cplx((1, 8, 128, 128))
-    plan.execute(x)
-    epoch = launch.epoch
-    local.clear_library_caches()
-    assert launch.epoch == epoch + 1
-    plan.execute(x)
-    assert counts("record.") == {"record.miss": 2}
+@pytest.mark.parametrize("entry,records", [
+    (None, {"record.miss": 1, "record.hit": 1}),
+    (["planes"], {"record.miss": 2})])
+def test_records_outlive_reload_tuned(tmp_path, monkeypatch, entries, entry,
+                                      records):
+    """A record made before ``reload_tuned()`` still hits after it (the
+    libraries are the same); an ``il1d`` entry that changes the plan's
+    route misses, through the form in its key."""
+    monkeypatch.setenv("PYFFT_TPU_TORCH_TUNE_FILE",
+                       str(tmp_path / "tuned.json"))
+    monkeypatch.setattr(tune, "device_name", lambda: "card")
+    tune.reload_tuned()
+    shape, make, _ = CHAINS["rows" if entry is None else "fused"]
+    plan = pyfft_tpu_torch.Plan(shape, device="cpu")
+    x = make(shape)
+    args = x if isinstance(x, tuple) else (x,)
+    plan.execute(*args)
+    if entry is not None:
+        (tmp_path / "tuned.json").write_text(json.dumps(
+            {"device": "card", f"il1d:{shape[0]}": entry}))
+    tune.reload_tuned()
+    try:
+        assert plan.il_route() == (entry or [plan_mod.IL1D_ROUTE])[0]
+        plan.execute(*args)
+    finally:
+        tune.reload_tuned()         # read again once the patches are gone
+    assert counts("record.") == records
 
 
 def test_cpu_tensors_keep_no_record():

@@ -120,7 +120,7 @@ def test_slice_h_entry_points_leave_jax_out(tmp_path):
             f"os.environ['PYFFT_TPU_TORCH_TUNE_FILE'] = "
             f"{str(tmp_path / 'tuned.json')!r}\n"
             "tune.reload_tuned()\n"
-            "assert tune.load_tuned() == {} and tune.defines('local_rows') == ()\n"
+            "assert tune.load_tuned() == {}\n"
             "try:\n"
             "    pt.autotune([4096])\n"
             "    raise AssertionError('autotune ran without a card')\n"

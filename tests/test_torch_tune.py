@@ -2,10 +2,10 @@
 JAX package's (``pyfft_tpu.utils.tune``) on the CPU: the record's file,
 the split candidates, the readers of each kind (``choose_split``,
 ``choose_split3``, ``choose_split_df64``, ``plan._il1d_route``) and their
-validation, the kernels' tables a ``row``/``col`` record sets
-(``tune.defines``) and the library names they give, every split
-candidate's transform against JAX's at the forced split (interpret mode,
-1e-6), and ``autotune``'s refusal without a card.
+validation, the libraries the package asks for under any record (by name
+alone: the source's tables), every split candidate's transform against
+JAX's at the forced split (interpret mode, 1e-6), ``autotune``'s refusal
+without a card and its ``row`` and ``col`` kinds, which time nothing.
 
 The record is put in ``tmp_path`` through ``PYFFT_TPU_TORCH_TUNE_FILE``,
 and the card it names is stubbed (``tune.device_name``): a CPU host has
@@ -13,10 +13,11 @@ none, and a record applies only on the card it names.  The JAX package's
 record is pointed at an empty file.
 """
 
-import ast
+import hashlib
 import inspect
 import json
 import math
+import types
 
 import numpy as np
 import pytest
@@ -142,7 +143,6 @@ def test_foreign_record_is_ignored(record_file, device):
     assert fourstep.choose_split(1 << 22) == (2048, 2048)
     assert fp64.choose_split_df64(1 << 22) == (2048, 2048)
     assert planmod._il1d_route(4096) == planmod.IL1D_ROUTE
-    assert all(tune.defines(name) == () for name in LIBS)
 
 
 def test_record_ignored_without_a_card(record_file, monkeypatch):
@@ -236,83 +236,18 @@ def test_il1d_record_leaves_multi_pass_plans(record_file):
 # ------------------------------------------------ the kernels' tables
 
 
-@pytest.mark.parametrize("name,macro", [
-    ("local_rows", "PYFFT_ROWS_RING"), ("local_cols", "PYFFT_COLS_PRING"),
-    ("local_cols", "PYFFT_XCOLS_F32")])
-def test_source_tables_fit_their_rules(name, macro):
-    """Every entry the sources hold passes ``_fits``, the rules the
-    candidates and records are held to."""
-    table = tune.source_table(name, macro)
-    assert len(table) >= 4
-    for entry in table:
-        assert tune._fits(macro, entry[0], entry[1:]), entry
-
-
-def test_source_tables_are_the_sources():
-    assert tune.source_table("local_rows", "PYFFT_ROWS_RING") == [
-        (3, 256, 3), (4, 256, 3), (5, 256, 3), (6, 128, 3), (10, 4, 3),
-        (11, 2, 3), (12, 1, 3), (13, 1, 2)]
-    assert [e[0] for e in tune.source_table(
-        "local_cols", "PYFFT_COLS_PRING")] == [
-            4, 5, 6, 7, 8]
-    assert tuple(1 << e[0] for e in tune.source_table(
-        "local_cols", "PYFFT_COLS_PRING")) == local.COL_RING_LENGTHS
-
-
-@pytest.mark.parametrize("kind,n,want", [
-    ("row", 4096, [(1, 3), (2, 3), (1, 2)]),
-    ("row", 8192, [(1, 2), (1, 3)]),
-    ("row", 1024, [(4, 3), (2, 3), (8, 3), (4, 2)]),
-    ("row", 256, []),                   # the first design's length
-    ("col", 256, [(32, 3), (16, 3), (32, 2)]),
-    ("col", 16, [(128, 3), (64, 3), (256, 3), (128, 2)]),
-    ("col", 512, []),
-    ("col", 8, []),
-    ("col", 1024, [(4, 32, 2), (4, 16, 1), (4, 16, 2), (4, 32, 1)]),
-    ("col", 4096, [(16, 32, 2), (16, 32, 1)]),
-    ("col", 3000, []),
-])
-def test_table_candidates(kind, n, want):
-    """The source's entry first, then the halved, doubled and other-slot
-    variants (16 or 32 columns, 1 or 2 blocks an SM for the cluster tile)
-    that fit: the H100's 227 KB a block, whole warps, the boxes."""
-    assert tune.table_candidates(kind, n) == want
-
-
-def test_row_record_defines_and_library_name(record_file):
-    today = {name: build.library_path(name) for name in LIBS}
-    write(record_file, {"row:4096": [2, 3]})
-    d = tune.defines("local_rows")
-    assert d == ("PYFFT_ROWS_RING(X)=X(3, 256, 3) X(4, 256, 3) "
-                 "X(5, 256, 3) X(6, 128, 3) X(10, 4, 3) X(11, 2, 3) "
-                 "X(12, 2, 3) X(13, 1, 2)",)
-    assert tune.defines("local_cols") == ()
-    path = build.library_path("local_rows", defines=d)
-    assert path != today["local_rows"]
-    assert path.name.startswith("liblocal_rows_")
-    assert path.parent == today["local_rows"].parent
-    assert build.library_path("local_rows", defines=d) == path   # stable
-    assert build._header(d) == (
-        "#define PYFFT_ROWS_RING(X) X(3, 256, 3) X(4, 256, 3) X(5, 256, 3) "
-        "X(6, 128, 3) X(10, 4, 3) X(11, 2, 3) X(12, 2, 3) X(13, 1, 2)\n")
-
-
-def test_col_record_defines_both_tables(record_file):
-    write(record_file, {"col:256": [16, 3], "col:2048": [8, 16, 1],
-                        "col:64": [128, 2]})
-    d = tune.defines("local_cols")
-    assert d == ("PYFFT_COLS_PRING(X)=X(4, 128, 3) X(5, 128, 3) "
-                 "X(6, 128, 2) X(7, 64, 3) X(8, 16, 3)",
-                 "PYFFT_XCOLS_F32(X)=X(10, 4, 32, 2) X(11, 8, 16, 1) "
-                 "X(12, 16, 32, 2) X(13, 16, 16, 2)")
-    assert tune.defines("local_rows") == ()
-    assert (build.library_path("local_cols", defines=d)
-            != build.library_path("local_cols"))
-    assert (build.library_path("local_cols", defines=d[:1])
-            != build.library_path("local_cols", defines=d))
+def source_path(name):
+    """Where ``csrc/<name>.cu`` builds to, hashed here as ``build`` names
+    it: the source, every header by name and content, the flags."""
+    h = hashlib.sha256((build.CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(build.CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(build.NVCC_FLAGS).encode())
+    return build.BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 @pytest.mark.parametrize("entry", [
+    None,                               # no record
     {"row:4096": [1, 3]},               # the source's own entry
     {"row:4096": [8, 3]},               # over 227 KB of shared memory
     {"row:4096": [1, 1]},               # one slot
@@ -324,84 +259,39 @@ def test_col_record_defines_both_tables(record_file):
     {"col:1024": [3, 32, 2]},           # no G-point DFT of radix 3
     {"col:1024": [4, 48, 2]},           # a run that does not divide 128
     {"col:512": [32, 3]},               # the first design's length
+    {"row:4096": [2, 3]},               # a table entry that fits
+    {"col:256": [16, 3]},               # likewise
 ])
-def test_records_that_change_no_table(record_file, entry):
-    """An entry equal to the source's, or one that fails the kernel's
-    rules, gives no definitions: the libraries keep today's names."""
-    write(record_file, entry)
+def test_table_entries_change_nothing(record_file, monkeypatch, entry):
+    """A ``row``/``col`` entry, fitting its table or not, changes nothing:
+    the package asks for the row and column libraries by name alone, at
+    the path the source gives, and the splits and routes are as without
+    the entry."""
+    want = (fourstep.choose_split(1 << 22), fourstep.choose_split3(1 << 27),
+            fp64.choose_split_df64(1 << 22), planmod._il1d_route(4096))
+    if entry is not None:
+        write(record_file, entry)
+    asked = []
+
+    def load(*args, **kw):
+        asked.append((args, kw))
+        return types.SimpleNamespace(
+            **{s: types.SimpleNamespace() for s in (
+                "pyfft_local_rows", "pyfft_local_cols",
+                "pyfft_local_cols_width")})
+
+    monkeypatch.setattr(build, "load", load)
+    local._rows_fn.__wrapped__(torch.float32)
+    local._cols_lib.__wrapped__(torch.float32)
+    assert [a for a, _ in asked] == [("local_rows",), ("local_cols",),
+                                    ("local_cols",)]
+    assert all(kw == {} for _, kw in asked)
     for name in LIBS:
-        assert tune.defines(name) == ()
-        assert (build.library_path(name, defines=tune.defines(name))
-                == build.library_path(name))
-
-
-def test_no_record_gives_todays_libraries(record_file):
-    assert not record_file.exists()
-    for name in LIBS:
-        assert tune.defines(name) == ()
-        assert (build.library_path(name, defines=tune.defines(name))
-                == build.library_path(name))
-    assert tune.defines("fused2d") == ()
-
-
-def test_library_path_without_defines_is_unchanged():
-    """``defines=()`` hashes nothing more: the name is the one the source,
-    headers and flags give, as before the argument existed."""
-    import hashlib
-    h = hashlib.sha256((build.CSRC / "local_rows.cu").read_bytes())
-    for header in sorted(build.CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(build.NVCC_FLAGS).encode())
-    assert build.library_path("local_rows", defines=()).name == \
-        f"liblocal_rows_{h.hexdigest()[:16]}.so"
-
-
-def test_load_with_defines_includes_their_header(tmp_path, monkeypatch):
-    """``load(name, defines=...)`` passes the definitions to nvcc as a
-    header it includes first (``-D`` would split them at commas) and
-    caches the library by name and definitions."""
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
-    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(build, "_LOADED", {})
-    seen = []
-
-    def run(cmd, **kw):
-        out = cmd[cmd.index("-o") + 1]
-        header = (open(cmd[cmd.index("-include") + 1]).read()
-                  if "-include" in cmd else None)
-        seen.append((cmd, header))
-        open(out, "w").close()
-        return type("Done", (), {"returncode": 0, "stderr": ""})()
-
-    monkeypatch.setattr(build.subprocess, "run", run)
-    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
-    d = ("PYFFT_ROWS_RING(X)=X(12, 2, 3)",)
-    lib = build.load("local_rows", defines=d)
-    plain = build.load("local_rows")
-    assert build.load("local_rows", defines=d) is lib
-    assert lib != plain and len(seen) == 2
-    (cmd, header), (cmd0, header0) = seen
-    assert header == "#define PYFFT_ROWS_RING(X) X(12, 2, 3)\n"
-    assert cmd[-1].endswith("local_rows.cu") and header0 is None
-    assert lib[1] == str(build.library_path("local_rows", defines=d))
-    assert not list((tmp_path / "out").glob("*.h"))       # header removed
-
-
-def test_library_caches_cover_every_library_query():
-    """Every memoised function of ops/local.py that calls ``_library`` is
-    cleared by ``clear_library_caches`` (``reload_tuned``), so no shape
-    query answers for a library the record no longer sets."""
-    src = inspect.getsource(local)
-    tree = ast.parse(src)
-    cached = set()
-    for node in tree.body:
-        if (isinstance(node, ast.FunctionDef) and node.name != "_library"
-                and "_library(" in ast.get_source_segment(src, node)):
-            assert any("lru_cache" in ast.get_source_segment(src, d)
-                       for d in node.decorator_list), node.name
-            cached.add(node.name)
-    assert cached == {f.__name__ for f in local._LIBRARY_CACHES}
-    local.clear_library_caches()
+        assert build.library_path(name) == source_path(name)
+    got = (fourstep.choose_split(1 << 22), fourstep.choose_split3(1 << 27),
+           fp64.choose_split_df64(1 << 22), planmod._il1d_route(4096))
+    assert got == want
+    assert pyfft_tpu_torch.Plan((4096,), device="cpu").il_route() == want[3]
 
 
 # ------------------------------------------------------------- autotune
@@ -412,6 +302,23 @@ def test_autotune_raises_without_a_card(record_file, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         pyfft_tpu_torch.autotune([4096])
     assert not record_file.exists()
+
+
+@pytest.mark.parametrize("kinds", [("row",), ("col",), ("row", "col")])
+def test_autotune_row_col_time_nothing(record_file, monkeypatch, kinds):
+    """JAX's ``row`` and ``col`` kinds time nothing here: the record
+    written names the card alone, and no library is built."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+    def load(*args, **kw):
+        raise AssertionError(f"build.load{args} called")
+
+    monkeypatch.setattr(build, "load", load)
+    got = pyfft_tpu_torch.autotune([256, 1024, 4096], kinds=kinds,
+                                   verbose=False)
+    assert got == {"device": CARD}
+    assert json.loads(record_file.read_text()) == {"device": CARD}
 
 
 def test_autotune_signature_matches_jax():
