@@ -35,6 +35,9 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
             buffer (no DSMEM): the copies' cost across the cluster
   xr8       K12's ring at n = 2048 on a cluster of 8 blocks, one an SM
             (66 KB slots; 16 blocks, two an SM, by default)
+  xrtw      K12's ring reading its chain's and exchange's twiddles from
+            the kernel's table every tile (four of seven, five of fifteen
+            and their products), not from its block's shared-memory table
   g4        K12's first design, (G, C) = (2, 16), (4, 16), (8, 16) at n =
             1024, 2048, 4096 on every layout, 128 KB blocks, one an SM
   m1        K12's (G, C) with registers for one block an SM
@@ -352,6 +355,50 @@ RPB = {k: min(256, max(1, 4096 >> k)) for k in range(3, 14)}
 RPB_8K = {k: min(256, max(1, 8192 >> k)) for k in range(3, 14)}
 RPB_2K = {k: min(256, max(1, 2048 >> k)) for k in range(3, 14)}
 
+# K12's ring: its stages' and its exchange's multiplies by the block's
+# twiddle table (ring_cols.cuh), the comment its stage follows, and the
+# reads of `tw` with products that the table replaced
+XR_STAGE_TW = ("    const V* w = tab + xt_table_stage<X>(NS) + (j % NS) * "
+               "(R - 1);\n#pragma unroll\n    for (int r = 1; r < R; ++r) "
+               "y[b][r] = cmul(y[b][r], w[r - 1]);\n")
+XR_EXCHANGE_TW = ("    const V* w = tab + xt_table_exchange<X>() + kl * "
+                  "(G - 1);\n#pragma unroll\n    for (int b = 1; b < G; "
+                  "++b) u[b] = cmul(u[b], w[b - 1]);\n")
+XR_STAGE_DOC = "// One radix-8 stage of X's M-point chain after the first"
+XR_TWIDDLE = """// v[r] *= w^r for 0 < r < R, w^r at tw[r*e], from fewer reads
+template <int R, class V>
+__device__ __forceinline__ void xt_twiddle(V* v, const V* __restrict__ tw,
+                                           int e) {
+  if constexpr (R == 8) {
+    const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
+    const V w4 = __ldg(&tw[4 * e]);
+    v[1] = cmul(v[1], w1);
+    v[2] = cmul(v[2], w2);
+    v[3] = cmul(v[3], cmul(w1, w2));
+    v[4] = cmul(v[4], w4);
+    v[5] = cmul(v[5], cmul(w1, w4));
+    v[6] = cmul(v[6], cmul(w2, w4));
+    v[7] = cmul(v[7], __ldg(&tw[7 * e]));
+  } else {
+    static_assert(R == 16, "radix 8 or 16");
+    V w[R];
+    w[1] = __ldg(&tw[e]);
+    w[2] = __ldg(&tw[2 * e]);
+    w[3] = __ldg(&tw[3 * e]);
+    w[4] = __ldg(&tw[4 * e]);
+    w[8] = __ldg(&tw[8 * e]);
+    w[5] = cmul(w[1], w[4]);
+    w[6] = cmul(w[2], w[4]);
+    w[7] = cmul(w[3], w[4]);
+#pragma unroll
+    for (int r = 9; r < R; ++r) w[r] = cmul(w[r - 8], w[8]);
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], w[r]);
+  }
+}
+
+"""
+
 # (file, text, replacement) steps, by name
 STEPS = {
     "notw": [
@@ -376,11 +423,8 @@ STEPS = {
     # store's), no DFT arithmetic, its chunks copied to the block's own
     # receive buffer, its chain cut to the first stage
     "xrnotw": [
-        ("ring_cols.cuh",
-         "    xt_twiddle<R>(y[b], tw, (j % NS) * (X::N / (NS * R)));\n", ""),
-        ("ring_cols.cuh",
-         "    xt_twiddle<G>(u, tw, kp);   // w_N^(b*k'), from fewer reads\n",
-         ""),
+        ("ring_cols.cuh", XR_STAGE_TW, ""),
+        ("ring_cols.cuh", XR_EXCHANGE_TW, ""),
         ("local_cols.cu", "  const bool twiddled = io.tw_mode != TW_NONE;",
          "  const bool twiddled = false;")],
     "xrarith": [("ring_cols.cuh", "    dft<R>(v[b], s);\n", ""),
@@ -391,7 +435,19 @@ STEPS = {
                  "CH * (int)sizeof(V),\n                    landed, "
                  "rank);")],
     "xrcopy": [("ring_cols.cuh",
-                "  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tw, s);\n", "")],
+                "  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tab, s);\n", "")],
+    # K12's ring reading its chain's and exchange's twiddles from `tw`
+    # every tile, four of seven and five of fifteen and the rest their
+    # products (the design before the shared-memory table)
+    "xrtw": [
+        ("ring_cols.cuh", XR_STAGE_DOC, XR_TWIDDLE + XR_STAGE_DOC),
+        ("ring_cols.cuh", XR_STAGE_TW,
+         "    xt_twiddle<R>(y[b], tab, (j % NS) * (X::N / (NS * R)));\n"),
+        ("ring_cols.cuh", XR_EXCHANGE_TW, "    xt_twiddle<G>(u, tab, kp);\n"),
+        ("local_cols.cu", "xt_chain_from_chunks<X, SWAP>(sm, tab, s,",
+         "xt_chain_from_chunks<X, SWAP>(sm, fresh(tw), s,"),
+        ("local_cols.cu", "(recv, &landed, i & 1, tab, s, rank, put);",
+         "(recv, &landed, i & 1, fresh(tw), s, rank, put);")],
     "xold": [("local_cols.cu", XRING, "#define PYFFT_XRING_F64(X)\n")],
     "xr8": [("local_cols.cu", XRING,
              "#define PYFFT_XRING_F64(X) X(11, 8, 16, 2, 1)\n")],
@@ -693,6 +749,7 @@ VARIANTS = {
     "xrlocal": (("K12",),
                 ["notw", "xrnotw", "noarith", "xrarith", "xrlocal"], {}),
     "xr8": (("K12",), ["xr8"], {}),
+    "xrtw": (("K12",), ["xrtw"], {}),
     "g4": (("K12",), ["g4"], {}),
     "m1": (("K12",), ["m1"], {}),
     "s2c16": (("K12",), ["s2c16"], {}),

@@ -1188,7 +1188,7 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
 // pass, cluster c taking tiles c, c + clusters, ... (l fastest, so that the
 // clusters in flight read the same rows of a `full` table; the grid cut to
 // whole rounds).  A block's shared memory is a ring of S slots of one tile
-// each, one mbarrier a slot, and a receive buffer:
+// each, one mbarrier a slot, a receive buffer and a twiddle table:
 //
 //   * loads: thread 0 fills each slot with tensor-map boxes of rows rank +
 //     G*j' (C doubles, MB <= 256 rows a box, a box a plane), tile i + S
@@ -1204,8 +1204,15 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
 //     pull of the x tile (a remote load a value, behind cluster barriers
 //     whose release waits for the last tile's stores to device memory)
 //     cost this design a tenth of a pass on the H100 (PERF.md section 6);
-//     the later stages and the exchange take their twiddles from fewer
-//     table reads (ring_cols.cuh's xt_twiddle);
+//   * twiddles: those of the chain after its first stage and of the
+//     exchange depend on the thread and the block's rank alone, the same
+//     for every tile of the walk, so each block reads them once a launch,
+//     before its first chain, into a table after the receive buffer
+//     (ring_cols.cuh's xt_fill_table: 246 values, 3936 bytes at n =
+//     2048), each entry one value of `tw`, and the stages and the
+//     exchange read them there: reading `tw` itself every tile (21 reads
+//     a thread of a 32 KB table at n = 2048) put a round trip to the L2
+//     into each of the tile's three rounds (PERF.md section 6);
 //   * pipelined: tile i + 1's chain runs while tile i's chunks fly, then
 //     tile i's pairs are read from the receive buffer, twiddled, the
 //     G-point DFTs run and both stores go out from registers as the x
@@ -1223,9 +1230,10 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
 // (log2 n, G, C, S, B): the ring's cluster of G blocks, its tile of C
 // columns (128-byte runs), the slots of a block's ring and the blocks an
 // SM its launch bounds leave registers for, by length.  At n = 2048 the
-// H100 ran config 5's passes on (16, 16, 2, 2) in 3.95 and 4.01 ms, the x
-// tile in 4.34 and 4.13, the ring on a cluster of 8 blocks, one an SM, in
-// 4.51 and 4.44 (probes/float_split.py K12, PERF.md section 6).
+// H100 ran config 5's passes on (16, 16, 2, 2) in 3.73 and 3.70 ms (3.97
+// and 3.93 with the twiddles read from `tw` every tile), the x tile in
+// 4.34 and 4.13, the ring on a cluster of 8 blocks, one an SM, in 4.51 and
+// 4.44 (probes/float_split.py K12, PERF.md section 6).
 #ifndef PYFFT_XRING_F64
 #define PYFFT_XRING_F64(X) X(11, 16, 16, 2, 2)
 #endif
@@ -1242,10 +1250,11 @@ struct XRing {
   // a slot in bytes: the tile's two planes as copied (P doubles each),
   // then its [k][c] values, then its outputs by owner (the swapped store's
   // chunks padded); whole 128-byte units, where the copies write.  The
-  // receive buffer after the S slots is one more
+  // receive buffer after the S slots is one more, then the twiddle table
   static constexpr int SLOT =
       (cmax(X::P, X::G_ * xt_chunk<X, true>()) * 16 + 127) / 128 * 128;
-  static constexpr int SMEM = (S + 1) * SLOT + 128;          // + alignment
+  static constexpr int SMEM =
+      (S + 1) * SLOT + xt_table<X>() * 16 + 128;             // + alignment
   static_assert(S >= 2 && SMEM <= 227 * 1024 && B >= 1 && B * NT <= 2048 &&
                     B * (SMEM + 1024) <= 228 * 1024,
                 "the ring fits a block's shared memory, B blocks an SM");
@@ -1297,6 +1306,7 @@ __global__ void __launch_bounds__(NT, B)
   __shared__ uint64_t landed;       // the chunks into this block, a tile
   V* slots = reinterpret_cast<V*>(align128(smem_raw));
   V* recv = slots + S * (K::SLOT / 16);
+  V* tab = recv + K::SLOT / 16;     // the chain's and exchange's twiddles
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long first = blockIdx.x / G, every = gridDim.x / G;
@@ -1324,8 +1334,9 @@ __global__ void __launch_bounds__(NT, B)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int j = 0; j < S && j < count; ++j) fill(j);
   }
+  xt_fill_table<X>(tab, tw, rank);
   cluster_arrive();                 // every block's barriers are set up
-  cluster_wait();
+  cluster_wait();                   // (and its table)
   const bool twiddled = io.tw_mode != TW_NONE;
   // the twiddle w^(k*q) of output k of tile i's column c, read before the
   // tile's chain so that its latency hides behind it: w(k') and w(M) of
@@ -1359,7 +1370,7 @@ __global__ void __launch_bounds__(NT, B)
     V* sm = slots + (i % S) * (K::SLOT / 16);
     const double* f = reinterpret_cast<const double*>(sm);
     mbar_wait(&filled[i % S], (i / S) & 1);
-    xt_chain_from_chunks<X, SWAP>(sm, fresh(tw), s, [&](int k, int c) {
+    xt_chain_from_chunks<X, SWAP>(sm, tab, s, [&](int k, int c) {
       return Complex<double>::make(f[k * C + c], f[P + k * C + c]);
     });
   };
@@ -1395,7 +1406,7 @@ __global__ void __launch_bounds__(NT, B)
         io.out_im[ok] = v.y * io.post;
       }
     };
-    xt_receive_chunks<X, SWAP>(recv, &landed, i & 1, fresh(tw), s, rank, put);
+    xt_receive_chunks<X, SWAP>(recv, &landed, i & 1, tab, s, rank, put);
     // past the receive's barrier every copy out of tile i's slot has
     // landed and every block has read its receive buffer: refill the slot
     // with tile i + S, send tile i + 1's chunks

@@ -222,63 +222,79 @@ __host__ __device__ constexpr int xt_chunk() {
   return KMAJOR ? X::C_ * (X::KR + 1) : X::KR * X::C_;
 }
 
-// v[r] *= w^r for 0 < r < R, w^r at tw[r*e], from fewer table reads
-// (chain.cuh's TWD): radix 4 reads w^1, w^2; radix 8 w^1, w^2, w^4, w^7;
-// radix 16 w^1, w^2, w^3, w^4, w^8; each other twiddle is one or two
-// products of those.
-template <int R, class V>
-__device__ __forceinline__ void xt_twiddle(V* v, const V* __restrict__ tw,
-                                           int e) {
-  if constexpr (R == 2) {
-    v[1] = cmul(v[1], __ldg(&tw[e]));
-  } else if constexpr (R == 4) {
-    const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
-    v[1] = cmul(v[1], w1);
-    v[2] = cmul(v[2], w2);
-    v[3] = cmul(v[3], cmul(w1, w2));
-  } else if constexpr (R == 8) {
-    const V w1 = __ldg(&tw[e]), w2 = __ldg(&tw[2 * e]);
-    const V w4 = __ldg(&tw[4 * e]);
-    v[1] = cmul(v[1], w1);
-    v[2] = cmul(v[2], w2);
-    v[3] = cmul(v[3], cmul(w1, w2));
-    v[4] = cmul(v[4], w4);
-    v[5] = cmul(v[5], cmul(w1, w4));
-    v[6] = cmul(v[6], cmul(w2, w4));
-    v[7] = cmul(v[7], __ldg(&tw[7 * e]));
-  } else {
-    static_assert(R == 16, "radix 2, 4, 8 or 16");
-    V w[R];
-    w[1] = __ldg(&tw[e]);
-    w[2] = __ldg(&tw[2 * e]);
-    w[3] = __ldg(&tw[3 * e]);
-    w[4] = __ldg(&tw[4 * e]);
-    w[8] = __ldg(&tw[8 * e]);
-    w[5] = cmul(w[1], w[4]);
-    w[6] = cmul(w[2], w[4]);
-    w[7] = cmul(w[3], w[4]);
-#pragma unroll
-    for (int r = 9; r < R; ++r) w[r] = cmul(w[r - 8], w[8]);
-#pragma unroll
-    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], w[r]);
+// K12's ring takes every twiddle of its chain after the first stage and
+// of its exchange from a table in each block's shared memory, filled once
+// a launch (xt_fill_table) from the caller's table of N entries w_N^x,
+// each entry one value of it: every tile of the walk needs the same ones,
+// since they depend only on the thread and the block's rank.  The radix-8
+// stage after NS points (NS the product of the radices before it) reads
+// w_N^(jj*r*N/(8*NS)), jj = j % NS, 0 < r < 8, at xt_table_stage(NS) +
+// jj*7 + r - 1; the exchange w_N^(b*k'), k' = rank*KR + kl, 0 < b < G, at
+// xt_table_exchange() + kl*(G - 1) + b - 1.  A warp's reads are
+// broadcasts (C consecutive threads share j, and kl in the plain store's
+// exchange) or fall on distinct 16-byte slots of a 128-byte row (the
+// swapped store's exchange: eight consecutive kl, G - 1 values apart, G -
+// 1 odd).
+template <class X>
+__host__ __device__ constexpr int xt_first_radix() {
+  return X::REM ? (1 << X::REM) : 8;
+}
+
+// The stages before the one after NS points hold 7*NS' values each, NS' =
+// R0, 8*R0, ..., NS/8: NS - R0 in all.
+template <class X>
+__host__ __device__ constexpr int xt_table_stage(int ns) {
+  return ns - xt_first_radix<X>();
+}
+
+template <class X>
+__host__ __device__ constexpr int xt_table_exchange() {
+  return xt_table_stage<X>(X::M);
+}
+
+// The values of the table.
+template <class X>
+__host__ __device__ constexpr int xt_table() {
+  return xt_table_exchange<X>() + X::KR * (X::G_ - 1);
+}
+
+// Cluster block `rank`'s table from `tw` (w_N^x, x < N); the caller
+// synchronises the block before it is read.
+template <class X>
+__device__ __forceinline__ void xt_fill_table(
+    typename X::V* tab, const typename X::V* __restrict__ tw, int rank) {
+  constexpr int N = X::N, G = X::G_, KR = X::KR;
+  constexpr int EX = xt_table_exchange<X>();
+  for (int e = threadIdx.x; e < xt_table<X>(); e += X::NT_) {
+    int x;
+    if (e < EX) {                       // stage ns's [jj][r - 1]
+      int ns = xt_first_radix<X>();
+      while (xt_table_stage<X>(8 * ns) <= e) ns *= 8;
+      const int i = e - xt_table_stage<X>(ns);
+      x = (i / 7) * (i % 7 + 1) * (N / (8 * ns));
+    } else {                            // the exchange's [kl][b - 1]
+      const int i = e - EX;
+      x = (rank * KR + i / (G - 1)) * (i % (G - 1) + 1);
+    }
+    tab[e] = __ldg(&tw[x % N]);
   }
 }
 
-// One radix-R stage of X's M-point chain after the first (NS the product
+// One radix-8 stage of X's M-point chain after the first (NS the product
 // of the radices before it), as cluster_cols.cuh's xt_stage with its
-// twiddles from fewer reads (xt_twiddle): all reads, a barrier, all
-// writes, a barrier; the last stage (LAST) writes by owner
+// twiddles from the block's table `tab` (xt_fill_table): all reads, a
+// barrier, all writes, a barrier; the last stage (LAST) writes by owner
 // (xt_chunk_index).
 template <class X, int R, int NS, bool LAST, bool KMAJOR>
 __device__ __forceinline__ void xt_stage_ring(
-    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::V* sm, const typename X::V* __restrict__ tab,
     typename X::Real_ s) {
   using V = typename X::V;
   constexpr int M = X::M, C = X::C_, NT = X::NT_, NR = M / R, KR = X::KR;
   constexpr int B = NR * C / NT;
   static_assert(B * R * NT == M * C, "threads must tile the block exactly");
-  static_assert(NS > 1 && (!LAST || NS * R == M),
-                "a stage after the first; the last covers M");
+  static_assert(R == 8 && NS > 1 && (!LAST || NS * R == M),
+                "a radix-8 stage after the first; the last covers M");
   V y[B][R];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
@@ -286,7 +302,9 @@ __device__ __forceinline__ void xt_stage_ring(
     const int c = q % C, j = q / C;
 #pragma unroll
     for (int r = 0; r < R; ++r) y[b][r] = sm[(j + r * NR) * C + c];
-    xt_twiddle<R>(y[b], tw, (j % NS) * (X::N / (NS * R)));
+    const V* w = tab + xt_table_stage<X>(NS) + (j % NS) * (R - 1);
+#pragma unroll
+    for (int r = 1; r < R; ++r) y[b][r] = cmul(y[b][r], w[r - 1]);
     dft<R>(y[b], s);
   }
   __syncthreads();
@@ -309,24 +327,25 @@ __device__ __forceinline__ void xt_stage_ring(
 // owner.
 template <class X, bool KMAJOR, int STAGE, int NS>
 __device__ __forceinline__ void xt_chain_chunks(
-    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::V* sm, const typename X::V* __restrict__ tab,
     typename X::Real_ s) {
   constexpr bool LAST = STAGE + 1 == X::NSTAGES;
-  xt_stage_ring<X, 8, NS, LAST, KMAJOR>(sm, tw, s);
+  xt_stage_ring<X, 8, NS, LAST, KMAJOR>(sm, tab, s);
   if constexpr (!LAST)
-    xt_chain_chunks<X, KMAJOR, STAGE + 1, NS * 8>(sm, tw, s);
+    xt_chain_chunks<X, KMAJOR, STAGE + 1, NS * 8>(sm, tab, s);
 }
 
 // X's whole M-point chain, its first stage reading load(k, c)
-// (xt_first), its result in the buffer by owner.
+// (xt_first), its later stages' twiddles from the block's table `tab`,
+// its result in the buffer by owner.
 template <class X, bool KMAJOR, class Load>
 __device__ __forceinline__ void xt_chain_from_chunks(
-    typename X::V* sm, const typename X::V* __restrict__ tw,
+    typename X::V* sm, const typename X::V* __restrict__ tab,
     typename X::Real_ s, const Load& load) {
-  constexpr int R = X::REM ? (1 << X::REM) : 8;
+  constexpr int R = xt_first_radix<X>();
   static_assert(X::NSTAGES > 1, "a stage after the first writes by owner");
   xt_first<X, R>(sm, s, load, [] { __syncthreads(); });
-  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tw, s);
+  xt_chain_chunks<X, KMAJOR, 1, R>(sm, tab, s);
 }
 
 // The exchange of a tile whose chain left `sm` by owner, in two halves so
@@ -353,7 +372,8 @@ __device__ __forceinline__ void xt_send_chunks(const typename X::V* sm,
 
 // Receive: the wait for the G chunks into this block (phase `phase` of
 // `landed`), each pair's G values read from `recv`, the twiddles w_N^(b*k')
-// (xt_twiddle), the G-point DFTs and put(c, k', y, i) as xt_exchange's;
+// from the block's table `tab` (xt_fill_table), the G-point DFTs and
+// put(c, k', y, i) as xt_exchange's;
 // then a relaxed
 // cluster barrier, past which every block has read its `recv` and passed
 // its `landed` wait, so every copy out of the sent buffer has landed.  The
@@ -364,7 +384,7 @@ __device__ __forceinline__ void xt_send_chunks(const typename X::V* sm,
 template <class X, bool KMAJOR, class Put>
 __device__ __forceinline__ void xt_receive_chunks(
     const typename X::V* recv, uint64_t* landed, int phase,
-    const typename X::V* __restrict__ tw, typename X::Real_ s, int rank,
+    const typename X::V* __restrict__ tab, typename X::Real_ s, int rank,
     const Put& put) {
   using V = typename X::V;
   constexpr int G = X::G_, C = X::C_, NT = X::NT_, KR = X::KR;
@@ -378,7 +398,9 @@ __device__ __forceinline__ void xt_receive_chunks(
 #pragma unroll
     for (int b = 0; b < G; ++b)
       u[b] = recv[xt_chunk_index<X, KMAJOR>(b, kl, c)];
-    xt_twiddle<G>(u, tw, kp);   // w_N^(b*k'), from fewer reads
+    const V* w = tab + xt_table_exchange<X>() + kl * (G - 1);
+#pragma unroll
+    for (int b = 1; b < G; ++b) u[b] = cmul(u[b], w[b - 1]);
     dft<G>(u, s);
     put(c, kp, u, i);
   }

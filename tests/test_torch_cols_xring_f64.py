@@ -17,9 +17,11 @@ fill at that fill's parity.  The ring's function: the tiles in its order,
 loaded through each block's slot as the boxes lay it out, the x tile's
 chain and exchange (tests/test_torch_cluster_cols.py's model), the
 twiddles w(k') and w(M) read per pair and stepped w(k') * w(M)^k2, the
-chain's and the exchange's twiddles from fewer reads (xt_twiddle), both
-stores, against numpy (1e-11) and, on the same (G, C), the x tile's model
-(1e-14).  The
+chain's and the exchange's twiddles from each block's shared-memory table
+(xt_fill_table, its readers' offsets; every entry one value of the
+kernel's table, its warps' reads broadcasts or free of bank conflicts, its
+room within B blocks an SM), both stores, against numpy (1e-11) and, on
+the same (G, C), the x tile's model (1e-14).  The
 dispatch rule (``local.col_design`` against the C rule on the wrapper's
 operands) and the launch counts (``launch.K12.ring`` from the entry's
 RAN_RING; every other K12 and K5 pass counting the keys it did).  The
@@ -94,20 +96,121 @@ def chunk(C: int, KR: int, kmajor: bool) -> int:
     return c_eval(expr.replace("KMAJOR", str(int(kmajor))), C=C, KR=KR)
 
 
+# the ring's twiddle table as ring_cols.cuh states it: its layout
+# (xt_first_radix, xt_table_stage, xt_table_exchange, xt_table), the
+# exponent xt_fill_table reads for each entry, and the offsets its readers
+# take (xt_stage_ring, xt_receive_chunks)
+LAYOUT = {name: src_text(
+    rf"constexpr int {name}\({arg}\) \{{\n  return ([^;]+);", RING_SRC)[0]
+    for name, arg in (("xt_first_radix", ""), ("xt_table_stage", "int ns"),
+                      ("xt_table_exchange", ""), ("xt_table", ""))}
+FILL_SRC = RING_SRC[RING_SRC.index("__device__ __forceinline__ void "
+                                   "xt_fill_table("):]
+FILL_SRC = FILL_SRC[:FILL_SRC.index("\n}\n")]
+TABLE_X = re.findall(r"\n      x = ([^;]+);", FILL_SRC)
+READ_AT = {
+    "stage": src_text(
+        r"const V\* w = tab \+ ([^;]+);\n#pragma unroll\n    for \(int r = "
+        r"1; r < R; \+\+r\) y\[b\]\[r\] = cmul\(y\[b\]\[r\], w\[r - 1\]\);",
+        RING_SRC)[0],
+    "exchange": src_text(
+        r"const V\* w = tab \+ ([^;]+);\n#pragma unroll\n    for \(int b = "
+        r"1; b < G; \+\+b\) u\[b\] = cmul\(u\[b\], w\[b - 1\]\);",
+        RING_SRC)[0]}
+
+
+def ring_expr(expr: str, **env):
+    """An expression of ring_cols.cuh's table evaluated in Python (numpy
+    arrays allowed): X's constants and the layout's functions from
+    ``env`` and ``table_layout``, ``/`` integer division, ``a ? b : c``."""
+    py = expr
+    for c, name in (("xt_first_radix<X>()", "R0"),
+                    ("xt_table_stage<X>", "stage"),
+                    ("xt_table_exchange<X>()", "EX"), ("X::REM", "REM"),
+                    ("X::M", "M"), ("X::KR", "KR"), ("X::G_", "G"),
+                    ("X::N", "N")):
+        py = py.replace(c, name)
+    py = py.replace("/", "//").replace("<<", " << ")
+    m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", py)
+    if m:
+        py = f"({m.group(2)}) if ({m.group(1)}) else ({m.group(3)})"
+    return eval(py, {"__builtins__": {}}, env)
+
+
+def table_layout(G: int, M: int) -> dict:
+    """The table's layout for a block of M rows in a cluster of G:
+    the first radix R0, the NS of each radix-8 stage after it
+    (``stages``), ``stage(ns)`` (where the stage after ns points starts),
+    EX (where the exchange's start) and T (its values)."""
+    env = dict(M=M, G=G, KR=M // G, N=G * M, REM=(M.bit_length() - 1) % 3)
+    env["R0"] = ring_expr(LAYOUT["xt_first_radix"], **env)
+    env["stage"] = lambda ns: ring_expr(LAYOUT["xt_table_stage"], ns=ns,
+                                        **env)
+    env["EX"] = ring_expr(LAYOUT["xt_table_exchange"], **env)
+    env["T"] = ring_expr(LAYOUT["xt_table"], **env)
+    env["stages"] = [ns for ns in (env["R0"] * 8 ** i for i in range(M))
+                     if ns < M]
+    return env
+
+
+def ring_table(tw: np.ndarray, G: int, M: int, rank: int) -> np.ndarray:
+    """Cluster block ``rank``'s table as xt_fill_table fills it from the
+    kernel's table ``tw`` of N = G*M entries: entry e of a stage read at
+    the exponent of the stage it falls in, else the exchange's; every
+    entry written once."""
+    for text in ("for (int e = threadIdx.x; e < xt_table<X>(); "
+                 "e += X::NT_) {", "if (e < EX) {",
+                 "while (xt_table_stage<X>(8 * ns) <= e) ns *= 8;",
+                 "const int i = e - xt_table_stage<X>(ns);",
+                 "const int i = e - EX;", "tab[e] = __ldg(&tw[x % N]);"):
+        assert text in FILL_SRC, text
+    assert len(TABLE_X) == 2
+    k = table_layout(G, M)
+    N = G * M
+    tab = np.full(k["T"], np.nan, complex)
+    for e in range(k["T"]):
+        if e < k["EX"]:
+            ns = k["R0"]
+            while k["stage"](8 * ns) <= e:
+                ns *= 8
+            i = e - k["stage"](ns)
+            x = ring_expr(TABLE_X[0], i=i, ns=ns, N=N)
+        else:
+            i = e - k["EX"]
+            x = ring_expr(TABLE_X[1], i=i, rank=rank, KR=M // G, G=G)
+        tab[e] = tw[x % N]
+    return tab
+
+
+def stage_at(G: int, M: int, NS: int, j, R: int = 8):
+    """Where xt_stage_ring's butterfly j of the stage after NS points
+    reads its w^1 (w^r at r - 1 on)."""
+    k = table_layout(G, M)
+    return ring_expr(READ_AT["stage"], NS=NS, j=np.asarray(j), R=R, **k)
+
+
+def exchange_at(G: int, M: int, kl):
+    """Where xt_receive_chunks' pair kl reads its w^(1*k') (w^(b*k') at
+    b - 1 on)."""
+    k = table_layout(G, M)
+    return ring_expr(READ_AT["exchange"], kl=np.asarray(kl), **k)
+
+
 
 def xring_shape(log2n: int, G: int, C: int, S: int, B: int = 1) -> dict:
     """XRing's constants (csrc/local_cols.cu) at (log2 n, G, C, S, B):
     a slot holds the tile's planes, its [k][c] values and its outputs by
     owner (the swapped store's padded chunks); the receive buffer is one
-    slot more."""
+    slot more, then the twiddle table (``table`` values of 16 bytes)."""
     n = 1 << log2n
     M = n // G
     KR = M // G
     nt = min(M * C // 8, KR * C, 512)
     slot = (max(M * C, G * chunk(C, KR, True)) * 16 + 127) // 128 * 128
-    smem = (S + 1) * slot + 128
+    table = table_layout(G, M)["T"]
+    smem = (S + 1) * slot + table * 16 + 128
     return dict(M=M, MB=min(M, BOX), NT=nt, P=M * C, KR=KR, slot=slot,
-                smem=smem, B=B)
+                table=table, smem=smem, B=B)
 
 
 def test_xring_constants_are_the_sources():
@@ -118,7 +221,8 @@ def test_xring_constants_are_the_sources():
             "static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);",
             "static constexpr int SLOT =\n      (cmax(X::P, X::G_ * "
             "xt_chunk<X, true>()) * 16 + 127) / 128 * 128;",
-            "static constexpr int SMEM = (S + 1) * SLOT + 128;",
+            "static constexpr int SMEM =\n      (S + 1) * SLOT + "
+            "xt_table<X>() * 16 + 128;",
             "static constexpr int MB = M < BOX ? M : BOX;"):
         assert text in COLS_SRC, text
     assert "__global__ void __launch_bounds__(NT, B)\n    " \
@@ -298,9 +402,10 @@ def test_xring_loop_order():
     on and the send of tile i + 1's chunks; a send is the proxy fence, the
     receive barrier's expected bytes and the copies; the chain's last stage
     writes by owner between two block barriers; every block's receive
-    barrier is set up before any chunk is copied; a fill orders the
-    block's earlier accesses before its copies and expects a whole
-    slot."""
+    barrier is set up, and its twiddle table filled once, before the
+    cluster barrier that precedes any chain or copied chunk; a fill
+    orders the block's earlier accesses before its copies and expects a
+    whole slot."""
     loop = XRING_SRC.index("  for (int i = 0; i < count; ++i) {")
     head, body = XRING_SRC[:loop], XRING_SRC[loop:]
     assert head.index("chain(0);") < head.index(
@@ -336,8 +441,10 @@ def test_xring_loop_order():
         < last.index("sm[LAST ? xt_chunk_index<X, KMAJOR>(k / KR, k % KR, c) "
                      ": k * C + c]") < last.rindex("__syncthreads();")
     assert XRING_SRC.index("mbar_init(&landed);") < XRING_SRC.index(
+        "xt_fill_table<X>(tab, tw, rank);") < XRING_SRC.index(
         "cluster_arrive();                 // every block's barriers") \
         < XRING_SRC.index("chain(0);")
+    assert XRING_SRC.count("xt_fill_table<") == 1
     fill = XRING_SRC[XRING_SRC.index("const auto fill = [&](int i) {"):]
     fill = fill[:fill.index("  };")]
     assert fill.index("fence_async_smem();") < fill.index("mbar_expect(")
@@ -452,34 +559,11 @@ def test_xring_fill_covers_the_slot():
 # ---------------------------------------------------------- the function
 
 
-def twd(R: int, tw: np.ndarray, e) -> list:
-    """xt_twiddle's w^r, r < R (w^r at tw[r*e]), from its reads and
-    products: radix 4 reads w^1, w^2; 8 w^1, w^2, w^4, w^7; 16 w^1, w^2,
-    w^3, w^4, w^8."""
-    e = np.asarray(e)
-    w = [np.ones(e.shape, complex)] + [None] * (R - 1)
-    if R == 2:
-        w[1] = tw[e]
-    elif R == 4:
-        w[1], w[2] = tw[e], tw[2 * e]
-        w[3] = w[1] * w[2]
-    elif R == 8:
-        w[1], w[2], w[4], w[7] = tw[e], tw[2 * e], tw[4 * e], tw[7 * e]
-        w[3], w[5], w[6] = w[1] * w[2], w[1] * w[4], w[2] * w[4]
-    else:
-        for r in (1, 2, 3, 4, 8):
-            w[r] = tw[r * e]
-        w[5], w[6], w[7] = w[1] * w[4], w[2] * w[4], w[3] * w[4]
-        for r in range(9, 16):
-            w[r] = w[r - 8] * w[8]
-    return w
-
-
-def stockham_ring(buf: np.ndarray, tw: np.ndarray, N: int, sign: int):
+def stockham_ring(buf: np.ndarray, tab: np.ndarray, G: int, sign: int):
     """The ring's M-point chain on the [k][c] buffer (M, C): the first
     stage (radix 2 or 4 where log2 M is not a multiple of 3, no
-    twiddles), then radix 8 with xt_twiddle's twiddles; natural order
-    out."""
+    twiddles), then radix 8 with its twiddles read from the block's table
+    ``tab`` where xt_stage_ring reads them; natural order out."""
     M = buf.shape[0]
     logm = M.bit_length() - 1
     radices = ([1 << (logm % 3)] if logm % 3 else []) + [8] * (logm // 3)
@@ -489,9 +573,9 @@ def stockham_ring(buf: np.ndarray, tw: np.ndarray, N: int, sign: int):
         j = np.arange(nr)
         v = np.stack([buf[j + r * nr] for r in range(R)])       # (R, nr, C)
         if ns > 1:
-            w = twd(R, tw, (j % ns) * (N // (ns * R)))
+            at = stage_at(G, M, ns, j, R)
             for r in range(1, R):
-                v[r] *= w[r][:, None]
+                v[r] *= tab[at + r - 1][:, None]
         f = np.exp(sign * 2j * np.pi * np.outer(np.arange(R),
                                                 np.arange(R)) / R)
         y = np.tensordot(f, v, axes=(1, 0))
@@ -503,13 +587,15 @@ def stockham_ring(buf: np.ndarray, tw: np.ndarray, N: int, sign: int):
     return buf
 
 
-def chunk_tile(load, G: int, C: int, N: int, sign: int, tw, kmajor: bool):
+def chunk_tile(load, G: int, C: int, N: int, sign: int, tabs,
+               kmajor: bool):
     """The G blocks of one tile through the ring's chunked exchange: each
     block's chain of its rows b + G*j' (loaded through its slot), its
     outputs written by owner at xt_chunk_index, each owner's chunk copied
     into the owner's receive buffer at the sender's place, and each pair's
-    G values read there, twiddled by w_N^(b*k') and transformed; [(c, k',
-    y)] by rank, as tests/test_torch_cluster_cols.py's exchange gives."""
+    G values read there, twiddled by w_N^(b*k') from the owner's table
+    (``tabs`` by rank) and transformed; [(c, k', y)] by rank, as
+    tests/test_torch_cluster_cols.py's exchange gives."""
     M = N // G
     KR = M // G
     CH = chunk(C, KR, kmajor)
@@ -517,8 +603,8 @@ def chunk_tile(load, G: int, C: int, N: int, sign: int, tw, kmajor: bool):
     kk, cc = np.meshgrid(np.arange(M), np.arange(C), indexing="ij")
     sent = []
     for b in range(G):
-        y = stockham_ring(load(e % C, b + G * (e // C)).reshape(M, C), tw,
-                          N, sign)
+        y = stockham_ring(load(e % C, b + G * (e // C)).reshape(M, C),
+                          tabs[b], G, sign)
         buf = np.full(G * CH, np.nan, complex)
         buf[chunk_index(kk // KR, kk % KR, cc, C, KR, kmajor)] = y
         sent.append(buf)
@@ -534,7 +620,9 @@ def chunk_tile(load, G: int, C: int, N: int, sign: int, tw, kmajor: bool):
         u = np.stack([recv[chunk_index(b, kl, c, C, KR, kmajor)]
                       for b in range(G)])
         assert not np.isnan(u).any()
-        u = u * np.stack(twd(G, tw, kp))
+        at = exchange_at(G, M, kl)
+        for b in range(1, G):
+            u[b] = u[b] * tabs[r][at + b - 1]
         out.append((c, kp, w @ u))
     return out
 
@@ -566,6 +654,7 @@ def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
     planes = [r3.numpy().copy(), i3.numpy().copy()]
     dst = [(storage(x), x.storage_offset()) for x in o]
     writes = np.zeros(dst[0][0].shape, np.int64)
+    tabs = [ring_table(tw, G, M, rank) for rank in range(G)]
     _, walks = xring_walk(L, T, C, S, G, held)
     for _, ev in walks:
         for kind, i, slot_i, (l, t0), _ in ev:
@@ -579,7 +668,7 @@ def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
                 k = j // G
                 return s[k * C + c] + 1j * s[M * C + k * C + c]
 
-            outs = chunk_tile(load, G, C, n, sign, tw, swap)
+            outs = chunk_tile(load, G, C, n, sign, tabs, swap)
             a0, b0 = t0 // P, t0 - (t0 // P) * P
             q0 = t0 // adiv if adiv > 1 else 0
             r0 = t0 & 127
@@ -630,10 +719,11 @@ def ring_modes(n):
 @pytest.mark.parametrize("mode", range(7))
 @pytest.mark.parametrize("table", XRING)
 def test_xring_model_matches_numpy(table, mode, sign):
-    """The ring's function at each length of its table, its twiddles
-    from xt_twiddle's reads and products: numpy within 1e-11, every
-    output element written once and nothing else in its storage, and the
-    cluster tile's model on the same operands and (G, C) within 1e-14."""
+    """The ring's function at each length of its table, its chain's and
+    exchange's twiddles from each block's table: numpy within 1e-11,
+    every output element written once and nothing else in its storage,
+    and the cluster tile's model on the same operands and (G, C) within
+    1e-14."""
     log2n, G, C, S, _ = table
     n = 1 << log2n
     name, T, kw = ring_modes(n)[mode]
@@ -665,12 +755,97 @@ def test_xring_model_matches_numpy(table, mode, sign):
     if name == "plain inplace":
         return
     # the cluster tile's model on the same operands and (G, C): the same
-    # function, its twiddles read whole (the ring forms some as products)
+    # function, its twiddles read from the kernel's table every tile
     xo = (torch.full(oshape, np.nan, dtype=torch.float64),
           torch.full(oshape, np.nan, dtype=torch.float64))
     k12_model(re, im, *xo, sign, post, G, C, kw)
     xg = xo[0].numpy() + 1j * xo[1].numpy()
     assert np.abs(got - xg).max() / np.abs(xg).max() < 1e-14, name
+
+
+
+@pytest.mark.parametrize("part", ["stages", "exchange"])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("table", XRING)
+def test_xring_twiddle_table_entries(table, sign, part):
+    """Every entry of every block's table is one value of the kernel's
+    table, tw[(r*e) mod N], where its readers look for w^(r*e): the radix-8
+    stage after NS points reads w_N^(jj*r*N/(8*NS)) for jj = j % NS and 0 <
+    r < 8, the exchange w_N^(b*k') for k' = rank*KR + kl and 0 < b < G, at
+    every rank, both signs; the readers' places cover the table once."""
+    log2n, G, C, S, _ = table
+    n = 1 << log2n
+    M, KR = n // G, n // G // G
+    tw = local._kernel_twiddles(n, sign, torch.device("cpu"),
+                                torch.float64).numpy()
+    tw = tw[:, 0] + 1j * tw[:, 1]
+    k = table_layout(G, M)
+    stages = k["stages"]
+    assert stages and stages[-1] * 8 == M
+    for rank in range(G):
+        tab = ring_table(tw, G, M, rank)
+        seen = np.zeros(k["T"], np.int64)
+        for ns in stages:
+            j = np.arange(ns)
+            at = stage_at(G, M, ns, j)
+            for r in range(1, 8):
+                np.add.at(seen, at + r - 1, 1)
+                if part == "stages":
+                    assert np.array_equal(tab[at + r - 1],
+                                          tw[(j * r * (n // (8 * ns))) % n])
+        kl = np.arange(KR)
+        at = exchange_at(G, M, kl)
+        for b in range(1, G):
+            np.add.at(seen, at + b - 1, 1)
+            if part == "exchange":
+                assert np.array_equal(tab[at + b - 1],
+                                      tw[(b * (rank * KR + kl)) % n])
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("kmajor", [False, True])
+@pytest.mark.parametrize("table", XRING)
+def test_xring_twiddle_table_banks(table, kmajor):
+    """A warp's reads of the table: each quarter warp (eight threads, one
+    16-byte load each) reads one entry (a broadcast) or eight entries on
+    eight distinct 16-byte slots of a 128-byte row, in every stage after
+    the first and in the exchange of either store, for every value of the
+    loops (b, r) of a thread."""
+    log2n, G, C, S, B = table
+    k = xring_shape(log2n, G, C, S, B)
+    M, KR, NT = k["M"], k["KR"], k["NT"]
+    stages = table_layout(G, M)["stages"]
+    reads = []                  # the entries of each load, by thread
+    for bb in range(M // 8 * C // NT):
+        q = np.arange(NT) + bb * NT
+        j = q // C
+        reads += [stage_at(G, M, ns, j) for ns in stages]
+    for i in range(KR * C // NT):
+        p = np.arange(NT) + i * NT
+        kl = p % KR if kmajor else p // C
+        reads.append(exchange_at(G, M, kl))
+    for at in reads:
+        for quarter in at.reshape(-1, 8):
+            one = len(set(quarter)) == 1
+            assert one or len(set(quarter % 8)) == 8, quarter
+
+
+@pytest.mark.parametrize("table", XRING)
+def test_xring_twiddle_table_fits(table):
+    """The table lies after the receive buffer, inside the block's
+    dynamic shared memory less its 128 bytes of alignment, and with it the
+    ring still fits B blocks an SM (at (11, 16, 16, 2, 2): 246 values,
+    3936 bytes; 2 x (110720 + 3936 + 1024) = 231360 <= 233472 bytes)."""
+    log2n, G, C, S, B = table
+    k = xring_shape(log2n, G, C, S, B)
+    assert "  V* tab = recv + K::SLOT / 16;" in XRING_SRC
+    assert "  V* recv = slots + S * (K::SLOT / 16);" in XRING_SRC
+    end = (S + 1) * k["slot"] + k["table"] * 16
+    assert end + 128 == k["smem"] <= SMEM
+    assert B * (k["smem"] + 1024) <= SM_SMEM
+    if table == (11, 16, 16, 2, 2):
+        assert (k["table"], k["slot"], k["smem"]) == (246, 36864, 114656)
+        assert B * (k["smem"] + 1024) == 231360
 
 
 # --------------------------------------------------------- the dispatch
