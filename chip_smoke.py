@@ -37,9 +37,16 @@ numpy.fft, in twenty-six phases, one or more lines each:
      twiddle with a plain store and with swap_store, strided twiddle +
      swap_mid, factored twiddle + swap_store; each launch checked against
      the design it must run (the persistent ring from n = 16 to 256 on a
-     plain store of planes its tensor maps read, the cluster tile from
-     1024, else the first design) by the designs' counts, and the ring's
-     and the cluster tile's shapes printed;
+     plain store of planes its tensor maps read, the persistent cluster
+     ring at the lengths of PYFFT_XRING_F32_S2 on the complex form's pairs
+     with the persistent ring's modes, the cluster tile from 1024, else
+     the first design) by the designs' counts, and the rings' and the
+     cluster tile's shapes printed; then the cluster ring at config 3's
+     column pass (n = 1024 pairs, L = 1, 3 and 16 planes of 1024 columns
+     and 16 of a ragged 200, both signs, postscale 0.3, in and out of
+     place, no twiddle and the `full` one) against its plain version and
+     numpy, and 32 seeds of config 3's pass in place against the plain
+     version (its relaxed cluster barrier);
   7. fused 2D kernel: against its plain torch version and numpy for every
      (ny, nx) it takes (both 128 to 2048, at most 2^18 points), 1 and 3
      planes, forward and inverse with a postscale, planar, stride-2 and
@@ -47,7 +54,9 @@ numpy.fft, in twenty-six phases, one or more lines each:
   8. the multi-pass main paths at full size, each through Plan (complex
      and planar forms, inverse round trip) and the functional API, against
      numpy (complex128), with repr(plan) and an exact launch count per
-     kernel: config 6+ (2^22 x 8, four-step), config 3 (1024^2 x 16),
+     kernel: config 6+ (2^22 x 8, four-step), config 3 (1024^2 x 16; its
+     four complex-form column passes on K5's cluster ring, the planar one
+     on the cluster tile),
      config 4 (256^3: fused 2D, then a column pass), the mid-axis
      four-step (16384 x 1024, batch 2) and the six-step (2^27); then
      every kernel pass of each path is held against its plain version at
@@ -330,6 +339,7 @@ def design_counts() -> dict:
             "row ring f64": count_of("launch.K11.ring"),
             "column ring": count_of("launch.K5.pring"),
             "column cluster tile": count_of("launch.K5.x"),
+            "column cluster ring": count_of("launch.K5.xring"),
             "column cluster tile f64": count_of("launch.K12.x"),
             "column cluster ring f64": count_of("launch.K12.ring"),
             "plane ring": count_of("launch.K8.ring")}
@@ -802,6 +812,7 @@ def offset_plane(t: torch.Tensor) -> torch.Tensor:
 
 # the column pass's designs, by the registry's keys of their launches
 COL_DESIGN_COUNTS = {"ring": ("launch.K5.pring", "launch.K12.ring"),
+                     "xring": ("launch.K5.xring",),
                      "x": ("launch.K5.x", "launch.K12.x")}
 
 
@@ -811,8 +822,10 @@ def phase_cols_kernel(prec: str = "complex64"):
     twiddle with a plain and a swapped store, the mid and huge routes'
     modes) against its plain version and numpy; each launch checked
     against the design it must run (``local.col_design``: for complex64
-    the cluster tile from n = 1024, the persistent ring from 16 to 256 on
-    a plain store of planes its tensor maps read, else the first design;
+    the persistent cluster ring at the lengths of PYFFT_XRING_F32_S2 on
+    the complex form's pairs with the persistent ring's modes, the cluster
+    tile from n = 1024, the persistent ring from 16 to 256 on a plain
+    store of planes its tensor maps read, else the first design;
     for complex128 K12's persistent cluster ring at its table's lengths on
     planar planes its tensor maps read, else the cluster tile from n =
     1024, else the first design) by the designs' counts."""
@@ -906,10 +919,13 @@ def phase_cols_kernel(prec: str = "complex64"):
                   f"threads, {ring['slots']} slots, {ring['smem_bytes']} "
                   f"bytes a block, {ring['blocks_per_sm']} blocks an SM")
         xring = (local.col_xring_shape_f64(n) if prec == "complex128"
-                 and n in local.COL_XRING_F64_LENGTHS else None)
+                 and n in local.COL_XRING_F64_LENGTHS else
+                 local.col_xring_shape(n) if prec == "complex64"
+                 and n in local.COL_XRING_F32_S2_LENGTHS else None)
         if xring:
-            print(f"phase {phase} complex128 persistent cluster ring n={n} "
-                  f"on planar planes: a cluster of {xring['cluster']} "
+            print(f"phase {phase} {prec} persistent cluster ring n={n} on "
+                  f"{'planar planes' if prec == 'complex128' else 'pairs'}"
+                  f": a cluster of {xring['cluster']} "
                   f"blocks a tile of {xring['columns']} columns, "
                   f"{xring['slots']} slots, {xring['threads']} threads, "
                   f"{xring['smem_bytes']} bytes a block; clusters the card "
@@ -925,6 +941,84 @@ def phase_cols_kernel(prec: str = "complex64"):
                       f"{xs['blocks_an_sm']} blocks an SM; clusters the card "
                       f"holds at once: {xs['clusters_plain']} (plain store),"
                       f" {xs['clusters_swap']} (swapped store)")
+
+
+def phase_cols_xring():
+    """Phase 6's last lines: K5's persistent cluster ring at config 3's
+    column pass (n = 1024 on the complex form's pairs): L = 1, 3 and 16
+    planes of T = 1024 columns and 16 of a ragged 200, both signs,
+    postscale 0.3, out of place and in place, no twiddle and the `full`
+    one, each launch on the ring (``launch.K5.xring``) and within the gate
+    of its plain version and of numpy; then 32 seeds of config 3's pass
+    in place, each against its plain version, over the ring's relaxed
+    cluster barrier (the reads of a receive buffer retired before the
+    arrive that lets its senders reuse it)."""
+    from pyfft_tpu_torch.ops import local
+    n = 1024
+    rng = np.random.RandomState(61)
+    worst_plain = worst_np = 0.0
+    cases = 0
+    for L, T in ((1, 1024), (3, 1024), (16, 1024), (16, 200)):
+        x = (rng.standard_normal((L, n, T))
+             + 1j * rng.standard_normal((L, n, T))).astype(np.complex64)
+        xc = torch.from_numpy(x).cuda()
+        for sign in (-1, 1):
+            X = (np.fft.fft(x.astype(np.complex128), axis=1) if sign < 0
+                 else np.fft.ifft(x.astype(np.complex128), axis=1) * n)
+            for mode in ("plain stride2", "full plain"):
+                ref, tw_n = col_reference(X, n, T, mode, sign, 0.3)
+                kw = col_kwargs(mode, tw_n)
+                pr, pi = local.fft_cols_plain(xc.real.contiguous(),
+                                              xc.imag.contiguous(), sign,
+                                              postscale=0.3, **kw)
+                want = torch.from_numpy(ref).cuda()
+                for inplace in (False, True):
+                    v = torch.view_as_real(xc.clone())
+                    re, im = v[..., 0], v[..., 1]
+                    out = (re, im) if inplace else None
+                    before = count_of("launch.K5.xring")
+                    rr, ii = local.fft_axis(re, im, sign, axis=1,
+                                            postscale=0.3, out=out, **kw)
+                    torch.cuda.synchronize()
+                    if count_of("launch.K5.xring") != before + 1:
+                        raise AssertionError(
+                            f"phase 6 cluster ring L={L} T={T} {mode}: "
+                            "the pass ran another design")
+                    got = cplx(rr, ii)
+                    e_plain = rel_err(got, cplx(pr, pi))
+                    e_np = rel_err(got, want)
+                    tag = (f"L={L} T={T} sign={sign} {mode} "
+                           f"{'in place' if inplace else 'out of place'}")
+                    check(f"cluster ring vs plain {tag}", e_plain)
+                    check(f"cluster ring vs numpy {tag}", e_np)
+                    worst_plain = max(worst_plain, e_plain)
+                    worst_np = max(worst_np, e_np)
+                    cases += 1
+                del pr, pi, want
+        del xc
+    worst = 0.0
+    for seed in range(32):
+        x = make_data((16, n, n), 6100 + seed)
+        pr, pi = local.fft_cols_plain(x.real.contiguous(),
+                                      x.imag.contiguous(), -1)
+        v = torch.view_as_real(x)
+        before = count_of("launch.K5.xring")
+        local.fft_axis(v[..., 0], v[..., 1], -1, axis=1,
+                       out=(v[..., 0], v[..., 1]))
+        torch.cuda.synchronize()
+        if count_of("launch.K5.xring") != before + 1:
+            raise AssertionError("phase 6 cluster ring stress: the pass ran "
+                                 "another design")
+        e = rel_err(x, cplx(pr, pi))
+        check(f"cluster ring config 3 in place seed {seed} vs plain", e)
+        worst = max(worst, e)
+        del x, pr, pi, v
+    torch.cuda.empty_cache()
+    print(f"phase 6 complex64 persistent cluster ring at config 3's column "
+          f"pass (n = 1024, the complex form's pairs): {cases} cases, max "
+          f"rel err vs plain {worst_plain:.3e}, vs numpy {worst_np:.3e}; 32 "
+          f"seeds of (16, 1024, 1024) in place vs plain: max rel err "
+          f"{worst:.3e} (gate {TOL:.0e})")
 
 
 # ------------------------------------------------- the fused 2D kernel
@@ -1057,6 +1151,11 @@ PATHS = {
                           torch.complex128),
 }
 C64_PATHS = ("config 6+", "config 3", "config 4", "mid", "huge")
+# a path's launches on a column design over its five executes, where they
+# are fixed: config 3's four complex-form column passes read the pairs
+# (K5's persistent cluster ring), its planar one the cluster tile
+PATH_DESIGNS = {"config 3": {"column cluster ring": 4,
+                             "column cluster tile": 1}}
 C128_PATHS = ("config 5", "c128 2D", "c128 huge")
 
 
@@ -1119,6 +1218,10 @@ def run_path(name: str, seed: int, phase: int) -> dict:
                   *[route_counts(plan)] * 4)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    for k, v in PATH_DESIGNS.get(name, {}).items():
+        if designs[k] != v:
+            raise AssertionError(f"{name}: launches on the designs "
+                                 f"{designs}, expected {k} {v}")
     against = ("numpy" if spec.rows is None
                else f"numpy on rows {list(spec.rows)}")
     print(f"phase {phase} {name} {full}: {plan!r}, launches "
@@ -1267,13 +1370,14 @@ def time_complex_form(row, xs, oshape, run):
 def ran_design(run, f64: bool = False, rows: bool = False) -> str:
     """The design one launch of ``run`` ran, by what its C entry reports:
     the row ring or the first design (rows; K11 on float64), the
-    persistent ring, the cluster tile or the first design (complex64
-    columns; complex128 columns, K12: the persistent cluster ring, the
-    cluster tile or the first design)."""
+    persistent ring, the persistent cluster ring, the cluster tile or the
+    first design (complex64 columns; complex128 columns, K12: the
+    persistent cluster ring, the cluster tile or the first design)."""
     counts = ({"launch.K11.ring" if f64 else "launch.K1.ring": "row ring"}
               if rows else {"launch.K12.ring": "persistent cluster ring",
                             "launch.K12.x": "cluster tile"} if f64 else
               {"launch.K5.pring": "persistent ring",
+               "launch.K5.xring": "persistent cluster ring",
                "launch.K5.x": "cluster tile"})
     before = {c: count_of(c) for c in counts}
     run()
@@ -3860,6 +3964,7 @@ def main() -> int:
     t = phase_timings(xt, re, im)
     del xt, re, im
     phase_cols_kernel()
+    phase_cols_xring()
     phase_fused_kernel()
     results = phase_paths(C64_PATHS, 8,
                           keep=("config 6+", "config 3", "config 4", "mid"))
@@ -3937,6 +4042,7 @@ def main() -> int:
     cols_entry["library_ms"] = e2e["config 6+"]["library_ms"]
     cols_entry["design_launches"] = {
         "persistent ring": designs["column ring"],
+        "persistent cluster ring": designs["column cluster ring"],
         "cluster tile": designs["column cluster tile"]}
     fused = [c for c in timed if c["kernel"] == "fused2d"]
     fused_entry = kernel_entry(

@@ -7,10 +7,15 @@ pieces removed and shape knobs changed, one build each, on one CUDA card.
 
     python3 probes/float_split.py [K12] [K9] [K6] [K4] [K1] [K2] [K5] [K11]
                                   [P5] [K8] [--only VARIANT,...]
+                                  [--cases TEXT,...] [--queued]
 
 (the kernels named, all by default; P5 is K5's ring without a load in
 flight, the counterpart of the JAX probe ``_fft_cols_stream``; ``--only``
-builds and times the variants named beside ``full``, not all).  Builds,
+builds and times the variants named beside ``full``, not all; ``--cases``
+times only the cases whose name holds one of the texts; ``--queued`` times
+each by ``time_queued_ms``, the host held ahead of the device, in place of
+``time_ms``, which reads the host's time wherever a call's launch takes
+longer than its kernel).  Builds,
 from copies of this checkout's ``csrc/`` patched in a temporary directory
 (the checkout is not touched), ``local_cols.cu`` (K12, K6, K4, K5, P5),
 ``fused2d_tiled.cu`` (K9), ``local_rows.cu`` (K1, K2, K11) and
@@ -19,7 +24,8 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
   full      the sources as they are (with ``-Xptxas -v``: the new
             kernels' registers and spills are printed)
   notw      no twiddle multiplies (the chains', the exchange's w_n^(b*k')
-            and K12's table in the store pass; in K12's ring too)
+            and K12's table in the store pass; in K12's and K5's cluster
+            rings too)
   copy      nor the DFTs' arithmetic, nor K12's chain, and every exchange
             reads its own block's buffer instead of DSMEM: K12 is its
             loads, one shared-memory pass and its stores (the ring: its
@@ -29,8 +35,9 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
   xold      K12's x tile at every pass (the ring's table PYFFT_XRING_F64
             emptied: the design before the ring), P4's counterpart;
             xoldnotw and xoldcopy as notw and copy on it
-  xrarith   K12's ring without twiddles nor DFT arithmetic, its chain and
-            its chunks' copies kept: their time
+  xrarith   K12's ring (and K5's on the complex form's pairs) without
+            twiddles nor DFT arithmetic, its chain and its chunks' copies
+            kept: their time
   xrlocal   xrarith with every chunk copied to the block's own receive
             buffer (no DSMEM): the copies' cost across the cluster
   xr8       K12's ring at n = 2048 on a cluster of 8 blocks, one an SM
@@ -102,8 +109,19 @@ from copies of this checkout's ``csrc/`` patched in a temporary directory
             stores from registers: the alternative the chip showed slower,
             kept here as a patch and not in the source
   c5old     K5's first design at every n (local_cols_kernel: the
-            persistent ring's table PYFFT_COLS_PRING and the float cluster
-            tables emptied), P2's counterpart
+            persistent ring's table PYFFT_COLS_PRING, the float cluster
+            tables and the float cluster ring's emptied), P2's counterpart
+  c5xold    K5's cluster tile on the complex form's pairs at n = 1024 (the
+            float cluster ring's table PYFFT_XRING_F32_S2 emptied: the
+            design before the ring); c5xoldnotw and c5xoldcopy as notw and
+            copy on it
+  c5xr8     K5's cluster ring at n = 1024 on a cluster of 8 blocks, 3
+            slots, three blocks an SM (4 blocks, 4 slots, one an SM by
+            default); c5xr8s2 the same with 2 slots, four blocks an SM
+  c5xrs2    K5's cluster ring with 2 slots, two blocks an SM (its first
+            table); c5xrb1 the same with registers for one block an SM
+  c5xrs3,   K5's cluster ring with 3 or 5 slots, one block an SM
+  c5xrs5
   c5oldnotw the first design without twiddle multiplies
   c5oldcopy the first design as its loads and its store pass (one stage,
             no DFT arithmetic, no chain)
@@ -173,7 +191,8 @@ complex128, split 2048 x 2048: pass 1 the full twiddle and the swapped
 store, pass 2 the plain store), planar and on the complex form's stride-2
 planes, and the complex128 2D column pass (16 x 1024 x 1024); K5 at
 config 4's z pass (1 x 256 x 65536, planar and stride-2 planes), config
-3's column pass (16 x 1024 x 1024), config 6+'s two passes and the plain
+3's column pass (16 x 1024 x 1024, planar and stride-2 planes: the
+cluster ring's), config 6+'s two passes and the plain
 passes of the mid and huge routes (n = 128, 512); P5 (K5's ring of 3, 2
 and 1 slots and its first design, c5old; the mean of two turns, the
 second in reverse order) at config 4's z pass and at (1, 64, 262144); K11 at the complex128
@@ -213,7 +232,8 @@ sys.path.insert(0, str(ROOT / "probes"))
 
 import ab_parent  # noqa: E402
 from pyfft_tpu_torch.ops import build, fused2d, local  # noqa: E402
-from pyfft_tpu_torch.utils.profiling import time_ms  # noqa: E402
+from pyfft_tpu_torch.utils.profiling import (  # noqa: E402
+    time_ms, time_queued_ms)
 
 K12, K9, K1 = "local_cols", "fused2d_tiled", "local_rows"
 
@@ -258,6 +278,10 @@ XCOLS_F32 = re.search(r"#define PYFFT_XCOLS_F32\(X\)[^\n]*\\\n[^\n]*\n",
 XCOLS_F32_S2 = re.search(
     r"#define PYFFT_XCOLS_F32_S2\(X\)[^\n]*\\\n[^\n]*\n",
     (build.CSRC / "local_cols.cu").read_text()).group(0)
+# K5's cluster ring table on the complex form's pairs
+XRING_F32 = re.search(r"#define PYFFT_XRING_F32_S2\(X\)[^\n]*\n",
+                      (build.CSRC / "local_cols.cu").read_text()).group(0)
+XRING_F32_TO = "#define PYFFT_XRING_F32_S2(X) X(10, {}, 16, {}, {})\n"
 ROWS_RING_F64 = "#define PYFFT_ROWS_RING_F64(X) X(12, 1, 2)"
 # K11's ring at every length it may take (the table before the split sent
 # n = 1024 and 2048 back to the first design)
@@ -644,7 +668,17 @@ STEPS = {
     "c5old": [("local_cols.cu", PRING, "#define PYFFT_COLS_PRING(X)\n"),
               ("local_cols.cu", XCOLS_F32, "#define PYFFT_XCOLS_F32(X)\n"),
               ("local_cols.cu", XCOLS_F32_S2,
-               "#define PYFFT_XCOLS_F32_S2(X)\n")],
+               "#define PYFFT_XCOLS_F32_S2(X)\n"),
+              ("local_cols.cu", XRING_F32,
+               "#define PYFFT_XRING_F32_S2(X)\n")],
+    "c5xold": [("local_cols.cu", XRING_F32,
+                "#define PYFFT_XRING_F32_S2(X)\n")],
+    "c5xr8": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(8, 3, 3))],
+    "c5xr8s2": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(8, 2, 4))],
+    "c5xrs2": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(4, 2, 2))],
+    "c5xrb1": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(4, 2, 1))],
+    "c5xrs3": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(4, 3, 1))],
+    "c5xrs5": [("local_cols.cu", XRING_F32, XRING_F32_TO.format(4, 5, 1))],
     "c5oldnotw": [("local_cols.cu", "    if (NS > 1) {\n      const int jj",
                    "    if (NS < 0) {\n      const int jj")],
     "c5oldcopy": [
@@ -745,8 +779,9 @@ VARIANTS = {
     "xold": (("K12",), ["xold"], {}),
     "xoldnotw": (("K12",), ["xold", "notw"], {}),
     "xoldcopy": (("K12",), ["xold", "notw", "noarith", "copy"], {}),
-    "xrarith": (("K12",), ["notw", "xrnotw", "noarith", "xrarith"], {}),
-    "xrlocal": (("K12",),
+    "xrarith": (("K12", "K5"), ["notw", "xrnotw", "noarith", "xrarith"],
+                {}),
+    "xrlocal": (("K12", "K5"),
                 ["notw", "xrnotw", "noarith", "xrarith", "xrlocal"], {}),
     "xr8": (("K12",), ["xr8"], {}),
     "xrtw": (("K12",), ["xrtw"], {}),
@@ -800,6 +835,11 @@ VARIANTS = {
     "c5s1": (("P5",), ["c5s1"], {}),
     "c5s1p": (("P5",), ["c5s1p"], {}),
     "c5s1w": (("P5",), ["c5s1", "c5s1w"], {}),
+    "c5xold": (("K5",), ["c5xold"], {}),
+    "c5xoldnotw": (("K5",), ["c5xold", "notw"], {}),
+    "c5xoldcopy": (("K5",), ["c5xold", "notw", "noarith", "copy"], {}),
+    **{v: (("K5",), [v], {}) for v in ("c5xr8", "c5xr8s2", "c5xrs2",
+                                        "c5xrb1", "c5xrs3", "c5xrs5")},
     "c5c16": (("K5",), ["c5c16"], {}),
     "c5c16s6": (("K5",), ["c5c16s6"], {}),
     "c5wave": (("K5",), ["c5wave"], {}),
@@ -859,7 +899,8 @@ def compile_all(tmp: Path, kernels) -> dict:
     def one(v, name, d):
         with slots:
             flags = [*build.NVCC_FLAGS] + (
-                ["-Xptxas", "-v"] if v == "full" or v.startswith("k8")
+                ["-Xptxas", "-v"] if v == "full" or v.startswith(("k8",
+                                                                  "c5xr"))
                 else [])
             flags += [f"-D{k}={x}" for k, x in VARIANTS[v][2].items()]
             lib = d / f"lib{name}.so"
@@ -1044,6 +1085,8 @@ def cases() -> list:
          lambda: cols32((1, 256, 65536), True)),
         ("K5", "K5 config 3 column pass (16, 1024, 1024)",
          lambda: cols32((16, 1024, 1024))),
+        ("K5", "K5 config 3 column pass stride-2 planes (complex form)",
+         lambda: cols32((16, 1024, 1024), True)),
         ("K5", "K5 config 6+ pass 1 (8, 2048, 2048; full + swap_store)",
          lambda: cols32((8, 2048, 2048), tw_n=1 << 22, swap_store=True)),
         ("K5", "K5 config 6+ pass 2 (8, 2048, 2048)",
@@ -1167,6 +1210,14 @@ def main(kernels) -> int:
                 if "K9" in names:
                     print(f"K9 {v} at config 3: "
                           f"{shape_line(libs[(v, K9)])}")
+        if "K5" in kernels:
+            for v, (names, _, _) in VARIANTS.items():
+                if v.startswith("c5xr"):
+                    for kern, regs, spill in ptxas_report(
+                            libs.get((v, K12, "log"), "")):
+                        if kern.startswith("local_cols_xring_kernel<f"):
+                            print(f"ptxas {v} {kern}: {regs} registers, "
+                                  f"{spill} bytes spilled")
         if "K8" in kernels:
             for v, (names, _, _) in VARIANTS.items():
                 if "K8" in names:
@@ -1182,7 +1233,8 @@ def main(kernels) -> int:
                     print(f"K1 {v} at n = 4096: {ring_line(libs[(v, K1)])}")
         try:
             for kern, name, make in cases():
-                if kern not in kernels:
+                if kern not in kernels or (CASES and not any(
+                        c in name for c in CASES)):
                     continue
                 run = make()
                 src = SOURCE[kern]
@@ -1193,7 +1245,8 @@ def main(kernels) -> int:
                 t = {}
                 for v in order:
                     use(libs[(v, src)], src)
-                    t.setdefault(v, []).append(time_ms(run))
+                    t.setdefault(v, []).append(
+                        time_queued_ms(run)[0] if QUEUED else time_ms(run))
                 ms = {v: sum(x) / len(x) for v, x in t.items()}
                 result[name] = ms
                 print(f"{name}: " + ", ".join(f"{v} {x:.4f}"
@@ -1209,8 +1262,19 @@ def main(kernels) -> int:
     return 0
 
 
+# the texts of --cases (every case where empty); --queued
+CASES: list = []
+QUEUED = False
+
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if "--queued" in args:
+        QUEUED = True
+        args.remove("--queued")
+    if "--cases" in args:
+        i = args.index("--cases")
+        CASES = args[i + 1].split(",")
+        del args[i:i + 2]
     if "--only" in args:
         i = args.index("--only")
         keep = {"full", *args[i + 1].split(",")}

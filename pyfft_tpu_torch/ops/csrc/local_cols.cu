@@ -92,12 +92,14 @@
 // That first design is K5's only where the redesigns below do not take the
 // pass.  complex64 from n = 1024 runs the cluster tile of K12 in float
 // (local_cols_x_kernel<float, ...>, PYFFT_XCOLS_F32: 128-byte runs of each
-// plane, every twiddle mode and store); up to n = 512, a plain store with
-// no twiddle or the `full` one on planes a tensor map reads runs a
-// persistent ring of tiles fed by tensor copies (local_cols_pring_kernel,
-// PYFFT_COLS_PRING, n = 16 to 256, below K4).  The C entry returns RAN_X or
-// RAN_RING
-// where they ran.
+// plane, every twiddle mode and store), but at the lengths of
+// PYFFT_XRING_F32_S2 (n = 1024) on the complex form's stride-2 planes,
+// with a plain store and no twiddle or the `full` one, K12's persistent
+// cluster ring in float on (re, im) pairs (local_cols_xring_kernel<float,
+// ...>); up to n = 512, a plain store with no twiddle or the `full` one on
+// planes a tensor map reads runs a persistent ring of tiles fed by tensor
+// copies (local_cols_pring_kernel, PYFFT_COLS_PRING, n = 16 to 256, below
+// K4).  The C entry returns RAN_X, RAN_XRING or RAN_RING where they ran.
 //
 // Each operand is a pair of real planes with strides in elements: planar
 // data has unit t stride, the two planes of torch.view_as_real of a
@@ -209,7 +211,8 @@
 // stage) and `pyfft_local_rows_swap_i8` (K4 + K10), the column widths,
 // the cluster kernel's shape (`pyfft_local_cols_xshape_f64`,
 // `pyfft_local_cols_xshape`), the persistent rings'
-// (`pyfft_local_cols_pring_shape`, `pyfft_local_cols_xring_shape_f64`) and
+// (`pyfft_local_cols_pring_shape`, `pyfft_local_cols_xring_shape_f64`,
+// `pyfft_local_cols_xring_shape`) and
 // K4's and K6's
 // (`pyfft_local_rows_swap_shape`, `pyfft_local_cols_ring_shape`), at the
 // bottom.
@@ -1176,28 +1179,35 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
   }
 }
 
-// ------------------ K12 from n = 2048: a persistent cluster ring of tiles
+// ------------- K12 from n = 2048 and K5 at n = 1024: a persistent cluster
+// ring of tiles
 //
-// The complex128 column pass on planar planes a tensor map reads where
-// they lie (xring_operands: t stride 1, both planes and their (l, n)
-// strides in whole 16-byte units), at the lengths of PYFFT_XRING_F64;
-// every other K12 pass runs local_cols_x_kernel.  The x tile's function
-// and its tile, (l, run of C consecutive t) split over a cluster of G
-// blocks, n/G rows a block, but a persistent grid: as many clusters as the
-// card holds at once (asked of it once a device) walk every tile of the
-// pass, cluster c taking tiles c, c + clusters, ... (l fastest, so that the
-// clusters in flight read the same rows of a `full` table; the grid cut to
-// whole rounds).  A block's shared memory is a ring of S slots of one tile
-// each, one mbarrier a slot, a receive buffer and a twiddle table:
+// The column pass at the lengths of a ring table, on operands a tensor map
+// reads where they lie: complex128 on planar planes (PYFFT_XRING_F64,
+// xring_operands: t stride 1, both planes and their (l, n) strides in
+// whole 16-byte units), complex64 on the complex form's stride-2 planes of
+// (re, im) pairs (PYFFT_XRING_F32_S2, xring_takes: K5's persistent ring's
+// rule, ring_operands' pairs, a plain store, no twiddle or the `full`
+// one).  Every other K12 and K5 pass from n = 1024 runs
+// local_cols_x_kernel.  The x tile's function and its tile, (l, run of C
+// consecutive t) split over a cluster of G blocks, n/G rows a block, but a
+// persistent grid: as many clusters as the card holds at once (asked of it
+// once a device) walk every tile of the pass, cluster c taking tiles c, c +
+// clusters, ... (l fastest, so that the clusters in flight read the same
+// rows of a `full` table; the grid cut to whole rounds).  A block's shared
+// memory is a ring of S slots of one tile each, one mbarrier a slot, a
+// receive buffer and a twiddle table:
 //
 //   * loads: thread 0 fills each slot with tensor-map boxes of rows rank +
-//     G*j' (C doubles, MB <= 256 rows a box, a box a plane), tile i + S
-//     into tile i's slot once its chunks have left (below), so the next
-//     tiles are in flight while the block computes;
-//   * the chain: its first stage reads the slot's two planes and writes
-//     the [k][c] values into the same slot (xt_first); its last stage
-//     writes its outputs into the slot by owner, the block that takes
-//     them (ring_cols.cuh, xt_chain_from_chunks);
+//     G*j' (C values, MB <= 256 rows a box; a box a plane, or on the pairs
+//     (IL) one box of 8-byte (re, im) values, a 128-byte run a row at C =
+//     16), tile i + S into tile i's slot once its chunks have left (below),
+//     so the next tiles are in flight while the block computes;
+//   * the chain: its first stage reads the slot's two planes (or its
+//     pairs, already in the [k][c] layout of complex values) and writes the
+//     [k][c] values into the same slot (xt_first); its last stage writes
+//     its outputs into the slot by owner, the block that takes them
+//     (ring_cols.cuh, xt_chain_from_chunks);
 //   * the exchange in whole chunks, as K8's plane ring does (fused2d.cu):
 //     thread 0 hands each owner's chunk to the copy engine, into the
 //     owner's receive buffer, completing on the owner's mbarrier; the
@@ -1216,10 +1226,11 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
 //   * pipelined: tile i + 1's chain runs while tile i's chunks fly, then
 //     tile i's pairs are read from the receive buffer, twiddled, the
 //     G-point DFTs run and both stores go out from registers as the x
-//     tile's; a relaxed cluster barrier (K8's rule: every read of the
-//     receive buffer retired, every block past its wait for the chunks)
-//     frees tile i's slot and every receive buffer, and tile i + 1's
-//     chunks go out.
+//     tile's (on the pairs one 8-byte (re, im) store a point where the
+//     output is pairs too); a relaxed cluster barrier (K8's rule: every
+//     read of the receive buffer retired, every block past its wait for
+//     the chunks) frees tile i's slot and every receive buffer, and tile
+//     i + 1's chunks go out.
 //
 // Each tile's store twiddles are read before its chain, w(k') and w(M)
 // of each (k', c) pair of the thread, and the store takes w(k' + M*k2) =
@@ -1237,29 +1248,45 @@ cudaError_t dispatch_ring(int log2n, const Cols<float>& io,
 #ifndef PYFFT_XRING_F64
 #define PYFFT_XRING_F64(X) X(11, 16, 16, 2, 2)
 #endif
+// The complex64 ring on the complex form's stride-2 planes: C pairs, a
+// 128-byte run of (re, im) a row at C = 16.  At n = 1024 the H100 ran
+// config 3's column pass (16 x 1024 x 1024) on (4, 16, 4, 1) in 0.1205 ms
+// with the host ahead, on 3 slots in 0.1224, 5 in 0.1205, 2 slots and two
+// blocks an SM in 0.1260, 2 slots and one block in 0.1633; the x tile in
+// 0.1611 (probes/float_split.py K5, PERF.md section 6).  Tile i + S's load is
+// issued past tile i's exchange and waited for by the chain of iteration
+// i + S - 1: with 2 slots it flies while the block does nothing but send
+// tile i + 1's chunks, with 3 or more across a whole tile's chain and
+// exchange; one block an SM leaves no other block to fill that wait.
+#ifndef PYFFT_XRING_F32_S2
+#define PYFFT_XRING_F32_S2(X) X(10, 4, 16, 4, 1)
+#endif
 
-template <int LOGN, int G, int C, int S_, int B = 1>
+template <typename Real, int LOGN, int G, int C, int S_, int B = 1>
 struct XRing {
+  using V = typename Complex<Real>::V;
   static constexpr int S = S_;
   static constexpr int M = (1 << LOGN) / G;                  // rows a block
   static constexpr int MB = M < BOX ? M : BOX;               // rows a box
   // at most 512, one butterfly of every stage and one (k', c) of the
   // exchange a thread
   static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);
-  using X = XTile<double, LOGN - ilog2c(G), G, C, NT>;
-  // a slot in bytes: the tile's two planes as copied (P doubles each),
-  // then its [k][c] values, then its outputs by owner (the swapped store's
-  // chunks padded); whole 128-byte units, where the copies write.  The
-  // receive buffer after the S slots is one more, then the twiddle table
+  using X = XTile<Real, LOGN - ilog2c(G), G, C, NT>;
+  static constexpr int VB = (int)sizeof(V);                  // a value's bytes
+  // a slot in bytes: the tile as copied (P complex values: two planes or
+  // the pairs), then its [k][c] values, then its outputs by owner (the
+  // swapped store's chunks padded); whole 128-byte units, where the
+  // copies write.  The receive buffer after the S slots is one more, then
+  // the twiddle table
   static constexpr int SLOT =
-      (cmax(X::P, X::G_ * xt_chunk<X, true>()) * 16 + 127) / 128 * 128;
+      (cmax(X::P, X::G_ * xt_chunk<X, true>()) * VB + 127) / 128 * 128;
   static constexpr int SMEM =
-      (S + 1) * SLOT + xt_table<X>() * 16 + 128;             // + alignment
+      (S + 1) * SLOT + xt_table<X>() * VB + 128;             // + alignment
   static_assert(S >= 2 && SMEM <= 227 * 1024 && B >= 1 && B * NT <= 2048 &&
                     B * (SMEM + 1024) <= 228 * 1024,
                 "the ring fits a block's shared memory, B blocks an SM");
-  static_assert(C % 2 == 0 && 128 % C == 0 && M % MB == 0 &&
-                    X::P * 16 < (1 << 20),
+  static_assert(C * (int)sizeof(Real) % 16 == 0 && 128 % C == 0 &&
+                    M % MB == 0 && X::P * VB < (1 << 20),
                 "a box's row is whole 16-byte units of one tile; an "
                 "mbarrier's count");
 };
@@ -1273,40 +1300,46 @@ inline bool xring_operands(const Cols<double>& io) {
          (io.L == 1 || io.in_ls % 2 == 0);
 }
 
-// The ring's tensor map of the plane at `base`: {T, G, n/G, L}, its box
-// the C columns of MB rows rank + G*j', 8-byte elements.
-template <int LOGN, int G, int C, int S, int B>
-cudaError_t xring_map(CUtensorMap* map, const double* base,
-                      const Cols<double>& io) {
-  using K = XRing<LOGN, G, C, S, B>;
-  const cuuint64_t row = (cuuint64_t)io.in_ns * 8;
+// The ring's tensor map of the plane (or, IL, the pairs) at `base`: {T, G,
+// n/G, L}, its box the C columns of MB rows rank + G*j', 8-byte elements
+// (a double, or a float's (re, im) pair).
+template <typename Real, int LOGN, int G, int C, int S, int B, bool IL>
+cudaError_t xring_map(CUtensorMap* map, const Real* base,
+                      const Cols<Real>& io) {
+  using K = XRing<Real, LOGN, G, C, S, B>;
+  static_assert(sizeof(Real) * (IL ? 2 : 1) == 8, "8-byte elements");
+  constexpr cuuint64_t E = sizeof(Real);
+  const cuuint64_t row = (cuuint64_t)io.in_ns * E;
   const cuuint64_t dims[4] = {(cuuint64_t)io.T, (cuuint64_t)G,
                               (cuuint64_t)K::M, (cuuint64_t)io.L};
   const cuuint64_t strides[3] = {
-      row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * 8 : row * (1 << LOGN)};
+      row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * E : row * (1 << LOGN)};
   const cuuint32_t box[4] = {(cuuint32_t)C, 1, (cuuint32_t)K::MB, 1};
   return tensor_map_4d(map, base, true, dims, strides, box);
 }
 
 // The ring over `tiles` tiles: this cluster's tile i in slot i % S on
 // barrier filled[i % S], filled by thread 0 of each block with its rows.
-template <int LOGN, int G, int C, int S, int B, bool SWAP,
-          int NT = XRing<LOGN, G, C, S, B>::NT>
+// IL: the operands are the complex form's pairs (map_im unused).
+template <typename Real, int LOGN, int G, int C, int S, int B, bool SWAP,
+          bool IL, int NT = XRing<Real, LOGN, G, C, S, B>::NT>
 __global__ void __launch_bounds__(NT, B)
-    local_cols_xring_kernel(Cols<double> io, const double2* __restrict__ tw,
-                            double s, long long tiles,
+    local_cols_xring_kernel(Cols<Real> io,
+                            const typename Complex<Real>::V* __restrict__ tw,
+                            Real s, long long tiles,
                             const __grid_constant__ CUtensorMap map_re,
                             const __grid_constant__ CUtensorMap map_im) {
-  using K = XRing<LOGN, G, C, S, B>;
+  using K = XRing<Real, LOGN, G, C, S, B>;
   using X = typename K::X;
-  using V = double2;
+  using V = typename Complex<Real>::V;
   constexpr int P = X::P, M = X::M, MB = K::MB, KR = X::KR;
+  constexpr int SV = K::SLOT / K::VB;   // a slot's complex values
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t filled[S];
   __shared__ uint64_t landed;       // the chunks into this block, a tile
   V* slots = reinterpret_cast<V*>(align128(smem_raw));
-  V* recv = slots + S * (K::SLOT / 16);
-  V* tab = recv + K::SLOT / 16;     // the chain's and exchange's twiddles
+  V* recv = slots + S * SV;
+  V* tab = recv + SV;               // the chain's and exchange's twiddles
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long first = blockIdx.x / G, every = gridDim.x / G;
@@ -1314,19 +1347,19 @@ __global__ void __launch_bounds__(NT, B)
       first < tiles ? static_cast<int>((tiles - first + every - 1) / every)
                     : 0;
   // this block's rows of the cluster's tile i into slot i % S: the real
-  // rows, then the imaginary rows
+  // rows, then the imaginary rows (IL: the pairs' rows)
   const auto fill = [&](int i) {
     const long long tile = first + (long long)i * every;
     uint64_t* bar = &filled[i % S];
-    double* dst = reinterpret_cast<double*>(slots + (i % S) * (K::SLOT / 16));
+    Real* dst = reinterpret_cast<Real*>(slots + (i % S) * SV);
     const int l = static_cast<int>(tile % io.L);
     const int t0 = static_cast<int>((tile / io.L) * C);
     fence_async_smem();
     mbar_expect(bar, P * (int)sizeof(V));
-    for (int part = 0; part < 2; ++part)
+    for (int part = 0; part < (IL ? 1 : 2); ++part)
       for (int h = 0; h < M / MB; ++h)
-        tma_load_4d(dst + part * P + h * MB * C, part ? &map_im : &map_re, t0,
-                    rank, h * MB, l, bar);
+        tma_load_4d(dst + (IL ? 2 : 1) * (part * P + h * MB * C),
+                    part ? &map_im : &map_re, t0, rank, h * MB, l, bar);
   };
   if (threadIdx.x == 0) {
     for (int b = 0; b < S; ++b) mbar_init(&filled[b]);
@@ -1338,6 +1371,11 @@ __global__ void __launch_bounds__(NT, B)
   cluster_arrive();                 // every block's barriers are set up
   cluster_wait();                   // (and its table)
   const bool twiddled = io.tw_mode != TW_NONE;
+  // IL: one 8-byte (re, im) store a point where the output is pairs too
+  const bool pout =
+      IL && io.out_im == io.out_re + 1 && io.out_bs == 2 &&
+      ((io.out_ls | io.out_ns | io.out_as) & 1) == 0 &&
+      reinterpret_cast<uintptr_t>(io.out_re) % sizeof(V) == 0;
   // the twiddle w^(k*q) of output k of tile i's column c, read before the
   // tile's chain so that its latency hides behind it: w(k') and w(M) of
   // each pair (k', c) of the thread, in the exchange's order
@@ -1355,7 +1393,7 @@ __global__ void __launch_bounds__(NT, B)
       const long long t = t0 + c;
       const long long at = (io.adiv > 1 ? q0 : t) * io.aq;
       const bool in = t < io.T;
-      const V one = Complex<double>::make(1, 0);
+      const V one = Complex<Real>::make(1, 0);
       wk[q] = in ? __ldg(&io.ta[kp * io.ak + at]) : one;
       wm[q] = in ? __ldg(&io.ta[M * io.ak + at]) : one;
       if (io.tw_mode == TW_FACTORED && in) {
@@ -1367,11 +1405,14 @@ __global__ void __launch_bounds__(NT, B)
   };
   // tile i's chain in its slot, its outputs by owner
   const auto chain = [&](int i) {
-    V* sm = slots + (i % S) * (K::SLOT / 16);
-    const double* f = reinterpret_cast<const double*>(sm);
+    V* sm = slots + (i % S) * SV;
+    const Real* f = reinterpret_cast<const Real*>(sm);
     mbar_wait(&filled[i % S], (i / S) & 1);
     xt_chain_from_chunks<X, SWAP>(sm, tab, s, [&](int k, int c) {
-      return Complex<double>::make(f[k * C + c], f[P + k * C + c]);
+      if constexpr (IL)
+        return sm[k * C + c];
+      else
+        return Complex<Real>::make(f[k * C + c], f[P + k * C + c]);
     });
   };
   V wk[X::PAIRS], wm[X::PAIRS], wk1[X::PAIRS], wm1[X::PAIRS];
@@ -1402,6 +1443,11 @@ __global__ void __launch_bounds__(NT, B)
           w = cmul(w, wm[q]);
         }
         const long long ok = o + (kp + M * k2) * io.out_ns;
+        if (IL && pout) {
+          *reinterpret_cast<V*>(io.out_re + ok) =
+              Complex<Real>::make(v.x * io.post, v.y * io.post);
+          continue;
+        }
         io.out_re[ok] = v.x * io.post;
         io.out_im[ok] = v.y * io.post;
       }
@@ -1412,8 +1458,8 @@ __global__ void __launch_bounds__(NT, B)
     // with tile i + S, send tile i + 1's chunks
     if (threadIdx.x == 0 && i + S < count) fill(i + S);
     if (i + 1 < count) {
-      xt_send_chunks<X, SWAP>(slots + ((i + 1) % S) * (K::SLOT / 16), recv,
-                              &landed, rank);
+      xt_send_chunks<X, SWAP>(slots + ((i + 1) % S) * SV, recv, &landed,
+                              rank);
 #pragma unroll
       for (int q = 0; q < X::PAIRS; ++q) {
         wk[q] = wk1[q];
@@ -1426,9 +1472,10 @@ __global__ void __launch_bounds__(NT, B)
 // The clusters of the ring the card holds at once, into `held`: asked of
 // the card once a device (cudaOccupancyMaxActiveClusters, which sets the
 // kernel's shared memory there for its launches).
-template <int LOGN, int G, int C, int S, int B, bool SWAP>
+template <typename Real, int LOGN, int G, int C, int S, int B, bool SWAP,
+          bool IL>
 cudaError_t xring_held(int& held) {
-  using K = XRing<LOGN, G, C, S, B>;
+  using K = XRing<Real, LOGN, G, C, S, B>;
   static std::atomic<int> got[64];             // by device, 0 until asked
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1436,8 +1483,9 @@ cudaError_t xring_held(int& held) {
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   held = got[dev].load(std::memory_order_relaxed);
   if (!held) {
-    held = max_clusters<K::NT>(local_cols_xring_kernel<LOGN, G, C, S, B, SWAP>,
-                               G, K::SMEM);
+    held = max_clusters<K::NT>(
+        local_cols_xring_kernel<Real, LOGN, G, C, S, B, SWAP, IL>, G,
+        K::SMEM);
     if (held < 0) return static_cast<cudaError_t>(-held);
     if (held == 0) return cudaErrorInvalidConfiguration;
     got[dev].store(held, std::memory_order_relaxed);
@@ -1445,25 +1493,29 @@ cudaError_t xring_held(int& held) {
   return cudaSuccess;
 }
 
-template <int LOGN, int G, int C, int S, int B, bool SWAP>
-cudaError_t launch_xring(const Cols<double>& io, const double2* tw, double s,
+template <typename Real, int LOGN, int G, int C, int S, int B, bool SWAP,
+          bool IL>
+cudaError_t launch_xring(const Cols<Real>& io,
+                         const typename Complex<Real>::V* tw, Real s,
                          cudaStream_t stream) {
-  using K = XRing<LOGN, G, C, S, B>;
+  using K = XRing<Real, LOGN, G, C, S, B>;
   int held = 0;
-  cudaError_t e = xring_held<LOGN, G, C, S, B, SWAP>(held);
+  cudaError_t e = xring_held<Real, LOGN, G, C, S, B, SWAP, IL>(held);
   if (e != cudaSuccess) return e;
   CUtensorMap mre, mim;
-  e = xring_map<LOGN, G, C, S, B>(&mre, io.in_re, io);
-  if (e == cudaSuccess) e = xring_map<LOGN, G, C, S, B>(&mim, io.in_im, io);
+  e = xring_map<Real, LOGN, G, C, S, B, IL>(&mre, io.in_re, io);
+  mim = mre;
+  if (e == cudaSuccess && !IL)
+    e = xring_map<Real, LOGN, G, C, S, B, IL>(&mim, io.in_im, io);
   if (e != cudaSuccess) return e;
   const long long tiles = (io.T + C - 1) / C * io.L;
   // whole rounds: the fewest clusters that take the tiles a cluster the
   // held ones need
   const long long each = (tiles + held - 1) / held;
   const long long clusters = (tiles + each - 1) / each;
-  return launch_cluster<K::NT>(local_cols_xring_kernel<LOGN, G, C, S, B, SWAP>,
-                               clusters, G, K::SMEM, stream, io, tw, s, tiles,
-                               mre, mim);
+  return launch_cluster<K::NT>(
+      local_cols_xring_kernel<Real, LOGN, G, C, S, B, SWAP, IL>, clusters, G,
+      K::SMEM, stream, io, tw, s, tiles, mre, mim);
 }
 
 // ------------------------------------- K4 from n = 512: a cluster's tile
@@ -1845,10 +1897,11 @@ cudaError_t launch_pring(const Cols<float>& io, const float2* tw, float s,
 }
 
 // What a column entry returns where a persistent ring (RAN_RING: K5's
-// column ring, K12's cluster ring) or the cluster tile (RAN_X, complex64
-// and complex128) ran: 0 where local_cols_kernel ran, else the launch's
-// cudaError_t.  The wrapper counts each design's launches from it.
-constexpr int RAN_RING = -1, RAN_X = -2;
+// column ring, K12's cluster ring), the cluster tile (RAN_X, complex64
+// and complex128) or K5's persistent cluster ring (RAN_XRING) ran: 0 where
+// local_cols_kernel ran, else the launch's cudaError_t.  The wrapper
+// counts each design's launches from it.
+constexpr int RAN_RING = -1, RAN_X = -2, RAN_XRING = -3;
 
 // Whether the persistent ring takes the pass: a plain store (no swap, no
 // mid swap), no twiddle or the `full` one, planes a tensor map reads.
@@ -1857,6 +1910,12 @@ inline bool pring_takes(const Cols<float>& io, int swap_store) {
          (io.tw_mode == TW_NONE ||
           (io.tw_mode == TW_TABLE && io.adiv == 1)) &&
          ring_operands(io);
+}
+
+// Whether K5's persistent cluster ring takes the pass where its table has
+// n: the persistent ring's rule on the complex form's pairs.
+inline bool xring_takes(const Cols<float>& io, int swap_store) {
+  return pring_takes(io, swap_store) && io.in_ts == 2;
 }
 
 // The launch of the entry points below.  `policy` COLS runs the column
@@ -1907,9 +1966,10 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     if (xring_operands(io)) {
 #define PYFFT_XRING(LN, G, C, S, B)                                       \
   if (log2n == LN) {                                                      \
-    const cudaError_t e =                                                 \
-        swap_store ? launch_xring<LN, G, C, S, B, true>(io, t, s, st)     \
-                   : launch_xring<LN, G, C, S, B, false>(io, t, s, st);   \
+    const auto go = swap_store                                            \
+                        ? launch_xring<Real, LN, G, C, S, B, true, false> \
+                        : launch_xring<Real, LN, G, C, S, B, false, false>; \
+    const cudaError_t e = go(io, t, s, st);                               \
     if (e != cudaSuccess) return (int)e;                                  \
     return RAN_RING;                                                      \
   }
@@ -1922,6 +1982,18 @@ int launch_cols(const void* in_re, const void* in_im, void* out_re,
     }
     PYFFT_XCOLS_F64(PYFFT_XCOL)
   } else {
+    // K5: the persistent cluster ring where its table has n, on the complex
+    // form's pairs (RAN_XRING)
+    if (xring_takes(io, swap_store)) {
+#define PYFFT_XRING(LN, G, C, S, B)                                       \
+  if (log2n == LN) {                                                      \
+    const cudaError_t e =                                                 \
+        launch_xring<Real, LN, G, C, S, B, false, true>(io, t, s, st);    \
+    return e == cudaSuccess ? RAN_XRING : (int)e;                         \
+  }
+      PYFFT_XRING_F32_S2(PYFFT_XRING)
+#undef PYFFT_XRING
+    }
     // K5: the cluster tile from n = 1024 (RAN_X), the persistent ring up to
     // 512 where it takes the pass (RAN_RING)
     if (xcols_strided(io.in_ts)) {
@@ -2040,26 +2112,37 @@ extern "C" int pyfft_local_cols_xshape(int log2n, int strided,
 }
 #undef PYFFT_XCOL
 
-// K12's persistent cluster ring at log2n (PYFFT_XRING_F64) into out[0..5]:
-// G, C, S, its threads, a block's bytes of shared memory and the clusters
-// the card holds at once (asked of the card, which sets the kernel's
-// shared memory there).  Returns 1, 0 where the ring takes no such length,
-// or minus a cudaError_t.
-extern "C" int pyfft_local_cols_xring_shape_f64(int log2n, int* out) {
-#define PYFFT_XRING(LN, G, C, S, B)                                \
-  if (log2n == LN) {                                               \
-    using K = XRing<LN, G, C, S, B>;                               \
-    int held = 0;                                                  \
-    const cudaError_t e = xring_held<LN, G, C, S, B, true>(held);  \
-    if (e != cudaSuccess) return -(int)e;                          \
-    const int v[7] = {G, C, S, B, K::NT, K::SMEM, held};           \
-    for (int i = 0; i < 7; ++i) out[i] = v[i];                     \
-    return 1;                                                      \
+// K12's persistent cluster ring at log2n (PYFFT_XRING_F64) into out[0..6]:
+// G, C, S, B, its threads, a block's bytes of shared memory and the
+// clusters the card holds at once (asked of the card, which sets the
+// kernel's shared memory there).  Returns 1, 0 where the ring takes no
+// such length, or minus a cudaError_t.  K5's on the complex form's pairs
+// (PYFFT_XRING_F32_S2, its one instance: the plain store) below.
+#define PYFFT_XRING(LN, G, C, S, B)                                       \
+  if (log2n == LN) {                                                      \
+    using K = XRing<Real, LN, G, C, S, B>;                                \
+    int held = 0;                                                         \
+    const cudaError_t e =                                                 \
+        xring_held<Real, LN, G, C, S, B, !IL, IL>(held);                  \
+    if (e != cudaSuccess) return -(int)e;                                 \
+    const int v[7] = {G, C, S, B, K::NT, K::SMEM, held};                  \
+    for (int i = 0; i < 7; ++i) out[i] = v[i];                            \
+    return 1;                                                             \
   }
+extern "C" int pyfft_local_cols_xring_shape_f64(int log2n, int* out) {
+  using Real = double;
+  constexpr bool IL = false;
   PYFFT_XRING_F64(PYFFT_XRING)
-#undef PYFFT_XRING
   return 0;
 }
+
+extern "C" int pyfft_local_cols_xring_shape(int log2n, int* out) {
+  using Real = float;
+  constexpr bool IL = true;
+  PYFFT_XRING_F32_S2(PYFFT_XRING)
+  return 0;
+}
+#undef PYFFT_XRING
 
 // The persistent column ring's shape at log2n (PYFFT_COLS_PRING) into
 // out[0..4]: the columns of a tile, its threads, slots, a block's shared
@@ -2126,7 +2209,8 @@ extern "C" int pyfft_local_cols_ring_shape(int log2n, int* out) {
 // twiddle mode (0 none, 1 table, 2 factored).  Strides are in elements
 // (table strides in pairs).  Return the launch's cudaError_t (0 on
 // success; RAN_X (-2) where the cluster tile ran; RAN_RING (-1) where a
-// persistent ring ran, K5's column ring or K12's cluster ring).
+// persistent ring ran, K5's column ring or K12's cluster ring; RAN_XRING
+// (-3) where K5's persistent cluster ring ran).
 // complex64: float planes, 8 <= n <= 8192.
 extern "C" int pyfft_local_cols(const void* in_re, const void* in_im,
                                 void* out_re, void* out_im, const void* tw,

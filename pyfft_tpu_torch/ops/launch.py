@@ -28,17 +28,19 @@ import torch
 from pyfft_tpu_torch.utils.profiling import COUNTS, span
 
 __all__ = ["Launch", "run", "recording", "mark", "untracked", "RAN_RING",
-           "RAN_X"]
+           "RAN_X", "RAN_XRING"]
 
 # What a C entry returns where a redesign ran and not the first design
 # (the sources' constants): a persistent ring (csrc/local_rows.cu
 # local_rows_ring_kernel: K1, K2 and K11; csrc/local_cols.cu
 # local_cols_pring_kernel, K5's column ring, and local_cols_xring_kernel,
 # K12's cluster ring; csrc/fused2d.cu fused2d_ring_kernel, K8's plane
-# ring), and the cluster tile (local_cols_x_kernel: K5 in float, K12 in
-# double).
+# ring), the cluster tile (local_cols_x_kernel: K5 in float, K12 in
+# double), and K5's persistent cluster ring (local_cols_xring_kernel in
+# float, on the complex form's pairs).
 RAN_RING = -1
 RAN_X = -2
+RAN_XRING = -3
 
 _LOCAL = threading.local()
 

@@ -28,7 +28,9 @@ Two implementations of each function live here:
   persistent ring of tiles fed by tensor copies, ``col_ring_shape``; K12
   at n = 2048 on planar planes a tensor map reads a persistent grid of
   clusters walking the tiles through such a ring,
-  ``col_xring_shape_f64``; K1,
+  ``col_xring_shape_f64``, and K5 the same ring in float at n = 1024 on
+  the complex form's (re, im) pairs, on K5's persistent ring's modes,
+  ``col_xring_shape``; K1,
   K2 and K11 run a persistent row ring where their table takes n,
   ``rows_ring_shape``), and on
   interleaved complex64 K1's interleaved I/O
@@ -52,8 +54,9 @@ launches a kernel or raises; nothing falls back to the plain version.
 Each launch's C call is the span ``pyfft.entry.<kernel>`` and adds one to
 ``launch.<kernel>.<design>`` of the registry (``utils/profiling``), the
 design as the entry returned it: ``ring`` (RAN_RING; K12's cluster
-ring), ``x`` (RAN_X, the cluster tile), ``pring`` (K5's persistent ring)
-or ``first``; an entry that reports none counts under
+ring), ``x`` (RAN_X, the cluster tile), ``pring`` (K5's persistent ring),
+``xring`` (RAN_XRING, K5's persistent cluster ring) or ``first``; an
+entry that reports none counts under
 ``launch.<kernel>``.
 """
 
@@ -74,7 +77,8 @@ from pyfft_tpu_torch.planner import (MAX_LOCAL_N, MIN_LOCAL_N, MIN_TRAIL,
                                      max_local_n)
 from pyfft_tpu_torch.reference import fft_planar
 from pyfft_tpu_torch.ops import build
-from pyfft_tpu_torch.ops.launch import RAN_RING, RAN_X, Launch, run
+from pyfft_tpu_torch.ops.launch import (RAN_RING, RAN_X, RAN_XRING,
+                                        Launch, run)
 from pyfft_tpu_torch.utils.radix import ilog2, is_power_of_two
 
 __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
@@ -88,7 +92,7 @@ __all__ = ["supported", "fft_axis", "fft_rows_plain", "fft_cols_plain",
            "col_width_i8", "col_xshape_f64", "rows_i8_stage",
            "supported_fold", "swap_tile", "ring_shape", "rows_ring_shape",
            "col_ring_shape", "col_xshape", "col_xring_shape_f64",
-           "fft_axis_fold", "fold_lanes"]
+           "col_xring_shape", "fft_axis_fold", "fold_lanes"]
 
 # fft_rows_interleaved's default form, as in the JAX package: its packed
 # form was a TPU compile hazard there.  Both forms run K2 on the card, and
@@ -1309,9 +1313,10 @@ def ring_shape(n: int) -> dict:
 
 # The registry's key of a K5 or K12 launch by what its C entry returned:
 # K5's persistent ring or K12's persistent cluster ring (RAN_RING), the
-# cluster tile (RAN_X), the first design (0).
+# cluster tile (RAN_X), K5's persistent cluster ring (RAN_XRING), the first
+# design (0).
 _K5_KEYS = {RAN_RING: "launch.K5.pring", RAN_X: "launch.K5.x",
-            0: "launch.K5.first"}
+            RAN_XRING: "launch.K5.xring", 0: "launch.K5.first"}
 _K12_KEYS = {RAN_RING: "launch.K12.ring", RAN_X: "launch.K12.x",
              0: "launch.K12.first"}
 # The lengths K5's persistent ring takes (csrc/local_cols.cu
@@ -1320,6 +1325,9 @@ COL_RING_LENGTHS = (16, 32, 64, 128, 256)
 # The lengths K12's persistent cluster ring takes (PYFFT_XRING_F64); a
 # test holds them to the source's table.
 COL_XRING_F64_LENGTHS = (2048,)
+# The lengths K5's persistent cluster ring takes on the complex form's
+# pairs (PYFFT_XRING_F32_S2); a test holds them to the source's table.
+COL_XRING_F32_S2_LENGTHS = (1024,)
 
 
 def _boxable(r3: torch.Tensor, i3: torch.Tensor) -> bool:
@@ -1424,6 +1432,17 @@ def col_xring_shape_f64(n: int) -> dict | None:
                        COL_XRING_KEYS, ilog2(n))
 
 
+@functools.lru_cache(maxsize=None)
+def col_xring_shape(n: int) -> dict | None:
+    """K5's persistent cluster ring at length n (csrc/local_cols.cu
+    ``PYFFT_XRING_F32_S2``), which complex64 column passes on the complex
+    form's pairs run with K5's persistent ring's modes (``col_design``), as
+    ``col_xring_shape_f64`` gives K12's; the clusters held are those of
+    its plain store."""
+    return build.query("local_cols", "pyfft_local_cols_xring_shape",
+                       COL_XRING_KEYS, ilog2(n))
+
+
 def col_xshape(n: int, strided: bool = False) -> dict | None:
     """K5's cluster tile from n = 1024 (csrc/local_cols.cu
     ``PYFFT_XCOLS_F32``, ``_S2``), as ``col_xshape_f64`` gives K12's."""
@@ -1454,20 +1473,26 @@ def col_design(n: int, dtype: torch.dtype, *, boxable: bool, in_ts: int,
     ``launch_cols``): "ring", K12's persistent cluster ring (float64, the
     lengths of ``COL_XRING_F64_LENGTHS``) on planar planes its tensor maps
     read (``boxable``, t stride ``in_ts`` 1), in every twiddle and store
-    mode; "x", the cluster tile, where its table takes n (K12 from n =
-    1024 in float64, K5 from n = 1024 in float32); "ring", K5's
-    persistent ring (float32, n = 16 to 256), on a plain store (no swap,
-    no mid swap shorter than the trail ``T``) with no twiddle or the
-    ``full`` one, on planes its tensor maps read (``boxable``); else
-    "first", the first design (local_cols_kernel).  No CUDA call."""
+    mode; "xring", K5's persistent cluster ring (float32, the lengths of
+    ``COL_XRING_F32_S2_LENGTHS``) on the complex form's pairs its tensor
+    map reads (``boxable``, ``in_ts`` 2) with K5's persistent ring's modes;
+    "x", the cluster tile, where its table takes n (K12 from n = 1024 in
+    float64, K5 from n = 1024 in float32); "ring", K5's persistent ring
+    (float32, n = 16 to 256), on a plain store (no swap, no mid swap
+    shorter than the trail ``T``) with no twiddle or the ``full`` one, on
+    planes its tensor maps read (``boxable``); else "first", the first
+    design (local_cols_kernel).  No CUDA call."""
     if (dtype == torch.float64 and n in COL_XRING_F64_LENGTHS
             and in_ts == 1 and boxable):
         return "ring"
+    plain = not swap_store and (not swap_mid or swap_mid >= T)
+    ring_modes = plain and (not tw_n or tw_mode == "full") and boxable
+    if (dtype == torch.float32 and n in COL_XRING_F32_S2_LENGTHS
+            and in_ts == 2 and ring_modes):
+        return "xring"
     if _col_xtile(ilog2(n), in_ts, dtype):
         return "x"
-    plain = not swap_store and (not swap_mid or swap_mid >= T)
-    if (dtype == torch.float32 and n in COL_RING_LENGTHS and plain
-            and (not tw_n or tw_mode == "full") and boxable):
+    if dtype == torch.float32 and n in COL_RING_LENGTHS and ring_modes:
         return "ring"
     return "first"
 

@@ -69,8 +69,12 @@ XCOLS_F32_S2 = {c[0]: c for c in macro_cases("local_cols.cu",
                                              "PYFFT_XCOLS_F32_S2")}
 R16, TWD = (v == "true" for v in cols_text(
     r"\nconstexpr bool PRING_R16 = (\w+), PRING_TWD = (\w+);"))
-RAN = dict(zip(("ring", "x"), map(int, cols_text(
-    r"\nconstexpr int RAN_RING = (-?\d+), RAN_X = (-?\d+);"))))
+RAN = dict(zip(("ring", "x", "xring"), map(int, cols_text(
+    r"\nconstexpr int RAN_RING = (-?\d+), RAN_X = (-?\d+), "
+    r"RAN_XRING = (-?\d+);"))))
+# the lengths of K5's persistent cluster ring on the complex form's pairs
+XRING_F32 = {c[0] for c in macro_cases("local_cols.cu",
+                                       "PYFFT_XRING_F32_S2")}
 
 
 def pring_shape(log2n: int, C: int, S: int) -> dict:
@@ -511,7 +515,9 @@ MODES = {"plain": {}, "full": dict(tw_n=1),
 def test_design_rule(n, layout, mode, monkeypatch):
     """Which design each pass runs: the C rule (pring_takes on the
     wrapper's operands, after the cluster table) against ``col_design``:
-    from n = 1024 the cluster tile in every mode and layout; from 16 to 256 the
+    from n = 1024 the cluster tile in every mode and layout but where K5's
+    persistent cluster ring takes the pass (its table's n on the complex
+    form's stride-2 planes, pring_takes' modes); from 16 to 256 the
     ring on planar or stride-2 planes with a plain store (a mid swap as
     long as the trail is a plain store) and no twiddle or the `full` one;
     every other pass the first design (no copy, no fallback)."""
@@ -530,10 +536,10 @@ def test_design_rule(n, layout, mode, monkeypatch):
         tw_period=kw.get("tw_period", 0),
         swap_store=kw.get("swap_store", False), swap_mid=kw.get("swap_mid", 0))
     # the entry launches the ring where pring_takes and its table has n
-    want = ("x" if n >= 1024 else
-            "ring" if (n.bit_length() - 1 in PRING and c_dispatch(
-                r3, i3, dims, kw.get("swap_store", False)))
-            else "first")
+    takes = c_dispatch(r3, i3, dims, kw.get("swap_store", False))
+    want = ("xring" if n.bit_length() - 1 in XRING_F32 and dims[4] == 2
+            and takes else "x" if n >= 1024 else
+            "ring" if n.bit_length() - 1 in PRING and takes else "first")
     got = local.col_design(n, torch.float32, boxable=local._boxable(r3, i3),
                            in_ts=dims[4], tw_mode=kw.get("tw_mode", "full"),
                            tw_n=kw.get("tw_n", 0),
@@ -543,6 +549,8 @@ def test_design_rule(n, layout, mode, monkeypatch):
     expect_ring = (16 <= n <= 256 and layout != "offset"
                    and mode in ("plain", "full", "mid = trail"))
     assert (want == "ring") == expect_ring
+    assert (want == "xring") == (n == 1024 and layout == "stride2" and mode
+                                 in ("plain", "full", "mid = trail"))
     # complex128 never runs the ring
     assert local.col_design(n, torch.float64, boxable=True, in_ts=1,
                             T=T) == ("x" if n >= 1024 else "first")
@@ -554,7 +562,8 @@ def test_dispatch_order_in_the_source():
     returns RAN_X and RAN_RING from those launches only; the complex128
     entry (K12) returns RAN_X from its cluster table through the same
     macro; the codes are the wrapper's."""
-    assert (RAN["ring"], RAN["x"]) == (local.RAN_RING, local.RAN_X)
+    assert (RAN["ring"], RAN["x"], RAN["xring"]) == (
+        local.RAN_RING, local.RAN_X, local.RAN_XRING)
     f64 = COLS_SRC[COLS_SRC.index("    // K12: the cluster tile from n = "
                                   "1024"):]
     assert f64.index("PYFFT_XCOLS_F64_S2(PYFFT_XCOL)") < f64.index(
@@ -617,9 +626,10 @@ def test_design_launches_counted(monkeypatch, err, ring, x):
                                        (-3, torch.float64),
                                        (700, torch.float64)])
 def test_failed_launch_raises(monkeypatch, err, dtype):
-    """A failed launch raises and counts nothing; a code no design returns
-    (-3) from the complex128 entry is a failure too (RAN_RING is K12's
-    cluster ring there, tests/test_torch_cols_xring_f64.py)."""
+    """A failed launch raises and counts nothing; a code no complex128
+    design returns (-3, K5's RAN_XRING) from the complex128 entry is a
+    failure too (RAN_RING is K12's cluster ring there,
+    tests/test_torch_cols_xring_f64.py)."""
     fake_launch(monkeypatch, err)
     re_, im_ = (t.to(dtype) for t in dispatch_planes("planar", 256, 128))
     with pytest.raises(RuntimeError, match="local_cols launch failed"):

@@ -2,7 +2,13 @@
 ``local_cols_xring_kernel``): the complex128 column pass at the lengths of
 ``PYFFT_XRING_F64`` on planar planes a tensor map reads, a persistent grid
 of clusters walking every (l, run of C columns) tile through a ring of
-slots fed by tensor-map boxes.
+slots fed by tensor-map boxes; and K5's instance of the same kernel, the
+complex64 column pass at the lengths of ``PYFFT_XRING_F32_S2`` on the
+complex form's (re, im) pairs (``IL``: one box of 8-byte pairs a tile,
+8-byte values), each case below parametrised over both instances
+(``INSTANCES``).  The float instance's function is modelled on complex128
+storage in its pairs layout (the index logic in elements; its precision is
+the card's to show).
 
 Read from the source, as tests/test_torch_swap_ctile.py reads K6's: the
 table, the ring's constants (``XRing``), the walk (a cluster's first
@@ -23,10 +29,12 @@ kernel's table, its warps' reads broadcasts or free of bank conflicts, its
 room within B blocks an SM), both stores, against numpy (1e-11) and, on
 the same (G, C), the x tile's model (1e-14).  The
 dispatch rule (``local.col_design`` against the C rule on the wrapper's
-operands) and the launch counts (``launch.K12.ring`` from the entry's
-RAN_RING; every other K12 and K5 pass counting the keys it did).  The
-CUDA kernel runs on the card (chip_smoke.py phases 11-13,
-probes/ab_parent.py, probes/float_split.py K12).
+operands: K12's ring on planar float64 planes, K5's on the complex form's
+pairs with K5's persistent ring's modes) and the launch counts
+(``launch.K12.ring`` from the entry's RAN_RING, ``launch.K5.xring`` from
+RAN_XRING; every other K12 and K5 pass counting the keys it did).  The
+CUDA kernel runs on the card (chip_smoke.py phases 6, 8 and 11-13,
+probes/ab_parent.py, probes/float_split.py K12 and K5).
 """
 
 import contextlib
@@ -42,6 +50,7 @@ from pyfft_tpu_torch.utils import profiling
 
 from test_torch_cluster_cols import (CSRC, c_eval, col_reference, k12_model,
                                      macro_cases, storage)
+from test_torch_cols_ring import c_dispatch
 from test_torch_rows_ring import c_bool
 
 torch.set_num_threads(2)
@@ -53,14 +62,31 @@ BOX = 256                       # the most rows a tensor copy's box takes
 
 COLS_SRC = (CSRC / "local_cols.cu").read_text()
 # the ring's kernel, from its declaration to the query of its clusters
-XRING_SRC = COLS_SRC[COLS_SRC.index("    local_cols_xring_kernel(Cols<double>"
-                                    " io,"):
+XRING_SRC = COLS_SRC[COLS_SRC.index("    local_cols_xring_kernel(Cols<Real> "
+                                    "io,"):
                      COLS_SRC.index("// The clusters of the ring the card "
                                     "holds at once")]
 LAUNCH_SRC = COLS_SRC[COLS_SRC.index("cudaError_t launch_xring("):]
 LAUNCH_SRC = LAUNCH_SRC[:LAUNCH_SRC.index("\n}\n")]
 XRING = macro_cases("local_cols.cu", "PYFFT_XRING_F64")
 XCOLS = {c[0]: c for c in macro_cases("local_cols.cu", "PYFFT_XCOLS_F64")}
+XRING_F32 = macro_cases("local_cols.cu", "PYFFT_XRING_F32_S2")
+# the kernel's two instances: K12's on planar double planes (both stores),
+# K5's on the complex form's float pairs (IL; the plain store): their
+# table, the x tile's table beside it, the wrapper's lengths, the bytes of
+# a complex value and the stores instantiated (kmajor: the swapped one)
+INSTANCES = {
+    "f64": dict(dtype=torch.float64, table=XRING, xcols=XCOLS, vb=16,
+                il=False, lengths=local.COL_XRING_F64_LENGTHS,
+                kmajor=(False, True)),
+    "f32": dict(dtype=torch.float32, table=XRING_F32,
+                xcols={c[0]: c for c in macro_cases("local_cols.cu",
+                                                     "PYFFT_XCOLS_F32_S2")},
+                vb=8, il=True, lengths=local.COL_XRING_F32_S2_LENGTHS,
+                kmajor=(False,))}
+# (instance, table row) of every ring the sources instantiate
+TABLES = [(name, row) for name, k in INSTANCES.items() for row in k["table"]]
+TABLE_IDS = [f"{name}-{row}" for name, row in TABLES]
 
 
 def src_text(pattern: str, src: str = XRING_SRC) -> tuple:
@@ -197,20 +223,22 @@ def exchange_at(G: int, M: int, kl):
 
 
 
-def xring_shape(log2n: int, G: int, C: int, S: int, B: int = 1) -> dict:
-    """XRing's constants (csrc/local_cols.cu) at (log2 n, G, C, S, B):
-    a slot holds the tile's planes, its [k][c] values and its outputs by
-    owner (the swapped store's padded chunks); the receive buffer is one
-    slot more, then the twiddle table (``table`` values of 16 bytes)."""
+def xring_shape(log2n: int, G: int, C: int, S: int, B: int = 1,
+                vb: int = 16) -> dict:
+    """XRing's constants (csrc/local_cols.cu) at (log2 n, G, C, S, B) for
+    complex values of ``vb`` bytes (16 double, 8 float): a slot holds the
+    tile as copied, its [k][c] values and its outputs by owner (the
+    swapped store's padded chunks); the receive buffer is one slot more,
+    then the twiddle table (``table`` values of ``vb`` bytes)."""
     n = 1 << log2n
     M = n // G
     KR = M // G
     nt = min(M * C // 8, KR * C, 512)
-    slot = (max(M * C, G * chunk(C, KR, True)) * 16 + 127) // 128 * 128
+    slot = (max(M * C, G * chunk(C, KR, True)) * vb + 127) // 128 * 128
     table = table_layout(G, M)["T"]
-    smem = (S + 1) * slot + table * 16 + 128
+    smem = (S + 1) * slot + table * vb + 128
     return dict(M=M, MB=min(M, BOX), NT=nt, P=M * C, KR=KR, slot=slot,
-                table=table, smem=smem, B=B)
+                table=table, smem=smem, B=B, vb=vb)
 
 
 def test_xring_constants_are_the_sources():
@@ -219,10 +247,11 @@ def test_xring_constants_are_the_sources():
     blocks an SM of its launch bounds."""
     for text in (
             "static constexpr int NT = cmin(cmin(M * C / 8, M / G * C), 512);",
+            "static constexpr int VB = (int)sizeof(V);",
             "static constexpr int SLOT =\n      (cmax(X::P, X::G_ * "
-            "xt_chunk<X, true>()) * 16 + 127) / 128 * 128;",
+            "xt_chunk<X, true>()) * VB + 127) / 128 * 128;",
             "static constexpr int SMEM =\n      (S + 1) * SLOT + "
-            "xt_table<X>() * 16 + 128;",
+            "xt_table<X>() * VB + 128;",
             "static constexpr int MB = M < BOX ? M : BOX;"):
         assert text in COLS_SRC, text
     assert "__global__ void __launch_bounds__(NT, B)\n    " \
@@ -230,29 +259,33 @@ def test_xring_constants_are_the_sources():
     assert "constexpr int BOX = 256;" in COLS_SRC
 
 
-def test_xring_table_rules():
-    """The ring's lengths are the wrapper's (``COL_XRING_F64_LENGTHS``) and
-    lengths the x tile takes too (it runs every pass the ring cannot
-    read); each shape a power-of-two cluster of at most 16 blocks, runs of
-    at least 128 bytes of each plane that stay inside 128 columns, one
+@pytest.mark.parametrize("inst", sorted(INSTANCES))
+def test_xring_table_rules(inst):
+    """The ring's lengths are the wrapper's (``COL_XRING_F64_LENGTHS``,
+    ``COL_XRING_F32_S2_LENGTHS``) and lengths the x tile takes too on the
+    same planes (it runs every pass the ring cannot read); each shape a
+    power-of-two cluster of at most 16 blocks, runs of at least 128 bytes
+    (of each plane, or of the pairs) that stay inside 128 columns, one
     butterfly of every stage and one (k', c) pair of the exchange a
-    thread, a slot that holds the tile's two planes and the swapped
-    store's padded buffer, and a ring that fits a block's shared memory
-    with room for the B blocks an SM its launch bounds promise."""
-    assert tuple(1 << c[0] for c in XRING) == local.COL_XRING_F64_LENGTHS
-    for log2n, G, C, S, B in XRING:
-        k = xring_shape(log2n, G, C, S, B)
-        assert log2n in XCOLS
+    thread, a slot that holds the tile as copied and the swapped store's
+    padded buffer, and a ring that fits a block's shared memory with room
+    for the B blocks an SM its launch bounds promise."""
+    spec = INSTANCES[inst]
+    vb = spec["vb"]
+    assert tuple(1 << c[0] for c in spec["table"]) == spec["lengths"]
+    for log2n, G, C, S, B in spec["table"]:
+        k = xring_shape(log2n, G, C, S, B, vb)
+        assert log2n in spec["xcols"]
         assert G in (2, 4, 8, 16) and C * 8 >= 128 and 128 % C == 0
         assert S >= 1 and k["M"] % k["MB"] == 0
         assert k["P"] % k["NT"] == 0 and k["P"] // 8 >= k["NT"]
         assert k["KR"] * C % k["NT"] == 0 and k["KR"] * C >= k["NT"]
-        assert k["slot"] >= k["P"] * 16 and k["slot"] % 128 == 0
-        assert k["slot"] >= G * chunk(C, k["KR"], True) * 16
-        assert G * chunk(C, k["KR"], True) * 16 < 1 << 20
+        assert k["slot"] >= k["P"] * vb and k["slot"] % 128 == 0
+        assert k["slot"] >= G * chunk(C, k["KR"], True) * vb
+        assert G * chunk(C, k["KR"], True) * vb < 1 << 20
         assert k["smem"] <= SMEM and B >= 1 and B * k["NT"] <= 2048
         assert B * (k["smem"] + 1024) <= SM_SMEM
-        assert k["P"] * 16 < 1 << 20          # an mbarrier's byte count
+        assert k["P"] * vb < 1 << 20          # an mbarrier's byte count
 
 
 # ------------------------------------------------------------- the walk
@@ -356,41 +389,43 @@ WALK_CASES = {"config 5": (64, 2048), "ragged": (3, 16 * 37 + 5),
               "one tile": (1, 5), "under a round": (7, 16 * 9)}
 
 
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 @pytest.mark.parametrize("held", [1, 3, 7, 16, 33])
-def test_xring_walk_visits_every_tile_once(case, held):
+def test_xring_walk_visits_every_tile_once(case, held, table):
     """Every (l, t-run) tile is filled by exactly one cluster and stored
     where it was filled, a slot is filled again only after the tile it held
     is freed (the exchange's second cluster barrier), each wait is on its own
     tile's fill at that fill's parity, the clusters are at most those held
     and no two clusters' counts differ by more than one: config 5's 64 x
     128 tiles, a ragged trail over three l, one tile and fewer tiles than
-    a round, over a range of clusters held."""
-    for log2n, G, C, S, _ in XRING:
-        L, T = WALK_CASES[case]
-        tiles = -(-T // C) * L
-        clusters, walks = xring_walk(L, T, C, S, G, held)
-        assert clusters <= min(held, tiles)
-        seen, counts = {}, []
-        for cl, ev in walks:
-            held_slots, fills = {}, {}
-            counts.append(sum(1 for e in ev if e[0] == "wait"))
-            for kind, i, slot, tile, parity in ev:
-                assert 0 <= slot < S
-                if kind == "fill":
-                    assert slot not in held_slots, "a slot filled while held"
-                    held_slots[slot] = (i, tile)
-                    fills[slot] = fills.get(slot, 0) + 1
-                    seen[tile] = seen.get(tile, 0) + 1
-                elif kind == "wait":
-                    assert held_slots.get(slot) == (i, tile), "another tile"
-                    assert parity == (fills[slot] - 1) & 1, "a wrong phase"
-                else:
-                    assert held_slots.pop(slot) == (i, tile)
-            assert not held_slots
-        want = {(l, t0) for l in range(L) for t0 in range(0, T, C)}
-        assert set(seen) == want and set(seen.values()) == {1}
-        assert max(counts) - min(counts) <= 1
+    a round, over a range of clusters held, for each ring the sources
+    instantiate."""
+    log2n, G, C, S, _ = table[1]
+    L, T = WALK_CASES[case]
+    tiles = -(-T // C) * L
+    clusters, walks = xring_walk(L, T, C, S, G, held)
+    assert clusters <= min(held, tiles)
+    seen, counts = {}, []
+    for cl, ev in walks:
+        held_slots, fills = {}, {}
+        counts.append(sum(1 for e in ev if e[0] == "wait"))
+        for kind, i, slot, tile, parity in ev:
+            assert 0 <= slot < S
+            if kind == "fill":
+                assert slot not in held_slots, "a slot filled while held"
+                held_slots[slot] = (i, tile)
+                fills[slot] = fills.get(slot, 0) + 1
+                seen[tile] = seen.get(tile, 0) + 1
+            elif kind == "wait":
+                assert held_slots.get(slot) == (i, tile), "another tile"
+                assert parity == (fills[slot] - 1) & 1, "a wrong phase"
+            else:
+                assert held_slots.pop(slot) == (i, tile)
+        assert not held_slots
+    want = {(l, t0) for l in range(L) for t0 in range(0, T, C)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    assert max(counts) - min(counts) <= 1
 
 
 def test_xring_loop_order():
@@ -458,14 +493,14 @@ def test_xring_chunks_partition_the_buffers(kmajor):
     of owner o, inside the slot; the receive buffer takes one chunk from
     each block; each pair of the exchange reads, from sender b, the value
     it sent for (k' = rank*KR + kl, c)."""
-    for log2n, G, C, S, B in XRING:
-        k = xring_shape(log2n, G, C, S, B)
+    for inst, (log2n, G, C, S, B) in TABLES:
+        k = xring_shape(log2n, G, C, S, B, INSTANCES[inst]["vb"])
         M, KR = k["M"], k["KR"]
         CH = chunk(C, KR, kmajor)
         kk, cc = np.meshgrid(np.arange(M), np.arange(C), indexing="ij")
         idx = chunk_index(kk // KR, kk % KR, cc, C, KR, kmajor)
         assert len(np.unique(idx)) == idx.size          # no two collide
-        assert idx.max() < G * CH <= k["slot"] // 16
+        assert idx.max() < G * CH <= k["slot"] // k["vb"]
         assert (idx // CH == kk // KR).all()           # chunk o, owner o
         # a value's place inside its chunk is the same whichever chunk:
         # sender b's chunk o lands at b*CH in owner o's receive buffer, and
@@ -484,8 +519,8 @@ def test_xring_chunks_partition_the_buffers(kmajor):
 # ------------------------------------------------------------- the boxes
 
 FILL = src_text(
-    r"tma_load_4d\(dst \+ ([^,]+), part \? &map_im : &map_re, ([^,]+),\s+"
-    r"([^,]+), ([^,]+), ([^,]+), bar\);")
+    r"tma_load_4d\(dst \+ ([^,]+),\s+part \? &map_im : &map_re, ([^,]+),"
+    r"\s*([^,]+), ([^,]+), ([^,]+), bar\);")
 MAP = src_text(
     r"const cuuint64_t dims\[4\] = \{([^}]+)\};\n"
     r"  const cuuint64_t strides\[3\] = \{\s*([^}]+)\};\n"
@@ -494,64 +529,80 @@ MAP = src_text(
     COLS_SRC[COLS_SRC.index("cudaError_t xring_map("):])
 
 
-def fill_model(planes, l, t0, rank, G, C, S, log2n, in_ls, in_ns):
+def fill_model(flats, T, l, t0, rank, G, C, S, log2n, in_ls, in_ns,
+               il=False):
     """One block's fill of a slot, box by box as the tensor maps lay it
-    out (dims {T, G, M, L}, strides in bytes, boxes {C, 1, MB, 1}; zeros
-    past T): the slot's doubles and the count of writes to each."""
+    out (dims {T, G, M, L}, strides in bytes, boxes {C, 1, MB, 1} of
+    8-byte elements; zeros past T): ``flats`` the flat storage of the two
+    planes from their first element, or (``il``) of the pairs, a t a pair
+    of reals; the slot's reals and the count of writes to each."""
     k = xring_shape(log2n, G, C, S)
     P, M, MB = k["P"], k["M"], k["MB"]
-    T = planes[0].shape[-1]
     assert [v.strip() for v in MAP[0].split(",")] == [
         "(cuuint64_t)io.T", "(cuuint64_t)G", "(cuuint64_t)K::M",
         "(cuuint64_t)io.L"]
     assert " ".join(MAP[1].split()) == (
-        "row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * 8 : row * "
+        "row, row * G, io.L > 1 ? (cuuint64_t)io.in_ls * E : row * "
         "(1 << LOGN)")
     assert MAP[2].split(", ") == ["(cuuint32_t)C", "1", "(cuuint32_t)K::MB",
                                   "1"]
-    assert (FILL[0], FILL[1:]) == ("part * P + h * MB * C",
+    assert (FILL[0], FILL[1:]) == ("(IL ? 2 : 1) * (part * P + h * MB * C)",
                                    ("t0", "rank", "h * MB", "l"))
+    assert "for (int part = 0; part < (IL ? 1 : 2); ++part)" in XRING_SRC
+    ew = 2 if il else 1                 # reals a box element holds
     slot = np.zeros(2 * P)
     writes = np.zeros(2 * P, np.int64)
     jj = np.arange(MB)[:, None]
     t = t0 + np.arange(C)[None, :]
-    for part in range(2):
-        flat = planes[part].reshape(-1)
+    for part in range(1 if il else 2):
+        flat = flats[part]
         for h in range(M // MB):
-            dst = part * P + h * MB * C
+            dst = ew * (part * P + h * MB * C)
             # box {C, 1, MB, 1} at (t0, rank, h*MB, l): row j = rank +
             # G*j' at byte offset t*8 + rank*row + j'*row*G + l*ls
             j = rank + G * (h * MB + jj)
-            v = flat[l * in_ls + j * in_ns + np.minimum(t, T - 1)]
-            slot[dst:dst + MB * C] = np.where(t < T, v, 0.0).reshape(-1)
-            writes[dst:dst + MB * C] += 1
+            for e in range(ew):
+                v = flat[l * in_ls + j * in_ns + np.minimum(t, T - 1) * ew
+                         + e]
+                at = slice(dst + e, dst + ew * MB * C, ew)
+                slot[at] = np.where(t < T, v, 0.0).reshape(-1)
+                writes[at] += 1
     return slot, writes
 
 
-def test_xring_fill_covers_the_slot():
-    """A fill's boxes write every double of the slot's two planes once, in
-    the [j'][c] layout the chain's first stage reads (f[k*C + c], f[P +
-    k*C + c]): rows rank + G*j' of the tile's C columns, zeros past T;
-    the barrier expects those bytes."""
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
+def test_xring_fill_covers_the_slot(table):
+    """A fill's boxes write every real of the slot once, in the [j'][c]
+    layout the chain's first stage reads (f[k*C + c], f[P + k*C + c] of
+    the two planes; on the pairs sm[k*C + c]): rows rank + G*j' of the
+    tile's C columns, zeros past T; the barrier expects those bytes."""
     assert "mbar_expect(bar, P * (int)sizeof(V));" in XRING_SRC
-    assert ("return Complex<double>::make(f[k * C + c], f[P + k * C + c]);"
+    assert ("return Complex<Real>::make(f[k * C + c], f[P + k * C + c]);"
             in XRING_SRC)
-    log2n, G, C, S, _ = XRING[0]
+    assert "      if constexpr (IL)\n        return sm[k * C + c];" \
+        in XRING_SRC
+    inst, (log2n, G, C, S, _) = table
+    il = INSTANCES[inst]["il"]
     n = 1 << log2n
     rng = np.random.default_rng(3)
     L, T = 2, 3 * C - 5
     planes = [rng.standard_normal((L, n, T)) for _ in range(2)]
+    # the pairs: (L, n, T, 2), the real and imaginary planes interleaved
+    flats = ([np.stack(planes, -1).reshape(-1)] if il
+             else [p.reshape(-1) for p in planes])
+    ew = 2 if il else 1
     M = n // G
     for l, t0, rank in ((0, 0, 0), (1, 2 * C, G - 1)):
-        slot, writes = fill_model(planes, l, t0, rank, G, C, S, log2n,
-                                  n * T, T)
+        slot, writes = fill_model(flats, T, l, t0, rank, G, C, S, log2n,
+                                  n * T * ew, T * ew, il)
         assert (writes == 1).all()
         P = M * C
+        t = t0 + np.arange(C)
+        keep = t < T
         for part in range(2):
-            got = slot[part * P:(part + 1) * P].reshape(M, C)
-            t = t0 + np.arange(C)
+            got = (slot.reshape(M, C, 2)[..., part] if il
+                   else slot[part * P:(part + 1) * P].reshape(M, C))
             want = np.zeros((M, C))
-            keep = t < T
             want[:, keep] = planes[part][l][rank::G][:, t[keep]]
             assert np.array_equal(got, want)
 
@@ -627,8 +678,10 @@ def chunk_tile(load, G: int, C: int, N: int, sign: int, tabs,
     return out
 
 
-def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
-    """local_cols_xring_kernel on the wrapper's operands: the clusters'
+def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw,
+                il=False):
+    """local_cols_xring_kernel on the wrapper's operands (``il``: the
+    complex form's pairs, as K5's instance reads them): the clusters'
     tiles in the walk's order, each block's rows through its slot as the
     boxes lay them out, the ring's chain, the chunked exchange, the twiddles
     w(k') and w(M) of each pair read before the chain, the stores from
@@ -641,7 +694,12 @@ def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
         swap_mid=kw.get("swap_mid", 0))
     (L, T, in_ls, in_ns, in_ts, out_ls, out_ns, out_as, out_bs, P, ak, aq,
      adiv, bk, bq, mode) = dims
-    assert in_ts == 1 and r3.is_contiguous() and i3.is_contiguous()
+    if il:
+        assert in_ts == 2 and i3.data_ptr() == r3.data_ptr() + 8
+        flats = [storage(r3)[r3.storage_offset():]]
+    else:
+        assert in_ts == 1 and r3.is_contiguous() and i3.is_contiguous()
+        flats = [r3.numpy().reshape(-1).copy(), i3.numpy().reshape(-1).copy()]
     n = r3.shape[1]
     log2n = n.bit_length() - 1
     M = n // G
@@ -651,7 +709,6 @@ def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
     tw = tw[:, 0] + 1j * tw[:, 1]
     pairs = [None if t is None else (lambda a: a[:, 0] + 1j * a[:, 1])(
         t.reshape(-1, 2).numpy()) for t in (ta, tb)]
-    planes = [r3.numpy().copy(), i3.numpy().copy()]
     dst = [(storage(x), x.storage_offset()) for x in o]
     writes = np.zeros(dst[0][0].shape, np.int64)
     tabs = [ring_table(tw, G, M, rank) for rank in range(G)]
@@ -660,12 +717,14 @@ def xring_model(re, im, out_re, out_im, sign, post, G, C, S, held, kw):
         for kind, i, slot_i, (l, t0), _ in ev:
             if kind != "wait":
                 continue
-            slots = [fill_model(planes, l, t0, b, G, C, S, log2n, in_ls,
-                                in_ns)[0] for b in range(G)]
+            slots = [fill_model(flats, T, l, t0, b, G, C, S, log2n, in_ls,
+                                in_ns, il)[0] for b in range(G)]
 
             def load(c, j):
                 s = slots[int(np.ravel(j)[0]) % G]     # one block's rows
                 k = j // G
+                if il:
+                    return s[2 * (k * C + c)] + 1j * s[2 * (k * C + c) + 1]
                 return s[k * C + c] + 1j * s[M * C + k * C + c]
 
             outs = chunk_tile(load, G, C, n, sign, tabs, swap)
@@ -702,7 +761,8 @@ def ring_modes(n):
     """(name, trail, kwargs): both stores with no twiddle and the `full`
     one, the mid route's strided twiddle with the mid swap and the huge
     route's factored one with the swapped store; ragged trails where the
-    mode allows."""
+    mode allows.  K5's instance takes the plain store with no twiddle or
+    the `full` one (F32_MODES)."""
     return [("plain", 40, {}),
             ("full plain", 40, dict(tw_n=n * 40)),
             ("swap", 40, dict(swap_store=True)),
@@ -715,16 +775,26 @@ def ring_modes(n):
             ("plain inplace", 40, {})]
 
 
+# the modes K5's instance takes (ring_modes' indices: plain, full plain,
+# plain inplace)
+F32_MODES = (0, 1, 6)
+MODEL_CASES = [(name, row, mode) for name, row in TABLES
+               for mode in (F32_MODES if INSTANCES[name]["il"] else range(7))]
+
+
 @pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("mode", range(7))
-@pytest.mark.parametrize("table", XRING)
+@pytest.mark.parametrize(
+    "table,mode", [((name, row), mode) for name, row, mode in MODEL_CASES],
+    ids=[f"{name}-{row}-{mode}" for name, row, mode in MODEL_CASES])
 def test_xring_model_matches_numpy(table, mode, sign):
     """The ring's function at each length of its table, its chain's and
     exchange's twiddles from each block's table: numpy within 1e-11,
     every output element written once and nothing else in its storage,
     and the cluster tile's model on the same operands and (G, C) within
-    1e-14."""
-    log2n, G, C, S, _ = table
+    1e-14; K5's instance on the complex form's pairs, in and out of
+    place (modelled in complex128)."""
+    inst, (log2n, G, C, S, _) = table
+    il = INSTANCES[inst]["il"]
     n = 1 << log2n
     name, T, kw = ring_modes(n)[mode]
     L = 2
@@ -734,14 +804,23 @@ def test_xring_model_matches_numpy(table, mode, sign):
     post = 0.5 if sign < 0 else 1.0 / n
     oshape = local._col_out_shape((L, n, T), 1, kw.get("swap_store", False),
                                   kw.get("swap_mid", 0))
-    re, im = xt.real.contiguous(), xt.imag.contiguous()
-    if name == "plain inplace":
-        out = (re, im)
+
+    def fresh():
+        if il:                  # the complex form's stride-2 planes
+            v = torch.view_as_real(torch.full(oshape, np.nan + 0j,
+                                              dtype=torch.complex128))
+            return v[..., 0], v[..., 1]
+        return (torch.full(oshape, np.nan, dtype=torch.float64),
+                torch.full(oshape, np.nan, dtype=torch.float64))
+
+    if il:
+        v = torch.view_as_real(xt.clone())
+        re, im = v[..., 0], v[..., 1]
     else:
-        out = (torch.full(oshape, np.nan, dtype=torch.float64),
-               torch.full(oshape, np.nan, dtype=torch.float64))
+        re, im = xt.real.contiguous(), xt.imag.contiguous()
+    out = (re, im) if name == "plain inplace" else fresh()
     held = 5
-    writes, o = xring_model(re, im, *out, sign, post, G, C, S, held, kw)
+    writes, o = xring_model(re, im, *out, sign, post, G, C, S, held, kw, il)
     got = out[0].numpy() + 1j * out[1].numpy()
     want = col_reference(x, sign, post, kw)
     err = np.abs(got - want).max() / np.abs(want).max()
@@ -756,8 +835,7 @@ def test_xring_model_matches_numpy(table, mode, sign):
         return
     # the cluster tile's model on the same operands and (G, C): the same
     # function, its twiddles read from the kernel's table every tile
-    xo = (torch.full(oshape, np.nan, dtype=torch.float64),
-          torch.full(oshape, np.nan, dtype=torch.float64))
+    xo = fresh()
     k12_model(re, im, *xo, sign, post, G, C, kw)
     xg = xo[0].numpy() + 1j * xo[1].numpy()
     assert np.abs(got - xg).max() / np.abs(xg).max() < 1e-14, name
@@ -766,18 +844,18 @@ def test_xring_model_matches_numpy(table, mode, sign):
 
 @pytest.mark.parametrize("part", ["stages", "exchange"])
 @pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("table", XRING)
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
 def test_xring_twiddle_table_entries(table, sign, part):
     """Every entry of every block's table is one value of the kernel's
     table, tw[(r*e) mod N], where its readers look for w^(r*e): the radix-8
     stage after NS points reads w_N^(jj*r*N/(8*NS)) for jj = j % NS and 0 <
     r < 8, the exchange w_N^(b*k') for k' = rank*KR + kl and 0 < b < G, at
     every rank, both signs; the readers' places cover the table once."""
-    log2n, G, C, S, _ = table
+    inst, (log2n, G, C, S, _) = table
     n = 1 << log2n
     M, KR = n // G, n // G // G
     tw = local._kernel_twiddles(n, sign, torch.device("cpu"),
-                                torch.float64).numpy()
+                                INSTANCES[inst]["dtype"]).numpy()
     tw = tw[:, 0] + 1j * tw[:, 1]
     k = table_layout(G, M)
     stages = k["stages"]
@@ -803,16 +881,23 @@ def test_xring_twiddle_table_entries(table, sign, part):
         assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("kmajor", [False, True])
-@pytest.mark.parametrize("table", XRING)
+BANK_CASES = [((name, row), kmajor) for name, row in TABLES
+              for kmajor in INSTANCES[name]["kmajor"]]
+
+
+@pytest.mark.parametrize(
+    "table,kmajor", BANK_CASES,
+    ids=[f"{t[0]}-{t[1]}-{k}" for t, k in BANK_CASES])
 def test_xring_twiddle_table_banks(table, kmajor):
-    """A warp's reads of the table: each quarter warp (eight threads, one
-    16-byte load each) reads one entry (a broadcast) or eight entries on
-    eight distinct 16-byte slots of a 128-byte row, in every stage after
-    the first and in the exchange of either store, for every value of the
-    loops (b, r) of a thread."""
-    log2n, G, C, S, B = table
-    k = xring_shape(log2n, G, C, S, B)
+    """A warp's reads of the table: each quarter warp of 16-byte loads
+    (eight threads; half warps of K5's 8-byte ones, sixteen) reads one
+    entry (a broadcast) or as many entries on distinct slots of a
+    128-byte row, in every stage after the first and in the exchange of
+    each store the instance has, for every value of the loops (b, r) of a
+    thread."""
+    inst, (log2n, G, C, S, B) = table
+    vb = INSTANCES[inst]["vb"]
+    k = xring_shape(log2n, G, C, S, B, vb)
     M, KR, NT = k["M"], k["KR"], k["NT"]
     stages = table_layout(G, M)["stages"]
     reads = []                  # the entries of each load, by thread
@@ -824,28 +909,36 @@ def test_xring_twiddle_table_banks(table, kmajor):
         p = np.arange(NT) + i * NT
         kl = p % KR if kmajor else p // C
         reads.append(exchange_at(G, M, kl))
+    group = 128 // vb                   # threads a shared-memory phase
     for at in reads:
-        for quarter in at.reshape(-1, 8):
+        for quarter in at.reshape(-1, group):
             one = len(set(quarter)) == 1
-            assert one or len(set(quarter % 8)) == 8, quarter
+            assert one or len(set(quarter % group)) == group, quarter
 
 
-@pytest.mark.parametrize("table", XRING)
+@pytest.mark.parametrize("table", TABLES, ids=TABLE_IDS)
 def test_xring_twiddle_table_fits(table):
     """The table lies after the receive buffer, inside the block's
     dynamic shared memory less its 128 bytes of alignment, and with it the
-    ring still fits B blocks an SM (at (11, 16, 16, 2, 2): 246 values,
-    3936 bytes; 2 x (110720 + 3936 + 1024) = 231360 <= 233472 bytes)."""
-    log2n, G, C, S, B = table
-    k = xring_shape(log2n, G, C, S, B)
-    assert "  V* tab = recv + K::SLOT / 16;" in XRING_SRC
-    assert "  V* recv = slots + S * (K::SLOT / 16);" in XRING_SRC
-    end = (S + 1) * k["slot"] + k["table"] * 16
+    ring still fits B blocks an SM (K12 at (11, 16, 16, 2, 2): 246 values,
+    3936 bytes; 2 x (110720 + 3936 + 1024) = 231360 <= 233472 bytes; K5
+    at (10, 4, 16, 4, 1): 444 values of 8 bytes, 3552 bytes; 166400 +
+    3552 + 128 + 1024 = 171104)."""
+    inst, (log2n, G, C, S, B) = table
+    vb = INSTANCES[inst]["vb"]
+    k = xring_shape(log2n, G, C, S, B, vb)
+    assert "  V* tab = recv + SV;" in XRING_SRC
+    assert "  V* recv = slots + S * SV;" in XRING_SRC
+    assert "  constexpr int SV = K::SLOT / K::VB;" in XRING_SRC
+    end = (S + 1) * k["slot"] + k["table"] * vb
     assert end + 128 == k["smem"] <= SMEM
     assert B * (k["smem"] + 1024) <= SM_SMEM
-    if table == (11, 16, 16, 2, 2):
+    if (inst, (log2n, G, C, S, B)) == ("f64", (11, 16, 16, 2, 2)):
         assert (k["table"], k["slot"], k["smem"]) == (246, 36864, 114656)
         assert B * (k["smem"] + 1024) == 231360
+    if (inst, (log2n, G, C, S, B)) == ("f32", (10, 4, 16, 4, 1)):
+        assert (k["table"], k["slot"], k["smem"]) == (444, 33280, 170080)
+        assert B * (k["smem"] + 1024) == 171104
 
 
 # --------------------------------------------------------- the dispatch
@@ -857,6 +950,11 @@ XRING_OPERANDS = src_text(
     r"  return ([^;]+);\n\}", COLS_SRC)[0]
 
 
+XRING_TAKES = src_text(
+    r"inline bool xring_takes\(const Cols<float>& io, int swap_store\) \{\n"
+    r"  return ([^;]+);\n\}", COLS_SRC)[0]
+
+
 def c_xring_takes(r3, i3, dims, log2n: int) -> bool:
     """The C entry's rule for K12's ring: xring_operands on the wrapper's
     operands (pointers in bytes, strides in doubles) and the table."""
@@ -864,6 +962,16 @@ def c_xring_takes(r3, i3, dims, log2n: int) -> bool:
     ops = c_bool(XRING_OPERANDS, a=r3.data_ptr(), b=i3.data_ptr(),
                  in_ts=in_ts, in_ns=in_ns, in_ls=in_ls, L=L)
     return ops and log2n in {c[0] for c in XRING}
+
+
+def c_xring_f32_takes(r3, i3, dims, log2n: int, swap_store: bool) -> bool:
+    """The C entry's rule for K5's ring: xring_takes (K5's persistent
+    ring's rule, pring_takes, on the pairs) on the wrapper's operands and
+    the table."""
+    pring = c_dispatch(r3, i3, dims, swap_store)
+    expr = XRING_TAKES.replace("pring_takes(io, swap_store)", str(pring))
+    return (c_bool(expr, in_ts=dims[4])
+            and log2n in {c[0] for c in XRING_F32})
 
 
 def layout_planes(layout: str, n: int, T: int, dtype):
@@ -898,12 +1006,13 @@ MODES = {"plain": {}, "full swap": dict(tw_n=1, swap_store=True),
 @pytest.mark.parametrize("n", [1024, 2048, 4096])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_xring_design_rule(dtype, n, layout, mode, monkeypatch):
-    """Which design each pass runs: the C rule (xring_operands on the
-    wrapper's operands and the table) against ``col_design``: the ring on
-    planar float64 planes its tensor maps read at the table's lengths in
-    every twiddle and store mode; the complex form's stride-2 planes,
-    unboxable views, other lengths and every float pass the cluster tile,
-    as before."""
+    """Which design each pass runs: the C rule (xring_operands, and
+    xring_takes on float planes, on the wrapper's operands and the table)
+    against ``col_design``: K12's ring on planar float64 planes its tensor
+    maps read at its table's lengths in every twiddle and store mode; K5's
+    ring on the complex form's float pairs at its table's lengths with a
+    plain store; the other layouts, unboxable views, other lengths and
+    modes the cluster tile, as before."""
     monkeypatch.setattr(local, "_col_xtile", lambda log2n, ts, dt: (
         (8, 16) if log2n >= 10 else None))
     T = 256
@@ -920,8 +1029,11 @@ def test_xring_design_rule(dtype, n, layout, mode, monkeypatch):
         tw_period=kw.get("tw_period", 0),
         swap_store=kw.get("swap_store", False), swap_mid=kw.get("swap_mid", 0))
     log2n = n.bit_length() - 1
+    swap = kw.get("swap_store", False)
     want = ("ring" if dtype == torch.float64
-            and c_xring_takes(r3, i3, dims, log2n) else "x")
+            and c_xring_takes(r3, i3, dims, log2n) else
+            "xring" if dtype == torch.float32
+            and c_xring_f32_takes(r3, i3, dims, log2n, swap) else "x")
     got = local.col_design(n, dtype, boxable=local._boxable(r3, i3),
                            in_ts=dims[4], tw_mode=kw.get("tw_mode", "full"),
                            tw_n=kw.get("tw_n", 0),
@@ -931,25 +1043,40 @@ def test_xring_design_rule(dtype, n, layout, mode, monkeypatch):
     expect = (dtype == torch.float64 and n in local.COL_XRING_F64_LENGTHS
               and layout == "planar")
     assert (want == "ring") == expect
+    expect = (dtype == torch.float32 and n in local.COL_XRING_F32_S2_LENGTHS
+              and layout == "stride2" and mode == "plain")
+    assert (want == "xring") == expect
 
 
 def test_xring_dispatch_in_the_source():
     """The complex128 entry tries the ring first, where xring_operands
     holds and its table has n, returning RAN_RING from its launch only,
-    then the x tile's two tables as before; the complex64 entry has no
-    such branch."""
+    then the x tile's two tables as before; the complex64 entry tries K5's
+    ring first, where xring_takes holds and its table has n (its plain
+    store on the pairs, IL), returning RAN_XRING from its launch only,
+    then the x tile's tables and the persistent ring as before."""
     f64 = COLS_SRC[COLS_SRC.index("  if constexpr (sizeof(Real) == "
                                   "sizeof(double)) {\n    // K12's "
                                   "persistent cluster ring"):]
     marks = [f64.index(m) for m in (
         "if (xring_operands(io)) {", "PYFFT_XRING_F64(PYFFT_XRING)",
         "PYFFT_XCOLS_F64_S2(PYFFT_XCOL)", "PYFFT_XCOLS_F64(PYFFT_XCOL)",
+        "    // K5: the persistent cluster ring",
+        "if (xring_takes(io, swap_store)) {",
+        "PYFFT_XRING_F32_S2(PYFFT_XRING)",
         "    // K5: the cluster tile from n = 1024")]
     assert marks == sorted(marks)
-    assert COLS_SRC.count("launch_xring<LN, G, C, S, B, true>(io, t, s, st)") \
+    assert COLS_SRC.count("? launch_xring<Real, LN, G, C, S, B, true, false>") \
         == 1
+    assert COLS_SRC.count(": launch_xring<Real, LN, G, C, S, B, false, "
+                          "false>;") == 1
+    assert COLS_SRC.count("launch_xring<Real, LN, G, C, S, B, false, "
+                          "true>(io, t, s, st);") == 1
     assert COLS_SRC.count("    return RAN_RING;") == 1
+    assert COLS_SRC.count("    return e == cudaSuccess ? RAN_XRING : "
+                          "(int)e;") == 1
     assert COLS_SRC.count("xring_operands(io)") == 1
+    assert COLS_SRC.count("xring_takes(io, swap_store)") == 1
 
 
 # ------------------------------------------------------ the launches
@@ -984,12 +1111,14 @@ def fake_launch(monkeypatch, err: int):
     (torch.float64, 0, "launch.K12.first"),
     (torch.float32, -2, "launch.K5.x"),
     (torch.float32, -1, "launch.K5.pring"),
+    (torch.float32, -3, "launch.K5.xring"),
     (torch.float32, 0, "launch.K5.first")])
 def test_xring_launches_counted(monkeypatch, dtype, err, key):
     """``launch.K12.ring`` counts the K12 launches whose C entry returned
-    RAN_RING; the x tile's and the first design's K12 launches and every
-    K5 launch count the keys they counted before; the pass's one launch
-    counts under exactly one key."""
+    RAN_RING, ``launch.K5.xring`` the K5 launches whose entry returned
+    RAN_XRING; the x tile's and the first design's launches and K5's
+    persistent ring count the keys they counted before; the pass's one
+    launch counts under exactly one key."""
     called = fake_launch(monkeypatch, err)
     g = torch.Generator().manual_seed(1)
     re_, im_ = (torch.randn(2, 2048, 128, generator=g, dtype=dtype)
@@ -1000,14 +1129,30 @@ def test_xring_launches_counted(monkeypatch, dtype, err, key):
     assert len(called) == 1
     assert profiling.counts() == {key: 1}
     assert local._K12_KEYS[local.RAN_RING] == "launch.K12.ring"
+    assert local._K5_KEYS[local.RAN_XRING] == "launch.K5.xring"
+    assert local.RAN_XRING not in local._K12_KEYS
 
 
 def test_xring_shape_query_names():
-    """``col_xring_shape_f64`` reads the seven values the C query writes,
-    in its order."""
-    query = COLS_SRC[COLS_SRC.index(
-        'extern "C" int pyfft_local_cols_xring_shape_f64('):]
+    """``col_xring_shape_f64`` and ``col_xring_shape`` read the seven
+    values the C queries write, in their order: K12's table with its
+    swapped store's clusters held, K5's with its plain store's (its one
+    instance, on the pairs)."""
+    start = COLS_SRC.index("// K12's persistent cluster ring at log2n "
+                           "(PYFFT_XRING_F64)")
+    query = COLS_SRC[start:COLS_SRC.index("#undef PYFFT_XRING", start)]
     assert "const int v[7] = {G, C, S, B, K::NT, K::SMEM, held};" in query
+    assert "xring_held<Real, LN, G, C, S, B, !IL, IL>(held);" in query
+    for name, real, il, table in (
+            ("pyfft_local_cols_xring_shape_f64", "double", "false",
+             "PYFFT_XRING_F64"),
+            ("pyfft_local_cols_xring_shape", "float", "true",
+             "PYFFT_XRING_F32_S2")):
+        body = query[query.index(f'extern "C" int {name}(int log2n, '
+                                 'int* out) {'):]
+        body = body[:body.index("\n}\n")]
+        assert f"  using Real = {real};\n  constexpr bool IL = {il};\n" \
+            f"  {table}(PYFFT_XRING)\n  return 0;" in body
     assert local.COL_XRING_KEYS == ("cluster", "columns", "slots",
                                     "blocks_an_sm", "threads", "smem_bytes",
                                     "clusters_held")
