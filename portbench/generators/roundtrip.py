@@ -13,14 +13,15 @@ an inverse call on the forward's output.  Parameters:
 
 A kept step has its two outputs copied into buffers made before the
 window, so that the allocator cycles the same blocks whichever steps the
-seed picks.
+seed picks.  A buffer of another form than its call's output (a real
+input's transform changes it) is replaced by one of the output's.
 """
 
 from __future__ import annotations
 
 import time
 
-from portbench.traffic import WAITS, Window, copy_into, like, no_span
+from portbench.traffic import WAITS, Window, copy_into, fit, like, no_span
 
 
 def buffers(inputs: list) -> tuple:
@@ -61,7 +62,7 @@ def drive(system, inputs: list, mix: dict, dev, seconds: float,
                 z = system(y, True, wait)
             c = clock()
             if i in keep:
-                ybuf, zbuf = keep[i]
+                ybuf, zbuf = keep[i] = fit(keep[i], (y, z))
                 copy_into(ybuf, y)
                 copy_into(zbuf, z)
                 w.kept[i] = [(inputs[k], False, ybuf), (ybuf, True, zbuf)]

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-from portbench import check, devtrace, registry, system as sut, work
+from portbench import check, devtrace, registry, system as sut, traffic, work
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pyfft_tpu")
 
@@ -84,10 +84,14 @@ def run(name: str, cell: dict, config: dict, mix: dict, *, seed: int,
     log(f"cell {name}: {system.describe()}; keeps steps {keep}")
 
     # warm-up: the cell's own calls, as many steps as may be in flight,
-    # and one copy into a kept step's buffers
+    # and one copy into a kept step's buffers; the window's kept steps
+    # take buffers of the forms its outputs showed
     bufs = {i: gen.buffers(inputs) for i in keep}
-    gen.drive(system, inputs, mix, dev, 0.0, keep={0: bufs[keep[0]]},
-              min_steps=mix.get("in_flight_steps", 1) + 1)
+    warm = gen.drive(system, inputs, mix, dev, 0.0, keep={0: bufs[keep[0]]},
+                     min_steps=mix.get("in_flight_steps", 1) + 1)
+    outs = [out for _, _, out in warm.kept[0]]
+    bufs = {i: traffic.fit(b, outs) for i, b in bufs.items()}
+    del warm, outs
     dev.sync()
     gc.collect()
     gc.freeze()             # set-up's objects: out of every later collection

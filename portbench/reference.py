@@ -14,6 +14,12 @@ four real products, so that ``precision`` acts on real matrix products:
   10-bit mantissa (what a tensor-core product in TF32 reads), the control
   of a complex64 configuration.  The rounding is explicit, so the control
   is the same on the CPU and the card.
+
+A real input's transform (``rdft``) is the complex DFT of (x, 0) with the
+last axis cut to its n/2 + 1 first points (numpy.fft.rfftn's half
+spectrum); its inverse (``irdft``) extends a half spectrum to the full
+one by Hermitian symmetry, X[-k] = conj(X[k]) over every axis, and takes
+the real part of the complex inverse.
 """
 
 from __future__ import annotations
@@ -94,3 +100,36 @@ def dft(re: torch.Tensor, im: torch.Tensor, ndim: int, *, inverse: bool,
     if scale != 1.0:
         re, im = re * scale, im * scale
     return re.contiguous(), im.contiguous()
+
+
+def rdft(x: torch.Tensor, ndim: int, *, precision: str = "float64"):
+    """The DFT of real ``x`` over its last ``ndim`` axes as (re, im)
+    planes of the half spectrum, the last axis cut to n/2 + 1, computed in
+    ``precision`` and returned in it."""
+    re, im = dft(x, torch.zeros_like(x), ndim, inverse=False,
+                 precision=precision)
+    h = x.shape[-1] // 2 + 1
+    return re[..., :h].contiguous(), im[..., :h].contiguous()
+
+
+def _mirror(t: torch.Tensor, ndim: int, n: int) -> torch.Tensor:
+    """The points n/2 + 1 .. n - 1 of the last axis of a half spectrum's
+    plane ``t`` (last axis n/2 + 1) before conjugation: t at (-j mod m)
+    on each other transform axis and at n - k on the last."""
+    t = t[..., 1:n - n // 2].flip(-1)
+    for d in range(t.ndim - ndim, t.ndim - 1):
+        t = t.flip(d).roll(1, d)
+    return t
+
+
+def irdft(re: torch.Tensor, im: torch.Tensor, ndim: int, n: int, *,
+          scale: float = 1.0, precision: str = "float64") -> torch.Tensor:
+    """The real signal over the last ``ndim`` axes, the last of ``n``
+    points, whose half spectrum is (re, im): the inverse DFT of its
+    Hermitian extension, real part, times ``scale``, computed in
+    ``precision`` and returned in it."""
+    full_re = torch.cat([re, _mirror(re, ndim, n)], -1)
+    full_im = torch.cat([im, -_mirror(im, ndim, n)], -1)
+    out, _ = dft(full_re, full_im, ndim, inverse=True, scale=scale,
+                 precision=precision)
+    return out

@@ -7,7 +7,8 @@ depends on how the data is stored and how the program is entered:
   inputs, drawn on ``device`` from ``seed``;
 * ``Port(config, device)``: the program, called as ``port(x, inverse,
   wait)`` exactly as a user calls it, with ``describe()``;
-* ``planes(config, value)``: the real planes of a value (views);
+* ``planes(config, value)``: the real planes of a value (views): (re,
+  im) of a complex value, the value itself of a real one;
 * ``rel_err(config, got, src, inverse)``: the comparison of one call's
   output with the reference's transform of what it was given;
 * ``reference_call(config, x, inverse, precision)``: the reference's
@@ -23,12 +24,17 @@ from __future__ import annotations
 
 import torch
 
-from portbench import registry
+from portbench import registry, work
 
+# A configuration's dtype: (the complex dtype of its values or, for real
+# input, of its half spectrum (``work.SPECTRUM``); the real dtype of its
+# planes).
 DTYPES = {"complex64": (torch.complex64, torch.float32),
           "complex128": (torch.complex128, torch.float64)}
+DTYPES.update({r: DTYPES[c] for r, c in work.SPECTRUM.items()})
 # The nearest precision below each configuration's: the control's.
-CONTROL = {"complex64": "tf32", "complex128": "float32"}
+CONTROL = {"complex64": "tf32", "complex128": "float32",
+           "float32": "tf32", "float64": "float32"}
 
 
 def dims(config: dict) -> tuple:
@@ -99,7 +105,9 @@ class Faulty:
 
     * ``unchanged``: each call returns its input as it came;
     * ``half``: the second half of the batch (of the leading axis of a
-      single transform) keeps its input, untransformed;
+      single transform) is left untransformed: each output plane keeps
+      the input's plane there, or zeros where the two differ in shape (a
+      real transform's);
     * ``altered``: one answer of each call is changed (1 added to one
       point's real part).
     """
@@ -119,9 +127,12 @@ class Faulty:
         out = self.form.planes(self.config, y)
         if self.fault == "half":
             src = self.form.planes(self.config, x)
-            for o, s in zip(out, src):
+            for k, o in enumerate(out):
                 h = o.shape[0] // 2
-                o[h:] = s[h:]
+                if k < len(src) and src[k].shape == o.shape:
+                    o[h:] = src[k][h:]
+                else:
+                    o[h:] = 0
         else:
             out[0][tuple(d // 3 for d in out[0].shape)] += 1.0
         return y

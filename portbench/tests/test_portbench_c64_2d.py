@@ -2,12 +2,10 @@
 planes of 1024 x 1024 cut to 4 planes of 64 x 128, which the planner
 also gives two ``local`` passes): sound runs, traced and untraced, are
 correct and report the cell's metrics; the control and every planted
-fault are not correct; ``k5_x_share`` reads the program's K5 launch
-counts and ``k5_roofline`` the ``local_cols`` device records."""
+fault are not correct; ``k5_roofline`` reads the ``local_cols`` device
+records."""
 
-import sys
 import time
-import types
 
 import pytest
 
@@ -21,7 +19,7 @@ CELL = {"check": {"steps": 2, "within": 6}, "trace": {"skip": 2, "steps": 3}}
 SEED = 2**31 + 10241
 METRICS = ("fft_roofline", "launches_per_call", "record_hit_share",
            "executor_ms_per_call", "facade_ms_per_call", "entry_ms_per_call",
-           "k5_roofline", "k5_x_share")
+           "k5_roofline", "k5_xring_share")
 
 
 def small():
@@ -107,43 +105,6 @@ def test_every_fault_is_not_correct(fault):
 def record(sl=None, least_s=1e-4):
     return Run(setup_s=1.0, window_s=1.0, calls=2, flop=1.0, call_s=[],
                peak_bytes=0, least_s=least_s, slice=sl)
-
-
-@pytest.fixture
-def program_registry(monkeypatch):
-    """A stand-in for the program's profiling module in ``sys.modules``,
-    its registry filled by hand."""
-    counts = {}
-    module = types.SimpleNamespace(counts=lambda: dict(counts))
-    monkeypatch.setitem(sys.modules, "pyfft_tpu_torch.utils.profiling",
-                        module)
-    return counts
-
-
-def x_share():
-    return registry.metric(f"k5_x_share.{CELL_NAME}")(record())
-
-
-def test_k5_x_share_of_the_counts(program_registry):
-    """Cluster-tile launches over every K5 launch (x tile, persistent
-    ring, first design); other kernels' launches are not K5's."""
-    program_registry.update({"launch.K5.x": 40, "launch.K1.ring": 40,
-                             "launch.K12.x": 3, "record.hit": 38})
-    assert x_share() == 1.0
-    program_registry.update({"launch.K5.pring": 30, "launch.K5.first": 10})
-    assert x_share() == 0.5
-
-
-def test_k5_x_share_none_without_k5(monkeypatch, program_registry):
-    """No ``launch.K5.*`` key counted, or no registry: None."""
-    program_registry.update({"launch.K1.ring": 4, "launch.K12.x": 2})
-    assert x_share() is None
-    monkeypatch.delitem(sys.modules, "pyfft_tpu_torch.utils.profiling",
-                        raising=False)
-    assert x_share() is None
-    monkeypatch.setitem(sys.modules, "pyfft_tpu_torch.utils.profiling",
-                        types.SimpleNamespace(trace=None))
-    assert x_share() is None
 
 
 US = 1e-6

@@ -90,15 +90,17 @@ def test_inputs_come_from_the_seed():
 
 
 def test_control_computes_one_precision_below():
-    """The control's answers are the reference's in TF32 (complex64) or
-    float32 (complex128), returned in the configuration's form."""
+    """The control's answers are the reference's in TF32 (complex64,
+    float32) or float32 (complex128, float64), returned in the
+    configuration's form."""
     cfg = small("c64_3d_256")
     x = registry.form(cfg["form"]).make_inputs(cfg, 1, SEED, "cpu")[0]
     y = system.Control(cfg, "cpu")(x, False, None)
     re, im = dft(x.real, x.imag, 3, inverse=False, precision="tf32")
     assert y.dtype == torch.complex64
     assert torch.equal(y, torch.complex(re, im))
-    assert system.CONTROL == {"complex64": "tf32", "complex128": "float32"}
+    assert system.CONTROL == {"complex64": "tf32", "complex128": "float32",
+                              "float32": "tf32", "float64": "float32"}
 
 
 def test_every_kept_call_is_judged():

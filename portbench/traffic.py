@@ -12,7 +12,8 @@ anew.  It exposes
 ``drive`` issues calls to ``system(x, inverse, wait)`` on ``inputs`` until
 ``seconds`` have passed, every step in ``keep`` ({step: (buffer, ...)})
 has been issued and its outputs copied into those buffers (made by
-``buffers`` before the window), ``min_steps``
+``buffers`` before the window, and replaced by ``fit`` where an output
+has another form), ``min_steps``
 steps have been issued and the tracer's slice is done; then synchronises
 the device.  The window runs from before its first dispatch to the end
 of that synchronise.  Around each step it calls ``tracer.before(step)``
@@ -54,6 +55,22 @@ def like(x):
     if isinstance(x, tuple):
         return tuple(torch.empty_like(t) for t in x)
     return torch.empty_like(x)
+
+
+def form_of(x):
+    """A value's form: the shape and dtype of a tensor, or of each of a
+    tuple's."""
+    if isinstance(x, tuple):
+        return tuple(form_of(t) for t in x)
+    return x.shape, x.dtype
+
+
+def fit(bufs: tuple, outs) -> tuple:
+    """A kept step's buffers for its outputs ``outs``: each of ``bufs``
+    that has its output's form, else an empty one like the output (a real
+    input's transform changes the form)."""
+    return tuple(b if form_of(b) == form_of(o) else like(o)
+                 for b, o in zip(bufs, outs))
 
 
 def copy_into(dst, src) -> None:
